@@ -6,15 +6,25 @@ prints one JSON line; any failed check raises, so the script exits
 non-zero and never prints the final ``ok`` line.
 
 1. environment: the card, its power limit, torch/CUDA versions, sm_90;
-2. build: every CUDA kernel of the serving path, from ``ray_tpu_torch/ops/csrc``;
-3. kernel against its plain version on the card, at the Llama-3-8B head
-   shapes and at the prefill shapes the serving path gives it; bitwise
-   repeatability; kernel, plain and library (SDPA) times at T=2048;
+2. build: every CUDA kernel (forward, dQ, dK/dV) from
+   ``ray_tpu_torch/ops/csrc``, with ptxas's registers, shared memory and
+   spills per kernel;
+3. each kernel against its plain version on the card, at the Llama-3-8B
+   head shapes, the prefill shapes of the serving path and the training
+   shape (gradients element by element and per 64-row block); bitwise
+   repeatability; kernel, plain and library (SDPA) times
+   at T=2048;
 4. prefill at Llama-3-8B widths and 2 layers, kernel against plain attention;
-5. full-depth Llama-3-8B serving: a DecodeScheduler over the paged-KV
-   engine answers six requests (one a prefix-cache hit), with the kernel's
-   launch count read from this run;
-6. the ``kernels`` line, the card's ``name, power.limit``, and last the
+5. one train step at Llama-3-1B widths and 2 layers, kernels against
+   autograd through plain attention (loss, global grad norm and the
+   grads of each layer's wq, wk, wv);
+6. full-depth Llama-3-8B serving: a DecodeScheduler over the paged-KV
+   engine answers six requests (one a prefix-cache hit), with the forward
+   kernel's launch count read from this run;
+7. full-depth Llama-3-1B training: 3 warm-up and 5 timed AdamW steps at
+   batch 4 x 2048, with step time, tokens/s, MFU, peak memory, a profile
+   of one step and the three kernels' launch counts read from this run;
+8. the ``kernels`` line, the card's ``name, power.limit``, and last the
    ``{"ok": true, "device": ...}`` line.
 
 Weights are random, made from ``--seed``. Exits non-zero without CUDA.
@@ -24,7 +34,10 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
+import math
+import re
 import subprocess
 import sys
 import time
@@ -33,9 +46,34 @@ import time
 # suite's own forward tolerance (tests/test_flash_attention.py)
 KERNEL_ATOL = 2e-2
 KERNEL_RTOL = 2e-2
+# the backward kernels' dq, dk, dv against their fp32 plain versions: the
+# JAX suite's grad bound (tests/test_flash_attention.py), element by element
+GRAD_ATOL = 5e-2
+GRAD_RTOL = 5e-2
+# and block by block: per (batch, 64-row block, head), rms(err) over
+# rms(ref) + GRAD_FLOOR at most GRAD_BLOCK_RTOL. With unit inputs a causal
+# row's gradient shrinks as 1/sqrt(its span), to about 0.04 at T = 2048,
+# so the element bound alone holds only the early rows; this one holds
+# every block to its own size. GRAD_FLOOR keeps a block whose exact value
+# is 0 (T = 1: dq = dk = 0) at its float32 rounding noise. On an H100 the
+# sound kernels read at most 0.0034 over the 27 shapes, and a dQ or dK/dV
+# kernel that skips one 64-row tile of its loop in long rows 0.18-0.52.
+GRAD_BLOCK_RTOL = 2e-2
+GRAD_FLOOR = 1e-3
 # prefill logits, kernel vs plain attention, relative to max |logit|: the
 # bound the CPU bf16 parity tests use
 LOGITS_REL_TOL = 2e-2
+# first-step loss and global grad norm, kernels vs plain attention: the
+# JAX suite's train-step bound (tests/test_spmd_train.py)
+TRAIN_RTOL = 3e-3
+# the gradients of the leaves the backward kernels feed (wq, wk, wv of
+# each layer), kernels vs plain attention: |g - g_plain| / |g_plain| of
+# the worst leaf. The global norm above is mostly embedding and lm_head,
+# so it cannot see a fault in dQ, dK or dV; this can. On an H100 the
+# sound kernels read 0.018 (bf16 rounding through two layers), and a
+# kernel that skips one tile of its loop in long rows 0.10 (dQ) or 0.12
+# (dK/dV), while the global norm stays within 3e-3.
+ATTN_GRAD_RTOL = 3e-2
 
 # published dense bf16 peak (FLOP/s) and memory rate (B/s) by card name,
 # NVIDIA data sheets; the rates assume the card's full power limit
@@ -44,6 +82,18 @@ PEAKS = (
     ("H100 NVL", 835e12, 3.9e12),
     ("H100", 989e12, 3.35e12),
     ("H200", 989e12, 4.8e12),
+)
+
+
+# device kernels by name, for the profile's breakdown (first match wins)
+KERNEL_GROUPS = (
+    ("flash_fwd", ("flash_fwd_kernel",)),
+    ("flash_bwd_dq", ("flash_bwd_dq_kernel",)),
+    ("flash_bwd_dkv", ("flash_bwd_dkv_kernel",)),
+    ("gemm", ("nvjet", "gemm", "cutlass", "xmma")),
+    ("optimizer", ("multi_tensor_apply",)),
+    ("copy_cast", ("copy",)),
+    ("reduce_softmax", ("reduce", "softmax", "index")),
 )
 
 
@@ -103,26 +153,107 @@ def profile_ms(torch, fn) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+    # device kernels only: a user annotation (e.g. the optimizer's
+    # record_function range) spans kernels already counted
     rows = sorted(((e.device_time_total / 1e3, e.count, e.key)
                    for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)
                    and e.device_time_total > 0), reverse=True)
     busy = sum(r[0] for r in rows)
+    groups: dict = {}
+    for ms, _, key in rows:
+        group = next((g for g, words in KERNEL_GROUPS
+                      if any(w in key for w in words)), "other")
+        groups[group] = groups.get(group, 0.0) + ms
     return {"wall_ms": wall_ms,
             "device_ms": busy if rows else "not measured",
             "device_busy_share": busy / wall_ms if rows else "not measured",
             "device_kernels": sum(r[1] for r in rows),
+            "device_ms_by_group": groups,
             "top_kernels": [{"name": k[:90], "ms": ms, "calls": n}
-                            for ms, n, k in rows[:8]]}
+                            for ms, n, k in rows[:10]]}
 
 
-def attention_work(B, T, Hq, Hkv, D, causal):
-    """(flops, bytes) the forward needs: 4*D flops per unmasked (query,
-    key) pair; q, k, v read once, o and lse written once."""
+def attention_work(B, T, Hq, Hkv, D, causal, kernel="fwd"):
+    """(flops, bytes) a kernel needs, counting each unmasked (query, key)
+    pair: the forward does 2 products (S, P V), 4*D flops a pair, reads
+    q, k, v and writes o and lse; dQ does 3 (S, dP, dS K), 6*D flops,
+    reads q, k, v, do, lse, delta and writes dq; dK/dV does 4 (S^T, dP^T,
+    P^T dO, dS^T Q), 8*D flops, reads the same and writes dk, dv. bf16
+    tensors, fp32 row terms; each read once, each written once."""
     pairs = T * (T + 1) // 2 if causal else T * T
-    flops = 4 * D * pairs * B * Hq
-    nbytes = 2 * B * T * D * (2 * Hq + 2 * Hkv) + 4 * B * Hq * T
+    products, q_sized, kv_sized, rows = {
+        "fwd": (2, 2, 2, 1), "dq": (3, 3, 2, 2), "dkv": (4, 2, 4, 2)}[kernel]
+    flops = 2 * products * D * pairs * B * Hq
+    nbytes = 2 * B * T * D * (q_sized * Hq + kv_sized * Hkv) \
+        + 4 * rows * B * Hq * T
     return flops, nbytes
+
+
+def bound(flops, nbytes, peaks) -> dict:
+    t_ops, t_bytes = flops / peaks[0] * 1e3, nbytes / peaks[1] * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flops": flops, "bytes": nbytes}
+
+
+def block_rel_err(torch, got, ref, rows: int = 64) -> float:
+    """Worst over (batch, ``rows``-row block, head) of rms(got - ref) /
+    (rms(ref) + GRAD_FLOOR), for [B, T, H, D] tensors."""
+    B, T, H, D = ref.shape
+    nb = -(-T // rows)
+
+    def block_sums(x):
+        x = torch.nn.functional.pad(x.pow(2), (0, 0, 0, 0, 0, nb * rows - T))
+        return x.reshape(B, nb, rows, H, D).sum((2, 4))
+
+    n = ((T - rows * torch.arange(nb, device=ref.device)).clamp(max=rows)
+         * D).view(1, nb, 1)
+    err_rms = (block_sums(got.float() - ref.float()) / n).sqrt()
+    ref_rms = (block_sums(ref.float()) / n).sqrt()
+    return (err_rms / (ref_rms + GRAD_FLOOR)).max().item()
+
+
+def ptxas_report(log: str):
+    """Registers, shared memory and spills per kernel instantiation from
+    ``nvcc -Xptxas -v`` output."""
+    out, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_kernel)ILi(\d+)E",
+                             m.group(1))
+            cur = {"kernel": f"{name.group(1)}<{name.group(2)}>"
+                   if name else m.group(1)}
+            out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            cur["smem_bytes"] = int(smem.group(1)) if smem else 0
+    return out
+
+
+def phase_build(_build) -> None:
+    """Build every kernel source (one nvcc each, all started together)
+    and print ptxas's report of each instantiation."""
+    t0 = time.perf_counter()
+    built = _build.build()
+    build_s = time.perf_counter() - t0
+    # a library built earlier from the same source keeps its ptxas log
+    logs = {n: _build.library_path(n).with_suffix(".log").read_text()
+            for n in _build.SOURCES}
+    emit({"phase": "build", "seconds": build_s, "built": sorted(built),
+          "seconds_each": {n: r["seconds"] for n, r in built.items()},
+          "ptxas": {n: ptxas_report(log) for n, log in logs.items()}})
 
 
 def phase_kernel(torch, gen, peaks):
@@ -177,17 +308,264 @@ def phase_kernel(torch, gen, peaks):
         lambda: torch.nn.functional.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True))
     flops, nbytes = attention_work(B, T, Hq, Hkv, D, True)
-    t_ops, t_bytes = flops / peaks[0] * 1e3, nbytes / peaks[1] * 1e3
     timing = {"shape": {"B": B, "T": T, "Hq": Hq, "Hkv": Hkv, "D": D,
                         "causal": True, "dtype": "bfloat16"},
               "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
               "library": "torch.nn.functional.scaled_dot_product_attention",
-              "bound_ms": max(t_ops, t_bytes),
-              "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-              "flops": flops, "bytes": nbytes,
+              **bound(flops, nbytes, peaks),
               "achieved_tflops": flops / (ms * 1e-3) / 1e12}
     emit({"phase": "kernel_timing", **timing})
     return worst_o, worst_lse, worst_ratio, timing
+
+
+def phase_backward(torch, gen, peaks):
+    """The dQ and dK/dV kernels against their plain versions on the
+    forward's shape grid, bench()'s heads and the training shape; then
+    their times at the 8B table shape and the training shape."""
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    def inputs(B, T, Hq, Hkv, D, causal):
+        def r(h):
+            return torch.randn(B, T, h, D, device="cuda", generator=gen,
+                               dtype=torch.float32).to(torch.bfloat16)
+        q, k, v, do = r(Hq), r(Hkv), r(Hkv), r(Hq)
+        o, lse = fa.flash_attention_forward(q, k, v, causal)
+        return q, k, v, o, lse, do, fa.attention_delta(o, do)
+
+    cases = [(1, Hq, Hkv, D, T, causal)
+             for (Hq, Hkv, D) in ((32, 8, 128), (32, 8, 64))
+             for T in (1, 17, 64, 100, 512, 2048)
+             for causal in (True, False)]
+    cases += [(1, 12, 6, 128, 2048, True), (1, 12, 6, 128, 100, False),
+              (4, 32, 8, 64, 2048, True)]
+    worst = {"dq": 0.0, "dk": 0.0, "dv": 0.0}
+    worst_ratio = {"dq": 0.0, "dkv": 0.0}
+    worst_block = {"dq": 0.0, "dk": 0.0, "dv": 0.0}
+    train_block = {}
+    for B, Hq, Hkv, D, T, causal in cases:
+        q, k, v, o, lse, do, delta = inputs(B, T, Hq, Hkv, D, causal)
+        dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal)
+        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal)
+        dq2 = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal)
+        dk2, dv2 = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                              causal)
+        torch.cuda.synchronize()
+        shape = (B, Hq, Hkv, D, T, causal)
+        check(torch.equal(dq, dq2) and torch.equal(dk, dk2)
+              and torch.equal(dv, dv2),
+              f"backward kernels not bitwise repeatable at {shape}")
+        want = fa.flash_attention_backward_reference(q, k, v, o, lse, do,
+                                                     causal)
+        for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+            err = (got.float() - ref.float()).abs()
+            ratio = (err / (GRAD_ATOL + GRAD_RTOL * ref.float().abs())
+                     ).max().item()
+            rel = block_rel_err(torch, got, ref)
+            worst[name] = max(worst[name], err.max().item())
+            worst_block[name] = max(worst_block[name], rel)
+            if (B, T) == (4, 2048):
+                train_block[name] = rel
+            kern = "dq" if name == "dq" else "dkv"
+            worst_ratio[kern] = max(worst_ratio[kern], ratio)
+            check(ratio <= 1.0 and rel <= GRAD_BLOCK_RTOL,
+                  f"{name} kernel disagrees with its plain version at "
+                  f"{shape}: max |err| {err.max().item()}, "
+                  f"err over tolerance {ratio}, block rel err {rel}")
+        del want
+    emit({"phase": "kernel_vs_plain_backward", "cases": len(cases),
+          "max_abs_err": worst, "worst_err_over_tolerance": worst_ratio,
+          "block_rel_err": worst_block,
+          "block_rel_err_train_shape": train_block,
+          "tolerance": {"atol": GRAD_ATOL, "rtol": GRAD_RTOL,
+                        "block_rtol": GRAD_BLOCK_RTOL,
+                        "block_floor": GRAD_FLOOR},
+          "bitwise_repeatable": True})
+
+    timings = {}
+    for label, (B, Hq, Hkv, D) in (("table", (1, 32, 8, 128)),
+                                   ("train", (4, 32, 8, 64))):
+        T = 2048
+        q, k, v, o, lse, do, delta = inputs(B, T, Hq, Hkv, D, True)
+        # SDPA, forward and backward alone: yardsticks, never called by
+        # the port
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        fwd_library_ms = cuda_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True))
+        for x in (qt, kt, vt):
+            x.requires_grad_(True)
+        out = torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+        dot = do.transpose(1, 2).contiguous()
+        library_ms = cuda_ms(lambda: torch.autograd.grad(
+            out, (qt, kt, vt), dot, retain_graph=True))
+        runs = {
+            "dq": (lambda: fa.flash_attention_bwd_dq(
+                q, k, v, do, lse, delta, True),
+                lambda: fa.flash_attention_bwd_dq_reference(
+                    q, k, v, do, lse, delta, True)),
+            "dkv": (lambda: fa.flash_attention_bwd_dkv(
+                q, k, v, do, lse, delta, True),
+                lambda: fa.flash_attention_bwd_dkv_reference(
+                    q, k, v, do, lse, delta, True)),
+        }
+        fwd_ms = cuda_ms(lambda: fa.flash_attention_forward(q, k, v, True))
+        timings[label] = {"fwd": {
+            "ms": fwd_ms, "library_ms": fwd_library_ms,
+            **bound(*attention_work(B, T, Hq, Hkv, D, True), peaks)}}
+        for name, (kern, plain) in runs.items():
+            ms = cuda_ms(kern)
+            flops, nbytes = attention_work(B, T, Hq, Hkv, D, True, name)
+            timings[label][name] = {
+                "ms": ms, "plain_ms": cuda_ms(plain, iters=3, warmup=1),
+                "library_ms": library_ms, **bound(flops, nbytes, peaks),
+                "achieved_tflops": flops / (ms * 1e-3) / 1e12}
+        emit({"phase": "kernel_timing_backward",
+              "shape": {"B": B, "T": T, "Hq": Hq, "Hkv": Hkv, "D": D,
+                        "causal": True, "dtype": "bfloat16"},
+              "grid_blocks": {"dq": -(-T // 64) * Hq * B,
+                              "dkv": -(-T // 64) * Hkv * B},
+              "library": "scaled_dot_product_attention backward "
+                         "(dq, dk, dv together)", **timings[label]})
+        del out, qt, kt, vt
+    return worst, worst_ratio, worst_block, timings
+
+
+def _grad_norm(torch, model) -> float:
+    return math.sqrt(sum(float(p.grad.float().pow(2).sum())
+                         for p in model.parameters()))
+
+
+def phase_reduced_depth_train(torch, seed):
+    """One train step at Llama-3-1B widths and 2 layers through the
+    kernels, against the same step with attention autograd through the
+    plain forward."""
+    from unittest import mock
+
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_1b(), n_layers=2)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 2049), device="cuda",
+                           generator=gen)
+    init_state, train_step = llama.make_train_step(cfg)
+
+    def one_step():
+        state = init_state(seed)
+        loss = float(train_step(state, tokens))
+        layers = state["params"].layers
+        # the leaves dq, dk and dv flow into, layer by layer
+        leaves = {f"{name}[{i}]": g.clone()
+                  for name in ("wq", "wk", "wv")
+                  for i, g in enumerate(getattr(layers, name).grad)}
+        return loss, _grad_norm(torch, state["params"]), leaves
+
+    reset_launches(fa)
+    loss, gnorm, leaves = one_step()
+    counts = read_launches(fa)
+    check(counts == expected_launches(cfg, 1),
+          f"reduced-depth train step launched {counts}")
+    with mock.patch.object(
+            llama, "flash_attention",
+            lambda q, k, v, causal: fa.flash_attention_reference(
+                q, k, v, causal)[0]):
+        plain_loss, plain_gnorm, plain_leaves = one_step()
+    torch.cuda.empty_cache()
+    rel = {"loss": abs(loss - plain_loss) / abs(plain_loss),
+           "grad_norm": abs(gnorm - plain_gnorm) / abs(plain_gnorm)}
+    leaf_rel = {name: ((g - plain_leaves[name]).norm()
+                       / plain_leaves[name].norm()).item()
+                for name, g in leaves.items()}
+    emit({"phase": "reduced_depth_train", "n_layers": cfg.n_layers,
+          "dim": cfg.dim, "batch": 1, "T": tokens.shape[1] - 1,
+          "loss": loss,
+          "plain_loss": plain_loss, "grad_norm": gnorm,
+          "plain_grad_norm": plain_gnorm, "rel_diff": rel,
+          "rtol": TRAIN_RTOL, "attn_leaf_rel_diff": leaf_rel,
+          "attn_leaf_rtol": ATTN_GRAD_RTOL, "launches": counts})
+    check(math.isfinite(loss) and math.isfinite(gnorm),
+          "non-finite reduced-depth loss or grad norm")
+    check(max(rel.values()) <= TRAIN_RTOL,
+          f"kernel train step differs from plain attention: {rel}")
+    check(max(leaf_rel.values()) <= ATTN_GRAD_RTOL,
+          f"kernel train step's attention-leaf grads differ from plain "
+          f"attention: {leaf_rel}")
+
+
+def expected_launches(cfg, steps: int) -> dict:
+    """Kernel launches of ``steps`` train steps: each layer's forward runs
+    once more in the backward pass under remat; dQ and dK/dV once."""
+    L = cfg.n_layers * steps
+    return {"fwd": (2 if cfg.remat else 1) * L, "dq": L, "dkv": L}
+
+
+def reset_launches(fa) -> None:
+    for fn in (fa.flash_attention_forward, fa.flash_attention_bwd_dq,
+               fa.flash_attention_bwd_dkv):
+        fn.launches = 0
+
+
+def read_launches(fa) -> dict:
+    return {"fwd": fa.flash_attention_forward.launches,
+            "dq": fa.flash_attention_bwd_dq.launches,
+            "dkv": fa.flash_attention_bwd_dkv.launches}
+
+
+def phase_training(torch, seed, smi, peak_flops):
+    """Full-depth Llama-3-1B: 3 warm-up and 5 timed AdamW steps on one
+    batch of 4 x 2048 tokens, remat on, 256-token loss chunks."""
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    cfg = llama.LlamaConfig.llama3_1b()
+    B, T, warmup, timed = 4, 2048, 3, 5
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab_size, (B, T + 1), device="cuda",
+                           generator=gen)
+    init_state, train_step = llama.make_train_step(cfg)
+    state = init_state(seed)
+    torch.cuda.synchronize()
+
+    reset_launches(fa)
+    losses = [train_step(state, tokens) for _ in range(warmup)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses += [train_step(state, tokens) for _ in range(timed)]
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / timed
+    launches = read_launches(fa)
+    losses = [float(x) for x in losses]
+    steps = warmup + timed
+    L = cfg.n_layers
+    check(all(math.isfinite(x) for x in losses),
+          f"non-finite training loss: {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    check(launches == expected_launches(cfg, steps),
+          f"training launched {launches} over {steps} steps of {L} layers")
+    peak_bytes = torch.cuda.max_memory_allocated()
+
+    tokens_per_s = B * T / step_s
+    n_params = cfg.num_params()
+    # bench.py's MFU: 6 N per token, plus 6 L H T D per token for the
+    # causal attention products
+    model_flops = 6.0 * n_params * tokens_per_s
+    attn_flops = 6.0 * L * cfg.n_heads * T * cfg.head_dim * tokens_per_s
+    profile_ms(torch, torch.cuda.synchronize)  # profiler start-up
+    prof = profile_ms(torch, lambda: train_step(state, tokens))
+    emit({"phase": "training", "model": "llama3_1b", "n_layers": L,
+          "dim": cfg.dim, "params": n_params, "batch": B, "T": T,
+          "remat": cfg.remat, "loss_chunk": cfg.loss_chunk,
+          "optimizer": "AdamW(lr=3e-4, betas=(0.9, 0.95), eps=1e-8, "
+                       "weight_decay=0.1)",
+          "card": smi, "warmup_steps": warmup, "timed_steps": timed,
+          "step_ms": step_s * 1e3, "tokens_per_s": tokens_per_s,
+          "mfu": model_flops / peak_flops,
+          "mfu_with_attn": (model_flops + attn_flops) / peak_flops,
+          "max_memory_allocated_bytes": peak_bytes, "losses": losses,
+          "launches": launches, "profile_one_step": prof})
+    return launches
 
 
 def phase_reduced_depth(torch, seed):
@@ -398,32 +776,59 @@ def main(argv=None) -> int:
           "cuda": torch.version.cuda, "python": sys.version.split()[0]})
     check(cap == (9, 0), f"needs an sm_90 card, found sm_{cap[0]}{cap[1]}")
 
-    t0 = time.perf_counter()
-    built = _build.build()
-    build_s = time.perf_counter() - t0
-    regs = {n: [line.split("ptxas info    : ")[1] for line in r["log"]
-                .splitlines() if "registers" in line] for n, r in built.items()}
-    emit({"phase": "build", "seconds": build_s,
-          "built": sorted(built), "ptxas": regs})
-
+    phase_build(_build)
+    peaks = peaks_for(name)
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    err_o, err_lse, err_ratio, timing = phase_kernel(torch, gen,
-                                                     peaks_for(name))
-    phase_reduced_depth(torch, args.seed)
+    err_o, err_lse, err_ratio, timing = phase_kernel(torch, gen, peaks)
+    bwd_err, bwd_ratio, bwd_block, bwd_timing = phase_backward(
+        torch, gen, peaks)
     torch.cuda.empty_cache()
-    launches = phase_serving(torch, np, args.seed, smi)
+    phase_reduced_depth(torch, args.seed)
+    phase_reduced_depth_train(torch, args.seed)
+    torch.cuda.empty_cache()
+    serving_launches = phase_serving(torch, np, args.seed, smi)
+    gc.collect()  # the serving engine holds reference cycles
+    torch.cuda.empty_cache()
+    train_launches = phase_training(torch, args.seed, smi, peaks[0])
 
-    emit({"kernels": [{
+    timed = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    train_shape = {"B": 4, "T": 2048, "Hq": 32, "Hkv": 8, "D": 64,
+                   "causal": True, "dtype": "bfloat16"}
+    src = "ray_tpu_torch/ops/csrc/"
+    kernels = [{
         "name": "flash_attention_fwd", "route": "cuda",
-        "source": "ray_tpu_torch/ops/csrc/flash_attention_fwd.cu",
+        "source": src + "flash_attention_fwd.cu",
         "replaces": "ray_tpu/ops/flash_attention.py:62",
-        "launches": launches, "max_abs_err": err_o,
-        "max_abs_err_lse": err_lse,
+        "launches": serving_launches + train_launches["fwd"],
+        "launches_by_path": {"serving": serving_launches,
+                             "training": train_launches["fwd"]},
+        "max_abs_err": err_o, "max_abs_err_lse": err_lse,
         "tolerance": {"atol": KERNEL_ATOL, "rtol": KERNEL_RTOL},
-        "ok": err_ratio <= 1.0,
-        "ms": timing["ms"], "plain_ms": timing["plain_ms"],
-        "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
-        "library_ms": timing["library_ms"]}]})
+        "ok": err_ratio <= 1.0, **{k: timing[k] for k in timed},
+        "shape": timing["shape"],
+        "at_train_shape": {"shape": train_shape,
+                           **bwd_timing["train"]["fwd"]}}]
+    for kern, replaces, errs in (("dq", ":135", ("dq",)),
+                                 ("dkv", ":169", ("dk", "dv"))):
+        at = bwd_timing["train"][kern]
+        kernels.append({
+            "name": f"flash_attention_bwd_{kern}", "route": "cuda",
+            "source": src + "flash_attention_bwd.cu",
+            "replaces": "ray_tpu/ops/flash_attention.py" + replaces,
+            "launches": train_launches[kern],
+            "launches_by_path": {"training": train_launches[kern]},
+            "max_abs_err": max(bwd_err[e] for e in errs),
+            "max_abs_err_each": {e: bwd_err[e] for e in errs},
+            "block_rel_err_each": {e: bwd_block[e] for e in errs},
+            "tolerance": {"atol": GRAD_ATOL, "rtol": GRAD_RTOL,
+                          "block_rtol": GRAD_BLOCK_RTOL},
+            "ok": bwd_ratio[kern] <= 1.0
+            and max(bwd_block[e] for e in errs) <= GRAD_BLOCK_RTOL,
+            **{k: at[k] for k in timed},
+            "shape": train_shape,
+            "at_table_shape": {"shape": timing["shape"],
+                               **bwd_timing["table"][kern]}})
+    emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -1,4 +1,5 @@
-"""Llama-3-family decoder, serving half (port of ``ray_tpu/models/llama.py``).
+"""Llama-3-family decoder (port of ``ray_tpu/models/llama.py``): serving
+and the single-device train step.
 
 The model is an ``nn.Module`` holding the parameters in the JAX package's
 layout: layers stacked on a leading ``[L, ...]`` axis, float32 at rest.
@@ -8,23 +9,31 @@ Its state-dict keys are the JAX param tree's paths with ``.`` for ``/``
 tensors (:meth:`Llama.tree`), matmuls in ``cfg.dtype`` with float32
 norms and softmax, as in the JAX package.
 
-Prefill attention (causal self-attention over the prompt, Tq == Tk) goes
+Prefill and training attention (causal self-attention, Tq == Tk) go
 through :func:`ray_tpu_torch.ops.flash_attention.flash_attention`, the
 dispatch JAX's ``forward`` uses for the same computation: on the card
-that is the hand-written forward kernel. Single-token decode attends over
-a page-padded cache view with plain torch ops.
+that is the hand-written forward kernel, and in training its backward
+kernels. Single-token decode attends over a page-padded cache view with
+plain torch ops.
+
+Training (:func:`make_train_step`) is JAX's single-device step: per-layer
+remat (``torch.utils.checkpoint``), the sequence-chunked fp32 cross
+entropy, AdamW at optax's settings, the state updated in place where JAX
+donates it. The mesh, shardings and compile observatory of the JAX step
+belong to multi-device training.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch import COMPUTE_DTYPE, PARAM_DTYPE, resolve_device
 from ray_tpu_torch.ops.flash_attention import flash_attention
@@ -45,6 +54,8 @@ class LlamaConfig:
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
     dtype: torch.dtype = COMPUTE_DTYPE  # compute dtype (params stored fp32)
+    remat: bool = True
+    loss_chunk: int = 256  # seq-chunk for the xent head; 0 = unchunked
 
     @property
     def head_dim(self) -> int:
@@ -90,7 +101,8 @@ class LlamaConfig:
     @staticmethod
     def debug() -> "LlamaConfig":
         return LlamaConfig(vocab_size=256, dim=64, n_layers=2, n_heads=4,
-                           n_kv_heads=2, mlp_dim=128, max_seq_len=128)
+                           n_kv_heads=2, mlp_dim=128, max_seq_len=128,
+                           remat=False)
 
     def num_params(self) -> int:
         d, v, l = self.dim, self.vocab_size, self.n_layers
@@ -108,6 +120,30 @@ class LlamaConfig:
 # leaves that feed a matmul: cast to the compute dtype (norms stay fp32)
 _MATMUL_LEAVES = ("embedding", "lm_head", "wq", "wk", "wv", "wo", "w_gate",
                   "w_up", "w_down")
+
+
+def param_logical_axes(cfg: LlamaConfig) -> Dict[str, Any]:
+    """Per-leaf logical axis names (leading 'layers' = the stacked axis),
+    the JAX package's table; multi-device training maps them to a mesh."""
+    layer = {
+        "wq": ("layers", "embed", "heads"),
+        "wk": ("layers", "embed", "kv_heads"),
+        "wv": ("layers", "embed", "kv_heads"),
+        "wo": ("layers", "heads", "embed"),
+        "w_gate": ("layers", "embed", "mlp"),
+        "w_up": ("layers", "embed", "mlp"),
+        "w_down": ("layers", "mlp", "embed"),
+        "attn_norm": ("layers", None),
+        "mlp_norm": ("layers", None),
+    }
+    out = {
+        "embedding": ("vocab", "embed"),
+        "layers": layer,
+        "final_norm": (None,),
+    }
+    if not cfg.tie_embeddings:
+        out["lm_head"] = ("embed", "vocab")
+    return out
 
 
 def param_shapes(cfg: LlamaConfig) -> Dict[str, Tuple[int, ...]]:
@@ -239,10 +275,6 @@ def embed_tokens(cfg: LlamaConfig, params, tokens: torch.Tensor):
     return params["embedding"][tokens].to(cfg.dtype)
 
 
-def _layer_params(params, i: int) -> Dict[str, torch.Tensor]:
-    return {k: v[i] for k, v in params["layers"].items()}
-
-
 def _qkv(cfg: LlamaConfig, x, p, positions):
     """Pre-norm, the q/k/v projections and RoPE of one layer:
     x [B, T, dim] -> q [B, T, Hq, D], k and v [B, T, Hkv, D] (cfg.dtype)."""
@@ -286,13 +318,28 @@ def _positions(B: int, T: int, device) -> torch.Tensor:
         .expand(B, T)
 
 
+def _unbind_layers(params) -> List[Dict[str, torch.Tensor]]:
+    """Every layer's params as views of the stacked leaves, taken at once:
+    under autograd each leaf's backward is one ``stack``, where indexing
+    layer by layer would write a zero tensor of the whole leaf per layer."""
+    names = list(params["layers"])
+    slices = [params["layers"][k].unbind(0) for k in names]
+    return [dict(zip(names, layer)) for layer in zip(*slices)]
+
+
 def _backbone(cfg: LlamaConfig, params, tokens: torch.Tensor):
-    """tokens [B, T] -> final-normed hidden states [B, T, dim]."""
+    """tokens [B, T] -> final-normed hidden states [B, T, dim]. With
+    ``cfg.remat`` and grad on, each layer runs under checkpoint (its
+    activations are recomputed in the backward pass)."""
     B, T = tokens.shape
     x = embed_tokens(cfg, params, tokens)
     positions = _positions(B, T, tokens.device)
-    for i in range(cfg.n_layers):
-        x = _layer(cfg, x, _layer_params(params, i), positions)
+    remat = cfg.remat and torch.is_grad_enabled()
+    for p in _unbind_layers(params):
+        if remat:
+            x = checkpoint(_layer, cfg, x, p, positions, use_reentrant=False)
+        else:
+            x = _layer(cfg, x, p, positions)
     return rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 
@@ -304,6 +351,108 @@ def forward(cfg: LlamaConfig, params, tokens: torch.Tensor) -> torch.Tensor:
     """tokens [B, T] -> logits [B, T, vocab] (cfg.dtype)."""
     x = _backbone(cfg, params, tokens)
     return x.to(cfg.dtype) @ _head(cfg, params).to(cfg.dtype)
+
+
+# --------------------------------------------------------------------------- #
+# Loss and train step
+# --------------------------------------------------------------------------- #
+
+ChunkNll = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+
+
+def _plain_chunk_nll(cfg: LlamaConfig, head: torch.Tensor) -> ChunkNll:
+    """Per-chunk next-token NLL against a full-width head [d, vocab]:
+    fp32 log-softmax over the whole vocab."""
+
+    def chunk_nll(x_c, t_c):
+        # the head is cast inside each chunk, as in the JAX package, so
+        # the chunks' gradients add up in the fp32 head, not in bf16
+        logits = (x_c.to(cfg.dtype) @ head.to(cfg.dtype)).float()
+        logp = torch.log_softmax(logits, dim=-1)
+        return -logp.gather(-1, t_c[..., None])[..., 0]
+
+    return chunk_nll
+
+
+def chunked_nll_mean(cfg: LlamaConfig, x: torch.Tensor,
+                     targets: torch.Tensor, chunk_nll: ChunkNll):
+    """Mean NLL with the lm_head matmul and softmax chunked over the
+    sequence, each chunk under checkpoint: fp32 logits exist for one
+    chunk at a time ([B, C, vocab], not [B, T, vocab]) and are recomputed
+    in the backward pass. Chunk sums are added in order, then the
+    remainder chunk, then divided by B*T, as in the JAX package."""
+    B, T, _ = x.shape
+    C = cfg.loss_chunk
+    if not C or T <= C:
+        return chunk_nll(x, targets).mean()
+
+    def chunk_sum(x_c, t_c):
+        return chunk_nll(x_c, t_c).sum()
+
+    n, rem = divmod(T, C)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(n):
+        sl = slice(i * C, (i + 1) * C)
+        total = total + checkpoint(chunk_sum, x[:, sl], targets[:, sl],
+                                   use_reentrant=False)
+    if rem:
+        total = total + chunk_sum(x[:, n * C:], targets[:, n * C:])
+    return total / (B * T)
+
+
+def loss_fn(cfg: LlamaConfig, params, tokens: torch.Tensor) -> torch.Tensor:
+    """Next-token cross-entropy, fp32 log-softmax. tokens [B, T+1]."""
+    tokens = tokens.long()
+    inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    x = _backbone(cfg, params, inputs)
+    return chunked_nll_mean(cfg, x, targets,
+                            _plain_chunk_nll(cfg, _head(cfg, params)))
+
+
+def make_train_step(cfg: LlamaConfig, device=None, optimizer=None):
+    """Build ``(init_state, train_step)`` for one device (``cuda`` unless
+    ``device`` says otherwise).
+
+    ``init_state(init=0)`` takes a seed (``init_params`` from a
+    ``torch.Generator``) or a JAX param tree as numpy arrays
+    (:func:`params_from_numpy`) and returns ``{"params": Llama,
+    "opt_state": optimizer, "step": 0}``. ``optimizer`` maps the model's
+    parameters to a ``torch.optim.Optimizer``; the default is AdamW at
+    the JAX step's optax settings (lr 3e-4, betas (0.9, 0.95), eps 1e-8,
+    weight decay 0.1 on every leaf, norms and embedding included).
+
+    ``train_step(state, tokens)`` (tokens [B, T+1]) takes one step, updates
+    the state in place (JAX donates it) and returns the loss. The
+    gradients of the step stay in the parameters' ``.grad`` until the
+    next step.
+    """
+    dev = resolve_device(device)
+
+    def make_optimizer(params):
+        if optimizer is not None:
+            return optimizer(params)
+        return torch.optim.AdamW(params, lr=3e-4, betas=(0.9, 0.95),
+                                 eps=1e-8, weight_decay=0.1)
+
+    def init_state(init=0):
+        if isinstance(init, dict):
+            model = params_from_numpy(cfg, init, dev)
+        else:
+            gen = torch.Generator(device=dev).manual_seed(int(init))
+            model = init_params(cfg, gen, dev)
+        return {"params": model, "opt_state": make_optimizer(
+            model.parameters()), "step": 0}
+
+    def train_step(state, tokens: torch.Tensor) -> torch.Tensor:
+        model, opt = state["params"], state["opt_state"]
+        opt.zero_grad(set_to_none=True)
+        loss = loss_fn(cfg, model.tree(), tokens.to(dev))
+        loss.backward()
+        opt.step()
+        state["step"] += 1
+        return loss.detach()
+
+    return init_state, train_step
 
 
 # --------------------------------------------------------------------------- #
@@ -329,8 +478,8 @@ def prefill_with_cache(cfg: LlamaConfig, params, tokens: torch.Tensor):
     positions = _positions(B, T, tokens.device)
     ks: List[torch.Tensor] = []
     vs: List[torch.Tensor] = []
-    for i in range(cfg.n_layers):
-        x, kk, vv = _layer_kv(cfg, x, _layer_params(params, i), positions)
+    for p in _unbind_layers(params):
+        x, kk, vv = _layer_kv(cfg, x, p, positions)
         ks.append(kk)
         vs.append(vv)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -369,9 +518,9 @@ def decode_step_with_cache(cfg: LlamaConfig, params, token: torch.Tensor,
     positions = torch.full((1, 1), pos, dtype=torch.int32,
                            device=token.device)
     kns, vns = [], []
-    for i in range(cfg.n_layers):
-        x, kn, vn = _layer_decode(cfg, x, _layer_params(params, i),
-                                  positions, k_cache[i], v_cache[i], pos)
+    for i, p in enumerate(_unbind_layers(params)):
+        x, kn, vn = _layer_decode(cfg, x, p, positions, k_cache[i],
+                                  v_cache[i], pos)
         kns.append(kn)
         vns.append(vn)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)

@@ -4,9 +4,9 @@ first use, and load them with ``ctypes``.
 Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface (no PyTorch headers, so a build takes seconds,
 not minutes). Libraries go to ``ray_tpu_torch/_build/`` (listed in
-``.gitignore``), named by a hash of their source, so an edited source is
-rebuilt and an unchanged one is reused. A failed build raises; nothing
-falls back.
+``.gitignore``), named by a hash of their source and the shared headers
+(``csrc/*.cuh``), so an edited source is rebuilt and an unchanged one is
+reused. A failed build raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -24,7 +24,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 
 # kernel name -> source file under csrc/
-SOURCES = {"flash_attention_fwd": "flash_attention_fwd.cu"}
+SOURCES = {"flash_attention_fwd": "flash_attention_fwd.cu",
+           "flash_attention_bwd": "flash_attention_bwd.cu"}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -47,8 +48,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    h = hashlib.sha256((CSRC / SOURCES[name]).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -31,51 +31,21 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "flash_attention_common.cuh"
+
 namespace {
 
-constexpr int kBlockM = 64;  // query rows per block (16 per warp)
-constexpr int kBlockN = 64;  // key rows per K/V tile
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr unsigned kFull = 0xffffffffu;
+using flash::kFull;
+using flash::kThreads;
+using flash::load_a_frags;
+using flash::load_tile;
+using flash::mma_rows;
+using flash::mma_rows_t;
+using flash::pack_bf16;
+using flash::store_rows;
 
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Two floats as one bf16x2 register; `lo` lands in the low half, which
-// is the element with the smaller column index in an mma fragment.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Copy rows [row0, row0 + 64) of one head into shared memory (row pitch
-// D + 8 elements, so fragment reads of neighbouring rows hit different
-// banks). Rows at or past T are zero-filled.
-template <int D>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* head,
-                                          int64_t row_stride, int row0, int T,
-                                          int tid) {
-  constexpr int kVecs = D / 8;  // 16-byte vectors per row
-  constexpr int kLd = D + 8;
-  for (int i = tid; i < kBlockN * kVecs; i += kThreads) {
-    const int r = i / kVecs, c = i % kVecs;
-    const int t = row0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (t < T) {
-      val = *reinterpret_cast<const uint4*>(head + (int64_t)t * row_stride +
-                                            c * 8);
-    }
-    *reinterpret_cast<uint4*>(dst + r * kLd + c * 8) = val;
-  }
-}
+constexpr int kBlockM = flash::kTile;  // query rows per block (16 per warp)
+constexpr int kBlockN = flash::kTile;  // key rows per K/V tile
 
 template <int D>
 __global__ void __launch_bounds__(kThreads)
@@ -111,18 +81,7 @@ __global__ void __launch_bounds__(kThreads)
   load_tile<D>(k_s, q_head, q_st, q0, T, tid);
   __syncthreads();
   uint32_t qf[kKSteps][4];
-  {
-    const __nv_bfloat16* qs = k_s + (warp * 16) * kLd;
-#pragma unroll
-    for (int ks = 0; ks < kKSteps; ++ks) {
-      const int c = ks * 16 + tg * 2;
-      qf[ks][0] = *reinterpret_cast<const uint32_t*>(qs + g * kLd + c);
-      qf[ks][1] = *reinterpret_cast<const uint32_t*>(qs + (g + 8) * kLd + c);
-      qf[ks][2] = *reinterpret_cast<const uint32_t*>(qs + g * kLd + c + 8);
-      qf[ks][3] =
-          *reinterpret_cast<const uint32_t*>(qs + (g + 8) * kLd + c + 8);
-    }
-  }
+  load_a_frags<D>(qf, k_s + warp * 16 * kLd, lane);
 
   float acc[kDTiles][4];
 #pragma unroll
@@ -147,12 +106,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int nt = 0; nt < kNTiles; ++nt) {
       s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < kKSteps; ++ks) {
-        const __nv_bfloat16* kr = k_s + (nt * 8 + g) * kLd + ks * 16 + tg * 2;
-        mma_16816(s[nt], qf[ks], *reinterpret_cast<const uint32_t*>(kr),
-                  *reinterpret_cast<const uint32_t*>(kr + 8));
-      }
+      mma_rows_t<D>(s[nt], qf, k_s + nt * 8 * kLd, lane);
     }
 
     // scale into the log2 domain; mask the ragged tail and the diagonal
@@ -211,16 +165,7 @@ __global__ void __launch_bounds__(kThreads)
       pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
       pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
       pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      const int key = kk * 16 + tg * 2;
-#pragma unroll
-      for (int dt = 0; dt < kDTiles; ++dt) {
-        const int col = dt * 8 + g;
-        const uint32_t b0 = (uint32_t)v_bits[key * kLd + col] |
-                            ((uint32_t)v_bits[(key + 1) * kLd + col] << 16);
-        const uint32_t b1 = (uint32_t)v_bits[(key + 8) * kLd + col] |
-                            ((uint32_t)v_bits[(key + 9) * kLd + col] << 16);
-        mma_16816(acc[dt], pa, b0, b1);
-      }
+      mma_rows<D>(acc, pa, v_bits, kk * 16, lane);
     }
   }
 
@@ -232,21 +177,18 @@ __global__ void __launch_bounds__(kThreads)
     sum += __shfl_xor_sync(kFull, sum, 1);
     sum += __shfl_xor_sync(kFull, sum, 2);
     sum = fmaxf(sum, 1e-30f);
-    const int row = row0 + r * 8;
-    if (row < T) {
-      __nv_bfloat16* o_row = o + b * o_sb + (int64_t)row * o_st + h * o_sh;
-      const float inv = 1.f / sum;
+    const float inv = 1.f / sum;
 #pragma unroll
-      for (int dt = 0; dt < kDTiles; ++dt) {
-        *reinterpret_cast<__nv_bfloat162*>(o_row + dt * 8 + tg * 2) =
-            __floats2bfloat162_rn(acc[dt][2 * r] * inv,
-                                  acc[dt][2 * r + 1] * inv);
-      }
-      if (tg == 0) {
-        lse[((int64_t)b * Hq + h) * T + row] = m[r] * kLn2 + logf(sum);
-      }
+    for (int dt = 0; dt < kDTiles; ++dt) {
+      acc[dt][2 * r] *= inv;
+      acc[dt][2 * r + 1] *= inv;
+    }
+    const int row = row0 + r * 8;
+    if (row < T && tg == 0) {
+      lse[((int64_t)b * Hq + h) * T + row] = m[r] * kLn2 + logf(sum);
     }
   }
+  store_rows<D>(acc, o + b * o_sb + h * o_sh, o_st, row0, T, lane);
 }
 
 template <int D>

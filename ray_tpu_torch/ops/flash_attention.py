@@ -1,16 +1,27 @@
-"""Flash attention, forward (port of ``ray_tpu/ops/flash_attention.py``).
+"""Flash attention, forward and backward (port of
+``ray_tpu/ops/flash_attention.py``).
 
 Public layout [B, T, H, D], K/V passed unrepeated for GQA
-(``Hq % Hkv == 0``). On a CUDA tensor the hand-written Hopper kernel
-(``csrc/flash_attention_fwd.cu``, replacing the TPU kernel ``_fwd_kernel``)
-runs, or the call raises. On a CPU tensor the plain version
-:func:`flash_attention_reference` computes the same function.
+(``Hq % Hkv == 0``). On CUDA tensors the hand-written Hopper kernels run,
+or the call raises:
 
-The kernel masks a ragged last tile itself, so every T >= 1 runs on it;
-the JAX package's fallback for T that does not block, and its padding of
-head_dim to 128 lanes, are TPU layout rules with no counterpart here (the
-softmax scale is 1/sqrt(D) of the true head_dim either way). Backward
-kernels come with the training slice.
+- ``csrc/flash_attention_fwd.cu`` replaces the TPU kernel ``_fwd_kernel``;
+- ``csrc/flash_attention_bwd.cu`` replaces ``_dq_kernel`` (dQ) and
+  ``_dkv_kernel`` (dK/dV, with the GQA group-sum inside the kernel).
+
+On CPU tensors the plain versions (:func:`flash_attention_reference`,
+:func:`flash_attention_bwd_dq_reference`,
+:func:`flash_attention_bwd_dkv_reference`) compute the same functions.
+:class:`FlashAttention` is the ``torch.autograd.Function`` that ties the
+two halves together, as the JAX package's ``custom_vjp`` does; the row
+term ``delta = rowsum(o * do)`` is taken in plain torch between the
+halves, where the JAX package takes it in jnp.
+
+The kernels mask a ragged last tile themselves, so every T >= 1 runs on
+them; the JAX package's fallback for T that does not block, and its
+padding of head_dim to 128 lanes, are TPU layout rules with no
+counterpart here (the softmax scale is 1/sqrt(D) of the true head_dim
+either way).
 """
 
 from __future__ import annotations
@@ -24,33 +35,111 @@ NEG_INF = -1e30
 MAX_HEAD_DIM = 128
 
 
-def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
-                              v: torch.Tensor, causal: bool = True):
-    """Exact attention with float32 scores: the kernel's plain version.
-
-    q: [B, T, Hq, D]; k, v: [B, Tk, Hkv, D]. Returns ``(o, lse)``: o
-    [B, T, Hq, D] in q's dtype, lse [B, Hq, T] float32 (the row
-    logsumexp of the scaled, masked scores).
-    """
-    rep = q.shape[2] // k.shape[2]
-    if rep > 1:
-        k = k.repeat_interleave(rep, dim=2)
-        v = v.repeat_interleave(rep, dim=2)
+def _scores(q, k, causal):
+    """Scaled, masked float32 scores [B, Hq, T, Tk] with k repeated to
+    the q heads."""
     T, Tk = q.shape[1], k.shape[1]
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) \
         * (1.0 / math.sqrt(q.shape[-1]))
     if causal:
         mask = torch.ones(T, Tk, dtype=torch.bool, device=q.device).tril()
         s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    return s
+
+
+def _repeat_kv(q, *kv):
+    rep = q.shape[2] // kv[0].shape[2]
+    return tuple(t.repeat_interleave(rep, dim=2) if rep > 1 else t
+                 for t in kv)
+
+
+def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, causal: bool = True):
+    """Exact attention with float32 scores: the forward kernel's plain
+    version.
+
+    q: [B, T, Hq, D]; k, v: [B, Tk, Hkv, D]. Returns ``(o, lse)``: o
+    [B, T, Hq, D] in q's dtype, lse [B, Hq, T] float32 (the row
+    logsumexp of the scaled, masked scores).
+    """
+    k, v = _repeat_kv(q, k, v)
+    s = _scores(q, k, causal)
     lse = torch.logsumexp(s, dim=-1)
     p = torch.exp(s - lse[..., None])
     o = torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
     return o, lse
 
 
+def attention_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """``delta = rowsum(o * do)`` in float32, as [B, Hq, T] (contiguous,
+    the layout of lse): the row term both backward kernels read."""
+    return (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+def _probs_and_ds(q, k, v, do, lse, delta, causal):
+    """P and dS [B, Hq, T, T] float32, with k repeated to the q heads."""
+    k, v = _repeat_kv(q, k, v)
+    p = torch.exp(_scores(q, k, causal) - lse[..., None])
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
+    ds = p * (dp - delta[..., None]) * (1.0 / math.sqrt(q.shape[-1]))
+    return p, ds, k
+
+
+def flash_attention_bwd_dq_reference(q, k, v, do, lse, delta,
+                                     causal: bool = True) -> torch.Tensor:
+    """dQ = dS K with P recomputed from lse: the dQ kernel's plain version.
+    q, do: [B, T, Hq, D]; k, v: [B, T, Hkv, D]; lse, delta: [B, Hq, T]
+    float32. Returns dq in q's dtype."""
+    _, ds, k_rep = _probs_and_ds(q, k, v, do, lse, delta, causal)
+    return torch.einsum("bhqk,bkhd->bqhd", ds, k_rep.float()).to(q.dtype)
+
+
+def flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta,
+                                      causal: bool = True):
+    """dV = P^T dO and dK = dS^T Q, summed over the q heads of each kv
+    head: the dK/dV kernel's plain version. Returns ``(dk, dv)`` in k's
+    and v's dtypes."""
+    p, ds, _ = _probs_and_ds(q, k, v, do, lse, delta, causal)
+    B, T, Hkv, D = k.shape
+    rep = q.shape[2] // Hkv
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do.float())
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
+    # GQA group-sum: q heads [g*rep, (g+1)*rep) all attend kv head g
+    dk = dk.reshape(B, T, Hkv, rep, D).sum(3)
+    dv = dv.reshape(B, T, Hkv, rep, D).sum(3)
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_backward_reference(q, k, v, o, lse, do,
+                                       causal: bool = True):
+    """``(dq, dk, dv)`` of attention from the forward's ``o`` and ``lse``
+    and the output gradient ``do``, in float32 with the formulas of the
+    JAX package's ``_bwd``: the function the backward kernels compute
+    (not autograd through the forward)."""
+    delta = attention_delta(o, do)
+    dq = flash_attention_bwd_dq_reference(q, k, v, do, lse, delta, causal)
+    dk, dv = flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta,
+                                               causal)
+    return dq, dk, dv
+
+
+def _vector_loadable(t: torch.Tensor) -> bool:
+    """Whether the kernels' 16-byte loads along head_dim can read ``t``."""
+    return t.stride(3) == 1 and not any(s % 8 for s in t.stride()[:3]) \
+        and t.data_ptr() % 16 == 0
+
+
+def _check_vector_loads(name: str, t: torch.Tensor) -> None:
+    if not _vector_loadable(t):
+        raise ValueError(
+            f"{name} must have a unit head_dim stride, other strides a "
+            f"multiple of 8 and a 16-byte aligned start; got strides "
+            f"{t.stride()}")
+
+
 def check_kernel_inputs(q: torch.Tensor, k: torch.Tensor,
                         v: torch.Tensor) -> None:
-    """Raise on anything the CUDA kernel does not take, before a launch."""
+    """Raise on anything the CUDA kernels do not take, before a launch."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(
             f"flash_attention wants q [B,T,Hq,D] and k, v [B,T,Hkv,D]; got "
@@ -73,31 +162,69 @@ def check_kernel_inputs(q: torch.Tensor, k: torch.Tensor,
         if t.dtype != torch.bfloat16:
             raise TypeError(f"the flash-attention kernel takes bfloat16; "
                             f"{name} is {t.dtype}")
-        # 16-byte vector loads along head_dim
-        if t.stride(3) != 1 or any(s % 8 for s in t.stride()[:3]) \
-                or t.data_ptr() % 16:
-            raise ValueError(
-                f"{name} must have a unit head_dim stride, other strides a "
-                f"multiple of 8 and a 16-byte aligned start; got strides "
-                f"{t.stride()}")
+        _check_vector_loads(name, t)
+    # a kernel's output has no grad_fn: a wrapper called on inputs that
+    # need grad would drop their gradient without a word
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "flash_attention has no backward kernel yet: gradients come "
-            "with the training slice (_dq_kernel, _dkv_kernel); call it "
-            "under torch.inference_mode() or on tensors without grad")
+        raise RuntimeError(
+            "the flash-attention kernel wrappers are not differentiable: "
+            "call flash_attention (FlashAttention.apply) on inputs that "
+            "need grad")
 
 
-def _kernel_library() -> ctypes.CDLL:
+def check_backward_inputs(q, k, v, do, lse, delta) -> None:
+    """:func:`check_kernel_inputs` plus the backward kernels' own rules
+    for the output gradient and the two row terms."""
+    check_kernel_inputs(q, k, v)
+    if do.shape != q.shape or do.dtype != torch.bfloat16:
+        raise TypeError(f"do must be bfloat16 of q's shape {tuple(q.shape)};"
+                        f" got {do.dtype} {tuple(do.shape)}")
+    _check_vector_loads("do", do)
+    B, T, Hq, _ = q.shape
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.shape != (B, Hq, T) or t.dtype != torch.float32 \
+                or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous float32 "
+                             f"[B, Hq, T] = {(B, Hq, T)}; got {t.dtype} "
+                             f"{tuple(t.shape)} strides {t.stride()}")
+
+
+def _same_device(*ts) -> torch.device:
+    devices = {t.device for t in ts}
+    if len(devices) != 1:
+        raise ValueError(f"flash-attention inputs on different devices: "
+                         f"{devices}")
+    dev = devices.pop()
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"no flash-attention path for device {dev}")
+    return dev
+
+
+def _launch(library: str, entry: str, device, pointers, ints, strided,
+            causal: bool) -> None:
+    """Call C entry point ``entry`` of kernel library ``library`` (built at
+    first use) on the current stream: the tensors' data pointers, the int
+    arguments, the (batch, time, head) strides of ``strided``, causal and
+    the stream. Raise if the launch was refused (each library names a
+    cudaError_t with its own ``flash_attention_error_string``)."""
     from ray_tpu_torch.ops._build import load
 
-    lib = load("flash_attention_fwd")
-    fn = lib.flash_attention_fwd_bf16
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
-        ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_void_p]
+    lib = load(library)
+    fn = getattr(lib, entry)
+    fn.argtypes = ([ctypes.c_void_p] * len(pointers)
+                   + [ctypes.c_int] * len(ints)
+                   + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
+                      ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    lib.flash_attention_error_string.argtypes = [ctypes.c_int]
-    lib.flash_attention_error_string.restype = ctypes.c_char_p
-    return lib
+    strides = (ctypes.c_longlong * (3 * len(strided)))(
+        *(s for t in strided for s in t.stride()[:3]))
+    with torch.cuda.device(device):
+        err = fn(*(t.data_ptr() for t in pointers), *ints, strides,
+                 int(causal), torch.cuda.current_stream().cuda_stream)
+    if err:
+        what = lib.flash_attention_error_string
+        what.argtypes, what.restype = [ctypes.c_int], ctypes.c_char_p
+        raise RuntimeError(f"{entry} launch failed: {what(err).decode()}")
 
 
 def flash_attention_forward(q: torch.Tensor, k: torch.Tensor,
@@ -105,28 +232,15 @@ def flash_attention_forward(q: torch.Tensor, k: torch.Tensor,
     """``(o, lse)`` of flash attention; see :func:`flash_attention_reference`
     for shapes. CUDA tensors go through the kernel, CPU tensors through
     the plain version."""
-    devices = {q.device, k.device, v.device}
-    if len(devices) != 1:
-        raise ValueError(f"q, k, v on different devices: {devices}")
-    if q.device.type == "cpu":
+    if _same_device(q, k, v).type == "cpu":
         return flash_attention_reference(q, k, v, causal)
-    if q.device.type != "cuda":
-        raise ValueError(f"no flash-attention path for device {q.device}")
     check_kernel_inputs(q, k, v)
     B, T, Hq, D = q.shape
     o = torch.empty((B, T, Hq, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, Hq, T), dtype=torch.float32, device=q.device)
-    strides = (ctypes.c_longlong * 12)(
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3])
-    lib = _kernel_library()
-    with torch.cuda.device(q.device):
-        err = lib.flash_attention_fwd_bf16(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), B, T, Hq, k.shape[2], D, strides, int(causal),
-            torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError("flash_attention_fwd launch failed: "
-                           f"{lib.flash_attention_error_string(err).decode()}")
+    _launch("flash_attention_fwd", "flash_attention_fwd_bf16", q.device,
+            (q, k, v, o, lse), (B, T, Hq, k.shape[2], D), (q, k, v, o),
+            causal)
     flash_attention_forward.launches += 1
     return o, lse
 
@@ -134,11 +248,93 @@ def flash_attention_forward(q: torch.Tensor, k: torch.Tensor,
 flash_attention_forward.launches = 0  # kernel launches, for run reports
 
 
+def flash_attention_bwd_dq(q, k, v, do, lse, delta,
+                           causal: bool = True) -> torch.Tensor:
+    """dQ of flash attention (see :func:`flash_attention_bwd_dq_reference`).
+    CUDA tensors go through the dQ kernel, CPU tensors through the plain
+    version."""
+    if _same_device(q, k, v, do, lse, delta).type == "cpu":
+        return flash_attention_bwd_dq_reference(q, k, v, do, lse, delta,
+                                                causal)
+    check_backward_inputs(q, k, v, do, lse, delta)
+    B, T, Hq, D = q.shape
+    dq = torch.empty((B, T, Hq, D), dtype=q.dtype, device=q.device)
+    _launch("flash_attention_bwd", "flash_attention_bwd_dq_bf16", q.device,
+            (q, k, v, do, lse, delta, dq), (B, T, Hq, k.shape[2], D),
+            (q, k, v, do, dq), causal)
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+flash_attention_bwd_dq.launches = 0
+
+
+def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal: bool = True):
+    """``(dk, dv)`` of flash attention (see
+    :func:`flash_attention_bwd_dkv_reference`). CUDA tensors go through
+    the dK/dV kernel, CPU tensors through the plain version."""
+    if _same_device(q, k, v, do, lse, delta).type == "cpu":
+        return flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta,
+                                                 causal)
+    check_backward_inputs(q, k, v, do, lse, delta)
+    B, T, Hq, D = q.shape
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    _launch("flash_attention_bwd", "flash_attention_bwd_dkv_bf16", q.device,
+            (q, k, v, do, lse, delta, dk, dv), (B, T, Hq, k.shape[2], D),
+            (q, k, v, do, dk, dv), causal)
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_attention_bwd_dkv.launches = 0
+
+
+def flash_attention_backward(q, k, v, o, lse, do, causal: bool = True):
+    """``(dq, dk, dv)`` from the forward's ``o`` and ``lse`` and the
+    output gradient ``do``; see :func:`flash_attention_backward_reference`.
+    CUDA tensors go through the dQ and dK/dV kernels, CPU tensors through
+    their plain versions."""
+    if _same_device(q, k, v, o, lse, do).type == "cuda" \
+            and not _vector_loadable(do):
+        # autograd's grad may be laid out otherwise: a fresh aligned copy
+        do = do.clone(memory_format=torch.contiguous_format)
+    delta = attention_delta(o, do)
+    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, causal)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal)
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable flash attention: the forward kernel saves
+    ``(q, k, v, o, lse)`` and the backward kernels take them, as the JAX
+    package's ``_flash_fwd_rule`` / ``_flash_bwd_rule``. ``causal`` is
+    not differentiable."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        o, lse = flash_attention_forward(q, k, v, causal)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, o, lse, do,
+                                              ctx.causal)
+        return dq, dk, dv, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
     """Blockwise (flash) attention, GQA-aware: pass k/v unrepeated.
 
     q: [B, T, Hq, D]; k, v: [B, T, Hkv, D] with Hq % Hkv == 0. Returns
-    [B, T, Hq, D] in q's dtype.
+    [B, T, Hq, D] in q's dtype. Differentiable through
+    :class:`FlashAttention` when grad is on and an input needs it;
+    otherwise (serving, ``inference_mode``) the forward alone runs.
     """
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttention.apply(q, k, v, causal)
     return flash_attention_forward(q, k, v, causal)[0]

@@ -1,6 +1,6 @@
-"""The port on a CUDA device: the hand-written flash-attention kernel and
-the serving path through it. Every test here is marked ``gpu`` and skips
-itself without a card.
+"""The port on a CUDA device: the hand-written flash-attention kernels
+(forward, dQ, dK/dV) and the serving and training paths through them.
+Every test here is marked ``gpu`` and skips itself without a card.
 
 This file imports only torch and the port, so it runs on a card machine
 that has no JAX; ``tests/conftest.py`` imports JAX, so skip it there:
@@ -10,8 +10,14 @@ that has no JAX; ``tests/conftest.py`` imports JAX, so skip it there:
 Tolerance of the bf16 kernel against its float32 plain version: atol =
 rtol = 2e-2, the JAX suite's own bound for its forward kernel
 (tests/test_flash_attention.py); lse, which the kernel keeps in float32,
-at 1e-3.
+at 1e-3. The backward kernels' dq, dk, dv against their float32 plain
+versions: atol = rtol = 5e-2, the JAX suite's grad bound, element by
+element; and per (batch, 64-row block, head) rms(err) / (rms(ref) +
+1e-3) at most 2e-2, the block bound of ``chip_smoke.py``, which holds the
+late causal rows (whose gradients are small) as tightly as the early ones.
 """
+
+import dataclasses
 
 import pytest
 import torch
@@ -66,24 +72,29 @@ def test_kernel_reads_strided_inputs(cuda):
     torch.testing.assert_close(o.float(), ro.float(), atol=2e-2, rtol=2e-2)
 
 
-@pytest.mark.parametrize("case", ["tq_ne_tk", "fp32", "big_d", "grad"])
+@pytest.mark.parametrize("case", ["tq_ne_tk", "fp32", "big_d", "grad",
+                                  "wrapper_grad"])
 def test_cuda_tensors_never_fall_back(cuda, case):
     from ray_tpu_torch.ops import flash_attention as fa
 
     q, k, v = _qkv(64, 4, 2, 64, cuda)
     exc = ValueError
+    call = fa.flash_attention
     if case == "tq_ne_tk":
         k, v = k[:, :32], v[:, :32]
     elif case == "fp32":
         q, k, v, exc = q.float(), k.float(), v.float(), TypeError
     elif case == "big_d":
         q, k, v = _qkv(64, 4, 2, 256, cuda)
-    else:
+    elif case == "grad":  # inputs that need grad take the autograd path
+        q, k, v, exc = q.float(), k.float(), v.float(), TypeError
         q.requires_grad_(True)
-        exc = NotImplementedError
+    else:  # the kernel wrapper alone would drop their gradient: it refuses
+        q.requires_grad_(True)
+        call, exc = fa.flash_attention_forward, RuntimeError
     before = fa.flash_attention_forward.launches
     with pytest.raises(exc):
-        fa.flash_attention(q, k, v, causal=True)
+        call(q, k, v, causal=True)
     assert fa.flash_attention_forward.launches == before
 
 
@@ -112,3 +123,139 @@ def test_engine_serves_on_the_card_through_the_kernel(cuda):
     assert finals["warm"]["tokens"] == finals["cold"]["tokens"]
     assert engine.prefill_calls == 1
     assert fa.flash_attention_forward.launches == engine.cfg.n_layers
+
+
+GRAD_BLOCK_RTOL = 2e-2
+GRAD_FLOOR = 1e-3
+
+
+def _block_rel_err(got, ref, rows=64):
+    """Worst over (batch, ``rows``-row block, head) of rms(got - ref) /
+    (rms(ref) + GRAD_FLOOR), for [B, T, H, D] tensors."""
+    B, T, H, D = ref.shape
+    nb = -(-T // rows)
+
+    def block_sums(x):
+        x = torch.nn.functional.pad(x.pow(2), (0, 0, 0, 0, 0, nb * rows - T))
+        return x.reshape(B, nb, rows, H, D).sum((2, 4))
+
+    n = ((T - rows * torch.arange(nb, device=ref.device)).clamp(max=rows)
+         * D).view(1, nb, 1)
+    err_rms = (block_sums(got.float() - ref.float()) / n).sqrt()
+    ref_rms = (block_sums(ref.float()) / n).sqrt()
+    return (err_rms / (ref_rms + GRAD_FLOOR)).max().item()
+
+
+def _backward_case(T, Hq, Hkv, D, causal, device, seed=1):
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    q, k, v = _qkv(T, Hq, Hkv, D, device, seed)
+    g = torch.Generator(device=device).manual_seed(seed + 1)
+    do = torch.randn(q.shape, device=device, generator=g).to(torch.bfloat16)
+    o, lse = fa.flash_attention_forward(q, k, v, causal)
+    return q, k, v, o, lse, do
+
+
+@pytest.mark.parametrize("D", [16, 64, 80, 128])
+@pytest.mark.parametrize("T,Hq,Hkv,causal", [(1, 8, 2, True),
+                                            (70, 8, 2, True),
+                                            (130, 4, 4, False),
+                                            (200, 8, 1, True)])
+def test_backward_kernels_match_plain_versions(cuda, D, T, Hq, Hkv, causal):
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, o, lse, do = _backward_case(T, Hq, Hkv, D, causal, cuda)
+    delta = fa.attention_delta(o, do)
+    before = (fa.flash_attention_bwd_dq.launches,
+              fa.flash_attention_bwd_dkv.launches)
+    got = fa.flash_attention_backward(q, k, v, o, lse, do, causal)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention_bwd_dq.launches,
+            fa.flash_attention_bwd_dkv.launches) == (before[0] + 1,
+                                                     before[1] + 1)
+    want = fa.flash_attention_backward_reference(q, k, v, o, lse, do, causal)
+    for a, b, name in zip(got, want, ("dq", "dk", "dv")):
+        assert a.dtype == torch.bfloat16 and a.shape == b.shape, name
+        torch.testing.assert_close(a.float(), b.float(), atol=5e-2,
+                                   rtol=5e-2, msg=name)
+        assert _block_rel_err(a, b) <= GRAD_BLOCK_RTOL, name
+    again = (fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal),
+             *fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal))
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_backward_copies_a_grad_the_kernels_cannot_read(cuda):
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, o, lse, do = _backward_case(96, 4, 2, 64, True, cuda)
+    want = fa.flash_attention_backward(q, k, v, o, lse, do, True)
+    strided = do.transpose(1, 3).contiguous().transpose(1, 3)  # D not unit
+    flat = torch.empty(do.numel() + 1, dtype=do.dtype, device=cuda)
+    misaligned = flat[1:].view(do.shape).copy_(do)  # contiguous, 2-byte off
+    for odd in (strided, misaligned):
+        got = fa.flash_attention_backward(q, k, v, o, lse, odd, True)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_loss_backward_reaches_the_kernels_not_the_plain_version(
+        cuda, monkeypatch):
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    def plain(*args, **kwargs):
+        raise AssertionError("the plain version ran on CUDA tensors")
+
+    for name in ("flash_attention_reference",
+                 "flash_attention_bwd_dq_reference",
+                 "flash_attention_bwd_dkv_reference"):
+        monkeypatch.setattr(fa, name, plain)
+    q, k, v = (t.requires_grad_(True) for t in _qkv(100, 8, 2, 64, cuda))
+    counts = (fa.flash_attention_forward.launches,
+              fa.flash_attention_bwd_dq.launches,
+              fa.flash_attention_bwd_dkv.launches)
+    out = fa.flash_attention(q, k, v, causal=True)
+    (out.float() ** 2).sum().backward()
+    torch.cuda.synchronize()
+    assert (fa.flash_attention_forward.launches,
+            fa.flash_attention_bwd_dq.launches,
+            fa.flash_attention_bwd_dkv.launches) == tuple(
+                c + 1 for c in counts)
+    assert all(t.grad is not None and t.grad.dtype == torch.bfloat16
+               and bool(torch.isfinite(t.grad).all()) for t in (q, k, v))
+
+
+@pytest.mark.parametrize("case", ["do_fp32", "lse_fp16"])
+def test_backward_kernel_guard_raises(cuda, case):
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, o, lse, do = _backward_case(64, 4, 2, 64, True, cuda)
+    delta = fa.attention_delta(o, do)
+    exc = TypeError
+    if case == "do_fp32":
+        do = do.float()
+    else:
+        lse, exc = lse.half(), ValueError
+    before = fa.flash_attention_bwd_dq.launches
+    with pytest.raises(exc):
+        fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, True)
+    assert fa.flash_attention_bwd_dq.launches == before
+
+
+def test_train_step_on_the_card_through_the_kernels(cuda):
+    from ray_tpu_torch.models.llama import LlamaConfig, make_train_step
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    # debug config at head_dim 16 with remat on; no device given: cuda
+    cfg = dataclasses.replace(LlamaConfig.debug(), remat=True, loss_chunk=16)
+    init, step = make_train_step(cfg)
+    state = init(0)
+    assert next(state["params"].parameters()).is_cuda
+    tokens = torch.arange(41, device=cuda).repeat(2, 1) % cfg.vocab_size
+    fa.flash_attention_forward.launches = 0
+    fa.flash_attention_bwd_dq.launches = 0
+    fa.flash_attention_bwd_dkv.launches = 0
+    losses = [float(step(state, tokens)) for _ in range(5)]
+    assert all(torch.isfinite(torch.tensor(losses)))
+    assert losses[-1] < losses[0]
+    assert fa.flash_attention_forward.launches == 2 * cfg.n_layers * 5
+    assert fa.flash_attention_bwd_dq.launches == cfg.n_layers * 5
+    assert fa.flash_attention_bwd_dkv.launches == cfg.n_layers * 5

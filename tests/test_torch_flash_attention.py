@@ -1,17 +1,26 @@
 """Port parity: ray_tpu_torch.ops.flash_attention against the JAX package.
 
-The plain version ``flash_attention_reference`` (what the port runs on a
-CPU tensor, and what the CUDA kernel is held against on the card) is
-compared with JAX's ``flash_attention`` run through the Pallas kernel in
-interpret mode, as tests/test_flash_attention.py runs it. The CUDA kernel
-itself is checked on the card by chip_smoke.py and tests/test_torch_cuda.py.
+The plain versions (what the port runs on CPU tensors, and what the CUDA
+kernels are held against on the card) are compared with JAX's
+``flash_attention`` run through the Pallas kernels in interpret mode, as
+tests/test_flash_attention.py runs it, and the backward also with the
+exact gradients of JAX's ``plain_attention``. The CUDA kernels themselves
+are checked on the card by chip_smoke.py and tests/test_torch_cuda.py.
 
-Tolerance: float32 atol = rtol = 1e-4 on o and lse. Both sides compute
-exact float32 attention; the Pallas kernel's online softmax sums blocks
-in another order than one softmax over the row, a few float32 ulps. The
-JAX suite's own bound for the kernel is 2e-2.
+Tolerances:
+- forward, float32 atol = rtol = 1e-4 on o and lse. Both sides compute
+  exact float32 attention; the Pallas kernel's online softmax sums blocks
+  in another order than one softmax over the row, a few float32 ulps.
+  The JAX suite's own bound for the kernel is 2e-2.
+- backward against the Pallas grads: atol = rtol = 5e-2, the JAX suite's
+  grad bound for its kernels (tests/test_flash_attention.py).
+- backward against exact JAX grads: float32 atol = rtol = 1e-4 (the same
+  float32 formulas, summed in another order).
+- the autograd.Function on the CPU against torch autograd through the
+  plain forward: 1e-5 (two float32 routes to the same gradient).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,9 +28,11 @@ import torch
 
 from ray_tpu.ops.flash_attention import _fwd
 from ray_tpu.ops.flash_attention import flash_attention as jax_flash
+from ray_tpu.parallel.ring_attention import plain_attention
 from ray_tpu_torch.ops import flash_attention as fa
 
 TOL = dict(atol=1e-4, rtol=1e-4)
+PALLAS_GRAD_TOL = dict(atol=5e-2, rtol=5e-2)
 
 CASES = [
     # (B, T, Hq, Hkv, D, causal): the JAX suite's CASES
@@ -104,12 +115,23 @@ def test_kernel_guard_accepts_the_8b_prefill_shape():
 
 
 def test_kernel_guard_rejects_inputs_that_need_grad():
+    """The kernel wrappers are not differentiable, so their guard refuses
+    inputs that need grad under grad mode; ``flash_attention`` takes such
+    inputs through the FlashAttention autograd.Function, whose forward
+    runs without grad mode (and whose backward reaches the backward
+    kernels on the card)."""
     q, k, v = _bf16((1, 64, 4, 64), (1, 64, 2, 64))
     q.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="training slice"):
+    with pytest.raises(RuntimeError, match="not differentiable"):
         fa.check_kernel_inputs(q, k, v)
     with torch.inference_mode():  # the serving path: no grad wanted
         fa.check_kernel_inputs(q, k, v)
+    with torch.no_grad():  # as inside FlashAttention.forward
+        fa.check_kernel_inputs(q, k, v)
+    out = fa.flash_attention(q, k, v, causal=True)
+    assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
+    with torch.no_grad():
+        assert fa.flash_attention(q, k, v, causal=True).grad_fn is None
 
 
 def test_kernel_guard_rejects_unaligned_strides():
@@ -117,3 +139,119 @@ def test_kernel_guard_rejects_unaligned_strides():
     head_dim_strided = q.transpose(1, 3).contiguous().transpose(1, 3)
     with pytest.raises(ValueError, match="stride"):
         fa.check_kernel_inputs(head_dim_strided, k, v)
+
+
+# --------------------------------------------------------------------------- #
+# Backward
+# --------------------------------------------------------------------------- #
+
+BWD_CASES = [
+    # (B, T, Hq, Hkv, D, causal): the JAX suite's grad case, a full case
+    # and a rep-4 GQA case
+    (1, 128, 2, 1, 64, True),
+    (1, 128, 2, 2, 128, False),
+    (1, 128, 8, 2, 64, True),
+]
+
+
+def _bwd_inputs(B, T, Hq, Hkv, D, seed=3):
+    q, k, v = _inputs(B, T, Hq, Hkv, D, seed)
+    do = np.random.RandomState(seed + 100).randn(B, T, Hq, D) \
+        .astype(np.float32)
+    return q, k, v, do
+
+
+def _port_grads(q, k, v, do, causal):
+    q, k, v, do = _torch(q, k, v, do)
+    o, lse = fa.flash_attention_reference(q, k, v, causal)
+    return fa.flash_attention_backward_reference(q, k, v, o, lse, do, causal)
+
+
+def _jax_grads(fn, q, k, v, do):
+    _, vjp = jax.vjp(fn, *(jnp.asarray(x) for x in (q, k, v)))
+    return vjp(jnp.asarray(do))
+
+
+@pytest.mark.parametrize("B,T,Hq,Hkv,D,causal", BWD_CASES)
+def test_backward_reference_matches_pallas_grads(B, T, Hq, Hkv, D, causal):
+    q, k, v, do = _bwd_inputs(B, T, Hq, Hkv, D)
+    want = _jax_grads(lambda q, k, v: jax_flash(q, k, v, causal=causal,
+                                                interpret=True), q, k, v, do)
+    got = _port_grads(q, k, v, do, causal)
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        assert g.shape == w.shape, name
+        np.testing.assert_allclose(g.numpy(), np.asarray(w),
+                                   err_msg=name, **PALLAS_GRAD_TOL)
+
+
+@pytest.mark.parametrize("B,T,Hq,Hkv,D,causal", CASES + BWD_CASES[2:])
+def test_backward_reference_matches_exact_jax_grads(B, T, Hq, Hkv, D,
+                                                    causal):
+    q, k, v, do = _bwd_inputs(B, T, Hq, Hkv, D, seed=4)
+    rep = Hq // Hkv
+
+    def exact(q, k, v):
+        return plain_attention(q, jnp.repeat(k, rep, axis=2),
+                               jnp.repeat(v, rep, axis=2), causal=causal)
+
+    want = _jax_grads(exact, q, k, v, do)
+    got = _port_grads(q, k, v, do, causal)
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), err_msg=name,
+                                   **TOL)
+    # P recomputed from lse is a distribution over the keys of each row
+    qt, kt, vt, dot = _torch(q, k, v, do)
+    o, lse = fa.flash_attention_reference(qt, kt, vt, causal)
+    p, _, _ = fa._probs_and_ds(qt, kt, vt, dot, lse,
+                               fa.attention_delta(o, dot), causal)
+    torch.testing.assert_close(p.sum(-1), torch.ones_like(lse),
+                               atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("B,T,Hq,Hkv,D,causal",
+                         BWD_CASES + [(2, 37, 4, 2, 16, True)])
+def test_autograd_function_matches_autograd_through_the_plain_forward(
+        B, T, Hq, Hkv, D, causal):
+    q, k, v, do = _torch(*_bwd_inputs(B, T, Hq, Hkv, D, seed=5))
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    fa.flash_attention(*leaves, causal=causal).backward(do)
+    ref = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    fa.flash_attention_reference(*ref, causal)[0].backward(do)
+    for a, b, name in zip(leaves, ref, ("dq", "dk", "dv")):
+        torch.testing.assert_close(a.grad, b.grad, atol=1e-5, rtol=1e-5,
+                                   msg=name)
+
+
+def test_cpu_backward_takes_the_plain_versions():
+    q, k, v, do = _torch(*_bwd_inputs(1, 40, 4, 2, 16))
+    o, lse = fa.flash_attention_reference(q, k, v, True)
+    before = (fa.flash_attention_bwd_dq.launches,
+              fa.flash_attention_bwd_dkv.launches)
+    got = fa.flash_attention_backward(q, k, v, o, lse, do, True)
+    assert (fa.flash_attention_bwd_dq.launches,
+            fa.flash_attention_bwd_dkv.launches) == before  # no kernel
+    want = fa.flash_attention_backward_reference(q, k, v, o, lse, do, True)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert [t.shape for t in got] == [q.shape, k.shape, v.shape]
+
+
+@pytest.mark.parametrize("case", ["do_fp32", "do_shape", "lse_layout",
+                                  "delta_dtype", "do_strides"])
+def test_backward_guard_rejects_before_launch(case):
+    q, k, v = _bf16((1, 64, 4, 64), (1, 64, 2, 64))
+    do = torch.zeros_like(q)
+    lse = torch.zeros(1, 4, 64)
+    delta = torch.zeros(1, 4, 64)
+    exc = ValueError
+    if case == "do_fp32":
+        do, exc = do.float(), TypeError
+    elif case == "do_shape":
+        do, exc = do[:, :32], TypeError
+    elif case == "lse_layout":
+        lse = torch.zeros(1, 64, 4).transpose(1, 2)
+    elif case == "delta_dtype":
+        delta = delta.double()
+    else:
+        do = do.transpose(1, 3).contiguous().transpose(1, 3)
+    with pytest.raises(exc):
+        fa.check_backward_inputs(q, k, v, do, lse, delta)

@@ -64,10 +64,12 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu():
         pytest.skip("a CUDA device is present: the default device is usable")
     from ray_tpu_torch import resolve_device
     from ray_tpu_torch.models.llama import (Llama, LlamaConfig,
-                                            LlamaDecodeEngine)
+                                            LlamaDecodeEngine,
+                                            make_train_step)
 
     cfg = LlamaConfig.debug()
     for make in (lambda: LlamaDecodeEngine(cfg), lambda: Llama(cfg),
+                 lambda: make_train_step(cfg),
                  lambda: resolve_device("cuda")):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
