@@ -7,13 +7,17 @@ non-zero and never prints the final ``ok`` line.
 
 1. environment: the card, its power limit, torch/CUDA versions, sm_90;
 2. build: every CUDA kernel (forward, dQ, dK/dV) from
-   ``ray_tpu_torch/ops/csrc``, with ptxas's registers, shared memory and
-   spills per kernel;
+   ``ray_tpu_torch/ops/csrc``, with ptxas's registers, static shared
+   memory and spills per kernel, and the dynamic shared memory, threads
+   and launch registers of the wgmma kernels (forward, dK/dV);
 3. each kernel against its plain version on the card, at the Llama-3-8B
-   head shapes, the prefill shapes of the serving path and the training
-   shape (gradients element by element and per 64-row block); bitwise
-   repeatability; kernel, plain and library (SDPA) times
-   at T=2048;
+   head shapes, the prefill shapes of the serving path, the training
+   shape, shapes at the edges of the TMA rings and tile schedules (T 65
+   to 4096, two batches, causal and full, head_dim 64, 80, 128) and a
+   strided q (gradients element by element and per 64-row block);
+   bitwise repeatability; at the table and training shapes each kernel
+   timed in turns with SDPA (ratio, TFLOP/s, share of bound) and its
+   plain version;
 4. prefill at Llama-3-8B widths and 2 layers, kernel against plain attention;
 5. one train step at Llama-3-1B widths and 2 layers, kernels against
    autograd through plain attention (loss, global grad norm and the
@@ -216,8 +220,8 @@ def block_rel_err(torch, got, ref, rows: int = 64) -> float:
 
 
 def ptxas_report(log: str):
-    """Registers, shared memory and spills per kernel instantiation from
-    ``nvcc -Xptxas -v`` output."""
+    """Registers, static shared memory and spills per kernel
+    instantiation from ``nvcc -Xptxas -v`` output."""
     out, cur = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -242,9 +246,34 @@ def ptxas_report(log: str):
     return out
 
 
+def launch_shapes(_build) -> dict:
+    """Dynamic shared memory, threads, registers at launch and rows of a
+    block of the wgmma kernels, per head_dim they are built for, as their
+    libraries report them."""
+    import ctypes
+
+    shapes = {}
+    for lib, entry, kernel in (
+            ("flash_attention_fwd", "flash_attention_fwd_config",
+             "flash_fwd_kernel"),
+            ("flash_attention_bwd", "flash_attention_bwd_dkv_config",
+             "flash_bwd_dkv_kernel")):
+        fn = getattr(_build.load(lib), entry)
+        fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+        for D in (64, 128):
+            out = (ctypes.c_int * 4)()
+            check(fn(D, out) == 0, f"{entry}({D}) failed")
+            shapes[f"{kernel}<{D}>"] = {
+                "dynamic_smem_bytes": out[0], "threads": out[1],
+                "registers_at_launch": out[2], "rows": out[3]}
+    return shapes
+
+
 def phase_build(_build) -> None:
     """Build every kernel source (one nvcc each, all started together)
-    and print ptxas's report of each instantiation."""
+    and print ptxas's report of each instantiation and the launch shape
+    of the wgmma kernels."""
     t0 = time.perf_counter()
     built = _build.build()
     build_s = time.perf_counter() - t0
@@ -253,33 +282,89 @@ def phase_build(_build) -> None:
             for n in _build.SOURCES}
     emit({"phase": "build", "seconds": build_s, "built": sorted(built),
           "seconds_each": {n: r["seconds"] for n, r in built.items()},
-          "ptxas": {n: ptxas_report(log) for n, log in logs.items()}})
+          "ptxas": {n: ptxas_report(log) for n, log in logs.items()},
+          "launch": launch_shapes(_build)})
+
+
+def in_turns(torch, kernel, library, iters: int = 20) -> dict:
+    """Kernel and library call timed in turns (kernel, library, library,
+    kernel) on the same inputs: each one's mean of its two readings."""
+    k1 = cuda_ms(kernel, iters)
+    l1 = cuda_ms(library, iters)
+    l2 = cuda_ms(library, iters)
+    k2 = cuda_ms(kernel, iters)
+    return {"ms": (k1 + k2) / 2, "library_ms": (l1 + l2) / 2,
+            "ms_each": [k1, k2], "library_ms_each": [l1, l2],
+            "ratio_to_library": (k1 + k2) / (l1 + l2)}
+
+
+def rates(timing: dict) -> dict:
+    """Achieved TFLOP/s and share of the bound of a timed kernel."""
+    seconds = timing["ms"] * 1e-3
+    return {"achieved_tflops": timing["flops"] / seconds / 1e12,
+            "share_of_bound": timing["bound_ms"] / timing["ms"]}
+
+
+def strided_qkv(torch, gen, B, T, Hq, Hkv, D):
+    """q, k, v as column slices of one fused projection output (q is a
+    view into a wider tensor, not contiguous)."""
+    fused = torch.randn(B, T, (Hq + 2 * Hkv) * D, device="cuda",
+                        generator=gen).to(torch.bfloat16)
+    q = fused[..., :Hq * D].view(B, T, Hq, D)
+    k = fused[..., Hq * D:(Hq + Hkv) * D].view(B, T, Hkv, D)
+    v = fused[..., (Hq + Hkv) * D:].view(B, T, Hkv, D)
+    check(not q.is_contiguous(), "the strided case's q is contiguous")
+    return q, k, v
+
+
+# gate shapes that stress the K/V and Q/dO rings and the tile schedules:
+# lengths one short of, at and past the 64- and 128-row tiles, two
+# batches, causal and full, both head_dims the wgmma kernels are built
+# for and one (80) read through a narrower TMA map
+RING_CASES = ([(2, 32, 8, D, T, causal)
+               for D in (64, 128)
+               for T in (65, 127, 128, 129, 257, 4096)
+               for causal in (True, False)]
+              + [(2, 32, 8, 80, T, causal) for T in (129, 257)
+                 for causal in (True, False)])
+
+
+# the two timed shapes: the 8B heads at a 2k-token prefill, and the 1B
+# training step's attention
+TIMED_SHAPES = (("table", (1, 2048, 32, 8, 128)),
+                ("train", (4, 2048, 32, 8, 64)))
 
 
 def phase_kernel(torch, gen, peaks):
     from ray_tpu_torch.ops.flash_attention import (flash_attention_forward,
                                                    flash_attention_reference)
 
-    def inputs(T, Hq, Hkv, D):
+    def inputs(B, T, Hq, Hkv, D):
         def r(h):
-            return torch.randn(1, T, h, D, device="cuda", generator=gen,
+            return torch.randn(B, T, h, D, device="cuda", generator=gen,
                                dtype=torch.float32).to(torch.bfloat16)
         return r(Hq), r(Hkv), r(Hkv)
 
-    cases = [(Hq, Hkv, D, T, causal)
+    cases = [(1, Hq, Hkv, D, T, causal)
              for (Hq, Hkv, D) in ((32, 8, 128), (32, 8, 64))
              for T in (1, 17, 64, 100, 512, 2048)
              for causal in (True, False)]
     # the serving phase's padded prefill lengths (page_size 16)
-    cases += [(32, 8, 128, T, True) for T in (16, 208, 1008, 2000)]
+    cases += [(1, 32, 8, 128, T, True) for T in (16, 208, 1008, 2000)]
+    cases += RING_CASES
+    cases += [("strided", 32, 8, D, 257, True) for D in (64, 128)]
     worst_o = worst_lse = worst_ratio = 0.0
-    for Hq, Hkv, D, T, causal in cases:
-        q, k, v = inputs(T, Hq, Hkv, D)
+    for B, Hq, Hkv, D, T, causal in cases:
+        if B == "strided":
+            q, k, v = strided_qkv(torch, gen, 2, T, Hq, Hkv, D)
+        else:
+            q, k, v = inputs(B, T, Hq, Hkv, D)
+        shape = (B, Hq, Hkv, D, T, causal)
         o, lse = flash_attention_forward(q, k, v, causal)
         o2, lse2 = flash_attention_forward(q, k, v, causal)
         torch.cuda.synchronize()
         check(torch.equal(o, o2) and torch.equal(lse, lse2),
-              f"kernel not bitwise repeatable at {(Hq, Hkv, D, T, causal)}")
+              f"kernel not bitwise repeatable at {shape}")
         ro, rlse = flash_attention_reference(q, k, v, causal)
         err_o = (o.float() - ro.float()).abs()
         ratio = (err_o / (KERNEL_ATOL + KERNEL_RTOL * ro.float().abs())
@@ -289,46 +374,55 @@ def phase_kernel(torch, gen, peaks):
         worst_lse = max(worst_lse, err_lse)
         worst_ratio = max(worst_ratio, ratio)
         check(ratio <= 1.0 and err_lse <= KERNEL_ATOL,
-              f"kernel disagrees with its plain version at "
-              f"{(Hq, Hkv, D, T, causal)}: max |o err| "
-              f"{err_o.max().item()}, max |lse err| {err_lse}")
+              f"kernel disagrees with its plain version at {shape}: max "
+              f"|o err| {err_o.max().item()}, max |lse err| {err_lse}")
+        del o, o2, lse, lse2, ro, rlse, err_o
     emit({"phase": "kernel_vs_plain", "cases": len(cases),
           "max_abs_err_o": worst_o, "max_abs_err_lse": worst_lse,
           "worst_err_over_tolerance": worst_ratio,
           "tolerance": {"atol": KERNEL_ATOL, "rtol": KERNEL_RTOL},
           "bitwise_repeatable": True})
 
-    B, T, Hq, Hkv, D = 1, 2048, 32, 8, 128
-    q, k, v = inputs(T, Hq, Hkv, D)
-    ms = cuda_ms(lambda: flash_attention_forward(q, k, v, True))
-    plain_ms = cuda_ms(lambda: flash_attention_reference(q, k, v, True),
-                       iters=5)
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    library_ms = cuda_ms(
-        lambda: torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True))
-    flops, nbytes = attention_work(B, T, Hq, Hkv, D, True)
-    timing = {"shape": {"B": B, "T": T, "Hq": Hq, "Hkv": Hkv, "D": D,
-                        "causal": True, "dtype": "bfloat16"},
-              "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-              "library": "torch.nn.functional.scaled_dot_product_attention",
-              **bound(flops, nbytes, peaks),
-              "achieved_tflops": flops / (ms * 1e-3) / 1e12}
-    emit({"phase": "kernel_timing", **timing})
-    return worst_o, worst_lse, worst_ratio, timing
+    timings = {}
+    for label, (B, T, Hq, Hkv, D) in TIMED_SHAPES:
+        q, k, v = inputs(B, T, Hq, Hkv, D)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        timing = in_turns(
+            torch, lambda: flash_attention_forward(q, k, v, True),
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True))
+        timing.update(
+            shape={"B": B, "T": T, "Hq": Hq, "Hkv": Hkv, "D": D,
+                   "causal": True, "dtype": "bfloat16"},
+            plain_ms=cuda_ms(
+                lambda: flash_attention_reference(q, k, v, True), iters=5),
+            library="torch.nn.functional.scaled_dot_product_attention",
+            **bound(*attention_work(B, T, Hq, Hkv, D, True), peaks))
+        timing.update(rates(timing))
+        timings[label] = timing
+        emit({"phase": "kernel_timing", "kernel": "fwd", "at": label,
+              **timing})
+        del qt, kt, vt
+    return worst_o, worst_lse, worst_ratio, timings
 
 
 def phase_backward(torch, gen, peaks):
     """The dQ and dK/dV kernels against their plain versions on the
-    forward's shape grid, bench()'s heads and the training shape; then
-    their times at the 8B table shape and the training shape."""
+    forward's shape grid, bench()'s heads, the training shape, the ring
+    cases and a strided q; then their times at the 8B table shape and the
+    training shape, in turns with SDPA's backward."""
     from ray_tpu_torch.ops import flash_attention as fa
 
     def inputs(B, T, Hq, Hkv, D, causal):
         def r(h):
             return torch.randn(B, T, h, D, device="cuda", generator=gen,
                                dtype=torch.float32).to(torch.bfloat16)
-        q, k, v, do = r(Hq), r(Hkv), r(Hkv), r(Hq)
+        if B == "strided":
+            q, k, v = strided_qkv(torch, gen, 2, T, Hq, Hkv, D)
+            do = torch.randn(q.shape, device="cuda", generator=gen,
+                             dtype=torch.float32).to(torch.bfloat16)
+        else:
+            q, k, v, do = r(Hq), r(Hkv), r(Hkv), r(Hq)
         o, lse = fa.flash_attention_forward(q, k, v, causal)
         return q, k, v, o, lse, do, fa.attention_delta(o, do)
 
@@ -338,6 +432,8 @@ def phase_backward(torch, gen, peaks):
              for causal in (True, False)]
     cases += [(1, 12, 6, 128, 2048, True), (1, 12, 6, 128, 100, False),
               (4, 32, 8, 64, 2048, True)]
+    cases += RING_CASES
+    cases += [("strided", 32, 8, D, 257, True) for D in (64, 128)]
     worst = {"dq": 0.0, "dk": 0.0, "dv": 0.0}
     worst_ratio = {"dq": 0.0, "dkv": 0.0}
     worst_block = {"dq": 0.0, "dk": 0.0, "dv": 0.0}
@@ -371,7 +467,7 @@ def phase_backward(torch, gen, peaks):
                   f"{name} kernel disagrees with its plain version at "
                   f"{shape}: max |err| {err.max().item()}, "
                   f"err over tolerance {ratio}, block rel err {rel}")
-        del want
+        del want, dq, dk, dv, dq2, dk2, dv2
     emit({"phase": "kernel_vs_plain_backward", "cases": len(cases),
           "max_abs_err": worst, "worst_err_over_tolerance": worst_ratio,
           "block_rel_err": worst_block,
@@ -382,23 +478,20 @@ def phase_backward(torch, gen, peaks):
           "bitwise_repeatable": True})
 
     timings = {}
-    for label, (B, Hq, Hkv, D) in (("table", (1, 32, 8, 128)),
-                                   ("train", (4, 32, 8, 64))):
-        T = 2048
+    for label, (B, T, Hq, Hkv, D) in TIMED_SHAPES:
         q, k, v, o, lse, do, delta = inputs(B, T, Hq, Hkv, D, True)
-        # SDPA, forward and backward alone: yardsticks, never called by
-        # the port
-        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-        fwd_library_ms = cuda_ms(
-            lambda: torch.nn.functional.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True))
-        for x in (qt, kt, vt):
-            x.requires_grad_(True)
+        # SDPA's backward alone (dq, dk, dv together): the yardstick,
+        # never called by the port
+        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                      for x in (q, k, v))
         out = torch.nn.functional.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True)
         dot = do.transpose(1, 2).contiguous()
-        library_ms = cuda_ms(lambda: torch.autograd.grad(
-            out, (qt, kt, vt), dot, retain_graph=True))
+
+        def library():
+            return torch.autograd.grad(out, (qt, kt, vt), dot,
+                                       retain_graph=True)
+
         runs = {
             "dq": (lambda: fa.flash_attention_bwd_dq(
                 q, k, v, do, lse, delta, True),
@@ -409,18 +502,16 @@ def phase_backward(torch, gen, peaks):
                 lambda: fa.flash_attention_bwd_dkv_reference(
                     q, k, v, do, lse, delta, True)),
         }
-        fwd_ms = cuda_ms(lambda: fa.flash_attention_forward(q, k, v, True))
-        timings[label] = {"fwd": {
-            "ms": fwd_ms, "library_ms": fwd_library_ms,
-            **bound(*attention_work(B, T, Hq, Hkv, D, True), peaks)}}
+        timings[label] = {}
         for name, (kern, plain) in runs.items():
-            ms = cuda_ms(kern)
-            flops, nbytes = attention_work(B, T, Hq, Hkv, D, True, name)
-            timings[label][name] = {
-                "ms": ms, "plain_ms": cuda_ms(plain, iters=3, warmup=1),
-                "library_ms": library_ms, **bound(flops, nbytes, peaks),
-                "achieved_tflops": flops / (ms * 1e-3) / 1e12}
-        emit({"phase": "kernel_timing_backward",
+            timing = in_turns(torch, kern, library)
+            timing.update(
+                plain_ms=cuda_ms(plain, iters=3, warmup=1),
+                **bound(*attention_work(B, T, Hq, Hkv, D, True, name),
+                        peaks))
+            timing.update(rates(timing))
+            timings[label][name] = timing
+        emit({"phase": "kernel_timing_backward", "at": label,
               "shape": {"B": B, "T": T, "Hq": Hq, "Hkv": Hkv, "D": D,
                         "causal": True, "dtype": "bfloat16"},
               "grid_blocks": {"dq": -(-T // 64) * Hq * B,
@@ -779,7 +870,8 @@ def main(argv=None) -> int:
     phase_build(_build)
     peaks = peaks_for(name)
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    err_o, err_lse, err_ratio, timing = phase_kernel(torch, gen, peaks)
+    err_o, err_lse, err_ratio, fwd_timing = phase_kernel(torch, gen,
+                                                         peaks)
     bwd_err, bwd_ratio, bwd_block, bwd_timing = phase_backward(
         torch, gen, peaks)
     torch.cuda.empty_cache()
@@ -791,30 +883,34 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     train_launches = phase_training(torch, args.seed, smi, peaks[0])
 
-    timed = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    train_shape = {"B": 4, "T": 2048, "Hq": 32, "Hkv": 8, "D": 64,
-                   "causal": True, "dtype": "bfloat16"}
+    timed = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+             "ratio_to_library", "achieved_tflops", "share_of_bound")
+    shapes = {label: fwd_timing[label]["shape"] for label in fwd_timing}
     src = "ray_tpu_torch/ops/csrc/"
     kernels = [{
         "name": "flash_attention_fwd", "route": "cuda",
         "source": src + "flash_attention_fwd.cu",
         "replaces": "ray_tpu/ops/flash_attention.py:62",
+        "design": "wgmma fed by TMA (flash_attention_sm90.cuh)",
         "launches": serving_launches + train_launches["fwd"],
         "launches_by_path": {"serving": serving_launches,
                              "training": train_launches["fwd"]},
         "max_abs_err": err_o, "max_abs_err_lse": err_lse,
         "tolerance": {"atol": KERNEL_ATOL, "rtol": KERNEL_RTOL},
-        "ok": err_ratio <= 1.0, **{k: timing[k] for k in timed},
-        "shape": timing["shape"],
-        "at_train_shape": {"shape": train_shape,
-                           **bwd_timing["train"]["fwd"]}}]
-    for kern, replaces, errs in (("dq", ":135", ("dq",)),
-                                 ("dkv", ":169", ("dk", "dv"))):
-        at = bwd_timing["train"][kern]
+        "ok": err_ratio <= 1.0,
+        **{k: fwd_timing["table"][k] for k in timed},
+        "shape": shapes["table"],
+        "at_train_shape": {"shape": shapes["train"],
+                           **{k: fwd_timing["train"][k] for k in timed}}}]
+    for kern, replaces, errs, design in (
+            ("dq", ":135", ("dq",), "mma.sync m16n8k16"),
+            ("dkv", ":169", ("dk", "dv"),
+             "wgmma fed by TMA (flash_attention_sm90.cuh)")):
         kernels.append({
             "name": f"flash_attention_bwd_{kern}", "route": "cuda",
             "source": src + "flash_attention_bwd.cu",
             "replaces": "ray_tpu/ops/flash_attention.py" + replaces,
+            "design": design,
             "launches": train_launches[kern],
             "launches_by_path": {"training": train_launches[kern]},
             "max_abs_err": max(bwd_err[e] for e in errs),
@@ -824,10 +920,11 @@ def main(argv=None) -> int:
                           "block_rtol": GRAD_BLOCK_RTOL},
             "ok": bwd_ratio[kern] <= 1.0
             and max(bwd_block[e] for e in errs) <= GRAD_BLOCK_RTOL,
-            **{k: at[k] for k in timed},
-            "shape": train_shape,
-            "at_table_shape": {"shape": timing["shape"],
-                               **bwd_timing["table"][kern]}})
+            **{k: bwd_timing["train"][kern][k] for k in timed},
+            "shape": shapes["train"],
+            "at_table_shape": {"shape": shapes["table"],
+                               **{k: bwd_timing["table"][kern][k]
+                                  for k in timed}}})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

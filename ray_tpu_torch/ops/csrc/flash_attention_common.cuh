@@ -1,6 +1,7 @@
-// Pieces shared by the flash-attention kernels (forward and backward):
+// Pieces of the dQ kernel (mma.sync, Hopper's legacy tensor-core path;
+// the forward and dK/dV kernels use flash_attention_sm90.cuh instead):
 // the bf16 tensor-core product, fragment packing, the shared-memory tile
-// copy and the three operand patterns every product of the kernels uses.
+// copy and the three operand patterns every product of the kernel uses.
 // Every tile is 64 rows of one head, staged with a row pitch of D + 8
 // elements so that fragment reads of neighbouring rows hit different
 // banks. Fragment layouts are those of mma.m16n8k16: lane = 4 * g + tg.
@@ -15,7 +16,6 @@ namespace flash {
 constexpr int kTile = 64;  // rows of every q and kv tile
 constexpr int kWarps = 4;  // 16 rows of a tile per warp
 constexpr int kThreads = kWarps * 32;
-constexpr unsigned kFull = 0xffffffffu;
 
 // d += a @ b for one m16n8k16 tile, bf16 operands, fp32 accumulators.
 __device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],

@@ -6,202 +6,314 @@
 // lse = m + log(l) as outputs (the backward kernels read lse).
 //
 // What bounds it on this card: at the prefill shapes of the serving path
-// (T in the hundreds to thousands, head_dim 128) the two matrix products
-// per tile make it operation-bound: 4 * D flops per (query, key) pair
-// against 2 * D bytes per row of Q, K, V and O. The design keeps the
-// T x T scores out of device memory (they live in registers, tile by
-// tile) and feeds the tensor cores through mma.sync m16n8k16 bf16 -> fp32.
+// and the training shapes (T in the hundreds to thousands) the two matrix
+// products per tile make it operation-bound: 4 * D flops per (query, key)
+// pair against 2 * D bytes per row of Q, K, V and O. So the design feeds
+// the tensor cores at their Hopper rate (wgmma) from tiles that TMA
+// brings in ahead of use, and keeps the T x T scores in registers.
 //
-// Design (simple and exact first; wgmma, TMA and a pipelined K/V ring
-// are later work):
-// - one block of 4 warps per (q tile of 64 rows, q head, batch); each
-//   warp owns 16 query rows, held in registers as mma A fragments;
-// - K/V tiles of 64 rows of kv head h / rep are staged through shared
-//   memory with 16-byte loads; the loop runs up to the diagonal tile when
-//   causal and over all tiles otherwise;
-// - scores and the running max / sum stay in fp32 (log2 domain, exp2f);
-//   P is rounded to bf16 only as the A operand of P @ V;
-// - the causal diagonal and the ragged tail (positions >= T) are masked
-//   here, so any T >= 1 runs on the kernel;
-// - inputs are read through their [B, T, H, D] strides; no atomics, so
-//   the result is bitwise repeatable.
+// Design (flash_attention_sm90.cuh holds the Hopper pieces):
+// - one block per (q tile, q head, batch): a producer warpgroup and one
+//   consumer warpgroup per 64 q rows; setmaxnreg moves registers from the
+//   producer (24) to the consumers. At head_dim 128 a block is two
+//   consumers (128 q rows, 384 threads, one block a SM: K/V tiles are
+//   shared by twice the rows); at head_dim 64 one consumer (64 q rows,
+//   256 threads, two blocks a SM, so one block's prologue and epilogue
+//   overlap another's main loop, which at this width, where the
+//   exponentials cost about what the products do, is the faster shape);
+// - one thread of the producer's first warp loads the Q tile, then keeps
+//   a ring of 2 K/V stages of 128 rows filled by TMA, K one tile ahead of
+//   V; K and V of a stage each have a full and an empty barrier, so K is
+//   refilled while V is still read; the other producer warps exit;
+// - each consumer runs S = Q K^T (wgmma, SS form), the online softmax in
+//   fp32 in the log2 domain (exp2f), then O += P V (wgmma, RS form: the
+//   S accumulator rounded to bf16 is the A operand). Two consumers, or
+//   two blocks, overlap one's softmax with the other's products;
+// - only the causal diagonal tile and the ragged tail (keys >= T) are
+//   masked; rows past T are read as zeros (TMA) and never stored, so any
+//   T >= 1 runs on the kernel;
+// - built for head_dim 64 and 128: a narrower head_dim (16 .. 112, a
+//   multiple of 16) is read through a TMA map of its true width, whose
+//   missing columns arrive as zeros and add exact zeros to every product;
+//   the scale is 1/sqrt(true head_dim) and only the true columns of O are
+//   stored;
+// - causal blocks run longest first (the last q tiles, of every head);
+// - inputs are read through their [B, T, H, D] strides; no atomics and
+//   no split over keys, so the result is bitwise repeatable.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
 
-#include "flash_attention_common.cuh"
+#include "flash_attention_sm90.cuh"
 
 namespace {
 
-using flash::kFull;
-using flash::kThreads;
-using flash::load_a_frags;
-using flash::load_tile;
-using flash::mma_rows;
-using flash::mma_rows_t;
-using flash::pack_bf16;
-using flash::store_rows;
+using namespace sm90;
 
-constexpr int kBlockM = flash::kTile;  // query rows per block (16 per warp)
-constexpr int kBlockN = flash::kTile;  // key rows per K/V tile
+constexpr int kBlockN = 128;  // key rows per K/V stage
+constexpr unsigned kFull = 0xffffffffu;
 
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
-                     const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v,
+// A block is a producer warpgroup plus kConsumers warpgroups of 64 q rows
+// each. setmaxnreg split: the block is launched at the most registers
+// __launch_bounds__ allows, and the producer gives what it does not need
+// to the consumers (a launch checks the count, see prepare_launch):
+// - 2 consumers, 1 block a SM: 384 x 168 = 128 x 24 + 256 x 240;
+// - 1 consumer, 2 blocks a SM: 256 x 128 = 128 x 24 + 128 x 232.
+template <int kConsumers>
+struct Split {
+  static constexpr int kThreads = 128 * (1 + kConsumers);
+  static constexpr int kBlocksPerSm = kConsumers == 2 ? 1 : 2;
+  static constexpr int kLaunchRegs = kConsumers == 2 ? 168 : 128;
+  static constexpr int kProducerRegs = 24;
+  static constexpr int kConsumerRegs = kConsumers == 2 ? 240 : 232;
+};
+
+__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+template <int D, int kStages, int kConsumers>
+__global__ void __launch_bounds__(Split<kConsumers>::kThreads,
+                                  Split<kConsumers>::kBlocksPerSm)
+    flash_fwd_kernel(__grid_constant__ const CUtensorMap tm_q,
+                     __grid_constant__ const CUtensorMap tm_k,
+                     __grid_constant__ const CUtensorMap tm_v,
                      __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-                     int T, int Hq, int rep, int64_t q_sb, int64_t q_st,
-                     int64_t q_sh, int64_t k_sb, int64_t k_st, int64_t k_sh,
-                     int64_t v_sb, int64_t v_st, int64_t v_sh, int64_t o_sb,
+                     int T, int Hq, int B, int rep, int d_true, int64_t o_sb,
                      int64_t o_st, int64_t o_sh, float scale_log2,
                      int causal) {
-  constexpr int kLd = D + 8;
-  constexpr int kKSteps = D / 16;       // k-steps of Q @ K^T
-  constexpr int kDTiles = D / 8;        // n8 tiles of O
-  constexpr int kNTiles = kBlockN / 8;  // n8 tiles of S
-  __shared__ __align__(16) __nv_bfloat16 k_s[kBlockN * kLd];
-  __shared__ __align__(16) __nv_bfloat16 v_s[kBlockN * kLd];
+  using S = Split<kConsumers>;
+  constexpr int kBlockM = 64 * kConsumers;    // q rows of the block
+  constexpr int kColBlocks = D / 64;          // 64-column TMA boxes per row
+  constexpr int kQBytes = kBlockM * D * 2;
+  constexpr int kKVBytes = kBlockN * D * 2;   // K or V of one stage
+  extern __shared__ uint8_t smem_raw[];
+  // per stage: K and V each have a full barrier (TMA landed) and an empty
+  // one (every consumer warp is done with it), so K can be refilled while
+  // V is still being read
+  __shared__ __align__(8) uint64_t q_full;
+  __shared__ __align__(8) uint64_t k_full[kStages], v_full[kStages],
+      k_empty[kStages], v_empty[kStages];
+  uint8_t* q_s = align_1024(smem_raw);
+  uint8_t* kv_s = q_s + kQBytes;  // stage s: K at 2s * kKVBytes, V after
 
-  // causal: the longest rows (last q tiles) are scheduled first
-  const int qtile = causal ? (gridDim.x - 1 - blockIdx.x) : blockIdx.x;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / rep;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane >> 2, tg = lane & 3;  // mma fragment row / column pair
+  const int heads = Hq * B;
+  const int n_qtiles = cdiv(T, kBlockM);
+  const int rank = blockIdx.x / heads;  // heads inner: longest tiles first
+  const int qtile = causal ? n_qtiles - 1 - rank : rank;
+  const int h = (blockIdx.x % heads) % Hq, b = (blockIdx.x % heads) / Hq;
   const int q0 = qtile * kBlockM;
+  const int n_tiles = cdiv(causal ? min(q0 + kBlockM, T) : T, kBlockN);
 
-  const __nv_bfloat16* q_head = q + b * q_sb + h * q_sh;
-  const __nv_bfloat16* k_head = k + b * k_sb + hk * k_sh;
-  const __nv_bfloat16* v_head = v + b * v_sb + hk * v_sh;
-
-  // Q tile -> registers as A fragments, staged through k_s.
-  load_tile<D>(k_s, q_head, q_st, q0, T, tid);
-  __syncthreads();
-  uint32_t qf[kKSteps][4];
-  load_a_frags<D>(qf, k_s + warp * 16 * kLd, lane);
-
-  float acc[kDTiles][4];
-#pragma unroll
-  for (int dt = 0; dt < kDTiles; ++dt) {
-    acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
-  }
-  float m[2] = {-CUDART_INF_F, -CUDART_INF_F};  // running max, log2 domain
-  float l[2] = {0.f, 0.f};  // this thread's share of the running sum
-  const int row0 = q0 + warp * 16 + g;  // this thread's rows: row0, row0 + 8
-  const int n_tiles = causal ? qtile + 1 : (T + kBlockN - 1) / kBlockN;
-  const unsigned short* v_bits = reinterpret_cast<const unsigned short*>(v_s);
-
-  for (int j = 0; j < n_tiles; ++j) {
-    const int k0 = j * kBlockN;
-    __syncthreads();  // every warp is done with the previous tile
-    load_tile<D>(k_s, k_head, k_st, k0, T, tid);
-    load_tile<D>(v_s, v_head, v_st, k0, T, tid);
-    __syncthreads();
-
-    // S = Q @ K^T for this warp's 16 rows and the tile's 64 keys
-    float s[kNTiles][4];
-#pragma unroll
-    for (int nt = 0; nt < kNTiles; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      mma_rows_t<D>(s[nt], qf, k_s + nt * 8 * kLd, lane);
+  if (threadIdx.x == 0) {
+    mbar_init(&q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&k_empty[s], 4 * kConsumers);
+      mbar_init(&v_empty[s], 4 * kConsumers);
     }
+    mbar_fence_init();
+  }
+  __syncthreads();
 
-    // scale into the log2 domain; mask the ragged tail and the diagonal
-    const bool need_mask = (k0 + kBlockN > T) || (causal && j == qtile);
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ---------------------------------------------------------- producer
+    setmaxnreg_dec<S::kProducerRegs>();
+    if (threadIdx.x == 0) {
+      const int hk = h / rep;
+      // tile j's K or V into its stage, once the consumers have freed it
+      auto load = [&](int j, int which, uint64_t* full, uint64_t* empty) {
+        const int s = j % kStages;
+        mbar_wait(&empty[s], ((j / kStages) & 1) ^ 1);
+        mbar_arrive_expect_tx(&full[s], kKVBytes);
+        uint8_t* dst = kv_s + (2 * s + which) * kKVBytes;
 #pragma unroll
-    for (int nt = 0; nt < kNTiles; ++nt) {
+        for (int cb = 0; cb < kColBlocks; ++cb) {
+          tma_load_4d(dst + cb * kBlockN * 128, which ? &tm_v : &tm_k,
+                      &full[s], cb * 64, hk, j * kBlockN, b);
+        }
+      };
+      mbar_arrive_expect_tx(&q_full, kQBytes);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[nt][e] * scale_log2;
+      for (int cb = 0; cb < kColBlocks; ++cb) {
+        tma_load_4d(q_s + cb * kBlockM * 128, &tm_q, &q_full, cb * 64, h, q0,
+                    b);
+      }
+      // K runs one tile ahead of V, as the consumers use them
+      load(0, 0, k_full, k_empty);
+      for (int j = 0; j < n_tiles; ++j) {
+        if (j + 1 < n_tiles) load(j + 1, 0, k_full, k_empty);
+        load(j, 1, v_full, v_empty);
+      }
+    }
+  } else {
+    // --------------------------------------------------------- consumers
+    setmaxnreg_inc<S::kConsumerRegs>();
+    const int c = wg - 1;  // q rows 64c .. 64c + 63 of the tile
+    const int t = threadIdx.x % 128, w = t / 32, lane = t % 32;
+    const int g = lane >> 2, tg = lane & 3;
+    const int row0 = q0 + 64 * c + 16 * w + g;  // this thread's rows: row0, +8
+    const uint32_t q_addr = smem_addr(q_s) + c * 64 * 128;
+    const uint32_t kv_addr = smem_addr(kv_s);
+
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    float m[2] = {-CUDART_INF_F, -CUDART_INF_F};  // running max, log2 domain
+    float l[2] = {0.f, 0.f};  // this thread's share of the running sum
+
+    mbar_wait(&q_full, 0);
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % kStages;
+      const uint32_t parity = (j / kStages) & 1;
+      const uint32_t k_addr = kv_addr + 2 * s * kKVBytes;
+      const uint32_t v_addr = k_addr + kKVBytes;
+
+      // S = Q K^T: 64 rows x 128 keys, contracted over head_dim
+      float sc[kBlockN / 2];
+      mbar_wait(&k_full[s], parity);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks) {
+        const uint32_t col = (ks % 4) * 32;  // bytes into the column block
+        wgmma_ss<kBlockN>(
+            sc, desc_sw128(q_addr + (ks / 4) * kBlockM * 128 + col, 16, 1024),
+            desc_sw128(k_addr + (ks / 4) * kBlockN * 128 + col, 16, 1024),
+            ks > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      if (lane == 0) mbar_arrive(&k_empty[s]);  // this warp is done with K
+
+      // scale into the log2 domain; mask the ragged tail and the diagonal
+      const int k0 = j * kBlockN;
+      const bool need_mask =
+          k0 + kBlockN > T || (causal && k0 + kBlockN - 1 > q0 + 64 * c);
+#pragma unroll
+      for (int e = 0; e < kBlockN / 2; ++e) {
+        float x = sc[e] * scale_log2;
         if (need_mask) {
-          const int col = k0 + nt * 8 + tg * 2 + (e & 1);
-          const int row = row0 + (e >> 1) * 8;
+          const int col = k0 + 8 * (e / 4) + 2 * tg + (e & 1);
+          const int row = row0 + ((e >> 1) & 1) * 8;
           if (col >= T || (causal && col > row)) x = -CUDART_INF_F;
         }
-        s[nt][e] = x;
+        sc[e] = x;
       }
+
+      // online softmax; the four threads of a quad share each row
+      float corr[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = m[r];
+#pragma unroll
+        for (int jn = 0; jn < kBlockN / 8; ++jn) {
+          mx = fmaxf(mx, fmaxf(sc[4 * jn + 2 * r], sc[4 * jn + 2 * r + 1]));
+        }
+        mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
+        const float base = (mx == -CUDART_INF_F) ? 0.f : mx;
+        corr[r] = exp2f(m[r] - base);
+        m[r] = mx;
+        float sum = 0.f;
+#pragma unroll
+        for (int jn = 0; jn < kBlockN / 8; ++jn) {
+          sc[4 * jn + 2 * r] = exp2f(sc[4 * jn + 2 * r] - base);
+          sc[4 * jn + 2 * r + 1] = exp2f(sc[4 * jn + 2 * r + 1] - base);
+          sum += sc[4 * jn + 2 * r] + sc[4 * jn + 2 * r + 1];
+        }
+        l[r] = l[r] * corr[r] + sum;
+      }
+#pragma unroll
+      for (int jn = 0; jn < D / 8; ++jn) {
+        acc[4 * jn + 0] *= corr[0];
+        acc[4 * jn + 1] *= corr[0];
+        acc[4 * jn + 2] *= corr[1];
+        acc[4 * jn + 3] *= corr[1];
+      }
+      uint32_t pa[kBlockN / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kBlockN / 16; ++kk) pack_a(pa[kk], sc, kk);
+
+      // O += P V: V's 128 rows are the contraction, head_dim the columns
+      mbar_wait(&v_full[s], parity);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBlockN / 16; ++kk) {
+        wgmma_rs<D>(acc, pa[kk],
+                    desc_sw128(v_addr + kk * 16 * 128, kBlockN * 128, 1024));
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      if (lane == 0) mbar_arrive(&v_empty[s]);  // and with V
     }
 
-    // online softmax; the four threads of a quad share each row
-    float corr[2];
+    // epilogue: O = acc / l in q's dtype, lse = m + log(l) in fp32
+    constexpr float kLn2 = 0.6931471805599453f;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      float mx = m[r];
-#pragma unroll
-      for (int nt = 0; nt < kNTiles; ++nt) {
-        mx = fmaxf(mx, fmaxf(s[nt][2 * r], s[nt][2 * r + 1]));
+      float sum = l[r];
+      sum += __shfl_xor_sync(kFull, sum, 1);
+      sum += __shfl_xor_sync(kFull, sum, 2);
+      sum = fmaxf(sum, 1e-30f);
+      const float inv = 1.f / sum;
+      const int row = row0 + r * 8;
+      if (row >= T) continue;
+      if (tg == 0) {
+        lse[((int64_t)b * Hq + h) * T + row] = m[r] * kLn2 + logf(sum);
       }
-      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
-      const float base = (mx == -CUDART_INF_F) ? 0.f : mx;
-      corr[r] = exp2f(m[r] - base);
-      m[r] = mx;
-      float sum = 0.f;
+      __nv_bfloat16* out = o + b * o_sb + h * o_sh + (int64_t)row * o_st;
 #pragma unroll
-      for (int nt = 0; nt < kNTiles; ++nt) {
-        s[nt][2 * r] = exp2f(s[nt][2 * r] - base);
-        s[nt][2 * r + 1] = exp2f(s[nt][2 * r + 1] - base);
-        sum += s[nt][2 * r] + s[nt][2 * r + 1];
+      for (int jn = 0; jn < D / 8; ++jn) {
+        const int col = 8 * jn + 2 * tg;
+        if (col < d_true) {
+          *reinterpret_cast<__nv_bfloat162*>(out + col) =
+              __floats2bfloat162_rn(acc[4 * jn + 2 * r] * inv,
+                                    acc[4 * jn + 2 * r + 1] * inv);
+        }
       }
-      l[r] = l[r] * corr[r] + sum;
-    }
-#pragma unroll
-    for (int dt = 0; dt < kDTiles; ++dt) {
-      acc[dt][0] *= corr[0];
-      acc[dt][1] *= corr[0];
-      acc[dt][2] *= corr[1];
-      acc[dt][3] *= corr[1];
-    }
-
-    // O += P @ V: the S accumulators of two n8 tiles are the A fragment
-    // of one k16 step; V's B fragment pairs two rows of one column
-#pragma unroll
-    for (int kk = 0; kk < kBlockN / 16; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      mma_rows<D>(acc, pa, v_bits, kk * 16, lane);
     }
   }
-
-  // epilogue: O = acc / l in q's dtype, lse = m + log(l) in fp32
-  constexpr float kLn2 = 0.6931471805599453f;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    float sum = l[r];
-    sum += __shfl_xor_sync(kFull, sum, 1);
-    sum += __shfl_xor_sync(kFull, sum, 2);
-    sum = fmaxf(sum, 1e-30f);
-    const float inv = 1.f / sum;
-#pragma unroll
-    for (int dt = 0; dt < kDTiles; ++dt) {
-      acc[dt][2 * r] *= inv;
-      acc[dt][2 * r + 1] *= inv;
-    }
-    const int row = row0 + r * 8;
-    if (row < T && tg == 0) {
-      lse[((int64_t)b * Hq + h) * T + row] = m[r] * kLn2 + logf(sum);
-    }
-  }
-  store_rows<D>(acc, o + b * o_sb + h * o_sh, o_st, row0, T, lane);
 }
 
-template <int D>
+template <int D, int kStages, int kConsumers>
+constexpr int smem_bytes() {  // + 1024: the tiles' 1024-byte alignment
+  return 64 * kConsumers * D * 2 + kStages * 2 * kBlockN * D * 2 + 1024;
+}
+
+template <int D, int kStages, int kConsumers>
+int config(int* out) {
+  out[0] = smem_bytes<D, kStages, kConsumers>();
+  out[1] = Split<kConsumers>::kThreads;
+  out[2] = Split<kConsumers>::kLaunchRegs;
+  out[3] = 64 * kConsumers;
+  return 0;
+}
+
+template <int D, int kStages, int kConsumers>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse,
-           int B, int T, int Hq, int Hkv, const long long* s, float scale_log2,
-           int causal, cudaStream_t stream) {
-  const dim3 grid((T + kBlockM - 1) / kBlockM, Hq, B);
-  flash_fwd_kernel<D><<<grid, kThreads, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      static_cast<float*>(lse), T, Hq, Hq / Hkv, s[0], s[1], s[2], s[3], s[4],
-      s[5], s[6], s[7], s[8], s[9], s[10], s[11], scale_log2, causal);
+           int B, int T, int Hq, int Hkv, int d_true, const long long* s,
+           float scale_log2, int causal, cudaStream_t stream) {
+  using S = Split<kConsumers>;
+  constexpr int kBlockM = 64 * kConsumers;
+  CUtensorMap tm_q, tm_k, tm_v;
+  int err = encode_rows(&tm_q, q, B, T, Hq, d_true, s[0], s[1], s[2], kBlockM);
+  if (!err) err = encode_rows(&tm_k, k, B, T, Hkv, d_true, s[3], s[4], s[5],
+                              kBlockN);
+  if (!err) err = encode_rows(&tm_v, v, B, T, Hkv, d_true, s[6], s[7], s[8],
+                              kBlockN);
+  constexpr int kSmem = smem_bytes<D, kStages, kConsumers>();
+  auto kernel = flash_fwd_kernel<D, kStages, kConsumers>;
+  if (!err) err = prepare_launch(kernel, kSmem, S::kLaunchRegs);
+  if (err) return err;
+  const int grid = cdiv(T, kBlockM) * Hq * B;
+  kernel<<<grid, S::kThreads, kSmem, stream>>>(
+      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(o),
+      static_cast<float*>(lse), T, Hq, B, Hq / Hkv, d_true, s[9], s[10],
+      s[11], scale_log2, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -211,33 +323,41 @@ extern "C" {
 
 // q, o: [B, T, Hq, D] bf16; k, v: [B, T, Hkv, D] bf16; lse: [B, Hq, T] fp32
 // contiguous. strides: 12 element strides (batch, time, head) of q, k, v
-// and o in that order; the head_dim stride is 1 and every stride is a
-// multiple of 8. Launches on `stream`; returns the cudaError_t of the
-// launch (0 on success).
+// and o in that order; the head_dim stride is 1, every stride a multiple
+// of 8 and every base 16-byte aligned. D is a multiple of 16 up to 128.
+// Launches on `stream`; returns 0 on success, else a cudaError_t or one
+// of the codes that flash_attention_error_string names.
 int flash_attention_fwd_bf16(const void* q, const void* k, const void* v,
                              void* o, void* lse, int B, int T, int Hq, int Hkv,
                              int D, const long long* strides, int causal,
                              void* stream) {
-  if (B < 1 || T < 1 || Hkv < 1 || Hq % Hkv != 0) {
+  if (B < 1 || T < 1 || Hkv < 1 || Hq % Hkv != 0 || D < 16 || D > 128 ||
+      D % 16 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const float scale_log2 = 1.4426950408889634f / sqrtf(static_cast<float>(D));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 16: return launch<16>(q, k, v, o, lse, B, T, Hq, Hkv, strides, scale_log2, causal, st);
-    case 32: return launch<32>(q, k, v, o, lse, B, T, Hq, Hkv, strides, scale_log2, causal, st);
-    case 48: return launch<48>(q, k, v, o, lse, B, T, Hq, Hkv, strides, scale_log2, causal, st);
-    case 64: return launch<64>(q, k, v, o, lse, B, T, Hq, Hkv, strides, scale_log2, causal, st);
-    case 80: return launch<80>(q, k, v, o, lse, B, T, Hq, Hkv, strides, scale_log2, causal, st);
-    case 96: return launch<96>(q, k, v, o, lse, B, T, Hq, Hkv, strides, scale_log2, causal, st);
-    case 112: return launch<112>(q, k, v, o, lse, B, T, Hq, Hkv, strides, scale_log2, causal, st);
-    case 128: return launch<128>(q, k, v, o, lse, B, T, Hq, Hkv, strides, scale_log2, causal, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  if (D <= 64) {
+    return launch<64, 2, 1>(q, k, v, o, lse, B, T, Hq, Hkv, D, strides,
+                            scale_log2, causal, st);
   }
+  return launch<128, 2, 2>(q, k, v, o, lse, B, T, Hq, Hkv, D, strides,
+                           scale_log2, causal, st);
+}
+
+// The launch shape of the kernel that head_dim D runs on: out[0] bytes of
+// dynamic shared memory, out[1] threads a block, out[2] registers a
+// thread at launch, out[3] q rows a block. Returns 0, or
+// cudaErrorInvalidValue for a D the kernel does not take.
+int flash_attention_fwd_config(int D, int* out) {
+  if (D < 16 || D > 128 || D % 16 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return D <= 64 ? config<64, 2, 1>(out) : config<128, 2, 2>(out);
 }
 
 const char* flash_attention_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
+  return sm90::error_string(err);
 }
 
 }  // extern "C"

@@ -5,9 +5,11 @@ Public layout [B, T, H, D], K/V passed unrepeated for GQA
 (``Hq % Hkv == 0``). On CUDA tensors the hand-written Hopper kernels run,
 or the call raises:
 
-- ``csrc/flash_attention_fwd.cu`` replaces the TPU kernel ``_fwd_kernel``;
-- ``csrc/flash_attention_bwd.cu`` replaces ``_dq_kernel`` (dQ) and
-  ``_dkv_kernel`` (dK/dV, with the GQA group-sum inside the kernel).
+- ``csrc/flash_attention_fwd.cu`` replaces the TPU kernel ``_fwd_kernel``
+  (wgmma fed by TMA, ``csrc/flash_attention_sm90.cuh``);
+- ``csrc/flash_attention_bwd.cu`` replaces ``_dq_kernel`` (dQ, mma.sync)
+  and ``_dkv_kernel`` (dK/dV, wgmma fed by TMA, with the GQA group-sum
+  inside the kernel).
 
 On CPU tensors the plain versions (:func:`flash_attention_reference`,
 :func:`flash_attention_bwd_dq_reference`,
@@ -18,10 +20,13 @@ term ``delta = rowsum(o * do)`` is taken in plain torch between the
 halves, where the JAX package takes it in jnp.
 
 The kernels mask a ragged last tile themselves, so every T >= 1 runs on
-them; the JAX package's fallback for T that does not block, and its
-padding of head_dim to 128 lanes, are TPU layout rules with no
-counterpart here (the softmax scale is 1/sqrt(D) of the true head_dim
-either way).
+them, where the JAX package falls back for T that does not block. The
+forward and dK/dV kernels are built for head_dim 64 and 128; a narrower
+head_dim (a multiple of 16) is read through TMA maps of its true width,
+whose missing columns arrive as zeros: the counterpart of the JAX
+package's zero-padding of head_dim to 128 lanes, with no padded copy.
+Zero columns add exact zeros to every product, the softmax scale is
+1/sqrt(D) of the true head_dim, and only the true columns are stored.
 """
 
 from __future__ import annotations
@@ -124,7 +129,9 @@ def flash_attention_backward_reference(q, k, v, o, lse, do,
 
 
 def _vector_loadable(t: torch.Tensor) -> bool:
-    """Whether the kernels' 16-byte loads along head_dim can read ``t``."""
+    """Whether the kernels can read ``t``: TMA's rule for a tensor map
+    (unit head_dim stride, other strides a multiple of 16 bytes, a
+    16-byte aligned base), which also covers dQ's 16-byte loads."""
     return t.stride(3) == 1 and not any(s % 8 for s in t.stride()[:3]) \
         and t.data_ptr() % 16 == 0
 

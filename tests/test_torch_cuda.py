@@ -32,10 +32,15 @@ def cuda():
     return torch.device("cuda")
 
 
-def _qkv(T, Hq, Hkv, D, device, seed=0):
+def _qkv(T, Hq, Hkv, D, device, seed=0, B=1):
     g = torch.Generator(device=device).manual_seed(seed)
-    return tuple(torch.randn(1, T, h, D, device=device, generator=g)
+    return tuple(torch.randn(B, T, h, D, device=device, generator=g)
                  .to(torch.bfloat16) for h in (Hq, Hkv, Hkv))
+
+
+# lengths one short of, at and past the kernels' 64- and 128-row tiles,
+# and a long one: the edges of the TMA rings and of the tile schedules
+RING_T = [65, 127, 128, 129, 257, 4096]
 
 
 @pytest.mark.parametrize("D", [16, 32, 48, 64, 80, 96, 112, 128])
@@ -56,20 +61,43 @@ def test_kernel_matches_plain_version(cuda, D, T, causal):
     assert torch.equal(o, o2) and torch.equal(lse, lse2)
 
 
-def test_kernel_reads_strided_inputs(cuda):
+def _strided_qkv(B, T, Hq, Hkv, D, device):
+    """q, k, v as column slices of one fused [B, T, (Hq + 2 Hkv) D]
+    projection output: views into a wider tensor."""
+    g = torch.Generator(device=device).manual_seed(3)
+    fused = torch.randn(B, T, (Hq + 2 * Hkv) * D, device=device,
+                        generator=g).to(torch.bfloat16)
+    q = fused[..., :Hq * D].view(B, T, Hq, D)
+    k = fused[..., Hq * D:(Hq + Hkv) * D].view(B, T, Hkv, D)
+    v = fused[..., (Hq + Hkv) * D:].view(B, T, Hkv, D)
+    assert not q.is_contiguous()
+    return q, k, v
+
+
+@pytest.mark.parametrize("B,T,D", [(1, 96, 64), (2, 257, 64), (2, 257, 128)])
+def test_kernel_reads_strided_inputs(cuda, B, T, D):
     from ray_tpu_torch.ops import flash_attention as fa
 
-    # q, k, v as column slices of one fused projection output
-    T, Hq, Hkv, D = 96, 4, 2, 64
-    fused = torch.randn(1, T, (Hq + 2 * Hkv) * D, device=cuda) \
-        .to(torch.bfloat16)
-    q = fused[..., :Hq * D].view(1, T, Hq, D)
-    k = fused[..., Hq * D:(Hq + Hkv) * D].view(1, T, Hkv, D)
-    v = fused[..., (Hq + Hkv) * D:].view(1, T, Hkv, D)
-    assert not q.is_contiguous()
-    o, _ = fa.flash_attention_forward(q, k, v, True)
-    ro, _ = fa.flash_attention_reference(q, k, v, True)
+    q, k, v = _strided_qkv(B, T, 4, 2, D, cuda)
+    o, lse = fa.flash_attention_forward(q, k, v, True)
+    ro, rlse = fa.flash_attention_reference(q, k, v, True)
     torch.testing.assert_close(o.float(), ro.float(), atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(lse, rlse, atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("T", RING_T)
+@pytest.mark.parametrize("causal", [True, False])
+def test_forward_at_ring_edges(cuda, D, T, causal):
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    q, k, v = _qkv(T, 8, 2, D, cuda, B=2)
+    o, lse = fa.flash_attention_forward(q, k, v, causal)
+    ro, rlse = fa.flash_attention_reference(q, k, v, causal)
+    torch.testing.assert_close(o.float(), ro.float(), atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(lse, rlse, atol=1e-3, rtol=1e-3)
+    o2, lse2 = fa.flash_attention_forward(q, k, v, causal)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
 
 
 @pytest.mark.parametrize("case", ["tq_ne_tk", "fp32", "big_d", "grad",
@@ -182,6 +210,43 @@ def test_backward_kernels_match_plain_versions(cuda, D, T, Hq, Hkv, causal):
     again = (fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal),
              *fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal))
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def _check_dkv(q, k, v, do, causal):
+    """dK/dV kernel against its plain version: allclose, the block gate
+    and bitwise repeatability."""
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    o, lse = fa.flash_attention_forward(q, k, v, causal)
+    delta = fa.attention_delta(o, do)
+    got = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal)
+    want = fa.flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta,
+                                                causal)
+    for a, b, name in zip(got, want, ("dk", "dv")):
+        assert a.dtype == torch.bfloat16 and a.shape == b.shape, name
+        torch.testing.assert_close(a.float(), b.float(), atol=5e-2,
+                                   rtol=5e-2, msg=name)
+        assert _block_rel_err(a, b) <= GRAD_BLOCK_RTOL, name
+    again = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("T", RING_T)
+@pytest.mark.parametrize("causal", [True, False])
+def test_dkv_kernel_at_ring_edges(cuda, D, T, causal):
+    q, k, v = _qkv(T, 8, 2, D, cuda, seed=1, B=2)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    do = torch.randn(q.shape, device=cuda, generator=g).to(torch.bfloat16)
+    _check_dkv(q, k, v, do, causal)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_dkv_kernel_reads_a_strided_q(cuda, D):
+    q, k, v = _strided_qkv(2, 257, 8, 2, D, cuda)
+    g = torch.Generator(device=cuda).manual_seed(4)
+    do = torch.randn(q.shape, device=cuda, generator=g).to(torch.bfloat16)
+    _check_dkv(q, k, v, do, True)
 
 
 def test_backward_copies_a_grad_the_kernels_cannot_read(cuda):
