@@ -9,19 +9,20 @@ non-zero and never prints the final ``ok`` line.
 2. build: every CUDA kernel (forward, dQ, dK/dV) from
    ``ray_tpu_torch/ops/csrc``, with ptxas's registers, static shared
    memory and spills per kernel, and the dynamic shared memory, threads
-   and launch registers of the wgmma kernels (forward, dK/dV);
+   and launch registers of each;
 3. each kernel against its plain version on the card, at the Llama-3-8B
    head shapes, the prefill shapes of the serving path, the training
    shape, shapes at the edges of the TMA rings and tile schedules (T 65
    to 4096, two batches, causal and full, head_dim 64, 80, 128) and a
-   strided q (gradients element by element and per 64-row block);
-   bitwise repeatability; at the table and training shapes each kernel
+   strided q (gradients element by element and per 64-row block, and
+   the dQ kernel's delta = rowsum(o * do)); bitwise repeatability; at
+   the table and training shapes each kernel, and the whole backward,
    timed in turns with SDPA (ratio, TFLOP/s, share of bound) and its
    plain version;
 4. prefill at Llama-3-8B widths and 2 layers, kernel against plain attention;
 5. one train step at Llama-3-1B widths and 2 layers, kernels against
    autograd through plain attention (loss, global grad norm and the
-   grads of each layer's wq, wk, wv);
+   grads of each layer's wq, wk, wv), with no plain delta on the way;
 6. full-depth Llama-3-8B serving: a DecodeScheduler over the paged-KV
    engine answers six requests (one a prefix-cache hit), with the forward
    kernel's launch count read from this run;
@@ -78,6 +79,10 @@ TRAIN_RTOL = 3e-3
 # kernel that skips one tile of its loop in long rows 0.10 (dQ) or 0.12
 # (dK/dV), while the global norm stays within 3e-3.
 ATTN_GRAD_RTOL = 3e-2
+# the dQ kernel's delta = rowsum(o * do) against the plain torch row sum:
+# |err| <= DELTA_RTOL * rowsum(|o * do|), the float32 bound of one row sum
+# taken in another order
+DELTA_RTOL = 1e-5
 
 # published dense bf16 peak (FLOP/s) and memory rate (B/s) by card name,
 # NVIDIA data sheets; the rates assume the card's full power limit
@@ -183,12 +188,15 @@ def attention_work(B, T, Hq, Hkv, D, causal, kernel="fwd"):
     """(flops, bytes) a kernel needs, counting each unmasked (query, key)
     pair: the forward does 2 products (S, P V), 4*D flops a pair, reads
     q, k, v and writes o and lse; dQ does 3 (S, dP, dS K), 6*D flops,
-    reads q, k, v, do, lse, delta and writes dq; dK/dV does 4 (S^T, dP^T,
-    P^T dO, dS^T Q), 8*D flops, reads the same and writes dk, dv. bf16
-    tensors, fp32 row terms; each read once, each written once."""
+    reads q, k, v, o, do, lse and writes dq and delta; dK/dV does 4 (S^T,
+    dP^T, P^T dO, dS^T Q), 8*D flops, reads q, k, v, do, lse, delta and
+    writes dk, dv; the whole backward ("bwd") does both, reads q, k, v,
+    o, do, lse and writes dq, dk, dv. bf16 tensors, fp32 row terms; each
+    read once, each written once."""
     pairs = T * (T + 1) // 2 if causal else T * T
     products, q_sized, kv_sized, rows = {
-        "fwd": (2, 2, 2, 1), "dq": (3, 3, 2, 2), "dkv": (4, 2, 4, 2)}[kernel]
+        "fwd": (2, 2, 2, 1), "dq": (3, 4, 2, 2), "dkv": (4, 2, 4, 2),
+        "bwd": (7, 4, 4, 1)}[kernel]
     flops = 2 * products * D * pairs * B * Hq
     nbytes = 2 * B * T * D * (q_sized * Hq + kv_sized * Hkv) \
         + 4 * rows * B * Hq * T
@@ -248,7 +256,7 @@ def ptxas_report(log: str):
 
 def launch_shapes(_build) -> dict:
     """Dynamic shared memory, threads, registers at launch and rows of a
-    block of the wgmma kernels, per head_dim they are built for, as their
+    block of each kernel, per head_dim it is built for, as their
     libraries report them."""
     import ctypes
 
@@ -256,6 +264,8 @@ def launch_shapes(_build) -> dict:
     for lib, entry, kernel in (
             ("flash_attention_fwd", "flash_attention_fwd_config",
              "flash_fwd_kernel"),
+            ("flash_attention_bwd", "flash_attention_bwd_dq_config",
+             "flash_bwd_dq_kernel"),
             ("flash_attention_bwd", "flash_attention_bwd_dkv_config",
              "flash_bwd_dkv_kernel")):
         fn = getattr(_build.load(lib), entry)
@@ -273,7 +283,7 @@ def launch_shapes(_build) -> dict:
 def phase_build(_build) -> None:
     """Build every kernel source (one nvcc each, all started together)
     and print ptxas's report of each instantiation and the launch shape
-    of the wgmma kernels."""
+    of each kernel."""
     t0 = time.perf_counter()
     built = _build.build()
     build_s = time.perf_counter() - t0
@@ -407,10 +417,11 @@ def phase_kernel(torch, gen, peaks):
 
 
 def phase_backward(torch, gen, peaks):
-    """The dQ and dK/dV kernels against their plain versions on the
-    forward's shape grid, bench()'s heads, the training shape, the ring
-    cases and a strided q; then their times at the 8B table shape and the
-    training shape, in turns with SDPA's backward."""
+    """The dQ kernel (dq and its delta) and the dK/dV kernel, fed that
+    delta, against their plain versions on the forward's shape grid,
+    bench()'s heads, the training shape, the ring cases and a strided q;
+    then their times, and the whole backward's, at the 8B table shape and
+    the training shape, in turns with SDPA's backward."""
     from ray_tpu_torch.ops import flash_attention as fa
 
     def inputs(B, T, Hq, Hkv, D, causal):
@@ -424,7 +435,7 @@ def phase_backward(torch, gen, peaks):
         else:
             q, k, v, do = r(Hq), r(Hkv), r(Hkv), r(Hq)
         o, lse = fa.flash_attention_forward(q, k, v, causal)
-        return q, k, v, o, lse, do, fa.attention_delta(o, do)
+        return q, k, v, o, lse, do
 
     cases = [(1, Hq, Hkv, D, T, causal)
              for (Hq, Hkv, D) in ((32, 8, 128), (32, 8, 64))
@@ -437,19 +448,32 @@ def phase_backward(torch, gen, peaks):
     worst = {"dq": 0.0, "dk": 0.0, "dv": 0.0}
     worst_ratio = {"dq": 0.0, "dkv": 0.0}
     worst_block = {"dq": 0.0, "dk": 0.0, "dv": 0.0}
+    worst_delta = {"max_abs_err": 0.0, "err_over_bound": 0.0}
     train_block = {}
     for B, Hq, Hkv, D, T, causal in cases:
-        q, k, v, o, lse, do, delta = inputs(B, T, Hq, Hkv, D, causal)
-        dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal)
+        q, k, v, o, lse, do = inputs(B, T, Hq, Hkv, D, causal)
+        dq, delta = fa.flash_attention_bwd_dq(q, k, v, o, do, lse, causal)
         dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal)
-        dq2 = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal)
-        dk2, dv2 = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+        dq2, delta2 = fa.flash_attention_bwd_dq(q, k, v, o, do, lse, causal)
+        dk2, dv2 = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta2,
                                               causal)
         torch.cuda.synchronize()
         shape = (B, Hq, Hkv, D, T, causal)
-        check(torch.equal(dq, dq2) and torch.equal(dk, dk2)
-              and torch.equal(dv, dv2),
+        check(torch.equal(dq, dq2) and torch.equal(delta, delta2)
+              and torch.equal(dk, dk2) and torch.equal(dv, dv2),
               f"backward kernels not bitwise repeatable at {shape}")
+        prod = o.float() * do.float()
+        err = (delta - prod.sum(-1).transpose(1, 2)).abs()
+        bound_d = DELTA_RTOL * prod.abs().sum(-1).transpose(1, 2)
+        worst_delta["max_abs_err"] = max(worst_delta["max_abs_err"],
+                                         err.max().item())
+        worst_delta["err_over_bound"] = max(
+            worst_delta["err_over_bound"],
+            (err / bound_d.clamp_min(1e-30)).max().item())
+        check(bool((err <= bound_d).all()),
+              f"dQ kernel's delta disagrees with rowsum(o * do) at {shape}:"
+              f" max |err| {err.max().item()}")
+        del prod, err, bound_d
         want = fa.flash_attention_backward_reference(q, k, v, o, lse, do,
                                                      causal)
         for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
@@ -467,19 +491,22 @@ def phase_backward(torch, gen, peaks):
                   f"{name} kernel disagrees with its plain version at "
                   f"{shape}: max |err| {err.max().item()}, "
                   f"err over tolerance {ratio}, block rel err {rel}")
-        del want, dq, dk, dv, dq2, dk2, dv2
+        del want, dq, dk, dv, dq2, dk2, dv2, delta, delta2
     emit({"phase": "kernel_vs_plain_backward", "cases": len(cases),
           "max_abs_err": worst, "worst_err_over_tolerance": worst_ratio,
           "block_rel_err": worst_block,
           "block_rel_err_train_shape": train_block,
+          "delta": worst_delta,
           "tolerance": {"atol": GRAD_ATOL, "rtol": GRAD_RTOL,
                         "block_rtol": GRAD_BLOCK_RTOL,
-                        "block_floor": GRAD_FLOOR},
+                        "block_floor": GRAD_FLOOR,
+                        "delta_rtol_of_abs_rowsum": DELTA_RTOL},
           "bitwise_repeatable": True})
 
     timings = {}
     for label, (B, T, Hq, Hkv, D) in TIMED_SHAPES:
-        q, k, v, o, lse, do, delta = inputs(B, T, Hq, Hkv, D, True)
+        q, k, v, o, lse, do = inputs(B, T, Hq, Hkv, D, True)
+        _, delta = fa.flash_attention_bwd_dq(q, k, v, o, do, lse, True)
         # SDPA's backward alone (dq, dk, dv together): the yardstick,
         # never called by the port
         qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
@@ -494,13 +521,19 @@ def phase_backward(torch, gen, peaks):
 
         runs = {
             "dq": (lambda: fa.flash_attention_bwd_dq(
-                q, k, v, do, lse, delta, True),
+                q, k, v, o, do, lse, True),
                 lambda: fa.flash_attention_bwd_dq_reference(
-                    q, k, v, do, lse, delta, True)),
+                    q, k, v, o, do, lse, True)),
             "dkv": (lambda: fa.flash_attention_bwd_dkv(
                 q, k, v, do, lse, delta, True),
                 lambda: fa.flash_attention_bwd_dkv_reference(
                     q, k, v, do, lse, delta, True)),
+            # the port's whole backward (dQ with delta, then dK/dV): the
+            # same function as SDPA's backward
+            "bwd": (lambda: fa.flash_attention_backward(
+                q, k, v, o, lse, do, True),
+                lambda: fa.flash_attention_backward_reference(
+                    q, k, v, o, lse, do, True)),
         }
         timings[label] = {}
         for name, (kern, plain) in runs.items():
@@ -514,12 +547,12 @@ def phase_backward(torch, gen, peaks):
         emit({"phase": "kernel_timing_backward", "at": label,
               "shape": {"B": B, "T": T, "Hq": Hq, "Hkv": Hkv, "D": D,
                         "causal": True, "dtype": "bfloat16"},
-              "grid_blocks": {"dq": -(-T // 64) * Hq * B,
-                              "dkv": -(-T // 64) * Hkv * B},
+              "grid_blocks": {"dq": -(-T // (128 if D > 64 else 64))
+                              * Hq * B, "dkv": -(-T // 64) * Hkv * B},
               "library": "scaled_dot_product_attention backward "
                          "(dq, dk, dv together)", **timings[label]})
-        del out, qt, kt, vt
-    return worst, worst_ratio, worst_block, timings
+        del out, qt, kt, vt, delta
+    return worst, worst_ratio, worst_block, worst_delta, timings
 
 
 def _grad_norm(torch, model) -> float:
@@ -553,10 +586,14 @@ def phase_reduced_depth_train(torch, seed):
         return loss, _grad_norm(torch, state["params"]), leaves
 
     reset_launches(fa)
-    loss, gnorm, leaves = one_step()
+    patch, delta_calls = counting_plain_delta(fa)
+    with patch:
+        loss, gnorm, leaves = one_step()
     counts = read_launches(fa)
     check(counts == expected_launches(cfg, 1),
           f"reduced-depth train step launched {counts}")
+    check(not delta_calls, f"the kernel step took the plain delta "
+                           f"{len(delta_calls)} times")
     with mock.patch.object(
             llama, "flash_attention",
             lambda q, k, v, causal: fa.flash_attention_reference(
@@ -574,7 +611,8 @@ def phase_reduced_depth_train(torch, seed):
           "plain_loss": plain_loss, "grad_norm": gnorm,
           "plain_grad_norm": plain_gnorm, "rel_diff": rel,
           "rtol": TRAIN_RTOL, "attn_leaf_rel_diff": leaf_rel,
-          "attn_leaf_rtol": ATTN_GRAD_RTOL, "launches": counts})
+          "attn_leaf_rtol": ATTN_GRAD_RTOL, "launches": counts,
+          "plain_delta_calls": len(delta_calls)})
     check(math.isfinite(loss) and math.isfinite(gnorm),
           "non-finite reduced-depth loss or grad norm")
     check(max(rel.values()) <= TRAIN_RTOL,
@@ -589,6 +627,22 @@ def expected_launches(cfg, steps: int) -> dict:
     once more in the backward pass under remat; dQ and dK/dV once."""
     L = cfg.n_layers * steps
     return {"fwd": (2 if cfg.remat else 1) * L, "dq": L, "dkv": L}
+
+
+def counting_plain_delta(fa):
+    """A patch that counts the calls of the plain row sum
+    ``attention_delta``, and the list it counts in: the card path takes
+    delta from the dQ kernel, so a run under the patch should make none."""
+    from unittest import mock
+
+    calls = []
+    real = fa.attention_delta
+
+    def counted(*args, **kwargs):
+        calls.append(1)
+        return real(*args, **kwargs)
+
+    return mock.patch.object(fa, "attention_delta", counted), calls
 
 
 def reset_launches(fa) -> None:
@@ -620,12 +674,14 @@ def phase_training(torch, seed, smi, peak_flops):
     torch.cuda.synchronize()
 
     reset_launches(fa)
-    losses = [train_step(state, tokens) for _ in range(warmup)]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    losses += [train_step(state, tokens) for _ in range(timed)]
-    torch.cuda.synchronize()
-    step_s = (time.perf_counter() - t0) / timed
+    patch, delta_calls = counting_plain_delta(fa)
+    with patch:
+        losses = [train_step(state, tokens) for _ in range(warmup)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses += [train_step(state, tokens) for _ in range(timed)]
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / timed
     launches = read_launches(fa)
     losses = [float(x) for x in losses]
     steps = warmup + timed
@@ -635,6 +691,8 @@ def phase_training(torch, seed, smi, peak_flops):
     check(losses[-1] < losses[0], f"loss did not fall: {losses}")
     check(launches == expected_launches(cfg, steps),
           f"training launched {launches} over {steps} steps of {L} layers")
+    check(not delta_calls, f"training took the plain delta "
+                           f"{len(delta_calls)} times")
     peak_bytes = torch.cuda.max_memory_allocated()
 
     tokens_per_s = B * T / step_s
@@ -655,7 +713,8 @@ def phase_training(torch, seed, smi, peak_flops):
           "mfu": model_flops / peak_flops,
           "mfu_with_attn": (model_flops + attn_flops) / peak_flops,
           "max_memory_allocated_bytes": peak_bytes, "losses": losses,
-          "launches": launches, "profile_one_step": prof})
+          "launches": launches, "plain_delta_calls": len(delta_calls),
+          "profile_one_step": prof})
     return launches
 
 
@@ -872,7 +931,7 @@ def main(argv=None) -> int:
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     err_o, err_lse, err_ratio, fwd_timing = phase_kernel(torch, gen,
                                                          peaks)
-    bwd_err, bwd_ratio, bwd_block, bwd_timing = phase_backward(
+    bwd_err, bwd_ratio, bwd_block, bwd_delta, bwd_timing = phase_backward(
         torch, gen, peaks)
     torch.cuda.empty_cache()
     phase_reduced_depth(torch, args.seed)
@@ -903,7 +962,8 @@ def main(argv=None) -> int:
         "at_train_shape": {"shape": shapes["train"],
                            **{k: fwd_timing["train"][k] for k in timed}}}]
     for kern, replaces, errs, design in (
-            ("dq", ":135", ("dq",), "mma.sync m16n8k16"),
+            ("dq", ":135", ("dq",),
+             "wgmma fed by TMA (flash_attention_sm90.cuh), delta fused"),
             ("dkv", ":169", ("dk", "dv"),
              "wgmma fed by TMA (flash_attention_sm90.cuh)")):
         kernels.append({
@@ -916,6 +976,7 @@ def main(argv=None) -> int:
             "max_abs_err": max(bwd_err[e] for e in errs),
             "max_abs_err_each": {e: bwd_err[e] for e in errs},
             "block_rel_err_each": {e: bwd_block[e] for e in errs},
+            **({"delta": bwd_delta} if kern == "dq" else {}),
             "tolerance": {"atol": GRAD_ATOL, "rtol": GRAD_RTOL,
                           "block_rtol": GRAD_BLOCK_RTOL},
             "ok": bwd_ratio[kern] <= 1.0

@@ -9,24 +9,44 @@
 //   dQ = dS K,   dK = dS^T Q,   dV = P^T dO.
 // lse is in natural-log units (as the forward stores it); the kernels
 // move it into the log2 domain once per row and use exp2f, so P is
-// exp(S * scale - lse) exactly as in the plain version. delta comes in
-// precomputed (the wrapper takes it in plain torch, as the JAX package
-// takes it in jnp outside its kernels).
+// exp(S * scale - lse) exactly as in the plain version. The dQ kernel
+// also computes delta (the JAX package takes it in jnp outside its
+// kernels) and writes it out for the dK/dV kernel, launched next.
 //
 // What bounds them on this card: operations. dQ does three products per
 // unmasked (query, key) pair (S, dP, dS K), 6 * D flops; dK/dV four
 // (S^T, dP^T, P^T dO, dS^T Q), 8 * D flops, against a few bytes per row
-// of each input. Both keep the T x T matrices out of device memory.
+// of each input. Both keep the T x T matrices out of device memory, and
+// both are wgmma kernels fed by TMA (flash_attention_sm90.cuh): a
+// producer warpgroup whose first warp keeps a ring of mbarrier-guarded
+// stages full, and consumer warpgroups of 64 rows; setmaxnreg moves
+// registers from the producer (24) to the consumers.
 //
-// dQ (mma.sync m16n8k16, flash_attention_common.cuh): one block of 4
-// warps per (64-row q tile, q head, batch); each warp holds its 16 rows
-// of Q and dO as mma A fragments and walks the K/V tiles of kv head
-// h / rep, staged through shared memory, up to the diagonal when causal.
+// dQ, the forward's loop with one more product:
+// - one block per (q tile, q head, batch) on a 1-D grid, causal blocks
+//   longest first with heads inner, so the rep q heads that share a kv
+//   head run side by side and read its K/V from L2; at head_dim 128 two
+//   consumers (128 q rows, 384 threads, one block a SM), at head_dim 64
+//   one (64 q rows, 256 threads, two blocks a SM; see dqk::Shape);
+// - Q and dO of the block arrive once by TMA and stay; the producer
+//   keeps a ring of K and V stages (64 keys at head_dim 128, 128 at 64)
+//   full, K one tile ahead of V, each with its own full and empty
+//   barrier, up to the diagonal when causal;
+// - before the loop each consumer takes delta = rowsum(O o dO) of its
+//   64 rows in fp32 (O from device memory, dO from the resident tile),
+//   in a fixed order, keeps it in the accumulator's row layout and
+//   writes it to delta [B, Hq, T];
+// - per tile: S = Q K^T and dP = dO V^T (SS form), committed as two
+//   groups; P = exp2 of S while dP is still in flight; then
+//   dS = P (dP - delta) scale, rounded to bf16 as the A operand of
+//   dQ += dS K (RS form, the K stage read as MN-major B). V's stage is
+//   freed after dP, K's after the RS product. A consumer whose rows all
+//   precede a tile's keys (the diagonal's last tile of the first
+//   consumer) waits for it and frees it without computing.
 //
-// dK/dV (wgmma fed by TMA, flash_attention_sm90.cuh):
+// dK/dV:
 // - one block per (64-row kv tile, kv head, batch), 384 threads: a
-//   producer warpgroup and two consumer warpgroups; setmaxnreg moves
-//   registers from the producer (24) to the consumers (240);
+//   producer warpgroup and two consumer warpgroups (240 registers);
 // - K and V of the tile arrive once by TMA and stay in shared memory;
 //   the producer's first warp keeps a ring of stages (3 at head_dim 64,
 //   2 at 128) of 128 q rows of Q and dO (TMA) plus their rows of lse
@@ -41,138 +61,326 @@
 //   consumers' sums meet in shared memory at the end, first plus second:
 //   no per-head buffers, no atomics; splitting the q rows between two
 //   consumers halves the longest block's walk (kv tile 0 under causal),
-//   and blocks run longest first (low kv tiles, of every head);
-// - built for head_dim 64 and 128; a narrower head_dim is read through
-//   TMA maps of its true width (missing columns arrive as zeros), scaled
-//   by 1/sqrt(true head_dim) and stored at its true width.
+//   and blocks run longest first (low kv tiles, of every head).
 //
-// Both kernels mask the causal diagonal and the ragged tail (positions
-// >= T), so any T >= 1 runs on them; inputs are read through their
-// [B, T, H, D] strides; no atomics and no split over the reduced axis
-// across blocks, so results are bitwise repeatable.
+// Both kernels are built for head_dim 64 and 128; a narrower head_dim is
+// read through TMA maps of its true width (missing columns arrive as
+// zeros and add exact zeros to every product), scaled by 1/sqrt(true
+// head_dim) and stored at its true width. Both mask the causal diagonal
+// and the ragged tail (positions >= T; rows past T arrive as zeros and
+// are never stored), so any T >= 1 runs on them; inputs are read
+// through their [B, T, H, D] strides; no atomics and no split over the
+// reduced axis across blocks, so results are bitwise repeatable.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "flash_attention_common.cuh"
 #include "flash_attention_sm90.cuh"
 
 namespace {
 
-using flash::kThreads;
-using flash::kTile;
-using flash::load_a_frags;
-using flash::load_tile;
-using flash::mma_rows;
-using flash::mma_rows_t;
-using flash::pack_bf16;
-using flash::store_rows;
+using namespace sm90;
 
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr unsigned kFull = 0xffffffffu;
+
+__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// -------------------------------------------------------------------- dQ
+
+namespace dqk {
+
+// The kernel's shape per head_dim: keys a K/V stage, stages, consumer
+// warpgroups a block. At 128 two consumers (128 q rows, one block a SM)
+// on 64-key stages (128-key S and dP would not fit the registers); at 64
+// one consumer (64 q rows, two blocks a SM) on 128-key stages: on an
+// H100 two consumers were no faster, and 64-key stages slower.
+template <int D>
+struct Shape;
+template <>
+struct Shape<64> {
+  static constexpr int kBlockN = 128, kStages = 2, kConsumers = 1;
+};
+template <>
+struct Shape<128> {
+  static constexpr int kBlockN = 64, kStages = 3, kConsumers = 2;
+};
+
+// A block is a producer warpgroup plus kConsumers warpgroups of 64 q rows
+// each, launched at the most registers __launch_bounds__ allows; the
+// producer gives what it does not need to the consumers (a launch checks
+// the count, see prepare_launch):
+// - 2 consumers, 1 block a SM: 384 x 168 = 128 x 24 + 256 x 240;
+// - 1 consumer, 2 blocks a SM: 256 x 128 = 128 x 24 + 128 x 232.
+template <int kConsumers>
+struct Split {
+  static constexpr int kThreads = 128 * (1 + kConsumers);
+  static constexpr int kBlocksPerSm = kConsumers == 2 ? 1 : 2;
+  static constexpr int kLaunchRegs = kConsumers == 2 ? 168 : 128;
+  static constexpr int kProducerRegs = 24;
+  static constexpr int kConsumerRegs = kConsumers == 2 ? 240 : 232;
+};
+
+}  // namespace dqk
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
-                        const __nv_bfloat16* __restrict__ k,
-                        const __nv_bfloat16* __restrict__ v,
-                        const __nv_bfloat16* __restrict__ dout,
+__global__ void __launch_bounds__(
+    dqk::Split<dqk::Shape<D>::kConsumers>::kThreads,
+    dqk::Split<dqk::Shape<D>::kConsumers>::kBlocksPerSm)
+    flash_bwd_dq_kernel(__grid_constant__ const CUtensorMap tm_q,
+                        __grid_constant__ const CUtensorMap tm_k,
+                        __grid_constant__ const CUtensorMap tm_v,
+                        __grid_constant__ const CUtensorMap tm_do,
+                        const __nv_bfloat16* __restrict__ o,
                         const float* __restrict__ lse,
-                        const float* __restrict__ delta,
-                        __nv_bfloat16* __restrict__ dq, int T, int Hq, int rep,
-                        int64_t q_sb, int64_t q_st, int64_t q_sh, int64_t k_sb,
-                        int64_t k_st, int64_t k_sh, int64_t v_sb, int64_t v_st,
-                        int64_t v_sh, int64_t do_sb, int64_t do_st,
-                        int64_t do_sh, int64_t dq_sb, int64_t dq_st,
+                        float* __restrict__ delta,
+                        __nv_bfloat16* __restrict__ dq, int T, int Hq, int B,
+                        int rep, int d_true, int64_t o_sb, int64_t o_st,
+                        int64_t o_sh, int64_t dq_sb, int64_t dq_st,
                         int64_t dq_sh, float scale, int causal) {
-  constexpr int kLd = D + 8;
-  constexpr int kKSteps = D / 16;
-  constexpr int kDTiles = D / 8;
-  __shared__ __align__(16) __nv_bfloat16 k_s[kTile * kLd];
-  __shared__ __align__(16) __nv_bfloat16 v_s[kTile * kLd];
+  constexpr int kBlockN = dqk::Shape<D>::kBlockN;  // keys a stage
+  constexpr int kStages = dqk::Shape<D>::kStages;
+  constexpr int kConsumers = dqk::Shape<D>::kConsumers;
+  using S = dqk::Split<kConsumers>;
+  constexpr int kBlockM = 64 * kConsumers;    // q rows of the block
+  constexpr int kColBlocks = D / 64;          // 64-column TMA boxes per row
+  constexpr int kQBytes = kBlockM * D * 2;    // Q or dO
+  constexpr int kKVBytes = kBlockN * D * 2;   // K or V of one stage
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t q_full;
+  __shared__ __align__(8) uint64_t k_full[kStages], v_full[kStages],
+      k_empty[kStages], v_empty[kStages];
+  uint8_t* q_s = align_1024(smem_raw);
+  uint8_t* do_s = q_s + kQBytes;
+  uint8_t* kv_s = do_s + kQBytes;  // stage s: K at 2s * kKVBytes, V after
 
-  // causal: the longest rows (last q tiles) are scheduled first
-  const int qtile = causal ? (gridDim.x - 1 - blockIdx.x) : blockIdx.x;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / rep;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane >> 2, tg = lane & 3;
-  const int q0 = qtile * kTile;
+  const int heads = Hq * B;
+  const int n_qtiles = cdiv(T, kBlockM);
+  const int rank = blockIdx.x / heads;  // heads inner: longest tiles first
+  const int qtile = causal ? n_qtiles - 1 - rank : rank;
+  const int h = (blockIdx.x % heads) % Hq, b = (blockIdx.x % heads) / Hq;
+  const int q0 = qtile * kBlockM;
+  const int n_tiles = cdiv(causal ? min(q0 + kBlockM, T) : T, kBlockN);
 
-  const __nv_bfloat16* k_head = k + b * k_sb + hk * k_sh;
-  const __nv_bfloat16* v_head = v + b * v_sb + hk * v_sh;
-
-  // Q and dO tiles -> registers as A fragments, staged through k_s, v_s
-  load_tile<D>(k_s, q + b * q_sb + h * q_sh, q_st, q0, T, tid);
-  load_tile<D>(v_s, dout + b * do_sb + h * do_sh, do_st, q0, T, tid);
+  if (threadIdx.x == 0) {
+    mbar_init(&q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&k_empty[s], 4 * kConsumers);
+      mbar_init(&v_empty[s], 4 * kConsumers);
+    }
+    mbar_fence_init();
+  }
   __syncthreads();
-  uint32_t qf[kKSteps][4], dof[kKSteps][4];
-  load_a_frags<D>(qf, k_s + warp * 16 * kLd, lane);
-  load_a_frags<D>(dof, v_s + warp * 16 * kLd, lane);
 
-  const int row0 = q0 + warp * 16 + g;  // this thread's rows: row0, row0 + 8
-  const float scale_log2 = scale * kLog2e;
-  float lse2[2], dlt[2];
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ---------------------------------------------------------- producer
+    setmaxnreg_dec<S::kProducerRegs>();
+    if (threadIdx.x == 0) {
+      const int hk = h / rep;
+      // tile j's K or V into its stage, once the consumers have freed it
+      auto load = [&](int j, int which, uint64_t* full, uint64_t* empty) {
+        const int s = j % kStages;
+        mbar_wait(&empty[s], ((j / kStages) & 1) ^ 1);
+        mbar_arrive_expect_tx(&full[s], kKVBytes);
+        uint8_t* dst = kv_s + (2 * s + which) * kKVBytes;
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + r * 8;
-    const int64_t at = ((int64_t)b * Hq + h) * T + row;
-    lse2[r] = row < T ? lse[at] * kLog2e : 0.f;
-    dlt[r] = row < T ? delta[at] : 0.f;
-  }
-
-  float acc[kDTiles][4];
+        for (int cb = 0; cb < kColBlocks; ++cb) {
+          tma_load_4d(dst + cb * kBlockN * 128, which ? &tm_v : &tm_k,
+                      &full[s], cb * 64, hk, j * kBlockN, b);
+        }
+      };
+      mbar_arrive_expect_tx(&q_full, 2 * kQBytes);
 #pragma unroll
-  for (int dt = 0; dt < kDTiles; ++dt) {
-    acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
-  }
-  const int n_tiles = causal ? qtile + 1 : (T + kTile - 1) / kTile;
-  const unsigned short* k_bits = reinterpret_cast<const unsigned short*>(k_s);
-
-  for (int j = 0; j < n_tiles; ++j) {
-    const int k0 = j * kTile;
-    __syncthreads();  // every warp is done with the previous tile
-    load_tile<D>(k_s, k_head, k_st, k0, T, tid);
-    load_tile<D>(v_s, v_head, v_st, k0, T, tid);
-    __syncthreads();
-    const bool need_mask =
-        (k0 + kTile > T) || (q0 + kTile > T) || (causal && j == qtile);
-
-    // 16 keys at a time: S and dP for two n8 tiles, then dQ += dS K
-#pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk) {
-      float s[2][4], dp[2][4];
-#pragma unroll
-      for (int n = 0; n < 2; ++n) {
-        const int nt = 2 * kk + n;
-        s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-        dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
-        mma_rows_t<D>(s[n], qf, k_s + nt * 8 * kLd, lane);
-        mma_rows_t<D>(dp[n], dof, v_s + nt * 8 * kLd, lane);
+      for (int cb = 0; cb < kColBlocks; ++cb) {
+        tma_load_4d(q_s + cb * kBlockM * 128, &tm_q, &q_full, cb * 64, h, q0,
+                    b);
+        tma_load_4d(do_s + cb * kBlockM * 128, &tm_do, &q_full, cb * 64, h,
+                    q0, b);
       }
+      // K runs one tile ahead of V, as the consumers use them
+      load(0, 0, k_full, k_empty);
+      for (int j = 0; j < n_tiles; ++j) {
+        if (j + 1 < n_tiles) load(j + 1, 0, k_full, k_empty);
+        load(j, 1, v_full, v_empty);
+      }
+    }
+  } else {
+    // --------------------------------------------------------- consumers
+    setmaxnreg_inc<S::kConsumerRegs>();
+    const int c = wg - 1;  // q rows 64c .. 64c + 63 of the tile
+    const int t = threadIdx.x % 128, w = t / 32, lane = t % 32;
+    const int g = lane >> 2, tg = lane & 3;
+    const int r0 = 64 * c + 16 * w + g;  // this thread's tile rows: r0, +8
+    const int row0 = q0 + r0;
+    // the tiles this consumer computes: none without real rows, up to
+    // its own diagonal when causal (the block's last tile may lie past
+    // the first consumer's rows)
+    const int n_live = q0 + 64 * c >= T ? 0
+                       : causal ? cdiv(min(q0 + 64 * c + 64, T), kBlockN)
+                                : n_tiles;
+    const float scale_log2 = scale * kLog2e;
+    const uint32_t q_addr = smem_addr(q_s) + c * 64 * 128;
+    const uint32_t do_addr = smem_addr(do_s) + c * 64 * 128;
+    const uint32_t kv_addr = smem_addr(kv_s);
+
+    float lse2[2], dlt[2];
 #pragma unroll
-      for (int n = 0; n < 2; ++n) {
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      lse2[r] = row < T ? lse[((int64_t)b * Hq + h) * T + row] * kLog2e : 0.f;
+    }
+
+    // delta = rowsum(O o dO): the quad of a row takes its 8-column chunks
+    // tg, tg + 4, ... in order, then sums the four partials
+    // (butterfly; every lane ends with the same bits)
+    mbar_wait(&q_full, 0);
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float p = exp2f(s[n][e] * scale_log2 - lse2[e >> 1]);
-          if (need_mask) {
-            const int col = k0 + (2 * kk + n) * 8 + tg * 2 + (e & 1);
-            const int row = row0 + (e >> 1) * 8;
-            if (col >= T || row >= T || (causal && col > row)) p = 0.f;
+    for (int r = 0; r < 2; ++r) {
+      const int tr = r0 + 8 * r, row = q0 + tr;
+      float sum = 0.f;
+      if (row < T) {
+        const __nv_bfloat16* o_row = o + b * o_sb + h * o_sh + row * o_st;
+#pragma unroll
+        for (int i = 0; i < D / 32; ++i) {
+          const int ch = tg + 4 * i;  // 8 columns at 8 * ch
+          if (8 * ch >= d_true) continue;
+          const uint4 ov = *reinterpret_cast<const uint4*>(o_row + 8 * ch);
+          // dO's chunk in the 128-byte-swizzled tile (16-byte chunk
+          // index XOR the row's index within its 8-row atom)
+          const uint4 dv = *reinterpret_cast<const uint4*>(
+              do_s + (ch / 8) * kBlockM * 128 + tr * 128 +
+              (((ch % 8) ^ (tr & 7)) << 4));
+          const __nv_bfloat162* o2 =
+              reinterpret_cast<const __nv_bfloat162*>(&ov);
+          const __nv_bfloat162* do2 =
+              reinterpret_cast<const __nv_bfloat162*>(&dv);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float2 a = __bfloat1622float2(o2[e]);
+            const float2 d = __bfloat1622float2(do2[e]);
+            sum += a.x * d.x;  // bf16 x bf16 is exact in fp32
+            sum += a.y * d.y;
           }
-          s[n][e] = p * (dp[n][e] - dlt[e >> 1]) * scale;  // dS
         }
       }
-      uint32_t da[4];
-      da[0] = pack_bf16(s[0][0], s[0][1]);
-      da[1] = pack_bf16(s[0][2], s[0][3]);
-      da[2] = pack_bf16(s[1][0], s[1][1]);
-      da[3] = pack_bf16(s[1][2], s[1][3]);
-      mma_rows<D>(acc, da, k_bits, kk * 16, lane);
+      sum += __shfl_xor_sync(kFull, sum, 1);
+      sum += __shfl_xor_sync(kFull, sum, 2);
+      dlt[r] = sum;
+      if (tg == 0 && row < T) delta[((int64_t)b * Hq + h) * T + row] = sum;
+    }
+
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+    for (int j = 0; j < n_live; ++j) {
+      const int s = j % kStages;
+      const uint32_t parity = (j / kStages) & 1;
+      const uint32_t k_addr = kv_addr + 2 * s * kKVBytes;
+      const uint32_t v_addr = k_addr + kKVBytes;
+      const int k0 = j * kBlockN;
+      // both stages before either product: a barrier wait (a loop) while
+      // S is in flight made ptxas serialise every wgmma (C7520)
+      mbar_wait(&k_full[s], parity);
+      mbar_wait(&v_full[s], parity);
+
+      // S = Q K^T and dP = dO V^T: 64 rows x kBlockN keys, two groups
+      float sc[kBlockN / 2], dp[kBlockN / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks) {
+        const uint32_t col = (ks % 4) * 32;  // bytes into the column block
+        wgmma_ss<kBlockN>(
+            sc, desc_sw128(q_addr + (ks / 4) * kBlockM * 128 + col, 16, 1024),
+            desc_sw128(k_addr + (ks / 4) * kBlockN * 128 + col, 16, 1024),
+            ks > 0);
+      }
+      wgmma_commit();
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks) {
+        const uint32_t col = (ks % 4) * 32;
+        wgmma_ss<kBlockN>(
+            dp, desc_sw128(do_addr + (ks / 4) * kBlockM * 128 + col, 16, 1024),
+            desc_sw128(v_addr + (ks / 4) * kBlockN * 128 + col, 16, 1024),
+            ks > 0);
+      }
+      wgmma_commit();
+
+      // P, while dP is in flight; mask the ragged tail and the diagonal
+      wgmma_wait<1>();
+      fence_regs(sc);
+      const bool need_mask =
+          k0 + kBlockN > T || (causal && k0 + kBlockN - 1 > q0 + 64 * c);
+#pragma unroll
+      for (int e = 0; e < kBlockN / 2; ++e) {
+        float p = exp2f(sc[e] * scale_log2 - lse2[(e >> 1) & 1]);
+        if (need_mask) {
+          const int col = k0 + 8 * (e / 4) + 2 * tg + (e & 1);
+          const int row = row0 + ((e >> 1) & 1) * 8;
+          if (col >= T || (causal && col > row)) p = 0.f;
+        }
+        sc[e] = p;
+      }
+      wgmma_wait<0>();
+      fence_regs(dp);
+      if (lane == 0) mbar_arrive(&v_empty[s]);  // this warp is done with V
+
+      // dS = P (dP - delta) scale, as bf16 A registers
+      uint32_t dsa[kBlockN / 16][4];
+#pragma unroll
+      for (int e = 0; e < kBlockN / 2; ++e) {
+        dp[e] = sc[e] * (dp[e] - dlt[(e >> 1) & 1]) * scale;
+      }
+#pragma unroll
+      for (int kk = 0; kk < kBlockN / 16; ++kk) pack_a(dsa[kk], dp, kk);
+
+      // dQ += dS K: the stage's keys are the contraction
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBlockN / 16; ++kk) {
+        wgmma_rs<D>(acc, dsa[kk],
+                    desc_sw128(k_addr + kk * 16 * 128, kBlockN * 128, 1024));
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      if (lane == 0) mbar_arrive(&k_empty[s]);  // and with K
+    }
+    // the block's other tiles: freed once loaded (freeing a stage before
+    // its load would complete the empty barrier's earlier phase, which
+    // the other consumer may still be reading)
+    for (int j = n_live; j < n_tiles; ++j) {
+      const int s = j % kStages;
+      const uint32_t parity = (j / kStages) & 1;
+      mbar_wait(&k_full[s], parity);
+      mbar_wait(&v_full[s], parity);
+      if (lane == 0) {
+        mbar_arrive(&k_empty[s]);
+        mbar_arrive(&v_empty[s]);
+      }
+    }
+
+    // epilogue: dQ in q's dtype, the true columns of the real rows
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + r * 8;
+      if (row >= T) continue;
+      __nv_bfloat16* out = dq + b * dq_sb + h * dq_sh + (int64_t)row * dq_st;
+#pragma unroll
+      for (int jn = 0; jn < D / 8; ++jn) {
+        const int col = 8 * jn + 2 * tg;
+        if (col < d_true) {
+          *reinterpret_cast<__nv_bfloat162*>(out + col) =
+              __floats2bfloat162_rn(acc[4 * jn + 2 * r],
+                                    acc[4 * jn + 2 * r + 1]);
+        }
+      }
     }
   }
-
-  store_rows<D>(acc, dq + b * dq_sb + h * dq_sh, dq_st, row0, T, lane);
 }
 
 // ------------------------------------------------------------------ dK/dV
@@ -188,8 +396,6 @@ constexpr int kConsumerWarps = 8;
 constexpr int kLaunchRegs = 168;
 constexpr int kProducerRegs = 24;
 constexpr int kConsumerRegs = 240;
-
-__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
 
 }  // namespace dkv
 
@@ -207,7 +413,6 @@ __global__ void __launch_bounds__(dkv::kThreads, 1)
                          int64_t dk_st, int64_t dk_sh, int64_t dv_sb,
                          int64_t dv_st, int64_t dv_sh, float scale,
                          int causal) {
-  using dkv::cdiv;
   using dkv::kConsumerRegs;
   using dkv::kConsumerWarps;
   using dkv::kKvRows;
@@ -423,18 +628,48 @@ __global__ void __launch_bounds__(dkv::kThreads, 1)
 using bf16 = __nv_bfloat16;
 
 template <int D>
-int launch_dq(const void* q, const void* k, const void* v, const void* dout,
-              const void* lse, const void* delta, void* dq, int B, int T,
-              int Hq, int Hkv, const long long* s, float scale, int causal,
-              cudaStream_t stream) {
-  const dim3 grid((T + kTile - 1) / kTile, Hq, B);
-  flash_bwd_dq_kernel<D><<<grid, kThreads, 0, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<bf16*>(dq), T, Hq, Hq / Hkv, s[0], s[1], s[2], s[3], s[4],
-      s[5], s[6], s[7], s[8], s[9], s[10], s[11], s[12], s[13], s[14], scale,
-      causal);
+constexpr int dq_smem_bytes() {  // + 1024: the tiles' 1024-byte alignment
+  using Sh = dqk::Shape<D>;
+  return 2 * 64 * Sh::kConsumers * D * 2 +
+         Sh::kStages * 2 * Sh::kBlockN * D * 2 + 1024;
+}
+
+template <int D>
+int dq_config(int* out) {
+  using S = dqk::Split<dqk::Shape<D>::kConsumers>;
+  out[0] = dq_smem_bytes<D>();
+  out[1] = S::kThreads;
+  out[2] = S::kLaunchRegs;
+  out[3] = 64 * dqk::Shape<D>::kConsumers;
+  return 0;
+}
+
+template <int D>
+int launch_dq(const void* q, const void* k, const void* v, const void* o,
+              const void* dout, const void* lse, void* delta, void* dq, int B,
+              int T, int Hq, int Hkv, int d_true, const long long* s,
+              float scale, int causal, cudaStream_t stream) {
+  using S = dqk::Split<dqk::Shape<D>::kConsumers>;
+  constexpr int kBlockM = 64 * dqk::Shape<D>::kConsumers;
+  constexpr int kBlockN = dqk::Shape<D>::kBlockN;
+  CUtensorMap tm_q, tm_k, tm_v, tm_do;
+  int err = encode_rows(&tm_q, q, B, T, Hq, d_true, s[0], s[1], s[2], kBlockM);
+  if (!err) err = encode_rows(&tm_k, k, B, T, Hkv, d_true, s[3], s[4], s[5],
+                              kBlockN);
+  if (!err) err = encode_rows(&tm_v, v, B, T, Hkv, d_true, s[6], s[7], s[8],
+                              kBlockN);
+  if (!err) err = encode_rows(&tm_do, dout, B, T, Hq, d_true, s[12], s[13],
+                              s[14], kBlockM);
+  constexpr int kSmem = dq_smem_bytes<D>();
+  auto kernel = flash_bwd_dq_kernel<D>;
+  if (!err) err = prepare_launch(kernel, kSmem, S::kLaunchRegs);
+  if (err) return err;
+  const int grid = cdiv(T, kBlockM) * Hq * B;
+  kernel<<<grid, S::kThreads, kSmem, stream>>>(
+      tm_q, tm_k, tm_v, tm_do, static_cast<const bf16*>(o),
+      static_cast<const float*>(lse), static_cast<float*>(delta),
+      static_cast<bf16*>(dq), T, Hq, B, Hq / Hkv, d_true, s[9], s[10], s[11],
+      s[15], s[16], s[17], scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -473,7 +708,7 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   auto kernel = flash_bwd_dkv_kernel<D, kStages>;
   if (!err) err = sm90::prepare_launch(kernel, kSmem, dkv::kLaunchRegs);
   if (err) return err;
-  const int grid = dkv::cdiv(T, kKvRows) * Hkv * B;
+  const int grid = cdiv(T, kKvRows) * Hkv * B;
   kernel<<<grid, dkv::kThreads, kSmem, stream>>>(
       tm_q, tm_k, tm_v, tm_do, static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<bf16*>(dk),
@@ -490,32 +725,43 @@ bool bad_shape(int B, int T, int Hq, int Hkv) {
 
 extern "C" {
 
-// q, dout, dq: [B, T, Hq, D] bf16; k, v: [B, T, Hkv, D] bf16; lse and
-// delta: [B, Hq, T] fp32 contiguous (lse in natural-log units). strides:
-// 15 element strides (batch, time, head) of q, k, v, dout and dq in that
-// order; the head_dim stride is 1 and every stride is a multiple of 8.
-// Launches on `stream`; returns the cudaError_t of the launch (0 on
-// success).
+// q, o, dout, dq: [B, T, Hq, D] bf16; k, v: [B, T, Hkv, D] bf16; lse: [B,
+// Hq, T] fp32 contiguous, in natural-log units. Writes dq and delta =
+// rowsum(o * dout), [B, Hq, T] fp32 contiguous (the dK/dV kernel reads
+// it). strides: 18 element strides (batch, time, head) of q, k, v, o,
+// dout and dq in that order; the head_dim stride is 1, every stride a
+// multiple of 8 and every base 16-byte aligned (TMA). D is a multiple
+// of 16 up to 128. Launches on `stream`; returns 0 on success, else a
+// cudaError_t or one of the codes that flash_attention_error_string
+// names.
 int flash_attention_bwd_dq_bf16(const void* q, const void* k, const void* v,
-                                const void* dout, const void* lse,
-                                const void* delta, void* dq, int B, int T,
-                                int Hq, int Hkv, int D,
+                                const void* o, const void* dout,
+                                const void* lse, void* delta, void* dq, int B,
+                                int T, int Hq, int Hkv, int D,
                                 const long long* strides, int causal,
                                 void* stream) {
-  if (bad_shape(B, T, Hq, Hkv)) return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_shape(B, T, Hq, Hkv) || D < 16 || D > 128 || D % 16 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const float scale = 1.f / sqrtf(static_cast<float>(D));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 16: return launch_dq<16>(q, k, v, dout, lse, delta, dq, B, T, Hq, Hkv, strides, scale, causal, st);
-    case 32: return launch_dq<32>(q, k, v, dout, lse, delta, dq, B, T, Hq, Hkv, strides, scale, causal, st);
-    case 48: return launch_dq<48>(q, k, v, dout, lse, delta, dq, B, T, Hq, Hkv, strides, scale, causal, st);
-    case 64: return launch_dq<64>(q, k, v, dout, lse, delta, dq, B, T, Hq, Hkv, strides, scale, causal, st);
-    case 80: return launch_dq<80>(q, k, v, dout, lse, delta, dq, B, T, Hq, Hkv, strides, scale, causal, st);
-    case 96: return launch_dq<96>(q, k, v, dout, lse, delta, dq, B, T, Hq, Hkv, strides, scale, causal, st);
-    case 112: return launch_dq<112>(q, k, v, dout, lse, delta, dq, B, T, Hq, Hkv, strides, scale, causal, st);
-    case 128: return launch_dq<128>(q, k, v, dout, lse, delta, dq, B, T, Hq, Hkv, strides, scale, causal, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  if (D <= 64) {
+    return launch_dq<64>(q, k, v, o, dout, lse, delta, dq, B, T, Hq, Hkv, D,
+                         strides, scale, causal, st);
   }
+  return launch_dq<128>(q, k, v, o, dout, lse, delta, dq, B, T, Hq, Hkv, D,
+                        strides, scale, causal, st);
+}
+
+// The launch shape of the dQ kernel that head_dim D runs on: out[0] bytes
+// of dynamic shared memory, out[1] threads a block, out[2] registers a
+// thread at launch, out[3] q rows a block. Returns 0, or
+// cudaErrorInvalidValue for a D the kernel does not take.
+int flash_attention_bwd_dq_config(int D, int* out) {
+  if (D < 16 || D > 128 || D % 16 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return D <= 64 ? dq_config<64>(out) : dq_config<128>(out);
 }
 
 // As above, writing dk and dv [B, T, Hkv, D] bf16 (summed over the rep

@@ -7,21 +7,20 @@ or the call raises:
 
 - ``csrc/flash_attention_fwd.cu`` replaces the TPU kernel ``_fwd_kernel``
   (wgmma fed by TMA, ``csrc/flash_attention_sm90.cuh``);
-- ``csrc/flash_attention_bwd.cu`` replaces ``_dq_kernel`` (dQ, mma.sync)
-  and ``_dkv_kernel`` (dK/dV, wgmma fed by TMA, with the GQA group-sum
-  inside the kernel).
+- ``csrc/flash_attention_bwd.cu`` replaces ``_dq_kernel`` (dQ, which
+  also computes the row term ``delta = rowsum(o * do)`` that the JAX
+  package takes in jnp) and ``_dkv_kernel`` (dK/dV, with the GQA
+  group-sum inside the kernel), both wgmma fed by TMA.
 
 On CPU tensors the plain versions (:func:`flash_attention_reference`,
 :func:`flash_attention_bwd_dq_reference`,
 :func:`flash_attention_bwd_dkv_reference`) compute the same functions.
 :class:`FlashAttention` is the ``torch.autograd.Function`` that ties the
-two halves together, as the JAX package's ``custom_vjp`` does; the row
-term ``delta = rowsum(o * do)`` is taken in plain torch between the
-halves, where the JAX package takes it in jnp.
+two halves together, as the JAX package's ``custom_vjp`` does.
 
 The kernels mask a ragged last tile themselves, so every T >= 1 runs on
 them, where the JAX package falls back for T that does not block. The
-forward and dK/dV kernels are built for head_dim 64 and 128; a narrower
+kernels are built for head_dim 64 and 128; a narrower
 head_dim (a multiple of 16) is read through TMA maps of its true width,
 whose missing columns arrive as zeros: the counterpart of the JAX
 package's zero-padding of head_dim to 128 lanes, with no padded copy.
@@ -77,7 +76,8 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
 
 def attention_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
     """``delta = rowsum(o * do)`` in float32, as [B, Hq, T] (contiguous,
-    the layout of lse): the row term both backward kernels read."""
+    the layout of lse): the row term both backward kernels use, which
+    the dQ kernel computes and the dK/dV kernel reads."""
     return (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
 
 
@@ -90,13 +90,16 @@ def _probs_and_ds(q, k, v, do, lse, delta, causal):
     return p, ds, k
 
 
-def flash_attention_bwd_dq_reference(q, k, v, do, lse, delta,
-                                     causal: bool = True) -> torch.Tensor:
-    """dQ = dS K with P recomputed from lse: the dQ kernel's plain version.
-    q, do: [B, T, Hq, D]; k, v: [B, T, Hkv, D]; lse, delta: [B, Hq, T]
-    float32. Returns dq in q's dtype."""
+def flash_attention_bwd_dq_reference(q, k, v, o, do, lse,
+                                     causal: bool = True):
+    """``(dq, delta)``: dQ = dS K with P recomputed from lse, and the row
+    term ``delta = rowsum(o * do)`` it uses: the dQ kernel's plain
+    version. q, o, do: [B, T, Hq, D]; k, v: [B, T, Hkv, D]; lse: [B, Hq,
+    T] float32. Returns dq in q's dtype and delta [B, Hq, T] float32."""
+    delta = attention_delta(o, do)
     _, ds, k_rep = _probs_and_ds(q, k, v, do, lse, delta, causal)
-    return torch.einsum("bhqk,bkhd->bqhd", ds, k_rep.float()).to(q.dtype)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k_rep.float()).to(q.dtype)
+    return dq, delta
 
 
 def flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta,
@@ -121,8 +124,8 @@ def flash_attention_backward_reference(q, k, v, o, lse, do,
     and the output gradient ``do``, in float32 with the formulas of the
     JAX package's ``_bwd``: the function the backward kernels compute
     (not autograd through the forward)."""
-    delta = attention_delta(o, do)
-    dq = flash_attention_bwd_dq_reference(q, k, v, do, lse, delta, causal)
+    dq, delta = flash_attention_bwd_dq_reference(q, k, v, o, do, lse,
+                                                 causal)
     dk, dv = flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta,
                                                causal)
     return dq, dk, dv
@@ -131,7 +134,8 @@ def flash_attention_backward_reference(q, k, v, o, lse, do,
 def _vector_loadable(t: torch.Tensor) -> bool:
     """Whether the kernels can read ``t``: TMA's rule for a tensor map
     (unit head_dim stride, other strides a multiple of 16 bytes, a
-    16-byte aligned base), which also covers dQ's 16-byte loads."""
+    16-byte aligned base), which also covers the dQ kernel's 16-byte
+    loads of o."""
     return t.stride(3) == 1 and not any(s % 8 for s in t.stride()[:3]) \
         and t.data_ptr() % 16 == 0
 
@@ -179,16 +183,24 @@ def check_kernel_inputs(q: torch.Tensor, k: torch.Tensor,
             "need grad")
 
 
-def check_backward_inputs(q, k, v, do, lse, delta) -> None:
+def check_backward_inputs(q, k, v, do, lse, delta=None, o=None) -> None:
     """:func:`check_kernel_inputs` plus the backward kernels' own rules
-    for the output gradient and the two row terms."""
+    for the output gradient, the row terms given (the dQ kernel reads
+    lse, the dK/dV kernel lse and delta) and the forward's output ``o``
+    (which the dQ kernel reads)."""
     check_kernel_inputs(q, k, v)
-    if do.shape != q.shape or do.dtype != torch.bfloat16:
-        raise TypeError(f"do must be bfloat16 of q's shape {tuple(q.shape)};"
-                        f" got {do.dtype} {tuple(do.shape)}")
-    _check_vector_loads("do", do)
+    for name, t in (("do", do), ("o", o)):
+        if t is None:
+            continue
+        if t.shape != q.shape or t.dtype != torch.bfloat16:
+            raise TypeError(f"{name} must be bfloat16 of q's shape "
+                            f"{tuple(q.shape)}; got {t.dtype} "
+                            f"{tuple(t.shape)}")
+        _check_vector_loads(name, t)
     B, T, Hq, _ = q.shape
     for name, t in (("lse", lse), ("delta", delta)):
+        if t is None:
+            continue
         if t.shape != (B, Hq, T) or t.dtype != torch.float32 \
                 or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous float32 "
@@ -255,22 +267,22 @@ def flash_attention_forward(q: torch.Tensor, k: torch.Tensor,
 flash_attention_forward.launches = 0  # kernel launches, for run reports
 
 
-def flash_attention_bwd_dq(q, k, v, do, lse, delta,
-                           causal: bool = True) -> torch.Tensor:
-    """dQ of flash attention (see :func:`flash_attention_bwd_dq_reference`).
-    CUDA tensors go through the dQ kernel, CPU tensors through the plain
+def flash_attention_bwd_dq(q, k, v, o, do, lse, causal: bool = True):
+    """``(dq, delta)`` of flash attention (see
+    :func:`flash_attention_bwd_dq_reference`). CUDA tensors go through the
+    dQ kernel, which computes delta too, CPU tensors through the plain
     version."""
-    if _same_device(q, k, v, do, lse, delta).type == "cpu":
-        return flash_attention_bwd_dq_reference(q, k, v, do, lse, delta,
-                                                causal)
-    check_backward_inputs(q, k, v, do, lse, delta)
+    if _same_device(q, k, v, o, do, lse).type == "cpu":
+        return flash_attention_bwd_dq_reference(q, k, v, o, do, lse, causal)
+    check_backward_inputs(q, k, v, do, lse, o=o)
     B, T, Hq, D = q.shape
     dq = torch.empty((B, T, Hq, D), dtype=q.dtype, device=q.device)
+    delta = torch.empty((B, Hq, T), dtype=torch.float32, device=q.device)
     _launch("flash_attention_bwd", "flash_attention_bwd_dq_bf16", q.device,
-            (q, k, v, do, lse, delta, dq), (B, T, Hq, k.shape[2], D),
-            (q, k, v, do, dq), causal)
+            (q, k, v, o, do, lse, delta, dq), (B, T, Hq, k.shape[2], D),
+            (q, k, v, o, do, dq), causal)
     flash_attention_bwd_dq.launches += 1
-    return dq
+    return dq, delta
 
 
 flash_attention_bwd_dq.launches = 0
@@ -300,14 +312,14 @@ flash_attention_bwd_dkv.launches = 0
 def flash_attention_backward(q, k, v, o, lse, do, causal: bool = True):
     """``(dq, dk, dv)`` from the forward's ``o`` and ``lse`` and the
     output gradient ``do``; see :func:`flash_attention_backward_reference`.
-    CUDA tensors go through the dQ and dK/dV kernels, CPU tensors through
-    their plain versions."""
+    CUDA tensors go through the dQ kernel (which also computes
+    ``delta``) and then the dK/dV kernel, CPU tensors through their plain
+    versions."""
     if _same_device(q, k, v, o, lse, do).type == "cuda" \
             and not _vector_loadable(do):
         # autograd's grad may be laid out otherwise: a fresh aligned copy
         do = do.clone(memory_format=torch.contiguous_format)
-    delta = attention_delta(o, do)
-    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, causal)
+    dq, delta = flash_attention_bwd_dq(q, k, v, o, do, lse, causal)
     dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal)
     return dq, dk, dv
 

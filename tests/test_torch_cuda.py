@@ -15,6 +15,9 @@ versions: atol = rtol = 5e-2, the JAX suite's grad bound, element by
 element; and per (batch, 64-row block, head) rms(err) / (rms(ref) +
 1e-3) at most 2e-2, the block bound of ``chip_smoke.py``, which holds the
 late causal rows (whose gradients are small) as tightly as the early ones.
+The dQ kernel's delta = rowsum(o * do) against the plain torch row sum:
+|err| <= 1e-5 * rowsum(|o * do|), the float32 bound of one row sum taken
+in another order.
 """
 
 import dataclasses
@@ -193,7 +196,6 @@ def test_backward_kernels_match_plain_versions(cuda, D, T, Hq, Hkv, causal):
     from ray_tpu_torch.ops import flash_attention as fa
 
     q, k, v, o, lse, do = _backward_case(T, Hq, Hkv, D, causal, cuda)
-    delta = fa.attention_delta(o, do)
     before = (fa.flash_attention_bwd_dq.launches,
               fa.flash_attention_bwd_dkv.launches)
     got = fa.flash_attention_backward(q, k, v, o, lse, do, causal)
@@ -207,8 +209,8 @@ def test_backward_kernels_match_plain_versions(cuda, D, T, Hq, Hkv, causal):
         torch.testing.assert_close(a.float(), b.float(), atol=5e-2,
                                    rtol=5e-2, msg=name)
         assert _block_rel_err(a, b) <= GRAD_BLOCK_RTOL, name
-    again = (fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal),
-             *fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal))
+    dq, delta = fa.flash_attention_bwd_dq(q, k, v, o, do, lse, causal)
+    again = (dq, *fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal))
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
@@ -229,6 +231,76 @@ def _check_dkv(q, k, v, do, causal):
         assert _block_rel_err(a, b) <= GRAD_BLOCK_RTOL, name
     again = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def _check_dq(q, k, v, do, causal):
+    """dQ kernel against its plain version: dq by allclose, the block gate
+    and bitwise repeatability; delta within 1e-5 of rowsum(|o * do|).
+    Returns the forward's o and lse and the kernel's delta."""
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    o, lse = fa.flash_attention_forward(q, k, v, causal)
+    before = fa.flash_attention_bwd_dq.launches
+    dq, delta = fa.flash_attention_bwd_dq(q, k, v, o, do, lse, causal)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_bwd_dq.launches == before + 1
+    want, want_delta = fa.flash_attention_bwd_dq_reference(q, k, v, o, do,
+                                                           lse, causal)
+    assert dq.dtype == torch.bfloat16 and dq.shape == q.shape
+    torch.testing.assert_close(dq.float(), want.float(), atol=5e-2,
+                               rtol=5e-2)
+    assert _block_rel_err(dq, want) <= GRAD_BLOCK_RTOL
+    assert delta.dtype == torch.float32 and delta.is_contiguous()
+    bound = 1e-5 * (o.float() * do.float()).abs().sum(-1).transpose(1, 2)
+    assert bool(((delta - want_delta).abs() <= bound).all())
+    dq2, delta2 = fa.flash_attention_bwd_dq(q, k, v, o, do, lse, causal)
+    assert torch.equal(dq, dq2) and torch.equal(delta, delta2)
+    return o, lse, delta
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("T", RING_T)
+@pytest.mark.parametrize("causal", [True, False])
+def test_dq_kernel_at_ring_edges(cuda, D, T, causal):
+    q, k, v = _qkv(T, 8, 2, D, cuda, seed=5, B=2)
+    g = torch.Generator(device=cuda).manual_seed(6)
+    do = torch.randn(q.shape, device=cuda, generator=g).to(torch.bfloat16)
+    _check_dq(q, k, v, do, causal)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_dq_kernel_reads_a_strided_q(cuda, D):
+    q, k, v = _strided_qkv(2, 257, 8, 2, D, cuda)
+    g = torch.Generator(device=cuda).manual_seed(7)
+    do = torch.randn(q.shape, device=cuda, generator=g).to(torch.bfloat16)
+    _check_dq(q, k, v, do, True)
+
+
+@pytest.mark.parametrize("D", [16, 64, 80, 128])
+@pytest.mark.parametrize("T,causal", [(1, True), (129, False), (257, True)])
+def test_dkv_kernel_given_the_dq_kernels_delta(cuda, D, T, causal):
+    """The dK/dV kernel reads the delta the dQ kernel wrote: its results
+    pass the same gates as with the plain torch row sum, and differ from
+    those by no more than bf16 rounding of the outputs."""
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    q, k, v = _qkv(T, 8, 2, D, cuda, seed=8, B=2)
+    g = torch.Generator(device=cuda).manual_seed(9)
+    do = torch.randn(q.shape, device=cuda, generator=g).to(torch.bfloat16)
+    o, lse, delta = _check_dq(q, k, v, do, causal)
+    got = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal)
+    plain_delta = fa.flash_attention_bwd_dkv(q, k, v, do, lse,
+                                             fa.attention_delta(o, do),
+                                             causal)
+    want = fa.flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta,
+                                                causal)
+    for a, b, c, name in zip(got, want, plain_delta, ("dk", "dv")):
+        torch.testing.assert_close(a.float(), b.float(), atol=5e-2,
+                                   rtol=5e-2, msg=name)
+        assert _block_rel_err(a, b) <= GRAD_BLOCK_RTOL, name
+        # the two deltas differ by float32 rounding: bf16 rounding apart
+        torch.testing.assert_close(a.float(), c.float(), atol=1e-2,
+                                   rtol=8e-3, msg=name)
 
 
 @pytest.mark.parametrize("D", [64, 128])
@@ -288,20 +360,21 @@ def test_loss_backward_reaches_the_kernels_not_the_plain_version(
                and bool(torch.isfinite(t.grad).all()) for t in (q, k, v))
 
 
-@pytest.mark.parametrize("case", ["do_fp32", "lse_fp16"])
+@pytest.mark.parametrize("case", ["do_fp32", "lse_fp16", "o_fp32"])
 def test_backward_kernel_guard_raises(cuda, case):
     from ray_tpu_torch.ops import flash_attention as fa
 
     q, k, v, o, lse, do = _backward_case(64, 4, 2, 64, True, cuda)
-    delta = fa.attention_delta(o, do)
     exc = TypeError
     if case == "do_fp32":
         do = do.float()
+    elif case == "o_fp32":
+        o = o.float()
     else:
         lse, exc = lse.half(), ValueError
     before = fa.flash_attention_bwd_dq.launches
     with pytest.raises(exc):
-        fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, True)
+        fa.flash_attention_bwd_dq(q, k, v, o, do, lse, True)
     assert fa.flash_attention_bwd_dq.launches == before
 
 

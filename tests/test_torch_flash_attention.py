@@ -18,6 +18,10 @@ Tolerances:
   float32 formulas, summed in another order).
 - the autograd.Function on the CPU against torch autograd through the
   plain forward: 1e-5 (two float32 routes to the same gradient).
+- the dQ plain version's ``delta`` against ``jnp.sum(o * do, -1)``:
+  |err| <= 1e-5 * rowsum(|o * do|), the float32 bound of one row sum
+  taken in another order (a bound relative to delta itself fails where
+  the row sum cancels).
 """
 
 import jax
@@ -26,7 +30,7 @@ import numpy as np
 import pytest
 import torch
 
-from ray_tpu.ops.flash_attention import _fwd
+from ray_tpu.ops.flash_attention import _bwd, _fwd
 from ray_tpu.ops.flash_attention import flash_attention as jax_flash
 from ray_tpu.parallel.ring_attention import plain_attention
 from ray_tpu_torch.ops import flash_attention as fa
@@ -222,24 +226,53 @@ def test_autograd_function_matches_autograd_through_the_plain_forward(
                                    msg=name)
 
 
+@pytest.mark.parametrize("B,T,Hq,Hkv,D,causal", BWD_CASES)
+def test_plain_dq_matches_pallas_dq_and_delta(B, T, Hq, Hkv, D, causal):
+    """The dQ kernel's plain version returns ``(dq, delta)``: dq against
+    the dq of JAX's ``_bwd`` run through the Pallas kernels in interpret
+    mode, from the same o and lse; delta against jnp's row sum."""
+    q, k, v, do = _bwd_inputs(B, T, Hq, Hkv, D, seed=6)
+    bhtd = [jnp.swapaxes(jnp.asarray(x), 1, 2) for x in (q, k, v, do)]
+    o_j, lse_j = _fwd(*bhtd[:3], causal=causal, blk=64, interpret=True)
+    dq_j, _, _ = _bwd(*bhtd[:3], o_j, lse_j, bhtd[3], causal=causal, blk=64,
+                      interpret=True)
+    delta_j = jnp.sum(o_j * bhtd[3], axis=-1)  # [B, Hq, T]
+    o = torch.from_numpy(np.swapaxes(np.asarray(o_j), 1, 2).copy())
+    lse = torch.from_numpy(np.asarray(lse_j)[..., 0].copy())
+    dq, delta = fa.flash_attention_bwd_dq_reference(
+        *_torch(q, k, v), o, torch.from_numpy(do), lse, causal)
+    assert dq.shape == (B, T, Hq, D)
+    assert delta.shape == (B, Hq, T) and delta.dtype == torch.float32
+    np.testing.assert_allclose(dq.numpy(),
+                               np.swapaxes(np.asarray(dq_j), 1, 2),
+                               **PALLAS_GRAD_TOL)
+    bound = 1e-5 * np.sum(np.abs(np.asarray(o_j * bhtd[3])), axis=-1)
+    assert np.all(np.abs(delta.numpy() - np.asarray(delta_j)) <= bound)
+
+
 def test_cpu_backward_takes_the_plain_versions():
     q, k, v, do = _torch(*_bwd_inputs(1, 40, 4, 2, 16))
     o, lse = fa.flash_attention_reference(q, k, v, True)
     before = (fa.flash_attention_bwd_dq.launches,
               fa.flash_attention_bwd_dkv.launches)
     got = fa.flash_attention_backward(q, k, v, o, lse, do, True)
+    dq, delta = fa.flash_attention_bwd_dq(q, k, v, o, do, lse, True)
     assert (fa.flash_attention_bwd_dq.launches,
             fa.flash_attention_bwd_dkv.launches) == before  # no kernel
     want = fa.flash_attention_backward_reference(q, k, v, o, lse, do, True)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert [t.shape for t in got] == [q.shape, k.shape, v.shape]
+    assert torch.equal(dq, want[0])
+    assert torch.equal(delta, fa.attention_delta(o, do))
 
 
 @pytest.mark.parametrize("case", ["do_fp32", "do_shape", "lse_layout",
-                                  "delta_dtype", "do_strides"])
+                                  "delta_dtype", "do_strides", "o_fp32",
+                                  "o_strides"])
 def test_backward_guard_rejects_before_launch(case):
     q, k, v = _bf16((1, 64, 4, 64), (1, 64, 2, 64))
     do = torch.zeros_like(q)
+    o = torch.zeros_like(q)
     lse = torch.zeros(1, 4, 64)
     delta = torch.zeros(1, 4, 64)
     exc = ValueError
@@ -251,7 +284,22 @@ def test_backward_guard_rejects_before_launch(case):
         lse = torch.zeros(1, 64, 4).transpose(1, 2)
     elif case == "delta_dtype":
         delta = delta.double()
-    else:
+    elif case == "do_strides":
         do = do.transpose(1, 3).contiguous().transpose(1, 3)
+    elif case == "o_fp32":
+        o, exc = o.float(), TypeError
+    else:
+        o = o.transpose(1, 3).contiguous().transpose(1, 3)
     with pytest.raises(exc):
-        fa.check_backward_inputs(q, k, v, do, lse, delta)
+        fa.check_backward_inputs(q, k, v, do, lse, delta, o)
+
+
+def test_backward_guard_accepts_what_each_kernel_reads():
+    """The dQ kernel reads o and lse, the dK/dV kernel lse and delta: each
+    wrapper's guard takes its own set."""
+    q, k, v = _bf16((1, 64, 4, 64), (1, 64, 2, 64))
+    lse = torch.zeros(1, 4, 64)
+    fa.check_backward_inputs(q, k, v, torch.zeros_like(q), lse,
+                             o=torch.zeros_like(q))
+    fa.check_backward_inputs(q, k, v, torch.zeros_like(q), lse,
+                             torch.zeros(1, 4, 64))
