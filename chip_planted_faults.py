@@ -1,6 +1,8 @@
 #!/usr/bin/env python3
 """Planted-fault check of ``chip_smoke.py``'s backward gates, on one card:
-``python3 chip_planted_faults.py``.
+``python3 chip_planted_faults.py``. It is run by hand, after a change to
+the dQ kernel or to the gates, and by nothing else; ``chip_smoke.py``
+does not call it.
 
 Builds the backward kernels from patched copies of
 ``ray_tpu_torch/ops/csrc`` (written under the gitignored
@@ -115,6 +117,8 @@ def main() -> int:
             shutil.copytree(sound_csrc, csrc)
             src = csrc / "flash_attention_bwd.cu"
             text = src.read_text()
+            # the faults match exact lines of the dQ kernel: an edit
+            # there needs the anchors in FAULTS edited too
             edits = FAULTS[name]
             for old, new in zip(edits[::2], edits[1::2]):
                 if text.count(old) != 1:

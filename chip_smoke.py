@@ -190,13 +190,15 @@ def attention_work(B, T, Hq, Hkv, D, causal, kernel="fwd"):
     q, k, v and writes o and lse; dQ does 3 (S, dP, dS K), 6*D flops,
     reads q, k, v, o, do, lse and writes dq and delta; dK/dV does 4 (S^T,
     dP^T, P^T dO, dS^T Q), 8*D flops, reads q, k, v, do, lse, delta and
-    writes dk, dv; the whole backward ("bwd") does both, reads q, k, v,
-    o, do, lse and writes dq, dk, dv. bf16 tensors, fp32 row terms; each
-    read once, each written once."""
+    writes dk, dv; the whole backward ("bwd"), the function SDPA's
+    backward computes, needs 5 (S, dP, P^T dO, dS^T Q, dS K), 10*D flops,
+    reads q, k, v, o, do, lse and writes dq, dk, dv: the S and dP that
+    the dQ and dK/dV kernels both compute are counted once. bf16
+    tensors, fp32 row terms; each read once, each written once."""
     pairs = T * (T + 1) // 2 if causal else T * T
     products, q_sized, kv_sized, rows = {
         "fwd": (2, 2, 2, 1), "dq": (3, 4, 2, 2), "dkv": (4, 2, 4, 2),
-        "bwd": (7, 4, 4, 1)}[kernel]
+        "bwd": (5, 4, 4, 1)}[kernel]
     flops = 2 * products * D * pairs * B * Hq
     nbytes = 2 * B * T * D * (q_sized * Hq + kv_sized * Hkv) \
         + 4 * rows * B * Hq * T
@@ -544,6 +546,14 @@ def phase_backward(torch, gen, peaks):
                         peaks))
             timing.update(rates(timing))
             timings[label][name] = timing
+        # what the two-kernel design does beyond the function: S and dP,
+        # computed in both kernels (not part of the bound)
+        done = sum(attention_work(B, T, Hq, Hkv, D, True, name)[0]
+                   for name in ("dq", "dkv"))
+        whole = timings[label]["bwd"]
+        whole["split_design"] = {
+            "flops_done": done, "repeated_flops": done - whole["flops"],
+            "tflops_done": done / (whole["ms"] * 1e-3) / 1e12}
         emit({"phase": "kernel_timing_backward", "at": label,
               "shape": {"B": B, "T": T, "Hq": Hq, "Hkv": Hkv, "D": D,
                         "causal": True, "dtype": "bfloat16"},

@@ -85,8 +85,6 @@ using namespace sm90;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr unsigned kFull = 0xffffffffu;
 
-__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
-
 // -------------------------------------------------------------------- dQ
 
 namespace dqk {
@@ -107,27 +105,12 @@ struct Shape<128> {
   static constexpr int kBlockN = 64, kStages = 3, kConsumers = 2;
 };
 
-// A block is a producer warpgroup plus kConsumers warpgroups of 64 q rows
-// each, launched at the most registers __launch_bounds__ allows; the
-// producer gives what it does not need to the consumers (a launch checks
-// the count, see prepare_launch):
-// - 2 consumers, 1 block a SM: 384 x 168 = 128 x 24 + 256 x 240;
-// - 1 consumer, 2 blocks a SM: 256 x 128 = 128 x 24 + 128 x 232.
-template <int kConsumers>
-struct Split {
-  static constexpr int kThreads = 128 * (1 + kConsumers);
-  static constexpr int kBlocksPerSm = kConsumers == 2 ? 1 : 2;
-  static constexpr int kLaunchRegs = kConsumers == 2 ? 168 : 128;
-  static constexpr int kProducerRegs = 24;
-  static constexpr int kConsumerRegs = kConsumers == 2 ? 240 : 232;
-};
-
 }  // namespace dqk
 
 template <int D>
 __global__ void __launch_bounds__(
-    dqk::Split<dqk::Shape<D>::kConsumers>::kThreads,
-    dqk::Split<dqk::Shape<D>::kConsumers>::kBlocksPerSm)
+    Split<dqk::Shape<D>::kConsumers>::kThreads,
+    Split<dqk::Shape<D>::kConsumers>::kBlocksPerSm)
     flash_bwd_dq_kernel(__grid_constant__ const CUtensorMap tm_q,
                         __grid_constant__ const CUtensorMap tm_k,
                         __grid_constant__ const CUtensorMap tm_v,
@@ -142,7 +125,7 @@ __global__ void __launch_bounds__(
   constexpr int kBlockN = dqk::Shape<D>::kBlockN;  // keys a stage
   constexpr int kStages = dqk::Shape<D>::kStages;
   constexpr int kConsumers = dqk::Shape<D>::kConsumers;
-  using S = dqk::Split<kConsumers>;
+  using S = Split<kConsumers>;
   constexpr int kBlockM = 64 * kConsumers;    // q rows of the block
   constexpr int kColBlocks = D / 64;          // 64-column TMA boxes per row
   constexpr int kQBytes = kBlockM * D * 2;    // Q or dO
@@ -389,13 +372,12 @@ namespace dkv {
 
 constexpr int kKvRows = 64;   // kv rows of a block; both consumers own them
 constexpr int kQRows = 128;   // q rows of a stage: 64 for each consumer
-constexpr int kThreads = 384;  // producer warpgroup + 2 consumer warpgroups
 constexpr int kConsumerWarps = 8;
-// setmaxnreg split, as in the forward: 384 threads launched at 168
-// registers = 128 * 24 + 256 * 240
-constexpr int kLaunchRegs = 168;
-constexpr int kProducerRegs = 24;
-constexpr int kConsumerRegs = 240;
+using S = Split<2>;  // producer warpgroup + 2 consumer warpgroups
+constexpr int kThreads = S::kThreads;
+constexpr int kLaunchRegs = S::kLaunchRegs;
+constexpr int kProducerRegs = S::kProducerRegs;
+constexpr int kConsumerRegs = S::kConsumerRegs;
 
 }  // namespace dkv
 
@@ -636,7 +618,7 @@ constexpr int dq_smem_bytes() {  // + 1024: the tiles' 1024-byte alignment
 
 template <int D>
 int dq_config(int* out) {
-  using S = dqk::Split<dqk::Shape<D>::kConsumers>;
+  using S = Split<dqk::Shape<D>::kConsumers>;
   out[0] = dq_smem_bytes<D>();
   out[1] = S::kThreads;
   out[2] = S::kLaunchRegs;
@@ -649,7 +631,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* o,
               const void* dout, const void* lse, void* delta, void* dq, int B,
               int T, int Hq, int Hkv, int d_true, const long long* s,
               float scale, int causal, cudaStream_t stream) {
-  using S = dqk::Split<dqk::Shape<D>::kConsumers>;
+  using S = Split<dqk::Shape<D>::kConsumers>;
   constexpr int kBlockM = 64 * dqk::Shape<D>::kConsumers;
   constexpr int kBlockN = dqk::Shape<D>::kBlockN;
   CUtensorMap tm_q, tm_k, tm_v, tm_do;

@@ -55,23 +55,6 @@ using namespace sm90;
 constexpr int kBlockN = 128;  // key rows per K/V stage
 constexpr unsigned kFull = 0xffffffffu;
 
-// A block is a producer warpgroup plus kConsumers warpgroups of 64 q rows
-// each. setmaxnreg split: the block is launched at the most registers
-// __launch_bounds__ allows, and the producer gives what it does not need
-// to the consumers (a launch checks the count, see prepare_launch):
-// - 2 consumers, 1 block a SM: 384 x 168 = 128 x 24 + 256 x 240;
-// - 1 consumer, 2 blocks a SM: 256 x 128 = 128 x 24 + 128 x 232.
-template <int kConsumers>
-struct Split {
-  static constexpr int kThreads = 128 * (1 + kConsumers);
-  static constexpr int kBlocksPerSm = kConsumers == 2 ? 1 : 2;
-  static constexpr int kLaunchRegs = kConsumers == 2 ? 168 : 128;
-  static constexpr int kProducerRegs = 24;
-  static constexpr int kConsumerRegs = kConsumers == 2 ? 240 : 232;
-};
-
-__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
-
 template <int D, int kStages, int kConsumers>
 __global__ void __launch_bounds__(Split<kConsumers>::kThreads,
                                   Split<kConsumers>::kBlocksPerSm)

@@ -1,8 +1,8 @@
-// Hopper (sm_90a) building blocks of the flash-attention forward and
+// Hopper (sm_90a) building blocks of the flash-attention forward, dQ and
 // dK/dV kernels: mbarriers, TMA tile loads, the shared-memory matrix
 // descriptor of a 128-byte-swizzled tile, warpgroup MMA (wgmma) in the two
-// forms both kernels use, setmaxnreg, and on the host the encoding of a
-// [B, T, H, D] tensor's TMA map.
+// forms the kernels use, setmaxnreg and the register split it serves, and
+// on the host the encoding of a [B, T, H, D] tensor's TMA map.
 //
 // Tiles. Every bf16 tile in shared memory is `rows` rows of 64 columns
 // (128 bytes) written by TMA with CU_TENSOR_MAP_SWIZZLE_128B; a head_dim
@@ -141,6 +141,24 @@ template <int kRegs>
 __device__ __forceinline__ void setmaxnreg_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kRegs));
 }
+
+// A block is a producer warpgroup plus kConsumers warpgroups of 64 q rows
+// each (the dK/dV kernel's two consumers share its 64 kv rows), launched
+// at the most registers __launch_bounds__ allows; the producer gives what
+// it does not need to the consumers (a launch checks the count, see
+// prepare_launch):
+// - 2 consumers, 1 block a SM: 384 x 168 = 128 x 24 + 256 x 240;
+// - 1 consumer, 2 blocks a SM: 256 x 128 = 128 x 24 + 128 x 232.
+template <int kConsumers>
+struct Split {
+  static constexpr int kThreads = 128 * (1 + kConsumers);
+  static constexpr int kBlocksPerSm = kConsumers == 2 ? 1 : 2;
+  static constexpr int kLaunchRegs = kConsumers == 2 ? 168 : 128;
+  static constexpr int kProducerRegs = 24;
+  static constexpr int kConsumerRegs = kConsumers == 2 ? 240 : 232;
+};
+
+__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
 
 // Order this thread's earlier accesses of shared memory by the generic
 // proxy (plain loads and stores) against later ones by the async proxy

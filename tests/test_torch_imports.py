@@ -1,6 +1,7 @@
-"""The port stands alone: no module of ``ray_tpu_torch`` and not
-``chip_smoke.py`` imports JAX or anything of ``ray_tpu``; and its entry
-points run on CUDA unless asked for the CPU."""
+"""The port stands alone: no module of ``ray_tpu_torch``, not
+``chip_smoke.py`` and not ``chip_planted_faults.py`` imports JAX or
+anything of ``ray_tpu``; and its entry points run on CUDA unless asked
+for the CPU."""
 
 import ast
 import json
@@ -13,7 +14,7 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "ray_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "chip_planted_faults.py"]
 FORBIDDEN = ("jax", "jaxlib", "ray_tpu")
 
 
