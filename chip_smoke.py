@@ -15,7 +15,8 @@ non-zero and never prints the final ``ok`` line.
    shape, shapes at the edges of the TMA rings and tile schedules (T 65
    to 4096, two batches, causal and full, head_dim 64, 80, 128) and a
    strided q (gradients element by element and per 64-row block, and
-   the dQ kernel's delta = rowsum(o * do)); bitwise repeatability; at
+   the dQ kernel's delta = rowsum(o * do)), and at the head counts one
+   rank sees under tensor parallelism; bitwise repeatability; at
    the table and training shapes each kernel, and the whole backward,
    timed in turns with SDPA (ratio, TFLOP/s, share of bound) and its
    plain version;
@@ -29,7 +30,15 @@ non-zero and never prints the final ``ok`` line.
 7. full-depth Llama-3-1B training: 3 warm-up and 5 timed AdamW steps at
    batch 4 x 2048, with step time, tokens/s, MFU, peak memory, a profile
    of one step and the three kernels' launch counts read from this run;
-8. the ``kernels`` line, the card's ``name, power.limit``, and last the
+8. the sharded step (``train/spmd.py``), one rank per card (up to 4) over
+   NCCL through ``train/launch.py`` (a ``world: N`` line first; one card
+   runs the size-1 mesh): at Llama-3-1B widths and 2 layers against the
+   single-device step on the same global batch, then at full depth with
+   step time, tokens/s per card, peak memory per rank beside the analytic
+   param residency and the collective probes, on ``fsdp`` under both
+   gather schedules (the streamed one's peak below the upfront one's) and
+   ``fsdp x tensor 2``; each rank's launches read from its own counts;
+9. the ``kernels`` line, the card's ``name, power.limit``, and last the
    ``{"ok": true, "device": ...}`` line.
 
 Weights are random, made from ``--seed``. Exits non-zero without CUDA.
@@ -83,6 +92,12 @@ ATTN_GRAD_RTOL = 3e-2
 # |err| <= DELTA_RTOL * rowsum(|o * do|), the float32 bound of one row sum
 # taken in another order
 DELTA_RTOL = 1e-5
+# the streamed gather schedule's peak memory per rank must sit below the
+# upfront one's by at least this share of the gathered bytes the analytic
+# param_residency_bytes says it saves (its at-most-two-layers window
+# against the whole stack); the rest of the gap is activations and grads,
+# which the model leaves out
+STREAMED_SAVING_SHARE = 0.5
 
 # published dense bf16 peak (FLOP/s) and memory rate (B/s) by card name,
 # NVIDIA data sheets; the rates assume the card's full power limit
@@ -104,6 +119,10 @@ KERNEL_GROUPS = (
     ("copy_cast", ("copy",)),
     ("reduce_softmax", ("reduce", "softmax", "index")),
 )
+
+
+# and on the sharded step's ranks, the collectives (NCCL's kernels) first
+SPMD_KERNEL_GROUPS = (("nccl", ("nccl", "ncclDevKernel")),) + KERNEL_GROUPS
 
 
 def emit(obj) -> None:
@@ -341,6 +360,15 @@ RING_CASES = ([(2, 32, 8, D, T, causal)
                  for causal in (True, False)])
 
 
+# the heads one rank sees under tensor parallelism (the sharded step's
+# attention): the 1B at tensor 2 (16/4, D 64), the 8B at tensor 2 and 4
+# (16/4 and 8/2, D 128), at the training and table lengths and at ragged
+# ones
+TP_CASES = [(4, 16, 4, 64, 2048, True), (1, 16, 4, 128, 2048, True),
+            (1, 8, 2, 128, 2048, True), (2, 16, 4, 64, 257, False),
+            (2, 8, 2, 128, 129, True), (2, 16, 4, 128, 129, False)]
+
+
 # the two timed shapes: the 8B heads at a 2k-token prefill, and the 1B
 # training step's attention
 TIMED_SHAPES = (("table", (1, 2048, 32, 8, 128)),
@@ -363,7 +391,7 @@ def phase_kernel(torch, gen, peaks):
              for causal in (True, False)]
     # the serving phase's padded prefill lengths (page_size 16)
     cases += [(1, 32, 8, 128, T, True) for T in (16, 208, 1008, 2000)]
-    cases += RING_CASES
+    cases += RING_CASES + TP_CASES
     cases += [("strided", 32, 8, D, 257, True) for D in (64, 128)]
     worst_o = worst_lse = worst_ratio = 0.0
     for B, Hq, Hkv, D, T, causal in cases:
@@ -445,7 +473,7 @@ def phase_backward(torch, gen, peaks):
              for causal in (True, False)]
     cases += [(1, 12, 6, 128, 2048, True), (1, 12, 6, 128, 100, False),
               (4, 32, 8, 64, 2048, True)]
-    cases += RING_CASES
+    cases += RING_CASES + TP_CASES
     cases += [("strided", 32, 8, D, 257, True) for D in (64, 128)]
     worst = {"dq": 0.0, "dk": 0.0, "dv": 0.0}
     worst_ratio = {"dq": 0.0, "dkv": 0.0}
@@ -485,7 +513,7 @@ def phase_backward(torch, gen, peaks):
             rel = block_rel_err(torch, got, ref)
             worst[name] = max(worst[name], err.max().item())
             worst_block[name] = max(worst_block[name], rel)
-            if (B, T) == (4, 2048):
+            if (B, T, Hq) == (4, 2048, 32):
                 train_block[name] = rel
             kern = "dq" if name == "dq" else "dkv"
             worst_ratio[kern] = max(worst_ratio[kern], ratio)
@@ -728,6 +756,179 @@ def phase_training(torch, seed, smi, peak_flops):
     return launches
 
 
+def spmd_world(torch) -> int:
+    """Ranks of the sharded step: one per card, up to 4, a power of two
+    (so every layout below divides the 1B's heads)."""
+    n = min(torch.cuda.device_count(), 4)
+    return 4 if n == 4 else 2 if n >= 2 else 1
+
+
+def spmd_layouts(world: int):
+    """(mesh spec, gather schedule) pairs the sharded step runs on:
+    ``fsdp`` under both schedules and ``fsdp x tensor 2``; on one card
+    the size-1 mesh, where every collective is the identity."""
+    if world == 1:
+        return [("", "upfront")]
+    tp = "tensor=2" if world == 2 else f"fsdp={world // 2},tensor=2"
+    return [(f"fsdp={world}", "streamed"), (f"fsdp={world}", "upfront"),
+            (tp, "streamed")]
+
+
+def phase_spmd(torch, seed, smi, peak_flops, timeout=420.0):
+    """The sharded step (train/spmd.py) in one rank per card over NCCL,
+    launched through train/launch.py: at Llama-3-1B widths and 2 layers
+    against the single-device step on the same global batch (three
+    steps' losses, the first step's global grad norm and wq/wk/wv grads,
+    gathered), then at full depth: step time, tokens/s per card, peak
+    memory per rank beside the analytic param residency, the collective
+    probes. Every rank's kernel launches are read from its own counts."""
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.train.launch import launch
+    from ray_tpu_torch.train.spmd_runs import train_jobs
+
+    world = spmd_world(torch)
+    layouts = spmd_layouts(world)
+    print(f"world: {world}", flush=True)
+    full = llama.LlamaConfig.llama3_1b()
+    cfg2 = dataclasses.replace(full, n_layers=2)
+    T, steps, warmup, timed = 2048, 3, 3, 5
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def tokens(rows):
+        return torch.randint(0, full.vocab_size, (rows, T + 1), device="cuda",
+                             generator=gen).cpu().numpy()
+
+    # the global batch splits over the batch axes: `world` rows cover every
+    # layout at reduced depth; at full depth each batch shard gets 4 rows
+    small = tokens(world)
+    leaves = [f"layers/{n}" for n in ("wq", "wk", "wv")]
+    jobs = [dict(cfg=cfg2, mesh=mesh, gather=gather, init=seed,
+                 tokens=small, steps=steps, grads=leaves)
+            for mesh, gather in layouts]
+    big = {}
+    for mesh, gather in layouts:
+        shards = world // (2 if "tensor" in mesh else 1)
+        if shards not in big:
+            big[shards] = tokens(4 * shards)
+        jobs.append(dict(cfg=full, mesh=mesh, gather=gather, init=seed,
+                         tokens=big[shards], steps=warmup + timed,
+                         probes=True, profile=SPMD_KERNEL_GROUPS))
+    t0 = time.perf_counter()
+    ranks = launch(train_jobs, world, (jobs,), timeout=timeout)
+    launch_s = time.perf_counter() - t0
+
+    # the single-device step on the same global batch, from the same seed
+    init_state, train_step = llama.make_train_step(cfg2)
+    state = init_state(seed)
+    ref_losses, ref_leaves, ref_gnorm = [], None, None
+    for s_ in range(steps):
+        ref_losses.append(float(train_step(state, torch.from_numpy(small))))
+        if s_ == 0:
+            ref_gnorm = _grad_norm(torch, state["params"])
+            ref_leaves = {path: getattr(state["params"].layers,
+                                        path.split("/")[1]).grad.cpu()
+                          for path in leaves}
+    del state
+    torch.cuda.empty_cache()
+
+    parity, timing = {}, {}
+    for j, (mesh, gather) in enumerate(layouts):
+        name = f"{mesh or 'data=1'}/{gather}"
+        reps = [r[j] for r in ranks]
+        rep = reps[0]
+        rel = [abs(a - b) / abs(b) for a, b in zip(rep["losses"], ref_losses)]
+        gnorm_rel = abs(rep["grad_norm"] - ref_gnorm) / ref_gnorm
+        leaf_rel = {f"{path.split('/')[1]}[{i}]": (
+            (torch.from_numpy(rep["grads"][path][i]) - ref[i]).norm()
+            / ref[i].norm()).item()
+            for path, ref in ref_leaves.items() for i in range(len(ref))}
+        want = expected_launches(cfg2, steps)
+        parity[name] = {
+            "mesh": rep["mesh"], "gather": rep["gather"],
+            "losses": rep["losses"], "single_device_losses": ref_losses,
+            "loss_rel_diff": rel, "grad_norm_rel_diff": gnorm_rel,
+            "attn_leaf_rel_diff_worst": max(leaf_rel.values()),
+            "launches_per_rank": [r["launches"] for r in reps]}
+        check(all(math.isfinite(x) for x in rep["losses"]),
+              f"{name}: non-finite losses {rep['losses']}")
+        check(all(r["losses"] == rep["losses"] for r in reps),
+              f"{name}: the ranks report different losses")
+        check(max(rel) <= TRAIN_RTOL and gnorm_rel <= TRAIN_RTOL,
+              f"{name}: sharded step differs from the single-device step: "
+              f"loss {rel}, grad norm {gnorm_rel}")
+        check(max(leaf_rel.values()) <= ATTN_GRAD_RTOL,
+              f"{name}: sharded attention-leaf grads differ: {leaf_rel}")
+        check(all(r["launches"] == want for r in reps),
+              f"{name}: ranks launched {[r['launches'] for r in reps]}, "
+              f"want {want} each")
+
+        reps = [r[len(layouts) + j] for r in ranks]
+        rep = reps[0]
+        step_ms = sum(rep["step_ms"][warmup:]) / timed
+        tokens_per_s = rep["local_batch"] * T * 1e3 / step_ms
+        # a tensor pair shares its batch shard's rows
+        shards = world // (2 if "tensor" in mesh else 1)
+        per_card = tokens_per_s * shards / world
+        want = expected_launches(full, warmup + timed)
+        timing[name] = {
+            "mesh": rep["mesh"], "gather": rep["gather"],
+            "global_batch": rep["local_batch"] * shards, "T": T,
+            "step_ms": step_ms, "step_ms_each": rep["step_ms"],
+            "tokens_per_s": tokens_per_s * shards,
+            "tokens_per_s_per_card": per_card,
+            "mfu": 6.0 * full.num_params() * per_card / peak_flops,
+            "peak_bytes_per_rank": [r["peak_bytes"] for r in reps],
+            "param_residency_bytes": rep["residency"],
+            "layers_gathered": rep["layers_gathered"],
+            "probes_ms": [r["probes_ms"] for r in reps],
+            "profile_one_step_rank0": rep["profile"],
+            "losses": rep["losses"],
+            "launches_per_rank": [r["launches"] for r in reps]}
+        check(all(math.isfinite(x) for x in rep["losses"])
+              and rep["losses"][-1] < rep["losses"][0],
+              f"{name}: full-depth losses {rep['losses']}")
+        check(all(r["launches"] == want for r in reps),
+              f"{name}: full depth launched {[r['launches'] for r in reps]}"
+              f", want {want} each")
+        if rep["gather"] == "streamed" and "fsdp" in rep["mesh"]:
+            check(rep["layers_gathered"]["peak_live"] <= 2,
+                  f"{name}: streamed schedule held "
+                  f"{rep['layers_gathered']['peak_live']} gathered layers")
+    saving = {}
+    for mesh in dict.fromkeys(m for m, _ in layouts):
+        streamed = timing.get(f"{mesh}/streamed")
+        upfront = timing.get(f"{mesh}/upfront")
+        if streamed is None or upfront is None \
+                or "fsdp" not in streamed["mesh"]:
+            continue
+        model = (upfront["param_residency_bytes"]["gathered_bytes"]
+                 - streamed["param_residency_bytes"]["gathered_bytes"])
+        got = (max(upfront["peak_bytes_per_rank"])
+               - max(streamed["peak_bytes_per_rank"]))
+        saving[mesh] = {"peak_bytes_saved": got,
+                        "residency_model_bytes_saved": model}
+        check(got >= STREAMED_SAVING_SHARE * model,
+              f"{mesh}: the streamed schedule's peak is {got} bytes below "
+              f"the upfront one's, want at least {STREAMED_SAVING_SHARE} "
+              f"x the residency model's {model}")
+    launches = {k: sum(r[len(layouts) + j]["launches"][k]
+                       for r in ranks for j in range(len(layouts)))
+                for k in ("fwd", "dq", "dkv")}
+    emit({"phase": "spmd", "world": world, "card": smi,
+          "layouts": [f"{m or 'data=1'}/{g}" for m, g in layouts],
+          "backend": "nccl", "launch_s": launch_s,
+          "reduced_depth": {"n_layers": cfg2.n_layers, "batch": world,
+                            "T": T, "steps": steps, "rtol": TRAIN_RTOL,
+                            "attn_leaf_rtol": ATTN_GRAD_RTOL,
+                            "layouts": parity},
+          "full_depth": {"model": "llama3_1b", "n_layers": full.n_layers,
+                         "warmup_steps": warmup, "timed_steps": timed,
+                         "layouts": timing,
+                         "streamed_peak_saving": saving},
+          "launches_full_depth_all_ranks": launches})
+    return launches
+
+
 def phase_reduced_depth(torch, seed):
     from unittest import mock
 
@@ -951,6 +1152,9 @@ def main(argv=None) -> int:
     gc.collect()  # the serving engine holds reference cycles
     torch.cuda.empty_cache()
     train_launches = phase_training(torch, args.seed, smi, peaks[0])
+    gc.collect()
+    torch.cuda.empty_cache()
+    spmd_launches = phase_spmd(torch, args.seed, smi, peaks[0])
 
     timed = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
              "ratio_to_library", "achieved_tflops", "share_of_bound")
@@ -961,9 +1165,11 @@ def main(argv=None) -> int:
         "source": src + "flash_attention_fwd.cu",
         "replaces": "ray_tpu/ops/flash_attention.py:62",
         "design": "wgmma fed by TMA (flash_attention_sm90.cuh)",
-        "launches": serving_launches + train_launches["fwd"],
+        "launches": serving_launches + train_launches["fwd"]
+        + spmd_launches["fwd"],
         "launches_by_path": {"serving": serving_launches,
-                             "training": train_launches["fwd"]},
+                             "training": train_launches["fwd"],
+                             "spmd_all_ranks": spmd_launches["fwd"]},
         "max_abs_err": err_o, "max_abs_err_lse": err_lse,
         "tolerance": {"atol": KERNEL_ATOL, "rtol": KERNEL_RTOL},
         "ok": err_ratio <= 1.0,
@@ -981,8 +1187,9 @@ def main(argv=None) -> int:
             "source": src + "flash_attention_bwd.cu",
             "replaces": "ray_tpu/ops/flash_attention.py" + replaces,
             "design": design,
-            "launches": train_launches[kern],
-            "launches_by_path": {"training": train_launches[kern]},
+            "launches": train_launches[kern] + spmd_launches[kern],
+            "launches_by_path": {"training": train_launches[kern],
+                                 "spmd_all_ranks": spmd_launches[kern]},
             "max_abs_err": max(bwd_err[e] for e in errs),
             "max_abs_err_each": {e: bwd_err[e] for e in errs},
             "block_rel_err_each": {e: bwd_block[e] for e in errs},

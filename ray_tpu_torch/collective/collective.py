@@ -1,0 +1,59 @@
+"""Tree collectives over the axes of a DeviceMesh (port of the in-program
+half of ``ray_tpu/collective/collective.py``: ``psum_tree`` and
+``pmean_tree``).
+
+Each leaf is all-reduced over the process group of each named mesh axis
+in turn, in place. An axis of size 1 is the identity and costs nothing,
+as the JAX package's collectives fold away on one device.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence, Union
+
+import torch
+import torch.distributed as dist
+
+Axes = Union[str, Sequence[str]]
+
+
+def _axes(axis_names: Axes):
+    return (axis_names,) if isinstance(axis_names, str) \
+        else tuple(axis_names)
+
+
+def _size(mesh, axis: str) -> int:
+    return mesh.size(mesh.mesh_dim_names.index(axis))
+
+
+def _map(fn, tree, *rest):
+    """``fn`` over the leaves of nested dicts of the same structure."""
+    if isinstance(tree, dict):
+        return {k: _map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def psum_tree(tree, mesh, axis_names: Axes):
+    """Sum every tensor leaf of ``tree`` (a tensor or a nested dict of
+    them) over ``axis_names`` of ``mesh``, in place; returns ``tree``."""
+    live = [a for a in _axes(axis_names) if _size(mesh, a) > 1]
+
+    def red(x: torch.Tensor):
+        for ax in live:
+            dist.all_reduce(x, group=mesh.get_group(ax))
+        return x
+
+    return _map(red, tree)
+
+
+def pmean_tree(tree, mesh, axis_names: Axes):
+    """Mean of every leaf over ``axis_names`` of ``mesh``, in place — the
+    gradient reduction of a data-parallel train step."""
+    denom = 1
+    for ax in _axes(axis_names):
+        denom *= _size(mesh, ax)
+    tree = psum_tree(tree, mesh, axis_names)
+    if denom == 1:
+        return tree
+    return _map(lambda x: x.div_(denom), tree)

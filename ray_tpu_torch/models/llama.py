@@ -1,5 +1,5 @@
-"""Llama-3-family decoder (port of ``ray_tpu/models/llama.py``): serving
-and the single-device train step.
+"""Llama-3-family decoder (port of ``ray_tpu/models/llama.py``): serving,
+the single-device train step and the tensor-parallel layer.
 
 The model is an ``nn.Module`` holding the parameters in the JAX package's
 layout: layers stacked on a leading ``[L, ...]`` axis, float32 at rest.
@@ -19,8 +19,9 @@ plain torch ops.
 Training (:func:`make_train_step`) is JAX's single-device step: per-layer
 remat (``torch.utils.checkpoint``), the sequence-chunked fp32 cross
 entropy, AdamW at optax's settings, the state updated in place where JAX
-donates it. The mesh, shardings and compile observatory of the JAX step
-belong to multi-device training.
+donates it. The tensor-parallel pieces (:func:`tp_psum_pair`,
+:func:`vp_embed`, :func:`vp_chunk_nll` and the local-shard layer
+``_pp_layer``) serve the sharded step in ``train/spmd.py``.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
@@ -275,29 +277,39 @@ def embed_tokens(cfg: LlamaConfig, params, tokens: torch.Tensor):
     return params["embedding"][tokens].to(cfg.dtype)
 
 
-def _qkv(cfg: LlamaConfig, x, p, positions):
+def _identity(x):
+    return x
+
+
+def _qkv(cfg: LlamaConfig, x, p, positions, col_in=_identity):
     """Pre-norm, the q/k/v projections and RoPE of one layer:
-    x [B, T, dim] -> q [B, T, Hq, D], k and v [B, T, Hkv, D] (cfg.dtype)."""
+    x [B, T, dim] -> q [B, T, Hq, D], k and v [B, T, Hkv, D] (cfg.dtype).
+    Head counts come from the weights' widths, so a tensor-parallel shard
+    gives its local heads; ``col_in`` enters the column-parallel region."""
     cd = cfg.dtype
     B, T, _ = x.shape
-    h = rms_norm(x, p["attn_norm"], cfg.norm_eps).to(cd)
-    q = (h @ p["wq"].to(cd)).view(B, T, cfg.n_heads, cfg.head_dim)
-    kk = (h @ p["wk"].to(cd)).view(B, T, cfg.n_kv_heads, cfg.head_dim)
-    vv = (h @ p["wv"].to(cd)).view(B, T, cfg.n_kv_heads, cfg.head_dim)
+    hd = cfg.head_dim
+    h = col_in(rms_norm(x, p["attn_norm"], cfg.norm_eps).to(cd))
+    q = (h @ p["wq"].to(cd)).view(B, T, -1, hd)
+    kk = (h @ p["wk"].to(cd)).view(B, T, -1, hd)
+    vv = (h @ p["wv"].to(cd)).view(B, T, -1, hd)
     q, kk = rotary_embedding(q, kk, positions, cfg.rope_theta)
     return q, kk, vv
 
 
-def _attn_out_and_mlp(cfg: LlamaConfig, x, attn, p):
+def _attn_out_and_mlp(cfg: LlamaConfig, x, attn, p, col_in=_identity,
+                      row_out=_identity):
     """The wo projection of ``attn`` [B, T, Hq, D] and the SwiGLU MLP, each
-    added to the residual stream x [B, T, dim]."""
+    added to the residual stream x [B, T, dim]. Under tensor parallelism
+    ``row_out`` sums the row-parallel projections' partial outputs and
+    ``col_in`` enters the MLP's column-parallel region."""
     cd = cfg.dtype
     B, T, _ = x.shape
-    x = x + (attn.reshape(B, T, -1) @ p["wo"].to(cd)).to(x.dtype)
-    h = rms_norm(x, p["mlp_norm"], cfg.norm_eps).to(cd)
+    x = x + row_out(attn.reshape(B, T, -1) @ p["wo"].to(cd)).to(x.dtype)
+    h = col_in(rms_norm(x, p["mlp_norm"], cfg.norm_eps).to(cd))
     g = F.silu(h @ p["w_gate"].to(cd))
     u = h @ p["w_up"].to(cd)
-    return x + ((g * u) @ p["w_down"].to(cd)).to(x.dtype)
+    return x + row_out((g * u) @ p["w_down"].to(cd)).to(x.dtype)
 
 
 def _layer_kv(cfg: LlamaConfig, x, p, positions):
@@ -409,6 +421,25 @@ def loss_fn(cfg: LlamaConfig, params, tokens: torch.Tensor) -> torch.Tensor:
                             _plain_chunk_nll(cfg, _head(cfg, params)))
 
 
+def _init_model(cfg: LlamaConfig, init, device) -> Llama:
+    """The model from a seed (:func:`init_params` from a
+    ``torch.Generator`` on ``device``) or from a JAX param tree as numpy
+    arrays (:func:`params_from_numpy`)."""
+    if isinstance(init, dict):
+        return params_from_numpy(cfg, init, device)
+    gen = torch.Generator(device=device).manual_seed(int(init))
+    return init_params(cfg, gen, device)
+
+
+def _make_optimizer(optimizer, params) -> torch.optim.Optimizer:
+    """``optimizer(params)``, or AdamW at the JAX step's optax settings
+    when ``optimizer`` is None (the train steps' default)."""
+    if optimizer is not None:
+        return optimizer(params)
+    return torch.optim.AdamW(params, lr=3e-4, betas=(0.9, 0.95), eps=1e-8,
+                             weight_decay=0.1)
+
+
 def make_train_step(cfg: LlamaConfig, device=None, optimizer=None):
     """Build ``(init_state, train_step)`` for one device (``cuda`` unless
     ``device`` says otherwise).
@@ -428,20 +459,10 @@ def make_train_step(cfg: LlamaConfig, device=None, optimizer=None):
     """
     dev = resolve_device(device)
 
-    def make_optimizer(params):
-        if optimizer is not None:
-            return optimizer(params)
-        return torch.optim.AdamW(params, lr=3e-4, betas=(0.9, 0.95),
-                                 eps=1e-8, weight_decay=0.1)
-
     def init_state(init=0):
-        if isinstance(init, dict):
-            model = params_from_numpy(cfg, init, dev)
-        else:
-            gen = torch.Generator(device=dev).manual_seed(int(init))
-            model = init_params(cfg, gen, dev)
-        return {"params": model, "opt_state": make_optimizer(
-            model.parameters()), "step": 0}
+        model = _init_model(cfg, init, dev)
+        return {"params": model, "opt_state": _make_optimizer(
+            optimizer, model.parameters()), "step": 0}
 
     def train_step(state, tokens: torch.Tensor) -> torch.Tensor:
         model, opt = state["params"], state["opt_state"]
@@ -453,6 +474,105 @@ def make_train_step(cfg: LlamaConfig, device=None, optimizer=None):
         return loss.detach()
 
     return init_state, train_step
+
+
+# --------------------------------------------------------------------------- #
+# Tensor-parallel collectives (manual/Megatron style)
+# --------------------------------------------------------------------------- #
+
+
+class _EnterColumnParallel(torch.autograd.Function):
+    """Megatron's ``f``: identity forward, all-reduce backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x
+
+    @staticmethod
+    def backward(ctx, ct):
+        # a copy: autograd may hand the same gradient to another branch
+        ct = ct.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(ct, group=ctx.group)
+        return ct, None
+
+
+class _LeaveRowParallel(torch.autograd.Function):
+    """Megatron's ``g``: all-reduce forward, identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        y = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, ct):
+        return ct, None
+
+
+def tp_psum_pair(group):
+    """Megatron 'f'/'g' collective pair over the tensor axis' process
+    ``group``, for exact grads: ``f`` (identity forward / all-reduce
+    backward) enters a column-parallel region, ``g`` (all-reduce forward /
+    identity backward) leaves a row-parallel one. A plain differentiable
+    all-reduce would all-reduce the already-replicated cotangent again in
+    the backward pass, inflating every upstream grad by the axis size."""
+    return (lambda x: _EnterColumnParallel.apply(x, group),
+            lambda x: _LeaveRowParallel.apply(x, group))
+
+
+def vp_embed(cfg: LlamaConfig, emb_local, tokens, axis, gp):
+    """Vocab-parallel embedding lookup on a local shard [V/t, dim]:
+    masked local take + all-reduce over the process group ``axis``
+    assembles each token's row from whichever rank owns its id. ``gp`` is
+    the all-reduce-forward / identity-backward half of
+    :func:`tp_psum_pair`, so the backward scatter-adds straight into the
+    local rows."""
+    vloc = emb_local.shape[0]
+    local = tokens - dist.get_rank(axis) * vloc
+    ok = (local >= 0) & (local < vloc)
+    rows = emb_local[local.clamp(0, vloc - 1)].to(cfg.dtype)
+    return gp(torch.where(ok[..., None], rows, torch.zeros_like(rows)))
+
+
+def vp_chunk_nll(cfg: LlamaConfig, head_local, axis, gp) -> ChunkNll:
+    """Per-chunk NLL against a vocab-sharded head [d, V/t] (Megatron
+    vocab-parallel cross-entropy): replicated logsumexp from the
+    all-reduced max of the local maxima plus the all-reduced local
+    sum-exp; the target logit by masked local take + all-reduce. The max
+    is taken on a detached operand, as JAX's ``stop_gradient``: the shift
+    is the gradient-free logsumexp stabilizer."""
+    vloc = head_local.shape[-1]
+
+    def chunk_nll(x_c, t_c):
+        logits = (x_c.to(cfg.dtype) @ head_local.to(cfg.dtype)).float()
+        m = logits.detach().amax(-1)
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=axis)
+        lse = torch.log(gp(torch.exp(logits - m[..., None]).sum(-1))) + m
+        local = t_c - dist.get_rank(axis) * vloc
+        ok = (local >= 0) & (local < vloc)
+        picked = logits.gather(-1, local.clamp(0, vloc - 1)[..., None])
+        tlogit = gp(torch.where(ok, picked[..., 0],
+                                torch.zeros_like(picked[..., 0])))
+        return lse - tlogit
+
+    return chunk_nll
+
+
+def _pp_layer(cfg: LlamaConfig, x, p, positions, collectives=None):
+    """One decoder layer on *local* shards: head and MLP counts come from
+    the shard shapes (Megatron-style manual TP: q/k/v/gate/up
+    column-parallel, entered through ``f``; wo/down row-parallel, left
+    through ``g``). Norm weights are full-width (replicated).
+    ``collectives`` is the ``(f, g)`` pair from :func:`tp_psum_pair`, or
+    None without a tensor axis. Attention runs on the local heads through
+    :func:`flash_attention`."""
+    col_in, row_out = collectives if collectives is not None \
+        else (_identity, _identity)
+    q, kk, vv = _qkv(cfg, x, p, positions, col_in)
+    attn = flash_attention(q, kk, vv, causal=True)
+    return _attn_out_and_mlp(cfg, x, attn, p, col_in, row_out)
 
 
 # --------------------------------------------------------------------------- #

@@ -1,0 +1,235 @@
+"""Rank programs for ``train/launch.py``: each builds its mesh in the
+rank, drives the sharded train step (or its tensor-parallel pieces) and
+returns plain results — numbers and numpy arrays — so the caller can hold
+them against a reference. ``chip_smoke.py`` and the CPU parity tests run
+them, e.g. ``launch(train_jobs, 4, ([job], "cpu"), device="cpu")``.
+"""
+
+from __future__ import annotations
+
+import gc
+import time
+from typing import Any, Dict, List, Sequence
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from ray_tpu_torch import resolve_device
+from ray_tpu_torch.collective.collective import _map
+from ray_tpu_torch.models.llama import tp_psum_pair, vp_chunk_nll, vp_embed
+from ray_tpu_torch.ops import flash_attention as fa
+from ray_tpu_torch.parallel.mesh import axis_sizes, batch_sharding
+from ray_tpu_torch.parallel.sharding import param_residency_bytes
+from ray_tpu_torch.train.spmd import (_leaves, build_train_mesh,
+                                      global_grad_norm,
+                                      make_collective_probes,
+                                      make_shard_and_gather_fns,
+                                      make_spmd_train_step, spmd_param_specs,
+                                      tree_paths)
+
+KERNELS = {"fwd": fa.flash_attention_forward,
+           "dq": fa.flash_attention_bwd_dq,
+           "dkv": fa.flash_attention_bwd_dkv}
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def train_jobs(jobs: Sequence[Dict[str, Any]], device=None) -> List[dict]:
+    """Run each job in turn on this rank and return one report each.
+
+    A job is a dict: ``cfg`` (LlamaConfig), ``mesh`` (spec, e.g.
+    ``"fsdp=2,tensor=2"``; empty is data-parallel over every rank),
+    ``gather``, ``init`` (seed or JAX param tree as numpy), ``tokens``
+    (the global batch, numpy int ``[B, T+1]``) and ``steps``; and what
+    else to report: ``params`` (True: every leaf gathered after init),
+    ``grads`` (the '/'-joined paths of the leaves whose first-step grads
+    to gather; both numpy, from rank 0 only), ``probes`` (True: the
+    collective probes' times) and ``profile`` (``[(group, [words in a
+    kernel's name]), ...]``: one more step under ``torch.profiler``,
+    device time by group, the first group whose words match a kernel's
+    name taking it).
+
+    A report holds the mesh, the schedule run, each step's loss and host
+    time (synchronised), the first step's global grad norm, the attention
+    kernels' launches over the steps, the most fsdp-full layers held at
+    once, the analytic ``param_residency_bytes`` and, on CUDA, the peak
+    memory over the steps. A configuration that ``make_spmd_train_step``
+    refuses reports ``{"rejected": message}``."""
+    dev = resolve_device(device)
+    meshes: Dict[str, Any] = {}
+    reports = []
+    for job in jobs:
+        spec = job.get("mesh", "")
+        if spec not in meshes:
+            meshes[spec] = build_train_mesh(spec, device=dev)
+        reports.append(_train_job(meshes[spec], dev, job))
+    return reports
+
+
+def _train_job(mesh, dev, job):
+    cfg, gather = job["cfg"], job.get("gather", "streamed")
+    try:
+        init_state, train_step = make_spmd_train_step(cfg, mesh,
+                                                      gather=gather,
+                                                      device=dev)
+    except ValueError as e:
+        return {"rejected": str(e)}
+    stats = train_step.gather_stats
+    sample, specs = spmd_param_specs(cfg, mesh)
+    _, gather_fns = make_shard_and_gather_fns(specs, mesh, device=dev)
+    first = dist.get_rank() == 0
+
+    def gathered(tree, fns=gather_fns):
+        # a copy: a replicated leaf's "gathered" tensor is the leaf itself
+        out = _map(lambda f, x: f(x.detach()).cpu().numpy().copy(), fns,
+                   tree)
+        return out if first else None
+
+    state = init_state(job.get("init", 0))
+    report: Dict[str, Any] = {"world": dist.get_world_size(),
+                              "mesh": axis_sizes(mesh),
+                              "gather": stats.schedule}
+    if job.get("params"):
+        report["params"] = gathered(state["params"])
+    rows = torch.from_numpy(np.ascontiguousarray(
+        batch_sharding(mesh)(np.asarray(job["tokens"]))))
+    if dev.type == "cuda":
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    for fn in KERNELS.values():
+        fn.launches = 0
+    losses, step_ms = [], []
+    for s in range(job.get("steps", 2)):
+        _sync(dev)
+        t0 = time.perf_counter()
+        loss = float(train_step(state, rows))
+        _sync(dev)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+        if s == 0:
+            report["grad_norm"] = float(global_grad_norm(
+                state["params"], specs, mesh))
+            if job.get("grads"):
+                grads = dict(zip(_leaves(tree_paths(specs)),
+                                 _leaves(_map(lambda p: p.grad,
+                                              state["params"]))))
+                fns = dict(zip(_leaves(tree_paths(specs)),
+                               _leaves(gather_fns)))
+                report["grads"] = gathered(
+                    {p: grads[p] for p in job["grads"]},
+                    {p: fns[p] for p in job["grads"]})
+    report.update(
+        losses=losses, step_ms=step_ms,
+        launches={k: fn.launches for k, fn in KERNELS.items()},
+        layers_gathered={"peak_live": stats.peak, "gathers": stats.gathers},
+        residency=param_residency_bytes(sample, specs, mesh,
+                                        mode=stats.schedule),
+        local_batch=int(rows.shape[0]))
+    if dev.type == "cuda":
+        report["peak_bytes"] = torch.cuda.max_memory_allocated()
+    if job.get("probes"):
+        report["probes_ms"] = _probe_ms(cfg, mesh, state["params"], dev)
+    if job.get("profile"):
+        report["profile"] = _profile(lambda: train_step(state, rows), dev,
+                                     job["profile"])
+    return report
+
+
+def _profile(fn, dev, groups) -> Dict[str, Any]:
+    """One call of ``fn`` under ``torch.profiler``: its host ms
+    (synchronised) and the device kernels' ms by group. Kernels on
+    different streams (NCCL's beside the compute stream) overlap, so the
+    groups may add up to more than the wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    _sync(dev)
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        _sync(dev)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    by_group: Dict[str, float] = {}
+    kernels = 0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or e.device_time_total <= 0 \
+                or getattr(e, "is_user_annotation", False):
+            continue
+        group = next((g for g, words in groups
+                      if any(w in e.key for w in words)), "other")
+        by_group[group] = by_group.get(group, 0.0) \
+            + e.device_time_total / 1e3
+        kernels += e.count
+    return {"wall_ms": wall_ms, "device_ms_by_group": by_group,
+            "device_kernels": kernels}
+
+
+def _probe_ms(cfg, mesh, params, dev, reps: int = 3) -> Dict[str, float]:
+    """Mean host ms (synchronised) of each collective probe over ``reps``
+    calls after one warm-up call."""
+    gather_probe, scatter_probe = make_collective_probes(cfg, mesh)
+    out = {}
+    for name, probe in (("gather", gather_probe),
+                        ("scatter", scatter_probe)):
+        float(probe(params))
+        _sync(dev)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            float(probe(params))
+        _sync(dev)
+        out[name] = (time.perf_counter() - t0) * 1e3 / reps
+    return out
+
+
+def tp_helpers(inputs: Dict[str, Any], device=None) -> Dict[str, Any]:
+    """The tensor-parallel helpers on a ``tensor=world`` mesh, each on this
+    rank's shard of the full inputs in ``inputs`` (numpy): a Megatron MLP
+    block through ``tp_psum_pair`` (``y = g((f(x) @ w1) @ w2)``),
+    ``vp_embed`` and ``vp_chunk_nll`` (on ``f(x)``), with the grads of
+    ``sum(y * r)``, ``sum(e * r)`` and ``sum(nll)``. Returns this rank's
+    values and grads as numpy: a sharded leaf's grad is this rank's
+    slice of it."""
+    dev = resolve_device(device)
+    world = dist.get_world_size()
+    mesh = build_train_mesh(f"tensor={world}", device=dev)
+    group = mesh.get_group("tensor")
+    rank = dist.get_rank(group)
+    f, g = tp_psum_pair(group)
+    cfg = inputs["cfg"]
+
+    def full(name, grad=False):
+        return torch.tensor(inputs[name], device=dev).requires_grad_(grad)
+
+    def local(name, dim):
+        t = full(name)
+        n = t.shape[dim] // world
+        return t.narrow(dim, rank * n, n).clone().requires_grad_(True)
+
+    def np_(t):
+        return t.detach().float().cpu().numpy()
+
+    out = {}
+    x, r = full("x", True), full("r")
+    w1, w2 = local("w1", 1), local("w2", 0)
+    y = g((f(x) @ w1) @ w2)
+    (y * r).sum().backward()
+    out["pair"] = {"y": np_(y), "x": np_(x.grad), "w1": np_(w1.grad),
+                   "w2": np_(w2.grad)}
+
+    emb, tokens = local("emb", 0), full("tokens")
+    e = vp_embed(cfg, emb, tokens, group, g)
+    (e.float() * r).sum().backward()
+    out["embed"] = {"e": np_(e), "emb": np_(emb.grad)}
+
+    x = full("x", True)
+    head, targets = local("head", 1), full("targets")
+    nll = vp_chunk_nll(cfg, head, group, g)(f(x), targets)
+    nll.sum().backward()
+    out["nll"] = {"nll": np_(nll), "x": np_(x.grad), "head": np_(head.grad)}
+    return out

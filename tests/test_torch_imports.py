@@ -67,11 +67,20 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu():
     from ray_tpu_torch.models.llama import (Llama, LlamaConfig,
                                             LlamaDecodeEngine,
                                             make_train_step)
+    from ray_tpu_torch.parallel.mesh import make_mesh
+    from ray_tpu_torch.train.launch import launch
+    from ray_tpu_torch.train.spmd import (build_train_mesh,
+                                          make_spmd_train_step)
+    from ray_tpu_torch.train.spmd_runs import train_jobs
 
     cfg = LlamaConfig.debug()
     for make in (lambda: LlamaDecodeEngine(cfg), lambda: Llama(cfg),
                  lambda: make_train_step(cfg),
-                 lambda: resolve_device("cuda")):
+                 lambda: resolve_device("cuda"),
+                 lambda: make_mesh(world_size=1),
+                 lambda: build_train_mesh("", world_size=1),
+                 lambda: make_spmd_train_step(cfg, None),
+                 lambda: launch(train_jobs, 1)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
     assert resolve_device("cpu") == torch.device("cpu")
