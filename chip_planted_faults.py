@@ -16,6 +16,21 @@ catch it, beside the same readings of the sound kernels:
   eight away, the other half of its accumulator rows (its own dQ stays
   right; the dK/dV kernel reads the misplaced delta).
 
+and two planted in ring attention (``parallel/ring_attention.py``),
+with the sound kernels:
+
+- ``ring_local_lse``: the ring's backward runs each K/V block on that
+  block's own o and lse (recomputed by the forward kernel), not on the
+  merged o and the global lse: the classic ring flash-attention fault;
+- ``ring_unweighted_merge``: the ring's forward folds each block's o
+  into the running o with equal weights (their mean), not by their lse;
+  the merged lse stays right.
+
+Both are read by ``chip_smoke``'s ``seq_ring`` gates (o and grad element
+bounds, the block gate of o and of each grad, the merged lse, against
+the whole-T kernels and the fp32 plain version) at the Llama-3-1B heads,
+T 8192 over 4 positions.
+
 Readings: the block gate (per (batch, 64-row block, head) rms(err) /
 (rms(ref) + 1e-3) of dq, dk, dv against their plain versions, limit
 ``chip_smoke.GRAD_BLOCK_RTOL``) at the training shape, the 8B table shape
@@ -96,6 +111,70 @@ def leaf_readings(torch, seed: int) -> dict:
             "rel_diff": line.get("rel_diff"), "smoke_check": caught}
 
 
+def local_lse_backward_steps(q, k, v, o, lse, do, rank, size, causal):
+    """``ring_attention._backward_steps`` with the planted fault: each
+    visited block's dQ and dK/dV on the block's own o and lse."""
+    import torch
+
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.parallel import ring_attention as ra
+
+    dq, dkb, dvb = (torch.zeros(x.shape, dtype=torch.float32,
+                                device=x.device) for x in (q, k, v))
+    kb, vb = k, v
+    for i in range(size):
+        c = ra._block_causal(rank, (rank - i) % size, causal)
+        if c is not None:
+            o_b, lse_b = fa.flash_attention_forward(q, kb, vb, c)
+            dq_b, delta = fa.flash_attention_bwd_dq(q, kb, vb, o_b, do,
+                                                    lse_b, c)
+            dk_b, dv_b = fa.flash_attention_bwd_dkv(q, kb, vb, do, lse_b,
+                                                    delta, c)
+            dq += dq_b
+            dkb += dk_b
+            dvb += dv_b
+        if i + 1 < size:
+            kb, vb, dkb, dvb = yield kb, vb, dkb, dvb
+        elif size > 1:
+            dkb, dvb = yield dkb, dvb
+    return dq.to(q.dtype), dkb.to(k.dtype), dvb.to(v.dtype)
+
+
+def unweighted_merge(o, lse, o_b, lse_b):
+    """``ring_attention._merge`` with the planted fault: the running o
+    and the block's o averaged with equal weights, not by their lse; the
+    merged lse is the right one."""
+    import torch
+
+    if o is None:
+        return o_b.float(), lse_b
+    return o.add_(o_b.float()).mul_(0.5), torch.logaddexp(lse, lse_b)
+
+
+def ring_readings(torch) -> dict:
+    """The seq_ring gates on the sound ring and on each planted ring
+    fault; caught when a numeric gate (not only the launch count, which
+    the planted recompute also changes) fails."""
+    from unittest import mock
+
+    from ray_tpu_torch.parallel import ring_attention as ra
+
+    rings = {"sound_ring": ("_merge", ra._merge),
+             "ring_local_lse": ("_backward_steps", local_lse_backward_steps),
+             "ring_unweighted_merge": ("_merge", unweighted_merge)}
+    out = {}
+    for name, (attr, planted) in rings.items():
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        with mock.patch.object(ra, attr, planted):
+            readings = cs.seq_ring_readings(torch, gen,
+                                            cs.SEQ_RING_CASES[:1])
+        failed = [f for f in cs.seq_ring_failures(readings)
+                  if "against" in f]
+        out[name] = {"readings": readings, "numeric_gates_failed": failed}
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -150,8 +229,18 @@ def main() -> int:
         else:
             caught["sound passes"] = not (result["block_gate_catches"]
                                           or result["leaf_gate_catches"])
+        # back to the sound kernels: the libraries loaded from the
+        # planted build go too
         _build.CSRC, _build.BUILD_DIR = sound_csrc, sound_build
+        _build._loaded.clear()
         torch.cuda.empty_cache()
+    ring = ring_readings(torch)
+    for name, r in ring.items():
+        cs.emit({"ring": name, **r})
+    caught["sound ring passes"] = not ring["sound_ring"][
+        "numeric_gates_failed"]
+    for name in ("ring_local_lse", "ring_unweighted_merge"):
+        caught[name] = bool(ring[name]["numeric_gates_failed"])
     cs.emit({"caught": caught, "ok": all(caught.values())})
     return 0 if all(caught.values()) else 1
 

@@ -20,25 +20,42 @@ non-zero and never prints the final ``ok`` line.
    the table and training shapes each kernel, and the whole backward,
    timed in turns with SDPA (ratio, TFLOP/s, share of bound) and its
    plain version;
-4. prefill at Llama-3-8B widths and 2 layers, kernel against plain attention;
-5. one train step at Llama-3-1B widths and 2 layers, kernels against
+4. ``seq_ring``: ring attention's per-rank math (``parallel/
+   ring_attention.py``) for each of 4 ring positions in one process, a
+   list standing in for the transport, forward and backward at B 1, T
+   8192 (four blocks of 2048) with the Llama-3-1B and Llama-3-8B heads
+   (causal, and the 1B heads full): each block on the kernels, merged by
+   lse; held against the whole-T kernels and the fp32 plain version
+   (o and grads element by element and per 64-row block, and the merged
+   lse), bitwise repeatable, launches R(R+1)/2
+   (causal) or R^2 of each kernel; the whole-T kernels, the ring and SDPA
+   timed in turns;
+5. prefill at Llama-3-8B widths and 2 layers, kernel against plain attention;
+6. one train step at Llama-3-1B widths and 2 layers, kernels against
    autograd through plain attention (loss, global grad norm and the
    grads of each layer's wq, wk, wv), with no plain delta on the way;
-6. full-depth Llama-3-8B serving: a DecodeScheduler over the paged-KV
+7. full-depth Llama-3-8B serving: a DecodeScheduler over the paged-KV
    engine answers six requests (one a prefix-cache hit), with the forward
    kernel's launch count read from this run;
-7. full-depth Llama-3-1B training: 3 warm-up and 5 timed AdamW steps at
+8. full-depth Llama-3-1B training: 3 warm-up and 5 timed AdamW steps at
    batch 4 x 2048, with step time, tokens/s, MFU, peak memory, a profile
    of one step and the three kernels' launch counts read from this run;
-8. the sharded step (``train/spmd.py``), one rank per card (up to 4) over
-   NCCL through ``train/launch.py`` (a ``world: N`` line first; one card
-   runs the size-1 mesh): at Llama-3-1B widths and 2 layers against the
-   single-device step on the same global batch, then at full depth with
-   step time, tokens/s per card, peak memory per rank beside the analytic
-   param residency and the collective probes, on ``fsdp`` under both
-   gather schedules (the streamed one's peak below the upfront one's) and
-   ``fsdp x tensor 2``; each rank's launches read from its own counts;
-9. the ``kernels`` line, the card's ``name, power.limit``, and last the
+9. the sharded steps, one rank per card (up to 4) over NCCL through
+   ``train/launch.py`` in one launch (a ``world: N`` line first; one card
+   runs the size-1 mesh): each layout at Llama-3-1B widths and reduced
+   depth against the single-device step on the same global batch, then
+   at full depth with step time, tokens/s per card and peak memory per
+   rank. The ``spmd`` line: ``train/spmd.py``'s sharded step on ``fsdp``
+   under both gather schedules (beside the analytic param residency and
+   the collective probes; the streamed one's peak below the upfront
+   one's) and ``fsdp x tensor 2``, and its mesh step with a live ``seq``
+   axis (the ring over NCCL): ``seq`` over every card at T 8192, and on
+   four ``fsdp=2,seq=2`` and ``seq=2,tensor=2`` at T 4096. The ``pipe``
+   line: the GPipe step (``models/llama.py:make_pipeline_train_step``),
+   ``pipe`` over every card and on four ``pipe=2,tensor=2``, with its
+   bubble (P-1)/(M+P-1); one card prints a line that it needs two. Each
+   rank's launches are read from its own counts;
+10. the ``kernels`` line, the card's ``name, power.limit``, and last the
    ``{"ok": true, "device": ...}`` line.
 
 Weights are random, made from ``--seed``. Exits non-zero without CUDA.
@@ -92,6 +109,11 @@ ATTN_GRAD_RTOL = 3e-2
 # |err| <= DELTA_RTOL * rowsum(|o * do|), the float32 bound of one row sum
 # taken in another order
 DELTA_RTOL = 1e-5
+# a ring's merged lse (float32) against the whole-T kernel's and the plain
+# version's: max |err|. An lse off by e scales its row's probabilities by
+# exp(-e), so 1e-3 holds P within 0.1%, a twentieth of the block bound;
+# the card tests hold the forward kernel's lse at the same bound
+RING_LSE_ATOL = 1e-3
 # the streamed gather schedule's peak memory per rank must sit below the
 # upfront one's by at least this share of the gathered bytes the analytic
 # param_residency_bytes says it saves (its at-most-two-layers window
@@ -593,6 +615,189 @@ def phase_backward(torch, gen, peaks):
     return worst, worst_ratio, worst_block, worst_delta, timings
 
 
+# the ring of the seq_ring phase: R virtual positions in one process, at
+# full width (B 1, T 8192: four blocks of 2048), Llama-3-1B heads (D 64)
+# and Llama-3-8B heads (D 128) under causal, and the 1B heads full
+RING_SIZE = 4
+SEQ_RING_CASES = (("1b", (1, 8192, 32, 8, 64), True),
+                  ("8b", (1, 8192, 32, 8, 128), True),
+                  ("1b_full", (1, 8192, 32, 8, 64), False))
+
+
+def ring_launches(ring: int, causal: bool) -> int:
+    """Launches of each kernel in one ring attention call over ``ring``
+    ranks, all ranks together: rank r visits r+1 blocks under causal."""
+    return ring * (ring + 1) // 2 if causal else ring * ring
+
+
+def plain_by_kv_head(torch, fa, q, k, v, do, causal):
+    """The fp32 plain forward and backward, one kv head's group of q
+    heads at a time, so the [B, H, T, T] scores at T 8192 fit: ``([o,
+    dq, dk, dv], lse)``."""
+    rep = q.shape[2] // k.shape[2]
+    parts, lses = [], []
+    for g in range(k.shape[2]):
+        qs, dos = (x[:, :, g * rep:(g + 1) * rep] for x in (q, do))
+        ks, vs = (x[:, :, g:g + 1] for x in (k, v))
+        o, lse = fa.flash_attention_reference(qs, ks, vs, causal)
+        parts.append((o, *fa.flash_attention_backward_reference(
+            qs, ks, vs, o, lse, dos, causal)))
+        lses.append(lse)
+    return [torch.cat(x, dim=2) for x in zip(*parts)], torch.cat(lses, 1)
+
+
+def seq_ring_readings(torch, gen, cases=SEQ_RING_CASES) -> dict:
+    """Each case's ring (``ring_attention_simulated``: the per-rank loops
+    of every position, the same kernel calls as over a process group),
+    forward and backward in one call with its launches counted, run twice
+    (bitwise repeatable), and its o, dq, dk, dv and merged lse held
+    against the whole-T kernels and the fp32 plain version on the same
+    inputs: the forward's and the grads' element bounds (error over atol
+    + rtol |ref|), the block error of o and of each grad, and the lse's
+    max error over RING_LSE_ATOL."""
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.parallel.ring_attention import \
+        ring_attention_simulated
+
+    out = {}
+    for label, (B, T, Hq, Hkv, D), causal in cases:
+        def r(h):
+            return torch.randn(B, T, h, D, device="cuda", generator=gen,
+                               dtype=torch.float32).to(torch.bfloat16)
+        q, k, v, do = r(Hq), r(Hkv), r(Hkv), r(Hq)
+        reset_launches(fa)
+        o, lse, grads = ring_attention_simulated(q, k, v, RING_SIZE, causal,
+                                                 do=do)
+        torch.cuda.synchronize()
+        launches = read_launches(fa)
+        got = [o, lse, *grads]
+        again = ring_attention_simulated(q, k, v, RING_SIZE, causal, do=do)
+        bitwise = all(torch.equal(a, b) for a, b in
+                      zip(got, [again[0], again[1], *again[2]]))
+        del again, o, grads
+        wo, wlse = fa.flash_attention_forward(q, k, v, causal)
+        plain, plain_lse = plain_by_kv_head(torch, fa, q, k, v, do, causal)
+        refs = {"kernel_whole_T": ([wo, *fa.flash_attention_backward(
+                    q, k, v, wo, wlse, do, causal)], wlse),
+                "plain": (plain, plain_lse)}
+        reading = {"shape": {"B": B, "T": T, "Hq": Hq, "Hkv": Hkv, "D": D,
+                             "causal": causal, "ring": RING_SIZE},
+                   "launches": launches,
+                   "want_launches": ring_launches(RING_SIZE, causal),
+                   "bitwise_repeatable": bitwise}
+        for ref_name, (ref, ref_lse) in refs.items():
+            errs = {}
+            for name, g, w in zip(("o", "dq", "dk", "dv"),
+                                  [got[0], *got[2:]], ref):
+                atol, rtol = (KERNEL_ATOL, KERNEL_RTOL) if name == "o" \
+                    else (GRAD_ATOL, GRAD_RTOL)
+                diff = (g.float() - w.float()).abs()
+                errs[name] = {
+                    "max_abs_err": diff.max().item(),
+                    "err_over_tolerance": (diff / (atol + rtol * w.float()
+                                                   .abs())).max().item(),
+                    "block_rel_err": block_rel_err(torch, g, w)}
+            lse_err = (got[1] - ref_lse).abs().max().item()
+            errs["lse"] = {"max_abs_err": lse_err,
+                           "err_over_tolerance": lse_err / RING_LSE_ATOL}
+            reading[ref_name] = errs
+        out[label] = reading
+        del got, refs, wo, wlse, plain, plain_lse, q, k, v, do
+        torch.cuda.empty_cache()
+    return out
+
+
+def seq_ring_failures(readings: dict) -> list:
+    """The seq_ring gates a reading breaks."""
+    bad = []
+    for label, rd in readings.items():
+        want = rd["want_launches"]
+        if rd["launches"] != {"fwd": want, "dq": want, "dkv": want}:
+            bad.append(f"{label}: launched {rd['launches']}, want {want} "
+                       f"of each")
+        if not rd["bitwise_repeatable"]:
+            bad.append(f"{label}: not bitwise repeatable")
+        for ref_name in ("kernel_whole_T", "plain"):
+            for name, e in rd[ref_name].items():
+                if e["err_over_tolerance"] > 1.0 \
+                        or e.get("block_rel_err", 0.0) > GRAD_BLOCK_RTOL:
+                    bad.append(f"{label}: {name} against {ref_name}: {e}")
+    return bad
+
+
+def phase_seq_ring(torch, gen, peaks, smi):
+    """Ring attention's kernel path on one card (the seq_ring phase): the
+    gates of :func:`seq_ring_readings`, then at the two causal shapes the
+    whole-T kernels, the ring (its blocks over all R positions, with the
+    merges) and SDPA, forward and forward + backward, timed in turns."""
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.parallel.ring_attention import \
+        ring_attention_simulated
+
+    readings = seq_ring_readings(torch, gen)
+    bad = seq_ring_failures(readings)
+    timings = {}
+    for label, (B, T, Hq, Hkv, D), causal in SEQ_RING_CASES:
+        if not causal:
+            continue
+        def r(h):
+            return torch.randn(B, T, h, D, device="cuda", generator=gen,
+                               dtype=torch.float32).to(torch.bfloat16)
+        q, k, v, do = r(Hq), r(Hkv), r(Hkv), r(Hq)
+        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                      for x in (q, k, v))
+        dot = do.transpose(1, 2).contiguous()
+
+        def sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True)
+
+        def whole_both():
+            o, lse = fa.flash_attention_forward(q, k, v, True)
+            return fa.flash_attention_backward(q, k, v, o, lse, do, True)
+
+        runs = {"fwd": (lambda: fa.flash_attention_forward(q, k, v, True),
+                        lambda: ring_attention_simulated(q, k, v, RING_SIZE),
+                        lambda: sdpa().detach()),
+                "fwd_bwd": (whole_both,
+                            lambda: ring_attention_simulated(
+                                q, k, v, RING_SIZE, do=do),
+                            lambda: torch.autograd.grad(sdpa(), (qt, kt, vt),
+                                                        dot))}
+        timings[label] = {}
+        for what, (whole, ring, library) in runs.items():
+            # in turns: ring, whole, library, library, whole, ring
+            reads = {"ring": [cuda_ms(ring, 5, 1)],
+                     "whole_T": [cuda_ms(whole, 5, 1)],
+                     "library": [cuda_ms(library, 5, 1)]}
+            reads["library"].append(cuda_ms(library, 5, 1))
+            reads["whole_T"].append(cuda_ms(whole, 5, 1))
+            reads["ring"].append(cuda_ms(ring, 5, 1))
+            work = [attention_work(B, T, Hq, Hkv, D, True, kern)
+                    for kern in (("fwd",) if what == "fwd"
+                                 else ("fwd", "bwd"))]
+            timing = {f"{k}_ms": sum(x) / 2 for k, x in reads.items()}
+            timing.update({f"{k}_ms_each": x for k, x in reads.items()},
+                          **bound(sum(w[0] for w in work),
+                                  sum(w[1] for w in work), peaks))
+            timing["ring_over_whole_T"] = timing["ring_ms"] \
+                / timing["whole_T_ms"]
+            timings[label][what] = timing
+        del q, k, v, do, qt, kt, vt, dot
+        torch.cuda.empty_cache()
+    emit({"phase": "seq_ring", "card": smi, "ring": RING_SIZE,
+          "cases": readings, "timings": timings,
+          "library": "torch.nn.functional.scaled_dot_product_attention "
+                     "(forward; forward + backward)",
+          "tolerance": {"fwd_atol": KERNEL_ATOL, "fwd_rtol": KERNEL_RTOL,
+                        "grad_atol": GRAD_ATOL, "grad_rtol": GRAD_RTOL,
+                        "block_rtol": GRAD_BLOCK_RTOL,
+                        "lse_atol": RING_LSE_ATOL}})
+    check(not bad, f"seq_ring gates failed: {bad}")
+    return {k: sum(rd["launches"][k] for rd in readings.values())
+            for k in ("fwd", "dq", "dkv")}
+
+
 def _grad_norm(torch, model) -> float:
     return math.sqrt(sum(float(p.grad.float().pow(2).sum())
                          for p in model.parameters()))
@@ -763,92 +968,156 @@ def spmd_world(torch) -> int:
     return 4 if n == 4 else 2 if n >= 2 else 1
 
 
+# a layout: (mesh spec, gather schedule, step, sequence length T, rows per
+# batch shard at full depth)
 def spmd_layouts(world: int):
-    """(mesh spec, gather schedule) pairs the sharded step runs on:
-    ``fsdp`` under both schedules and ``fsdp x tensor 2``; on one card
-    the size-1 mesh, where every collective is the identity."""
+    """The layouts the sharded steps run on: ``fsdp`` under both
+    schedules and ``fsdp x tensor 2`` (``make_spmd_train_step``), then
+    sequence parallelism (``make_mesh_train_step``): ``seq`` over every
+    card at T 8192 and, on four, ``fsdp=2,seq=2`` and ``seq=2,tensor=2``
+    at T 4096; on one card the size-1 mesh, where every collective is the
+    identity."""
     if world == 1:
-        return [("", "upfront")]
+        return [("", "upfront", "spmd", 2048, 4)]
     tp = "tensor=2" if world == 2 else f"fsdp={world // 2},tensor=2"
-    return [(f"fsdp={world}", "streamed"), (f"fsdp={world}", "upfront"),
-            (tp, "streamed")]
+    out = [(f"fsdp={world}", "streamed", "spmd", 2048, 4),
+           (f"fsdp={world}", "upfront", "spmd", 2048, 4),
+           (tp, "streamed", "spmd", 2048, 4),
+           (f"seq={world}", "streamed", "mesh", 2048 * world, 4)]
+    if world == 4:
+        out += [("fsdp=2,seq=2", "streamed", "mesh", 4096, 4),
+                ("seq=2,tensor=2", "streamed", "mesh", 4096, 4)]
+    return out
 
 
-def phase_spmd(torch, seed, smi, peak_flops, timeout=420.0):
-    """The sharded step (train/spmd.py) in one rank per card over NCCL,
-    launched through train/launch.py: at Llama-3-1B widths and 2 layers
-    against the single-device step on the same global batch (three
-    steps' losses, the first step's global grad norm and wq/wk/wv grads,
-    gathered), then at full depth: step time, tokens/s per card, peak
-    memory per rank beside the analytic param residency, the collective
-    probes. Every rank's kernel launches are read from its own counts."""
+def pipe_layouts(world: int):
+    """(mesh spec, microbatches of 1 x 2048) of the pipeline step: every
+    card a stage, and on four cards also two stages of tensor 2."""
+    if world == 1:
+        return []
+    if world == 2:
+        return [("pipe=2", 8)]
+    return [("pipe=4", 16), ("pipe=2,tensor=2", 8)]
+
+
+def rank_launches(cfg, steps: int, rep: dict, microbatches: int = 1) -> dict:
+    """Kernel launches one rank makes in ``steps`` train steps: each layer
+    call runs the forward twice under remat (once more in the backward)
+    and each backward kernel once; a pipeline stage calls its L/P layers
+    once a microbatch; seq rank r of a causal ring runs each kernel on
+    r+1 K/V blocks a layer call."""
+    sizes = rep["mesh"]
+    calls = cfg.n_layers // sizes.get("pipe", 1) * microbatches * steps
+    calls *= rep["coords"].get("seq", 0) + 1
+    return {"fwd": (2 if cfg.remat else 1) * calls, "dq": calls,
+            "dkv": calls}
+
+
+def batch_shards(mesh: dict) -> int:
+    return math.prod(mesh.get(a, 1) for a in ("slice", "data", "fsdp"))
+
+
+def phase_spmd(torch, seed, smi, peak_flops, timeout=600.0):
+    """The sharded steps in one rank per card over NCCL, launched through
+    train/launch.py: ``make_spmd_train_step`` and ``make_mesh_train_step``
+    (the ``spmd`` line) and ``make_pipeline_train_step`` (the ``pipe``
+    line), one launch for all. Each layout at Llama-3-1B widths and
+    reduced depth (2 layers; 4 for the pipeline, so every stage count
+    divides it) against the single-device step on the same global batch
+    (three steps' losses, the first step's global grad norm and wq/wk/wv
+    grads, gathered), then at full depth: step time, tokens/s per card,
+    peak memory per rank (beside the analytic param residency and the
+    collective probes for the sharded step; beside the bubble for the
+    pipeline). Every rank's kernel launches are read from its own counts
+    and held to what its place on the mesh makes."""
     from ray_tpu_torch.models import llama
     from ray_tpu_torch.train.launch import launch
     from ray_tpu_torch.train.spmd_runs import train_jobs
 
     world = spmd_world(torch)
     layouts = spmd_layouts(world)
+    pipes = pipe_layouts(world)
     print(f"world: {world}", flush=True)
     full = llama.LlamaConfig.llama3_1b()
-    cfg2 = dataclasses.replace(full, n_layers=2)
-    T, steps, warmup, timed = 2048, 3, 3, 5
+    # reduced depth: 2 layers, and for the pipeline one layer a stage
+    reduced = {n: dataclasses.replace(full, n_layers=n) for n in
+               {2, *(parse_mesh(mesh)["pipe"] for mesh, _ in pipes)}}
+    T_ref, steps, warmup, timed = 2048, 3, 3, 5
     gen = torch.Generator(device="cuda").manual_seed(seed)
 
-    def tokens(rows):
+    def tokens(rows, T):
         return torch.randint(0, full.vocab_size, (rows, T + 1), device="cuda",
                              generator=gen).cpu().numpy()
 
-    # the global batch splits over the batch axes: `world` rows cover every
-    # layout at reduced depth; at full depth each batch shard gets 4 rows
-    small = tokens(world)
+    # reduced depth: the global batch splits over the batch axes, so
+    # `world` rows cover every layout; the pipeline's microbatches are its
+    # rows, one each
+    small = tokens(world, T_ref)
     leaves = [f"layers/{n}" for n in ("wq", "wk", "wv")]
-    jobs = [dict(cfg=cfg2, mesh=mesh, gather=gather, init=seed,
-                 tokens=small, steps=steps, grads=leaves)
-            for mesh, gather in layouts]
-    big = {}
-    for mesh, gather in layouts:
-        shards = world // (2 if "tensor" in mesh else 1)
-        if shards not in big:
-            big[shards] = tokens(4 * shards)
-        jobs.append(dict(cfg=full, mesh=mesh, gather=gather, init=seed,
-                         tokens=big[shards], steps=warmup + timed,
-                         probes=True, profile=SPMD_KERNEL_GROUPS))
+    jobs = [dict(cfg=reduced[2], mesh=mesh, gather=gather, step=step,
+                 init=seed, tokens=small, steps=steps, grads=leaves)
+            for mesh, gather, step, _, _ in layouts]
+    jobs += [dict(cfg=reduced[parse_mesh(mesh)["pipe"]], mesh=mesh,
+                  step="pipeline", microbatches=world, init=seed,
+                  tokens=small, steps=steps, grads=leaves)
+             for mesh, _ in pipes]
+    full_jobs = []
+    for mesh, gather, step, T, rows in layouts:
+        shards = batch_shards(parse_mesh(mesh))
+        full_jobs.append(dict(cfg=full, mesh=mesh, gather=gather, step=step,
+                              init=seed, tokens=tokens(rows * shards, T),
+                              steps=warmup + timed, probes=True,
+                              profile=SPMD_KERNEL_GROUPS))
+    for mesh, m in pipes:
+        full_jobs.append(dict(cfg=full, mesh=mesh, step="pipeline",
+                              microbatches=m, init=seed,
+                              tokens=tokens(m, T_ref), steps=warmup + timed,
+                              profile=SPMD_KERNEL_GROUPS))
     t0 = time.perf_counter()
-    ranks = launch(train_jobs, world, (jobs,), timeout=timeout)
+    ranks = launch(train_jobs, world, (jobs + full_jobs,), timeout=timeout)
     launch_s = time.perf_counter() - t0
 
-    # the single-device step on the same global batch, from the same seed
-    init_state, train_step = llama.make_train_step(cfg2)
-    state = init_state(seed)
-    ref_losses, ref_leaves, ref_gnorm = [], None, None
-    for s_ in range(steps):
-        ref_losses.append(float(train_step(state, torch.from_numpy(small))))
-        if s_ == 0:
-            ref_gnorm = _grad_norm(torch, state["params"])
-            ref_leaves = {path: getattr(state["params"].layers,
-                                        path.split("/")[1]).grad.cpu()
-                          for path in leaves}
-    del state
-    torch.cuda.empty_cache()
+    # the single-device step on the same global batches, from the same seed
+    refs = {}
+    for n, cfg in reduced.items():
+        init_state, train_step = llama.make_train_step(cfg)
+        state = init_state(seed)
+        ref = {"losses": []}
+        for s_ in range(steps):
+            ref["losses"].append(float(train_step(
+                state, torch.from_numpy(small))))
+            if s_ == 0:
+                ref["grad_norm"] = _grad_norm(torch, state["params"])
+                ref["leaves"] = {
+                    path: getattr(state["params"].layers,
+                                  path.split("/")[1]).grad.cpu()
+                    for path in leaves}
+        refs[n] = ref
+        del state
+        torch.cuda.empty_cache()
 
-    parity, timing = {}, {}
-    for j, (mesh, gather) in enumerate(layouts):
-        name = f"{mesh or 'data=1'}/{gather}"
+    def parity(j, microbatches=1):
         reps = [r[j] for r in ranks]
-        rep = reps[0]
-        rel = [abs(a - b) / abs(b) for a, b in zip(rep["losses"], ref_losses)]
-        gnorm_rel = abs(rep["grad_norm"] - ref_gnorm) / ref_gnorm
+        cfg = jobs[j]["cfg"]
+        rep, ref = reps[0], refs[cfg.n_layers]
+        name = f"{rep['step']}:{jobs[j]['mesh'] or 'data=1'}" \
+            + (f"/{rep['gather']}" if rep["gather"] else "")
+        rel = [abs(a - b) / abs(b) for a, b in zip(rep["losses"],
+                                                   ref["losses"])]
+        gnorm_rel = abs(rep["grad_norm"] - ref["grad_norm"]) \
+            / ref["grad_norm"]
         leaf_rel = {f"{path.split('/')[1]}[{i}]": (
-            (torch.from_numpy(rep["grads"][path][i]) - ref[i]).norm()
-            / ref[i].norm()).item()
-            for path, ref in ref_leaves.items() for i in range(len(ref))}
-        want = expected_launches(cfg2, steps)
-        parity[name] = {
-            "mesh": rep["mesh"], "gather": rep["gather"],
-            "losses": rep["losses"], "single_device_losses": ref_losses,
-            "loss_rel_diff": rel, "grad_norm_rel_diff": gnorm_rel,
-            "attn_leaf_rel_diff_worst": max(leaf_rel.values()),
-            "launches_per_rank": [r["launches"] for r in reps]}
+            (torch.from_numpy(rep["grads"][path][i]) - want[i]).norm()
+            / want[i].norm()).item()
+            for path, want in ref["leaves"].items()
+            for i in range(len(want))}
+        want = [rank_launches(cfg, steps, r, microbatches) for r in reps]
+        out = {"mesh": rep["mesh"], "gather": rep["gather"],
+               "losses": rep["losses"],
+               "single_device_losses": ref["losses"],
+               "loss_rel_diff": rel, "grad_norm_rel_diff": gnorm_rel,
+               "attn_leaf_rel_diff_worst": max(leaf_rel.values()),
+               "launches_per_rank": [r["launches"] for r in reps]}
         check(all(math.isfinite(x) for x in rep["losses"]),
               f"{name}: non-finite losses {rep['losses']}")
         check(all(r["losses"] == rep["losses"] for r in reps),
@@ -858,46 +1127,56 @@ def phase_spmd(torch, seed, smi, peak_flops, timeout=420.0):
               f"loss {rel}, grad norm {gnorm_rel}")
         check(max(leaf_rel.values()) <= ATTN_GRAD_RTOL,
               f"{name}: sharded attention-leaf grads differ: {leaf_rel}")
-        check(all(r["launches"] == want for r in reps),
+        check([r["launches"] for r in reps] == want,
               f"{name}: ranks launched {[r['launches'] for r in reps]}, "
-              f"want {want} each")
+              f"want {want}")
+        return name, out
 
-        reps = [r[len(layouts) + j] for r in ranks]
+    def full_depth(j, microbatches=1):
+        reps = [r[j] for r in ranks]
         rep = reps[0]
+        T = full_jobs[j - len(jobs)]["tokens"].shape[1] - 1
         step_ms = sum(rep["step_ms"][warmup:]) / timed
-        tokens_per_s = rep["local_batch"] * T * 1e3 / step_ms
-        # a tensor pair shares its batch shard's rows
-        shards = world // (2 if "tensor" in mesh else 1)
-        per_card = tokens_per_s * shards / world
-        want = expected_launches(full, warmup + timed)
-        timing[name] = {
-            "mesh": rep["mesh"], "gather": rep["gather"],
-            "global_batch": rep["local_batch"] * shards, "T": T,
-            "step_ms": step_ms, "step_ms_each": rep["step_ms"],
-            "tokens_per_s": tokens_per_s * shards,
-            "tokens_per_s_per_card": per_card,
-            "mfu": 6.0 * full.num_params() * per_card / peak_flops,
-            "peak_bytes_per_rank": [r["peak_bytes"] for r in reps],
-            "param_residency_bytes": rep["residency"],
-            "layers_gathered": rep["layers_gathered"],
-            "probes_ms": [r["probes_ms"] for r in reps],
-            "profile_one_step_rank0": rep["profile"],
-            "losses": rep["losses"],
-            "launches_per_rank": [r["launches"] for r in reps]}
+        global_batch = rep["local_batch"] * batch_shards(rep["mesh"])
+        tokens_per_s = global_batch * T * 1e3 / step_ms
+        want = [rank_launches(full, warmup + timed, r, microbatches)
+                for r in reps]
+        out = {"mesh": rep["mesh"], "gather": rep["gather"],
+               "global_batch": global_batch, "T": T,
+               "step_ms": step_ms, "step_ms_each": rep["step_ms"],
+               "tokens_per_s": tokens_per_s,
+               "tokens_per_s_per_card": tokens_per_s / world,
+               "mfu": 6.0 * full.num_params() * tokens_per_s / world
+               / peak_flops,
+               "peak_bytes_per_rank": [r["peak_bytes"] for r in reps],
+               "profile_one_step_rank0": rep["profile"],
+               "losses": rep["losses"],
+               "launches_per_rank": [r["launches"] for r in reps]}
         check(all(math.isfinite(x) for x in rep["losses"])
               and rep["losses"][-1] < rep["losses"][0],
-              f"{name}: full-depth losses {rep['losses']}")
-        check(all(r["launches"] == want for r in reps),
-              f"{name}: full depth launched {[r['launches'] for r in reps]}"
-              f", want {want} each")
+              f"{rep['mesh']}: full-depth losses {rep['losses']}")
+        check([r["launches"] for r in reps] == want,
+              f"{rep['mesh']}: full depth launched "
+              f"{[r['launches'] for r in reps]}, want {want}")
+        return out, reps
+
+    spmd_parity, timing = {}, {}
+    for j in range(len(layouts)):
+        name, spmd_parity[name] = parity(j)
+        out, reps = full_depth(len(jobs) + j)
+        rep = reps[0]
+        out.update(param_residency_bytes=rep["residency"],
+                   layers_gathered=rep["layers_gathered"],
+                   probes_ms=[r["probes_ms"] for r in reps])
+        timing[name] = out
         if rep["gather"] == "streamed" and "fsdp" in rep["mesh"]:
             check(rep["layers_gathered"]["peak_live"] <= 2,
                   f"{name}: streamed schedule held "
                   f"{rep['layers_gathered']['peak_live']} gathered layers")
     saving = {}
-    for mesh in dict.fromkeys(m for m, _ in layouts):
-        streamed = timing.get(f"{mesh}/streamed")
-        upfront = timing.get(f"{mesh}/upfront")
+    for mesh in dict.fromkeys(m for m, _, _, _, _ in layouts):
+        streamed = timing.get(f"spmd:{mesh}/streamed")
+        upfront = timing.get(f"spmd:{mesh}/upfront")
         if streamed is None or upfront is None \
                 or "fsdp" not in streamed["mesh"]:
             continue
@@ -911,22 +1190,58 @@ def phase_spmd(torch, seed, smi, peak_flops, timeout=420.0):
               f"{mesh}: the streamed schedule's peak is {got} bytes below "
               f"the upfront one's, want at least {STREAMED_SAVING_SHARE} "
               f"x the residency model's {model}")
-    launches = {k: sum(r[len(layouts) + j]["launches"][k]
-                       for r in ranks for j in range(len(layouts)))
+
+    def launches_of(first, count):
+        return {k: sum(r[first + j]["launches"][k]
+                       for r in ranks for j in range(count))
                 for k in ("fwd", "dq", "dkv")}
+
+    n_full = len(jobs)
     emit({"phase": "spmd", "world": world, "card": smi,
-          "layouts": [f"{m or 'data=1'}/{g}" for m, g in layouts],
-          "backend": "nccl", "launch_s": launch_s,
-          "reduced_depth": {"n_layers": cfg2.n_layers, "batch": world,
-                            "T": T, "steps": steps, "rtol": TRAIN_RTOL,
+          "layouts": list(timing), "backend": "nccl", "launch_s": launch_s,
+          "reduced_depth": {"n_layers": 2, "batch": world, "T": T_ref,
+                            "steps": steps,
+                            "rtol": TRAIN_RTOL,
                             "attn_leaf_rtol": ATTN_GRAD_RTOL,
-                            "layouts": parity},
+                            "layouts": spmd_parity},
           "full_depth": {"model": "llama3_1b", "n_layers": full.n_layers,
                          "warmup_steps": warmup, "timed_steps": timed,
                          "layouts": timing,
                          "streamed_peak_saving": saving},
-          "launches_full_depth_all_ranks": launches})
+          "launches_full_depth_all_ranks": launches_of(n_full, len(layouts))})
+    launches = {"spmd_all_ranks": launches_of(n_full, len(layouts))}
+    if not pipes:
+        print("pipe: the pipeline step needs two or more cards; this "
+              "machine has one, so the pipe phase did not run", flush=True)
+        return launches
+    pipe_parity, pipe_timing = {}, {}
+    for i, (mesh, m) in enumerate(pipes):
+        name, pipe_parity[name] = parity(len(layouts) + i, world)
+        out, _ = full_depth(n_full + len(layouts) + i, m)
+        P = parse_mesh(mesh)["pipe"]
+        out.update(microbatches=m, microbatch_rows=1,
+                   bubble=(P - 1) / (m + P - 1))
+        pipe_timing[name] = out
+    launches["pipe_all_ranks"] = launches_of(n_full + len(layouts),
+                                             len(pipes))
+    emit({"phase": "pipe", "world": world, "card": smi,
+          "layouts": list(pipe_timing), "backend": "nccl",
+          "reduced_depth": {"n_layers": "one a stage", "batch": world,
+                            "microbatches": world, "T": T_ref,
+                            "steps": steps, "rtol": TRAIN_RTOL,
+                            "attn_leaf_rtol": ATTN_GRAD_RTOL,
+                            "layouts": pipe_parity},
+          "full_depth": {"model": "llama3_1b", "n_layers": full.n_layers,
+                         "warmup_steps": warmup, "timed_steps": timed,
+                         "layouts": pipe_timing},
+          "launches_full_depth_all_ranks": launches["pipe_all_ranks"]})
     return launches
+
+
+def parse_mesh(spec: str) -> dict:
+    """``"fsdp=2,seq=2"`` -> ``{"fsdp": 2, "seq": 2}``."""
+    return {a: int(n) for a, n in (p.split("=") for p in spec.split(",")
+                                   if p)}
 
 
 def phase_reduced_depth(torch, seed):
@@ -1145,6 +1460,8 @@ def main(argv=None) -> int:
     bwd_err, bwd_ratio, bwd_block, bwd_delta, bwd_timing = phase_backward(
         torch, gen, peaks)
     torch.cuda.empty_cache()
+    seq_ring_launches = phase_seq_ring(torch, gen, peaks, smi)
+    torch.cuda.empty_cache()
     phase_reduced_depth(torch, args.seed)
     phase_reduced_depth_train(torch, args.seed)
     torch.cuda.empty_cache()
@@ -1156,6 +1473,10 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     spmd_launches = phase_spmd(torch, args.seed, smi, peaks[0])
 
+    # each path's launches, read from its own run: the one-card ring, the
+    # single-device step, the sharded steps and the pipeline (all ranks)
+    by_path = {"seq_ring": seq_ring_launches, "training": train_launches,
+               **spmd_launches}
     timed = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
              "ratio_to_library", "achieved_tflops", "share_of_bound")
     shapes = {label: fwd_timing[label]["shape"] for label in fwd_timing}
@@ -1165,11 +1486,10 @@ def main(argv=None) -> int:
         "source": src + "flash_attention_fwd.cu",
         "replaces": "ray_tpu/ops/flash_attention.py:62",
         "design": "wgmma fed by TMA (flash_attention_sm90.cuh)",
-        "launches": serving_launches + train_launches["fwd"]
-        + spmd_launches["fwd"],
+        "launches": serving_launches + sum(
+            n["fwd"] for n in by_path.values()),
         "launches_by_path": {"serving": serving_launches,
-                             "training": train_launches["fwd"],
-                             "spmd_all_ranks": spmd_launches["fwd"]},
+                             **{p: n["fwd"] for p, n in by_path.items()}},
         "max_abs_err": err_o, "max_abs_err_lse": err_lse,
         "tolerance": {"atol": KERNEL_ATOL, "rtol": KERNEL_RTOL},
         "ok": err_ratio <= 1.0,
@@ -1187,9 +1507,8 @@ def main(argv=None) -> int:
             "source": src + "flash_attention_bwd.cu",
             "replaces": "ray_tpu/ops/flash_attention.py" + replaces,
             "design": design,
-            "launches": train_launches[kern] + spmd_launches[kern],
-            "launches_by_path": {"training": train_launches[kern],
-                                 "spmd_all_ranks": spmd_launches[kern]},
+            "launches": sum(n[kern] for n in by_path.values()),
+            "launches_by_path": {p: n[kern] for p, n in by_path.items()},
             "max_abs_err": max(bwd_err[e] for e in errs),
             "max_abs_err_each": {e: bwd_err[e] for e in errs},
             "block_rel_err_each": {e: bwd_block[e] for e in errs},

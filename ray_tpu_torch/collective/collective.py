@@ -9,7 +9,7 @@ as the JAX package's collectives fold away on one device.
 
 from __future__ import annotations
 
-from typing import Sequence, Union
+from typing import Any, List, Sequence, Union
 
 import torch
 import torch.distributed as dist
@@ -32,6 +32,16 @@ def _map(fn, tree, *rest):
         return {k: _map(fn, v, *(r[k] for r in rest))
                 for k, v in tree.items()}
     return fn(tree, *rest)
+
+
+def _leaves(tree) -> List[Any]:
+    """The leaves of nested dicts, lists and tuples, in order; a tuple
+    subclass (a PartitionSpec) is a leaf."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if type(tree) in (list, tuple):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
 
 
 def psum_tree(tree, mesh, axis_names: Axes):

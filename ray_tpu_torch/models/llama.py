@@ -21,7 +21,10 @@ remat (``torch.utils.checkpoint``), the sequence-chunked fp32 cross
 entropy, AdamW at optax's settings, the state updated in place where JAX
 donates it. The tensor-parallel pieces (:func:`tp_psum_pair`,
 :func:`vp_embed`, :func:`vp_chunk_nll` and the local-shard layer
-``_pp_layer``) serve the sharded step in ``train/spmd.py``.
+``_pp_layer``, whose attention is the ring of
+``parallel/ring_attention.py`` when it is given a ``seq`` group) serve
+the sharded steps in ``train/spmd.py`` and the GPipe pipeline step
+:func:`make_pipeline_train_step` (``parallel/pipeline.py``'s schedule).
 """
 
 from __future__ import annotations
@@ -38,8 +41,13 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch import COMPUTE_DTYPE, PARAM_DTYPE, resolve_device
+from ray_tpu_torch.collective.collective import _leaves, _map, pmean_tree
 from ray_tpu_torch.ops.flash_attention import flash_attention
 from ray_tpu_torch.ops.layers import rms_norm, rotary_embedding
+from ray_tpu_torch.parallel.mesh import P, axis_sizes, data_axes
+from ray_tpu_torch.parallel.pipeline import make_pipelined_fn
+from ray_tpu_torch.parallel.ring_attention import ring_attention_local
+from ray_tpu_torch.parallel.sharding import shard_device_put
 from ray_tpu_torch.serve.kv_cache import PagePool, PrefixCache, pages_for
 
 
@@ -560,19 +568,174 @@ def vp_chunk_nll(cfg: LlamaConfig, head_local, axis, gp) -> ChunkNll:
     return chunk_nll
 
 
-def _pp_layer(cfg: LlamaConfig, x, p, positions, collectives=None):
+def _pp_layer(cfg: LlamaConfig, x, p, positions, collectives=None,
+              seq_group=None):
     """One decoder layer on *local* shards: head and MLP counts come from
     the shard shapes (Megatron-style manual TP: q/k/v/gate/up
     column-parallel, entered through ``f``; wo/down row-parallel, left
     through ``g``). Norm weights are full-width (replicated).
     ``collectives`` is the ``(f, g)`` pair from :func:`tp_psum_pair`, or
     None without a tensor axis. Attention runs on the local heads through
-    :func:`flash_attention`."""
+    :func:`flash_attention`; with ``seq_group`` (the ``seq`` axis'
+    process group) x is this rank's slice of the sequence, ``positions``
+    its global positions, and attention is the ring
+    (:func:`ring_attention_local`), GQA K/V carried unrepeated."""
     col_in, row_out = collectives if collectives is not None \
         else (_identity, _identity)
     q, kk, vv = _qkv(cfg, x, p, positions, col_in)
-    attn = flash_attention(q, kk, vv, causal=True)
+    if seq_group is None:
+        attn = flash_attention(q, kk, vv, causal=True)
+    else:
+        attn = ring_attention_local(q, kk, vv, seq_group, causal=True)
     return _attn_out_and_mlp(cfg, x, attn, p, col_in, row_out)
+
+
+def _check_mesh(cfg: LlamaConfig, mesh, dev: torch.device) -> None:
+    """Raise unless a live ``tensor`` axis divides the heads, the MLP and
+    the vocab, and the mesh is on the step's device type."""
+    t = axis_sizes(mesh).get("tensor", 1)
+    for what, n in (("n_heads", cfg.n_heads), ("n_kv_heads", cfg.n_kv_heads),
+                    ("mlp_dim", cfg.mlp_dim), ("vocab_size", cfg.vocab_size)):
+        if n % t:
+            raise ValueError(
+                f"tensor axis size {t} does not divide cfg.{what}={n}")
+    if mesh.device_type != dev.type:
+        raise ValueError(f"mesh is on {mesh.device_type!r}, the step on "
+                         f"{dev.type!r}")
+
+
+# --------------------------------------------------------------------------- #
+# Pipeline-parallel train step (pipe [+ tensor/data] mesh axes)
+# --------------------------------------------------------------------------- #
+
+
+def pipeline_param_specs(cfg: LlamaConfig, mesh) -> Dict[str, Any]:
+    """PartitionSpec of each leaf of the param tree (layers stacked
+    ``[L, ...]``) under :func:`make_pipeline_train_step`: the layer dim
+    cut into contiguous stages over ``pipe``, heads and MLP over a live
+    ``tensor`` axis (JAX's ``layer_specs``), the vocab of the embedding
+    and head over it too; norms replicated."""
+    ta = "tensor" if "tensor" in mesh.mesh_dim_names else None
+    col, row = P("pipe", None, ta), P("pipe", ta, None)
+    specs: Dict[str, Any] = {
+        "embedding": P(ta, None),
+        "layers": {"wq": col, "wk": col, "wv": col, "wo": row,
+                   "w_gate": col, "w_up": col, "w_down": row,
+                   "attn_norm": P("pipe", None), "mlp_norm": P("pipe", None)},
+        "final_norm": P(None)}
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = P(None, ta)
+    return specs
+
+
+def make_pipeline_train_step(cfg: LlamaConfig, mesh, num_microbatches: int,
+                             optimizer=None, device=None):
+    """GPipe pipeline-parallel train step for this rank of a mesh with a
+    ``pipe`` axis (port of the JAX package's ``make_pipeline_train_step``).
+
+    The layers split into ``P`` contiguous stages (``[L] -> [P, L/P]``;
+    this rank keeps its stage), run by ``parallel/pipeline.py``'s GPipe
+    schedule over ``num_microbatches`` microbatches of this rank's rows.
+    ``tensor`` shards heads, MLP and vocab inside a stage, through
+    :func:`tp_psum_pair` (torch differentiates the region, where JAX's
+    pipeline differentiates outside it and keeps the raw psum).
+    ``data``/``fsdp`` act as pure data parallelism (grads averaged over
+    them), as in JAX. The embedding and head run outside the region,
+    replicated over ``pipe``: vocab-parallel under ``tensor``
+    (:func:`vp_embed`, :func:`vp_chunk_nll`), else a plain lookup.
+
+    Every stage computes the same loss from the same outputs, and it
+    counts once: the head's and final norm's grads are not summed over
+    ``pipe``, and stage 0's embedding grad (the lookup's, which only stage
+    0 has, plus with tied embeddings the head's, alike on every stage) is
+    sent to every stage. The loss is :func:`chunked_nll_mean`'s, the
+    function JAX's unchunked fp32 log-softmax computes (the same ops at
+    ``loss_chunk`` 0).
+
+    ``init_state(init=0)`` (a seed, or a JAX param tree as numpy with the
+    layers ``[L, ...]``) and ``train_step(state, tokens)`` (this rank's
+    rows of the global batch, ``parallel.mesh.batch_sharding(mesh)``,
+    int ``[b, T+1]``; returns the loss, the mean over the batch axes) as
+    in ``train/spmd.py:make_spmd_train_step``; ``optimizer`` likewise.
+    Raises as JAX's does on a mesh with no ``pipe`` axis and on
+    ``L % P``; refuses a live ``seq`` or ``expert`` axis."""
+    dev = resolve_device(device)
+    sizes = axis_sizes(mesh)
+    if "pipe" not in sizes:
+        raise ValueError("mesh has no 'pipe' axis")
+    n_stages = sizes["pipe"]
+    if cfg.n_layers % n_stages:
+        raise ValueError(f"{cfg.n_layers} layers not divisible by "
+                         f"{n_stages} pipeline stages")
+    for ax in ("seq", "expert"):
+        if ax in sizes:
+            raise ValueError(f"make_pipeline_train_step shards over pipe + "
+                             f"batch axes + tensor; mesh has live {ax!r} "
+                             f"axis")
+    _check_mesh(cfg, mesh, dev)
+    specs = pipeline_param_specs(cfg, mesh)
+    batch_axes = data_axes(mesh)
+    pipe_group = mesh.get_group("pipe")
+    first_stage = dist.get_global_rank(pipe_group, 0)
+    tensor = "tensor" if "tensor" in sizes else None
+    tp_group = mesh.get_group(tensor) if tensor is not None else None
+    collectives = tp_psum_pair(tp_group) if tensor is not None else None
+
+    def init_state(init=0):
+        tree = _init_model(cfg, init, dev).tree()
+        params = _map(lambda spec, x: shard_device_put(
+            x.detach(), mesh, spec, dev).requires_grad_(True), specs, tree)
+        return {"params": params, "step": 0,
+                "opt_state": _make_optimizer(optimizer, _leaves(params))}
+
+    def stage_fn(stage, act):
+        positions = act["pos"]
+
+        def layer(h, p):
+            return _pp_layer(cfg, h, p, positions, collectives)
+
+        h = act["x"]
+        for p in _unbind_layers({"layers": stage}):
+            h = checkpoint(layer, h, p, use_reentrant=False) if cfg.remat \
+                else layer(h, p)
+        return {"x": h, "pos": positions}
+
+    pipe_fn = make_pipelined_fn(stage_fn, mesh, num_microbatches)
+
+    def loss_of(params, tokens):
+        inputs, targets = tokens[:, :-1], tokens[:, 1:]
+        B, T = inputs.shape
+        emb = params["embedding"]
+        if tensor is not None:
+            x = vp_embed(cfg, emb, inputs, tp_group, collectives[1])
+        else:
+            x = emb[inputs].to(cfg.dtype)
+        x = pipe_fn(params["layers"],
+                    {"x": x, "pos": _positions(B, T, x.device)})["x"]
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        head = emb.T if cfg.tie_embeddings else params["lm_head"]
+        if tensor is not None:
+            return chunked_nll_mean(
+                cfg, collectives[0](x), targets,
+                vp_chunk_nll(cfg, head, tp_group, collectives[1]))
+        return chunked_nll_mean(cfg, x, targets, _plain_chunk_nll(cfg, head))
+
+    def train_step(state, tokens: torch.Tensor) -> torch.Tensor:
+        params, opt = state["params"], state["opt_state"]
+        opt.zero_grad(set_to_none=True)
+        loss = loss_of(params, tokens.to(dev).long())
+        loss.backward()
+        emb = params["embedding"]
+        if emb.grad is None:  # a later stage without tied embeddings
+            emb.grad = torch.zeros_like(emb)
+        dist.broadcast(emb.grad, src=first_stage, group=pipe_group)
+        for p in _leaves(params):
+            pmean_tree(p.grad, mesh, batch_axes)
+        opt.step()
+        state["step"] += 1
+        return pmean_tree(loss.detach(), mesh, batch_axes)
+
+    return init_state, train_step
 
 
 # --------------------------------------------------------------------------- #

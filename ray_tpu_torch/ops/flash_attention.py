@@ -309,16 +309,22 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal: bool = True):
 flash_attention_bwd_dkv.launches = 0
 
 
+def kernel_readable(do: torch.Tensor) -> torch.Tensor:
+    """An output gradient the backward kernels can read: ``do`` itself,
+    or on CUDA a fresh aligned copy where autograd laid it out otherwise."""
+    if do.is_cuda and not _vector_loadable(do):
+        return do.clone(memory_format=torch.contiguous_format)
+    return do
+
+
 def flash_attention_backward(q, k, v, o, lse, do, causal: bool = True):
     """``(dq, dk, dv)`` from the forward's ``o`` and ``lse`` and the
     output gradient ``do``; see :func:`flash_attention_backward_reference`.
     CUDA tensors go through the dQ kernel (which also computes
     ``delta``) and then the dK/dV kernel, CPU tensors through their plain
     versions."""
-    if _same_device(q, k, v, o, lse, do).type == "cuda" \
-            and not _vector_loadable(do):
-        # autograd's grad may be laid out otherwise: a fresh aligned copy
-        do = do.clone(memory_format=torch.contiguous_format)
+    _same_device(q, k, v, o, lse, do)
+    do = kernel_readable(do)
     dq, delta = flash_attention_bwd_dq(q, k, v, o, do, lse, causal)
     dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal)
     return dq, dk, dv

@@ -27,10 +27,19 @@ on its own shards; the collectives are written out:
   ``tp_psum_pair`` collectives at block boundaries and a vocab-parallel
   embedding and cross-entropy (``models/llama.py``).
 
+- **The mesh step** (``make_mesh_train_step``, the port of the JAX
+  package's GSPMD ``make_train_step(cfg, mesh)``): the same step with a
+  live ``seq`` axis as well. Each ``seq`` rank keeps its block of the
+  sequence through every layer, attention is the ring of
+  ``parallel/ring_attention.py``, and loss and grads average over
+  ``seq`` too.
+
 On one device the mesh is ``("data",)`` of size 1 and every collective
-is the identity. Supported axes: the batch axes (``slice``/``data``),
-``fsdp`` and ``tensor``; a live ``seq``, ``pipe`` or ``expert`` axis is
-refused.
+is the identity. ``make_spmd_train_step`` takes the batch axes
+(``slice``/``data``), ``fsdp`` and ``tensor`` and refuses a live ``seq``
+or ``pipe`` axis, naming ``make_mesh_train_step`` and
+``models/llama.py:make_pipeline_train_step``, which take them, as the
+JAX package's does; expert parallelism (``expert``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -46,13 +55,15 @@ import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch import PARAM_DTYPE, resolve_device
-from ray_tpu_torch.collective.collective import _map, pmean_tree, psum_tree
-from ray_tpu_torch.models.llama import (LlamaConfig, _init_model,
-                                        _make_optimizer, _plain_chunk_nll,
-                                        _positions, _pp_layer,
-                                        _unbind_layers, chunked_nll_mean,
-                                        param_shapes, tp_psum_pair,
-                                        vp_chunk_nll, vp_embed)
+from ray_tpu_torch.collective.collective import (_leaves, _map, pmean_tree,
+                                                 psum_tree)
+from ray_tpu_torch.models.llama import (LlamaConfig, _check_mesh,
+                                        _init_model, _make_optimizer,
+                                        _plain_chunk_nll, _positions,
+                                        _pp_layer, _unbind_layers,
+                                        chunked_nll_mean, param_shapes,
+                                        tp_psum_pair, vp_chunk_nll,
+                                        vp_embed)
 from ray_tpu_torch.ops.layers import rms_norm
 from ray_tpu_torch.parallel.mesh import (AXIS_ORDER, P, PartitionSpec,
                                          axis_sizes, data_axes, make_mesh)
@@ -64,6 +75,7 @@ __all__ = [
     "llama_partition_rules",
     "spmd_param_specs",
     "make_spmd_train_step",
+    "make_mesh_train_step",
     "make_collective_probes",
     "global_grad_norm",
     "parse_mesh_spec",
@@ -82,12 +94,6 @@ _reduce_scatter = getattr(dist, "reduce_scatter_single", None) \
 # --------------------------------------------------------------------------- #
 # Nested-dict trees
 # --------------------------------------------------------------------------- #
-
-
-def _leaves(tree) -> List[Any]:
-    if isinstance(tree, dict):
-        return [x for v in tree.values() for x in _leaves(v)]
-    return [tree]
 
 
 def _nest(flat: Dict[str, Any], sep: str = "/") -> Dict[str, Any]:
@@ -465,36 +471,81 @@ def make_spmd_train_step(cfg: LlamaConfig, mesh, optimizer=None,
     one that needs a global statistic (clipping by the global norm)
     would see only this rank's shard.
 
+    A live ``seq`` or ``pipe`` axis is refused, as in the JAX package:
+    :func:`make_mesh_train_step` takes ``seq``,
+    ``models/llama.py:make_pipeline_train_step`` takes ``pipe``;
+    expert parallelism is not ported yet.
+
     Runs on ``cuda`` (NCCL mesh) unless ``device`` says otherwise."""
     dev = resolve_device(device)
+    _refuse_axes("make_spmd_train_step", "tensor", mesh,
+                 ("seq", "pipe", "expert"))
+    return _sharded_step(cfg, mesh, optimizer, gather, dev, rules)
+
+
+def make_mesh_train_step(cfg: LlamaConfig, mesh, optimizer=None,
+                         gather: str = "streamed", device=None, rules=None):
+    """Build ``(init_state, train_step)`` for this rank of ``mesh``, any
+    of the batch axes, ``fsdp``, ``seq`` and ``tensor``: the port of the
+    JAX package's GSPMD ``models/llama.py:make_train_step(cfg, mesh)``,
+    the one JAX step that takes a live ``seq`` axis. It is
+    :func:`make_spmd_train_step` (same arguments, state, gather schedules
+    and tensor parallelism) with sequence parallelism added:
+
+    - tokens shard over the batch axes only, as JAX's ``data_sharding``:
+      ``train_step`` takes the same ``[b, T+1]`` rows on every rank of a
+      ``seq`` group, and rank r of R keeps inputs and targets
+      ``[r T/R, (r+1) T/R)`` (T % R == 0, or it raises);
+    - the residual stream stays split over ``seq`` through every layer
+      (JAX's ``("batch", "seq", None)`` constraint), RoPE takes the
+      global positions, and attention is the ring
+      (``parallel/ring_attention.py``) over the ``seq`` group;
+    - the loss is the global mean, averaged over the ``seq`` group too,
+      and params, replicated over ``seq``, have their grads all-reduced
+      over it as well as over the batch axes.
+
+    A live ``pipe`` axis is refused (``make_pipeline_train_step``), and
+    so is ``expert``."""
+    dev = resolve_device(device)
+    _refuse_axes("make_mesh_train_step", "seq + tensor", mesh,
+                 ("pipe", "expert"))
+    return _sharded_step(cfg, mesh, optimizer, gather, dev, rules)
+
+
+def _refuse_axes(step: str, axes: str, mesh, refused) -> None:
+    """Raise on the first live axis of ``refused``, naming the step that
+    takes it, as the JAX package's refusal does."""
     sizes = axis_sizes(mesh)
-    for ax in ("seq", "pipe", "expert"):
+    for ax in refused:
         if sizes.get(ax, 1) > 1:
-            raise ValueError(
-                f"make_spmd_train_step shards over batch axes + fsdp + "
-                f"tensor; mesh has live {ax!r} axis — sequence, pipeline "
-                f"and expert parallelism are not ported yet")
+            instead = ("expert parallelism is not ported yet"
+                       if ax == "expert" else
+                       "use make_mesh_train_step or make_pipeline_train_step"
+                       " for that layout")
+            raise ValueError(f"{step} shards over batch axes + fsdp + "
+                             f"{axes}; mesh has live {ax!r} axis — "
+                             f"{instead}")
+
+
+def _sharded_step(cfg: LlamaConfig, mesh, optimizer, gather: str,
+                  dev: torch.device, rules):
+    """The step both constructors return; see :func:`make_spmd_train_step`
+    and :func:`make_mesh_train_step`."""
+    sizes = axis_sizes(mesh)
     if gather not in ("streamed", "upfront"):
         raise ValueError(
             f"gather must be 'streamed' or 'upfront', got {gather!r}")
     tensor = "tensor" if sizes.get("tensor", 1) > 1 else None
-    if tensor is not None:
-        t = sizes["tensor"]
-        for what, n in (("n_heads", cfg.n_heads),
-                        ("n_kv_heads", cfg.n_kv_heads),
-                        ("mlp_dim", cfg.mlp_dim),
-                        ("vocab_size", cfg.vocab_size)):
-            if n % t:
-                raise ValueError(
-                    f"tensor axis size {t} does not divide cfg.{what}={n}")
-    if mesh.device_type != dev.type:
-        raise ValueError(f"mesh is on {mesh.device_type!r}, the step on "
-                         f"{dev.type!r}")
-
+    _check_mesh(cfg, mesh, dev)
     batch_axes = data_axes(mesh)
     fsdp = "fsdp" if "fsdp" in sizes else None
     gather_mode = gather if fsdp is not None else "upfront"
-    denom = int(np.prod([sizes[a] for a in batch_axes]))
+    seq = "seq" if sizes.get("seq", 1) > 1 else None
+    seq_group = mesh.get_group(seq) if seq is not None else None
+    seq_rank = mesh.get_local_rank(seq) if seq is not None else 0
+    # the loss and the grads average over the batch axes and seq
+    mean_axes = batch_axes + ((seq,) if seq is not None else ())
+    denom = int(np.prod([sizes[a] for a in mean_axes]))
     _, specs = spmd_param_specs(cfg, mesh, rules)
     shard_fns, _ = make_shard_and_gather_fns(specs, mesh, device=dev)
     skip = (tensor,)
@@ -516,10 +567,10 @@ def make_spmd_train_step(cfg: LlamaConfig, mesh, optimizer=None,
 
     def run_layers(x, layer_shards):
         B, T, _ = x.shape
-        positions = _positions(B, T, x.device)
+        positions = _positions(B, T, x.device) + seq_rank * T
 
         def layer(h, p):
-            return _pp_layer(cfg, h, p, positions, collectives)
+            return _pp_layer(cfg, h, p, positions, collectives, seq_group)
 
         if gather_mode == "streamed":
             shards = _unbind_layers({"layers": layer_shards})
@@ -548,6 +599,15 @@ def make_spmd_train_step(cfg: LlamaConfig, mesh, optimizer=None,
 
     def local_loss(params, tokens):
         inputs, targets = tokens[:, :-1], tokens[:, 1:]
+        if seq is not None:
+            # this rank's block of the sequence, inputs and targets alike
+            n, rem = divmod(inputs.shape[1], sizes[seq])
+            if rem:
+                raise ValueError(f"sequence of {inputs.shape[1]} tokens "
+                                 f"does not split over seq axis size "
+                                 f"{sizes[seq]}")
+            part = slice(seq_rank * n, (seq_rank + 1) * n)
+            inputs, targets = inputs[:, part], targets[:, part]
         emb_local = _gather_leaf(params["embedding"], dims["embedding"])
         if tensor is not None:
             x = vp_embed(cfg, emb_local, inputs, tp_group, collectives[1])
@@ -569,12 +629,12 @@ def make_spmd_train_step(cfg: LlamaConfig, mesh, optimizer=None,
     def reduce_leaf(g, spec):
         """Locally-reduced grad shard → global mean: summed over every
         batch axis the leaf is not sharded over (a gathered leaf's fsdp
-        sum came with its reduce-scatter). No tensor reduction:
-        tensor-sharded leaves carry exact per-shard grads and
-        tensor-replicated leaves identical ones (the tp_psum_pair
-        contract)."""
+        sum came with its reduce-scatter) and over ``seq``, where every
+        leaf is replicated. No tensor reduction: tensor-sharded leaves
+        carry exact per-shard grads and tensor-replicated leaves
+        identical ones (the tp_psum_pair contract)."""
         named = {a for ax in spec for a in _spec_axes(ax)}
-        psum_tree(g, mesh, [a for a in batch_axes if a not in named])
+        psum_tree(g, mesh, [a for a in mean_axes if a not in named])
         if denom > 1:
             g.div_(denom)
 
@@ -587,7 +647,7 @@ def make_spmd_train_step(cfg: LlamaConfig, mesh, optimizer=None,
             reduce_leaf(p.grad, spec)
         opt.step()
         state["step"] += 1
-        return pmean_tree(loss.detach(), mesh, batch_axes)
+        return pmean_tree(loss.detach(), mesh, mean_axes)
 
     train_step.gather_stats = stats
     return init_state, train_step

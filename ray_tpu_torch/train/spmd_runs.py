@@ -16,14 +16,20 @@ import torch
 import torch.distributed as dist
 
 from ray_tpu_torch import resolve_device
-from ray_tpu_torch.collective.collective import _map
-from ray_tpu_torch.models.llama import tp_psum_pair, vp_chunk_nll, vp_embed
+from ray_tpu_torch.collective.collective import _leaves, _map
+from ray_tpu_torch.models.llama import (make_pipeline_train_step,
+                                        pipeline_param_specs, tp_psum_pair,
+                                        vp_chunk_nll, vp_embed)
 from ray_tpu_torch.ops import flash_attention as fa
-from ray_tpu_torch.parallel.mesh import axis_sizes, batch_sharding
-from ray_tpu_torch.parallel.sharding import param_residency_bytes
-from ray_tpu_torch.train.spmd import (_leaves, build_train_mesh,
-                                      global_grad_norm,
+from ray_tpu_torch.parallel.mesh import (P, axis_sizes, batch_sharding,
+                                         data_axes, shard_index)
+from ray_tpu_torch.parallel.pipeline import make_pipelined_fn
+from ray_tpu_torch.parallel.ring_attention import ring_attention
+from ray_tpu_torch.parallel.sharding import (param_residency_bytes,
+                                             shard_device_put)
+from ray_tpu_torch.train.spmd import (build_train_mesh, global_grad_norm,
                                       make_collective_probes,
+                                      make_mesh_train_step,
                                       make_shard_and_gather_fns,
                                       make_spmd_train_step, spmd_param_specs,
                                       tree_paths)
@@ -31,6 +37,8 @@ from ray_tpu_torch.train.spmd import (_leaves, build_train_mesh,
 KERNELS = {"fwd": fa.flash_attention_forward,
            "dq": fa.flash_attention_bwd_dq,
            "dkv": fa.flash_attention_bwd_dkv}
+# the step constructors a job names
+STEPS = {"spmd": make_spmd_train_step, "mesh": make_mesh_train_step}
 
 
 def _sync(dev: torch.device) -> None:
@@ -43,22 +51,26 @@ def train_jobs(jobs: Sequence[Dict[str, Any]], device=None) -> List[dict]:
 
     A job is a dict: ``cfg`` (LlamaConfig), ``mesh`` (spec, e.g.
     ``"fsdp=2,tensor=2"``; empty is data-parallel over every rank),
-    ``gather``, ``init`` (seed or JAX param tree as numpy), ``tokens``
-    (the global batch, numpy int ``[B, T+1]``) and ``steps``; and what
-    else to report: ``params`` (True: every leaf gathered after init),
-    ``grads`` (the '/'-joined paths of the leaves whose first-step grads
-    to gather; both numpy, from rank 0 only), ``probes`` (True: the
-    collective probes' times) and ``profile`` (``[(group, [words in a
-    kernel's name]), ...]``: one more step under ``torch.profiler``,
-    device time by group, the first group whose words match a kernel's
-    name taking it).
+    ``step`` (``"spmd"``, the default, for ``make_spmd_train_step``;
+    ``"mesh"`` for ``make_mesh_train_step``, which takes ``seq``;
+    ``"pipeline"`` for ``models/llama.py:make_pipeline_train_step``, with
+    ``microbatches``), ``gather``, ``init`` (seed or JAX param tree as
+    numpy), ``tokens`` (the global batch, numpy int ``[B, T+1]``) and
+    ``steps``; and what else to report: ``params`` (True: every leaf
+    gathered after init), ``grads`` (the '/'-joined paths of the leaves
+    whose first-step grads to gather; both numpy, from rank 0 only),
+    ``probes`` (True: the collective probes' times) and ``profile``
+    (``[(group, [words in a kernel's name]), ...]``: one more step under
+    ``torch.profiler``, device time by group, the first group whose words
+    match a kernel's name taking it).
 
-    A report holds the mesh, the schedule run, each step's loss and host
-    time (synchronised), the first step's global grad norm, the attention
-    kernels' launches over the steps, the most fsdp-full layers held at
-    once, the analytic ``param_residency_bytes`` and, on CUDA, the peak
-    memory over the steps. A configuration that ``make_spmd_train_step``
-    refuses reports ``{"rejected": message}``."""
+    A report holds the mesh, this rank's coordinates on it, the schedule
+    run, each step's loss and host time (synchronised), the first step's
+    global grad norm, the attention kernels' launches over the steps, the
+    rows this rank trains on and, on CUDA, the peak memory over the
+    steps; the sharded steps add the most fsdp-full layers held at once
+    and the analytic ``param_residency_bytes``. A configuration that the
+    step refuses reports ``{"rejected": message}``."""
     dev = resolve_device(device)
     meshes: Dict[str, Any] = {}
     reports = []
@@ -71,15 +83,21 @@ def train_jobs(jobs: Sequence[Dict[str, Any]], device=None) -> List[dict]:
 
 
 def _train_job(mesh, dev, job):
-    cfg, gather = job["cfg"], job.get("gather", "streamed")
+    cfg, step = job["cfg"], job.get("step", "spmd")
     try:
-        init_state, train_step = make_spmd_train_step(cfg, mesh,
-                                                      gather=gather,
-                                                      device=dev)
+        if step == "pipeline":
+            init_state, train_step = make_pipeline_train_step(
+                cfg, mesh, job["microbatches"], device=dev)
+        else:
+            init_state, train_step = STEPS[step](
+                cfg, mesh, gather=job.get("gather", "streamed"), device=dev)
     except ValueError as e:
         return {"rejected": str(e)}
-    stats = train_step.gather_stats
-    sample, specs = spmd_param_specs(cfg, mesh)
+    stats = getattr(train_step, "gather_stats", None)
+    if stats is None:
+        sample, specs = None, pipeline_param_specs(cfg, mesh)
+    else:
+        sample, specs = spmd_param_specs(cfg, mesh)
     _, gather_fns = make_shard_and_gather_fns(specs, mesh, device=dev)
     first = dist.get_rank() == 0
 
@@ -91,8 +109,10 @@ def _train_job(mesh, dev, job):
 
     state = init_state(job.get("init", 0))
     report: Dict[str, Any] = {"world": dist.get_world_size(),
-                              "mesh": axis_sizes(mesh),
-                              "gather": stats.schedule}
+                              "mesh": axis_sizes(mesh), "step": step,
+                              "coords": {a: mesh.get_local_rank(a)
+                                         for a in mesh.mesh_dim_names},
+                              "gather": stats and stats.schedule}
     if job.get("params"):
         report["params"] = gathered(state["params"])
     rows = torch.from_numpy(np.ascontiguousarray(
@@ -126,10 +146,13 @@ def _train_job(mesh, dev, job):
     report.update(
         losses=losses, step_ms=step_ms,
         launches={k: fn.launches for k, fn in KERNELS.items()},
-        layers_gathered={"peak_live": stats.peak, "gathers": stats.gathers},
-        residency=param_residency_bytes(sample, specs, mesh,
-                                        mode=stats.schedule),
         local_batch=int(rows.shape[0]))
+    if stats is not None:
+        report.update(
+            layers_gathered={"peak_live": stats.peak,
+                             "gathers": stats.gathers},
+            residency=param_residency_bytes(sample, specs, mesh,
+                                            mode=stats.schedule))
     if dev.type == "cuda":
         report["peak_bytes"] = torch.cuda.max_memory_allocated()
     if job.get("probes"):
@@ -211,25 +234,106 @@ def tp_helpers(inputs: Dict[str, Any], device=None) -> Dict[str, Any]:
         n = t.shape[dim] // world
         return t.narrow(dim, rank * n, n).clone().requires_grad_(True)
 
-    def np_(t):
-        return t.detach().float().cpu().numpy()
-
     out = {}
     x, r = full("x", True), full("r")
     w1, w2 = local("w1", 1), local("w2", 0)
     y = g((f(x) @ w1) @ w2)
     (y * r).sum().backward()
-    out["pair"] = {"y": np_(y), "x": np_(x.grad), "w1": np_(w1.grad),
-                   "w2": np_(w2.grad)}
+    out["pair"] = {"y": _np(y), "x": _np(x.grad), "w1": _np(w1.grad),
+                   "w2": _np(w2.grad)}
 
     emb, tokens = local("emb", 0), full("tokens")
     e = vp_embed(cfg, emb, tokens, group, g)
     (e.float() * r).sum().backward()
-    out["embed"] = {"e": np_(e), "emb": np_(emb.grad)}
+    out["embed"] = {"e": _np(e), "emb": _np(emb.grad)}
 
     x = full("x", True)
     head, targets = local("head", 1), full("targets")
     nll = vp_chunk_nll(cfg, head, group, g)(f(x), targets)
     nll.sum().backward()
-    out["nll"] = {"nll": np_(nll), "x": np_(x.grad), "head": np_(head.grad)}
+    out["nll"] = {"nll": _np(nll), "x": _np(x.grad), "head": _np(head.grad)}
     return out
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().float().cpu().numpy()
+
+
+def ring_jobs(jobs: Sequence[Dict[str, Any]], device=None) -> List[dict]:
+    """Ring attention (``parallel/ring_attention.py:ring_attention``) on
+    this rank's shards. A job holds ``mesh`` (spec), ``causal``, whole
+    q, k, v ``[B, T, H, D]`` and an output cotangent ``r`` (numpy, the
+    same on every rank), optionally ``dtype`` (a torch dtype for q, k,
+    v; float32 by default). The rank takes its shard of each under JAX's
+    spec ``P(batch axes, seq, tensor, None)``, runs ``ring_attention``
+    and back-propagates ``sum(o * r)``. Returns per job the shard's
+    ``(start, stop)`` in each dim, this rank's o, dq, dk, dv (numpy) and
+    its kernel launches."""
+    dev = resolve_device(device)
+    reports = []
+    for job in jobs:
+        mesh = build_train_mesh(job["mesh"], device=dev)
+        names = mesh.mesh_dim_names
+        spec = P(data_axes(mesh) or None, "seq" if "seq" in names else None,
+                 "tensor" if "tensor" in names else None, None)
+        q, k, v, r = (shard_device_put(job[n], mesh, spec, dev)
+                      for n in ("q", "k", "v", "r"))
+        q, k, v = (t.to(job.get("dtype", torch.float32)).requires_grad_(True)
+                   for t in (q, k, v))
+        for fn in KERNELS.values():
+            fn.launches = 0
+        o = ring_attention(q, k, v, mesh, causal=job["causal"])
+        (o.float() * r).sum().backward()
+        bounds = []
+        for n, axes in zip(job["q"].shape, spec):
+            i, c = shard_index(mesh, axes) if axes is not None else (0, 1)
+            bounds.append((i * n // c, (i + 1) * n // c))
+        reports.append({"bounds": bounds, "o": _np(o), "dq": _np(q.grad),
+                        "dk": _np(k.grad), "dv": _np(v.grad),
+                        "launches": {n: fn.launches
+                                     for n, fn in KERNELS.items()}})
+    return reports
+
+
+def pipeline_schedule(cases: Sequence[Dict[str, Any]], device=None
+                      ) -> List[dict]:
+    """``parallel/pipeline.py``'s GPipe schedule on affine-tanh stages
+    (``tanh(x @ w + b)``, or ``tanh(x @ w)`` without ``b``). A case holds
+    ``mesh`` (a spec with a ``pipe`` axis of P), ``w`` ``[P, d, d]``,
+    optionally ``b`` ``[P, d]``, ``x`` ``[B, d]`` and ``M`` (numpy, the
+    same on every rank); the rank keeps stage s's ``w[s]`` (and ``b[s]``).
+    Returns per case the outputs, and the grads of ``sum(out ** 2)`` in
+    this stage's w and b and in x (None off stage 0), as numpy."""
+    dev = resolve_device(device)
+    reports = []
+    for case in cases:
+        mesh = build_train_mesh(case["mesh"], device=dev)
+        stage = mesh.get_local_rank("pipe")
+
+        def mine(name):
+            return torch.tensor(case[name][stage], device=dev,
+                                requires_grad=True)
+
+        w = mine("w")
+        b = mine("b") if case.get("b") is not None else None
+        x = torch.tensor(case["x"], device=dev, requires_grad=True)
+
+        def stage_fn(p, act):
+            return torch.tanh(act @ p[0] + p[1]) if len(p) == 2 \
+                else torch.tanh(act @ p[0])
+
+        fn = make_pipelined_fn(stage_fn, mesh, case["M"])
+        out = fn((w, b) if b is not None else (w,), x)
+        out.pow(2).sum().backward()
+        reports.append({
+            "stage": stage, "out": _np(out), "w": _np(w.grad),
+            "b": _np(b.grad) if b is not None else None,
+            "x": _np(x.grad) if x.grad is not None else None})
+    return reports
+
+
+def rank_programs(calls: Sequence[Any], device=None) -> List[Any]:
+    """Several of this module's rank programs in one launch: ``calls`` is
+    a list of ``(program, jobs)`` pairs; returns each program's result,
+    in order."""
+    return [program(jobs, device) for program, jobs in calls]

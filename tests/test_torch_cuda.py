@@ -397,3 +397,57 @@ def test_train_step_on_the_card_through_the_kernels(cuda):
     assert fa.flash_attention_forward.launches == 2 * cfg.n_layers * 5
     assert fa.flash_attention_bwd_dq.launches == cfg.n_layers * 5
     assert fa.flash_attention_bwd_dkv.launches == cfg.n_layers * 5
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_ring_runs_its_blocks_on_the_kernels(cuda, causal):
+    """Ring attention's per-rank loops (4 positions in one process, a
+    list for the transport) on the card: every block through the three
+    kernels, R(R+1)/2 launches of each under causal and R^2 without, o,
+    dq, dk, dv within the kernels' bounds of the whole-T kernels and the
+    merged lse within 1e-3 of the whole-T kernel's."""
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.parallel.ring_attention import \
+        ring_attention_simulated
+
+    q, k, v = _qkv(512, 8, 2, 64, cuda)
+    do = _qkv(512, 8, 8, 64, cuda, seed=1)[0]
+    kernels = (fa.flash_attention_forward, fa.flash_attention_bwd_dq,
+               fa.flash_attention_bwd_dkv)
+    before = [f.launches for f in kernels]
+    o, lse, grads = ring_attention_simulated(q, k, v, 4, causal, do=do)
+    torch.cuda.synchronize()
+    want = 10 if causal else 16
+    assert [f.launches - b for f, b in zip(kernels, before)] == [want] * 3
+    wo, wlse = fa.flash_attention_forward(q, k, v, causal)
+    torch.testing.assert_close(lse, wlse, atol=1e-3, rtol=0)
+    ref = (wo, *fa.flash_attention_backward(q, k, v, wo, wlse, do, causal))
+    for name, got, w in zip(("o", "dq", "dk", "dv"), (o, *grads), ref):
+        tol = 2e-2 if name == "o" else 5e-2
+        torch.testing.assert_close(got.float(), w.float(), atol=tol,
+                                   rtol=tol, msg=name)
+        if name != "o":
+            assert _block_rel_err(got, w) <= 2e-2, name
+
+
+def test_ring_attention_without_seq_runs_the_kernels(cuda):
+    """ring_attention on a mesh with no seq axis (one rank, through the
+    launcher) is whole attention on the kernels, as JAX's fallback is
+    its plain attention: one launch of each kernel for the forward and
+    backward, and o within the forward's bound of the plain version."""
+    import numpy as np
+
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.train.launch import launch
+    from ray_tpu_torch.train.spmd_runs import ring_jobs
+
+    rng = np.random.RandomState(0)
+    job = {n: rng.randn(1, 256, h, 64).astype(np.float32)
+           for n, h in (("q", 8), ("k", 2), ("v", 2), ("r", 8))}
+    job.update(mesh="", causal=True, dtype=torch.bfloat16)
+    [[rep]] = launch(ring_jobs, 1, ([job], "cuda"), device="cuda")
+    assert rep["launches"] == {"fwd": 1, "dq": 1, "dkv": 1}
+    q, k, v = (torch.from_numpy(job[n]).to(torch.bfloat16) for n in "qkv")
+    ro, _ = fa.flash_attention_reference(q, k, v, True)
+    torch.testing.assert_close(torch.from_numpy(rep["o"]), ro.float(),
+                               atol=2e-2, rtol=2e-2)

@@ -66,10 +66,12 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu():
     from ray_tpu_torch import resolve_device
     from ray_tpu_torch.models.llama import (Llama, LlamaConfig,
                                             LlamaDecodeEngine,
+                                            make_pipeline_train_step,
                                             make_train_step)
     from ray_tpu_torch.parallel.mesh import make_mesh
     from ray_tpu_torch.train.launch import launch
     from ray_tpu_torch.train.spmd import (build_train_mesh,
+                                          make_mesh_train_step,
                                           make_spmd_train_step)
     from ray_tpu_torch.train.spmd_runs import train_jobs
 
@@ -80,6 +82,8 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu():
                  lambda: make_mesh(world_size=1),
                  lambda: build_train_mesh("", world_size=1),
                  lambda: make_spmd_train_step(cfg, None),
+                 lambda: make_mesh_train_step(cfg, None),
+                 lambda: make_pipeline_train_step(cfg, None, 1),
                  lambda: launch(train_jobs, 1)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()

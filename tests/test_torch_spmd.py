@@ -57,6 +57,9 @@ DEEP = 6  # layers of the schedule and residency jobs
 DEEP_LAYOUTS = [(m, g) for m in ("fsdp=4", "fsdp=2,tensor=2")
                 for g in ("upfront", "streamed")]
 SEEDED_MESHES = ("fsdp=4", "data=2,fsdp=2", "fsdp=2,tensor=2", "data=4")
+# the tied-embedding branch (the embedding is also the head): fsdp-gathered
+# and vocab-parallel at once
+TIED_MESH = "fsdp=2,tensor=2"
 SEED = 7
 
 
@@ -78,7 +81,7 @@ def _jax_mesh(spec):
     return js.build_train_mesh(spec, devices=jax.devices()[:WORLD])
 
 
-def _port_runs(tree, tokens):
+def _port_runs(tree, tied_tree, tokens):
     """Every port job of this file in one 4-rank launch, then the
     tensor-parallel helpers in another."""
     jobs = []
@@ -89,6 +92,11 @@ def _port_runs(tree, tokens):
                              tokens=tokens, steps=2, params=name == "f32",
                              grads=list(tl.param_shapes(tcfg))
                              if name == "f32" else ()))
+        _, tied = _cfgs(name, tie_embeddings=True)
+        jobs.append(dict(cfg=tied, mesh=TIED_MESH, init=tied_tree,
+                         tokens=tokens, steps=2,
+                         grads=list(tl.param_shapes(tied))
+                         if name == "f32" else ()))
     _, tcfg = _cfgs("f32")
     for mesh in SEEDED_MESHES:
         jobs.append(dict(cfg=tcfg, mesh=mesh, init=SEED, tokens=tokens,
@@ -131,39 +139,50 @@ def runs():
         lambda k: jl.init_params(jcfg, k))(jax.random.PRNGKey(0)))
     tokens = np.random.RandomState(0).randint(
         0, jcfg.vocab_size, (8, 33)).astype(np.int32)
+    tied_jcfg, _ = _cfgs("f32", tie_embeddings=True)
+    tied_tree = jax.tree.map(np.asarray, jax.jit(
+        lambda k: jl.init_params(tied_jcfg, k))(jax.random.PRNGKey(0)))
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
-        port = pool.submit(_port_runs, tree, tokens)
+        port = pool.submit(_port_runs, tree, tied_tree, tokens)
         want = {}
         for name in DTYPES:
-            jcfg, _ = _cfgs(name)
-            for mesh, gather in LAYOUTS:
+            runs_of = [(_cfgs(name)[0], tree, mesh, gather)
+                       for mesh, gather in LAYOUTS]
+            runs_of.append((_cfgs(name, tie_embeddings=True)[0], tied_tree,
+                            TIED_MESH, "streamed"))
+            for jcfg, init_tree, mesh, gather in runs_of:
                 init, step, ds, _ = js.make_spmd_train_step(
                     jcfg, _jax_mesh(mesh), donate=False, gather=gather)
                 state = init(jax.random.PRNGKey(0))
-                for a, b in zip(jax.tree.leaves(tree),
+                for a, b in zip(jax.tree.leaves(init_tree),
                                 jax.tree.leaves(state["params"])):
                     assert np.array_equal(a, np.asarray(b))
                 toks = jax.device_put(tokens, ds)
                 state, l1 = step(state, toks)
                 _, l2 = step(state, toks)
-                want[name, mesh, gather] = [float(l1), float(l2)]
-        jcfg, _ = _cfgs("f32")
-        jgrads = jax.jit(jax.grad(lambda p: jl.loss_fn(
-            jcfg, p, jnp.asarray(tokens))))(tree)
+                want[name, mesh, gather, jcfg.tie_embeddings] = [
+                    float(l1), float(l2)]
+        jgrads = {}
+        for tied, init_tree in ((False, tree), (True, tied_tree)):
+            jcfg, _ = _cfgs("f32", tie_embeddings=tied)
+            jgrads[tied] = _flat(jax.tree.map(np.asarray, jax.jit(jax.grad(
+                lambda p: jl.loss_fn(jcfg, p, jnp.asarray(tokens))))(
+                    init_tree)))
         jobs, reports, tp = port.result()
     index = {}
     for i, (job, rep) in enumerate(zip(jobs, reports[0])):
         if "rejected" not in rep:
             index[job["cfg"].dtype, job["cfg"].n_layers, job["mesh"],
                   job.get("gather", "streamed"),
-                  isinstance(job.get("init"), int)] = i
+                  isinstance(job.get("init"), int),
+                  job["cfg"].tie_embeddings] = i
     return {"tree": tree, "want": want, "reports": reports,
-            "index": index,
-            "jgrads": _flat(jax.tree.map(np.asarray, jgrads)), "tp": tp}
+            "index": index, "jgrads": jgrads, "tp": tp}
 
 
-def _index(runs, name, mesh, gather, layers=2, seeded=False):
-    return runs["index"][DTYPES[name][1], layers, mesh, gather, seeded]
+def _index(runs, name, mesh, gather, layers=2, seeded=False, tied=False):
+    return runs["index"][DTYPES[name][1], layers, mesh, gather, seeded,
+                         tied]
 
 
 def _report(runs, *key, **kw):
@@ -286,7 +305,7 @@ def test_two_step_losses_match_jax(runs, name, mesh, gather):
     rep = runs["reports"][0][i]
     assert rep["gather"] == gather
     np.testing.assert_allclose(rep["losses"],
-                               runs["want"][name, mesh, gather],
+                               runs["want"][name, mesh, gather, False],
                                rtol=DTYPES[name][2])
     # the reported loss is the same on every rank
     for rank_reports in runs["reports"][1:]:
@@ -302,8 +321,11 @@ def test_layouts_agree_with_each_other(runs, name):
 
 @pytest.mark.parametrize("mesh,gather", LAYOUTS, ids=LAYOUT_IDS)
 def test_first_step_grads_match_jax(runs, mesh, gather):
-    rep = _report(runs, "f32", mesh, gather)
-    got, want = rep["grads"], runs["jgrads"]
+    _check_grads(_report(runs, "f32", mesh, gather), runs["jgrads"][False])
+
+
+def _check_grads(rep, want):
+    got = rep["grads"]
     assert set(got) == set(want)
     for path, g in want.items():
         np.testing.assert_allclose(got[path], g, rtol=1e-4, atol=1e-4,
@@ -311,6 +333,24 @@ def test_first_step_grads_match_jax(runs, mesh, gather):
     norm = np.sqrt(sum(float(np.sum(np.square(g, dtype=np.float64)))
                        for g in want.values()))
     np.testing.assert_allclose(rep["grad_norm"], norm, rtol=1e-4)
+
+
+@pytest.mark.parametrize("name", list(DTYPES))
+def test_tied_embeddings_losses_match_jax(runs, name):
+    """The tied branch: the embedding shard is the lookup table and,
+    transposed, the vocab-parallel head."""
+    i = _index(runs, name, TIED_MESH, "streamed", tied=True)
+    losses = runs["reports"][0][i]["losses"]
+    np.testing.assert_allclose(
+        losses, runs["want"][name, TIED_MESH, "streamed", True],
+        rtol=DTYPES[name][2])
+    for rank_reports in runs["reports"][1:]:
+        assert rank_reports[i]["losses"] == losses
+
+
+def test_tied_embeddings_first_grads_match_jax(runs):
+    _check_grads(_report(runs, "f32", TIED_MESH, "streamed", tied=True),
+                 runs["jgrads"][True])
 
 
 def test_streamed_schedule_holds_at_most_two_gathered_layers(runs):
