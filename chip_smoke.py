@@ -55,7 +55,18 @@ non-zero and never prints the final ``ok`` line.
    ``pipe`` over every card and on four ``pipe=2,tensor=2``, with its
    bubble (P-1)/(M+P-1); one card prints a line that it needs two. Each
    rank's launches are read from its own counts;
-10. the ``kernels`` line, the card's ``name, power.limit``, and last the
+10. ``moe``: the MoE decoder (``models/moe_llama.py``) at
+   ``MoEConfig.small`` (12/4 heads: a GQA group of 3, also in the kernel
+   gates above): on one card a 2-layer step through the kernels against
+   plain attention (loss and grad norm free-running; the wq/wk/wv grads
+   and each layer's routing agreement with the plain run replaying the
+   kernel run's expert picks), then full depth timed (tokens/s, MFU on
+   the active params, peak memory, a profile with the ``moe.*`` ranges);
+   given two or four cards, ``make_moe_train_step`` on ``expert`` layouts
+   (``expert=2``; ``expert=4`` and ``fsdp=2,expert=2``) against the
+   single card at 2 layers and timed at full depth, with the
+   all-to-all's device time on rank 0;
+11. the ``kernels`` line, the card's ``name, power.limit``, and last the
    ``{"ok": true, "device": ...}`` line.
 
 Weights are random, made from ``--seed``. Exits non-zero without CUDA.
@@ -64,6 +75,7 @@ Weights are random, made from ``--seed``. Exits non-zero without CUDA.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -120,6 +132,18 @@ RING_LSE_ATOL = 1e-3
 # against the whole stack); the rest of the gap is activations and grads,
 # which the model leaves out
 STREAMED_SAVING_SHARE = 0.5
+# the MoE phase's routing agreement: the share of (token, choice) expert
+# picks equal to the reference run's. A near-tie in the fp32 router logits
+# can flip under bf16 rounding elsewhere in the step; a flip shows as a
+# reading below 1 here, not as a loosened bound
+ROUTING_AGREEMENT_MIN = 0.99
+# The MoE step's attention leaves are held with the routing replayed: the
+# reference run takes the experts the run under test chose, layer by
+# layer, so the leaves compare attention and not the router's near-ties.
+# Free-running, the 1.1 % of picks that flip under bf16 rounding (any two
+# sound attention implementations: on an H100, SDPA against the fp32
+# plain version reads 0.9889 agreement) move every wq/wk/wv grad by
+# 0.09-0.21 at MoEConfig.small widths, 2 layers, B 4 x 2048.
 
 # published dense bf16 peak (FLOP/s) and memory rate (B/s) by card name,
 # NVIDIA data sheets; the rates assume the card's full power limit
@@ -145,6 +169,9 @@ KERNEL_GROUPS = (
 
 # and on the sharded step's ranks, the collectives (NCCL's kernels) first
 SPMD_KERNEL_GROUPS = (("nccl", ("nccl", "ncclDevKernel")),) + KERNEL_GROUPS
+# on the MoE step's ranks NCCL's all-to-all (its send/recv kernels) apart
+MOE_KERNEL_GROUPS = (("nccl_all_to_all", ("SendRecv", "AllToAll")),) \
+    + SPMD_KERNEL_GROUPS
 
 
 def emit(obj) -> None:
@@ -189,8 +216,9 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 def profile_ms(torch, fn) -> dict:
     """Run ``fn`` once plainly (host clock, synchronised) and once under
-    torch.profiler: device kernel ms by name (top 8), their sum, and the
-    device's busy share of the plain run's wall time."""
+    torch.profiler: device kernel ms by name (top 8), their sum, the
+    device's busy share of the plain run's wall time and the device ms of
+    the kernels inside each of the port's ``moe.*`` ranges."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -203,6 +231,9 @@ def profile_ms(torch, fn) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+    regions = {e.key: e.device_time_total / 1e3
+               for e in prof.key_averages()
+               if e.key.startswith("moe.") and e.device_type == DeviceType.CPU}
     # device kernels only: a user annotation (e.g. the optimizer's
     # record_function range) spans kernels already counted
     rows = sorted(((e.device_time_total / 1e3, e.count, e.key)
@@ -221,6 +252,7 @@ def profile_ms(torch, fn) -> dict:
             "device_busy_share": busy / wall_ms if rows else "not measured",
             "device_kernels": sum(r[1] for r in rows),
             "device_ms_by_group": groups,
+            "region_device_ms": regions,
             "top_kernels": [{"name": k[:90], "ms": ms, "calls": n}
                             for ms, n, k in rows[:10]]}
 
@@ -391,6 +423,11 @@ TP_CASES = [(4, 16, 4, 64, 2048, True), (1, 16, 4, 128, 2048, True),
             (2, 8, 2, 128, 129, True), (2, 16, 4, 128, 129, False)]
 
 
+# the MoE decoder's heads (MoEConfig.small: 12/4, D 64, a GQA group of 3)
+# at its training shape and at a ragged length
+MOE_CASES = [(4, 12, 4, 64, 2048, True), (2, 12, 4, 64, 257, False)]
+
+
 # the two timed shapes: the 8B heads at a 2k-token prefill, and the 1B
 # training step's attention
 TIMED_SHAPES = (("table", (1, 2048, 32, 8, 128)),
@@ -413,7 +450,7 @@ def phase_kernel(torch, gen, peaks):
              for causal in (True, False)]
     # the serving phase's padded prefill lengths (page_size 16)
     cases += [(1, 32, 8, 128, T, True) for T in (16, 208, 1008, 2000)]
-    cases += RING_CASES + TP_CASES
+    cases += RING_CASES + TP_CASES + MOE_CASES
     cases += [("strided", 32, 8, D, 257, True) for D in (64, 128)]
     worst_o = worst_lse = worst_ratio = 0.0
     for B, Hq, Hkv, D, T, causal in cases:
@@ -495,7 +532,7 @@ def phase_backward(torch, gen, peaks):
              for causal in (True, False)]
     cases += [(1, 12, 6, 128, 2048, True), (1, 12, 6, 128, 100, False),
               (4, 32, 8, 64, 2048, True)]
-    cases += RING_CASES + TP_CASES
+    cases += RING_CASES + TP_CASES + MOE_CASES
     cases += [("strided", 32, 8, D, 257, True) for D in (64, 128)]
     worst = {"dq": 0.0, "dk": 0.0, "dv": 0.0}
     worst_ratio = {"dq": 0.0, "dkv": 0.0}
@@ -1238,6 +1275,312 @@ def phase_spmd(torch, seed, smi, peak_flops, timeout=600.0):
     return launches
 
 
+def routing_patch(n_layers: int, replay=None):
+    """A patch of ``ops/moe.py``'s ``expert_choices`` for one step's
+    forward (its first ``n_layers`` calls, one a layer; run the step
+    without remat when replaying): it records the experts each token of
+    each layer chooses before capacity and, given ``replay`` (``[L, B,
+    T, k]``, another run's record), routes the layer by those instead.
+    Returns the patch and the list it records in."""
+    from unittest import mock
+
+    from ray_tpu_torch.ops import moe
+
+    seen = []
+    real = moe.expert_choices
+
+    def choices(probs, top_k):
+        own = real(probs, top_k)
+        layer = len(seen)
+        if layer >= n_layers:
+            return own
+        seen.append(own.cpu())
+        return own if replay is None else replay[layer].to(own.device)
+
+    return mock.patch.object(moe, "expert_choices", choices), seen
+
+
+def routing_agreement(torch, got, want) -> float:
+    """The share of (layer, token, choice) expert picks that agree."""
+    return (torch.as_tensor(got).long() == torch.as_tensor(want).long()) \
+        .float().mean().item()
+
+
+def moe_layouts(world: int):
+    """(mesh spec, gather schedule) of the MoE step across cards: every
+    card an expert rank, and on four also fsdp 2 x expert 2."""
+    if world == 1:
+        return []
+    if world == 2:
+        return [("expert=2", "streamed")]
+    return [("expert=4", "streamed"), ("fsdp=2,expert=2", "streamed")]
+
+
+def moe_flops_per_token(cfg, T: int) -> float:
+    """The model work of one token of an MoE train step: 6 times the
+    active params (every expert but its top-k left out) plus 6 L H T D
+    for causal attention. The dispatch and combine products and the
+    capacity slots' padding are overhead, not model work."""
+    return 6.0 * cfg.active_params() \
+        + 6.0 * cfg.n_layers * cfg.n_heads * T * cfg.head_dim
+
+
+def phase_moe(torch, seed, smi, peak_flops, timeout=600.0):
+    """The MoE decoder (``models/moe_llama.py``) at ``MoEConfig.small``
+    widths, bf16 compute, remat, random weights from ``seed``:
+
+    - one card, 2 layers, B 4 x 2048: one step through the kernels
+      against the same step through plain attention (loss, grad norm,
+      each layer's wq/wk/wv grads, routing agreement), launches exact and
+      no plain delta;
+    - one card, full depth (12 layers), B 4 x 2048: 3 warm-up and 5
+      timed steps, tokens/s, MFU on the active params, peak memory, a
+      profile of one step, launches exact;
+    - two or four cards, one rank a card (``make_moe_train_step`` in
+      ``spmd_runs.moe_jobs``, one launch): each layout at 2 layers
+      against the single-card step on the same params and global batch
+      (loss, grad norm, leaves, routing), then at full depth with 4 rows
+      a rank: step time, tokens/s per card, peak per rank, rank 0's
+      profile with the all-to-all's device time, every rank's launches.
+    Returns the full-depth runs' launches by path."""
+    from unittest import mock
+
+    from ray_tpu_torch.models import moe_llama
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.train.launch import launch
+    from ray_tpu_torch.train.spmd_runs import moe_jobs
+
+    full = moe_llama.MoEConfig.small()
+    reduced = dataclasses.replace(full, n_layers=2)
+    B, T, warmup, timed, steps = 4, 2048, 3, 5, 3
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def tokens(rows):
+        return torch.randint(0, full.vocab_size, (rows, T + 1),
+                             device="cuda", generator=gen)
+
+    leaves = ("wq", "wk", "wv")
+
+    def steps_of(cfg, batch, n, patch=None, replay=None):
+        """n steps of the single-card step from ``seed`` (the first one's
+        routing recorded, or replayed from ``replay`` without remat):
+        losses, the first step's grad norm, wq/wk/wv grads and routing."""
+        if replay is not None:
+            cfg = dataclasses.replace(cfg, remat=False)
+        init_state, train_step = moe_llama.make_train_step(cfg)
+        state = init_state(seed)
+        route, seen = routing_patch(cfg.n_layers, replay)
+        out = {"losses": []}
+        with route, (patch or contextlib.nullcontext()):
+            for i in range(n):
+                out["losses"].append(float(train_step(state, batch)))
+                if i == 0:
+                    out["grad_norm"] = _grad_norm(torch, state["params"])
+                    out["leaves"] = {
+                        name: getattr(state["params"].layers, name).grad
+                        .clone() for name in leaves}
+        out["routing"] = torch.stack(seen)
+        del state
+        torch.cuda.empty_cache()
+        return out
+
+    def compare(got, ref, name, held):
+        """Losses and grad norm within TRAIN_RTOL, always; with ``held``
+        (``ref`` replayed ``got``'s routing) each layer's wq/wk/wv grads
+        within ATTN_GRAD_RTOL and its own picks agreeing with ``got``'s
+        in at least ROUTING_AGREEMENT_MIN of (token, choice)s."""
+        rel = [abs(a - b) / abs(b) for a, b in zip(got["losses"],
+                                                   ref["losses"])]
+        gnorm = abs(got["grad_norm"] - ref["grad_norm"]) / ref["grad_norm"]
+        leaf = {f"{n}[{i}]": ((torch.as_tensor(got["leaves"][n][i]).cuda()
+                               - ref["leaves"][n][i]).norm()
+                              / ref["leaves"][n][i].norm()).item()
+                for n in leaves for i in range(len(ref["leaves"][n]))}
+        agree = [routing_agreement(torch, a, b)
+                 for a, b in zip(got["routing"], ref["routing"])]
+        check(all(math.isfinite(x) for x in got["losses"]),
+              f"{name}: non-finite losses {got['losses']}")
+        check(max(rel) <= TRAIN_RTOL and gnorm <= TRAIN_RTOL,
+              f"{name}: loss {rel}, grad norm {gnorm} beyond {TRAIN_RTOL}")
+        if held:
+            check(max(leaf.values()) <= ATTN_GRAD_RTOL,
+                  f"{name}: attention-leaf grads differ: {leaf}")
+            check(min(agree) >= ROUTING_AGREEMENT_MIN,
+                  f"{name}: routing agreement by layer {agree}")
+        return {"loss_rel_diff": rel, "grad_norm_rel_diff": gnorm,
+                "attn_leaf_rel_diff_worst": max(leaf.values()),
+                "routing_agreement_by_layer": agree}
+
+    # one card, reduced depth: kernels against plain attention, the plain
+    # run free and with the kernel run's routing replayed
+    batch = tokens(B)
+    reset_launches(fa)
+    patch, delta_calls = counting_plain_delta(fa)
+    kern = steps_of(reduced, batch, 1, patch)
+    counts = read_launches(fa)
+    check(counts == expected_launches(reduced, 1),
+          f"MoE reduced-depth step launched {counts}")
+    check(not delta_calls, f"the MoE kernel step took the plain delta "
+                           f"{len(delta_calls)} times")
+
+    def plain_attention():
+        return mock.patch.object(
+            moe_llama, "flash_attention",
+            lambda q, k, v, causal: fa.flash_attention_reference(
+                q, k, v, causal)[0])
+
+    free = steps_of(reduced, batch, 1, plain_attention())
+    held = steps_of(reduced, batch, 1, plain_attention(), kern["routing"])
+    one_card = {"losses": kern["losses"], "plain_losses": held["losses"],
+                "launches": counts, "plain_delta_calls": len(delta_calls),
+                "routing_replayed": compare(kern, held, "moe one card vs "
+                                            "plain attention", True),
+                "free_running": compare(kern, free, "moe one card vs plain "
+                                        "attention, free-running", False)}
+    del kern, free, held
+
+    # one card, full depth: timed steps
+    batch = tokens(B)
+    init_state, train_step = moe_llama.make_train_step(full)
+    state = init_state(seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(fa)
+    patch, delta_calls = counting_plain_delta(fa)
+    with patch:
+        losses = [train_step(state, batch) for _ in range(warmup)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses += [train_step(state, batch) for _ in range(timed)]
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / timed
+    train_launches = read_launches(fa)
+    peak_bytes = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses]
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"MoE full-depth losses {losses}")
+    check(train_launches == expected_launches(full, warmup + timed),
+          f"MoE training launched {train_launches} over {warmup + timed} "
+          f"steps of {full.n_layers} layers")
+    check(not delta_calls, f"MoE training took the plain delta "
+                           f"{len(delta_calls)} times")
+    tokens_per_s = B * T / step_s
+    profile_ms(torch, torch.cuda.synchronize)  # profiler start-up
+    prof = profile_ms(torch, lambda: train_step(state, batch))
+    single = {"batch": B, "T": T, "warmup_steps": warmup,
+              "timed_steps": timed, "step_ms": step_s * 1e3,
+              "tokens_per_s": tokens_per_s,
+              "mfu_active": moe_flops_per_token(full, T) * tokens_per_s
+              / peak_flops,
+              "max_memory_allocated_bytes": peak_bytes, "losses": losses,
+              "launches": train_launches,
+              "plain_delta_calls": len(delta_calls),
+              "profile_one_step": prof}
+    del state, train_step, init_state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # across cards
+    world = spmd_world(torch)
+    layouts = moe_layouts(world)
+    mesh_out, mesh_launches = {}, None
+    if layouts:
+        small = tokens(world).cpu().numpy()
+        grads = [f"layers/{n}" for n in leaves]
+        jobs = [dict(cfg=reduced, mesh=mesh, gather=gather, init=seed,
+                     tokens=small, steps=steps, grads=grads)
+                for mesh, gather in layouts]
+        jobs += [dict(cfg=full, mesh=mesh, gather=gather, init=seed,
+                      tokens=tokens(4 * world).cpu().numpy(),
+                      steps=warmup + timed, profile=MOE_KERNEL_GROUPS)
+                 for mesh, gather in layouts]
+        t0 = time.perf_counter()
+        ranks = launch(moe_jobs, world, (jobs,), timeout=timeout)
+        launch_s = time.perf_counter() - t0
+        for j, (mesh, gather) in enumerate(layouts):
+            reps = [r[j] for r in ranks]
+            # every rank's rows, in batch order (ranks that share rows
+            # recorded the same picks)
+            by_rows = {tuple(r["rows"]): r["routing"] for r in reps}
+            routing = torch.cat([torch.from_numpy(by_rows[k]).long()
+                                 for k in sorted(by_rows)], dim=1)
+            # the single card on the same batch, replaying the mesh's
+            # routing in its first step
+            ref = steps_of(reduced, torch.from_numpy(small), steps,
+                           replay=routing)
+            got = {"losses": reps[0]["losses"],
+                   "grad_norm": reps[0]["grad_norm"],
+                   "leaves": {n: torch.from_numpy(
+                       reps[0]["grads"][f"layers/{n}"]) for n in leaves},
+                   "routing": routing}
+            check(all(r["losses"] == reps[0]["losses"] for r in reps),
+                  f"moe {mesh}: the ranks report different losses")
+            want = [rank_launches(reduced, steps, r) for r in reps]
+            check([r["launches"] for r in reps] == want,
+                  f"moe {mesh}: ranks launched "
+                  f"{[r['launches'] for r in reps]}, want {want}")
+            parity = {"single_card_losses": ref["losses"],
+                      "launches_per_rank": [r["launches"] for r in reps],
+                      **compare(got, ref, f"moe {mesh}", True)}
+
+            reps = [r[len(layouts) + j] for r in ranks]
+            rep = reps[0]
+            step_ms = sum(rep["step_ms"][warmup:]) / timed
+            rows = 4 * world
+            per_s = rows * T * 1e3 / step_ms
+            want = [rank_launches(full, warmup + timed, r) for r in reps]
+            check(all(math.isfinite(x) for x in rep["losses"])
+                  and rep["losses"][-1] < rep["losses"][0],
+                  f"moe {mesh}: full-depth losses {rep['losses']}")
+            check([r["launches"] for r in reps] == want,
+                  f"moe {mesh}: full depth launched "
+                  f"{[r['launches'] for r in reps]}, want {want}")
+            prof_r0 = rep["profile"]
+            mesh_out[mesh] = {
+                "gather": rep["gather"], "reduced_depth": parity,
+                "global_batch": rows, "rows_per_rank": 4, "T": T,
+                "step_ms": step_ms, "step_ms_each": rep["step_ms"],
+                "tokens_per_s": per_s, "tokens_per_s_per_card": per_s / world,
+                "mfu_active": moe_flops_per_token(full, T) * per_s / world
+                / peak_flops,
+                "peak_bytes_per_rank": [r["peak_bytes"] for r in reps],
+                "all_to_all_device_ms_rank0": prof_r0["device_ms_by_group"]
+                .get("nccl_all_to_all", "not measured"),
+                "profile_one_step_rank0": prof_r0,
+                "losses": rep["losses"],
+                "launches_per_rank": [r["launches"] for r in reps]}
+        mesh_launches = {k: sum(r[len(layouts) + j]["launches"][k]
+                                for r in ranks
+                                for j in range(len(layouts)))
+                         for k in ("fwd", "dq", "dkv")}
+    else:
+        launch_s = None
+        print("moe: the expert-parallel step needs two or more cards; this "
+              "machine has one, so its layouts did not run", flush=True)
+    emit({"phase": "moe", "model": "MoEConfig.small", "card": smi,
+          "dim": full.dim, "n_layers": full.n_layers,
+          "heads": [full.n_heads, full.n_kv_heads],
+          "experts": full.num_experts, "top_k": full.top_k,
+          "capacity_factor": full.capacity_factor,
+          "params": full.num_params(), "active_params": full.active_params(),
+          "mfu_note": "6 x active params + 6 L H T D per token against the "
+                      "bf16 peak; dispatch/combine einsums and capacity "
+                      "padding counted as overhead, not model work",
+          "one_card_reduced_depth": {"n_layers": reduced.n_layers,
+                                     "batch": B, "T": T,
+                                     "rtol": TRAIN_RTOL,
+                                     "attn_leaf_rtol": ATTN_GRAD_RTOL,
+                                     "routing_min": ROUTING_AGREEMENT_MIN,
+                                     **one_card},
+          "one_card_full_depth": single,
+          "world": world, "launch_s": launch_s, "layouts": mesh_out})
+    out = {"moe_training": train_launches}
+    if mesh_launches is not None:
+        out["moe_mesh_all_ranks"] = mesh_launches
+    return out
+
+
 def parse_mesh(spec: str) -> dict:
     """``"fsdp=2,seq=2"`` -> ``{"fsdp": 2, "seq": 2}``."""
     return {a: int(n) for a, n in (p.split("=") for p in spec.split(",")
@@ -1472,11 +1815,15 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     spmd_launches = phase_spmd(torch, args.seed, smi, peaks[0])
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_launches = phase_moe(torch, args.seed, smi, peaks[0])
 
     # each path's launches, read from its own run: the one-card ring, the
-    # single-device step, the sharded steps and the pipeline (all ranks)
+    # single-device step, the sharded steps, the pipeline (all ranks) and
+    # the MoE decoder's steps (one card, and all ranks across cards)
     by_path = {"seq_ring": seq_ring_launches, "training": train_launches,
-               **spmd_launches}
+               **spmd_launches, **moe_launches}
     timed = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
              "ratio_to_library", "achieved_tflops", "share_of_bound")
     shapes = {label: fwd_timing[label]["shape"] for label in fwd_timing}

@@ -1,6 +1,7 @@
 """Tree collectives over the axes of a DeviceMesh (port of the in-program
 half of ``ray_tpu/collective/collective.py``: ``psum_tree`` and
-``pmean_tree``).
+``pmean_tree``), and the differentiable ``all_to_all`` of expert
+parallelism.
 
 Each leaf is all-reduced over the process group of each named mesh axis
 in turn, in place. An axis of size 1 is the identity and costs nothing,
@@ -67,3 +68,34 @@ def pmean_tree(tree, mesh, axis_names: Axes):
     if denom == 1:
         return tree
     return _map(lambda x: x.div_(denom), tree)
+
+
+def _exchange(x: torch.Tensor, group) -> torch.Tensor:
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x, group=group)
+    return out
+
+
+class _AllToAll(torch.autograd.Function):
+    """``dist.all_to_all_single`` over dim 0 in equal chunks. Its inverse
+    (each chunk sent back to the rank it came from) is the same exchange,
+    so that is the backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _exchange(x, group)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return _exchange(ct, ctx.group), None
+
+
+def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """Differentiable all-to-all over the process ``group`` (n ranks):
+    dim 0 of ``x`` is cut into n equal chunks, chunk j is sent to rank j,
+    and the chunks received are stacked in rank order. The backward sends
+    each gradient chunk back where its value came from. NCCL on the card,
+    gloo on the CPU."""
+    return _AllToAll.apply(x, group)

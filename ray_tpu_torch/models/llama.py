@@ -188,15 +188,17 @@ def _no_reduced_precision_matmuls() -> None:
 
 class Llama(nn.Module):
     """Llama parameters (uninitialised; see :func:`init_params` and
-    :func:`params_from_numpy`) on ``device`` (``cuda`` unless given)."""
+    :func:`params_from_numpy`) on ``device`` (``cuda`` unless given).
+    ``shapes`` (path -> shape) defaults to :func:`param_shapes`; another
+    decoder of the family (``models/moe_llama.py``) passes its own."""
 
-    def __init__(self, cfg: LlamaConfig, device=None):
+    def __init__(self, cfg: LlamaConfig, device=None, shapes=None):
         super().__init__()
         _no_reduced_precision_matmuls()
         dev = resolve_device(device)
         self.cfg = cfg
         self.layers = nn.Module()
-        for path, shape in param_shapes(cfg).items():
+        for path, shape in (shapes or param_shapes(cfg)).items():
             owner, name = self, path
             if path.startswith("layers/"):
                 owner, name = self.layers, path.split("/", 1)[1]
@@ -214,10 +216,12 @@ class Llama(nn.Module):
 
 
 def init_params(cfg: LlamaConfig, generator: torch.Generator,
-                device=None) -> Llama:
+                device=None, model: Optional[Llama] = None) -> Llama:
     """Random init as in the JAX package: normal / sqrt(fan_in) for dense
-    leaves, ones for norms. ``generator`` must live on ``device``."""
-    model = Llama(cfg, device)
+    leaves (fan_in the next-to-last dim; the embedding's is ``dim``),
+    ones for norms. ``generator`` must live on ``device``. Fills
+    ``model`` when given, else a new :class:`Llama`."""
+    model = Llama(cfg, device) if model is None else model
     with torch.no_grad():
         for path, p in model.named_parameters():
             if path.endswith("norm"):
@@ -228,10 +232,11 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
     return model
 
 
-def params_from_numpy(cfg: LlamaConfig, tree, device=None) -> Llama:
+def params_from_numpy(cfg: LlamaConfig, tree, device=None,
+                      model: Optional[Llama] = None) -> Llama:
     """The JAX param tree as numpy arrays (``jax.tree.map(np.asarray,
-    params)``) turned into the port's model, so both compute the same
-    function."""
+    params)``) turned into the port's model (``model`` when given, else
+    a new :class:`Llama`), so both compute the same function."""
     flat = {}
 
     def walk(node, prefix):
@@ -243,7 +248,7 @@ def params_from_numpy(cfg: LlamaConfig, tree, device=None) -> Llama:
                 flat[path] = val
 
     walk(tree, "")
-    model = Llama(cfg, device)
+    model = Llama(cfg, device) if model is None else model
     state = {path.replace(".", "/"): p
              for path, p in model.named_parameters()}
     if set(flat) != set(state):
@@ -305,15 +310,22 @@ def _qkv(cfg: LlamaConfig, x, p, positions, col_in=_identity):
     return q, kk, vv
 
 
+def _attn_out(cfg: LlamaConfig, x, attn, p, row_out=_identity):
+    """The wo projection of ``attn`` [B, T, Hq, D] added to the residual
+    stream x [B, T, dim]; under tensor parallelism ``row_out`` sums the
+    row-parallel projection's partial outputs."""
+    B, T, _ = x.shape
+    return x + row_out(attn.reshape(B, T, -1)
+                       @ p["wo"].to(cfg.dtype)).to(x.dtype)
+
+
 def _attn_out_and_mlp(cfg: LlamaConfig, x, attn, p, col_in=_identity,
                       row_out=_identity):
-    """The wo projection of ``attn`` [B, T, Hq, D] and the SwiGLU MLP, each
-    added to the residual stream x [B, T, dim]. Under tensor parallelism
-    ``row_out`` sums the row-parallel projections' partial outputs and
-    ``col_in`` enters the MLP's column-parallel region."""
+    """:func:`_attn_out`, then the SwiGLU MLP added to the residual
+    stream. Under tensor parallelism ``col_in`` enters the MLP's
+    column-parallel region and ``row_out`` leaves it."""
     cd = cfg.dtype
-    B, T, _ = x.shape
-    x = x + row_out(attn.reshape(B, T, -1) @ p["wo"].to(cd)).to(x.dtype)
+    x = _attn_out(cfg, x, attn, p, row_out)
     h = col_in(rms_norm(x, p["mlp_norm"], cfg.norm_eps).to(cd))
     g = F.silu(h @ p["w_gate"].to(cd))
     u = h @ p["w_up"].to(cd)
@@ -429,14 +441,14 @@ def loss_fn(cfg: LlamaConfig, params, tokens: torch.Tensor) -> torch.Tensor:
                             _plain_chunk_nll(cfg, _head(cfg, params)))
 
 
-def _init_model(cfg: LlamaConfig, init, device) -> Llama:
-    """The model from a seed (:func:`init_params` from a
-    ``torch.Generator`` on ``device``) or from a JAX param tree as numpy
-    arrays (:func:`params_from_numpy`)."""
+def _init_model(cfg: LlamaConfig, init, device, model=None) -> Llama:
+    """The model (``model``, uninitialised, when given) from a seed
+    (:func:`init_params` from a ``torch.Generator`` on ``device``) or
+    from a JAX param tree as numpy arrays (:func:`params_from_numpy`)."""
     if isinstance(init, dict):
-        return params_from_numpy(cfg, init, device)
+        return params_from_numpy(cfg, init, device, model)
     gen = torch.Generator(device=device).manual_seed(int(init))
-    return init_params(cfg, gen, device)
+    return init_params(cfg, gen, device, model)
 
 
 def _make_optimizer(optimizer, params) -> torch.optim.Optimizer:
@@ -658,7 +670,9 @@ def make_pipeline_train_step(cfg: LlamaConfig, mesh, num_microbatches: int,
     int ``[b, T+1]``; returns the loss, the mean over the batch axes) as
     in ``train/spmd.py:make_spmd_train_step``; ``optimizer`` likewise.
     Raises as JAX's does on a mesh with no ``pipe`` axis and on
-    ``L % P``; refuses a live ``seq`` or ``expert`` axis."""
+    ``L % P``; refuses a live ``seq`` or ``expert`` axis (the MoE
+    decoder's expert axis is ``models/moe_llama.py:make_train_step``'s,
+    and it has no pipeline step yet)."""
     dev = resolve_device(device)
     sizes = axis_sizes(mesh)
     if "pipe" not in sizes:
@@ -671,7 +685,10 @@ def make_pipeline_train_step(cfg: LlamaConfig, mesh, num_microbatches: int,
         if ax in sizes:
             raise ValueError(f"make_pipeline_train_step shards over pipe + "
                              f"batch axes + tensor; mesh has live {ax!r} "
-                             f"axis")
+                             f"axis" + (" — the MoE decoder's expert axis "
+                                        "is models/moe_llama.py:"
+                                        "make_train_step's"
+                                        if ax == "expert" else ""))
     _check_mesh(cfg, mesh, dev)
     specs = pipeline_param_specs(cfg, mesh)
     batch_axes = data_axes(mesh)

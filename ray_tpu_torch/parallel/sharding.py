@@ -101,7 +101,8 @@ def param_residency_bytes(params, specs, mesh, mode: str = "upfront",
     keeps the stacked layers (the top-level ``scan_key`` subtree, leaves
     shaped [L, ...]) sharded and holds at most ``window`` fsdp-full
     layers (current + prefetched next); non-stacked leaves still gather
-    up front. Tensor-sharded dims stay sharded under both schedules.
+    up front. Tensor- and expert-sharded dims stay sharded under both
+    schedules (the port's step never gathers them).
     ``params`` is a nested dict of tensors (``meta`` tensors will do) and
     ``specs`` mirrors it. Returns ``{"mode", "shard_bytes",
     "gathered_bytes", "peak_bytes"}`` — analytic, so it is the same on
@@ -133,8 +134,9 @@ def param_residency_bytes(params, specs, mesh, mode: str = "upfront",
             b = int(np.prod(tuple(leaf.shape), dtype=np.int64)) \
                 * leaf.element_size()
             shard_bytes += b // div(spec)
-            # fsdp-gathered working copy: only tensor dims stay sharded
-            g = b // div(spec, only=("tensor",))
+            # fsdp-gathered working copy: tensor and expert dims stay
+            # sharded
+            g = b // div(spec, only=("tensor", "expert"))
             if mode == "streamed" and top == scan_key:
                 L = max(1, int(leaf.shape[0]))
                 gathered_bytes += min(window, L) * (g // L)

@@ -33,13 +33,24 @@ on its own shards; the collectives are written out:
   sequence through every layer, attention is the ring of
   ``parallel/ring_attention.py``, and loss and grads average over
   ``seq`` too.
+- **The MoE step** (``make_moe_train_step``, the port of the JAX
+  package's ``models/moe_llama.py:make_train_step(cfg, mesh)``): the
+  same step for the MoE decoder of ``models/moe_llama.py``, with a live
+  ``expert`` axis. Each ``expert`` rank keeps ``E/ep`` experts and its
+  share of the rows; the MoE FFN sends the dispatched slots to their
+  experts' ranks and back by all-to-all (``ops/moe.py``), and loss and
+  grads average over ``expert`` too.
 
-On one device the mesh is ``("data",)`` of size 1 and every collective
-is the identity. ``make_spmd_train_step`` takes the batch axes
-(``slice``/``data``), ``fsdp`` and ``tensor`` and refuses a live ``seq``
-or ``pipe`` axis, naming ``make_mesh_train_step`` and
+The steps share one body; what differs between the two decoders (the
+param shapes and partition rules, the init, the layer, whether a layer
+returns an aux loss) is a :class:`_Decoder` record. On one device the
+mesh is ``("data",)`` of size 1 and every collective is the identity.
+``make_spmd_train_step`` takes the batch axes (``slice``/``data``),
+``fsdp`` and ``tensor`` and refuses a live ``seq`` or ``pipe`` axis,
+naming ``make_mesh_train_step`` and
 ``models/llama.py:make_pipeline_train_step``, which take them, as the
-JAX package's does; expert parallelism (``expert``) is not ported yet.
+JAX package's does; a live ``expert`` axis it refuses naming the MoE
+step.
 """
 
 from __future__ import annotations
@@ -47,6 +58,7 @@ from __future__ import annotations
 import difflib
 import re
 import weakref
+from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -57,6 +69,7 @@ from torch.utils.checkpoint import checkpoint
 from ray_tpu_torch import PARAM_DTYPE, resolve_device
 from ray_tpu_torch.collective.collective import (_leaves, _map, pmean_tree,
                                                  psum_tree)
+from ray_tpu_torch.models import moe_llama
 from ray_tpu_torch.models.llama import (LlamaConfig, _check_mesh,
                                         _init_model, _make_optimizer,
                                         _plain_chunk_nll, _positions,
@@ -73,9 +86,11 @@ __all__ = [
     "match_partition_rules",
     "make_shard_and_gather_fns",
     "llama_partition_rules",
+    "moe_partition_rules",
     "spmd_param_specs",
     "make_spmd_train_step",
     "make_mesh_train_step",
+    "make_moe_train_step",
     "make_collective_probes",
     "global_grad_norm",
     "parse_mesh_spec",
@@ -166,6 +181,77 @@ def llama_partition_rules():
         # lm_head: (embed, vocab)
         (r"(^|/)lm_head$", P("fsdp", "tensor")),
     )
+
+
+def moe_partition_rules():
+    """Partition rules for the MoE decoder's param tree
+    (models/moe_llama.py), mirroring its ``param_logical_axes`` without
+    ``tensor`` (the MoE step does not take it): embed dims over ``fsdp``,
+    the experts' dim over ``expert``; the router's expert dim is never
+    split."""
+    return (
+        (r"(^|/)embedding$", P(None, "fsdp")),
+        (r"layers/w(q|k|v)$", P(None, "fsdp", None)),
+        (r"layers/wo$", P(None, None, "fsdp")),
+        (r"layers/router$", P(None, "fsdp", None)),
+        # experts: (L, E, embed, mlp) and (L, E, mlp, embed)
+        (r"layers/w_(gate|up)$", P(None, "expert", "fsdp", None)),
+        (r"layers/w_down$", P(None, "expert", None, "fsdp")),
+        (r"norm$", P()),
+        (r"(^|/)lm_head$", P("fsdp", None)),
+    )
+
+
+@dataclass(frozen=True)
+class _Decoder:
+    """What the sharded step needs of a decoder: its param shapes, its
+    default partition rules, its init (a seed or a JAX tree as numpy ->
+    a module with ``tree()``), its layer ``(cfg, x, p, positions,
+    groups) -> x`` or ``(x, aux)`` on local shards, and the axes its
+    step refuses, each with the reason."""
+
+    shapes: Callable
+    rules: Callable
+    init_model: Callable
+    layer: Callable
+    refused: Dict[str, str]
+
+
+@dataclass(frozen=True)
+class _Groups:
+    """A layer's collectives: the tensor axis' ``(f, g)`` pair, the seq
+    and expert process groups, and the aux loss' ``frac`` mean over the
+    ranks that split the batch (None where an axis is not live)."""
+
+    collectives: Any = None
+    seq_group: Any = None
+    expert_group: Any = None
+    frac_mean: Optional[Callable] = None
+
+
+_OTHER_STEPS = "use make_mesh_train_step or make_pipeline_train_step " \
+    "for that layout"
+_LLAMA = _Decoder(
+    shapes=param_shapes, rules=llama_partition_rules,
+    init_model=_init_model,
+    layer=lambda cfg, x, p, pos, g: _pp_layer(cfg, x, p, pos, g.collectives,
+                                              g.seq_group),
+    refused={"seq": _OTHER_STEPS, "pipe": _OTHER_STEPS,
+             "expert": "the expert axis is the MoE decoder's "
+                       "(make_moe_train_step)"})
+_MOE = _Decoder(
+    shapes=moe_llama.param_shapes, rules=moe_partition_rules,
+    init_model=moe_llama.init_model,
+    layer=lambda cfg, x, p, pos, g: moe_llama._layer(
+        cfg, x, p, pos, g.expert_group, g.frac_mean),
+    refused={"tensor": "MoE with tensor parallelism inside each expert "
+                       "is not ported yet",
+             "seq": "MoE with sequence parallelism is not ported yet",
+             "pipe": "MoE with pipeline parallelism is not ported yet"})
+
+
+def _decoder(cfg) -> _Decoder:
+    return _MOE if isinstance(cfg, moe_llama.MoEConfig) else _LLAMA
 
 
 def _restrict_spec(spec, mesh):
@@ -293,15 +379,16 @@ def make_shard_and_gather_fns(partition_specs, mesh, dtype_specs=None,
 
 
 def spmd_param_specs(cfg: LlamaConfig, mesh, rules=None):
-    """(abstract param tree, PartitionSpec tree) for ``cfg`` on ``mesh``
-    — the rule table matched and restricted to the mesh's live axes. The
-    abstract tree holds ``meta`` tensors of the params' shapes."""
+    """(abstract param tree, PartitionSpec tree) for ``cfg`` (a Llama or
+    an MoE config) on ``mesh`` — the rule table (the decoder's own by
+    default) matched and restricted to the mesh's live axes. The abstract
+    tree holds ``meta`` tensors of the params' shapes."""
+    model = _decoder(cfg)
     sample = _nest({path: torch.empty(shape, dtype=PARAM_DTYPE,
                                       device="meta")
-                    for path, shape in param_shapes(cfg).items()})
+                    for path, shape in model.shapes(cfg).items()})
     specs = _map(lambda s: _restrict_spec(s, mesh),
-                 match_partition_rules(rules or llama_partition_rules(),
-                                       sample))
+                 match_partition_rules(rules or model.rules(), sample))
     return sample, specs
 
 
@@ -405,7 +492,8 @@ class _StreamedLayer(torch.autograd.Function):
     """One layer with ZeRO-3 residency: the forward runs on the gathered
     layer but saves only (input activation, shards); the backward
     re-gathers the layer, recomputes it (an inherent per-layer remat) and
-    reduce-scatters the layer's grads back to shards."""
+    reduce-scatters the layer's grads back to shards. The layer returns
+    x, or ``(x, aux)``: then both outputs carry a cotangent back."""
 
     @staticmethod
     def forward(ctx, x, stream, i, full, *shards):
@@ -416,7 +504,7 @@ class _StreamedLayer(torch.autograd.Function):
         return stream.layer(x, full)
 
     @staticmethod
-    def backward(ctx, ct):
+    def backward(ctx, *cts):
         stream, i = ctx.stream, ctx.i
         (x,) = ctx.saved_tensors
         full = stream.take(i)
@@ -426,7 +514,7 @@ class _StreamedLayer(torch.autograd.Function):
             xd = x.detach().requires_grad_(True)
             leaves = [full[n].detach().requires_grad_(True) for n in names]
             out = stream.layer(xd, dict(zip(names, leaves)))
-            grads = torch.autograd.grad(out, [xd, *leaves], ct)
+            grads = torch.autograd.grad(out, [xd, *leaves], cts)
         del full, leaves, out
         dshards = [stream.scatter(g, n) for g, n in zip(grads[1:], names)]
         return (grads[0], None, None, None, *dshards)
@@ -473,13 +561,14 @@ def make_spmd_train_step(cfg: LlamaConfig, mesh, optimizer=None,
 
     A live ``seq`` or ``pipe`` axis is refused, as in the JAX package:
     :func:`make_mesh_train_step` takes ``seq``,
-    ``models/llama.py:make_pipeline_train_step`` takes ``pipe``;
-    expert parallelism is not ported yet.
+    ``models/llama.py:make_pipeline_train_step`` takes ``pipe``; a live
+    ``expert`` axis too (:func:`make_moe_train_step` takes it, for the
+    MoE decoder).
 
     Runs on ``cuda`` (NCCL mesh) unless ``device`` says otherwise."""
     dev = resolve_device(device)
     _refuse_axes("make_spmd_train_step", "tensor", mesh,
-                 ("seq", "pipe", "expert"))
+                 ("seq", "pipe", "expert"), cfg)
     return _sharded_step(cfg, mesh, optimizer, gather, dev, rules)
 
 
@@ -505,32 +594,80 @@ def make_mesh_train_step(cfg: LlamaConfig, mesh, optimizer=None,
       over it as well as over the batch axes.
 
     A live ``pipe`` axis is refused (``make_pipeline_train_step``), and
-    so is ``expert``."""
+    so is ``expert`` (:func:`make_moe_train_step`)."""
     dev = resolve_device(device)
     _refuse_axes("make_mesh_train_step", "seq + tensor", mesh,
-                 ("pipe", "expert"))
+                 ("pipe", "expert"), cfg)
     return _sharded_step(cfg, mesh, optimizer, gather, dev, rules)
 
 
-def _refuse_axes(step: str, axes: str, mesh, refused) -> None:
-    """Raise on the first live axis of ``refused``, naming the step that
-    takes it, as the JAX package's refusal does."""
+def make_moe_train_step(cfg: moe_llama.MoEConfig, mesh, optimizer=None,
+                        gather: str = "streamed", device=None, rules=None):
+    """Build ``(init_state, train_step)`` of the MoE decoder
+    (``models/moe_llama.py``) for this rank of ``mesh``, any of the batch
+    axes, ``fsdp`` and ``expert``: the port of the JAX package's
+    ``moe_llama.make_train_step(cfg, mesh)``. It is
+    :func:`make_spmd_train_step` (same arguments, state and gather
+    schedules; ``rules`` defaults to :func:`moe_partition_rules`) with
+    expert parallelism:
+
+    - rank j of the ``expert`` axis (ep ranks) keeps experts
+      ``[j E/ep, (j+1) E/ep)`` of every layer (``E % ep`` raises), and
+      each MoE FFN sends the dispatched slots to their experts' ranks and
+      back by all-to-all;
+    - tokens shard over the batch axes only, as JAX's ``data_sharding``:
+      ``train_step`` takes the same ``[b, T+1]`` rows on every rank of an
+      ``expert`` group, and expert rank j keeps rows ``[j b/ep, (j+1)
+      b/ep)`` (``b % ep`` raises). Capacity is per row, so no routing
+      decision changes;
+    - the aux loss takes ``frac`` (the first-choice shares, without
+      gradient) averaged over the batch axes and ``expert`` times the
+      local mean router probability: the mean of the ranks' losses is
+      JAX's global-batch loss, in value and in gradient;
+    - loss and grads average over ``expert`` as over the batch axes.
+      Expert leaves are not summed over it (the all-to-all's backward
+      brought every rank's contribution home), but take its ``1/ep``.
+
+    A live ``tensor``, ``seq`` or ``pipe`` axis is refused: MoE with
+    those is not ported yet."""
+    dev = resolve_device(device)
+    if not isinstance(cfg, moe_llama.MoEConfig):
+        raise TypeError(f"make_moe_train_step takes an MoEConfig, not "
+                        f"{type(cfg).__name__}")
+    _refuse_axes("make_moe_train_step", "expert", mesh,
+                 ("tensor", "seq", "pipe"), cfg)
+    return _sharded_step(cfg, mesh, optimizer, gather, dev, rules)
+
+
+def _refuse_axes(step: str, axes: str, mesh, refused, cfg) -> None:
+    """Raise on the first live axis of ``refused``, with the reason the
+    decoder of ``cfg`` gives (the step that takes it, as the JAX
+    package's refusal names it, or what is not ported yet)."""
     sizes = axis_sizes(mesh)
+    if _decoder(cfg) is _MOE and step != "make_moe_train_step":
+        raise ValueError(f"{step} trains the Llama decoder; an MoE config "
+                         f"is make_moe_train_step's")
     for ax in refused:
         if sizes.get(ax, 1) > 1:
-            instead = ("expert parallelism is not ported yet"
-                       if ax == "expert" else
-                       "use make_mesh_train_step or make_pipeline_train_step"
-                       " for that layout")
             raise ValueError(f"{step} shards over batch axes + fsdp + "
                              f"{axes}; mesh has live {ax!r} axis — "
-                             f"{instead}")
+                             f"{_decoder(cfg).refused[ax]}")
+
+
+def _keep_block(x, dim: int, rank: int, n_ranks: int, what: str):
+    """Block ``rank`` of ``n_ranks`` equal blocks of ``x`` along ``dim``;
+    raises unless they divide it (``what`` names the dim and the axis)."""
+    n, rem = divmod(x.shape[dim], n_ranks)
+    if rem:
+        raise ValueError(what.format(x.shape[dim], n_ranks))
+    return x.narrow(dim, rank * n, n)
 
 
 def _sharded_step(cfg: LlamaConfig, mesh, optimizer, gather: str,
                   dev: torch.device, rules):
-    """The step both constructors return; see :func:`make_spmd_train_step`
-    and :func:`make_mesh_train_step`."""
+    """The step the constructors return; see :func:`make_spmd_train_step`,
+    :func:`make_mesh_train_step` and :func:`make_moe_train_step`."""
+    model = _decoder(cfg)
     sizes = axis_sizes(mesh)
     if gather not in ("streamed", "upfront"):
         raise ValueError(
@@ -543,34 +680,54 @@ def _sharded_step(cfg: LlamaConfig, mesh, optimizer, gather: str,
     seq = "seq" if sizes.get("seq", 1) > 1 else None
     seq_group = mesh.get_group(seq) if seq is not None else None
     seq_rank = mesh.get_local_rank(seq) if seq is not None else 0
-    # the loss and the grads average over the batch axes and seq
-    mean_axes = batch_axes + ((seq,) if seq is not None else ())
+    expert = "expert" if sizes.get("expert", 1) > 1 else None
+    if expert is not None and cfg.num_experts % sizes[expert]:
+        raise ValueError(f"expert axis size {sizes[expert]} does not "
+                         f"divide cfg.num_experts={cfg.num_experts}")
+    expert_rank = mesh.get_local_rank(expert) if expert is not None else 0
+    # the loss and the grads average over the batch axes, seq and expert
+    mean_axes = batch_axes + tuple(a for a in (seq, expert) if a is not None)
     denom = int(np.prod([sizes[a] for a in mean_axes]))
     _, specs = spmd_param_specs(cfg, mesh, rules)
     shard_fns, _ = make_shard_and_gather_fns(specs, mesh, device=dev)
-    skip = (tensor,)
+    # tensor- and expert-sharded dims stay sharded through compute
+    skip = (tensor, expert)
     dims = _map(lambda s: _gather_dims(s, mesh, skip), specs)
     # one layer (stacked dim sliced off): spec dims shift left by one
     layer_dims = {name: _gather_dims(P(*s[1:]), mesh, skip)
                   for name, s in specs["layers"].items()}
     tp_group = mesh.get_group(tensor) if tensor is not None else None
     collectives = tp_psum_pair(tp_group) if tensor is not None else None
+    groups = _Groups(
+        collectives=collectives, seq_group=seq_group,
+        expert_group=mesh.get_group(expert) if expert is not None else None,
+        # frac carries no gradient: a plain in-place mean of a copy
+        frac_mean=lambda f: pmean_tree(f.detach().clone(), mesh, mean_axes))
     stats = GatherStats(gather_mode)
 
     def init_state(init=0):
-        model = _init_model(cfg, init, dev)
+        whole = model.init_model(cfg, init, dev)
         params = _map(lambda f, x: f(x).requires_grad_(True), shard_fns,
-                      model.tree())
-        del model
+                      whole.tree())
+        del whole
         return {"params": params, "step": 0,
                 "opt_state": _make_optimizer(optimizer, _leaves(params))}
 
     def run_layers(x, layer_shards):
+        """x through the layers; returns ``(x, aux summed over the layers
+        or None)``."""
         B, T, _ = x.shape
         positions = _positions(B, T, x.device) + seq_rank * T
+        aux = []
 
         def layer(h, p):
-            return _pp_layer(cfg, h, p, positions, collectives, seq_group)
+            return model.layer(cfg, h, p, positions, groups)
+
+        def carry(out):
+            if isinstance(out, tuple):
+                aux.append(out[1])
+                return out[0]
+            return out
 
         if gather_mode == "streamed":
             shards = _unbind_layers({"layers": layer_shards})
@@ -581,10 +738,10 @@ def _sharded_step(cfg: LlamaConfig, mesh, optimizer, gather: str,
                 cur = stream.take(i)
                 # start layer i+1's gather first, to overlap layer i
                 stream.prefetch(i + 1)
-                x = _StreamedLayer.apply(x, stream, i, cur,
-                                         *(lay[n] for n in stream.names))
+                x = carry(_StreamedLayer.apply(
+                    x, stream, i, cur, *(lay[n] for n in stream.names)))
                 del cur
-            return x
+            return x, (sum(aux) if aux else None)
         full = {n: _gather_leaf(s, dims["layers"][n])
                 for n, s in layer_shards.items()}
         stats.track([full[n] for n, s in layer_shards.items()
@@ -592,47 +749,55 @@ def _sharded_step(cfg: LlamaConfig, mesh, optimizer, gather: str,
         remat = cfg.remat and torch.is_grad_enabled()
         for p in _unbind_layers({"layers": full}):
             if remat:
-                x = checkpoint(layer, x, p, use_reentrant=False)
+                x = carry(checkpoint(layer, x, p, use_reentrant=False))
             else:
-                x = layer(x, p)
-        return x
+                x = carry(layer(x, p))
+        return x, (sum(aux) if aux else None)
 
     def local_loss(params, tokens):
         inputs, targets = tokens[:, :-1], tokens[:, 1:]
         if seq is not None:
             # this rank's block of the sequence, inputs and targets alike
-            n, rem = divmod(inputs.shape[1], sizes[seq])
-            if rem:
-                raise ValueError(f"sequence of {inputs.shape[1]} tokens "
-                                 f"does not split over seq axis size "
-                                 f"{sizes[seq]}")
-            part = slice(seq_rank * n, (seq_rank + 1) * n)
-            inputs, targets = inputs[:, part], targets[:, part]
+            inputs, targets = (_keep_block(
+                t, 1, seq_rank, sizes[seq], "sequence of {} tokens does "
+                "not split over seq axis size {}") for t in (inputs, targets))
+        if expert is not None:
+            # this expert rank's block of the rows
+            inputs, targets = (_keep_block(
+                t, 0, expert_rank, sizes[expert], "batch of {} rows does "
+                "not split over expert axis size {}")
+                for t in (inputs, targets))
         emb_local = _gather_leaf(params["embedding"], dims["embedding"])
         if tensor is not None:
             x = vp_embed(cfg, emb_local, inputs, tp_group, collectives[1])
         else:
             x = emb_local[inputs].to(cfg.dtype)
-        x = run_layers(x, params["layers"])
+        x, aux = run_layers(x, params["layers"])
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         if cfg.tie_embeddings:
             head_local = emb_local.T
         else:
             head_local = _gather_leaf(params["lm_head"], dims["lm_head"])
         if tensor is not None:
-            return chunked_nll_mean(
+            nll = chunked_nll_mean(
                 cfg, collectives[0](x), targets,
                 vp_chunk_nll(cfg, head_local, tp_group, collectives[1]))
-        return chunked_nll_mean(cfg, x, targets,
-                                _plain_chunk_nll(cfg, head_local))
+        else:
+            nll = chunked_nll_mean(cfg, x, targets,
+                                   _plain_chunk_nll(cfg, head_local))
+        if aux is None:
+            return nll
+        return nll + cfg.aux_loss_coef * (aux / cfg.n_layers)
 
     def reduce_leaf(g, spec):
         """Locally-reduced grad shard → global mean: summed over every
         batch axis the leaf is not sharded over (a gathered leaf's fsdp
-        sum came with its reduce-scatter) and over ``seq``, where every
-        leaf is replicated. No tensor reduction: tensor-sharded leaves
-        carry exact per-shard grads and tensor-replicated leaves
-        identical ones (the tp_psum_pair contract)."""
+        sum came with its reduce-scatter) and over ``seq`` and
+        ``expert``, where every leaf but the experts' is replicated; an
+        expert leaf's sum over ``expert`` came with the all-to-all's
+        backward. No tensor reduction: tensor-sharded leaves carry exact
+        per-shard grads and tensor-replicated leaves identical ones (the
+        tp_psum_pair contract)."""
         named = {a for ax in spec for a in _spec_axes(ax)}
         psum_tree(g, mesh, [a for a in mean_axes if a not in named])
         if denom > 1:

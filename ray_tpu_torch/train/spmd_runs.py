@@ -16,11 +16,13 @@ import torch
 import torch.distributed as dist
 
 from ray_tpu_torch import resolve_device
-from ray_tpu_torch.collective.collective import _leaves, _map
+from ray_tpu_torch.collective.collective import (_leaves, _map, all_to_all,
+                                                 pmean_tree)
 from ray_tpu_torch.models.llama import (make_pipeline_train_step,
                                         pipeline_param_specs, tp_psum_pair,
                                         vp_chunk_nll, vp_embed)
 from ray_tpu_torch.ops import flash_attention as fa
+from ray_tpu_torch.ops import moe as moe_ops
 from ray_tpu_torch.parallel.mesh import (P, axis_sizes, batch_sharding,
                                          data_axes, shard_index)
 from ray_tpu_torch.parallel.pipeline import make_pipelined_fn
@@ -30,6 +32,7 @@ from ray_tpu_torch.parallel.sharding import (param_residency_bytes,
 from ray_tpu_torch.train.spmd import (build_train_mesh, global_grad_norm,
                                       make_collective_probes,
                                       make_mesh_train_step,
+                                      make_moe_train_step,
                                       make_shard_and_gather_fns,
                                       make_spmd_train_step, spmd_param_specs,
                                       tree_paths)
@@ -38,7 +41,8 @@ KERNELS = {"fwd": fa.flash_attention_forward,
            "dq": fa.flash_attention_bwd_dq,
            "dkv": fa.flash_attention_bwd_dkv}
 # the step constructors a job names
-STEPS = {"spmd": make_spmd_train_step, "mesh": make_mesh_train_step}
+STEPS = {"spmd": make_spmd_train_step, "mesh": make_mesh_train_step,
+         "moe": make_moe_train_step}
 
 
 def _sync(dev: torch.device) -> None:
@@ -54,11 +58,13 @@ def train_jobs(jobs: Sequence[Dict[str, Any]], device=None) -> List[dict]:
     ``step`` (``"spmd"``, the default, for ``make_spmd_train_step``;
     ``"mesh"`` for ``make_mesh_train_step``, which takes ``seq``;
     ``"pipeline"`` for ``models/llama.py:make_pipeline_train_step``, with
-    ``microbatches``), ``gather``, ``init`` (seed or JAX param tree as
-    numpy), ``tokens`` (the global batch, numpy int ``[B, T+1]``) and
-    ``steps``; and what else to report: ``params`` (True: every leaf
-    gathered after init), ``grads`` (the '/'-joined paths of the leaves
-    whose first-step grads to gather; both numpy, from rank 0 only),
+    ``microbatches``; ``"moe"`` for ``make_moe_train_step``, the MoE
+    decoder's, which :func:`moe_jobs` runs), ``gather``, ``init`` (seed
+    or JAX param tree as numpy), ``tokens`` (the global batch, numpy int
+    ``[B, T+1]``) and ``steps``; and what else to report: ``params``
+    (True: every leaf gathered after init), ``grads`` (the '/'-joined
+    paths of the leaves whose first-step grads to gather; both numpy,
+    from rank 0 only),
     ``probes`` (True: the collective probes' times) and ``profile``
     (``[(group, [words in a kernel's name]), ...]``: one more step under
     ``torch.profiler``, device time by group, the first group whose words
@@ -163,11 +169,65 @@ def _train_job(mesh, dev, job):
     return report
 
 
+def moe_jobs(jobs: Sequence[Dict[str, Any]], device=None) -> List[dict]:
+    """:func:`train_jobs` for the MoE decoder (``cfg`` an MoEConfig; the
+    ``step`` defaults to ``"moe"``, ``train/spmd.py:make_moe_train_step``).
+    A report also holds ``routing``, the experts this rank's tokens chose
+    in the first step's forward (``[L, rows, T, top_k]`` int8, before
+    capacity), and ``rows``, the ``(start, stop)`` of those rows in the
+    global batch: its batch shard's block, then its expert rank's."""
+    dev = resolve_device(device)
+    meshes: Dict[str, Any] = {}
+    reports = []
+    for job in jobs:
+        job = {"step": "moe", **job}
+        spec = job.get("mesh", "")
+        if spec not in meshes:
+            meshes[spec] = build_train_mesh(spec, device=dev)
+        mesh = meshes[spec]
+        log: List[np.ndarray] = []
+        choices = moe_ops.expert_choices
+
+        def recorded(probs, top_k):
+            picks = choices(probs, top_k)
+            # the first step's forward: one call a layer, in order
+            if len(log) < job["cfg"].n_layers:
+                log.append(picks.to(torch.int8).cpu().numpy())
+            return picks
+
+        moe_ops.expert_choices = recorded
+        try:
+            report = _train_job(mesh, dev, job)
+        finally:
+            moe_ops.expert_choices = choices
+        if "rejected" not in report:
+            report["routing"] = np.stack(log) if log else None
+            report["rows"] = _moe_rows(mesh, len(job["tokens"]))
+        reports.append(report)
+    return reports
+
+
+def _moe_rows(mesh, global_rows: int):
+    """(start, stop) in the global batch of the rows this rank of the MoE
+    step trains on."""
+    index, count = shard_index(mesh, data_axes(mesh)) \
+        if data_axes(mesh) else (0, 1)
+    per = global_rows // count
+    names = mesh.mesh_dim_names
+    if "expert" in names:
+        ep = axis_sizes(mesh)["expert"]
+        per //= ep
+        index = index * ep + mesh.get_local_rank("expert")
+    return index * per, (index + 1) * per
+
+
 def _profile(fn, dev, groups) -> Dict[str, Any]:
     """One call of ``fn`` under ``torch.profiler``: its host ms
-    (synchronised) and the device kernels' ms by group. Kernels on
-    different streams (NCCL's beside the compute stream) overlap, so the
-    groups may add up to more than the wall time."""
+    (synchronised), the device kernels' ms by group and, by name, the
+    device ms of the kernels launched inside each ``record_function``
+    range of the port (``moe.*``, ``ops/moe.py``). Kernels on different
+    streams (NCCL's beside the compute stream) overlap, so the groups may
+    add up to more than the wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -179,8 +239,12 @@ def _profile(fn, dev, groups) -> Dict[str, Any]:
         _sync(dev)
     wall_ms = (time.perf_counter() - t0) * 1e3
     by_group: Dict[str, float] = {}
+    regions: Dict[str, float] = {}
     kernels = 0
     for e in prof.key_averages():
+        if e.key.startswith("moe.") and e.device_type == DeviceType.CPU:
+            # the range on the host: its kernels' device time
+            regions[e.key] = e.device_time_total / 1e3
         if e.device_type != DeviceType.CUDA or e.device_time_total <= 0 \
                 or getattr(e, "is_user_annotation", False):
             continue
@@ -190,7 +254,7 @@ def _profile(fn, dev, groups) -> Dict[str, Any]:
             + e.device_time_total / 1e3
         kernels += e.count
     return {"wall_ms": wall_ms, "device_ms_by_group": by_group,
-            "device_kernels": kernels}
+            "device_kernels": kernels, "region_device_ms": regions}
 
 
 def _probe_ms(cfg, mesh, params, dev, reps: int = 3) -> Dict[str, float]:
@@ -329,6 +393,62 @@ def pipeline_schedule(cases: Sequence[Dict[str, Any]], device=None
             "stage": stage, "out": _np(out), "w": _np(w.grad),
             "b": _np(b.grad) if b is not None else None,
             "x": _np(x.grad) if x.grad is not None else None})
+    return reports
+
+
+def expert_parallel_cases(cases: Sequence[Dict[str, Any]], device=None
+                          ) -> List[dict]:
+    """The expert-parallel exchange on this rank. A case holds ``mesh``
+    (a spec with an ``expert`` axis of ep ranks) and ``kind``:
+
+    - ``"all_to_all"``: ``x`` and ``r``, ``[ep, rows, m]`` numpy (rank
+      j's are ``x[j]``, ``r[j]``; rows a multiple of ep): returns this
+      rank's ``all_to_all(x[j])`` and the grad of ``sum(out * r[j])`` in
+      ``x[j]``;
+    - ``"moe_ffn"``: ``x [B, S, d]``, ``router``, ``w_gate``, ``w_up``,
+      ``w_down`` (all experts), ``r`` (a cotangent like x), ``top_k``,
+      ``capacity_factor`` and ``aux_coef``: this expert rank takes rows
+      ``[j B/ep, (j+1) B/ep)`` and experts ``[j E/ep, (j+1) E/ep)``, runs
+      ``moe_ffn`` over the ``expert`` group with ``frac`` averaged over
+      it, and back-propagates ``sum(y * r) + aux_coef * aux / ep`` (so the
+      ranks' sum is the unsharded ``sum(y * r) + aux_coef * aux``).
+      Returns its rows' y, its aux, and the grads of its x rows, of the
+      router (this rank's part) and of its experts' weights.
+
+    Float32 throughout; results as numpy."""
+    dev = resolve_device(device)
+    reports = []
+    for case in cases:
+        mesh = build_train_mesh(case["mesh"], device=dev)
+        group = mesh.get_group("expert")
+        ep, j = axis_sizes(mesh)["expert"], mesh.get_local_rank("expert")
+
+        def mine(name, dim, full=False):
+            t = torch.tensor(case[name], device=dev)
+            if not full:
+                n = t.shape[dim] // ep
+                t = t.narrow(dim, j * n, n)
+            return t.clone().requires_grad_(True)
+
+        if case["kind"] == "all_to_all":
+            x = torch.tensor(case["x"][j], device=dev, requires_grad=True)
+            out = all_to_all(x, group)
+            (out * torch.tensor(case["r"][j], device=dev)).sum().backward()
+            reports.append({"out": _np(out), "x": _np(x.grad)})
+            continue
+        x, r = mine("x", 0), mine("r", 0)
+        router = mine("router", 0, full=True)
+        w = {n: mine(n, 0) for n in ("w_gate", "w_up", "w_down")}
+        y, aux = moe_ops.moe_ffn(
+            x, router, w["w_gate"], w["w_up"], w["w_down"],
+            top_k=case["top_k"], capacity_factor=case["capacity_factor"],
+            compute_dtype=torch.float32, expert_group=group,
+            frac_mean=lambda f: pmean_tree(f.detach().clone(), mesh,
+                                           "expert"))
+        ((y * r).sum() + case["aux_coef"] * aux / ep).backward()
+        reports.append({"y": _np(y), "aux": float(aux), "x": _np(x.grad),
+                        "router": _np(router.grad),
+                        **{n: _np(t.grad) for n, t in w.items()}})
     return reports
 
 

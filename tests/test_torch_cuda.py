@@ -399,6 +399,37 @@ def test_train_step_on_the_card_through_the_kernels(cuda):
     assert fa.flash_attention_bwd_dkv.launches == cfg.n_layers * 5
 
 
+def test_moe_train_step_on_the_card_through_the_kernels(cuda, monkeypatch):
+    """The MoE decoder's single-card step: every layer's attention on the
+    three kernels (launches exact under remat), none of their plain
+    versions and no plain delta on the card, the loss falling."""
+    from ray_tpu_torch.models.moe_llama import MoEConfig, make_train_step
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    def plain(*args, **kwargs):
+        raise AssertionError("a plain attention function ran on the card")
+
+    for name in ("flash_attention_reference",
+                 "flash_attention_bwd_dq_reference",
+                 "flash_attention_bwd_dkv_reference", "attention_delta"):
+        monkeypatch.setattr(fa, name, plain)
+    # debug widths (4 experts, top 2, head_dim 16), remat on; cuda default
+    cfg = dataclasses.replace(MoEConfig.debug(), remat=True, loss_chunk=16)
+    init, step = make_train_step(cfg)
+    state = init(0)
+    assert next(state["params"].parameters()).is_cuda
+    tokens = torch.arange(41, device=cuda).repeat(2, 1) % cfg.vocab_size
+    for fn in (fa.flash_attention_forward, fa.flash_attention_bwd_dq,
+               fa.flash_attention_bwd_dkv):
+        fn.launches = 0
+    losses = [float(step(state, tokens)) for _ in range(5)]
+    assert all(torch.isfinite(torch.tensor(losses)))
+    assert losses[-1] < losses[0]
+    assert fa.flash_attention_forward.launches == 2 * cfg.n_layers * 5
+    assert fa.flash_attention_bwd_dq.launches == cfg.n_layers * 5
+    assert fa.flash_attention_bwd_dkv.launches == cfg.n_layers * 5
+
+
 @pytest.mark.parametrize("causal", [True, False])
 def test_ring_runs_its_blocks_on_the_kernels(cuda, causal):
     """Ring attention's per-rank loops (4 positions in one process, a

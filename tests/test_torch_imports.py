@@ -57,6 +57,8 @@ print(json.dumps({"imported": names,
     report = json.loads(out.stdout.strip().splitlines()[-1])
     assert "ray_tpu_torch.models.llama" in report["imported"]
     assert "ray_tpu_torch.serve.decode" in report["imported"]
+    assert "ray_tpu_torch.ops.moe" in report["imported"]
+    assert "ray_tpu_torch.models.moe_llama" in report["imported"]
     assert not [m for m in report["new"] if _forbidden(m)]
 
 
@@ -64,6 +66,7 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is usable")
     from ray_tpu_torch import resolve_device
+    from ray_tpu_torch.models import moe_llama
     from ray_tpu_torch.models.llama import (Llama, LlamaConfig,
                                             LlamaDecodeEngine,
                                             make_pipeline_train_step,
@@ -72,10 +75,12 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu():
     from ray_tpu_torch.train.launch import launch
     from ray_tpu_torch.train.spmd import (build_train_mesh,
                                           make_mesh_train_step,
+                                          make_moe_train_step,
                                           make_spmd_train_step)
-    from ray_tpu_torch.train.spmd_runs import train_jobs
+    from ray_tpu_torch.train.spmd_runs import moe_jobs, train_jobs
 
     cfg = LlamaConfig.debug()
+    moe = moe_llama.MoEConfig.debug()
     for make in (lambda: LlamaDecodeEngine(cfg), lambda: Llama(cfg),
                  lambda: make_train_step(cfg),
                  lambda: resolve_device("cuda"),
@@ -84,7 +89,12 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu():
                  lambda: make_spmd_train_step(cfg, None),
                  lambda: make_mesh_train_step(cfg, None),
                  lambda: make_pipeline_train_step(cfg, None, 1),
-                 lambda: launch(train_jobs, 1)):
+                 lambda: launch(train_jobs, 1),
+                 lambda: moe_llama.MoELlama(moe),
+                 lambda: moe_llama.init_model(moe),
+                 lambda: moe_llama.make_train_step(moe),
+                 lambda: make_moe_train_step(moe, None),
+                 lambda: launch(moe_jobs, 1)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
     assert resolve_device("cpu") == torch.device("cpu")
