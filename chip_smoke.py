@@ -62,10 +62,13 @@ non-zero and never prints the final ``ok`` line.
    and each layer's routing agreement with the plain run replaying the
    kernel run's expert picks), then full depth timed (tokens/s, MFU on
    the active params, peak memory, a profile with the ``moe.*`` ranges);
-   given two or four cards, ``make_moe_train_step`` on ``expert`` layouts
-   (``expert=2``; ``expert=4`` and ``fsdp=2,expert=2``) against the
-   single card at 2 layers and timed at full depth, with the
-   all-to-all's device time on rank 0;
+   given two or four cards, ``make_moe_train_step`` on ``expert=2`` and
+   ``tensor=2``, or on four ``expert=4``, ``fsdp=2,expert=2``,
+   ``expert=2,tensor=2`` (tensor inside each expert) and
+   ``seq=2,expert=2`` (each row split, the whole row's routing), against
+   the single card at 2 layers and timed at full depth, with rank 0's
+   NCCL device time by collective and, under ``tensor``, a checksum of
+   each layer's picks equal across each tensor group;
 11. the ``kernels`` line, the card's ``name, power.limit``, and last the
    ``{"ok": true, "device": ...}`` line.
 
@@ -169,8 +172,12 @@ KERNEL_GROUPS = (
 
 # and on the sharded step's ranks, the collectives (NCCL's kernels) first
 SPMD_KERNEL_GROUPS = (("nccl", ("nccl", "ncclDevKernel")),) + KERNEL_GROUPS
-# on the MoE step's ranks NCCL's all-to-all (its send/recv kernels) apart
-MOE_KERNEL_GROUPS = (("nccl_all_to_all", ("SendRecv", "AllToAll")),) \
+# on the MoE step's ranks NCCL's kernels by collective: the all-to-all is
+# send/recv kernels, as are the ring's hops under seq
+MOE_KERNEL_GROUPS = (("nccl_send_recv", ("SendRecv", "AllToAll")),
+                     ("nccl_all_reduce", ("AllReduce",)),
+                     ("nccl_all_gather", ("AllGather",)),
+                     ("nccl_reduce_scatter", ("ReduceScatter",))) \
     + SPMD_KERNEL_GROUPS
 
 
@@ -1308,12 +1315,44 @@ def routing_agreement(torch, got, want) -> float:
 
 def moe_layouts(world: int):
     """(mesh spec, gather schedule) of the MoE step across cards: every
-    card an expert rank, and on four also fsdp 2 x expert 2."""
+    card an expert rank, or a tensor rank; on four also fsdp 2 x expert
+    2, tensor 2 inside each of 2 expert ranks, and seq 2 x expert 2."""
     if world == 1:
         return []
     if world == 2:
-        return [("expert=2", "streamed")]
-    return [("expert=4", "streamed"), ("fsdp=2,expert=2", "streamed")]
+        return [("expert=2", "streamed"), ("tensor=2", "streamed")]
+    return [("expert=4", "streamed"), ("fsdp=2,expert=2", "streamed"),
+            ("expert=2,tensor=2", "streamed"),
+            ("seq=2,expert=2", "streamed")]
+
+
+def moe_row_blocks(mesh: dict) -> int:
+    """The blocks the MoE step splits the global batch's rows into: its
+    batch shards times its expert ranks (tensor and seq ranks share a
+    block's rows)."""
+    return batch_shards(mesh) * mesh.get("expert", 1)
+
+
+def moe_routing(torch, reps) -> "torch.Tensor":
+    """The global batch's expert picks ``[L, B, T, k]`` from the ranks'
+    reports: each block of rows laid out by its positions (seq), the
+    blocks in row order; the ranks that share a block (a tensor group)
+    recorded the same picks."""
+    blocks = {}
+    for r in reps:
+        blocks.setdefault(tuple(r["rows"]), {})[tuple(r["positions"])] = \
+            r["routing"]
+    return torch.cat([torch.cat([torch.from_numpy(by_pos[p]).long()
+                                 for p in sorted(by_pos)], dim=2)
+                      for _, by_pos in sorted(blocks.items())], dim=1)
+
+
+def tensor_routing_agrees(reps) -> bool:
+    """Every tensor group's ranks made the same picks in every layer: the
+    checksums each rank all-gathered over its group are equal."""
+    return all(r["tensor_checksums"] is None
+               or all(c == r["tensor_checksums"][0]
+                      for c in r["tensor_checksums"]) for r in reps)
 
 
 def moe_flops_per_token(cfg, T: int) -> float:
@@ -1340,9 +1379,14 @@ def phase_moe(torch, seed, smi, peak_flops, timeout=600.0):
       ``spmd_runs.moe_jobs``, one launch): each layout at 2 layers
       against the single-card step on the same params and global batch
       (loss, grad norm, leaves, routing), then at full depth with 4 rows
-      a rank: step time, tokens/s per card, peak per rank, rank 0's
-      profile with the all-to-all's device time, every rank's launches.
-    Returns the full-depth runs' launches by path."""
+      a block of rows (tensor and seq ranks share a block: ``seq`` ranks
+      hold 1024 of its 2048 positions): step time, tokens/s per card,
+      peak per rank, rank 0's profile with NCCL's device time by
+      collective, every rank's launches; under ``tensor``, each layer's
+      picks equal across each tensor group (checksums all-gathered in
+      the ranks), at both depths.
+    Returns the full-depth runs' launches by path: the one card's, and
+    each layout's over all its ranks."""
     from unittest import mock
 
     from ray_tpu_torch.models import moe_llama
@@ -1484,7 +1528,7 @@ def phase_moe(torch, seed, smi, peak_flops, timeout=600.0):
     # across cards
     world = spmd_world(torch)
     layouts = moe_layouts(world)
-    mesh_out, mesh_launches = {}, None
+    mesh_out, mesh_launches = {}, {}
     if layouts:
         small = tokens(world).cpu().numpy()
         grads = [f"layers/{n}" for n in leaves]
@@ -1492,7 +1536,8 @@ def phase_moe(torch, seed, smi, peak_flops, timeout=600.0):
                      tokens=small, steps=steps, grads=grads)
                 for mesh, gather in layouts]
         jobs += [dict(cfg=full, mesh=mesh, gather=gather, init=seed,
-                      tokens=tokens(4 * world).cpu().numpy(),
+                      tokens=tokens(4 * moe_row_blocks(parse_mesh(mesh)))
+                      .cpu().numpy(),
                       steps=warmup + timed, profile=MOE_KERNEL_GROUPS)
                  for mesh, gather in layouts]
         t0 = time.perf_counter()
@@ -1500,11 +1545,10 @@ def phase_moe(torch, seed, smi, peak_flops, timeout=600.0):
         launch_s = time.perf_counter() - t0
         for j, (mesh, gather) in enumerate(layouts):
             reps = [r[j] for r in ranks]
-            # every rank's rows, in batch order (ranks that share rows
-            # recorded the same picks)
-            by_rows = {tuple(r["rows"]): r["routing"] for r in reps}
-            routing = torch.cat([torch.from_numpy(by_rows[k]).long()
-                                 for k in sorted(by_rows)], dim=1)
+            check(tensor_routing_agrees(reps),
+                  f"moe {mesh}: a tensor group's ranks routed apart: "
+                  f"{[r['tensor_checksums'] for r in reps]}")
+            routing = moe_routing(torch, reps)
             # the single card on the same batch, replaying the mesh's
             # routing in its first step
             ref = steps_of(reduced, torch.from_numpy(small), steps,
@@ -1526,8 +1570,11 @@ def phase_moe(torch, seed, smi, peak_flops, timeout=600.0):
 
             reps = [r[len(layouts) + j] for r in ranks]
             rep = reps[0]
+            check(tensor_routing_agrees(reps),
+                  f"moe {mesh}: at full depth a tensor group's ranks "
+                  f"routed apart: {[r['tensor_checksums'] for r in reps]}")
             step_ms = sum(rep["step_ms"][warmup:]) / timed
-            rows = 4 * world
+            rows = len(jobs[len(layouts) + j]["tokens"])
             per_s = rows * T * 1e3 / step_ms
             want = [rank_launches(full, warmup + timed, r) for r in reps]
             check(all(math.isfinite(x) for x in rep["losses"])
@@ -1537,23 +1584,26 @@ def phase_moe(torch, seed, smi, peak_flops, timeout=600.0):
                   f"moe {mesh}: full depth launched "
                   f"{[r['launches'] for r in reps]}, want {want}")
             prof_r0 = rep["profile"]
+            nccl = {g: ms for g, ms in prof_r0["device_ms_by_group"].items()
+                    if g.startswith("nccl")}
             mesh_out[mesh] = {
                 "gather": rep["gather"], "reduced_depth": parity,
-                "global_batch": rows, "rows_per_rank": 4, "T": T,
+                "global_batch": rows, "rows_per_block": 4, "T": T,
+                "positions_per_rank": T // parse_mesh(mesh).get("seq", 1),
+                "tensor_checksums_rank0": rep["tensor_checksums"],
                 "step_ms": step_ms, "step_ms_each": rep["step_ms"],
                 "tokens_per_s": per_s, "tokens_per_s_per_card": per_s / world,
                 "mfu_active": moe_flops_per_token(full, T) * per_s / world
                 / peak_flops,
                 "peak_bytes_per_rank": [r["peak_bytes"] for r in reps],
-                "all_to_all_device_ms_rank0": prof_r0["device_ms_by_group"]
-                .get("nccl_all_to_all", "not measured"),
+                "nccl_device_ms_by_collective_rank0": nccl
+                or "not measured",
                 "profile_one_step_rank0": prof_r0,
                 "losses": rep["losses"],
                 "launches_per_rank": [r["launches"] for r in reps]}
-        mesh_launches = {k: sum(r[len(layouts) + j]["launches"][k]
-                                for r in ranks
-                                for j in range(len(layouts)))
-                         for k in ("fwd", "dq", "dkv")}
+            mesh_launches[f"moe_{mesh}_all_ranks"] = {
+                k: sum(r["launches"][k] for r in reps)
+                for k in ("fwd", "dq", "dkv")}
     else:
         launch_s = None
         print("moe: the expert-parallel step needs two or more cards; this "
@@ -1575,10 +1625,7 @@ def phase_moe(torch, seed, smi, peak_flops, timeout=600.0):
                                      **one_card},
           "one_card_full_depth": single,
           "world": world, "launch_s": launch_s, "layouts": mesh_out})
-    out = {"moe_training": train_launches}
-    if mesh_launches is not None:
-        out["moe_mesh_all_ranks"] = mesh_launches
-    return out
+    return {"moe_training": train_launches, **mesh_launches}
 
 
 def parse_mesh(spec: str) -> dict:

@@ -1,7 +1,8 @@
 """Tree collectives over the axes of a DeviceMesh (port of the in-program
 half of ``ray_tpu/collective/collective.py``: ``psum_tree`` and
-``pmean_tree``), and the differentiable ``all_to_all`` of expert
-parallelism.
+``pmean_tree``), the differentiable ``all_to_all`` of expert parallelism,
+and the one-dim all-gather and reduce-scatter (each the other's
+transpose) of the sharded steps and the MoE FFN's ``seq`` exchange.
 
 Each leaf is all-reduced over the process group of each named mesh axis
 in turn, in place. An axis of size 1 is the identity and costs nothing,
@@ -99,3 +100,89 @@ def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
     each gradient chunk back where its value came from. NCCL on the card,
     gloo on the CPU."""
     return _AllToAll.apply(x, group)
+
+
+# the names newer torch releases give all_gather_into_tensor and
+# reduce_scatter_tensor
+_all_gather = getattr(dist, "all_gather_single", None) \
+    or dist.all_gather_into_tensor
+_reduce_scatter = getattr(dist, "reduce_scatter_single", None) \
+    or dist.reduce_scatter_tensor
+
+
+class _Pending:
+    """An all-gather in flight: ``wait()`` returns the gathered leaf."""
+
+    def __init__(self, work, src, out, dim):
+        # src is kept until the gather is waited for: the collective
+        # reads it after the call returns
+        self.work, self.src, self.out, self.dim = work, src, out, dim
+
+    def wait(self) -> torch.Tensor:
+        if self.work is not None:
+            self.work.wait()
+        return self.out.movedim(0, self.dim)
+
+
+def _all_gather_dim(x, dim: int, group, async_op: bool = False):
+    """Concatenate every rank's ``x`` of ``group`` along ``dim``, in group
+    order. NCCL and gloo gather along dim 0, so any other dim is moved to
+    the front and back (the result is then a strided view)."""
+    src = x.detach().movedim(dim, 0).contiguous()
+    n = dist.get_world_size(group)
+    out = src.new_empty((n * src.shape[0],) + tuple(src.shape[1:]))
+    work = _all_gather(out, src, group=group, async_op=async_op)
+    pending = _Pending(work, src, out, dim)
+    return pending if async_op else pending.wait()
+
+
+def _reduce_scatter_dim(g, dim: int, group) -> torch.Tensor:
+    """Sum ``g`` over ``group`` and keep this rank's slice along ``dim``:
+    the transpose of :func:`_all_gather_dim`."""
+    src = g.movedim(dim, 0).contiguous()
+    n = dist.get_world_size(group)
+    out = src.new_empty((src.shape[0] // n,) + tuple(src.shape[1:]))
+    _reduce_scatter(out, src, group=group)
+    return out.movedim(0, dim).contiguous()
+
+
+class _AllGather(torch.autograd.Function):
+    """All-gather along a dim forward, reduce-scatter backward."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _all_gather_dim(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return _reduce_scatter_dim(ct, ctx.dim, ctx.group), None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    """Reduce-scatter along a dim forward, all-gather backward."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _reduce_scatter_dim(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return _all_gather_dim(ct, ctx.dim, ctx.group), None, None
+
+
+def all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Differentiable all-gather over the process ``group``: every rank's
+    ``x`` concatenated along ``dim`` in rank order. The backward sums the
+    cotangents over the group and keeps this rank's slice (a
+    reduce-scatter)."""
+    return _AllGather.apply(x, dim, group)
+
+
+def reduce_scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Differentiable reduce-scatter over the process ``group`` (n ranks):
+    ``x`` summed over the group, and rank j keeps slice j of n equal
+    slices along ``dim`` (n must divide it). The backward all-gathers the
+    cotangents."""
+    return _ReduceScatter.apply(x, dim, group)

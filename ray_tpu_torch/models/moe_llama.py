@@ -17,7 +17,7 @@ plus ``aux_loss_coef`` times the aux averaged over layers.
 :func:`make_train_step` is the single-card step (per-layer remat, AdamW
 at optax's settings); on a mesh with more than one rank it is
 ``train/spmd.py:make_moe_train_step``, which takes the batch axes,
-``fsdp`` and ``expert``.
+``fsdp``, ``expert``, ``tensor`` and ``seq``.
 """
 
 from __future__ import annotations
@@ -31,13 +31,14 @@ from torch.utils.checkpoint import checkpoint
 from ray_tpu_torch import resolve_device
 from ray_tpu_torch.models import llama
 from ray_tpu_torch.models.llama import (Llama, LlamaConfig, _attn_out,
-                                        _head, _init_model, _make_optimizer,
-                                        _plain_chunk_nll, _positions, _qkv,
-                                        _unbind_layers, chunked_nll_mean,
-                                        embed_tokens)
+                                        _head, _identity, _init_model,
+                                        _make_optimizer, _plain_chunk_nll,
+                                        _positions, _qkv, _unbind_layers,
+                                        chunked_nll_mean, embed_tokens)
 from ray_tpu_torch.ops.flash_attention import flash_attention
 from ray_tpu_torch.ops.layers import rms_norm
 from ray_tpu_torch.ops.moe import moe_ffn
+from ray_tpu_torch.parallel.ring_attention import ring_attention_local
 
 
 @dataclass(frozen=True)
@@ -156,17 +157,28 @@ def params_from_numpy(cfg: MoEConfig, tree, device=None) -> MoELlama:
 
 
 def _layer(cfg: MoEConfig, x, p, positions, expert_group=None,
-           frac_mean=None):
+           frac_mean=None, collectives=None, seq_group=None):
     """One MoE decoder layer. x: [B, T, dim] (residual stream, cfg.dtype).
     Returns ``(x, aux)``. ``expert_group`` and ``frac_mean`` are
-    :func:`moe_ffn`'s, for expert parallelism."""
-    q, kk, vv = _qkv(cfg, x, p, positions)
-    x = _attn_out(cfg, x, flash_attention(q, kk, vv, causal=True), p)
+    :func:`moe_ffn`'s, for expert parallelism. ``collectives`` (the
+    ``tensor`` axis' ``(f, g)`` pair) and ``seq_group`` are as in
+    ``models/llama.py:_pp_layer``: p holds this rank's heads and expert
+    mlp shards, and with ``seq_group`` x is this rank's block of the
+    sequence, attention the ring; :func:`moe_ffn` takes both."""
+    col_in, row_out = collectives if collectives is not None \
+        else (_identity, _identity)
+    q, kk, vv = _qkv(cfg, x, p, positions, col_in)
+    if seq_group is None:
+        attn = flash_attention(q, kk, vv, causal=True)
+    else:
+        attn = ring_attention_local(q, kk, vv, seq_group, causal=True)
+    x = _attn_out(cfg, x, attn, p, row_out)
     h = rms_norm(x, p["mlp_norm"], cfg.norm_eps).to(cfg.dtype)
     y, aux = moe_ffn(h, p["router"], p["w_gate"], p["w_up"], p["w_down"],
                      top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
                      compute_dtype=cfg.dtype, expert_group=expert_group,
-                     frac_mean=frac_mean)
+                     frac_mean=frac_mean, collectives=collectives,
+                     seq_group=seq_group)
     return x + y.to(x.dtype), aux
 
 
@@ -230,8 +242,10 @@ def make_train_step(cfg: MoEConfig, mesh=None, optimizer=None,
 
     On a larger mesh it is ``train/spmd.py:make_moe_train_step(cfg, mesh,
     optimizer, gather, device, rules)``: the batch axes, ``fsdp`` (either
-    gather schedule) and ``expert`` (the experts split over it, dispatch
-    and return by all-to-all)."""
+    gather schedule), ``expert`` (the experts split over it, dispatch
+    and return by all-to-all), ``tensor`` (heads, each expert's mlp dim
+    and the vocab split over it) and ``seq`` (each row split over it,
+    attention the ring, routing the whole row's)."""
     if mesh is not None and mesh.size() > 1:
         from ray_tpu_torch.train.spmd import make_moe_train_step
 

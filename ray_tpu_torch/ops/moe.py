@@ -14,19 +14,24 @@ Expert parallelism: given the ``expert`` axis' process group,
 dispatched slots to the rank that holds it with one all-to-all, runs the
 SwiGLU there and returns the outputs with a second all-to-all (the
 exchange the JAX package leaves to GSPMD). Capacity is per row, so the
-rows a rank routes decide nothing about another rank's.
+rows a rank routes decide nothing about another rank's. Tensor
+parallelism splits each expert's mlp dim, Megatron-style; sequence
+parallelism splits each row over the ``seq`` ranks, whose routing is
+the whole row's (the slot offsets come from the other ranks' counts)
+and whose dispatched slots are summed and split by a reduce-scatter.
 
 The dispatch and combine products are plain matmuls (``torch.einsum``),
 as JAX computes them outside any Pallas kernel. Each stage runs in a
 ``torch.profiler.record_function`` range (``moe.route``,
-``moe.dispatch``, ``moe.experts``, ``moe.all_to_all``, ``moe.combine``),
-so a profile can attribute device time to it.
+``moe.dispatch``, ``moe.seq_scatter``, ``moe.experts``,
+``moe.all_to_all``, ``moe.seq_gather``, ``moe.combine``), so a profile
+can attribute device time to it.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -34,7 +39,8 @@ import torch.nn.functional as F
 from torch.profiler import record_function
 
 from ray_tpu_torch import COMPUTE_DTYPE
-from ray_tpu_torch.collective.collective import all_to_all
+from ray_tpu_torch.collective.collective import (all_gather, all_to_all,
+                                                 reduce_scatter)
 
 
 def expert_choices(probs: torch.Tensor, top_k: int) -> torch.Tensor:
@@ -53,7 +59,7 @@ def expert_choices(probs: torch.Tensor, top_k: int) -> torch.Tensor:
 
 def top_k_routing(gate_logits: torch.Tensor, num_experts: int, top_k: int,
                   capacity: int,
-                  frac_mean: Optional[Callable] = None
+                  frac_mean: Optional[Callable] = None, seq_group=None
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Dispatch and combine tensors from router scores.
 
@@ -66,25 +72,32 @@ def top_k_routing(gate_logits: torch.Tensor, num_experts: int, top_k: int,
     dropped for that choice (combine weight 0). The surviving gates are
     renormalised to sum to 1 per token.
 
+    With ``seq_group`` (the ``seq`` axis' process group, R ranks) the S
+    tokens are this rank's block of rows of R S tokens split over it, rank
+    r holding tokens ``[r S, (r+1) S)``, and ``capacity`` is the whole
+    row's: the slots are the ones the whole row's routing gives. The slot
+    of choice k of a token here is offset by the whole row's count of
+    choices before k and by the earlier ranks' count of choice k, both
+    before capacity; one all-gather of the ranks' counts ``[R, G, top_k,
+    E]`` a call gives them.
+
     aux is the Switch loss ``E * sum_e frac_e * mean_p_e``: ``frac`` the
     share of tokens whose first choice (before capacity) is e, without
     gradient, and ``mean_p`` the mean router probability. ``frac_mean``,
     when given, maps this rank's ``frac`` to the global batch's (a mean
-    over the ranks that split the batch), so that the mean of the ranks'
-    aux losses is the global one."""
+    over the ranks that split the batch and the sequence), so that the
+    mean of the ranks' aux losses is the global one."""
     G, S, E = gate_logits.shape
     probs = torch.softmax(gate_logits.float(), dim=-1)
+    ms = [F.one_hot(idx, E).float()                             # [G,S,E]
+          for idx in expert_choices(probs.detach(), top_k).unbind(-1)]
 
     masks, gate_vals, positions = [], [], []
     remaining = probs
-    counts = torch.zeros((G, 1, E), dtype=torch.float32,
-                         device=probs.device)
-    for idx in expert_choices(probs.detach(), top_k).unbind(-1):
-        m = F.one_hot(idx, E).float()                           # [G,S,E]
+    for m, offset in zip(ms, _slot_offsets(ms, seq_group)):
         gate_vals.append((remaining * m).sum(-1))               # [G,S]
         remaining = remaining * (1.0 - m)
-        pos_e = torch.cumsum(m, dim=1) - m + counts             # [G,S,E]
-        counts = counts + m.sum(1, keepdim=True)
+        pos_e = torch.cumsum(m, dim=1) - m + offset             # [G,S,E]
         within = (pos_e < capacity).float() * m
         masks.append(within)
         positions.append((pos_e * within).sum(-1))             # [G,S]
@@ -109,6 +122,24 @@ def top_k_routing(gate_logits: torch.Tensor, num_experts: int, top_k: int,
     return dispatch, combine, aux
 
 
+def _slot_offsets(ms: List[torch.Tensor], seq_group) -> List[torch.Tensor]:
+    """Per choice, the ``[G, 1, E]`` slots of each expert that tokens
+    before this rank's claimed: every choice before it (the whole row's,
+    under ``seq_group``) and, under ``seq_group``, the same choice on the
+    earlier ranks. Counts before capacity, as exact float32 integers."""
+    if seq_group is None:
+        offsets = [torch.zeros_like(ms[0][:, :1])]
+        for m in ms[:-1]:
+            offsets.append(offsets[-1] + m.sum(1, keepdim=True))
+        return offsets
+    counts = torch.stack([m.sum(1) for m in ms], 1)             # [G,k,E]
+    every = all_gather(counts[None], 0, seq_group)              # [R,G,k,E]
+    total = every.sum(0)
+    offset = torch.cumsum(total, 1) - total \
+        + every[:dist.get_rank(seq_group)].sum(0)
+    return [o[:, None] for o in offset.unbind(1)]
+
+
 def expert_capacity(tokens_per_group: int, num_experts: int, top_k: int,
                     capacity_factor: float) -> int:
     c = int(math.ceil(top_k * tokens_per_group / num_experts
@@ -116,17 +147,27 @@ def expert_capacity(tokens_per_group: int, num_experts: int, top_k: int,
     return max(c, 1)
 
 
-def _swiglu_experts(ex_in, w_gate, w_up, w_down, cd):
+def _identity(x):
+    return x
+
+
+def _swiglu_experts(ex_in, w_gate, w_up, w_down, cd, collectives=None):
     """SwiGLU per expert: ``[E, b, C, d]`` through ``[E, d, f]`` gate and
-    up and ``[E, f, d]`` down."""
+    up and ``[E, f, d]`` down; under tensor parallelism f is this rank's
+    share, entered through ``collectives``' ``f`` and left through its
+    ``g``."""
+    col_in, row_out = collectives if collectives is not None \
+        else (_identity, _identity)
+    ex_in = col_in(ex_in)
     g = F.silu(torch.einsum("ebcd,edf->ebcf", ex_in, w_gate.to(cd)))
     u = torch.einsum("ebcd,edf->ebcf", ex_in, w_up.to(cd))
-    return torch.einsum("ebcf,efd->ebcd", g * u, w_down.to(cd))
+    return row_out(torch.einsum("ebcf,efd->ebcd", g * u, w_down.to(cd)))
 
 
 def moe_ffn(x, router_w, w_gate, w_up, w_down, *, top_k: int = 2,
             capacity_factor: float = 1.25, compute_dtype=COMPUTE_DTYPE,
-            expert_group=None, frac_mean: Optional[Callable] = None):
+            expert_group=None, frac_mean: Optional[Callable] = None,
+            collectives=None, seq_group=None):
     """MoE SwiGLU FFN. x: ``[B, S, d]``; router_w: ``[d, E]``.
 
     Without ``expert_group``: w_gate, w_up ``[E, d, f]``, w_down
@@ -137,33 +178,63 @@ def moe_ffn(x, router_w, w_gate, w_up, w_down, *, top_k: int = 2,
     come back by another, so each rank combines its own rows. Raises
     unless ep divides E.
 
+    ``collectives`` is the ``tensor`` axis' ``(f, g)`` pair
+    (``models/llama.py:tp_psum_pair``): the expert weights are this
+    rank's column-parallel ``[.., d, f/t]`` gate and up and row-parallel
+    ``[.., f/t, d]`` down, the SwiGLU entered through ``f`` and left
+    through ``g`` (after the all-to-all, before its way back). Router and
+    routing are computed alike on every tensor rank.
+
+    With ``seq_group`` (the ``seq`` axis' group, R ranks) x holds this
+    rank's block of S of each row's R S tokens: the routing is the whole
+    row's (:func:`top_k_routing`, capacity from R S), each rank's
+    dispatch fills only the slots its tokens own, a reduce-scatter along
+    the capacity dim sums the ranks' parts and leaves each rank C/R slots
+    to run the experts on, and an all-gather brings every slot's output
+    back for the local combine. Raises unless R divides C. ``frac_mean``
+    (:func:`top_k_routing`) must then average over ``seq`` too.
+
     Returns ``(y [B, S, d] in x.dtype, aux scalar float32)``."""
     B, S, d = x.shape
     E = router_w.shape[-1]
-    C = expert_capacity(S, E, top_k, capacity_factor)
+    R = dist.get_world_size(seq_group) if seq_group is not None else 1
+    C = expert_capacity(S * R, E, top_k, capacity_factor)
+    if C % R:
+        raise ValueError(
+            f"seq axis size {R} does not divide the expert capacity C={C} "
+            f"({S * R} tokens a row, {E} experts, top {top_k}, capacity "
+            f"factor {capacity_factor})")
     cd = compute_dtype
 
     with record_function("moe.route"):
         logits = torch.einsum("bsd,de->bse", x.float(), router_w.float())
         dispatch, combine, aux = top_k_routing(logits, E, top_k, C,
-                                               frac_mean)
+                                               frac_mean, seq_group)
     with record_function("moe.dispatch"):
         ex_in = torch.einsum("bsec,bsd->ebcd", dispatch.to(cd), x.to(cd))
+    if seq_group is not None:
+        with record_function("moe.seq_scatter"):
+            ex_in = reduce_scatter(ex_in, 2, seq_group)
     if expert_group is None:
         with record_function("moe.experts"):
-            ex_out = _swiglu_experts(ex_in, w_gate, w_up, w_down, cd)
+            ex_out = _swiglu_experts(ex_in, w_gate, w_up, w_down, cd,
+                                     collectives)
     else:
         ex_out = _expert_parallel(ex_in, w_gate, w_up, w_down, cd,
-                                  expert_group)
+                                  expert_group, collectives)
+    if seq_group is not None:
+        with record_function("moe.seq_gather"):
+            ex_out = all_gather(ex_out, 2, seq_group)
     with record_function("moe.combine"):
         y = torch.einsum("bsec,ebcd->bsd", combine.to(cd), ex_out)
     return y.to(x.dtype), aux
 
 
-def _expert_parallel(ex_in, w_gate, w_up, w_down, cd, group):
+def _expert_parallel(ex_in, w_gate, w_up, w_down, cd, group, collectives):
     """The experts' SwiGLU over the ``expert`` group: ex_in ``[E, b, C,
     d]`` (this rank's rows for every expert) in, this rank's rows' expert
-    outputs ``[E, b, C, d]`` out."""
+    outputs ``[E, b, C, d]`` out; ``collectives`` as
+    :func:`_swiglu_experts`'."""
     ep = dist.get_world_size(group)
     E, b, C, d = ex_in.shape
     if E % ep:
@@ -179,7 +250,7 @@ def _expert_parallel(ex_in, w_gate, w_up, w_down, cd, group):
     with record_function("moe.experts"):
         # [ep (source rank), local, b, C, d] -> [local, ep*b, C, d]
         mine = got.transpose(0, 1).reshape(local, ep * b, C, d)
-        out = _swiglu_experts(mine, w_gate, w_up, w_down, cd)
+        out = _swiglu_experts(mine, w_gate, w_up, w_down, cd, collectives)
         out = out.reshape(local, ep, b, C, d).transpose(0, 1)
     with record_function("moe.all_to_all"):
         back = all_to_all(out, group)

@@ -35,11 +35,13 @@ on its own shards; the collectives are written out:
   ``seq`` too.
 - **The MoE step** (``make_moe_train_step``, the port of the JAX
   package's ``models/moe_llama.py:make_train_step(cfg, mesh)``): the
-  same step for the MoE decoder of ``models/moe_llama.py``, with a live
-  ``expert`` axis. Each ``expert`` rank keeps ``E/ep`` experts and its
-  share of the rows; the MoE FFN sends the dispatched slots to their
-  experts' ranks and back by all-to-all (``ops/moe.py``), and loss and
-  grads average over ``expert`` too.
+  same step for the MoE decoder of ``models/moe_llama.py``, with live
+  ``expert``, ``tensor`` and ``seq`` axes. Each ``expert`` rank keeps
+  ``E/ep`` experts and its share of the rows; the MoE FFN sends the
+  dispatched slots to their experts' ranks and back by all-to-all
+  (``ops/moe.py``), and loss and grads average over ``expert`` too.
+  ``tensor`` splits each expert's mlp dim as the dense MLP's; ``seq``
+  splits each row, with the whole row's routing.
 
 The steps share one body; what differs between the two decoders (the
 param shapes and partition rules, the init, the layer, whether a layer
@@ -67,7 +69,10 @@ import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch import PARAM_DTYPE, resolve_device
-from ray_tpu_torch.collective.collective import (_leaves, _map, pmean_tree,
+from ray_tpu_torch.collective.collective import (_all_gather_dim, _leaves,
+                                                 _map, _Pending,
+                                                 _reduce_scatter_dim,
+                                                 all_gather, pmean_tree,
                                                  psum_tree)
 from ray_tpu_torch.models import moe_llama
 from ray_tpu_torch.models.llama import (LlamaConfig, _check_mesh,
@@ -97,14 +102,6 @@ __all__ = [
     "build_train_mesh",
     "tree_paths",
 ]
-
-# the names newer torch releases give all_gather_into_tensor and
-# reduce_scatter_tensor
-_all_gather = getattr(dist, "all_gather_single", None) \
-    or dist.all_gather_into_tensor
-_reduce_scatter = getattr(dist, "reduce_scatter_single", None) \
-    or dist.reduce_scatter_tensor
-
 
 # --------------------------------------------------------------------------- #
 # Nested-dict trees
@@ -185,20 +182,21 @@ def llama_partition_rules():
 
 def moe_partition_rules():
     """Partition rules for the MoE decoder's param tree
-    (models/moe_llama.py), mirroring its ``param_logical_axes`` without
-    ``tensor`` (the MoE step does not take it): embed dims over ``fsdp``,
-    the experts' dim over ``expert``; the router's expert dim is never
+    (models/moe_llama.py), mirroring its ``param_logical_axes`` through
+    the JAX package's ``DEFAULT_RULES``: embed dims over ``fsdp``, heads,
+    kv_heads, each expert's mlp dim and the vocab over ``tensor``, the
+    experts' dim over ``expert``; the router's expert dim is never
     split."""
     return (
-        (r"(^|/)embedding$", P(None, "fsdp")),
-        (r"layers/w(q|k|v)$", P(None, "fsdp", None)),
-        (r"layers/wo$", P(None, None, "fsdp")),
+        (r"(^|/)embedding$", P("tensor", "fsdp")),
+        (r"layers/w(q|k|v)$", P(None, "fsdp", "tensor")),
+        (r"layers/wo$", P(None, "tensor", "fsdp")),
         (r"layers/router$", P(None, "fsdp", None)),
         # experts: (L, E, embed, mlp) and (L, E, mlp, embed)
-        (r"layers/w_(gate|up)$", P(None, "expert", "fsdp", None)),
-        (r"layers/w_down$", P(None, "expert", None, "fsdp")),
+        (r"layers/w_(gate|up)$", P(None, "expert", "fsdp", "tensor")),
+        (r"layers/w_down$", P(None, "expert", "tensor", "fsdp")),
         (r"norm$", P()),
-        (r"(^|/)lm_head$", P("fsdp", None)),
+        (r"(^|/)lm_head$", P("fsdp", "tensor")),
     )
 
 
@@ -243,11 +241,11 @@ _MOE = _Decoder(
     shapes=moe_llama.param_shapes, rules=moe_partition_rules,
     init_model=moe_llama.init_model,
     layer=lambda cfg, x, p, pos, g: moe_llama._layer(
-        cfg, x, p, pos, g.expert_group, g.frac_mean),
-    refused={"tensor": "MoE with tensor parallelism inside each expert "
-                       "is not ported yet",
-             "seq": "MoE with sequence parallelism is not ported yet",
-             "pipe": "MoE with pipeline parallelism is not ported yet"})
+        cfg, x, p, pos, g.expert_group, g.frac_mean, g.collectives,
+        g.seq_group),
+    refused={"pipe": "the JAX package's MoE step has no pipeline schedule "
+                     "(its params carry no stage axis), so there is "
+                     "none to port"})
 
 
 def _decoder(cfg) -> _Decoder:
@@ -271,42 +269,6 @@ def _spec_axes(ax) -> Tuple[str, ...]:
 # --------------------------------------------------------------------------- #
 # Collectives on one dimension of a leaf
 # --------------------------------------------------------------------------- #
-
-
-class _Pending:
-    """An all-gather in flight: ``wait()`` returns the gathered leaf."""
-
-    def __init__(self, work, src, out, dim):
-        # src is kept until the gather is waited for: the collective
-        # reads it after the call returns
-        self.work, self.src, self.out, self.dim = work, src, out, dim
-
-    def wait(self) -> torch.Tensor:
-        if self.work is not None:
-            self.work.wait()
-        return self.out.movedim(0, self.dim)
-
-
-def _all_gather_dim(x, dim: int, group, async_op: bool = False):
-    """Concatenate every rank's ``x`` of ``group`` along ``dim``, in group
-    order. NCCL and gloo gather along dim 0, so any other dim is moved to
-    the front and back (the result is then a strided view)."""
-    src = x.detach().movedim(dim, 0).contiguous()
-    n = dist.get_world_size(group)
-    out = src.new_empty((n * src.shape[0],) + tuple(src.shape[1:]))
-    work = _all_gather(out, src, group=group, async_op=async_op)
-    pending = _Pending(work, src, out, dim)
-    return pending if async_op else pending.wait()
-
-
-def _reduce_scatter_dim(g, dim: int, group) -> torch.Tensor:
-    """Sum ``g`` over ``group`` and keep this rank's slice along ``dim``:
-    the transpose of :func:`_all_gather_dim`."""
-    src = g.movedim(dim, 0).contiguous()
-    n = dist.get_world_size(group)
-    out = src.new_empty((src.shape[0] // n,) + tuple(src.shape[1:]))
-    _reduce_scatter(out, src, group=group)
-    return out.movedim(0, dim).contiguous()
 
 
 def _gather_dims(spec, mesh, skip=()) -> Tuple[Tuple[int, Any], ...]:
@@ -333,22 +295,12 @@ def _scatter(g, dims):
     return g
 
 
-class _GatherLeaf(torch.autograd.Function):
-    """All-gather forward, reduce-scatter (its transpose) backward."""
-
-    @staticmethod
-    def forward(ctx, x, dims):
-        ctx.dims = dims
-        return _gather(x, dims)
-
-    @staticmethod
-    def backward(ctx, g):
-        return _scatter(g, ctx.dims), None
-
-
 def _gather_leaf(x, dims):
-    """The gathered leaf, differentiable; ``x`` itself with no dims."""
-    return _GatherLeaf.apply(x, dims) if dims else x
+    """The gathered leaf, differentiable (each dim's all-gather backs into
+    a reduce-scatter); ``x`` itself with no dims."""
+    for dim, group in dims:
+        x = all_gather(x, dim, group)
+    return x
 
 
 # --------------------------------------------------------------------------- #
@@ -605,11 +557,11 @@ def make_moe_train_step(cfg: moe_llama.MoEConfig, mesh, optimizer=None,
                         gather: str = "streamed", device=None, rules=None):
     """Build ``(init_state, train_step)`` of the MoE decoder
     (``models/moe_llama.py``) for this rank of ``mesh``, any of the batch
-    axes, ``fsdp`` and ``expert``: the port of the JAX package's
-    ``moe_llama.make_train_step(cfg, mesh)``. It is
-    :func:`make_spmd_train_step` (same arguments, state and gather
-    schedules; ``rules`` defaults to :func:`moe_partition_rules`) with
-    expert parallelism:
+    axes, ``fsdp``, ``expert``, ``tensor`` and ``seq``: the port of the
+    JAX package's ``moe_llama.make_train_step(cfg, mesh)``. It is
+    :func:`make_spmd_train_step` (same arguments, state, gather schedules
+    and tensor parallelism; ``rules`` defaults to
+    :func:`moe_partition_rules`) with expert and sequence parallelism:
 
     - rank j of the ``expert`` axis (ep ranks) keeps experts
       ``[j E/ep, (j+1) E/ep)`` of every layer (``E % ep`` raises), and
@@ -626,23 +578,34 @@ def make_moe_train_step(cfg: moe_llama.MoEConfig, mesh, optimizer=None,
       JAX's global-batch loss, in value and in gradient;
     - loss and grads average over ``expert`` as over the batch axes.
       Expert leaves are not summed over it (the all-to-all's backward
-      brought every rank's contribution home), but take its ``1/ep``.
+      brought every rank's contribution home), but take its ``1/ep``;
+    - ``tensor`` splits heads, the vocab and each expert's mlp dim (gate
+      and up column-parallel, down row-parallel), with the router and
+      the routing replicated over it;
+    - ``seq`` splits each row as :func:`make_mesh_train_step` does
+      (inputs, targets and positions, attention the ring), and the MoE
+      FFN routes the whole row (``ops/moe.py:top_k_routing``'s
+      ``seq_group``: capacity from the whole row, slot offsets from the
+      other ranks' counts) and runs each rank's C/R capacity slots of
+      every expert. Expert leaves are summed over ``seq`` as every
+      replicated leaf is: rank r's grad covers its own slots, with the
+      cotangents of every ``seq`` rank's tokens.
 
-    A live ``tensor``, ``seq`` or ``pipe`` axis is refused: MoE with
-    those is not ported yet."""
+    A live ``pipe`` axis is refused: the JAX package's MoE step has no
+    pipeline schedule."""
     dev = resolve_device(device)
     if not isinstance(cfg, moe_llama.MoEConfig):
         raise TypeError(f"make_moe_train_step takes an MoEConfig, not "
                         f"{type(cfg).__name__}")
-    _refuse_axes("make_moe_train_step", "expert", mesh,
-                 ("tensor", "seq", "pipe"), cfg)
+    _refuse_axes("make_moe_train_step", "expert + tensor + seq", mesh,
+                 ("pipe",), cfg)
     return _sharded_step(cfg, mesh, optimizer, gather, dev, rules)
 
 
 def _refuse_axes(step: str, axes: str, mesh, refused, cfg) -> None:
     """Raise on the first live axis of ``refused``, with the reason the
     decoder of ``cfg`` gives (the step that takes it, as the JAX
-    package's refusal names it, or what is not ported yet)."""
+    package's refusal names it, or why it has no port)."""
     sizes = axis_sizes(mesh)
     if _decoder(cfg) is _MOE and step != "make_moe_train_step":
         raise ValueError(f"{step} trains the Llama decoder; an MoE config "
@@ -795,9 +758,11 @@ def _sharded_step(cfg: LlamaConfig, mesh, optimizer, gather: str,
         sum came with its reduce-scatter) and over ``seq`` and
         ``expert``, where every leaf but the experts' is replicated; an
         expert leaf's sum over ``expert`` came with the all-to-all's
-        backward. No tensor reduction: tensor-sharded leaves carry exact
-        per-shard grads and tensor-replicated leaves identical ones (the
-        tp_psum_pair contract)."""
+        backward, and its sum over ``seq`` is this one's (each ``seq``
+        rank ran its own capacity slots). No tensor reduction:
+        tensor-sharded leaves carry exact per-shard grads and
+        tensor-replicated leaves identical ones (the tp_psum_pair
+        contract)."""
         named = {a for ax in spec for a in _spec_axes(ax)}
         psum_tree(g, mesh, [a for a in mean_axes if a not in named])
         if denom > 1:

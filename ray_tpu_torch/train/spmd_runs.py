@@ -16,7 +16,8 @@ import torch
 import torch.distributed as dist
 
 from ray_tpu_torch import resolve_device
-from ray_tpu_torch.collective.collective import (_leaves, _map, all_to_all,
+from ray_tpu_torch.collective.collective import (_leaves, _map,
+                                                 all_gather, all_to_all,
                                                  pmean_tree)
 from ray_tpu_torch.models.llama import (make_pipeline_train_step,
                                         pipeline_param_specs, tp_psum_pair,
@@ -174,8 +175,13 @@ def moe_jobs(jobs: Sequence[Dict[str, Any]], device=None) -> List[dict]:
     ``step`` defaults to ``"moe"``, ``train/spmd.py:make_moe_train_step``).
     A report also holds ``routing``, the experts this rank's tokens chose
     in the first step's forward (``[L, rows, T, top_k]`` int8, before
-    capacity), and ``rows``, the ``(start, stop)`` of those rows in the
-    global batch: its batch shard's block, then its expert rank's."""
+    capacity); ``rows``, the ``(start, stop)`` of those rows in the
+    global batch (its batch shard's block, then its expert rank's);
+    ``positions``, the ``(start, stop)`` of its tokens in each row (its
+    ``seq`` rank's block); and ``tensor_checksums``, under a live
+    ``tensor`` axis, each tensor rank's checksum of each layer's picks
+    (``[t, L]``, all-gathered over the tensor group: the ranks of a group
+    must route alike), else None."""
     dev = resolve_device(device)
     meshes: Dict[str, Any] = {}
     reports = []
@@ -202,7 +208,10 @@ def moe_jobs(jobs: Sequence[Dict[str, Any]], device=None) -> List[dict]:
             moe_ops.expert_choices = choices
         if "rejected" not in report:
             report["routing"] = np.stack(log) if log else None
-            report["rows"] = _moe_rows(mesh, len(job["tokens"]))
+            rows, T = np.shape(job["tokens"])
+            report["rows"] = _moe_rows(mesh, rows)
+            report["positions"] = _block(mesh, "seq", T - 1)
+            report["tensor_checksums"] = _tensor_checksums(mesh, log, dev)
         reports.append(report)
     return reports
 
@@ -219,6 +228,30 @@ def _moe_rows(mesh, global_rows: int):
         per //= ep
         index = index * ep + mesh.get_local_rank("expert")
     return index * per, (index + 1) * per
+
+
+def _block(mesh, axis: str, n: int):
+    """(start, stop) of this rank's block of ``n`` split over ``axis``
+    (the whole of it where the axis is not live)."""
+    if axis not in mesh.mesh_dim_names:
+        return 0, n
+    per = n // axis_sizes(mesh)[axis]
+    i = mesh.get_local_rank(axis)
+    return i * per, (i + 1) * per
+
+
+def _tensor_checksums(mesh, log: List[np.ndarray], dev):
+    """Each tensor rank's checksum of each layer's picks, ``[t, L]``
+    (a position-weighted sum, so a moved pick changes it), all-gathered
+    over the tensor group; None without a live tensor axis."""
+    if "tensor" not in mesh.mesh_dim_names or not log:
+        return None
+    picks = torch.from_numpy(np.stack(log)).to(dev).long()
+    flat = picks.reshape(len(log), -1)
+    weights = torch.arange(1, flat.shape[1] + 1, device=dev)
+    sums = (flat * weights).sum(1)
+    return all_gather(sums[None], 0, mesh.get_group("tensor")).cpu() \
+        .tolist()
 
 
 def _profile(fn, dev, groups) -> Dict[str, Any]:
@@ -398,56 +431,96 @@ def pipeline_schedule(cases: Sequence[Dict[str, Any]], device=None
 
 def expert_parallel_cases(cases: Sequence[Dict[str, Any]], device=None
                           ) -> List[dict]:
-    """The expert-parallel exchange on this rank. A case holds ``mesh``
-    (a spec with an ``expert`` axis of ep ranks) and ``kind``:
+    """The MoE FFN's exchanges on this rank. A case holds ``mesh`` (a
+    spec) and ``kind``:
 
-    - ``"all_to_all"``: ``x`` and ``r``, ``[ep, rows, m]`` numpy (rank
-      j's are ``x[j]``, ``r[j]``; rows a multiple of ep): returns this
-      rank's ``all_to_all(x[j])`` and the grad of ``sum(out * r[j])`` in
-      ``x[j]``;
+    - ``"all_to_all"`` (an ``expert`` axis of ep ranks): ``x`` and ``r``,
+      ``[ep, rows, m]`` numpy (rank j's are ``x[j]``, ``r[j]``; rows a
+      multiple of ep): returns this rank's ``all_to_all(x[j])`` and the
+      grad of ``sum(out * r[j])`` in ``x[j]``;
+    - ``"routing"`` (a ``seq`` axis of R ranks): ``logits [G, S, E]``,
+      ``top_k`` and ``capacity_factor``: ``top_k_routing`` on this seq
+      rank's block of S/R tokens with the whole row's capacity and
+      ``frac`` averaged over ``seq``; returns its dispatch, combine and
+      aux;
     - ``"moe_ffn"``: ``x [B, S, d]``, ``router``, ``w_gate``, ``w_up``,
       ``w_down`` (all experts), ``r`` (a cotangent like x), ``top_k``,
-      ``capacity_factor`` and ``aux_coef``: this expert rank takes rows
-      ``[j B/ep, (j+1) B/ep)`` and experts ``[j E/ep, (j+1) E/ep)``, runs
-      ``moe_ffn`` over the ``expert`` group with ``frac`` averaged over
-      it, and back-propagates ``sum(y * r) + aux_coef * aux / ep`` (so the
-      ranks' sum is the unsharded ``sum(y * r) + aux_coef * aux``).
-      Returns its rows' y, its aux, and the grads of its x rows, of the
-      router (this rank's part) and of its experts' weights.
+      ``capacity_factor`` and ``aux_coef``, on any of ``expert`` (ep),
+      ``seq`` (R) and ``tensor``: this rank takes its expert rank's rows
+      and experts, its seq rank's block of S and its tensor rank's block
+      of each expert's mlp dim, runs ``moe_ffn`` over those groups with
+      ``frac`` averaged over ``expert`` and ``seq``, and back-propagates
+      ``sum(y * r) + aux_coef * aux / (ep R)`` (so the sum over a tensor
+      group's copies is the unsharded ``sum(y * r) + aux_coef * aux``).
+      Returns its block's y, its aux, the grads of its x block, of the
+      router (this rank's part) and of its experts' weight shards (this
+      seq rank's part).
 
+    Every case but the all-to-all reports ``block``: the ``(start,
+    stop)`` of this rank's rows, positions, experts and mlp columns.
     Float32 throughout; results as numpy."""
     dev = resolve_device(device)
     reports = []
     for case in cases:
         mesh = build_train_mesh(case["mesh"], device=dev)
-        group = mesh.get_group("expert")
-        ep, j = axis_sizes(mesh)["expert"], mesh.get_local_rank("expert")
-
-        def mine(name, dim, full=False):
-            t = torch.tensor(case[name], device=dev)
-            if not full:
-                n = t.shape[dim] // ep
-                t = t.narrow(dim, j * n, n)
-            return t.clone().requires_grad_(True)
-
+        live = {a: mesh.get_group(a) for a in ("expert", "seq", "tensor")
+                if a in mesh.mesh_dim_names}
         if case["kind"] == "all_to_all":
+            j = mesh.get_local_rank("expert")
             x = torch.tensor(case["x"][j], device=dev, requires_grad=True)
-            out = all_to_all(x, group)
+            out = all_to_all(x, live["expert"])
             (out * torch.tensor(case["r"][j], device=dev)).sum().backward()
             reports.append({"out": _np(out), "x": _np(x.grad)})
             continue
-        x, r = mine("x", 0), mine("r", 0)
-        router = mine("router", 0, full=True)
-        w = {n: mine(n, 0) for n in ("w_gate", "w_up", "w_down")}
+        frac_axes = [a for a in ("expert", "seq") if a in live]
+
+        def frac_mean(f):
+            return pmean_tree(f.detach().clone(), mesh, frac_axes)
+
+        if case["kind"] == "routing":
+            G, S, E = case["logits"].shape
+            block = {"positions": _block(mesh, "seq", S)}
+            logits = torch.tensor(case["logits"], device=dev)[
+                :, slice(*block["positions"])]
+            C = moe_ops.expert_capacity(S, E, case["top_k"],
+                                        case["capacity_factor"])
+            d, c, aux = moe_ops.top_k_routing(
+                logits, E, case["top_k"], C, frac_mean, live["seq"])
+            reports.append({"dispatch": _np(d), "combine": _np(c),
+                            "aux": float(aux), "block": block})
+            continue
+        B, S, _ = case["x"].shape
+        E, _, f = case["w_gate"].shape
+        block = {"rows": _block(mesh, "expert", B),
+                 "positions": _block(mesh, "seq", S),
+                 "experts": _block(mesh, "expert", E),
+                 "mlp": _block(mesh, "tensor", f)}
+
+        def mine(name, *dims):
+            t = torch.tensor(case[name], device=dev)
+            for dim, what in dims:
+                start, stop = block[what]
+                t = t.narrow(dim, start, stop - start)
+            return t.clone().requires_grad_(True)
+
+        x = mine("x", (0, "rows"), (1, "positions"))
+        r = mine("r", (0, "rows"), (1, "positions"))
+        router = mine("router")
+        w = {"w_gate": mine("w_gate", (0, "experts"), (2, "mlp")),
+             "w_up": mine("w_up", (0, "experts"), (2, "mlp")),
+             "w_down": mine("w_down", (0, "experts"), (1, "mlp"))}
         y, aux = moe_ops.moe_ffn(
             x, router, w["w_gate"], w["w_up"], w["w_down"],
             top_k=case["top_k"], capacity_factor=case["capacity_factor"],
-            compute_dtype=torch.float32, expert_group=group,
-            frac_mean=lambda f: pmean_tree(f.detach().clone(), mesh,
-                                           "expert"))
-        ((y * r).sum() + case["aux_coef"] * aux / ep).backward()
+            compute_dtype=torch.float32, expert_group=live.get("expert"),
+            frac_mean=frac_mean, seq_group=live.get("seq"),
+            collectives=tp_psum_pair(live["tensor"]) if "tensor" in live
+            else None)
+        shares = int(np.prod([dist.get_world_size(live[a])
+                              for a in frac_axes]))
+        ((y * r).sum() + case["aux_coef"] * aux / shares).backward()
         reports.append({"y": _np(y), "aux": float(aux), "x": _np(x.grad),
-                        "router": _np(router.grad),
+                        "router": _np(router.grad), "block": block,
                         **{n: _np(t.grad) for n, t in w.items()}})
     return reports
 

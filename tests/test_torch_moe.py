@@ -2,7 +2,10 @@
 the CPU — MoE routing and the expert FFN (``ops/moe.py``), the
 differentiable all-to-all (``collective/collective.py``), the MoE decoder
 and its single-card step (``models/moe_llama.py``) and the MoE mesh step
-with a live ``expert`` axis (``train/spmd.py:make_moe_train_step``).
+(``train/spmd.py:make_moe_train_step``) with live ``expert``, ``tensor``
+and ``seq`` axes: routing over a row split across ``seq`` ranks, the
+expert FFN under ``seq`` and under ``tensor``, and the step on every
+layout JAX's ``moe_llama.make_train_step`` takes but ``pipe``.
 
 Set-up: MoEConfig.debug() on both sides (4 experts, top 2), the JAX
 params exported as numpy and carried into the port, token ids and every
@@ -19,7 +22,13 @@ Tolerances:
 - ``moe_ffn`` values and input/weight grads, float32: rtol = atol = 1e-5
   (the JAX suite's exact-fallback bound, tests/test_flash_attention.py);
 - the all-to-all and the expert-parallel FFN against the unsharded
-  exchange and function, values and grads, float32: 1e-6;
+  exchange and function, values and grads, float32: 1e-6; the same for
+  the FFN under ``seq`` (the ranks' dispatches add zeros to disjoint
+  slots); 1e-5 under ``tensor`` (its row-parallel sum changes the order:
+  the exact-fallback bound);
+- routing over a row split across ``seq`` ranks against JAX's
+  ``top_k_routing`` on the whole row: dispatch exactly equal, combine and
+  the ranks' mean aux within 1e-6;
 - the decoder's logits and aux, first-step grads leaf by leaf and
   two-step losses against JAX's ``moe_llama``: rtol 1e-4 in float32
   (atol 1e-4 for the grads), 3e-3 in bfloat16 (tests/test_spmd_train.py's
@@ -32,6 +41,7 @@ Tolerances:
 
 import concurrent.futures
 import dataclasses
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -55,7 +65,12 @@ WORLD = 4
 # seconds a launch may take before its ranks are killed; bounds each test
 TIMEOUT = 240
 LAYOUTS = [("expert=4", "streamed"), ("data=2,expert=2", "streamed"),
-           ("fsdp=2,expert=2", "streamed"), ("fsdp=2,expert=2", "upfront")]
+           ("fsdp=2,expert=2", "streamed"), ("fsdp=2,expert=2", "upfront"),
+           # tensor inside each expert, and rows split over seq
+           ("data=2,tensor=2", "streamed"), ("expert=2,tensor=2", "streamed"),
+           ("fsdp=2,tensor=2", "streamed"), ("seq=4", "streamed"),
+           ("seq=2,expert=2", "streamed"), ("seq=2,tensor=2", "streamed"),
+           ("fsdp=2,seq=2", "streamed")]
 LAYOUT_IDS = [f"{m}-{g}" for m, g in LAYOUTS]
 DTYPES = {"f32": (jnp.float32, torch.float32, 1e-4),
           "bf16": (jnp.bfloat16, torch.bfloat16, 3e-3)}
@@ -68,6 +83,12 @@ ROUTING_CASES = [(2, 16, 4, 2, 1.25, False), (3, 32, 8, 2, 1.0, False),
 # rows a chunk
 A2A_CASES = [("data=2,expert=2", 2), ("expert=4", 2), ("expert=4", 3)]
 FFN_MESHES = ["data=2,expert=2", "expert=4"]
+# the FFN under seq 2 and 4, tensor 2, and tensor inside each expert
+SHARDED_FFN_MESHES = ["data=2,seq=2", "seq=4", "data=2,tensor=2",
+                      "expert=2,tensor=2"]
+# the seq-split routing: every routing case over seq 2 and 4
+SEQ_ROUTING = [(mesh, case) for mesh in ("data=2,seq=2", "seq=4")
+               for case in ROUTING_CASES]
 
 
 def _cfgs(name="f32", **kw):
@@ -356,23 +377,25 @@ def test_two_step_losses_match_jax(jax_tree, name):
 
 
 def test_partition_rules_mirror_the_logical_axes():
-    """The MoE rule table, leaf by leaf, is JAX's DEFAULT_RULES through
-    param_logical_axes on an fsdp x expert mesh (padded with None to the
-    leaf's rank); tensor stays out."""
+    """The MoE rule table, leaf by leaf, restricted to a mesh, is JAX's
+    DEFAULT_RULES through param_logical_axes on that mesh (padded with
+    None to the leaf's rank), on meshes with fsdp, expert and tensor."""
     tcfg = _cfgs()[1]
-    jmesh = _jax_mesh("fsdp=2,expert=2")
     shapes = tm.param_shapes(tcfg)
     sample = ts._nest({p: torch.empty(s, device="meta")
                        for p, s in shapes.items()})
     rules = _flat(ts.match_partition_rules(ts.moe_partition_rules(),
                                            sample))
-    for path, axes in _flat(tm.param_logical_axes(tcfg)).items():
-        want = tuple(jax_logical_spec(axes, jmesh))
-        want += (None,) * (len(shapes[path]) - len(want))
-        got = tuple(rules[path]) + (None,) * (len(shapes[path])
-                                              - len(rules[path]))
-        assert got == want, path
-    assert "tensor" not in str(ts.moe_partition_rules())
+    for spec in ("fsdp=2,expert=2", "fsdp=2,tensor=2", "expert=2,tensor=2"):
+        jmesh = _jax_mesh(spec)
+        names = tuple(js.parse_mesh_spec(spec))
+        mesh = SimpleNamespace(mesh_dim_names=names, shape=(2, 2))
+        for path, axes in _flat(tm.param_logical_axes(tcfg)).items():
+            want = tuple(jax_logical_spec(axes, jmesh))
+            want += (None,) * (len(shapes[path]) - len(want))
+            got = tuple(ts._restrict_spec(rules[path], mesh))
+            got += (None,) * (len(shapes[path]) - len(got))
+            assert got == want, (spec, path)
 
 
 # --------------------------------------------------------------------------- #
@@ -388,10 +411,15 @@ def _a2a_case(mesh, rows, seed=0):
             "r": rng.randn(ep, ep * rows, 3).astype(np.float32)}
 
 
-def _ffn_case(mesh):
+def _ffn_case(mesh, S=16):
     return {"kind": "moe_ffn", "mesh": mesh, "top_k": 2,
             "capacity_factor": 1.25, "aux_coef": 0.5,
-            **_ffn_inputs(B=4, S=16, E=4)}
+            **_ffn_inputs(B=4, S=S, E=4)}
+
+
+def _routing_case(mesh, G, S, E, k, cf, tied):
+    return {"kind": "routing", "mesh": mesh, "top_k": k,
+            "capacity_factor": cf, "logits": _routing_logits(G, S, E, tied)}
 
 
 def _mesh_jobs(tree, tokens):
@@ -402,16 +430,14 @@ def _mesh_jobs(tree, tokens):
     jobs += [dict(cfg=tcfg, mesh=mesh, gather=gather, init=tree,
                   tokens=tokens, steps=2, grads=leaves)
              for mesh, gather in LAYOUTS]
-    # the refusals: what MoE does not take yet, E % ep, an MoE config in
-    # a Llama step, and the Llama steps refusing expert
+    # the refusals: pipe (JAX's MoE has no pipeline schedule), E % ep, an
+    # MoE config in a Llama step, and the Llama steps refusing expert
     from ray_tpu_torch.models import llama as tl
 
     odd = dataclasses.replace(tcfg, num_experts=3)
     llama_cfg = dataclasses.replace(tl.LlamaConfig.debug(),
                                     dtype=torch.float32)
-    jobs += [dict(cfg=tcfg, mesh="expert=2,tensor=2", tokens=tokens),
-             dict(cfg=tcfg, mesh="expert=2,seq=2", tokens=tokens),
-             dict(cfg=tcfg, mesh="pipe=2,expert=2", tokens=tokens),
+    jobs += [dict(cfg=tcfg, mesh="pipe=2,expert=2", tokens=tokens),
              dict(cfg=odd, mesh="expert=4", tokens=tokens),
              dict(cfg=tcfg, mesh="fsdp=4", step="spmd", tokens=tokens),
              dict(cfg=llama_cfg, mesh="data=2,expert=2", step="spmd",
@@ -423,12 +449,15 @@ def _mesh_jobs(tree, tokens):
     return jobs
 
 
-N_REFUSED = 8
+N_REFUSED = 6
 
 
 def _port_runs(tree, tokens):
+    # S 32: capacity 20, which seq 2 and 4 divide
     cases = [_a2a_case(m, n) for m, n in A2A_CASES] \
-        + [_ffn_case(m) for m in FFN_MESHES]
+        + [_ffn_case(m) for m in FFN_MESHES] \
+        + [_ffn_case(m, S=32) for m in SHARDED_FFN_MESHES] \
+        + [_routing_case(m, *c) for m, c in SEQ_ROUTING]
     jobs = _mesh_jobs(tree, tokens)
     from ray_tpu_torch.train.spmd_runs import rank_programs
 
@@ -505,15 +534,28 @@ def test_mesh_first_step_grads_match_jax(runs, mesh, gather):
 
 @pytest.mark.parametrize("mesh,gather", LAYOUTS, ids=LAYOUT_IDS)
 def test_mesh_routing_equals_the_single_card_step(runs, mesh, gather):
-    """Each rank's tokens chose the experts the single-card step's did,
-    and the ranks' rows cover the global batch once."""
+    """Each rank's tokens chose the experts the single-card step's did;
+    the ranks' blocks (rows, and positions under seq) cover the global
+    batch once, apart from the copies a tensor group holds, which route
+    alike (their picks' checksums agree)."""
     reps = _report(runs, mesh, gather)
-    covered = np.zeros(len(_tokens()), int)
+    rows, T = _tokens().shape
+    blocks = {}
     for rep in reps:
-        start, stop = rep["rows"]
+        (r0, r1), (p0, p1) = rep["rows"], rep["positions"]
         np.testing.assert_array_equal(
-            rep["routing"], runs["routing"][:, start:stop], err_msg=mesh)
-        covered[start:stop] += 1
+            rep["routing"], runs["routing"][:, r0:r1, p0:p1], err_msg=mesh)
+        blocks.setdefault((r0, r1, p0, p1), []).append(rep)
+        sums = rep["tensor_checksums"]
+        if "tensor" in mesh:
+            assert len(sums) == 2 and sums[0] == sums[1], sums
+        else:
+            assert sums is None
+    copies = 2 if "tensor" in mesh else 1
+    assert all(len(b) == copies for b in blocks.values())
+    covered = np.zeros((rows, T - 1), int)
+    for r0, r1, p0, p1 in blocks:
+        covered[r0:r1, p0:p1] += 1
     assert (covered == 1).all()
 
 
@@ -521,8 +563,6 @@ def test_expert_leaves_stay_sharded_over_expert(runs):
     """Expert leaves split over ``expert`` and are never gathered over
     it: the step's analytic residency counts an fsdp-gathered working
     copy of the rank's E/ep experts, and every other leaf whole."""
-    from types import SimpleNamespace
-
     from ray_tpu_torch.parallel.sharding import param_residency_bytes
 
     _, tcfg = _cfgs()
@@ -544,13 +584,11 @@ def test_expert_leaves_stay_sharded_over_expert(runs):
 def test_moe_step_refuses_what_is_not_ported(runs):
     msgs = [r.get("rejected") for r in runs["reports"][0][-N_REFUSED:]]
     assert all(msgs), msgs
-    assert "live 'tensor' axis" in msgs[0]
-    assert "tensor parallelism inside each expert is not ported" in msgs[0]
-    assert "live 'seq' axis" in msgs[1] and "not ported" in msgs[1]
-    assert "live 'pipe' axis" in msgs[2] and "not ported" in msgs[2]
-    assert msgs[3] == ("expert axis size 4 does not divide "
+    assert "live 'pipe' axis" in msgs[0]
+    assert "MoE step has no pipeline schedule" in msgs[0]
+    assert msgs[1] == ("expert axis size 4 does not divide "
                        "cfg.num_experts=3")
-    assert "make_moe_train_step" in msgs[4]
+    assert "make_moe_train_step" in msgs[2]
 
 
 def test_llama_steps_still_refuse_expert(runs):
@@ -587,31 +625,98 @@ def test_all_to_all_values_and_grads(runs, mesh, rows):
                                    atol=1e-6)
 
 
-@pytest.mark.parametrize("mesh", FFN_MESHES)
-def test_expert_parallel_ffn_matches_the_unsharded_function(runs, mesh):
-    i_case = len(A2A_CASES) + FFN_MESHES.index(mesh)
+def _assemble(reps, key, whole, *dims, add=False):
+    """The ranks' blocks of ``key`` laid into an array shaped as
+    ``whole``: ``dims`` pairs a dim with the block that cuts it; a block
+    two ranks share must hold the same values, unless ``add`` (each
+    rank's part of a sum)."""
+    out = np.zeros_like(whole)
+    seen = {}
+    for rep in reps:
+        at = [slice(None)] * whole.ndim
+        for dim, what in dims:
+            at[dim] = slice(*rep["block"][what])
+        at = tuple(at)
+        if add:
+            out[at] += rep[key]
+            continue
+        where = tuple((s.start, s.stop) for s in at)
+        if where in seen:
+            np.testing.assert_array_equal(rep[key], seen[where],
+                                          err_msg=key)
+        seen[where] = rep[key]
+        out[at] = rep[key]
+    return out
+
+
+def _check_sharded_ffn(runs, i_case, tol):
+    """A moe_ffn case against the unsharded function: the first group of
+    ranks (every axis but expert, seq and tensor at 0) reassembled — y
+    and x's grad by block, the router's grad summed over the blocks of
+    rows and positions, an expert weight's grad by its experts and mlp
+    columns and summed over seq, aux averaged over expert and seq."""
     case = runs["cases"][i_case]
-    ep = int(mesh.split("expert=")[1])
     t = {n: torch.tensor(case[n], requires_grad=True)
          for n in ("x",) + WEIGHTS}
     y, aux = tmoe.moe_ffn(t["x"], *(t[n] for n in WEIGHTS), top_k=2,
                           capacity_factor=1.25, compute_dtype=torch.float32)
     ((y * torch.from_numpy(case["r"])).sum() + 0.5 * aux).backward()
-    reps = [rank[i_case] for rank in runs["exchange"]]
-    # one expert group: ranks 0 .. ep-1 (the minor axis)
-    group = reps[:ep]
-    tol = dict(rtol=1e-6, atol=1e-6)
-    np.testing.assert_allclose(np.concatenate([r["y"] for r in group]),
+    sizes = js.parse_mesh_spec(case["mesh"])
+    n = int(np.prod([sizes.get(a, 1) for a in ("expert", "seq", "tensor")]))
+    reps = [rank[i_case] for rank in runs["exchange"]][:n]
+    rows = (0, "rows"), (1, "positions")
+    tol = dict(rtol=tol, atol=tol)
+    np.testing.assert_allclose(_assemble(reps, "y", case["x"], *rows),
                                y.detach().numpy(), **tol)
-    np.testing.assert_allclose(np.concatenate([r["x"] for r in group]),
+    np.testing.assert_allclose(_assemble(reps, "x", case["x"], *rows),
                                t["x"].grad.numpy(), **tol)
-    for n in ("w_gate", "w_up", "w_down"):
-        np.testing.assert_allclose(np.concatenate([r[n] for r in group]),
-                                   t[n].grad.numpy(), **tol, err_msg=n)
-    np.testing.assert_allclose(sum(r["router"] for r in group),
+    first = [r for r in reps if r["block"]["mlp"][0] == 0]
+    np.testing.assert_allclose(sum(r["router"] for r in first),
                                t["router"].grad.numpy(), **tol)
-    np.testing.assert_allclose(np.mean([r["aux"] for r in group]),
+    for name, mlp in (("w_gate", 2), ("w_up", 2), ("w_down", 1)):
+        np.testing.assert_allclose(
+            _assemble(reps, name, case[name], (0, "experts"), (mlp, "mlp"),
+                      add=True), t[name].grad.numpy(), **tol, err_msg=name)
+    np.testing.assert_allclose(np.mean([r["aux"] for r in first]),
                                float(aux), **tol)
+
+
+@pytest.mark.parametrize("mesh", FFN_MESHES)
+def test_expert_parallel_ffn_matches_the_unsharded_function(runs, mesh):
+    _check_sharded_ffn(runs, len(A2A_CASES) + FFN_MESHES.index(mesh), 1e-6)
+
+
+@pytest.mark.parametrize("mesh", SHARDED_FFN_MESHES)
+def test_seq_and_tensor_ffn_match_the_unsharded_function(runs, mesh):
+    """Under seq the ranks' dispatches fill disjoint slots (1e-6); under
+    tensor the row-parallel sum changes the order (1e-5)."""
+    i_case = len(A2A_CASES) + len(FFN_MESHES) \
+        + SHARDED_FFN_MESHES.index(mesh)
+    _check_sharded_ffn(runs, i_case, 1e-5 if "tensor" in mesh else 1e-6)
+
+
+@pytest.mark.parametrize("mesh,G,S,E,k,cf,tied",
+                         [(m, *c) for m, c in SEQ_ROUTING])
+def test_seq_split_routing_matches_jax_on_the_whole_row(runs, mesh, G, S,
+                                                        E, k, cf, tied):
+    """Each seq rank routes its block of the row; laid side by side, the
+    blocks are JAX's routing of the whole row: the same slots and drops
+    (choice-major across ranks), and the ranks' mean aux is JAX's."""
+    i_case = len(A2A_CASES) + len(FFN_MESHES) + len(SHARDED_FFN_MESHES) \
+        + SEQ_ROUTING.index((mesh, (G, S, E, k, cf, tied)))
+    logits = _routing_logits(G, S, E, tied)
+    C = jmoe.expert_capacity(S, E, k, cf)
+    jd, jc, ja = (np.asarray(a) for a in jmoe.top_k_routing(
+        jnp.asarray(logits), E, k, C))
+    R = js.parse_mesh_spec(mesh)["seq"]
+    reps = [rank[i_case] for rank in runs["exchange"]][:R]
+    np.testing.assert_array_equal(
+        _assemble(reps, "dispatch", jd, (1, "positions")), jd)
+    np.testing.assert_allclose(
+        _assemble(reps, "combine", jc, (1, "positions")), jc, rtol=1e-6,
+        atol=1e-6)
+    np.testing.assert_allclose(np.mean([r["aux"] for r in reps]), float(ja),
+                               rtol=1e-6, atol=1e-6)
 
 
 def test_batch_must_split_over_expert():
