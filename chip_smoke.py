@@ -88,6 +88,9 @@ import subprocess
 import sys
 import time
 
+from ray_tpu_torch.ops.flash_attention import attention_work
+from ray_tpu_torch.util import program_observatory
+
 # allclose bounds of a bf16 kernel against its fp32 plain version: the JAX
 # suite's own forward tolerance (tests/test_flash_attention.py)
 KERNEL_ATOL = 2e-2
@@ -148,15 +151,30 @@ ROUTING_AGREEMENT_MIN = 0.99
 # plain version reads 0.9889 agreement) move every wq/wk/wv grad by
 # 0.09-0.21 at MoEConfig.small widths, 2 layers, B 4 x 2048.
 
-# published dense bf16 peak (FLOP/s) and memory rate (B/s) by card name,
-# NVIDIA data sheets; the rates assume the card's full power limit
-PEAKS = (
-    ("H100 PCIe", 756e12, 2.0e12),
-    ("H100 NVL", 835e12, 3.9e12),
-    ("H100", 989e12, 3.35e12),
-    ("H200", 989e12, 4.8e12),
-)
-
+# the observability phase (the program observatory, the serving hooks,
+# device telemetry). Counted FLOPs of an observed program against the
+# analytic count from the code: exact but for float rounding in a prefill
+# or decode bucket, within 1 % for the train step
+PROGRAM_FLOPS_RTOL = 1e-3
+TRAIN_STEP_FLOPS_RTOL = 1e-2
+# the report's MFU over the phase's own (6 N + 6 L H T D a token) against
+# counted FLOPs over that count: the two differ in their time base only
+# (the report's spans against the phase's timed steps)
+MFU_RATIO_RTOL = 0.05
+# steady-state observation (fingerprint and lookup) at most this share of
+# a decode step's and a train step's time, timed over this many calls on
+# the real arguments
+OBSERVATION_COST_MAX = 0.01
+OBSERVATION_CALLS = 1000
+# max_memory_allocated of a run with observation on against one with it
+# off
+OBSERVED_PEAK_RTOL = 0.01
+# the telemetry collector's interval in the observability phase
+TELEMETRY_INTERVAL_MS = 50
+# the serving phase's scheduler (its spans and gauges carry this tag), and
+# a wait past the scheduler's 0.25 s gauge interval
+SERVE_DEPLOYMENT = "llama3_8b"
+SERVE_GAUGE_WAIT_S = 0.3
 
 # device kernels by name, for the profile's breakdown (first match wins)
 KERNEL_GROUPS = (
@@ -199,10 +217,12 @@ def smi_line() -> str:
 
 
 def peaks_for(name: str):
-    for key, flops, bw in PEAKS:
-        if key in name:
-            return flops, bw
-    raise RuntimeError(f"no published peaks for card {name!r}")
+    """(bf16 FLOP/s, bytes/s) of the card from the program observatory's
+    table (``util/program_observatory.py:PEAKS``, NVIDIA data sheets)."""
+    peaks = program_observatory.peaks_for(name)
+    if peaks is None:
+        raise RuntimeError(f"no published peaks for card {name!r}")
+    return peaks
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -262,27 +282,6 @@ def profile_ms(torch, fn) -> dict:
             "region_device_ms": regions,
             "top_kernels": [{"name": k[:90], "ms": ms, "calls": n}
                             for ms, n, k in rows[:10]]}
-
-
-def attention_work(B, T, Hq, Hkv, D, causal, kernel="fwd"):
-    """(flops, bytes) a kernel needs, counting each unmasked (query, key)
-    pair: the forward does 2 products (S, P V), 4*D flops a pair, reads
-    q, k, v and writes o and lse; dQ does 3 (S, dP, dS K), 6*D flops,
-    reads q, k, v, o, do, lse and writes dq and delta; dK/dV does 4 (S^T,
-    dP^T, P^T dO, dS^T Q), 8*D flops, reads q, k, v, do, lse, delta and
-    writes dk, dv; the whole backward ("bwd"), the function SDPA's
-    backward computes, needs 5 (S, dP, P^T dO, dS^T Q, dS K), 10*D flops,
-    reads q, k, v, o, do, lse and writes dq, dk, dv: the S and dP that
-    the dQ and dK/dV kernels both compute are counted once. bf16
-    tensors, fp32 row terms; each read once, each written once."""
-    pairs = T * (T + 1) // 2 if causal else T * T
-    products, q_sized, kv_sized, rows = {
-        "fwd": (2, 2, 2, 1), "dq": (3, 4, 2, 2), "dkv": (4, 2, 4, 2),
-        "bwd": (5, 4, 4, 1)}[kernel]
-    flops = 2 * products * D * pairs * B * Hq
-    nbytes = 2 * B * T * D * (q_sized * Hq + kv_sized * Hkv) \
-        + 4 * rows * B * Hq * T
-    return flops, nbytes
 
 
 def bound(flops, nbytes, peaks) -> dict:
@@ -1112,6 +1111,9 @@ def phase_spmd(torch, seed, smi, peak_flops, timeout=600.0):
                               init=seed, tokens=tokens(rows * shards, T),
                               steps=warmup + timed, probes=True,
                               profile=SPMD_KERNEL_GROUPS))
+    # the observability phase reads the first layout's observed
+    # spmd.train_step, and the steady-state cost of observing it
+    full_jobs[0]["observation_cost"] = OBSERVATION_CALLS
     for mesh, m in pipes:
         full_jobs.append(dict(cfg=full, mesh=mesh, step="pipeline",
                               microbatches=m, init=seed,
@@ -1241,6 +1243,11 @@ def phase_spmd(torch, seed, smi, peak_flops, timeout=600.0):
                 for k in ("fwd", "dq", "dkv")}
 
     n_full = len(jobs)
+    observed = {"cfg": full, "layout": list(timing)[0],
+                "T": full_jobs[0]["tokens"].shape[1] - 1,
+                "reps": [r[n_full] for r in ranks],
+                **{k: timing[list(timing)[0]][k]
+                   for k in ("step_ms", "tokens_per_s", "global_batch")}}
     emit({"phase": "spmd", "world": world, "card": smi,
           "layouts": list(timing), "backend": "nccl", "launch_s": launch_s,
           "reduced_depth": {"n_layers": 2, "batch": world, "T": T_ref,
@@ -1257,7 +1264,7 @@ def phase_spmd(torch, seed, smi, peak_flops, timeout=600.0):
     if not pipes:
         print("pipe: the pipeline step needs two or more cards; this "
               "machine has one, so the pipe phase did not run", flush=True)
-        return launches
+        return launches, observed
     pipe_parity, pipe_timing = {}, {}
     for i, (mesh, m) in enumerate(pipes):
         name, pipe_parity[name] = parity(len(layouts) + i, world)
@@ -1279,7 +1286,7 @@ def phase_spmd(torch, seed, smi, peak_flops, timeout=600.0):
                          "warmup_steps": warmup, "timed_steps": timed,
                          "layouts": pipe_timing},
           "launches_full_depth_all_ranks": launches["pipe_all_ranks"]})
-    return launches
+    return launches, observed
 
 
 def routing_patch(n_layers: int, replay=None):
@@ -1678,8 +1685,13 @@ def phase_serving(torch, np, seed, smi):
     from ray_tpu_torch.ops.flash_attention import (flash_attention_forward,
                                                    flash_attention_reference)
     from ray_tpu_torch.serve.decode import DecodeScheduler
+    from ray_tpu_torch.util import flight_recorder as fr
 
     cfg = llama.LlamaConfig.llama3_8b()
+    # record every span, however short (a prefix hit's admission is
+    # shorter than the default floor), so the observability phase can
+    # hold the span counts to the scheduler's
+    fr.configure(min_span_us=0.0)
     t0 = time.perf_counter()
     engine = llama.LlamaDecodeEngine(cfg, n_pages=512, page_size=16,
                                      seed=seed)
@@ -1688,11 +1700,19 @@ def phase_serving(torch, np, seed, smi):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
 
+    # each kind's padded lengths in the order first served: the engine's
+    # programs analyse their first new fingerprints and count the rest
     stats = {"prefill_s": [], "prefill_tokens": 0, "decode_s": [],
-             "finite": True}
+             "finite": True, "tpads": {"prefill": [], "decode": []}}
     prefill, decode = engine.prefill, engine.decode
 
+    def note_tpad(kind, pages):
+        tpads = stats["tpads"][kind]
+        if len(pages) * engine.page_size not in tpads:
+            tpads.append(len(pages) * engine.page_size)
+
     def timed_prefill(tokens, pages):
+        note_tpad("prefill", pages)
         t = time.perf_counter()
         out = prefill(tokens, pages)
         stats["prefill_s"].append(time.perf_counter() - t)
@@ -1701,6 +1721,7 @@ def phase_serving(torch, np, seed, smi):
         return out
 
     def timed_decode(pos, token, pages):
+        note_tpad("decode", pages)
         t = time.perf_counter()
         out = decode(pos, token, pages)
         stats["decode_s"].append(time.perf_counter() - t)
@@ -1715,8 +1736,11 @@ def phase_serving(torch, np, seed, smi):
                for c, n in lengths.items()}
     prompts["p200_repeat"] = list(prompts["p200"])
     max_tokens = 16
-    sched = DecodeScheduler(engine)
+    sched = DecodeScheduler(engine, deployment=SERVE_DEPLOYMENT)
     submitted, first, finals = {}, {}, {}
+    # what the scheduler emitted: token chunks, and the iterations that
+    # decoded (one serve.decode_step span each)
+    emitted = {"chunks": 0, "decode_iterations": 0}
 
     def submit(corr):
         submitted[corr] = time.perf_counter()
@@ -1725,11 +1749,14 @@ def phase_serving(torch, np, seed, smi):
               f"request {corr} refused")
 
     def step():
+        decodes = len(stats["decode_s"])
         replies, active = sched.step()
         now = time.perf_counter()
+        emitted["decode_iterations"] += len(stats["decode_s"]) > decodes
         for corr, kind, payload in replies:
             check(kind != "error", f"request {corr} failed: {payload}")
             first.setdefault(corr, now)
+            emitted["chunks"] += kind == "chunk"
             if kind == "final":
                 finals[corr] = json.loads(payload)
         return active
@@ -1747,6 +1774,13 @@ def phase_serving(torch, np, seed, smi):
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = flash_attention_forward.launches
+    # one idle iteration after the gauge interval: the scheduler flushes
+    # the KV gauges from the pool's final state
+    time.sleep(SERVE_GAUGE_WAIT_S)
+    sched.step()
+    kv_truth = {"pages_used": engine.pool.used,
+                "pages_capacity": engine.pool.n_pages,
+                "prefix_hit_rate": engine.prefix_cache.hit_rate}
 
     check(set(finals) == set(prompts), f"final frames for {sorted(finals)}")
     for corr, fin in finals.items():
@@ -1795,6 +1829,16 @@ def phase_serving(torch, np, seed, smi):
     prof_prefill = profile_ms(torch, lambda: prefill(prompt, pages))
     prof_decode = profile_ms(torch, lambda: [
         decode(len(prompt) + i, 1, pages) for i in range(8)])
+    # the steady-state cost of observing one decode step: the fingerprint
+    # and the lookup on a real step's arguments, without the step
+    args = engine.decode_inputs(len(prompt) + 7, 1, pages)
+    check(engine._decode_fn.probe(*args),
+          "the profiled decode step's fingerprint was not seen")
+    t = time.perf_counter()
+    for _ in range(OBSERVATION_CALLS):
+        engine._decode_fn.probe(*args)
+    observation_s = (time.perf_counter() - t) / OBSERVATION_CALLS
+    del args
     engine.pool.release(pages)
     emit({"phase": "profile", "card": smi, "prefill_T1000": prof_prefill,
           "decode_8_steps": prof_decode})
@@ -1816,7 +1860,454 @@ def phase_serving(torch, np, seed, smi):
           "cached_prefix_identity": True,
           "full_depth_rel_diff_vs_plain": full_diff / full_scale,
           "max_memory_allocated_bytes": peak_bytes})
-    return launches
+    served = {"cfg": cfg, "buckets": engine.buckets(),
+              "tpads_in_order": stats["tpads"],
+              "tokens_emitted": emitted["chunks"],
+              "tokens_generated": sum(f["n_generated"]
+                                      for f in finals.values()),
+              "decode_iterations": emitted["decode_iterations"],
+              "admissions": sched.admitted, "kv_truth": kv_truth,
+              "decode_calls": len(stats["decode_s"]),
+              "decode_s": sum(stats["decode_s"]),
+              "observation_s": observation_s}
+    return launches, served
+
+
+def layer_matmul_params(cfg) -> int:
+    """Weights one decoder layer multiplies by: wq, wk, wv, wo and the
+    SwiGLU's gate, up and down."""
+    hd = cfg.head_dim
+    return (2 * cfg.dim * cfg.n_heads * hd
+            + 2 * cfg.dim * cfg.n_kv_heads * hd + 3 * cfg.dim * cfg.mlp_dim)
+
+
+def analytic_prefill_flops(cfg, tpad: int) -> int:
+    """FLOPs the observatory counts for one prefill at padded length
+    ``tpad`` on the card: each matmul weight twice a token (the layers
+    and the head, logits at every position), plus the forward kernel's
+    ``attention_work`` in each layer."""
+    fwd = attention_work(1, tpad, cfg.n_heads, cfg.n_kv_heads,
+                         cfg.head_dim, True)[0]
+    return 2 * tpad * (cfg.n_layers * layer_matmul_params(cfg)
+                       + cfg.dim * cfg.vocab_size) + cfg.n_layers * fwd
+
+
+def analytic_decode_flops(cfg, tpad: int) -> int:
+    """FLOPs of one decode step over a page-padded view of ``tpad``
+    positions: the weights twice, and in each layer the two attention
+    products of the new token over ``tpad`` + 1 keys (plain torch)."""
+    return 2 * (cfg.n_layers * layer_matmul_params(cfg)
+                + cfg.dim * cfg.vocab_size) \
+        + cfg.n_layers * 4 * cfg.n_heads * (tpad + 1) * cfg.head_dim
+
+
+def analytic_train_step_flops(cfg, rows: int, T: int, schedule: str) -> dict:
+    """FLOPs the observatory counts for one train step of ``rows`` x
+    ``T`` tokens on one rank on the card (every layer's weights on the
+    rank, as fsdp and the size-1 mesh give): the matmuls' forward (2 a
+    weight a token) and backward (4); the layers' forward once more
+    under remat: all of it under the streamed fsdp schedule (its backward
+    recomputes the layer), all but the last matmul (w_down) under
+    ``checkpoint``, whose recompute stops at the last tensor the backward
+    saved; the head likewise, its forward recomputed whole when the loss
+    is chunked (the log-softmax output is saved); and each attention
+    kernel's ``attention_work``, the forward twice under remat."""
+    n = rows * T
+    L = cfg.n_layers
+    weights = layer_matmul_params(cfg)
+    if schedule == "streamed":
+        layer_passes = 4 * weights
+    elif cfg.remat:
+        layer_passes = 4 * weights - cfg.dim * cfg.mlp_dim
+    else:
+        layer_passes = 3 * weights
+    chunked = bool(cfg.loss_chunk) and T > cfg.loss_chunk
+    head = 2 * n * cfg.dim * cfg.vocab_size * (4 if chunked else 3)
+    remat = cfg.remat or schedule == "streamed"
+    kernels = {k: L * (2 if remat and k == "fwd" else 1)
+               * attention_work(rows, T, cfg.n_heads, cfg.n_kv_heads,
+                                cfg.head_dim, True, k)[0]
+               for k in ("fwd", "dq", "dkv")}
+    matmuls = 2 * n * L * layer_passes + head
+    return {"matmuls": matmuls, "kernels": kernels,
+            "total": matmuls + sum(kernels.values())}
+
+
+def kernel_tally_ok(kernels: dict, launches: dict, work: dict) -> bool:
+    """A program's kernel tally: the launches expected, and each launch's
+    FLOPs the kernel's ``attention_work`` (``work[kernel]``)."""
+    return {k: c["launches"] for k, c in kernels.items()} == {
+        k: n for k, n in launches.items() if n} and all(
+        c["flops"] == c["launches"] * work[k] for k, c in kernels.items())
+
+
+def _close(got: float, want: float, rtol: float) -> bool:
+    return abs(got - want) <= rtol * abs(want)
+
+
+def _variants_match(by_variant: list, want: list, rtol: float) -> list:
+    """Pair each bucket's analytic FLOPs (ascending) with the variants'
+    counted FLOPs (ascending); returns the pairs, or raises when they
+    differ in number or a pair misses ``rtol``."""
+    got = sorted(v.get("flops", 0.0) for v in by_variant)
+    pairs = list(zip(got, sorted(want)))
+    check(len(got) == len(want) and all(_close(g, w, rtol)
+                                        for g, w in pairs),
+          f"counted FLOPs by variant {got} against analytic {sorted(want)}")
+    return pairs
+
+
+def check_engine_programs(cfg, variants: dict, tpads: dict) -> dict:
+    """The analysed variants of a decode engine's two programs
+    (``variants[program]``, the records' ``by_variant`` entries) against
+    the analytic FLOPs at the padded lengths they were analysed at
+    (``tpads[kind]``), and each analysed prefill's kernel tally against
+    ``attention_work``. Returns the pairs and tallies; raises on a miss."""
+    out = {}
+    for program, kind, analytic in (
+            ("llama.prefill", "prefill", analytic_prefill_flops),
+            ("llama.decode", "decode", analytic_decode_flops)):
+        analysed = [v for v in variants[program] if v["analysed"]]
+        lengths = sorted(tpads[kind])
+        out[program] = {"flops_counted_analytic": _variants_match(
+            analysed, [analytic(cfg, t) for t in lengths],
+            PROGRAM_FLOPS_RTOL)}
+        if kind != "prefill":
+            continue
+        by_flops = sorted(analysed, key=lambda v: v["flops"])
+        for tpad, v in zip(lengths, by_flops):
+            work = attention_work(1, tpad, cfg.n_heads, cfg.n_kv_heads,
+                                  cfg.head_dim, True)[0]
+            check(kernel_tally_ok(v.get("kernels", {}),
+                                  {"fwd": cfg.n_layers}, {"fwd": work}),
+                  f"llama.prefill at {tpad}: kernel tally "
+                  f"{v.get('kernels')}")
+        out[program]["kernels_by_bucket"] = {
+            tpad: v.get("kernels") for tpad, v in zip(lengths, by_flops)}
+    return out
+
+
+def serve_run(torch, np, seed, observe: bool, deployment: str):
+    """A 2-layer Llama-3-8B engine under a DecodeScheduler, observation
+    on or off: four requests (one a prefix hit) of 8 greedy tokens.
+    Observed, the engine analyses the first call of every bucket.
+    Returns (tokens by request, forward launches, max_memory_allocated
+    over the run, the engine's programs checked against the analytic
+    counts or None)."""
+    from ray_tpu_torch.core.config import global_config
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.ops.flash_attention import flash_attention_forward
+    from ray_tpu_torch.serve.decode import DecodeScheduler
+    from ray_tpu_torch.util import program_observatory as po
+
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(), n_layers=2)
+    names = ("llama.prefill", "llama.decode")
+    seen = {p: len((po.get_program(p) or {}).get("by_variant", ()))
+            for p in names}
+    knobs = global_config()
+    observed = knobs.xla_observatory_enabled
+    knobs.xla_observatory_enabled = observe
+    try:
+        engine = llama.LlamaDecodeEngine(cfg, n_pages=256, page_size=16,
+                                         seed=seed)
+        if observe:
+            engine._prefill_fn.max_analysed = None
+            engine._decode_fn.max_analysed = None
+        rng = np.random.RandomState(seed)
+        prompts = {f"p{n}": rng.randint(0, cfg.vocab_size, n).tolist()
+                   for n in (7, 200, 1000)}
+        prompts["p200_repeat"] = list(prompts["p200"])
+        sched = DecodeScheduler(engine, deployment=deployment)
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        flash_attention_forward.launches = 0
+        for corr, prompt in prompts.items():
+            check(sched.submit(corr, {"prompt": prompt, "max_tokens": 8})
+                  is None, f"request {corr} refused")
+        finals = {}
+        active = True
+        while active:
+            replies, active = sched.step()
+            for corr, kind, payload in replies:
+                check(kind != "error", f"request {corr} failed: {payload}")
+                if kind == "final":
+                    finals[corr] = json.loads(payload)["tokens"]
+        torch.cuda.synchronize()
+        programs = None
+        if observe:
+            # the records are shared by name: this engine's variants are
+            # the ones after those seen before the run
+            buckets = engine.buckets()
+            variants = {p: po.get_program(p)["by_variant"][seen[p]:]
+                        for p in names}
+            for p, kind in zip(names, ("prefill", "decode")):
+                check(len(variants[p]) == len(buckets[kind])
+                      and all(v["analysed"] for v in variants[p]),
+                      f"{p}: {len(variants[p])} variants for "
+                      f"{len(buckets[kind])} buckets, every one analysed")
+            programs = check_engine_programs(cfg, variants, buckets)
+        out = (finals, flash_attention_forward.launches,
+               torch.cuda.max_memory_allocated(), programs)
+    finally:
+        knobs.xla_observatory_enabled = observed
+    del engine, sched
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def span_counts(deployment: str) -> dict:
+    """This process's recorded spans by name, those tagged with
+    ``deployment`` or untagged."""
+    from ray_tpu_torch.util import flight_recorder as fr
+
+    counts: dict = {}
+    for ev in fr.build_span_events([fr.snapshot_payload()]):
+        if ev["args"].get("deployment", deployment) == deployment:
+            counts[ev["name"]] = counts.get(ev["name"], 0) + 1
+    return counts
+
+
+def phase_observability(torch, np, seed, smi, peaks, served, trained,
+                        timeout=600.0):
+    """The observation on the serving and ``spmd`` phases' paths, read
+    from what those phases left: the program registry, the KV and token
+    metrics and the spans of the serving phase (this process), and rank
+    0's program report of the first ``spmd`` layout; then a 2-layer run
+    of each path with observation off and on (the same tokens, loss,
+    grad norm and launches, the same peak memory), and the device
+    telemetry gauges against the allocator."""
+    from ray_tpu_torch.core.config import global_config
+    from ray_tpu_torch.train.launch import launch
+    from ray_tpu_torch.train.spmd_runs import train_jobs
+    from ray_tpu_torch.util import device_telemetry, metrics
+    from ray_tpu_torch.util import program_observatory as po
+
+    snap = metrics.registry().snapshot()
+
+    def value(metric, **tags):
+        return snap.get(metric, {}).get("values", {}).get(
+            tuple(sorted(tags.items())))
+
+    # serving: the engine's two programs count every bucket as a variant
+    # and analyse the first ANALYSED_FIRST_CALLS of them, in the order
+    # served
+    cfg = served["cfg"]
+    buckets = served["buckets"]
+    programs, variants, analysed_at = {}, {}, {}
+    for program, kind in (("llama.prefill", "prefill"),
+                          ("llama.decode", "decode")):
+        rec = po.get_program(program)
+        check(rec is not None, f"{program} was not observed")
+        n = len(buckets[kind])
+        k = min(n, po.ANALYSED_FIRST_CALLS)
+        check(rec["variants"] == n and rec["compiles"] == n
+              and rec["recompiles"] == n - 1 and rec["analysed"] == k,
+              f"{program}: {rec['variants']} variants, {rec['compiles']} "
+              f"compiles, {rec['recompiles']} recompiles, "
+              f"{rec['analysed']} analysed for {n} buckets")
+        check([v["analysed"] for v in rec["by_variant"]]
+              == [True] * k + [False] * (n - k),
+              f"{program}: analysed other variants than the first {k}")
+        check(value("port_serve_decode_buckets", kind=kind) == n,
+              f"decode-bucket gauge {kind} is not {n}")
+        variants[program] = rec["by_variant"]
+        analysed_at[kind] = served["tpads_in_order"][kind][:k]
+        programs[program] = {
+            "variants": rec["variants"], "recompiles": rec["recompiles"],
+            "analysed": rec["analysed"], "analysed_at": analysed_at[kind],
+            "compile_seconds": rec["compile_seconds"],
+            "peak_bytes": rec.get("peak_bytes"),
+            "bytes_accessed": rec.get("bytes_accessed")}
+    for program, checked in check_engine_programs(cfg, variants,
+                                                  analysed_at).items():
+        programs[program].update(checked)
+
+    # serving: metrics and spans against the scheduler's ground truth
+    dep = SERVE_DEPLOYMENT
+    truth = served["kv_truth"]
+    gauges = {"pages_used": value("port_serve_kv_pages_used", deployment=dep),
+              "pages_capacity": value("port_serve_kv_pages_capacity",
+                                      deployment=dep),
+              "prefix_hit_rate": value("port_serve_kv_prefix_hit_rate",
+                                       deployment=dep)}
+    check(gauges == {k: float(v) for k, v in truth.items()},
+          f"KV gauges {gauges} against the pool's {truth}")
+    tokens = value("port_serve_tokens_generated_total", deployment=dep)
+    check(tokens == served["tokens_emitted"] == served["tokens_generated"],
+          f"tokens generated {tokens}, emitted {served['tokens_emitted']}, "
+          f"in the final frames {served['tokens_generated']}")
+    itl = value("port_serve_itl_seconds", deployment=dep) or {}
+    spans = span_counts(dep)
+    check(spans.get("serve.decode_step") == served["decode_iterations"],
+          f"{spans.get('serve.decode_step')} serve.decode_step spans for "
+          f"{served['decode_iterations']} decode iterations")
+    check(spans.get("serve.prefill") == served["admissions"],
+          f"{spans.get('serve.prefill')} serve.prefill spans for "
+          f"{served['admissions']} admissions")
+    report = po.program_report()
+    decode_ms = served["decode_s"] / served["decode_calls"] * 1e3
+    decode_row = report["programs"]["llama.decode"]
+    n_params = cfg.num_params()
+    serving = {
+        "kv_gauges": gauges, "tokens_generated": tokens,
+        "itl_samples": itl.get("count"),
+        "spans": {k: spans.get(k) for k in ("serve.prefill",
+                                            "serve.decode_step")},
+        "decode_iterations": served["decode_iterations"],
+        "decode_ms_per_token": decode_ms,
+        # the report's decode MFU is per scheduler iteration: one
+        # serve.decode_step span covers an engine decode per running
+        # sequence, over the FLOPs of one analysed decode
+        "decode_mfu_report": decode_row.get("mfu"),
+        "decode_mfu_report_basis": "per serve.decode_step iteration",
+        "decode_mfu_own": 2.0 * n_params * served["decode_calls"]
+        / served["decode_s"] / peaks[0],
+        "decode_report_mean_step_ms": decode_row.get("mean_step_s", 0) * 1e3,
+        "prefill_mfu_report": report["programs"]["llama.prefill"].get("mfu"),
+        "observation_us_per_call": served["observation_s"] * 1e6,
+        "observation_share_of_decode": served["observation_s"] * 1e3
+        / decode_ms}
+    check(serving["observation_share_of_decode"] <= OBSERVATION_COST_MAX,
+          f"observing a decode step costs "
+          f"{serving['observation_share_of_decode']} of its time")
+
+    # training: rank 0's observed spmd.train_step in the first layout
+    tcfg, T = trained["cfg"], trained["T"]
+    rep = trained["reps"][0]
+    rows = rep["local_batch"]
+    row = rep["programs"]["spmd.train_step"]
+    want = analytic_train_step_flops(tcfg, rows, T, rep["gather"])
+    work = {k: attention_work(rows, T, tcfg.n_heads, tcfg.n_kv_heads,
+                              tcfg.head_dim, True, k)[0]
+            for k in ("fwd", "dq", "dkv")}
+    check(_close(row["flops"], want["total"], TRAIN_STEP_FLOPS_RTOL),
+          f"spmd.train_step counted {row['flops']} FLOPs, analytic "
+          f"{want['total']}")
+    check(kernel_tally_ok(row.get("kernels", {}),
+                          rank_launches(tcfg, 1, rep), work),
+          f"spmd.train_step kernel tally {row.get('kernels')}")
+    model_flops = 6 * tcfg.num_params() + 6 * tcfg.n_layers \
+        * tcfg.n_heads * T * tcfg.head_dim
+    own_mfu = model_flops * trained["tokens_per_s"] / len(trained["reps"]) \
+        / peaks[0]
+    ratio = row["mfu"] / own_mfu
+    want_ratio = row["flops"] / (model_flops * rows * T)
+    step_ms = trained["step_ms"]
+    train_cost = rep["observation_cost_s"] * 1e3 / step_ms
+    training = {
+        "layout": trained["layout"], "rows": rows, "T": T,
+        "flops_counted": row["flops"], "flops_analytic": want,
+        "flops_by_op": row.get("flops_by_op"), "kernels": row.get("kernels"),
+        "bytes_accessed": row.get("bytes_accessed"),
+        "peak_bytes": row.get("peak_bytes"), "memory": row.get("memory"),
+        "compile_seconds": row["compile_seconds"],
+        "arithmetic_intensity": row.get("arithmetic_intensity"),
+        "verdict": row.get("verdict"),
+        "mfu_report": row["mfu"], "mean_step_ms_report":
+        row["mean_step_s"] * 1e3, "measured_steps": row["measured_steps"],
+        "mfu_own_6N_attn": own_mfu, "step_ms_own": step_ms,
+        "mfu_ratio": ratio, "mfu_ratio_expected": want_ratio,
+        "observation_us_per_call": rep["observation_cost_s"] * 1e6,
+        "observation_share_of_step": train_cost}
+    check(rep["observation_hits"] == OBSERVATION_CALLS,
+          "the train step's fingerprint was not seen")
+    check(_close(ratio, want_ratio, MFU_RATIO_RTOL),
+          f"report MFU / own MFU {ratio}, want {want_ratio}")
+    check(train_cost <= OBSERVATION_COST_MAX,
+          f"observing a train step costs {train_cost} of its time")
+    check(row["verdict_enforced"] is True and row["verdict"],
+          f"no enforced roofline verdict for spmd.train_step: {row}")
+
+    # observation off and on, 2 layers at full width
+    serve_off = serve_run(torch, np, seed, False, "observe_off")
+    serve_on = serve_run(torch, np, seed, True, "observe_on")
+    full = trained["cfg"]
+    two = dataclasses.replace(full, n_layers=2)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    toks = torch.randint(0, full.vocab_size, (4, 2049), device="cuda",
+                         generator=gen).cpu().numpy()
+    jobs = [dict(cfg=two, mesh="", gather="upfront", step="spmd", init=seed,
+                 tokens=toks, steps=1, observe=observe)
+            for observe in (False, True)]
+    train_off, train_on = launch(train_jobs, 1, (jobs,), timeout=timeout)[0]
+    off_on = {
+        "serving": {"tokens_equal": serve_off[0] == serve_on[0],
+                    "launches": [serve_off[1], serve_on[1]],
+                    "max_memory_allocated": [serve_off[2], serve_on[2]],
+                    "programs_every_bucket_analysed": serve_on[3]},
+        "training": {"loss": [train_off["losses"][0],
+                              train_on["losses"][0]],
+                     "grad_norm": [train_off["grad_norm"],
+                                   train_on["grad_norm"]],
+                     "launches": [train_off["launches"],
+                                  train_on["launches"]],
+                     "max_memory_allocated": [train_off["peak_bytes"],
+                                              train_on["peak_bytes"]]}}
+    check(serve_off[0] == serve_on[0] and len(serve_on[0]) == 4,
+          "observation changed the greedy tokens")
+    check(serve_off[1] == serve_on[1] == 2 * 3,
+          f"serving launches off/on {serve_off[1]}/{serve_on[1]}")
+    check(_close(serve_on[2], serve_off[2], OBSERVED_PEAK_RTOL),
+          f"serving peak memory off/on {serve_off[2]}/{serve_on[2]}")
+    check(train_off["losses"][0] == train_on["losses"][0]
+          and train_off["grad_norm"] == train_on["grad_norm"],
+          f"observation changed the first step: {off_on['training']}")
+    check(train_off["launches"] == train_on["launches"]
+          == rank_launches(two, 1, train_on),
+          f"training launches off/on {off_on['training']['launches']}")
+    check(_close(train_on["peak_bytes"], train_off["peak_bytes"],
+                 OBSERVED_PEAK_RTOL),
+          f"training peak memory off/on {off_on['training']}")
+    check("spmd.train_step" in train_on["programs"]
+          and "spmd.train_step" not in train_off["programs"],
+          "the knob did not switch the train step's observation")
+
+    # device telemetry against the allocator: the collector thread at
+    # the knob's interval while nothing allocates, on every card this
+    # process allocated on (and no other)
+    knobs = global_config()
+    interval_ms = knobs.device_telemetry_interval_ms
+    knobs.device_telemetry_interval_ms = TELEMETRY_INTERVAL_MS
+    torch.cuda.synchronize()
+    stop = device_telemetry.start_device_telemetry()
+    try:
+        time.sleep(5 * TELEMETRY_INTERVAL_MS / 1e3)
+    finally:
+        stop.set()
+        knobs.device_telemetry_interval_ms = interval_ms
+    snap = metrics.registry().snapshot()
+    cards = [i for i in range(torch.cuda.device_count())
+             if torch.cuda.max_memory_allocated(i)]
+    telemetry = {f"cuda:{i}": {
+        "bytes_in_use": value("port_device_bytes_in_use",
+                              device=f"cuda:{i}", node="local"),
+        "peak_bytes_in_use": value("port_device_peak_bytes_in_use",
+                                   device=f"cuda:{i}", node="local"),
+        "memory_allocated": torch.cuda.memory_allocated(i),
+        "max_memory_allocated": torch.cuda.max_memory_allocated(i)}
+        for i in range(torch.cuda.device_count())}
+    published = [d for d, t in telemetry.items()
+                 if t["bytes_in_use"] is not None]
+    check(published == [f"cuda:{i}" for i in cards] and all(
+        t["bytes_in_use"] == t["memory_allocated"]
+        and t["peak_bytes_in_use"] == t["max_memory_allocated"]
+        for d, t in telemetry.items() if d in published),
+        f"telemetry against the allocator: {telemetry}")
+    check(device_telemetry.collect_once() == len(cards),
+          f"collect_once published other cards than {cards}")
+    events = {dict(k)["event"]: v for k, v in
+              snap.get("port_compile_events_total", {}).get(
+                  "values", {}).items()}
+    emit({"phase": "observability", "card": smi,
+          "peak_flops_per_chip": report["peak_flops_per_chip"],
+          "peak_hbm_bytes_per_sec": report["peak_hbm_bytes_per_sec"],
+          "programs": programs, "serving": serving, "training": training,
+          "off_on_2_layers": off_on, "telemetry": telemetry,
+          "compile_events": events,
+          "report": po.format_programs(report).splitlines()})
 
 
 def main(argv=None) -> int:
@@ -1855,16 +2346,19 @@ def main(argv=None) -> int:
     phase_reduced_depth(torch, args.seed)
     phase_reduced_depth_train(torch, args.seed)
     torch.cuda.empty_cache()
-    serving_launches = phase_serving(torch, np, args.seed, smi)
+    serving_launches, served = phase_serving(torch, np, args.seed, smi)
     gc.collect()  # the serving engine holds reference cycles
     torch.cuda.empty_cache()
     train_launches = phase_training(torch, args.seed, smi, peaks[0])
     gc.collect()
     torch.cuda.empty_cache()
-    spmd_launches = phase_spmd(torch, args.seed, smi, peaks[0])
+    spmd_launches, trained = phase_spmd(torch, args.seed, smi, peaks[0])
     gc.collect()
     torch.cuda.empty_cache()
     moe_launches = phase_moe(torch, args.seed, smi, peaks[0])
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_observability(torch, np, args.seed, smi, peaks, served, trained)
 
     # each path's launches, read from its own run: the one-card ring, the
     # single-device step, the sharded steps, the pipeline (all ranks) and

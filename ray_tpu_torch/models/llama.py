@@ -16,6 +16,12 @@ that is the hand-written forward kernel, and in training its backward
 kernels. Single-token decode attends over a page-padded cache view with
 plain torch ops.
 
+The decode engine runs prefill and decode through the program
+observatory (``util/program_observatory.py``) as ``llama.prefill`` and
+``llama.decode``, and the pipeline step as ``llama.pipe_init`` /
+``llama.pipe_train_step``, as the JAX package observes its jitted ones;
+the single-device step is not observed, as in JAX.
+
 Training (:func:`make_train_step`) is JAX's single-device step: per-layer
 remat (``torch.utils.checkpoint``), the sequence-chunked fp32 cross
 entropy, AdamW at optax's settings, the state updated in place where JAX
@@ -31,6 +37,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from functools import partial
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -49,6 +56,16 @@ from ray_tpu_torch.parallel.pipeline import make_pipelined_fn
 from ray_tpu_torch.parallel.ring_attention import ring_attention_local
 from ray_tpu_torch.parallel.sharding import shard_device_put
 from ray_tpu_torch.serve.kv_cache import PagePool, PrefixCache, pages_for
+from ray_tpu_torch.util.metrics import Gauge
+from ray_tpu_torch.util.program_observatory import observe_program
+
+# the decode engine's padded-bucket contract made measurable: each
+# distinct padded KV length is one input fingerprint of its program, so
+# this gauge sits next to port_program_variants{program=llama.decode}
+_g_decode_buckets = Gauge(
+    "port_serve_decode_buckets",
+    "Distinct padded KV lengths (compile buckets) the decode engine "
+    "has served", tag_keys=("kind",))
 
 
 @dataclass(frozen=True)
@@ -752,7 +769,8 @@ def make_pipeline_train_step(cfg: LlamaConfig, mesh, num_microbatches: int,
         state["step"] += 1
         return pmean_tree(loss.detach(), mesh, batch_axes)
 
-    return init_state, train_step
+    return (observe_program(init_state, "llama.pipe_init"),
+            observe_program(train_step, "llama.pipe_train_step"))
 
 
 # --------------------------------------------------------------------------- #
@@ -855,13 +873,26 @@ class LlamaDecodeEngine:
         shape = (n_pages, page_size, c.n_layers, c.n_kv_heads, c.head_dim)
         self.k_store = torch.zeros(shape, dtype=c.dtype, device=self.device)
         self.v_store = torch.zeros(shape, dtype=c.dtype, device=self.device)
+        self._prefill_fn = observe_program(
+            partial(prefill_with_cache, self.cfg), "llama.prefill")
+        self._decode_fn = observe_program(
+            partial(decode_step_with_cache, self.cfg), "llama.decode")
         self.prefill_calls = 0
         self.decode_calls = 0
         # distinct padded KV lengths served, per kind
         self._buckets: Dict[str, set] = {"prefill": set(), "decode": set()}
 
+    def buckets(self) -> Dict[str, List[int]]:
+        """The padded KV lengths served so far, per kind (``prefill``,
+        ``decode``): each is one input fingerprint of its program."""
+        return {kind: sorted(b) for kind, b in self._buckets.items()}
+
     def _note_bucket(self, kind: str, tpad: int) -> None:
-        self._buckets[kind].add(tpad)
+        buckets = self._buckets[kind]
+        if tpad not in buckets:
+            buckets.add(tpad)
+            _g_decode_buckets.set(float(len(buckets)),
+                                  tags={"kind": kind})
 
     @torch.inference_mode()
     def prefill(self, tokens, pages) -> np.ndarray:
@@ -871,8 +902,7 @@ class LlamaDecodeEngine:
         self._note_bucket("prefill", tpad)
         toks = torch.zeros((1, tpad), dtype=torch.long)
         toks[0, :T] = torch.as_tensor(tokens, dtype=torch.long)
-        logits, ks, vs = prefill_with_cache(self.cfg, self.params,
-                                            toks.to(self.device))
+        logits, ks, vs = self._prefill_fn(self.params, toks.to(self.device))
         # [L, 1, Tpad, nkv, hd] -> store layout [n, page_size, L, nkv, hd];
         # the tail of the last page gets the pad positions' k/v, which
         # decode masks like any other position >= length
@@ -886,18 +916,25 @@ class LlamaDecodeEngine:
         return logits[0, T - 1].cpu().numpy()
 
     @torch.inference_mode()
-    def decode(self, pos, token, pages) -> np.ndarray:
-        self.decode_calls += 1
+    def decode_inputs(self, pos, token, pages) -> tuple:
+        """The arguments of one decode step's program (``llama.decode``):
+        the params, the token, the position and the sequence's page
+        table gathered into a page-padded KV view."""
         tpad = len(pages) * self.page_size
-        self._note_bucket("decode", tpad)
         idx = torch.as_tensor(pages, device=self.device)
         rest = tuple(self.k_store.shape[2:])
         # gather [n_seq_pages, page_size, L, nkv, hd] -> [L, Tpad, nkv, hd]
         kc = self.k_store[idx].reshape((tpad,) + rest).transpose(0, 1)
         vc = self.v_store[idx].reshape((tpad,) + rest).transpose(0, 1)
         tok = torch.tensor([int(token)], dtype=torch.long, device=self.device)
-        logits, kn, vn = decode_step_with_cache(self.cfg, self.params, tok,
-                                                int(pos), kc, vc)
+        return self.params, tok, int(pos), kc, vc
+
+    @torch.inference_mode()
+    def decode(self, pos, token, pages) -> np.ndarray:
+        self.decode_calls += 1
+        self._note_bucket("decode", len(pages) * self.page_size)
+        logits, kn, vn = self._decode_fn(
+            *self.decode_inputs(pos, token, pages))
         pg, off = divmod(pos, self.page_size)
         self.k_store[pages[pg], off] = kn
         self.v_store[pages[pg], off] = vn

@@ -6,7 +6,8 @@ with a plain C interface (no PyTorch headers, so a build takes seconds,
 not minutes). Libraries go to ``ray_tpu_torch/_build/`` (listed in
 ``.gitignore``), named by a hash of their source and the shared headers
 (``csrc/*.cuh``), so an edited source is rebuilt and an unchanged one is
-reused. A failed build raises; nothing falls back.
+reused. A failed build raises; nothing falls back. Each build and load
+is counted as a compile-plane event (``util/device_telemetry.py``).
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ import subprocess
 import time
 from pathlib import Path
 from typing import Dict, Iterable
+
+from ray_tpu_torch.util.device_telemetry import record_compile_event
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
@@ -84,6 +87,7 @@ def build(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, dict]:
         os.replace(tmp, out)  # atomic: a reader never sees a partial .so
         out.with_suffix(".log").write_text(log)
         report[name] = {"path": str(out), "seconds": seconds, "log": log}
+        record_compile_event("kernel.build", seconds)
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return report
@@ -94,6 +98,8 @@ def load(name: str) -> ctypes.CDLL:
     lib = _loaded.get(name)
     if lib is None:
         build([name])
+        t0 = time.perf_counter()
         lib = ctypes.CDLL(str(library_path(name)))
+        record_compile_event("kernel.load", time.perf_counter() - t0)
         _loaded[name] = lib
     return lib

@@ -26,12 +26,22 @@ whose missing columns arrive as zeros: the counterpart of the JAX
 package's zero-padding of head_dim to 128 lanes, with no padded copy.
 Zero columns add exact zeros to every product, the softmax scale is
 1/sqrt(D) of the true head_dim, and only the true columns are stored.
+
+The kernels launch through ``ctypes``, where no dispatch mode sees them.
+So each launch reports its exact work (:func:`attention_work`) to every
+open :class:`KernelTally`; the program observatory opens one around a
+program's first call. On CPU tensors nothing is reported: the plain
+versions run, and a dispatch-level counter counts them as the ordinary
+matmuls they are, over the full T x T even when causal. The same program
+therefore counts other FLOPs on the CPU than on the card.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+import threading
+from typing import Dict, List
 
 import torch
 
@@ -208,6 +218,73 @@ def check_backward_inputs(q, k, v, do, lse, delta=None, o=None) -> None:
                              f"{tuple(t.shape)} strides {t.stride()}")
 
 
+def attention_work(B, T, Hq, Hkv, D, causal, kernel="fwd"):
+    """(flops, bytes) a kernel needs, counting each unmasked (query, key)
+    pair: the forward does 2 products (S, P V), 4*D flops a pair, reads
+    q, k, v and writes o and lse; dQ does 3 (S, dP, dS K), 6*D flops,
+    reads q, k, v, o, do, lse and writes dq and delta; dK/dV does 4 (S^T,
+    dP^T, P^T dO, dS^T Q), 8*D flops, reads q, k, v, do, lse, delta and
+    writes dk, dv; the whole backward ("bwd"), the function SDPA's
+    backward computes, needs 5 (S, dP, P^T dO, dS^T Q, dS K), 10*D flops,
+    reads q, k, v, o, do, lse and writes dq, dk, dv: the S and dP that
+    the dQ and dK/dV kernels both compute are counted once. bf16
+    tensors, fp32 row terms; each read once, each written once."""
+    pairs = T * (T + 1) // 2 if causal else T * T
+    products, q_sized, kv_sized, rows = {
+        "fwd": (2, 2, 2, 1), "dq": (3, 4, 2, 2), "dkv": (4, 2, 4, 2),
+        "bwd": (5, 4, 4, 1)}[kernel]
+    flops = 2 * products * D * pairs * B * Hq
+    nbytes = 2 * B * T * D * (q_sized * Hq + kv_sized * Hkv) \
+        + 4 * rows * B * Hq * T
+    return flops, nbytes
+
+
+# Open tallies. Process-wide under a lock, not thread-local: the backward
+# kernels launch on autograd's device thread, not the caller's.
+_open_tallies: List["KernelTally"] = []
+_tally_lock = threading.Lock()
+
+
+class KernelTally:
+    """The attention kernels' launches, FLOPs and bytes reported while
+    it is open (a context manager), from any thread: ``counts`` is
+    ``{kernel: {"launches", "flops", "bytes"}}`` with kernel ``"fwd"``,
+    ``"dq"`` or ``"dkv"``. Tallies nest; a launch counts in each one
+    open."""
+
+    def __init__(self):
+        self.counts: Dict[str, Dict[str, int]] = {}
+
+    def __enter__(self) -> "KernelTally":
+        with _tally_lock:
+            _open_tallies.append(self)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        with _tally_lock:
+            _open_tallies.remove(self)
+
+    def total(self, key: str) -> int:
+        """``key`` (``"flops"``, ``"bytes"`` or ``"launches"``) summed
+        over the kernels."""
+        return sum(c[key] for c in self.counts.values())
+
+
+def report_kernel_work(kernel: str, B, T, Hq, Hkv, D, causal) -> None:
+    """Add one launch of ``kernel`` at these shapes to every open
+    :class:`KernelTally`; with none open this is one read of a list."""
+    if not _open_tallies:
+        return
+    flops, nbytes = attention_work(B, T, Hq, Hkv, D, causal, kernel)
+    with _tally_lock:
+        for tally in _open_tallies:
+            c = tally.counts.setdefault(
+                kernel, {"launches": 0, "flops": 0, "bytes": 0})
+            c["launches"] += 1
+            c["flops"] += flops
+            c["bytes"] += nbytes
+
+
 def _same_device(*ts) -> torch.device:
     devices = {t.device for t in ts}
     if len(devices) != 1:
@@ -261,6 +338,7 @@ def flash_attention_forward(q: torch.Tensor, k: torch.Tensor,
             (q, k, v, o, lse), (B, T, Hq, k.shape[2], D), (q, k, v, o),
             causal)
     flash_attention_forward.launches += 1
+    report_kernel_work("fwd", B, T, Hq, k.shape[2], D, causal)
     return o, lse
 
 
@@ -282,6 +360,7 @@ def flash_attention_bwd_dq(q, k, v, o, do, lse, causal: bool = True):
             (q, k, v, o, do, lse, delta, dq), (B, T, Hq, k.shape[2], D),
             (q, k, v, o, do, dq), causal)
     flash_attention_bwd_dq.launches += 1
+    report_kernel_work("dq", B, T, Hq, k.shape[2], D, causal)
     return dq, delta
 
 
@@ -303,6 +382,7 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal: bool = True):
             (q, k, v, do, lse, delta, dk, dv), (B, T, Hq, k.shape[2], D),
             (q, k, v, do, dk, dv), causal)
     flash_attention_bwd_dkv.launches += 1
+    report_kernel_work("dkv", B, T, Hq, k.shape[2], D, causal)
     return dk, dv
 
 

@@ -10,9 +10,11 @@ chunks, retire finished sequences immediately. A short request admitted
 while a long one is mid-decode therefore finishes first — batch
 membership is fluid.
 
-Port of ``ray_tpu/serve/decode.py``: the same reply frames and the same
-admission, copy-on-write and retirement logic. The flight-recorder spans
-and observability counters come with the observability slice.
+Port of ``ray_tpu/serve/decode.py``: the same reply frames, the same
+admission, copy-on-write and retirement logic, and the same hooks: the
+``serve.prefill`` and ``serve.decode_step`` flight-recorder spans, the
+KV-occupancy gauges and the tokens-generated and inter-token-latency
+metrics (under the port's ``port_`` names).
 
 Engines implement a small duck-typed protocol over the paged KV cache
 (:mod:`ray_tpu_torch.serve.kv_cache`):
@@ -44,13 +46,23 @@ from ray_tpu_torch.serve.kv_cache import (
     PagePool,
     PrefixCache,
     SequenceKV,
+    flush_kv_gauges,
     pages_for,
 )
+from ray_tpu_torch.serve import observability as _obs
+from ray_tpu_torch.util import flight_recorder as _fr
+
+# one registration site per span name
+_sp_prefill = _fr.register_span("serve.prefill", tag_keys=("deployment",))
+_sp_decode_step = _fr.register_span("serve.decode_step",
+                                    tag_keys=("deployment",))
+
+_GAUGE_INTERVAL_S = 0.25
 
 
 class _Seq:
     __slots__ = ("corr", "prompt", "max_tokens", "eos", "kv", "pos",
-                 "generated", "eager", "cached_prefix")
+                 "generated", "eager", "cached_prefix", "last_chunk_ts")
 
     def __init__(self, corr, prompt, max_tokens, eos, kv, pos, eager,
                  cached_prefix):
@@ -63,6 +75,7 @@ class _Seq:
         self.generated: List[int] = []
         self.eager = eager
         self.cached_prefix = cached_prefix
+        self.last_chunk_ts: Optional[float] = None  # ITL anchor
 
 
 def parse_decode_request(value) -> dict:
@@ -109,6 +122,7 @@ class DecodeScheduler:
         self.waiting: deque = deque()           # (corr, req, eager)
         self.running: "OrderedDict[object, _Seq]" = OrderedDict()
         self._eager_out: Dict[object, deque] = {}
+        self._next_gauge = 0.0
         # observable scheduling history: (corr, n_generated) in retire
         # order — what the iteration-level admission test asserts on
         self.retired: List[Tuple[object, int]] = []
@@ -170,6 +184,7 @@ class DecodeScheduler:
             self._admit_locked(replies)
             self._decode_iteration_locked(replies)
             self.steps += 1
+            self._flush_gauges_locked()
             out = [r for r in replies if not self._route_eager(r)]
             active = bool(self.running) or bool(self.waiting)
             return out, active
@@ -181,6 +196,18 @@ class DecodeScheduler:
             return False
         q.append(reply)
         return True
+
+    def _flush_gauges_locked(self) -> None:
+        import time
+
+        now = time.monotonic()
+        if now < self._next_gauge:
+            return
+        self._next_gauge = now + _GAUGE_INTERVAL_S
+        try:
+            flush_kv_gauges(self.deployment, self.pool, self.prefix_cache)
+        except Exception:
+            pass
 
     # -------------------------------------------------------- admission
 
@@ -194,6 +221,7 @@ class DecodeScheduler:
             prompt = req["prompt"]
             key = tuple(prompt)
             n_prompt = len(prompt)
+            _t0 = _fr.now()
             entry = self.prefix_cache.lookup(key)
             was_hit = entry is not None
             if entry is not None:
@@ -234,6 +262,11 @@ class DecodeScheduler:
             seq.generated.append(first)
             self.running[corr] = seq
             self.admitted += 1
+            _sp_prefill.end(_t0, self.deployment)
+            seq.last_chunk_ts = _fr.now()
+            if _obs.enabled():
+                _obs.TOKENS_GENERATED.inc(
+                    tag_key=_obs.dep_key(self.deployment))
             replies.append((corr, "chunk", _chunk_payload(seq, first, 0)))
             if self._finished(seq, first):
                 self._retire_locked(seq, replies)
@@ -261,6 +294,9 @@ class DecodeScheduler:
         """One model step over every RUNNING sequence."""
         if not self.running:
             return
+        _t0 = _fr.now()
+        itl_samples: List[float] = []
+        n_tokens = 0
         for corr in list(self.running):
             seq = self.running[corr]
             if seq.pos >= seq.kv.capacity():
@@ -282,11 +318,22 @@ class DecodeScheduler:
             seq.pos += 1
             nxt = int(np.argmax(logits))
             seq.generated.append(nxt)
+            _now = _fr.now()
+            if seq.last_chunk_ts is not None:
+                itl_samples.append(_now - seq.last_chunk_ts)
+            seq.last_chunk_ts = _now
+            n_tokens += 1
             replies.append((corr, "chunk",
                             _chunk_payload(seq, nxt,
                                            len(seq.generated) - 1)))
             if self._finished(seq, nxt):
                 self._retire_locked(seq, replies)
+        _sp_decode_step.end(_t0, self.deployment)
+        if n_tokens and _obs.enabled():
+            key = _obs.dep_key(self.deployment)
+            _obs.TOKENS_GENERATED.inc(float(n_tokens), tag_key=key)
+            for s in itl_samples:
+                _obs.ITL.observe(s, tag_key=key)
 
     def _finished(self, seq: _Seq, token: int) -> bool:
         if seq.eos is not None and token == seq.eos:

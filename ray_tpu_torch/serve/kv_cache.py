@@ -1,8 +1,8 @@
 """Paged KV-cache management for generative decode (vLLM PagedAttention
 model, arXiv:2309.06180 — fixed-size pages from a preallocated pool,
 per-sequence page tables, prefix-hash reuse). Port of
-``ray_tpu/serve/kv_cache.py``; its occupancy gauges come with the
-metrics plane.
+``ray_tpu/serve/kv_cache.py``, with its occupancy gauges under the
+port's ``port_`` prefix.
 
 The pool is storage-agnostic: it hands out integer page ids and keeps the
 alloc/free ledger; engines own the actual KV arrays indexed by page id
@@ -27,6 +27,21 @@ from __future__ import annotations
 import threading
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
+
+from ray_tpu_torch.util.metrics import Gauge as _Gauge
+
+_g_kv_pages = _Gauge(
+    "port_serve_kv_pages_used",
+    "KV-cache pages currently allocated out of a replica's page pool",
+    tag_keys=("deployment",))
+_g_kv_capacity = _Gauge(
+    "port_serve_kv_pages_capacity",
+    "Total KV-cache pages in a replica's page pool",
+    tag_keys=("deployment",))
+_g_kv_hit_rate = _Gauge(
+    "port_serve_kv_prefix_hit_rate",
+    "Fraction of prefill admissions served from the prefix cache",
+    tag_keys=("deployment",))
 
 
 class CacheOOM(Exception):
@@ -228,3 +243,14 @@ class SequenceKV:
                 f"write at position {pos} would land in shared prefix "
                 f"page {idx} (copy-on-write the tail page instead)")
         return self.page_for(pos)
+
+
+def flush_kv_gauges(deployment: str, pool: PagePool,
+                    cache: PrefixCache) -> None:
+    """Push pool/prefix ground truth into the registry gauges (the
+    occupancy-gauge-equals-ground-truth invariant is tested against
+    these exact sets)."""
+    tags = {"deployment": deployment}
+    _g_kv_pages.set(float(pool.used), tags=tags)
+    _g_kv_capacity.set(float(pool.n_pages), tags=tags)
+    _g_kv_hit_rate.set(cache.hit_rate, tags=tags)

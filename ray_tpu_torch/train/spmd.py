@@ -43,6 +43,15 @@ on its own shards; the collectives are written out:
   ``tensor`` splits each expert's mlp dim as the dense MLP's; ``seq``
   splits each row, with the whole row's routing.
 
+Observation, as in the JAX package: ``make_spmd_train_step``'s functions
+run through the program observatory (``util/program_observatory.py``) as
+``spmd.init_state`` / ``spmd.train_step``, ``make_mesh_train_step``'s as
+``llama.gspmd_init`` / ``llama.gspmd_train_step`` (JAX's GSPMD step), and
+the placement fns of :func:`make_shard_and_gather_fns` as
+``spmd.shard_put`` / ``spmd.gather_replicate``; the MoE step is not
+observed, as in JAX. The SPMD step-phase spans are registered here
+(``spmd.compute`` measures the train steps in the program report).
+
 The steps share one body; what differs between the two decoders (the
 param shapes and partition rules, the init, the layer, whether a layer
 returns an aux loss) is a :class:`_Decoder` record. On one device the
@@ -86,6 +95,18 @@ from ray_tpu_torch.ops.layers import rms_norm
 from ray_tpu_torch.parallel.mesh import (AXIS_ORDER, P, PartitionSpec,
                                          axis_sizes, data_axes, make_mesh)
 from ray_tpu_torch.parallel.sharding import _live_axes, shard_device_put
+from ray_tpu_torch.util import flight_recorder as _fr
+from ray_tpu_torch.util.program_observatory import observe_program
+
+# the SPMD step phases. A runtime train loop closes each after a sync and
+# only with the recorder on; the first call of a step is its own phase
+_sp_ingest = _fr.register_span("spmd.ingest_wait")
+_sp_compute = _fr.register_span("spmd.compute")
+_sp_compile = _fr.register_span("spmd.compile")
+# one-shot probe timings of the step's collective seams (see
+# make_collective_probes)
+_sp_gather = _fr.register_span("spmd.gather")
+_sp_scatter = _fr.register_span("spmd.scatter")
 
 __all__ = [
     "match_partition_rules",
@@ -317,14 +338,27 @@ def make_shard_and_gather_fns(partition_specs, mesh, dtype_specs=None,
     ``gather_fns[leaf](shard)`` all-gathers every sharded dim and returns
     the full array on every rank (a collective: every rank calls it)."""
     dev = resolve_device(device)
+    # one observed fn per distinct spec, as JAX keeps one jitted callable
+    # per distinct sharding
+    observed: Dict[Any, Callable] = {}
 
     def make_shard(spec):
         spec = _restrict_spec(spec, mesh)
-        return lambda x: shard_device_put(x, mesh, spec, dev, dtype_specs)
+        key = ("shard", spec)
+        if key not in observed:
+            observed[key] = observe_program(
+                lambda x: shard_device_put(x, mesh, spec, dev, dtype_specs),
+                "spmd.shard_put")
+        return observed[key]
 
     def make_gather(spec):
         dims = _gather_dims(_restrict_spec(spec, mesh), mesh)
-        return lambda x: _gather(x, dims).contiguous()
+        key = ("gather", dims)
+        if key not in observed:
+            observed[key] = observe_program(
+                lambda x: _gather(x, dims).contiguous(),
+                "spmd.gather_replicate")
+        return observed[key]
 
     return _map(make_shard, partition_specs), _map(make_gather,
                                                    partition_specs)
@@ -521,7 +555,10 @@ def make_spmd_train_step(cfg: LlamaConfig, mesh, optimizer=None,
     dev = resolve_device(device)
     _refuse_axes("make_spmd_train_step", "tensor", mesh,
                  ("seq", "pipe", "expert"), cfg)
-    return _sharded_step(cfg, mesh, optimizer, gather, dev, rules)
+    init_state, train_step = _sharded_step(cfg, mesh, optimizer, gather, dev,
+                                           rules)
+    return (observe_program(init_state, "spmd.init_state"),
+            observe_program(train_step, "spmd.train_step"))
 
 
 def make_mesh_train_step(cfg: LlamaConfig, mesh, optimizer=None,
@@ -550,7 +587,10 @@ def make_mesh_train_step(cfg: LlamaConfig, mesh, optimizer=None,
     dev = resolve_device(device)
     _refuse_axes("make_mesh_train_step", "seq + tensor", mesh,
                  ("pipe", "expert"), cfg)
-    return _sharded_step(cfg, mesh, optimizer, gather, dev, rules)
+    init_state, train_step = _sharded_step(cfg, mesh, optimizer, gather, dev,
+                                           rules)
+    return (observe_program(init_state, "llama.gspmd_init"),
+            observe_program(train_step, "llama.gspmd_train_step"))
 
 
 def make_moe_train_step(cfg: moe_llama.MoEConfig, mesh, optimizer=None,

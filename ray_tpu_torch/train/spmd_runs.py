@@ -19,6 +19,7 @@ from ray_tpu_torch import resolve_device
 from ray_tpu_torch.collective.collective import (_leaves, _map,
                                                  all_gather, all_to_all,
                                                  pmean_tree)
+from ray_tpu_torch.core.config import global_config
 from ray_tpu_torch.models.llama import (make_pipeline_train_step,
                                         pipeline_param_specs, tp_psum_pair,
                                         vp_chunk_nll, vp_embed)
@@ -30,13 +31,17 @@ from ray_tpu_torch.parallel.pipeline import make_pipelined_fn
 from ray_tpu_torch.parallel.ring_attention import ring_attention
 from ray_tpu_torch.parallel.sharding import (param_residency_bytes,
                                              shard_device_put)
-from ray_tpu_torch.train.spmd import (build_train_mesh, global_grad_norm,
+from ray_tpu_torch.train.spmd import (_sp_compile, _sp_compute, _sp_gather,
+                                      _sp_scatter, build_train_mesh,
+                                      global_grad_norm,
                                       make_collective_probes,
                                       make_mesh_train_step,
                                       make_moe_train_step,
                                       make_shard_and_gather_fns,
                                       make_spmd_train_step, spmd_param_specs,
                                       tree_paths)
+from ray_tpu_torch.util import flight_recorder as fr
+from ray_tpu_torch.util import program_observatory
 
 KERNELS = {"fwd": fa.flash_attention_forward,
            "dq": fa.flash_attention_bwd_dq,
@@ -66,18 +71,26 @@ def train_jobs(jobs: Sequence[Dict[str, Any]], device=None) -> List[dict]:
     (True: every leaf gathered after init), ``grads`` (the '/'-joined
     paths of the leaves whose first-step grads to gather; both numpy,
     from rank 0 only),
-    ``probes`` (True: the collective probes' times) and ``profile``
+    ``probes`` (True: the collective probes' times), ``profile``
     (``[(group, [words in a kernel's name]), ...]``: one more step under
     ``torch.profiler``, device time by group, the first group whose words
-    match a kernel's name taking it).
+    match a kernel's name taking it), ``observe`` (the
+    ``xla_observatory_enabled`` knob for this job; default: as it is)
+    and ``observation_cost`` (n: the mean seconds of n steady-state
+    observations of the step on its real arguments, the fingerprint and
+    the lookup without the call).
 
     A report holds the mesh, this rank's coordinates on it, the schedule
     run, each step's loss and host time (synchronised), the first step's
     global grad norm, the attention kernels' launches over the steps, the
     rows this rank trains on and, on CUDA, the peak memory over the
     steps; the sharded steps add the most fsdp-full layers held at once
-    and the analytic ``param_residency_bytes``. A configuration that the
-    step refuses reports ``{"rejected": message}``."""
+    and the analytic ``param_residency_bytes``. Each step is a
+    flight-recorder span (the first ``spmd.compile``, the rest
+    ``spmd.compute``), and ``programs`` holds this rank's program report
+    over the job's spans (``util/program_observatory.py``). A
+    configuration that the step refuses reports ``{"rejected":
+    message}``."""
     dev = resolve_device(device)
     meshes: Dict[str, Any] = {}
     reports = []
@@ -90,6 +103,16 @@ def train_jobs(jobs: Sequence[Dict[str, Any]], device=None) -> List[dict]:
 
 
 def _train_job(mesh, dev, job):
+    knobs = global_config()
+    observed = knobs.xla_observatory_enabled
+    knobs.xla_observatory_enabled = job.get("observe", observed)
+    try:
+        return _run_train_job(mesh, dev, job)
+    finally:
+        knobs.xla_observatory_enabled = observed
+
+
+def _run_train_job(mesh, dev, job):
     cfg, step = job["cfg"], job.get("step", "spmd")
     try:
         if step == "pipeline":
@@ -131,12 +154,15 @@ def _train_job(mesh, dev, job):
     for fn in KERNELS.values():
         fn.launches = 0
     losses, step_ms = [], []
+    mark = fr.next_seq()
     for s in range(job.get("steps", 2)):
         _sync(dev)
+        t_span = fr.now()
         t0 = time.perf_counter()
         loss = float(train_step(state, rows))
         _sync(dev)
         step_ms.append((time.perf_counter() - t0) * 1e3)
+        (_sp_compile if s == 0 else _sp_compute).end(t_span)
         losses.append(loss)
         if s == 0:
             report["grad_norm"] = float(global_grad_norm(
@@ -153,7 +179,14 @@ def _train_job(mesh, dev, job):
     report.update(
         losses=losses, step_ms=step_ms,
         launches={k: fn.launches for k, fn in KERNELS.items()},
-        local_batch=int(rows.shape[0]))
+        local_batch=int(rows.shape[0]),
+        programs=program_observatory.program_report(mark)["programs"])
+    if job.get("observation_cost"):
+        n = int(job["observation_cost"])
+        t0 = time.perf_counter()
+        hits = sum(train_step.probe(state, rows) for _ in range(n))
+        report["observation_cost_s"] = (time.perf_counter() - t0) / n
+        report["observation_hits"] = hits
     if stats is not None:
         report.update(
             layers_gathered={"peak_live": stats.peak,
@@ -295,13 +328,15 @@ def _probe_ms(cfg, mesh, params, dev, reps: int = 3) -> Dict[str, float]:
     calls after one warm-up call."""
     gather_probe, scatter_probe = make_collective_probes(cfg, mesh)
     out = {}
-    for name, probe in (("gather", gather_probe),
-                        ("scatter", scatter_probe)):
+    for name, probe, span in (("gather", gather_probe, _sp_gather),
+                              ("scatter", scatter_probe, _sp_scatter)):
         float(probe(params))
         _sync(dev)
         t0 = time.perf_counter()
         for _ in range(reps):
+            t_span = fr.now()
             float(probe(params))
+            span.end(t_span)
         _sync(dev)
         out[name] = (time.perf_counter() - t0) * 1e3 / reps
     return out

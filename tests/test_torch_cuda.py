@@ -482,3 +482,36 @@ def test_ring_attention_without_seq_runs_the_kernels(cuda):
     ro, _ = fa.flash_attention_reference(q, k, v, True)
     torch.testing.assert_close(torch.from_numpy(rep["o"]), ro.float(),
                                atol=2e-2, rtol=2e-2)
+
+
+def test_observed_step_tallies_each_kernels_attention_work(cuda):
+    """The kernels launch through ctypes, so the observatory counts them
+    from their own reports: under an observed forward and backward each
+    launch adds its attention_work, the backward ones from autograd's
+    device thread too, and the step counts the same as unobserved."""
+    from ray_tpu_torch.models.llama import LlamaConfig, make_train_step
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.util import program_observatory as po
+
+    cfg = dataclasses.replace(LlamaConfig.debug(), remat=True, loss_chunk=16)
+    B, T = 2, 40
+    tokens = torch.arange(T + 1, device=cuda).repeat(B, 1) % cfg.vocab_size
+    losses = []
+    for observe in (False, True):
+        init, step = make_train_step(cfg)
+        if observe:
+            step = po.observe_program(step, "test.cuda_train_step")
+        losses.append(float(step(init(0), tokens)))
+    assert losses[0] == losses[1]
+    rec = po.get_program("test.cuda_train_step")
+    shape = (B, T, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, True)
+    launches = {"fwd": 2 * cfg.n_layers, "dq": cfg.n_layers,
+                "dkv": cfg.n_layers}
+    assert rec["kernels"] == {
+        k: {"launches": n, "flops": n * fa.attention_work(*shape, k)[0],
+            "bytes": n * fa.attention_work(*shape, k)[1]}
+        for k, n in launches.items()}
+    # the backward's matmuls (autograd's thread) are counted as well
+    assert rec["flops_by_op"]["aten.mm"] > 0
+    assert rec["flops"] == sum(rec["flops_by_op"].values()) + sum(
+        c["flops"] for c in rec["kernels"].values())

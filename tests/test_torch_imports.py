@@ -59,7 +59,32 @@ print(json.dumps({"imported": names,
     assert "ray_tpu_torch.serve.decode" in report["imported"]
     assert "ray_tpu_torch.ops.moe" in report["imported"]
     assert "ray_tpu_torch.models.moe_llama" in report["imported"]
+    for name in ("core.config", "util.metrics", "util.flight_recorder",
+                 "util.program_observatory", "util.device_telemetry",
+                 "serve.observability"):
+        assert f"ray_tpu_torch.{name}" in report["imported"]
     assert not [m for m in report["new"] if _forbidden(m)]
+
+
+def _metric_names(path: pathlib.Path):
+    """The name argument of every Counter, Gauge or Histogram built in
+    ``path``, as written (a string constant) or not (None)."""
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Call):
+            fn = node.func
+            name = fn.id if isinstance(fn, ast.Name) else getattr(
+                fn, "attr", None)
+            if name in ("Counter", "Gauge", "Histogram", "_Gauge"):
+                arg = node.args[0] if node.args else None
+                yield arg.value if isinstance(arg, ast.Constant) else None
+
+
+def test_no_port_metric_name_starts_with_ray_tpu():
+    names = [(p.relative_to(ROOT), n) for p in PORT_FILES
+             for n in _metric_names(p)]
+    assert len(names) >= 20  # the observability slice's metrics
+    assert not [x for x in names if x[1] is None
+                or not x[1].startswith("port_")]
 
 
 def test_entry_points_refuse_to_fall_back_to_the_cpu():
