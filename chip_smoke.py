@@ -36,7 +36,15 @@ non-zero and never prints the final ``ok`` line.
    grads of each layer's wq, wk, wv), with no plain delta on the way;
 7. full-depth Llama-3-8B serving: a DecodeScheduler over the paged-KV
    engine answers six requests (one a prefix-cache hit), with the forward
-   kernel's launch count read from this run;
+   kernel's launch count read from this run; then ``serve_plane``: the
+   same engine and weights behind the serve control plane
+   (``serve.run`` -> controller -> one replica actor holding one card ->
+   the HTTP proxy's SSE stream and the ``DeploymentHandle`` stream):
+   the six prompts one after another over HTTP and the handle, bitwise
+   the tokens above; 16 prompts alone, then all at once, each burst
+   stream bitwise its run alone; TTFT and ms/token p50 / p99 at the
+   client, tokens/s; from the replica, its launches against its cold
+   prefills, peak memory, card and modules;
 8. full-depth Llama-3-1B training: 3 warm-up and 5 timed AdamW steps at
    batch 4 x 2048, with step time, tokens/s, MFU, peak memory, a profile
    of one step and the three kernels' launch counts read from this run;
@@ -81,6 +89,7 @@ import argparse
 import contextlib
 import dataclasses
 import gc
+import importlib.util
 import json
 import math
 import re
@@ -2221,8 +2230,343 @@ def phase_serving(torch, np, seed, smi):
               "admissions": sched.admitted, "kv_truth": kv_truth,
               "decode_calls": len(stats["decode_s"]),
               "decode_s": sum(stats["decode_s"]),
-              "observation_s": observation_s}
+              "observation_s": observation_s,
+              # for the serve_plane phase: the same prompts, and the
+              # tokens each must give again through the control plane
+              "prompts": prompts, "max_tokens": max_tokens,
+              "tokens": {c: f["tokens"] for c, f in finals.items()}}
     return launches, served
+
+
+SERVE_PLANE_DEPLOYMENT = "llama3_8b_replica"
+SERVE_PLANE_BURST = 16
+SERVE_PLANE_TIMEOUT_S = 600.0
+
+
+class LlamaReplica:
+    """The ``serve_plane`` phase's deployment: Llama-3-8B decode built in
+    the replica, on the card the runtime bound it to, with the serving
+    phase's engine arguments (so the same weights), plus the readings
+    the phase takes from the replica's process."""
+
+    def __init__(self, seed: int):
+        self.seed = seed
+        self.engine = None
+        self.engine_init_s = None
+
+    def create_decode_engine(self):
+        import torch
+
+        from ray_tpu_torch.models import llama
+
+        t0 = time.perf_counter()
+        self.engine = llama.LlamaDecodeEngine(
+            llama.LlamaConfig.llama3_8b(), n_pages=512, page_size=16,
+            seed=self.seed)
+        torch.cuda.synchronize()
+        self.engine_init_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        return self.engine
+
+    def reset_counts(self) -> int:
+        """Set the forward kernel's launch count to 0; the engine's cold
+        prefills so far."""
+        from ray_tpu_torch.ops.flash_attention import flash_attention_forward
+
+        flash_attention_forward.launches = 0
+        return self.engine.prefill_calls
+
+    def evict_prefixes(self) -> dict:
+        """Drop every idle prefix-cache entry, so the next prompts
+        prefill cold; the entries dropped and the pages still held."""
+        cache, pool = self.engine.prefix_cache, self.engine.pool
+        before = len(cache)
+        cache.evict_lru(pool.n_pages)
+        return {"evicted": before - len(cache), "pages_used": pool.used}
+
+    def readings(self) -> dict:
+        import os
+
+        import torch
+
+        from ray_tpu_torch.ops.flash_attention import flash_attention_forward
+
+        return {
+            "launches": flash_attention_forward.launches,
+            "prefill_calls": self.engine.prefill_calls,
+            "engine_device": str(self.engine.k_store.device),
+            "engine_init_s": self.engine_init_s,
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+            "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES"),
+            "device_count": torch.cuda.device_count(),
+            "device_name": torch.cuda.get_device_name(0),
+            "forbidden_modules": sorted(
+                m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "ray_tpu"))}
+
+
+def sse_request(port: int, path: str, payload: dict) -> dict:
+    """POST ``payload`` as JSON and read the server-sent events as they
+    arrive: the status, content type, records and each record's arrival
+    time on the host clock, beside the time the request was sent."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port,
+                                      timeout=SERVE_PLANE_TIMEOUT_S)
+    try:
+        t0 = time.perf_counter()
+        conn.request("POST", path, body=json.dumps(payload).encode(),
+                     headers={"content-type": "application/json"})
+        resp = conn.getresponse()
+        out = {"status": resp.status, "t0": t0, "records": [], "times": [],
+               "content_type": resp.getheader("content-type")}
+        if resp.status != 200:
+            out["error"] = resp.read().decode(errors="replace")
+            return out
+        while True:
+            line = resp.readline()
+            if not line:
+                return out
+            if line.startswith(b"data: "):
+                out["times"].append(time.perf_counter())
+                out["records"].append(json.loads(line[len(b"data: "):]))
+    finally:
+        conn.close()
+
+
+def stream_final(name: str, got: dict) -> dict:
+    """The final record of one SSE stream, after its gates: HTTP 200,
+    ``text/event-stream``, a final record, and the records' tokens equal
+    to the final record's."""
+    check(got["status"] == 200,
+          f"{name}: HTTP {got['status']} {got.get('error')}")
+    check(got["content_type"] == "text/event-stream",
+          f"{name}: content-type {got['content_type']!r}")
+    recs = got["records"]
+    check(bool(recs) and recs[-1].get("done") is True,
+          f"{name}: no final record ({recs[-1:]})")
+    check([r.get("token") for r in recs[:-1]] == recs[-1]["tokens"],
+          f"{name}: the SSE records' tokens are not the final record's")
+    return recs[-1]
+
+
+def stream_timing(got: dict) -> tuple:
+    """(TTFT ms, [ms between token records]) of one stream; the final
+    record comes with the last token and is left out."""
+    times = got["times"][:-1]
+    return ((times[0] - got["t0"]) * 1e3,
+            [(b - a) * 1e3 for a, b in zip(times, times[1:])])
+
+
+def percentiles(np, values) -> dict:
+    return {"p50": float(np.percentile(values, 50)),
+            "p99": float(np.percentile(values, 99))}
+
+
+def phase_serve_plane(torch, np, seed, smi, served):
+    """``serve_plane``: the serving phase's Llama-3-8B behind the serve
+    control plane, ``serve.run`` -> controller -> one replica actor
+    holding one card -> the HTTP proxy's SSE stream and the
+    ``DeploymentHandle`` stream. The serving phase's six prompts one
+    after another over HTTP, then through the handle: the same tokens,
+    bitwise. Then 16 prompts of the same lengths, each alone over HTTP,
+    the replica's prefix cache emptied, and all 16 at once: every burst
+    stream the same tokens as alone. TTFT and ms/token (the gaps between
+    SSE records) p50 / p99, tokens/s; from the replica, through methods
+    of the deployment class: the forward kernel's launches against the
+    engine's cold prefills, its peak memory, its card and its modules.
+    Returns the forward launches of the measured run."""
+    import socket
+    import threading
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+
+    t_phase = time.perf_counter()
+    cfg, page = served["cfg"], 16
+    max_tokens = served["max_tokens"]
+    order = list(served["prompts"])
+    rng = np.random.RandomState(seed + 1)
+    warm_prompt = rng.randint(0, cfg.vocab_size, 7).tolist()
+    lengths = sorted({len(p) for p in served["prompts"].values()})
+    burst = {}
+    for i in range(SERVE_PLANE_BURST):
+        n = lengths[i % len(lengths)]
+        burst[f"b{i}_{n}"] = rng.randint(0, cfg.vocab_size, n).tolist()
+    heads = [tuple(p[:page]) for c, p in served["prompts"].items()
+             if c != "p200_repeat"] + [tuple(p[:page])
+                                       for p in burst.values()]
+    check(len(set(heads)) == len(heads),
+          "two of the phase's prompts share their first page")
+    # the card's free memory before the replica: its process must give
+    # it back when serve shuts down
+    free_before = torch.cuda.mem_get_info()[0]
+
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    rt.init()
+    try:
+        serve.start(serve.HTTPOptions(port=port))
+        app = serve.deployment(
+            LlamaReplica, name=SERVE_PLANE_DEPLOYMENT, decode=True,
+            ray_actor_options={"num_gpus": 1},
+            request_timeout_s=SERVE_PLANE_TIMEOUT_S)
+        handle = serve.run(app.bind(seed), route_prefix="/llama")
+        stream = handle.options(stream=True,
+                                stream_item_timeout_s=SERVE_PLANE_TIMEOUT_S)
+
+        def call(method):
+            return getattr(handle, method).remote().result(
+                timeout=SERVE_PLANE_TIMEOUT_S)
+
+        # the first request builds the engine on the replica's card, and
+        # its prefill and decode pay the programs' one analysed first call
+        t0 = time.perf_counter()
+        warm = list(stream.remote({"prompt": warm_prompt, "max_tokens": 2}))
+        first_request_s = time.perf_counter() - t0
+        check(warm[-1].get("done") is True, f"warm-up gave {warm[-1:]}")
+
+        prefills_before = call("reset_counts")
+        cold = 0
+        # the serving phase's prompts, one after another: HTTP, then the
+        # handle (the replica's prefix cache now holds them all)
+        seq_http, seq_handle = {}, {}
+        for corr in order:
+            payload = {"prompt": served["prompts"][corr],
+                       "max_tokens": max_tokens}
+            got = sse_request(port, "/llama", payload)
+            fin = stream_final(f"http {corr}", got)
+            check(fin["tokens"] == served["tokens"][corr],
+                  f"http {corr}: tokens differ from the serving phase's")
+            cold += not fin["cached_prefix"]
+            seq_http[corr] = stream_timing(got)
+        for corr in order:
+            payload = {"prompt": served["prompts"][corr],
+                       "max_tokens": max_tokens}
+            t0, times, items = time.perf_counter(), [], []
+            for item in stream.remote(payload):
+                times.append(time.perf_counter())
+                items.append(item)
+            fin = items[-1]
+            check(fin.get("done") is True
+                  and [i["token"] for i in items[:-1]] == fin["tokens"],
+                  f"handle {corr}: stream {items[-2:]}")
+            check(fin["tokens"] == served["tokens"][corr],
+                  f"handle {corr}: tokens differ from the serving phase's")
+            cold += not fin["cached_prefix"]
+            seq_handle[corr] = (times[0] - t0) * 1e3
+
+        # the burst's prompts alone, then all at once, both cold
+        alone = {}
+        for corr, prompt in burst.items():
+            fin = stream_final(f"alone {corr}", sse_request(
+                port, "/llama", {"prompt": prompt,
+                                 "max_tokens": max_tokens}))
+            check(not fin["cached_prefix"], f"alone {corr} was a cache hit")
+            alone[corr] = fin["tokens"]
+        cold += len(burst)
+        cleared = call("evict_prefixes")
+        check(cleared["pages_used"] == 0,
+              f"{cleared['pages_used']} KV pages held with no request "
+              f"running")
+        start = threading.Barrier(len(burst))
+        results = {}
+
+        def one(corr):
+            start.wait()
+            try:
+                results[corr] = sse_request(
+                    port, "/llama", {"prompt": burst[corr],
+                                     "max_tokens": max_tokens})
+            except Exception as e:  # noqa: BLE001 — a gate below
+                results[corr] = {"status": None, "error": repr(e)}
+
+        threads = [threading.Thread(target=one, args=(c,)) for c in burst]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(SERVE_PLANE_TIMEOUT_S)
+        check(set(results) == set(burst),
+              f"burst streams unfinished: {sorted(set(burst) - set(results))}")
+        ttfts, gaps, n_tokens = [], [], 0
+        for corr, got in results.items():
+            fin = stream_final(f"burst {corr}", got)
+            check(not fin["cached_prefix"], f"burst {corr} was a cache hit")
+            check(fin["tokens"] == alone[corr],
+                  f"burst {corr}: tokens differ from its run alone")
+            ttft, g = stream_timing(got)
+            ttfts.append(ttft)
+            gaps += g
+            n_tokens += fin["n_generated"]
+        cold += len(burst)
+        burst_s = (max(g["times"][-1] for g in results.values())
+                   - min(g["t0"] for g in results.values()))
+
+        rep = call("readings")
+        prefills = rep["prefill_calls"] - prefills_before
+        check(prefills == cold,
+              f"the engine ran {prefills} cold prefills, the streams say "
+              f"{cold}")
+        check(rep["launches"] == cfg.n_layers * prefills,
+              f"{rep['launches']} forward launches for {prefills} cold "
+              f"prefills of {cfg.n_layers} layers")
+        check(not rep["forbidden_modules"],
+              f"the replica loaded {rep['forbidden_modules']}")
+        check(bool(rep["cuda_visible_devices"])
+              and rep["device_count"] == 1
+              and rep["engine_device"].startswith("cuda"),
+              f"the replica saw CUDA_VISIBLE_DEVICES="
+              f"{rep['cuda_visible_devices']!r}, {rep['device_count']} "
+              f"cards, engine on {rep['engine_device']}")
+        planes = serve.status()[SERVE_PLANE_DEPLOYMENT].get(
+            "dispatch_planes", {})
+        check(planes.get("eager", 0) >= 1
+              and not [p for p in planes if p.startswith("compiled")],
+              f"dispatch planes {planes}")
+    finally:
+        serve.shutdown()
+        rt.shutdown()
+    # the replica's process is gone once the card's memory is back
+    deadline = time.monotonic() + 60
+    while (torch.cuda.mem_get_info()[0] < free_before - (1 << 30)
+           and time.monotonic() < deadline):
+        time.sleep(0.5)
+    free_after = torch.cuda.mem_get_info()[0]
+    check(free_after >= free_before - (1 << 30),
+          f"the card's free memory stayed at {free_after} bytes after "
+          f"serve shut down ({free_before} before)")
+
+    seq_gaps = [g for corr in order for g in seq_http[corr][1]]
+    emit({"phase": "serve_plane", "model": "llama3_8b",
+          "n_layers": cfg.n_layers, "page_size": page, "n_pages": 512,
+          "card": smi, "replica_card": rep["device_name"],
+          "replica_cuda_visible_devices": rep["cuda_visible_devices"],
+          "path": "serve.run -> controller -> ServeReplica (one card) -> "
+                  "HTTP proxy SSE / DeploymentHandle stream -> "
+                  "DecodeScheduler",
+          "engine_init_s": rep["engine_init_s"],
+          "first_request_s": first_request_s,
+          "max_tokens": max_tokens,
+          "sequential": {
+              "ttft_ms_http": {c: seq_http[c][0] for c in order},
+              "ttft_ms_handle": seq_handle,
+              "ms_per_token_http": percentiles(np, seq_gaps),
+              "tokens_equal_serving_phase": True},
+          "burst": {
+              "streams": len(burst),
+              "prompt_lengths": {c: len(p) for c, p in burst.items()},
+              "ttft_ms": percentiles(np, ttfts),
+              "ms_per_token": percentiles(np, gaps),
+              "tokens_per_s": n_tokens / burst_s, "wall_s": burst_s,
+              "tokens_equal_alone": True},
+          "cold_prefills": prefills, "kernel_launches": rep["launches"],
+          "replica_max_memory_allocated_bytes":
+              rep["max_memory_allocated_bytes"],
+          "dispatch_planes": planes,
+          "phase_s": time.perf_counter() - t_phase})
+    return rep["launches"]
 
 
 def layer_matmul_params(cfg) -> int:
@@ -2682,7 +3026,9 @@ def main(argv=None) -> int:
     cap = torch.cuda.get_device_capability(0)
     emit({"phase": "environment", "nvidia_smi": smi, "device": name,
           "capability": list(cap), "torch": torch.__version__,
-          "cuda": torch.version.cuda, "python": sys.version.split()[0]})
+          "cuda": torch.version.cuda, "python": sys.version.split()[0],
+          # the serve proxy is on the standard library either way
+          "aiohttp": importlib.util.find_spec("aiohttp") is not None})
     check(cap == (9, 0), f"needs an sm_90 card, found sm_{cap[0]}{cap[1]}")
 
     phase_build(_build)
@@ -2701,6 +3047,8 @@ def main(argv=None) -> int:
     serving_launches, served = phase_serving(torch, np, args.seed, smi)
     gc.collect()  # the serving engine holds reference cycles
     torch.cuda.empty_cache()
+    serve_plane_launches = phase_serve_plane(torch, np, args.seed, smi,
+                                             served)
     train_launches = phase_training(torch, args.seed, smi, peaks[0])
     gc.collect()
     torch.cuda.empty_cache()
@@ -2729,9 +3077,10 @@ def main(argv=None) -> int:
         "source": src + "flash_attention_fwd.cu",
         "replaces": "ray_tpu/ops/flash_attention.py:62",
         "design": "wgmma fed by TMA (flash_attention_sm90.cuh)",
-        "launches": serving_launches + sum(
+        "launches": serving_launches + serve_plane_launches + sum(
             n["fwd"] for n in by_path.values()),
         "launches_by_path": {"serving": serving_launches,
+                             "serve_plane": serve_plane_launches,
                              **{p: n["fwd"] for p, n in by_path.items()}},
         "max_abs_err": err_o, "max_abs_err_lse": err_lse,
         "tolerance": {"atol": KERNEL_ATOL, "rtol": KERNEL_RTOL},

@@ -49,7 +49,13 @@ class _ActorState:
                 target=self.loop.run_forever, daemon=True, name="actor-asyncio"
             )
             self.loop_thread.start()
-            self.pool = ThreadPoolExecutor(max_workers=1)  # for sync methods
+            # sync methods (generators included) run on up to
+            # max_concurrency threads, as on a threaded actor. The JAX
+            # package's runtime gives them one thread: a serve replica
+            # (async: its unary entry is a coroutine) then runs every
+            # stream's generator, each a whole request, one after
+            # another, and queues its health ping behind them
+            self.pool = ThreadPoolExecutor(max_workers=max_concurrency)
         else:
             self.loop = None
             self.pool = ThreadPoolExecutor(max_workers=max_concurrency)

@@ -69,9 +69,46 @@ print(json.dumps({"imported": names,
                  "train.trainer", "train.health", "util.timeline",
                  "data.dataset", "data.executor", "data.iterator",
                  "data.datasource_ml", "data.avro", "data.iceberg",
-                 "train.dcp_checkpoint", "cluster_utils"):
+                 "train.dcp_checkpoint", "cluster_utils", "serve",
+                 *(f"serve.{m}" for m in SERVE_MODULES)):
         assert f"ray_tpu_torch.{name}" in report["imported"]
     assert not [m for m in report["new"] if _forbidden(m)]
+    # the HTTP proxy is on the standard library and gRPC loads only when
+    # its ingress starts: serving needs neither package
+    assert not [m for m in report["new"]
+                if m.split(".")[0] in ("aiohttp", "grpc")]
+
+
+SERVE_MODULES = ("api", "batching", "config", "controller", "dag",
+                 "deployment", "grpc_ingress", "handle", "multiplex",
+                 "observability", "proxy", "replica")
+
+
+def test_serve_loads_no_jax_and_no_aiohttp():
+    """``from ray_tpu_torch import serve`` in a fresh process, then each
+    of its modules: none loads JAX, the JAX package or aiohttp; and no
+    module of the port imports aiohttp anywhere, at its top or in a
+    function."""
+    code = f"""
+import importlib, json, sys
+before = set(sys.modules)
+from ray_tpu_torch import serve
+assert callable(serve.run) and callable(serve.deployment)
+for m in {SERVE_MODULES!r}:
+    importlib.import_module("ray_tpu_torch.serve." + m)
+print(json.dumps(sorted(set(sys.modules) - before)))
+"""
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    new = json.loads(out.stdout.strip().splitlines()[-1])
+    assert not [m for m in new if _forbidden(m)
+                or m.split(".")[0] == "aiohttp"]
+    for path in PORT_FILES:
+        every = [m for _, m, _ in _function_level_imports(path)]
+        every += list(_imports(path))
+        assert not [m for m in every if m and m.split(".")[0] == "aiohttp"], \
+            path
 
 
 def _function_level_imports(path: pathlib.Path):

@@ -126,6 +126,23 @@ PORT_NAMES = {
     "ray_tpu_data_fused_operators_total":
         "port_data_fused_operators_total",
     "ray_tpu_data_locality_hints_total": "port_data_locality_hints_total",
+    # the serve control plane's request path
+    "ray_tpu_serve_request_latency_seconds":
+        "port_serve_request_latency_seconds",
+    "ray_tpu_serve_handle_queue_wait_seconds":
+        "port_serve_handle_queue_wait_seconds",
+    "ray_tpu_serve_replica_queue_wait_seconds":
+        "port_serve_replica_queue_wait_seconds",
+    "ray_tpu_serve_batch_wait_seconds": "port_serve_batch_wait_seconds",
+    "ray_tpu_serve_exec_seconds": "port_serve_exec_seconds",
+    "ray_tpu_serve_replica_queue_depth": "port_serve_replica_queue_depth",
+    "ray_tpu_serve_batch_size": "port_serve_batch_size",
+    "ray_tpu_serve_batch_utilization": "port_serve_batch_utilization",
+    "ray_tpu_serve_dispatch_seconds": "port_serve_dispatch_seconds",
+    "ray_tpu_serve_shed_total": "port_serve_shed_total",
+    "ray_tpu_serve_requests_total": "port_serve_requests_total",
+    "ray_tpu_serve_errors_total": "port_serve_errors_total",
+    "ray_tpu_serve_timeouts_total": "port_serve_timeouts_total",
 }
 _METRIC_CLASSES = {"Counter", "Gauge", "Histogram", "_Gauge"}
 

@@ -303,6 +303,36 @@ def test_actor_creation_failure(cluster):
         rt.get(Broken.remote().ping.remote(), timeout=30)
 
 
+@rt.remote
+class Rendezvous:
+    """An async actor (one coroutine method) whose sync ``meet`` returns
+    only once ``n`` calls are inside it at the same time."""
+
+    def __init__(self, n):
+        import threading
+
+        self.barrier = threading.Barrier(n, timeout=20)
+
+    async def ping(self):
+        return "pong"
+
+    def meet(self, i):
+        self.barrier.wait()
+        return i
+
+
+@pytest.mark.parametrize("concurrency", [1, 3])
+def test_async_actor_sync_methods_run_on_max_concurrency_threads(
+        cluster, concurrency):
+    """The JAX package's runtime runs an async actor's sync methods on
+    one thread whatever its max_concurrency (its serve replica then runs
+    one stream at a time); the port's on max_concurrency threads."""
+    a = Rendezvous.options(max_concurrency=concurrency).remote(concurrency)
+    assert rt.get(a.ping.remote(), timeout=T) == "pong"
+    refs = [a.meet.remote(i) for i in range(concurrency)]
+    assert rt.get(refs, timeout=T) == list(range(concurrency))
+
+
 def test_placement_group(cluster):
     pg = placement_group([{"CPU": 1}, {"CPU": 1}], strategy="PACK")
     try:
