@@ -38,13 +38,23 @@ non-zero and never prints the final ``ok`` line.
    engine answers six requests (one a prefix-cache hit), with the forward
    kernel's launch count read from this run; then ``serve_plane``: the
    same engine and weights behind the serve control plane
-   (``serve.run`` -> controller -> one replica actor holding one card ->
-   the HTTP proxy's SSE stream and the ``DeploymentHandle`` stream):
-   the six prompts one after another over HTTP and the handle, bitwise
-   the tokens above; 16 prompts alone, then all at once, each burst
-   stream bitwise its run alone; TTFT and ms/token p50 / p99 at the
-   client, tokens/s; from the replica, its launches against its cold
-   prefills, peak memory, card and modules;
+   (``serve.run`` -> controller -> one replica actor holding one card)
+   on two dispatch planes, the HTTP proxy's SSE streams (the proxy a
+   worker: the eager plane) and the ``DeploymentHandle`` streams (the
+   compiled decode lane): the six prompts one after another over HTTP
+   and the handle, bitwise the tokens above; 16 prompts alone, then all
+   at once over HTTP and again through the handle, each burst stream
+   bitwise its run alone; the six again over the default driver proxy,
+   whose SSE rides the lane; each stream on its plane; for each
+   plane TTFT and ms/token p50 / p99 at the client, tokens/s, and from
+   the replica its launches against its cold prefills (32 a prefill)
+   and peak memory; its card and modules; then ``dag``: a compiled
+   graph of two actors on the card (a card each given more) whose
+   ``device_channels`` edges carry a bf16 CUDA tensor of 1 x 2048 x
+   4096, bitwise the same two functions run here, with no serialized
+   bytes on either actor; ms an execution and the edges' GB/s
+   pipelined over 50, and a 3-actor scalar chain compiled against
+   eager;
 8. full-depth Llama-3-1B training: 3 warm-up and 5 timed AdamW steps at
    batch 4 x 2048, with step time, tokens/s, MFU, peak memory, a profile
    of one step and the three kernels' launch counts read from this run;
@@ -2270,11 +2280,14 @@ class LlamaReplica:
         return self.engine
 
     def reset_counts(self) -> int:
-        """Set the forward kernel's launch count to 0; the engine's cold
-        prefills so far."""
+        """Set the forward kernel's launch count and the card's peak
+        memory to 0; the engine's cold prefills so far."""
+        import torch
+
         from ray_tpu_torch.ops.flash_attention import flash_attention_forward
 
         flash_attention_forward.launches = 0
+        torch.cuda.reset_peak_memory_stats()
         return self.engine.prefill_calls
 
     def evict_prefixes(self) -> dict:
@@ -2304,6 +2317,15 @@ class LlamaReplica:
             "forbidden_modules": sorted(
                 m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "ray_tpu"))}
+
+
+def free_port() -> int:
+    """A TCP port on 127.0.0.1 that nothing listens on right now."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
 
 
 def sse_request(port: int, path: str, payload: dict) -> dict:
@@ -2364,24 +2386,91 @@ def percentiles(np, values) -> dict:
             "p99": float(np.percentile(values, 99))}
 
 
+def burst_streams(corrs, run_one) -> dict:
+    """Run ``run_one(corr)`` for every corr at once, all threads released
+    together; each corr's result, or ``{"status": None, "error": ...}``."""
+    import threading
+
+    start = threading.Barrier(len(corrs))
+    results = {}
+
+    def one(corr):
+        start.wait()
+        try:
+            results[corr] = run_one(corr)
+        except Exception as e:  # noqa: BLE001 — a gate below
+            results[corr] = {"status": None, "error": repr(e)}
+
+    threads = [threading.Thread(target=one, args=(c,)) for c in corrs]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(SERVE_PLANE_TIMEOUT_S)
+    check(set(results) == set(corrs),
+          f"burst streams unfinished: {sorted(set(corrs) - set(results))}")
+    return results
+
+
+def handle_stream(stream, payload) -> dict:
+    """One decode stream through the handle, in the shape of
+    :func:`sse_request`'s result: the items and each one's arrival time
+    on the host clock, beside the time the request was sent."""
+    out = {"status": 200, "t0": time.perf_counter(), "records": [],
+           "times": [], "content_type": "text/event-stream"}
+    for item in stream.remote(payload):
+        out["times"].append(time.perf_counter())
+        out["records"].append(item)
+    return out
+
+
+def burst_readings(np, results, alone, name) -> dict:
+    """Gates and readings of one plane's burst: every stream's tokens
+    equal to its run alone, none a cache hit; TTFT and ms/token p50/p99,
+    tokens/s over the burst's wall time."""
+    ttfts, gaps, n_tokens = [], [], 0
+    for corr, got in results.items():
+        fin = stream_final(f"{name} burst {corr}", got)
+        check(not fin["cached_prefix"], f"{name} burst {corr} was a cache hit")
+        check(fin["tokens"] == alone[corr],
+              f"{name} burst {corr}: tokens differ from its run alone")
+        ttft, g = stream_timing(got)
+        ttfts.append(ttft)
+        gaps += g
+        n_tokens += fin["n_generated"]
+    wall = (max(g["times"][-1] for g in results.values())
+            - min(g["t0"] for g in results.values()))
+    return {"streams": len(results), "ttft_ms": percentiles(np, ttfts),
+            "ms_per_token": percentiles(np, gaps),
+            "tokens_per_s": n_tokens / wall, "wall_s": wall,
+            "tokens_equal_alone": True}
+
+
 def phase_serve_plane(torch, np, seed, smi, served):
     """``serve_plane``: the serving phase's Llama-3-8B behind the serve
     control plane, ``serve.run`` -> controller -> one replica actor
-    holding one card -> the HTTP proxy's SSE stream and the
-    ``DeploymentHandle`` stream. The serving phase's six prompts one
-    after another over HTTP, then through the handle: the same tokens,
-    bitwise. Then 16 prompts of the same lengths, each alone over HTTP,
-    the replica's prefix cache emptied, and all 16 at once: every burst
-    stream the same tokens as alone. TTFT and ms/token (the gaps between
-    SSE records) p50 / p99, tokens/s; from the replica, through methods
-    of the deployment class: the forward kernel's launches against the
-    engine's cold prefills, its peak memory, its card and its modules.
-    Returns the forward launches of the measured run."""
-    import socket
-    import threading
-
+    holding one card, on two dispatch planes: the HTTP proxy's SSE
+    streams (the proxy runs in a worker, ``proxy_location="EveryNode"``,
+    so they ride the eager actor path) and the driver's
+    ``DeploymentHandle`` streams (the compiled decode lane, plane
+    ``compiled_stream``). The serving phase's six prompts one after
+    another over HTTP, then through the handle: the same tokens,
+    bitwise. Then 16 prompts of the same lengths, each alone over HTTP;
+    the replica's prefix cache emptied and all 16 at once over HTTP;
+    emptied again and all 16 at once through the handle: every burst
+    stream the same tokens as alone. Last, the prefix cache emptied
+    again, the six prompts one after another over HTTP from the default
+    driver-resident proxy (``proxy_location="HeadOnly"``), whose SSE
+    streams ride the compiled decode lane too: the same tokens, bitwise.
+    Each run is read on its own (the replica's launch count and peak
+    memory set to 0 just before it): TTFT and ms/token p50 / p99 at the
+    client, tokens/s, the forward kernel's launches against the engine's
+    cold prefills, the replica's peak memory; and its card and modules.
+    Returns the forward launches of the eager run and of the two runs on
+    the lane."""
     import ray_tpu_torch as rt
     from ray_tpu_torch import serve
+    from ray_tpu_torch.core.config import global_config
+    from ray_tpu_torch.serve import api as serve_api
 
     t_phase = time.perf_counter()
     cfg, page = served["cfg"], 16
@@ -2403,15 +2492,26 @@ def phase_serve_plane(torch, np, seed, smi, served):
     # it back when serve shuts down
     free_before = torch.cuda.mem_get_info()[0]
 
-    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
+    # the proxy worker's dispatch counts reach serve.status() with its
+    # metrics reports
+    knobs = global_config()
+    report_ms = knobs.metrics_report_interval_ms
+    knobs.metrics_report_interval_ms = 500
     rt.init()
     try:
-        serve.start(serve.HTTPOptions(port=port))
+        serve.start(serve.HTTPOptions(proxy_location="EveryNode"))
+        (proxy,) = serve_api.get_proxy_addresses()
+        port = proxy["port"]
+        # and the default proxy (HeadOnly: in the driver) on a port found
+        # free, which serve.run would otherwise start on port 8000
+        head_port = free_port()
+        serve.start(serve.HTTPOptions(port=head_port))
+        # the lane's admission window holds the whole burst: no stream
+        # overflows to the eager plane
         app = serve.deployment(
             LlamaReplica, name=SERVE_PLANE_DEPLOYMENT, decode=True,
             ray_actor_options={"num_gpus": 1},
+            max_inflight=SERVE_PLANE_BURST,
             request_timeout_s=SERVE_PLANE_TIMEOUT_S)
         handle = serve.run(app.bind(seed), route_prefix="/llama")
         stream = handle.options(stream=True,
@@ -2421,18 +2521,34 @@ def phase_serve_plane(torch, np, seed, smi, served):
             return getattr(handle, method).remote().result(
                 timeout=SERVE_PLANE_TIMEOUT_S)
 
-        # the first request builds the engine on the replica's card, and
-        # its prefill and decode pay the programs' one analysed first call
+        def planes(total=0):
+            """The deployment's dispatch counts, once ``total`` of them
+            have reached the head (the proxy reports a moment later)."""
+            from ray_tpu_torch.serve import observability as obs
+
+            deadline = time.monotonic() + 60
+            while True:
+                obs.drain_deferred()
+                got = serve.status()[SERVE_PLANE_DEPLOYMENT].get(
+                    "dispatch_planes", {})
+                if sum(got.values()) >= total \
+                        or time.monotonic() > deadline:
+                    return got
+                time.sleep(0.25)
+
+        # the first request builds the engine on the replica's card and
+        # the replica's compiled decode lane, and its prefill and decode
+        # pay the programs' one analysed first call
         t0 = time.perf_counter()
         warm = list(stream.remote({"prompt": warm_prompt, "max_tokens": 2}))
         first_request_s = time.perf_counter() - t0
         check(warm[-1].get("done") is True, f"warm-up gave {warm[-1:]}")
+        before = planes()
 
-        prefills_before = call("reset_counts")
-        cold = 0
-        # the serving phase's prompts, one after another: HTTP, then the
-        # handle (the replica's prefix cache now holds them all)
-        seq_http, seq_handle = {}, {}
+        # the eager plane (HTTP SSE from the proxy worker)
+        prefills0 = call("reset_counts")
+        cold_http = 0
+        seq_http = {}
         for corr in order:
             payload = {"prompt": served["prompts"][corr],
                        "max_tokens": max_tokens}
@@ -2440,25 +2556,8 @@ def phase_serve_plane(torch, np, seed, smi, served):
             fin = stream_final(f"http {corr}", got)
             check(fin["tokens"] == served["tokens"][corr],
                   f"http {corr}: tokens differ from the serving phase's")
-            cold += not fin["cached_prefix"]
+            cold_http += not fin["cached_prefix"]
             seq_http[corr] = stream_timing(got)
-        for corr in order:
-            payload = {"prompt": served["prompts"][corr],
-                       "max_tokens": max_tokens}
-            t0, times, items = time.perf_counter(), [], []
-            for item in stream.remote(payload):
-                times.append(time.perf_counter())
-                items.append(item)
-            fin = items[-1]
-            check(fin.get("done") is True
-                  and [i["token"] for i in items[:-1]] == fin["tokens"],
-                  f"handle {corr}: stream {items[-2:]}")
-            check(fin["tokens"] == served["tokens"][corr],
-                  f"handle {corr}: tokens differ from the serving phase's")
-            cold += not fin["cached_prefix"]
-            seq_handle[corr] = (times[0] - t0) * 1e3
-
-        # the burst's prompts alone, then all at once, both cold
         alone = {}
         for corr, prompt in burst.items():
             fin = stream_final(f"alone {corr}", sse_request(
@@ -2466,68 +2565,102 @@ def phase_serve_plane(torch, np, seed, smi, served):
                                  "max_tokens": max_tokens}))
             check(not fin["cached_prefix"], f"alone {corr} was a cache hit")
             alone[corr] = fin["tokens"]
-        cold += len(burst)
+        cold_http += len(burst)
         cleared = call("evict_prefixes")
         check(cleared["pages_used"] == 0,
               f"{cleared['pages_used']} KV pages held with no request "
               f"running")
-        start = threading.Barrier(len(burst))
-        results = {}
+        http_burst = burst_readings(np, burst_streams(
+            list(burst), lambda c: sse_request(
+                port, "/llama", {"prompt": burst[c],
+                                 "max_tokens": max_tokens})), alone, "http")
+        cold_http += len(burst)
+        rep_http = call("readings")
 
-        def one(corr):
-            start.wait()
-            try:
-                results[corr] = sse_request(
-                    port, "/llama", {"prompt": burst[corr],
-                                     "max_tokens": max_tokens})
-            except Exception as e:  # noqa: BLE001 — a gate below
-                results[corr] = {"status": None, "error": repr(e)}
+        # the compiled plane (the handle's decode lane)
+        prefills1 = call("reset_counts")
+        cold_lane = 0
+        seq_handle = {}
+        for corr in order:
+            got = handle_stream(stream, {"prompt": served["prompts"][corr],
+                                         "max_tokens": max_tokens})
+            fin = stream_final(f"handle {corr}", got)
+            check(fin["tokens"] == served["tokens"][corr],
+                  f"handle {corr}: tokens differ from the serving phase's")
+            cold_lane += not fin["cached_prefix"]
+            seq_handle[corr] = stream_timing(got)
+        cleared = call("evict_prefixes")
+        check(cleared["pages_used"] == 0,
+              f"{cleared['pages_used']} KV pages held with no request "
+              f"running")
+        lane_burst = burst_readings(np, burst_streams(
+            list(burst), lambda c: handle_stream(
+                stream, {"prompt": burst[c], "max_tokens": max_tokens})),
+            alone, "handle")
+        cold_lane += len(burst)
+        rep_lane = call("readings")
 
-        threads = [threading.Thread(target=one, args=(c,)) for c in burst]
-        for th in threads:
-            th.start()
-        for th in threads:
-            th.join(SERVE_PLANE_TIMEOUT_S)
-        check(set(results) == set(burst),
-              f"burst streams unfinished: {sorted(set(burst) - set(results))}")
-        ttfts, gaps, n_tokens = [], [], 0
-        for corr, got in results.items():
-            fin = stream_final(f"burst {corr}", got)
-            check(not fin["cached_prefix"], f"burst {corr} was a cache hit")
-            check(fin["tokens"] == alone[corr],
-                  f"burst {corr}: tokens differ from its run alone")
-            ttft, g = stream_timing(got)
-            ttfts.append(ttft)
-            gaps += g
-            n_tokens += fin["n_generated"]
-        cold += len(burst)
-        burst_s = (max(g["times"][-1] for g in results.values())
-                   - min(g["t0"] for g in results.values()))
+        # the driver's default proxy: its SSE streams ride the compiled
+        # decode lane
+        cleared = call("evict_prefixes")
+        check(cleared["pages_used"] == 0,
+              f"{cleared['pages_used']} KV pages held with no request "
+              f"running")
+        prefills2 = call("reset_counts")
+        cold_head = 0
+        seq_head = {}
+        for corr in order:
+            payload = {"prompt": served["prompts"][corr],
+                       "max_tokens": max_tokens}
+            got = sse_request(head_port, "/llama", payload)
+            fin = stream_final(f"head http {corr}", got)
+            check(fin["tokens"] == served["tokens"][corr],
+                  f"head http {corr}: tokens differ from the serving "
+                  f"phase's")
+            cold_head += not fin["cached_prefix"]
+            seq_head[corr] = stream_timing(got)
+        rep_head = call("readings")
 
-        rep = call("readings")
-        prefills = rep["prefill_calls"] - prefills_before
-        check(prefills == cold,
-              f"the engine ran {prefills} cold prefills, the streams say "
-              f"{cold}")
-        check(rep["launches"] == cfg.n_layers * prefills,
-              f"{rep['launches']} forward launches for {prefills} cold "
-              f"prefills of {cfg.n_layers} layers")
-        check(not rep["forbidden_modules"],
-              f"the replica loaded {rep['forbidden_modules']}")
-        check(bool(rep["cuda_visible_devices"])
-              and rep["device_count"] == 1
-              and rep["engine_device"].startswith("cuda"),
-              f"the replica saw CUDA_VISIBLE_DEVICES="
-              f"{rep['cuda_visible_devices']!r}, {rep['device_count']} "
-              f"cards, engine on {rep['engine_device']}")
-        planes = serve.status()[SERVE_PLANE_DEPLOYMENT].get(
-            "dispatch_planes", {})
-        check(planes.get("eager", 0) >= 1
-              and not [p for p in planes if p.startswith("compiled")],
-              f"dispatch planes {planes}")
+        runs = {"http": (rep_http, rep_http["prefill_calls"] - prefills0,
+                         cold_http),
+                "handle": (rep_lane, rep_lane["prefill_calls"] - prefills1,
+                           cold_lane),
+                "head_http": (rep_head,
+                              rep_head["prefill_calls"] - prefills2,
+                              cold_head)}
+        for name, (rep, prefills, cold) in runs.items():
+            check(prefills == cold,
+                  f"{name}: the engine ran {prefills} cold prefills, the "
+                  f"streams say {cold}")
+            check(rep["launches"] == cfg.n_layers * prefills,
+                  f"{name}: {rep['launches']} forward launches for "
+                  f"{prefills} cold prefills of {cfg.n_layers} layers")
+            check(not rep["forbidden_modules"],
+                  f"the replica loaded {rep['forbidden_modules']}")
+            check(bool(rep["cuda_visible_devices"])
+                  and rep["device_count"] == 1
+                  and rep["engine_device"].startswith("cuda"),
+                  f"the replica saw CUDA_VISIBLE_DEVICES="
+                  f"{rep['cuda_visible_devices']!r}, "
+                  f"{rep['device_count']} cards, engine on "
+                  f"{rep['engine_device']}")
+        n_http = len(order) + 2 * len(burst)
+        n_lane = 2 * len(order) + len(burst)
+        after = planes(sum(before.values()) + n_http + n_lane)
+        delta = {k: after.get(k, 0) - before.get(k, 0)
+                 for k in set(after) | set(before)}
+        # every stream from the proxy workers eager, every handle stream
+        # and every stream from the driver's proxy on the lane, and
+        # nothing else but the handle's unary calls (the readings)
+        check(delta.get("eager", 0) == n_http
+              and delta.get("compiled_stream", 0) == n_lane
+              and set(k for k, v in delta.items() if v)
+              <= {"eager", "compiled_stream", "compiled"},
+              f"dispatch planes {before} -> {after}")
     finally:
         serve.shutdown()
         rt.shutdown()
+        knobs.metrics_report_interval_ms = report_ms
     # the replica's process is gone once the card's memory is back
     deadline = time.monotonic() + 60
     while (torch.cuda.mem_get_info()[0] < free_before - (1 << 30)
@@ -2538,35 +2671,234 @@ def phase_serve_plane(torch, np, seed, smi, served):
           f"the card's free memory stayed at {free_after} bytes after "
           f"serve shut down ({free_before} before)")
 
-    seq_gaps = [g for corr in order for g in seq_http[corr][1]]
+    def sequential(timings):
+        return {"ttft_ms": {c: timings[c][0] for c in order},
+                "ms_per_token": percentiles(
+                    np, [g for c in order for g in timings[c][1]])}
+
     emit({"phase": "serve_plane", "model": "llama3_8b",
           "n_layers": cfg.n_layers, "page_size": page, "n_pages": 512,
-          "card": smi, "replica_card": rep["device_name"],
-          "replica_cuda_visible_devices": rep["cuda_visible_devices"],
+          "card": smi, "replica_card": rep_lane["device_name"],
+          "replica_cuda_visible_devices": rep_lane["cuda_visible_devices"],
           "path": "serve.run -> controller -> ServeReplica (one card) -> "
-                  "HTTP proxy SSE / DeploymentHandle stream -> "
+                  "HTTP proxy worker SSE (eager) / DeploymentHandle "
+                  "stream and driver proxy SSE (compiled decode lane) -> "
                   "DecodeScheduler",
-          "engine_init_s": rep["engine_init_s"],
+          "engine_init_s": rep_lane["engine_init_s"],
           "first_request_s": first_request_s,
-          "max_tokens": max_tokens,
-          "sequential": {
-              "ttft_ms_http": {c: seq_http[c][0] for c in order},
-              "ttft_ms_handle": seq_handle,
-              "ms_per_token_http": percentiles(np, seq_gaps),
-              "tokens_equal_serving_phase": True},
-          "burst": {
-              "streams": len(burst),
-              "prompt_lengths": {c: len(p) for c, p in burst.items()},
-              "ttft_ms": percentiles(np, ttfts),
-              "ms_per_token": percentiles(np, gaps),
-              "tokens_per_s": n_tokens / burst_s, "wall_s": burst_s,
-              "tokens_equal_alone": True},
-          "cold_prefills": prefills, "kernel_launches": rep["launches"],
-          "replica_max_memory_allocated_bytes":
-              rep["max_memory_allocated_bytes"],
-          "dispatch_planes": planes,
+          "max_tokens": max_tokens, "burst_prompt_lengths":
+              {c: len(p) for c, p in burst.items()},
+          "planes": {
+              "eager_http": {
+                  "sequential": sequential(seq_http),
+                  "burst": http_burst, "cold_prefills": cold_http,
+                  "kernel_launches": rep_http["launches"],
+                  "replica_max_memory_allocated_bytes":
+                      rep_http["max_memory_allocated_bytes"]},
+              "compiled_stream_handle": {
+                  "sequential": sequential(seq_handle),
+                  "burst": lane_burst, "cold_prefills": cold_lane,
+                  "kernel_launches": rep_lane["launches"],
+                  "replica_max_memory_allocated_bytes":
+                      rep_lane["max_memory_allocated_bytes"]},
+              "compiled_stream_head_http": {
+                  "sequential": sequential(seq_head),
+                  "cold_prefills": cold_head,
+                  "kernel_launches": rep_head["launches"],
+                  "replica_max_memory_allocated_bytes":
+                      rep_head["max_memory_allocated_bytes"]}},
+          "tokens_equal_serving_phase": True,
+          "dispatch_planes": {"before": before, "after": after},
           "phase_s": time.perf_counter() - t_phase})
-    return rep["launches"]
+    return rep_http["launches"], rep_lane["launches"], rep_head["launches"]
+
+
+# the dag phase: one bf16 activation of an 8B prefill (B 1, T 2048,
+# width 4096: 16 MiB) through a compiled chain of two actors on the card
+DAG_SHAPE = (1, 2048, 4096)
+DAG_BUFFER_BYTES = 32 << 20
+DAG_MAX_INFLIGHT = 4
+DAG_PIPELINED = 50
+# the scalar chain of the reference's test_compiled_beats_eager: calls a
+# round, rounds (min of rounds, eager and compiled interleaved)
+DAG_SCALAR_CALLS = 60
+DAG_SCALAR_ROUNDS = 3
+
+
+def dag_stage_a(x):
+    """The chain's first stage: elementwise in bf16 on the card."""
+    return x * 1.5 + 0.25
+
+
+def dag_stage_b(y):
+    """The chain's second stage: elementwise through float32."""
+    import torch
+
+    return torch.tanh(y.float()).to(y.dtype)
+
+
+class DagStage:
+    """An actor of the ``dag`` phase: one stage function on its card, its
+    channel accounting and where it runs."""
+
+    def __init__(self, which: str):
+        self.fn = dag_stage_a if which == "a" else dag_stage_b
+
+    def run(self, x):
+        return self.fn(x)
+
+    def step(self, x):
+        return x + 1
+
+    def where(self) -> dict:
+        import os
+
+        import torch
+
+        return {"cuda_visible_devices": os.environ.get(
+                    "CUDA_VISIBLE_DEVICES"),
+                "device_count": torch.cuda.device_count(),
+                "device_name": torch.cuda.get_device_name(0),
+                "forbidden_modules": sorted(
+                    m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "ray_tpu"))}
+
+    def chan_stats(self) -> dict:
+        from ray_tpu_torch.experimental.channel import STATS
+
+        return dict(STATS)
+
+
+def phase_dag(torch, smi):
+    """``dag``: a compiled graph on the card. Two actors (half a card each
+    on one card, a card each given more) chained with
+    ``device_channels=True``: each execution carries a bf16 CUDA tensor
+    of one 8B prefill's hidden states across the driver -> A -> B ->
+    driver edges, each a device-to-host copy into a ring slot and a
+    host-to-device copy out of it. Gates: the result bitwise the two
+    stage functions run in the driver, no serialized bytes on either
+    actor, the tensor bytes of every execution on each, every actor on
+    one card and free of JAX. Readings: ms per execution and the edges'
+    GB/s pipelined over 50 executions (4 in flight), and the per-call
+    time of a 3-actor scalar chain, compiled against eager (min of
+    rounds, interleaved)."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.dag import InputNode
+
+    t_phase = time.perf_counter()
+    cards = torch.cuda.device_count()
+    share = 1 if cards >= 2 else 0.5
+    nbytes = math.prod(DAG_SHAPE) * 2
+    rt.init()
+    try:
+        Stage = rt.remote(num_gpus=share)(DagStage)
+        a, b = Stage.remote("a"), Stage.remote("b")
+        where = rt.get([a.where.remote(), b.where.remote()], timeout=120)
+        for w in where:
+            check(w["device_count"] == 1 and w["cuda_visible_devices"],
+                  f"a dag actor saw {w}")
+            check(not w["forbidden_modules"],
+                  f"a dag actor loaded {w['forbidden_modules']}")
+        with InputNode() as inp:
+            out = b.run.bind(a.run.bind(inp))
+        dag = out.experimental_compile(buffer_size_bytes=DAG_BUFFER_BYTES,
+                                       device_channels=True,
+                                       max_inflight=DAG_MAX_INFLIGHT)
+        try:
+            gen = torch.Generator(device="cuda").manual_seed(7)
+            x = torch.randn(DAG_SHAPE, device="cuda", generator=gen,
+                            dtype=torch.float32).to(torch.bfloat16)
+            want = dag_stage_b(dag_stage_a(x))
+            got = dag.execute(x).get(timeout=120)
+            check(isinstance(got, torch.Tensor) and got.is_cuda
+                  and got.dtype == torch.bfloat16
+                  and tuple(got.shape) == DAG_SHAPE,
+                  f"the dag returned {type(got)} "
+                  f"{getattr(got, 'device', None)}")
+            check(torch.equal(got, want),
+                  "the dag's result differs from its stages run in the "
+                  "driver")
+            # pipelined: DAG_MAX_INFLIGHT executions in flight
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            refs = []
+            for i in range(DAG_PIPELINED):
+                if len(refs) >= DAG_MAX_INFLIGHT:
+                    refs.pop(0).get(timeout=120)
+                refs.append(dag.execute(x, timeout=120))
+            last = None
+            for r in refs:
+                last = r.get(timeout=120)
+            torch.cuda.synchronize()
+            pipelined_s = time.perf_counter() - t0
+            check(torch.equal(last, want), "a pipelined result differs")
+            stats = rt.get([a.chan_stats.remote(), b.chan_stats.remote()],
+                           timeout=120)
+            executions = 1 + DAG_PIPELINED
+            for name, st in zip("ab", stats):
+                check(st["serialized_bytes"] == 0,
+                      f"actor {name} serialized {st}")
+                check(st["tensor_bytes"] >= executions * nbytes,
+                      f"actor {name} moved {st['tensor_bytes']} tensor "
+                      f"bytes for {executions} executions of {nbytes}")
+        finally:
+            dag.teardown()
+
+        # the reference's 3-actor scalar chain, compiled against eager
+        chain = [rt.remote(num_gpus=0)(DagStage).remote("a")
+                 for _ in range(3)]
+        rt.get([c.step.remote(0) for c in chain], timeout=120)
+        with InputNode() as inp:
+            out = chain[2].step.bind(chain[1].step.bind(chain[0].step.bind(
+                inp)))
+        scalar = out.experimental_compile()
+
+        def eager_round():
+            t = time.perf_counter()
+            for i in range(DAG_SCALAR_CALLS):
+                v = rt.get(chain[2].step.remote(rt.get(chain[1].step.remote(
+                    rt.get(chain[0].step.remote(i))))))
+                check(v == i + 3, f"eager chain gave {v}")
+            return (time.perf_counter() - t) / DAG_SCALAR_CALLS
+
+        def compiled_round():
+            t = time.perf_counter()
+            for i in range(DAG_SCALAR_CALLS):
+                v = scalar.execute(i).get(timeout=60)
+                check(v == i + 3, f"compiled chain gave {v}")
+            return (time.perf_counter() - t) / DAG_SCALAR_CALLS
+
+        try:
+            scalar.execute(0).get(timeout=60)
+            eager_round()
+            eager_s, comp_s = [], []
+            for r in range(DAG_SCALAR_ROUNDS):
+                pair = (eager_round, compiled_round) if r % 2 == 0 \
+                    else (compiled_round, eager_round)
+                for fn in pair:
+                    (eager_s if fn is eager_round else comp_s).append(fn())
+        finally:
+            scalar.teardown()
+    finally:
+        rt.shutdown()
+    ms_per_exec = pipelined_s / DAG_PIPELINED * 1e3
+    edges = 3  # driver -> a -> b -> driver
+    emit({"phase": "dag", "card": smi, "cards": cards,
+          "gpus_per_actor": share, "actor_cards": where,
+          "shape": list(DAG_SHAPE), "dtype": "bfloat16",
+          "tensor_bytes": nbytes, "buffer_size_bytes": DAG_BUFFER_BYTES,
+          "max_inflight": DAG_MAX_INFLIGHT, "bitwise_equal": True,
+          "actor_channel_stats": dict(zip("ab", stats)),
+          "pipelined_executions": DAG_PIPELINED,
+          "ms_per_execution": ms_per_exec,
+          "edges": edges,
+          "edge_GBps": edges * nbytes / (ms_per_exec / 1e3) / 1e9,
+          "scalar_chain": {
+              "calls_per_round": DAG_SCALAR_CALLS,
+              "eager_ms_per_call": [s * 1e3 for s in eager_s],
+              "compiled_ms_per_call": [s * 1e3 for s in comp_s],
+              "speedup_min_of_rounds": min(eager_s) / min(comp_s)},
+          "phase_s": time.perf_counter() - t_phase})
 
 
 def layer_matmul_params(cfg) -> int:
@@ -3049,6 +3381,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     serve_plane_launches = phase_serve_plane(torch, np, args.seed, smi,
                                              served)
+    phase_dag(torch, smi)
     train_launches = phase_training(torch, args.seed, smi, peaks[0])
     gc.collect()
     torch.cuda.empty_cache()
@@ -3077,10 +3410,13 @@ def main(argv=None) -> int:
         "source": src + "flash_attention_fwd.cu",
         "replaces": "ray_tpu/ops/flash_attention.py:62",
         "design": "wgmma fed by TMA (flash_attention_sm90.cuh)",
-        "launches": serving_launches + serve_plane_launches + sum(
+        "launches": serving_launches + sum(serve_plane_launches) + sum(
             n["fwd"] for n in by_path.values()),
         "launches_by_path": {"serving": serving_launches,
-                             "serve_plane": serve_plane_launches,
+                             "serve_plane": serve_plane_launches[0],
+                             "serve_plane_compiled": serve_plane_launches[1],
+                             "serve_plane_head_proxy":
+                                 serve_plane_launches[2],
                              **{p: n["fwd"] for p, n in by_path.items()}},
         "max_abs_err": err_o, "max_abs_err_lse": err_lse,
         "tolerance": {"atol": KERNEL_ATOL, "rtol": KERNEL_RTOL},

@@ -46,12 +46,10 @@ class ActorMethod:
                                            self._num_returns)
 
     def bind(self, *args):
-        """Author a compiled-graph node (reference: dag_node.py bind). The
-        compiled graph (``ray_tpu/dag``) is not ported yet."""
-        raise NotImplementedError(
-            "compiled graphs are not ported to ray_tpu_torch yet "
-            "(ROADMAP.md, queue 1, item 5: the serve control plane's "
-            "compiled dispatch)")
+        """Author a compiled-graph node (reference: dag_node.py bind)."""
+        from ray_tpu_torch.dag import _bind
+
+        return _bind(self, *args)
 
     def __call__(self, *args, **kwargs):
         raise TypeError(
@@ -71,7 +69,9 @@ class ActorHandle:
 
     def __getattr__(self, name: str):
         if (name.startswith("__") and name.endswith("__")
-                and name not in ("__ray_terminate__", "__collective_init__")):
+                and name not in ("__ray_terminate__", "__collective_init__",
+                                 "__compiled_exec__", "__compiled_setup__",
+                                 "__compiled_poison__")):
             raise AttributeError(name)
         return ActorMethod(self, name, self._method_num_returns.get(name, 1))
 

@@ -71,6 +71,12 @@ class Config:
     # slices (reference: chunked parallel pulls, pull_manager.h)
     object_stripe_threshold: int = 8 * 1024 * 1024
     object_stripe_max_peers: int = 4
+    # cross-host compiled-graph rings (core/net_ring.py): Go-Back-N
+    # retransmission cadence — a message whose ack made no progress for
+    # this long is re-sent (the recovery path after a dropped data/ack
+    # message or a reconnected session; the model-checked re-ack rule
+    # makes every retransmission idempotent)
+    net_ring_retransmit_ms: int = 50
 
     # ---- scheduler (reference: ray_config_def.h:179,185,190) ----
     scheduler_spread_threshold: float = 0.5

@@ -35,6 +35,9 @@ cluster.  Tests running in one process use :func:`configure` /
 Instrumented points (each one ``fire()`` call in production code):
 
     worker.exec[.<fn>]      worker_runtime._execute, before user code
+    dag.exec[.<fn>]         compiled-graph exec loops, before each round
+                            invokes its method (``crash`` = the replica-
+                            death drill for the compiled serve plane)
     wire.send[.<tag>]       protocol.Channel.send (control-plane msgs)
     node.dispatch_worker    Node.dispatch_to_worker (``fail`` bounces
                             the dispatch as a dead-worker report)

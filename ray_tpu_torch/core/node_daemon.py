@@ -629,7 +629,7 @@ def main(argv=None) -> int:
     head.node = node
     server = node.start_object_server(key)
     # the per-node dashboard agent (ray_tpu/core/node_daemon.py:633) is
-    # not ported (ROADMAP.md, queue 1, item 5): the node advertises no
+    # not ported (ROADMAP.md, queue 1, item 5.7): the node advertises no
     # agent address, which the head accepts (runtime.py, agent_addr).
     # The payload is retained on the proxy: re-registration after a head bounce resends
     # this payload (plus a replay snapshot) under the same node hex

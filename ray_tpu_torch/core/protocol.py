@@ -50,9 +50,9 @@ PROTOCOL_VERSION = 12  # v12: cluster stack dump. ADDED the "stack"
 # "nrdv" (data-with-raw-body: header (nrdv, seq, tag, nbytes) followed
 # by one raw mpc frame carrying the writev'd segment body; the serve
 # loop reassembles the canonical "nrd" before the protocol state
-# machine; the compiled-graph rings are not ported yet).
+# machine — see core/net_ring.py _net_send/send_segments).
 # (v9: cross-host compiled-graph rings. ADDED the
-# NetRing session ops (the compiled-graph rings, the machine-checked
+# NetRing session ops (core/net_ring.py, the machine-checked
 # ring-protocol-net transport): "nring" (writer hello naming a ring id),
 # "nrd" (data: seq + tag + payload), "nra" (cumulative ack), "nrrq"
 # (reader resync request), "nrbase" (resync reply carrying the writer's

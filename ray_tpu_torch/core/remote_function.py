@@ -128,7 +128,7 @@ class RemoteFunction:
         are not ported yet."""
         raise NotImplementedError(
             "workflows are not ported to ray_tpu_torch yet (ROADMAP.md, "
-            "queue 1, item 5)")
+            "queue 1, item 5.8)")
 
     def _ensure_registered(self, runtime) -> None:
         self._materialize_payload()

@@ -22,6 +22,7 @@ import sys
 import threading
 import time
 import traceback
+from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -36,7 +37,21 @@ from .object_store import ArenaClient
 from .protocol import Channel, RpcClient, connect
 from .task_spec import TaskSpec
 
+from ray_tpu_torch.experimental.channel import is_arraylike as _is_arraylike
 from ray_tpu_torch.util import flight_recorder as _fr
+
+_sp_dag_exec = _fr.register_span("dag.exec", tag_keys=("method",))
+_sp_batch_drain = _fr.register_span("dag.batch_drain", tag_keys=("method",))
+
+
+class _BatchErrPayload:
+    """Pre-serialized TAG_ERROR payload standing in a batch result slot
+    (the whole batch call failed: every item ships the same error)."""
+
+    __slots__ = ("payload",)
+
+    def __init__(self, payload: bytes):
+        self.payload = payload
 
 
 class _ActorState:
@@ -59,6 +74,19 @@ class _ActorState:
         else:
             self.loop = None
             self.pool = ThreadPoolExecutor(max_workers=max_concurrency)
+        # serial actors (sync, max_concurrency=1): compiled-graph executor
+        # loops call the method DIRECTLY under this lock instead of paying
+        # the pool submit/result thread handoff per hop; eager
+        # method bodies take the same lock on their pool thread, so the
+        # one-method-at-a-time actor contract holds across both planes
+        self.exec_lock = (threading.Lock()
+                          if not is_async and max_concurrency == 1 else None)
+        # compiled-exec scheduling: tokens from higher-priority loops
+        # holding the actor (1F1B backward-over-forward); deque for
+        # thread-safe append/pop, condition for the low-priority loops
+        # to park on instead of polling while a backward runs
+        self.prio_waiting: deque = deque()
+        self.prio_cv = threading.Condition()
 
     def stop(self) -> None:
         """Release the actor's execution machinery (worker exit path;
@@ -565,6 +593,427 @@ class WorkerRuntime:
             self._current_task.actor_id = None
             self._current_task.name = None
 
+    def _compiled_setup(self, desc: dict) -> dict:
+        """Phase A of a cross-node compiled-graph install: create the
+        NetRing reader endpoints this process owns (the READING side
+        holds the receive ring) and return the dial-in for this
+        process's ring host so producing processes can connect."""
+        from ray_tpu_torch.core import net_ring
+
+        for spec in desc.get("rings", ()):
+            net_ring.create_reader(spec["ring"], spec["n_slots"],
+                                   spec["capacity"],
+                                   advertise_ip=self.node_ip)
+        host = net_ring.ensure_host(self.node_ip)
+        return {"addr": list(host.address), "key": host.authkey.hex()}
+
+    def _open_compiled_chan(self, d, capacity: int):
+        """Open one compiled-graph edge from its descriptor: a /dev/shm
+        ring path, a locally-created net reader (Phase A), or a net
+        writer dialing a remote ring host."""
+        from ray_tpu_torch.core import net_ring
+        from ray_tpu_torch.experimental.channel import ShmChannel
+
+        if isinstance(d, str):
+            return ShmChannel(d, capacity)
+        kind = d[0]
+        if kind == "shm":
+            return ShmChannel(d[1], capacity)
+        if kind == "netr":
+            reader = net_ring.ensure_host(self.node_ip).get(d[1])
+            if reader is None:
+                raise RuntimeError(
+                    f"net ring {d[1]} was not set up in this process")
+            return reader
+        if kind == "netw":
+            _, host, port, key, ring_id, n_slots = d
+            return net_ring.NetRingWriter.connect(
+                (host, port), bytes.fromhex(key), ring_id, n_slots,
+                capacity)
+        raise ValueError(f"unknown channel descriptor {d!r}")
+
+    def _start_compiled_exec(self, st: _ActorState, desc: dict) -> None:
+        ins = [self._open_compiled_chan(p, desc["capacity"])
+               for p in desc["in_paths"]]
+        outs = [self._open_compiled_chan(p, desc["capacity"])
+                for p in desc["out_paths"]]
+        method = getattr(st.instance, desc["method"])
+        template = list(desc.get("args_template") or [("edge", 0)])
+        device = bool(desc.get("device"))
+        priority = int(desc.get("priority") or 0)
+        batch_max = int(desc.get("batch_max") or 0)
+        direct_call = bool(desc.get("direct_call"))
+        stream_replies = bool(desc.get("stream_replies"))
+        # backlog visibility hook (serve replicas): the instance can see
+        # its own in-edge occupancy, so queued-in-ring requests count in
+        # load signals (autoscaling) the same way eager in-flight does
+        hook = getattr(st.instance, "__compiled_channels_hook__", None)
+        if hook is not None:
+            try:
+                hook(desc["uid"], ins)
+            except Exception:
+                hook = None
+
+        from ray_tpu_torch.experimental.channel import TAG_STOP
+
+        def close_all():
+            if hook is not None:
+                try:
+                    hook(desc["uid"], None)
+                except Exception:
+                    pass
+            for ch in ins + outs:
+                ch.close()
+
+        def propagate(tag, payload=b""):
+            # STOP is best-effort/bounded (teardown); ERROR must NEVER be
+            # dropped — a missing message desyncs the downstream join's
+            # lockstep rounds forever
+            for ch in outs:
+                try:
+                    ch.write(payload, tag=tag,
+                             timeout=10.0 if tag == TAG_STOP else None)
+                except Exception:
+                    pass
+
+        def loop():
+            try:
+                self._compiled_exec_loop(ins, outs, propagate, st, method,
+                                         template, device, priority,
+                                         batch_max, direct_call,
+                                         stream_replies)
+            finally:
+                close_all()
+
+        threading.Thread(target=loop, daemon=True,
+                         name=f"compiled-exec-{desc['method']}").start()
+
+    def _compiled_exec_loop(self, ins, outs, propagate, st, method,
+                            template, device, priority=0, batch_max=0,
+                            direct_call=False, stream_replies=False) -> None:
+        from ray_tpu_torch.experimental.channel import (
+            TAG_BYTES,
+            TAG_ERROR,
+            TAG_STOP,
+            TAG_TENSOR,
+            BatchItemError,
+            ChannelClosed,
+        )
+
+        method_name = getattr(method, "__name__", "compiled")
+
+        def invoke(args):
+            """One method call on the right execution surface. The
+            ``dag.exec[.<fn>]`` chaos point fires first (crash = the
+            replica-death drill for the compiled serve plane)."""
+            fault_injection.fire("dag.exec", method_name)
+            _t0 = _fr.now()
+            try:
+                return _invoke_inner(args)
+            finally:
+                _sp_dag_exec.end(_t0, method_name)
+
+        def _invoke_inner(args):
+            if direct_call:
+                # opt-in per node: no pool handoff, no exec lock — the
+                # method declares itself safe against the actor's eager
+                # plane (serve replicas run sync methods concurrently
+                # on the eager plane already)
+                return method(*args)
+            # run on the actor's executor so compiled executions
+            # serialize with eager .remote() calls on the same
+            # instance (the single-threaded actor contract);
+            # async methods go through the actor's event loop
+            if st.is_async and asyncio.iscoroutinefunction(method):
+                return asyncio.run_coroutine_threadsafe(
+                    method(*args), st.loop).result()
+            if st.exec_lock is not None:
+                # serial-actor fast path: direct call on this loop's
+                # thread, mutually excluded with eager calls. The
+                # contract is one-method-at-a-time, NOT
+                # one-thread-forever: compiled executions run here,
+                # not on the pool thread (reference: do_exec_tasks
+                # loops own their thread too).
+                # Priority (the 1F1B scheduling rule): when a
+                # higher-priority loop on this actor has an input
+                # ready (backward microbatch), lower-priority loops
+                # (forward) yield the actor to it instead of racing
+                # for the lock — backward-over-forward is what keeps
+                # the pipeline's activation window at K instead of
+                # growing with the microbatch count.
+                if priority > 0:
+                    st.prio_waiting.append(1)
+                    try:
+                        with st.exec_lock:
+                            return method(*args)
+                    finally:
+                        st.prio_waiting.pop()
+                        with st.prio_cv:
+                            st.prio_cv.notify_all()
+                # park (never poll) while a backward holds the
+                # actor; bounded waits make a missed notify
+                # harmless. Advisory ordering: the re-check
+                # races a backward arriving right after, which
+                # only costs one forward running first.
+                while st.prio_waiting:
+                    with st.prio_cv:
+                        if st.prio_waiting:
+                            st.prio_cv.wait(0.05)
+                with st.exec_lock:
+                    return method(*args)
+            return st.pool.submit(method, *args).result()
+
+        def write_value(result):
+            if device and _is_arraylike(result):
+                for ch in outs:
+                    ch.write_array(result)
+            elif type(result) is bytes:
+                # raw-bytes results skip the serializer both ways
+                for ch in outs:
+                    ch.write(result, tag=TAG_BYTES)
+            else:
+                sobj = serialization.serialize(result)
+                for ch in outs:
+                    ch.write_serialized(sobj)
+
+        def error_payload(exc) -> bytes:
+            err = TaskError.from_exception(method_name, exc)
+            return serialization.serialize(err).to_bytes()
+
+        # stream-reply mode (with_stream_batching): iteration-level
+        # continuous batching with many TAG_STREAM frames per request
+        if stream_replies and len(ins) == 1:
+            self._compiled_stream_loop(ins[0], outs, propagate, invoke,
+                                       error_payload, max(1, batch_max),
+                                       device, method_name)
+            return
+
+        # batch_max >= 1 means the node DECLARED the list-in/list-out
+        # contract (with_batching) — it applies even at window 1
+        if batch_max >= 1 and len(ins) == 1:
+            self._compiled_batch_loop(ins[0], propagate, invoke,
+                                      write_value, error_payload,
+                                      batch_max, device, BatchItemError,
+                                      method_name)
+            return
+
+        while True:
+            # one message per in-edge per execution (per-round joins;
+            # reference: per-execution index across CompiledTasks). With
+            # ring channels up to max_inflight rounds queue per edge, so
+            # this loop pipelines against its up/downstream stages.
+            edge_vals = []
+            failed = None
+            for ch in ins:
+                try:
+                    tag, payload = ch.read(timeout=None)
+                except ChannelClosed:
+                    propagate(TAG_STOP)
+                    return
+                except Exception:
+                    return  # channel unlinked (teardown race)
+                if tag == TAG_ERROR:
+                    failed = payload  # upstream error passes through
+                elif tag == TAG_TENSOR or tag == TAG_BYTES:
+                    edge_vals.append(payload)  # typed/raw: no serializer
+                else:
+                    edge_vals.append(serialization.deserialize(payload))
+            if failed is not None:
+                propagate(TAG_ERROR, failed)
+                continue
+            try:
+                args = [edge_vals[t[1]] if t[0] == "edge" else t[1]
+                        for t in template]
+                write_value(invoke(args))
+            except Exception as e:  # noqa: BLE001 — ship to consumer
+                propagate(TAG_ERROR, error_payload(e))
+
+    def _compiled_batch_loop(self, ch, propagate, invoke, write_value,
+                             error_payload, batch_max, device,
+                             BatchItemError, method_name="batch") -> None:
+        """Ring-fed batch rounds (serve continuous batching): block for
+        the first message, then admit everything ALREADY queued in the
+        ring — up to ``batch_max`` — into the same method call. Requests
+        that arrive while a batch executes are queued by the ring and
+        form the next batch, so under load batches fill with zero added
+        wait and when idle a single request runs immediately: the
+        admission window replaces the ``max_batch_wait`` timer. One
+        reply per item, in order; a BatchItemError result fails one
+        item without failing its batch-mates."""
+        from ray_tpu_torch.experimental.channel import (
+            TAG_BYTES,
+            TAG_ERROR,
+            TAG_STOP,
+            TAG_TENSOR,
+            ChannelClosed,
+        )
+
+        while True:
+            entries = []  # ("val", value) | ("err", payload passthrough)
+            stop = False
+            _t0 = 0.0  # span starts at the FIRST admitted message: idle
+            #            park time before a round is not drain time
+            while len(entries) < batch_max:
+                if entries:
+                    try:
+                        if not ch.readable():
+                            break  # batch = exactly the queued backlog
+                    except Exception:
+                        return  # channel closed (teardown race)
+                try:
+                    tag, payload = ch.read(timeout=None)
+                except ChannelClosed:
+                    stop = True
+                    break
+                except Exception:
+                    return  # channel unlinked (teardown race)
+                if not _t0:
+                    _t0 = _fr.now()
+                if tag == TAG_ERROR:
+                    entries.append(("err", payload))
+                elif tag == TAG_TENSOR or tag == TAG_BYTES:
+                    entries.append(("val", payload))
+                else:
+                    entries.append(("val",
+                                    serialization.deserialize(payload)))
+            vals = [v for kind, v in entries if kind == "val"]
+            results = []
+            if vals:
+                try:
+                    results = invoke([vals])
+                    if not isinstance(results, (list, tuple)) \
+                            or len(results) != len(vals):
+                        raise TypeError(
+                            f"batch method returned "
+                            f"{type(results).__name__} of length "
+                            f"{len(results) if isinstance(results, (list, tuple)) else 'n/a'} "
+                            f"for {len(vals)} inputs")
+                except Exception as e:  # noqa: BLE001 — fail every item
+                    pl = error_payload(e)
+                    results = [_BatchErrPayload(pl)] * len(vals)
+            # replies in arrival order: upstream-error passthroughs keep
+            # their slot, values take the next computed result
+            vi = 0
+            for kind, v in entries:
+                if kind == "err":
+                    propagate(TAG_ERROR, v)
+                    continue
+                r = results[vi]
+                vi += 1
+                if isinstance(r, _BatchErrPayload):
+                    propagate(TAG_ERROR, r.payload)
+                elif isinstance(r, BatchItemError):
+                    propagate(TAG_ERROR, error_payload(r.error))
+                else:
+                    try:
+                        write_value(r)
+                    except Exception as e:  # unserializable result etc.
+                        propagate(TAG_ERROR, error_payload(e))
+            _sp_batch_drain.end(_t0, method_name)
+            if stop:
+                propagate(TAG_STOP)
+                return
+
+    def _compiled_stream_loop(self, ch, outs, propagate, invoke,
+                              error_payload, batch_max, device,
+                              method_name="stream") -> None:
+        """Iteration-level continuous batching (the Orca/vLLM admission
+        model): the method owns a RUNNING batch of multi-step requests.
+        Each round drains newly-arrived requests from the ring backlog —
+        BETWEEN model steps, not at batch boundaries — and calls the
+        method once with the new ``(corr, value)`` pairs (possibly none
+        while a batch is still decoding). The method returns
+        ``(replies, active)``: replies are ``(corr, kind, payload)``
+        frames shipped back as TAG_STREAM slots (kind "chunk" | "final"
+        | "error" — one request answers with MANY frames over its
+        lifetime), and ``active`` asks for an immediate re-invoke (a
+        decode step is pending) instead of parking for input.
+
+        Correlation needs no input framing: the lane in-edge is SPSC and
+        the driver assigns execution seqs in ring-write order under its
+        submit lock, so the arrival counter here IS the driver seq."""
+        from ray_tpu_torch.experimental.channel import (
+            STREAM_F_ERROR,
+            STREAM_F_FINAL,
+            STREAM_F_RAW,
+            TAG_BYTES,
+            TAG_ERROR,
+            TAG_STOP,
+            TAG_STREAM,
+            TAG_TENSOR,
+            ChannelClosed,
+            pack_stream_frame,
+        )
+
+        def send(corr, flags, payload: bytes) -> None:
+            frame = pack_stream_frame(corr, flags, payload)
+            for out in outs:
+                try:
+                    out.write(frame, tag=TAG_STREAM)
+                except Exception:
+                    pass  # ring closed (teardown race)
+
+        corr_counter = 0
+        active = False
+        while True:
+            entries = []      # (corr, value) newly admitted this round
+            stop = False
+            while len(entries) < batch_max:
+                if entries or active:
+                    # a batch is running (or this round already admitted
+                    # work): take only what is ALREADY queued — never
+                    # stall a pending decode step waiting for arrivals
+                    try:
+                        if not ch.readable():
+                            break
+                    except Exception:
+                        return  # channel closed (teardown race)
+                try:
+                    tag, payload = ch.read(timeout=None)
+                except ChannelClosed:
+                    stop = True
+                    break
+                except Exception:
+                    return  # channel unlinked (teardown race)
+                corr = corr_counter
+                corr_counter += 1
+                if tag == TAG_ERROR:
+                    # upstream error passthrough: the request dies before
+                    # admission, but its stream must still complete
+                    send(corr, STREAM_F_FINAL | STREAM_F_ERROR, payload)
+                elif tag == TAG_TENSOR or tag == TAG_BYTES:
+                    entries.append((corr, payload))
+                else:
+                    entries.append((corr,
+                                    serialization.deserialize(payload)))
+            if stop and not active and not entries:
+                propagate(TAG_STOP)
+                return
+            try:
+                replies, active = invoke([entries])
+            except Exception as e:  # noqa: BLE001 — ship to consumers
+                # scheduler-step failure: fail the requests admitted THIS
+                # round (the method owns bookkeeping for older ones, and
+                # a dead process is handled by the driver's FSM probe)
+                pl = error_payload(e)
+                for corr, _ in entries:
+                    send(corr, STREAM_F_FINAL | STREAM_F_ERROR, pl)
+                replies, active = [], False
+            for corr, kind, payload in replies:
+                if kind == "error":
+                    send(corr, STREAM_F_FINAL | STREAM_F_ERROR,
+                         error_payload(payload))
+                    continue
+                flags = STREAM_F_FINAL if kind == "final" else 0
+                if type(payload) is bytes:
+                    flags |= STREAM_F_RAW
+                else:
+                    payload = serialization.serialize(payload).to_bytes()
+                send(corr, flags, payload)
+            if stop:
+                propagate(TAG_STOP)
+                return
+
     def _resolve_args(self, spec: TaskSpec):
         hints = spec.arg_hints or {}
 
@@ -638,6 +1087,26 @@ class WorkerRuntime:
                     self.channel.send("exit")
                     time.sleep(0.2)
                     os._exit(0)
+                if fn_name == "__compiled_exec__":
+                    # install a resident compiled-graph executor thread
+                    # (reference: compiled_dag_node.py do_exec_tasks :92)
+                    self._start_compiled_exec(st, args[0])
+                    self._finish(spec, None)
+                    return
+                if fn_name == "__compiled_setup__":
+                    # Phase A of a cross-node compile: create this
+                    # process's net-ring reader endpoints, return the
+                    # ring-host dial-in for the producing processes
+                    self._finish(spec, self._compiled_setup(args[0]))
+                    return
+                if fn_name == "__compiled_poison__":
+                    # death-path broadcast: fail the local net readers
+                    # under the DAG uid so loops parked on a dead peer's
+                    # ring pop with ChannelClosed
+                    from ray_tpu_torch.core import net_ring
+
+                    self._finish(spec, net_ring.poison_rings(args[0]))
+                    return
                 if fn_name == "__collective_init__":
                     # runtime-level hook so any actor can join a collective
                     # group without declaring a method (reference:
@@ -647,7 +1116,14 @@ class WorkerRuntime:
                     init_collective_group(*args, **kwargs)
                     self._finish(spec, None)
                     return
-                result = getattr(st.instance, fn_name)(*args, **kwargs)
+                method = getattr(st.instance, fn_name)
+                if st.exec_lock is not None:
+                    # serialize with compiled-graph direct calls (the
+                    # pool alone no longer owns all method executions)
+                    with st.exec_lock:
+                        result = method(*args, **kwargs)
+                else:
+                    result = method(*args, **kwargs)
                 self._finish(spec, result)
             else:
                 fn = self.get_function(spec.function_id)

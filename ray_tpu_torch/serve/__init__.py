@@ -3,12 +3,15 @@
 Port of the JAX package's serve: ``serve.run`` deploys an application
 through the controller actor, which spawns its replicas (a replica
 asking ``num_gpus=1`` gets one card); ``DeploymentHandle`` and the HTTP
-proxy route requests to them. Every call takes the eager actor path;
-the compiled dispatch plane (and ``BackPressureError``, its load
-shedder's error) comes with the compiled graph. A ``decode=True``
-deployment's callable provides ``create_decode_engine()``; its streams
-ride the replica's continuous-batching ``decode.DecodeScheduler``, as
-server-sent events over HTTP.
+proxy route requests to them. A driver-side handle call rides the
+compiled dispatch plane (``compiled_dispatch.py``: one ring lane a
+replica, with a per-replica admission window and a per-deployment
+concurrency budget past which requests shed with
+``BackPressureError``); the proxy, a worker, takes the eager actor path.
+A ``decode=True`` deployment's callable provides
+``create_decode_engine()``; its streams ride the replica's
+continuous-batching ``decode.DecodeScheduler``, from the handle over
+the compiled decode lane, over HTTP as server-sent events.
 """
 
 from ray_tpu_torch.util.usage_stats import record_library_usage as _rlu
@@ -27,6 +30,7 @@ from ray_tpu_torch.serve.api import (  # noqa: F401
     status,
 )
 from ray_tpu_torch.serve.batching import batch  # noqa: F401
+from ray_tpu_torch.serve.compiled_dispatch import BackPressureError  # noqa: F401
 from ray_tpu_torch.serve.config import (  # noqa: F401
     AutoscalingConfig,
     HTTPOptions,
@@ -59,5 +63,5 @@ __all__ = [
     "Request", "multiplexed", "get_multiplexed_model_id",
     "get_request_id", "serve_stats",
     "gRPCOptions", "get_grpc_ingress", "get_proxy_addresses",
-    "InputNode", "DAGNode", "DAGDriver",
+    "InputNode", "DAGNode", "DAGDriver", "BackPressureError",
 ]

@@ -1,11 +1,11 @@
 """serve public API: run/start/shutdown/status/get_deployment_handle.
 
-Port of ``ray_tpu/serve/api.py``. Two differences: ``shutdown`` has no
-compiled dispatch lanes to close (the port has no compiled plane yet),
-and a deployment whose replica asks for resources no node has (say
-``num_gpus=1`` on a host without a card) is refused when it is deployed,
-with the reservation error, where the reference leaves its replica
-pending on the scheduler's infeasible queue and its requests waiting.
+Port of ``ray_tpu/serve/api.py``. One difference: a deployment whose
+replica asks for resources no node has (say ``num_gpus=1`` on a host
+without a card) is refused when it is deployed, with the reservation
+error, where the reference leaves its replica pending on the scheduler's
+infeasible queue and its requests waiting. ``shutdown`` closes the
+compiled dispatch lanes first, as the reference does.
 """
 
 from __future__ import annotations
@@ -378,6 +378,16 @@ def delete(name: str) -> None:
 
 def shutdown() -> None:
     global _controller, _proxy, _grpc, _proxy_manager
+    # close compiled dispatch lanes FIRST, while the replicas are still
+    # alive: the teardown sentinels flow through the exec loops and the
+    # ring segments unlink deterministically (instead of at GC time,
+    # against executors the controller already killed)
+    try:
+        from .compiled_dispatch import shutdown_all as _cd_shutdown
+
+        _cd_shutdown(wait=True)
+    except Exception:
+        pass
     if _grpc is not None:
         _grpc.shutdown()
         _grpc = None

@@ -131,8 +131,10 @@ def batch(_fn=None, *, max_batch_size: int = 8,
                 key = 0
                 target = fn
             # one queue per (owner, event loop): an asyncio.Queue and
-            # its flush task belong to ONE loop — sharing a queue across
-            # loops parks a waiter that never wakes
+            # its flush task belong to ONE loop, and a replica serving
+            # both planes runs callables on two (the actor loop for
+            # eager calls, the compiled plane's private loop) — sharing
+            # a queue across them parks a waiter that never wakes
             key = (key, id(asyncio.get_running_loop()))
             q = queues.get(key)
             if q is None:
@@ -140,6 +142,13 @@ def batch(_fn=None, *, max_batch_size: int = 8,
                                               batch_wait_timeout_s)
             return await q.submit(item)
 
+        wrapper._is_serve_batch = True
+        # the compiled dispatch plane (serve/compiled_dispatch.py) calls
+        # the undecorated fn directly with the ring-drained backlog as
+        # the batch — continuous batching with no assembly timer — so it
+        # needs the raw fn and the size cap the user declared
+        wrapper._serve_batch_fn = fn
+        wrapper._serve_batch_max = max_batch_size
         return wrapper
 
     if _fn is not None:

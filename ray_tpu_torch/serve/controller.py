@@ -126,16 +126,17 @@ class ServeController:
                 # default (serve_slow_request_threshold_s)
                 "slow_request_threshold_s": rec["config"].get(
                     "slow_request_threshold_s"),
-                # compiled dispatch plane knobs (None -> config default),
-                # kept in the table for the compiled plane; the port's
-                # eager router reads none of them yet
+                # compiled dispatch plane knobs (None -> config default):
+                # the router re-syncs its lanes from these on every
+                # version bump, which is how a reconfigure/autoscale
+                # lands on the compiled plane
                 "max_inflight": rec["config"].get("max_inflight"),
                 "concurrency_budget": rec["config"].get(
                     "concurrency_budget"),
                 "compiled_dispatch": rec["config"].get(
                     "compiled_dispatch"),
-                # generative decode: the handle streams tokens from the
-                # replica's decode generator
+                # generative decode: the handle streams tokens over the
+                # compiled stream lanes instead of the eager path
                 "decode": bool(rec["config"].get("decode")),
             }
 
@@ -163,7 +164,8 @@ class ServeController:
                     "stream": bool(cfg.get("stream")),
                     "timeout": float(cfg.get("request_timeout_s", 60.0)),
                     # decode routes stream server-sent events; bytes_body
-                    # routes hand the raw body to __call__
+                    # routes hand the raw body to __call__ (TAG_BYTES
+                    # fast lane on the compiled plane)
                     "decode": bool(cfg.get("decode")),
                     "bytes_body": bool(cfg.get("bytes_body")),
                 }

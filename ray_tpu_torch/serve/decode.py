@@ -107,7 +107,11 @@ class DecodeScheduler:
     Reply routing: compiled requests' frames are returned from
     :meth:`step` as ``(corr, kind, payload)`` for the exec loop to ship
     as TAG_STREAM slots; eager requests' frames land in a per-corr queue
-    drained by the eager generator."""
+    drained by the eager generator. An iteration stepped by an eager
+    generator (``step(eager=True)``) also decodes the compiled
+    requests' next tokens: their frames wait in the scheduler until the
+    exec loop's next :meth:`step` takes them, so no frame is lost to the
+    plane that did not ask for it."""
 
     def __init__(self, engine, deployment: str = "", max_batch: int = 8,
                  max_tokens_cap: int = 512):
@@ -122,6 +126,9 @@ class DecodeScheduler:
         self.waiting: deque = deque()           # (corr, req, eager)
         self.running: "OrderedDict[object, _Seq]" = OrderedDict()
         self._eager_out: Dict[object, deque] = {}
+        # compiled requests' frames from iterations an eager generator
+        # stepped, in order, until the exec loop's next step
+        self._compiled_out: List[tuple] = []
         self._next_gauge = 0.0
         # observable scheduling history: (corr, n_generated) in retire
         # order — what the iteration-level admission test asserts on
@@ -175,10 +182,12 @@ class DecodeScheduler:
 
     # ----------------------------------------------------------- the loop
 
-    def step(self) -> Tuple[List[tuple], bool]:
+    def step(self, eager: bool = False) -> Tuple[List[tuple], bool]:
         """One scheduling iteration. Returns ``(replies, active)`` in the
         stream exec-loop contract: replies for compiled corrs, active
-        while any sequence is running or waiting."""
+        while any sequence is running or waiting. ``eager=True`` (an
+        eager generator's step) returns no replies: the compiled corrs'
+        frames are kept for the exec loop's next step."""
         with self._lock:
             replies: List[tuple] = []
             self._admit_locked(replies)
@@ -186,6 +195,12 @@ class DecodeScheduler:
             self.steps += 1
             self._flush_gauges_locked()
             out = [r for r in replies if not self._route_eager(r)]
+            if eager:
+                self._compiled_out.extend(out)
+                out = []
+            elif self._compiled_out:
+                out = self._compiled_out + out
+                self._compiled_out = []
             active = bool(self.running) or bool(self.waiting)
             return out, active
 

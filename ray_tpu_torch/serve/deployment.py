@@ -113,19 +113,19 @@ class Deployment:
             # the stage breakdown; None -> global config default
             "slow_request_threshold_s": self._opts.get(
                 "slow_request_threshold_s"),
-            # compiled dispatch plane: per-replica admission window,
-            # per-deployment shed budget, and the per-deployment plane
-            # toggle; None -> the RAY_TPU_SERVE_* config defaults. The
-            # port has no compiled plane yet: they ride the replica-set
-            # table, read by nothing
+            # compiled dispatch plane (serve/compiled_dispatch.py):
+            # per-replica admission window, per-deployment shed budget,
+            # and the per-deployment plane toggle; None -> the
+            # RAY_TPU_SERVE_* config defaults
             "max_inflight": self._opts.get("max_inflight"),
             "concurrency_budget": self._opts.get("concurrency_budget"),
             "compiled_dispatch": self._opts.get("compiled_dispatch"),
             # generative decode plane (serve/decode.py): the callable
             # provides create_decode_engine(); requests stream tokens
-            # with iteration-level batching
+            # over compiled stream lanes with iteration-level batching
             "decode": self._opts.get("decode", False),
-            # hand the raw HTTP body to __call__ as bytes
+            # hand the raw HTTP body to __call__ as bytes (TAG_BYTES
+            # fast lane: serializer skipped proxy->ring->replica)
             "bytes_body": self._opts.get("bytes_body", False),
         }
 

@@ -1,12 +1,18 @@
 """DeploymentHandle + Router with power-of-two-choices replica scheduling.
 
-Port of ``ray_tpu/serve/handle.py`` on the eager actor path: every call
-is an actor call to the chosen replica (``handle_request`` for unary
-calls, ``handle_request_stream`` or, on a decode deployment,
-``handle_request_decode_stream`` under ``num_returns="streaming"`` for
-streams), which is what the reference does whenever its compiled router
-is unavailable. ``record_dispatch(..., "eager")`` counts each one, so
-``serve.status()[dep]["dispatch_planes"]`` shows ``eager`` only.
+Port of ``ray_tpu/serve/handle.py``. A driver-side handle call rides the
+compiled dispatch plane (``serve/compiled_dispatch.py``): a unary call rides
+one replica's long-lived ring lane (plane ``compiled``), a decode
+deployment's stream its compiled decode lane (``compiled_stream``). The
+eager actor path (``handle_request``, ``handle_request_stream``, or on a
+decode deployment ``handle_request_decode_stream``; plane ``eager``)
+carries what the lanes do not: a full window within the budget, a
+payload larger than a ring slot, a handle in a worker (the HTTP proxy
+runs in one), a deployment with ``compiled_dispatch=False``.
+``serve.status()[dep]["dispatch_planes"]`` counts each plane.
+
+Reference: python/ray/serve/handle.py (DeploymentHandle,
+DeploymentResponse) and _private/replica_scheduler/pow_2_scheduler.py:51.
 """
 
 from __future__ import annotations
@@ -91,7 +97,7 @@ class DeploymentResponse:
 
     def __init__(self, ref, router: "Router", replica_key: str,
                  redispatch=None, request_meta: Optional[dict] = None,
-                 deployment: str = ""):
+                 deployment: str = "", on_finish=None):
         self._ref = ref
         self._router = router
         self._replica_key = replica_key
@@ -99,6 +105,12 @@ class DeploymentResponse:
         self._redispatch = redispatch
         self._request_meta = request_meta
         self._deployment = deployment
+        # release hook for a compiled-router overflow grant: this eager
+        # request occupies one unit of the deployment's concurrency
+        # budget until it SETTLES — a timed-out poll is still in flight
+        # (freeing its slot early would let load past the budget)
+        self._on_finish = on_finish
+        self._budget_released = False
         self._recorded = False
         self._timeout_counted = False
         # caller-side timings (handle queue wait + e2e); the replica-side
@@ -113,6 +125,7 @@ class DeploymentResponse:
         # triple under retries.
         attempts = 3 if self._redispatch is not None else 1
         deadline = None if timeout is None else time.time() + timeout
+        timed_out = False
         try:
             for attempt in range(attempts):
                 remaining = (None if deadline is None
@@ -134,6 +147,7 @@ class DeploymentResponse:
             # Count the timeout signal once, but leave the outcome open;
             # marking error here would pin 100% error_rate on any caller
             # that polls with short timeouts.
+            timed_out = True
             if not self._timeout_counted:
                 self._timeout_counted = True
                 self._count_timeout()
@@ -142,7 +156,7 @@ class DeploymentResponse:
             self._record_failure(e)
             raise
         finally:
-            self._finish()
+            self._finish(release_budget=not timed_out)
 
     def _count_timeout(self) -> None:
         if self._request_meta is None:
@@ -180,10 +194,30 @@ class DeploymentResponse:
         obs.defer(obs.record_request_outcome, self._deployment, ingress,
                   "error", e2e, meta.get("handle_queue_wait_s"))
 
-    def _finish(self):
+    def _finish(self, release_budget: bool = True):
         if not self._done:
             self._done = True
             self._router._dec(self._replica_key)
+        # the budget slot outlives a timed-out poll (the request is
+        # still occupying a replica); it frees on the settling call
+        if release_budget and self._on_finish is not None \
+                and not self._budget_released:
+            self._budget_released = True
+            try:
+                self._on_finish()
+            except Exception:
+                pass
+
+    def __del__(self):
+        # an abandoned overflow response must not pin its budget slot
+        # forever. GC-safe: the release hook is deque ops only (no
+        # locks — the gc-reentrancy contract)
+        try:
+            if self._on_finish is not None and not self._budget_released:
+                self._budget_released = True
+                self._on_finish()
+        except Exception:
+            pass
 
     @property
     def ref(self):
@@ -217,11 +251,16 @@ class Router:
         self._last_refresh = 0.0
         self._poller_started = False
         self.retry_on_replica_failure = True  # updated on refresh
-        # deployment serves generative decode: its streams ride the
-        # replica's decode generator
+        # deployment serves generative decode (token streams ride the
+        # compiled stream lanes; eager fallback is the decode generator)
         self.decode = False
         # None -> fall back to the global config default at emit time
         self.slow_request_threshold_s: Optional[float] = None
+        # compiled dispatch plane: the process-shared lane router for
+        # this deployment (serve/compiled_dispatch.py), fed the replica
+        # set + options on every refresh; None until first use
+        self._compiled = None
+        self._compiled_opts: Dict[str, Any] = {}
 
     def _on_longpoll(self) -> None:
         self._refresh(force=True)
@@ -263,10 +302,40 @@ class Router:
                     thr = global_config().serve_slow_request_threshold_s
                 self.slow_request_threshold_s = thr
                 self.decode = bool(rset.get("decode"))
+                self._compiled_opts = {
+                    "max_inflight": rset.get("max_inflight"),
+                    "concurrency_budget": rset.get("concurrency_budget"),
+                    "compiled_dispatch": rset.get("compiled_dispatch"),
+                    "decode": rset.get("decode"),
+                }
                 keys = {self._key(r) for r in replicas}
                 self._inflight = {k: v for k, v in self._inflight.items()
                                   if k in keys}
+            # push the new set to the compiled lane router OUTSIDE the
+            # lock (lane retirement enqueues teardowns)
+            if self._compiled is not None:
+                self._compiled.update_replicas(
+                    replicas, self._key, self._compiled_opts)
         self._last_refresh = now
+
+    def compiled_router(self):
+        """The compiled dispatch plane for this deployment, or None when
+        unavailable (switch off, worker/client process, deployment
+        opt-out) — the caller then takes the eager path."""
+        from . import compiled_dispatch as cd
+
+        if not cd.available():
+            return None
+        self._refresh()
+        if self._compiled_opts.get("compiled_dispatch") is False:
+            return None
+        if self._compiled is None:
+            self._compiled = cd.get_router(self._controller, self._name)
+            with self._lock:
+                replicas = list(self._replicas)
+                opts = dict(self._compiled_opts)
+            self._compiled.update_replicas(replicas, self._key, opts)
+        return self._compiled
 
     @staticmethod
     def _key(replica) -> str:
@@ -307,6 +376,18 @@ class Router:
                         chosen = r
                         break
         if chosen is None:
+            if len(replicas) > 1 and self._compiled is not None:
+                # scale-out: prefer replicas with a built compiled lane —
+                # a built lane proves the replica is past __init__, so
+                # eager overflow never queues behind a cold replica's
+                # init (the scale-out p99 tail). With no lanes yet
+                # (initial bring-up / opt-out) the full set stands.
+                warm = self._compiled.warm_keys()
+                if warm:
+                    warm_rs = [r for r in replicas
+                               if self._key(r) in warm]
+                    if warm_rs:
+                        replicas = warm_rs
             if len(replicas) == 1:
                 chosen = replicas[0]
             else:
@@ -384,9 +465,134 @@ class DeploymentHandle:
 
     def remote(self, *args, **kwargs):
         meta = self._build_request_meta()
-        return self._eager_dispatch(args, kwargs, meta, time.perf_counter())
+        t0 = time.perf_counter()
+        overflow_release = None
+        if not self._stream:
+            cr = self._router.compiled_router()
+            if cr is not None:
+                resp, overflow_release = self._try_compiled(
+                    cr, args, kwargs, meta, t0)
+                if resp is not None:
+                    return resp
+        else:
+            # decode deployments stream tokens over the compiled plane
+            # (TAG_STREAM ring frames); eager is the fallback, not the
+            # rule — streaming no longer implies eager dispatch
+            it = self._try_compiled_stream(args, kwargs, meta, t0)
+            if it is not None:
+                return it
+        try:
+            return self._eager_dispatch(args, kwargs, meta, t0,
+                                        overflow_release)
+        except BaseException:
+            # a routing failure must not strand the budget slot the
+            # compiled router granted for this overflow request
+            if overflow_release is not None:
+                overflow_release()
+            raise
 
-    def _eager_dispatch(self, args, kwargs, meta, t0):
+    def _try_compiled(self, cr, args, kwargs, meta, t0):
+        """One admission attempt on the compiled dispatch plane.
+        Returns ``(response, None)`` on admit, ``(None, release)`` on
+        overflow-to-eager (the release hook frees the granted budget
+        slot when the eager response settles), and raises
+        BackPressureError on shed."""
+        from ray_tpu_torch.util import tracing
+
+        span = None
+        if meta is not None:
+            meta["dispatch_ts"] = time.time()
+            meta["handle_queue_wait_s"] = time.perf_counter() - t0
+            meta["slow_threshold_s"] = \
+                self._router.slow_request_threshold_s
+            parent_ctx = meta.get("trace_ctx") or tracing.current_context()
+            if parent_ctx is not None:
+                span = tracing.child_span(
+                    f"serve.handle.{self._name}", parent=parent_ctx,
+                    request_id=meta["request_id"])
+                # the replica parents its span under the handle span via
+                # the meta (there is no eager task span on this plane)
+                meta["handle_span_ctx"] = span.context
+        redispatch = (
+            (lambda eager_only=False: self._redispatch_request(
+                args, kwargs, meta, eager_only))
+            if self._router.retry_on_replica_failure else None)
+        try:
+            resp = cr.dispatch(self._method, args, kwargs,
+                               self._model_id, meta,
+                               redispatch=redispatch)
+        except BaseException:
+            if span is not None:
+                span.finish()
+            raise
+        if resp is not None:
+            if span is not None:
+                span.finish()
+            if meta is not None:
+                from . import observability as obs
+
+                obs.defer(obs.record_dispatch, self._name,
+                          time.perf_counter() - t0,
+                          getattr(resp, "plane", "compiled"))
+            return resp, None
+        # overflow to eager: drop the unadmitted attempt's span
+        # UNPUBLISHED (never finished) — the eager path opens the one
+        # real handle span for this request
+        if meta is not None:
+            meta.pop("handle_span_ctx", None)
+        return None, cr.admit_overflow()
+
+    def _try_compiled_stream(self, args, kwargs, meta, t0):
+        """One admission attempt on the compiled decode stream plane.
+        Returns an iterator of token dicts, or None -> the eager decode
+        generator carries it (not a decode deployment, no lanes, every
+        window full); raises BackPressureError on shed."""
+        if kwargs or len(args) != 1:
+            return None
+        self._router._refresh()
+        if not self._router.decode:
+            return None
+        cr = self._router.compiled_router()
+        if cr is None:
+            return None
+        if meta is not None:
+            meta["dispatch_ts"] = time.time()
+            meta["handle_queue_wait_s"] = time.perf_counter() - t0
+        resp = cr.dispatch_stream(
+            args[0], meta, item_timeout_s=self._stream_item_timeout_s)
+        if resp is None:
+            return None
+        if meta is not None:
+            from . import observability as obs
+
+            obs.defer(obs.record_dispatch, self._name,
+                      time.perf_counter() - t0, "compiled_stream")
+        return iter(resp)
+
+    def _redispatch_request(self, args, kwargs, meta, eager_only=False):
+        """Replica-failure retry: re-dispatch the whole request (the
+        router refreshed its set on the death) — compiled again if a
+        lane admits, else the eager path. ``eager_only`` skips the
+        compiled plane (an oversized REPLY just bounced off the ring
+        slot; re-admitting would bounce it identically)."""
+        if meta is not None:
+            meta["dispatch_ts"] = time.time()
+        if not eager_only:
+            self._router._refresh(force=True)
+            cr = self._router.compiled_router()
+            if cr is not None:
+                try:
+                    resp = cr.dispatch(self._method, args, kwargs,
+                                       self._model_id, meta,
+                                       redispatch=None)
+                except Exception:  # shed on retry: eager carries it
+                    resp = None
+                if resp is not None:
+                    return resp
+        return self._eager_dispatch(args, kwargs, meta,
+                                    time.perf_counter(), None)
+
+    def _eager_dispatch(self, args, kwargs, meta, t0, overflow_release):
         from ray_tpu_torch.util import tracing
 
         t_choose = time.perf_counter()
@@ -436,8 +642,9 @@ class DeploymentHandle:
                 if span is not None:
                     span.__enter__()
                 if decode:
-                    # the replica-side generator drives its one decode
-                    # scheduler, so concurrent streams continuous-batch
+                    # eager decode fallback: the replica-side generator
+                    # drives the SAME scheduler as the compiled lane, so
+                    # both planes continuous-batch together
                     gen = replica.handle_request_decode_stream.options(
                         num_returns="streaming").remote(
                         args[0], self._model_id, meta)
@@ -467,8 +674,8 @@ class DeploymentHandle:
                         # pin the consumer (and its executor thread) forever
                         item = ray_tpu_torch.get(ref, timeout=item_timeout)
                         if decode:
-                            # (kind, payload) frames -> the payload's
-                            # dict: {"token", "i"}, then the final record
+                            # (kind, payload) frames -> the same dicts
+                            # the compiled stream plane yields
                             item = _json.loads(bytes(item[1]))
                         yield item
                 except BaseException as e:
@@ -516,7 +723,8 @@ class DeploymentHandle:
         return DeploymentResponse(
             ref, self._router, key,
             redispatch if self._router.retry_on_replica_failure else None,
-            request_meta=meta, deployment=self._name)
+            request_meta=meta, deployment=self._name,
+            on_finish=overflow_release)
 
     def __getattr__(self, name: str):
         if name.startswith("_"):

@@ -24,9 +24,11 @@ and requests slower end-to-end than the configured threshold emit a
 WARNING cluster event carrying the stage breakdown.
 ``RAY_TPU_SERVE_OBSERVABILITY_ENABLED=0`` turns the whole layer off.
 
-The port has only the eager dispatch plane so far, so ``record_dispatch``
-sees the plane ``eager`` and ``record_shed`` (the compiled plane's load
-shedder) has no caller yet.
+``record_dispatch`` counts each request under its dispatch plane:
+``compiled`` (a unary call on a replica's ring lane), ``compiled_bytes``
+(the raw-bytes fast lane), ``compiled_stream`` (a decode stream on its
+compiled lane) or ``eager`` (the actor path); ``record_shed`` counts the
+requests the compiled plane's load shedder refused.
 """
 
 from __future__ import annotations

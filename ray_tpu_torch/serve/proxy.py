@@ -8,7 +8,8 @@ beyond torch and the standard library, so its proxy is built on
 ``Content-Length``, and streamed responses in chunked transfer encoding
 (a mid-stream failure aborts the connection without the last chunk, so
 the client can tell truncation from completion). Route matching, status
-codes (404 ``no route``, 500 with the error, 503 when dispatch fails),
+codes (404 ``no route``, 500 with the error, 503 when dispatch fails,
+503 with ``retry-after: 1`` when the dispatch plane sheds the request),
 JSON / bytes / text bodies, ``x-request-id``, the ingress span and the
 SSE ``text/event-stream`` framing of decode routes are the reference's.
 """
@@ -358,6 +359,15 @@ class HTTPProxy:
 
             result = await loop.run_in_executor(None, _call)
         except Exception as e:  # noqa: BLE001
+            from .compiled_dispatch import BackPressureError
+
+            if isinstance(e, BackPressureError):
+                # shed by the dispatch plane: overloaded, not broken —
+                # 503 tells the load balancer to back off / retry
+                await conn.respond_text(503, str(e),
+                                        {**extra, "retry-after": "1"},
+                                        keep_alive)
+                return True
             await conn.respond_text(500, str(e), extra, keep_alive)
             return True
         finally:

@@ -70,7 +70,8 @@ print(json.dumps({"imported": names,
                  "data.dataset", "data.executor", "data.iterator",
                  "data.datasource_ml", "data.avro", "data.iceberg",
                  "train.dcp_checkpoint", "cluster_utils", "serve",
-                 *(f"serve.{m}" for m in SERVE_MODULES)):
+                 *(f"serve.{m}" for m in SERVE_MODULES),
+                 *COMPILED_GRAPH_MODULES):
         assert f"ray_tpu_torch.{name}" in report["imported"]
     assert not [m for m in report["new"] if _forbidden(m)]
     # the HTTP proxy is on the standard library and gRPC loads only when
@@ -79,9 +80,11 @@ print(json.dumps({"imported": names,
                 if m.split(".")[0] in ("aiohttp", "grpc")]
 
 
-SERVE_MODULES = ("api", "batching", "config", "controller", "dag",
-                 "deployment", "grpc_ingress", "handle", "multiplex",
-                 "observability", "proxy", "replica")
+SERVE_MODULES = ("api", "batching", "compiled_dispatch", "config",
+                 "controller", "dag", "deployment", "grpc_ingress",
+                 "handle", "multiplex", "observability", "proxy", "replica")
+COMPILED_GRAPH_MODULES = ("dag", "experimental.channel", "core.net_ring",
+                          "serve.compiled_dispatch")
 
 
 def test_serve_loads_no_jax_and_no_aiohttp():
@@ -109,6 +112,27 @@ print(json.dumps(sorted(set(sys.modules) - before)))
         every += list(_imports(path))
         assert not [m for m in every if m and m.split(".")[0] == "aiohttp"], \
             path
+
+
+def test_compiled_graph_modules_load_no_jax_and_no_torch():
+    """The compiled-graph layer (the DAG, the ring channels, the net rings
+    and the serve dispatch plane) in a fresh process: none loads JAX or
+    the JAX package, and none loads torch — an executor's worker touches
+    torch only once a tensor crosses its edges."""
+    code = f"""
+import importlib, json, sys
+before = set(sys.modules)
+for m in {COMPILED_GRAPH_MODULES!r}:
+    importlib.import_module("ray_tpu_torch." + m)
+print(json.dumps(sorted(set(sys.modules) - before)))
+"""
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    new = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "ray_tpu_torch.dag" in new and "ray_tpu_torch.core.net_ring" in new
+    assert not [m for m in new if _forbidden(m)
+                or m.split(".")[0] == "torch"], new
 
 
 def _function_level_imports(path: pathlib.Path):

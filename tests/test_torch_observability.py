@@ -143,8 +143,18 @@ PORT_NAMES = {
     "ray_tpu_serve_requests_total": "port_serve_requests_total",
     "ray_tpu_serve_errors_total": "port_serve_errors_total",
     "ray_tpu_serve_timeouts_total": "port_serve_timeouts_total",
+    # compiled graphs: the ring channels, the net rings and the DAGs
+    "ray_tpu_dag_channel_serialized_bytes_total":
+        "port_dag_channel_serialized_bytes_total",
+    "ray_tpu_dag_channel_tensor_bytes_total":
+        "port_dag_channel_tensor_bytes_total",
+    "ray_tpu_dag_ring_occupancy": "port_dag_ring_occupancy",
+    "ray_tpu_dag_ring_stall_seconds_total":
+        "port_dag_ring_stall_seconds_total",
+    "ray_tpu_net_ring_retransmits_total": "port_net_ring_retransmits_total",
+    "ray_tpu_dag_executions_total": "port_dag_executions_total",
 }
-_METRIC_CLASSES = {"Counter", "Gauge", "Histogram", "_Gauge"}
+_METRIC_CLASSES = {"Counter", "Gauge", "Histogram", "_Counter", "_Gauge"}
 
 
 def registered_metric_names(package: pathlib.Path):

@@ -235,8 +235,12 @@ def test_errors_and_status_aggregates(serve_instance):
     assert st["error_rate"] == pytest.approx(0.2)
     assert st["latency_ms"]["p50"] is not None
     assert st["latency_ms"]["p99"] is not None
-    # every request took the eager plane
-    assert st["dispatch_planes"] == {"eager": 5}
+    # every request was dispatched once: from the driver-resident proxy
+    # on the compiled plane, the first perhaps eager while its lane built
+    planes = st["dispatch_planes"]
+    assert sum(planes.values()) == 5 and set(planes) <= {"compiled",
+                                                         "eager"}, planes
+    assert planes.get("compiled", 0) >= 1, planes
 
     deadline = time.monotonic() + 10
     while time.monotonic() < deadline:

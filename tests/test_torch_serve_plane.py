@@ -7,11 +7,15 @@ tokens are the final record's, eager dispatch counted; and of
 ``tests/test_kv_cache.py``: identical greedy tokens).
 
 - ``ToyEngine``: the handle stream and the SSE stream give the JAX
-  scheduler's frames, every stream on the ``eager`` plane.
+  scheduler's frames; once warm, the handle's streams ride the compiled
+  decode lane (plane ``compiled_stream``) and the SSE streams the eager
+  plane: the proxy runs in a worker (``proxy_location="EveryNode"``),
+  where compiled dispatch is not available, as in the JAX package.
 - ``LlamaConfig.debug()`` at fp32 on the CPU, its params JAX's
   ``init_params`` carried across by ``params_from_numpy``: greedy tokens
   over HTTP equal the JAX ``LlamaDecodeEngine`` under the JAX scheduler.
-- Concurrent streams on one replica run side by side.
+- Concurrent streams on one replica run side by side (the eager
+  generators' threads: the deployment opts out of compiled dispatch).
 - A replica asking for a card on this host is refused, not served on
   the CPU.
 
@@ -24,6 +28,7 @@ import json
 import socket
 import threading
 import time
+import urllib.error
 import urllib.request
 
 import numpy as np
@@ -47,14 +52,30 @@ def free_port() -> int:
 
 @pytest.fixture(scope="module")
 def port():
-    port = free_port()
+    """The runtime, and serve with its HTTP proxy in a worker (the
+    ``EveryNode`` proxy actor, on a port the OS found free); the proxy's
+    port."""
+    from ray_tpu_torch.core.config import global_config
+    from ray_tpu_torch.serve import api as serve_api
+
+    # the proxy worker's dispatch counts reach serve.status() with its
+    # metrics reports: a short interval keeps the plane checks quick
+    cfg = global_config()
+    interval = cfg.metrics_report_interval_ms
+    cfg.metrics_report_interval_ms = 200
     rt.init(num_cpus=4, num_gpus=0)
     try:
-        serve.start(serve.HTTPOptions(port=port))
-        yield port
+        serve.start(serve.HTTPOptions(proxy_location="EveryNode"))
+        # serve.run starts the driver's default proxy where none runs,
+        # on port 8000: give it a free port, so this module never binds
+        # a port another test may hold
+        serve.start(serve.HTTPOptions(port=free_port()))
+        (addr,) = serve_api.get_proxy_addresses()
+        yield addr["port"]
     finally:
         serve.shutdown()
         rt.shutdown()
+        cfg.metrics_report_interval_ms = interval
 
 
 @pytest.fixture
@@ -64,17 +85,24 @@ def serve_instance(port):
         serve.delete(name)
 
 
-def run_routed(app, route):
+def run_routed(app, route, port):
     """``serve.run``, then wait until the HTTP proxy holds ``route``: the
-    proxy learns the route table by long-poll push, a moment after the
-    deploy, and a request that comes first finds the old table."""
-    from ray_tpu_torch.serve import api as serve_api
-
+    proxy refreshes its route table a moment after the deploy, and a
+    request that comes first is answered 404. The probe is a GET without
+    a body, which a decode route refuses before any token is decoded."""
     handle = serve.run(app, route_prefix=route)
     deadline = time.time() + T
-    while route not in serve_api._proxy._routes_cache \
-            and time.time() < deadline:
-        time.sleep(0.02)
+    while time.time() < deadline:
+        try:
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{port}{route}", timeout=T):
+                break
+        except urllib.error.HTTPError as e:
+            if e.code != 404:
+                break
+        except OSError:
+            pass  # a refused stream closes the connection: routed
+        time.sleep(0.05)
     return handle
 
 
@@ -110,11 +138,21 @@ def _sse(port, path, prompt, max_tokens):
     return records[-1]
 
 
-def _planes(deployment):
+def _planes(deployment, total=None):
+    """``dispatch_planes`` of ``deployment``; with ``total``, once that
+    many dispatches are counted (the proxy worker reports its counts a
+    moment after the requests)."""
     from ray_tpu_torch.serve import observability as obs
 
-    obs.drain_deferred()
-    return serve.status().get(deployment, {}).get("dispatch_planes", {})
+    deadline = time.time() + T
+    while True:
+        obs.drain_deferred()
+        planes = serve.status().get(deployment, {}).get("dispatch_planes",
+                                                        {})
+        if total is None or sum(planes.values()) >= total \
+                or time.time() > deadline:
+            return planes
+        time.sleep(0.1)
 
 
 def test_toy_decode_handle_and_sse_match_the_jax_scheduler(serve_instance):
@@ -131,18 +169,26 @@ def test_toy_decode_handle_and_sse_match_the_jax_scheduler(serve_instance):
         return ToyEngine(n_pages=64, page_size=4)
 
     want = _jax_finals(jax_toy, TOY_PROMPTS)
-    h = run_routed(ToyLM.bind(), "/lm")
+    h = run_routed(ToyLM.bind(), "/lm", serve_instance)
+    base = sum(_planes("ToyLM", 1).values())  # the route probe's
     got_sse = [_sse(serve_instance, "/lm", p, n) for p, n in TOY_PROMPTS]
     assert got_sse == want
+    # the proxy is a worker: every SSE stream took the eager plane
+    assert _planes("ToyLM", base + len(TOY_PROMPTS)) == {
+        "eager": base + len(TOY_PROMPTS)}
+    # one warm stream builds the replica's compiled decode lane
+    list(h.options(stream=True).remote({"prompt": [9], "max_tokens": 1}))
+    before = _planes("ToyLM", base + len(TOY_PROMPTS) + 1)
     for (prompt, n), final in zip(TOY_PROMPTS, want):
         items = list(h.options(stream=True).remote(
             {"prompt": prompt, "max_tokens": n}))
         assert [i["token"] for i in items[:-1]] == final["tokens"]
         # the replica's cache already holds every prompt
         assert items[-1] == dict(final, cached_prefix=True)
-    planes = _planes("ToyLM")
-    assert planes.get("eager", 0) >= 2 * len(TOY_PROMPTS), planes
-    assert not [p for p in planes if p.startswith("compiled")], planes
+    after = _planes("ToyLM", sum(before.values()) + len(TOY_PROMPTS))
+    assert after.get("compiled_stream", 0) \
+        == before.get("compiled_stream", 0) + len(TOY_PROMPTS), after
+    assert after.get("eager", 0) == before.get("eager", 0), after
 
 
 def test_llama_debug_greedy_tokens_over_http_match_jax(serve_instance):
@@ -177,11 +223,14 @@ def test_llama_debug_greedy_tokens_over_http_match_jax(serve_instance):
                 ([3, 1, 4, 1, 5], 6)]  # a prefix hit
     want = _jax_finals(lambda: jl.LlamaDecodeEngine(
         jcfg, params, n_pages=32, page_size=8), requests)
-    run_routed(LlamaLM.bind(tree), "/llama")
+    run_routed(LlamaLM.bind(tree), "/llama", serve_instance)
+    base = sum(_planes("LlamaLM", 1).values())  # the route probe's
     got = [_sse(serve_instance, "/llama", p, n) for p, n in requests]
     assert got == want
     assert got[-1]["cached_prefix"] is True
-    assert not [p for p in _planes("LlamaLM") if p.startswith("compiled")]
+    # SSE from the proxy, a worker: the eager plane
+    assert _planes("LlamaLM", base + len(requests)) == {
+        "eager": base + len(requests)}
 
 
 def test_streams_on_one_replica_run_side_by_side(serve_instance):
@@ -189,7 +238,8 @@ def test_streams_on_one_replica_run_side_by_side(serve_instance):
     generator for the second to reach the replica. Each stream's
     generator holds a thread of the replica's for the whole request, so
     one thread for them all would never finish this."""
-    @serve.deployment(stream=True, max_ongoing_requests=4)
+    @serve.deployment(stream=True, max_ongoing_requests=4,
+                      compiled_dispatch=False)
     class Gate:
         def __init__(self):
             self.second = threading.Event()
