@@ -87,7 +87,22 @@ non-zero and never prints the final ``ok`` line.
    the single card at 2 layers and timed at full depth, with rank 0's
    NCCL device time by collective and, under ``tensor``, a checksum of
    each layer's picks equal across each tensor group;
-11. the ``kernels`` line, the card's ``name, power.limit``, and last the
+11. ``mpmd`` (after the trainer's paths): the MPMD pipeline trainer
+   (``train/pipeline.py``) at Llama-3-1B full width and depth, SGD, 8
+   one-row microbatches of 2048 tokens a step, K = 2 stage actors at
+   half a card each on one card (K = 4, a card each, on four); 1F1B and
+   GPipe, 3 warm-up and 5 timed steps each, activations and grads on
+   ``device_channels`` edges; held against ``reference_llama_losses``
+   run here after the stages are gone (losses rtol 3e-3, each leaf's
+   update 3e-2), no serialized bytes, stash at most K under 1F1B, each
+   stage's launches exact; step ms, tokens/s per card, MFU, measured
+   bubble against (K-1)/(M+K-1), peak per stage, the hop alone;
+12. ``tune``: ``Tuner(TorchTrainer(...))`` over the default loop at
+   Llama-3-1B widths and 2 layers, a grid of two learning rates (one
+   trial at a time on one card, two on four): each trial's loss that of
+   a direct fit, the best the lower, the workers' cards and launches,
+   no card held and no JAX loaded by any other process of the runtime;
+13. the ``kernels`` line, the card's ``name, power.limit``, and last the
    ``{"ok": true, "device": ...}`` line.
 
 Weights are random, made from ``--seed``. Exits non-zero without CUDA.
@@ -102,6 +117,7 @@ import gc
 import importlib.util
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -1294,6 +1310,8 @@ def phase_spmd(torch, seed, smi, peak_flops, timeout=600.0):
         pipe_timing[name] = out
     launches["pipe_all_ranks"] = launches_of(n_full + len(layouts),
                                              len(pipes))
+    observed["pipe_step_ms"] = {name: t["step_ms"]
+                                for name, t in pipe_timing.items()}
     emit({"phase": "pipe", "world": world, "card": smi,
           "layouts": list(pipe_timing), "backend": "nccl",
           "reduced_depth": {"n_layers": "one a stage", "batch": world,
@@ -2901,6 +2919,492 @@ def phase_dag(torch, smi):
           "phase_s": time.perf_counter() - t_phase})
 
 
+# the MPMD pipeline cell: Llama-3-1B, a global batch of 8 rows of 2048
+# tokens (+1 target) as 8 one-row microbatches, SGD
+MPMD_ROWS = 8
+MPMD_MICROBATCHES = 8
+MPMD_T = 2048
+MPMD_LR = 0.1
+MPMD_WARMUP, MPMD_TIMED = 3, 5
+# one [1, 2048, 2048] bf16 activation is 8 MiB, the trainer's default slot
+# with no room for its header: the phase passes a larger one
+MPMD_SLOT_BYTES = 16 << 20
+MPMD_HOPS = 20  # sequential executions of the hop probe
+# the param gate: each leaf's update (final minus initial) within this of
+# the reference's, by norm: the per-leaf grad bound (an SGD update is lr
+# times the mean grad)
+MPMD_LEAF_RTOL = ATTN_GRAD_RTOL
+FORBIDDEN_TOP = ("jax", "jaxlib", "ray_tpu")
+
+
+def mpmd_stage_layers(cfg, stages: int) -> list:
+    """Layers of each stage under ``split_llama_stages``'s bounds."""
+    bounds = [round(s * cfg.n_layers / stages) for s in range(stages + 1)]
+    return [b - a for a, b in zip(bounds, bounds[1:])]
+
+
+def mpmd_launches(cfg, stages: int, microbatches: int, steps: int) -> list:
+    """Each stage's kernel launches over ``steps``: a stage before the last
+    runs its layers' forward twice a microbatch (the forward, then again
+    in the backward, which rematerializes from the stashed input), the
+    last stage once (its forward is fused into the loss's backward); dQ
+    and dK/dV once a layer a microbatch."""
+    layers = mpmd_stage_layers(cfg, stages)
+    n = microbatches * steps
+    return [{"fwd": (1 if s == stages - 1 else 2) * L * n, "dq": L * n,
+             "dkv": L * n} for s, L in enumerate(layers)]
+
+
+def mpmd_run(rt, cfg, tokens, stages: int, share, schedule: str,
+             seed: int) -> dict:
+    """One ``MPMDPipelineTrainer`` run: the stages' probes before it,
+    3 warm-up and 5 timed steps (the kernels' counts and peak memory set
+    to 0 between them), the timed window's pipeline stats, channel stats
+    and the final params; the trainer is shut down before returning."""
+    from ray_tpu_torch.train import MPMDPipelineTrainer
+
+    t_build = time.perf_counter()
+    trainer = MPMDPipelineTrainer(
+        num_stages=stages, lr=MPMD_LR, seed=seed, model="llama",
+        llama_cfg=cfg, buffer_size_bytes=MPMD_SLOT_BYTES,
+        schedule=schedule, stage_resources=[{"GPU": share}] * stages)
+    try:
+        build_s = time.perf_counter() - t_build
+        where = rt.get([s.probe.remote() for s in trainer.stages],
+                       timeout=300)
+        t0 = time.perf_counter()
+        losses = trainer.fit(tokens, steps=MPMD_WARMUP,
+                             num_microbatches=MPMD_MICROBATCHES)
+        warm_s = time.perf_counter() - t0
+        before = trainer.pipeline_stats()
+        rt.get([s.probe.remote(reset=True) for s in trainer.stages],
+               timeout=120)
+        step_s = []
+        for _ in range(MPMD_TIMED):
+            t = time.perf_counter()
+            losses.append(trainer.train_step(
+                tokens, num_microbatches=MPMD_MICROBATCHES))
+            step_s.append(time.perf_counter() - t)
+        after = trainer.pipeline_stats()
+        probes = rt.get([s.probe.remote() for s in trainer.stages],
+                        timeout=120)
+        channels = trainer.channel_stats()
+        t = time.perf_counter()
+        params = trainer.get_params()
+        params_s = time.perf_counter() - t
+    finally:
+        trainer.shutdown()
+    busy = [b - a for a, b in zip(before["stage_busy_s"],
+                                  after["stage_busy_s"])]
+    wall = after["pipeline_wall_s"] - before["pipeline_wall_s"]
+    return {"schedule": schedule, "build_s": build_s, "warm_s": warm_s,
+            "params_s": params_s,
+            "where": where, "losses": losses, "step_s": step_s,
+            "busy_s": busy, "wall_s": wall,
+            "efficiency": sum(busy) / (stages * wall),
+            "stats": after, "probes": probes, "channels": channels,
+            "params": params}
+
+
+def hop_ms(rt, torch, share, slot_bytes: int) -> dict:
+    """The stage hop alone: a 2-actor ``device_channels`` chain
+    (``DagStage``, the ``dag`` phase's actors, at the stages' card share)
+    carrying one microbatch's activation, a bf16 [1, 2048, 2048] CUDA
+    tensor, one execution at a time: ms an execution over its 3 edges
+    (driver -> A -> B -> driver)."""
+    from ray_tpu_torch.dag import InputNode
+
+    Stage = rt.remote(num_gpus=share)(DagStage)
+    a, b = Stage.remote("a"), Stage.remote("b")
+    rt.get([a.step.remote(0), b.step.remote(0)], timeout=120)
+    with InputNode() as inp:
+        out = b.run.bind(a.run.bind(inp))
+    dag = out.experimental_compile(buffer_size_bytes=slot_bytes,
+                                   device_channels=True, max_inflight=2)
+    try:
+        x = torch.randn((1, MPMD_T, 2048), device="cuda").to(torch.bfloat16)
+        want = dag_stage_b(dag_stage_a(x))
+        check(torch.equal(dag.execute(x).get(timeout=120), want),
+              "the hop probe's result differs")
+        t0 = time.perf_counter()
+        for _ in range(MPMD_HOPS):
+            dag.execute(x).get(timeout=120)
+        per_exec = (time.perf_counter() - t0) / MPMD_HOPS
+    finally:
+        dag.teardown()
+        for actor in (a, b):
+            rt.kill(actor)
+    return {"executions": MPMD_HOPS, "edges": 3,
+            "bytes": x.numel() * x.element_size(),
+            "ms_per_execution": per_exec * 1e3,
+            "ms_per_hop": per_exec * 1e3 / 3}
+
+
+def leaf_gate(torch, np, got: dict, want: dict, start) -> dict:
+    """Per leaf of one stage: bitwise (compared on the host), and the
+    update's error ||got - want|| over the reference update's norm
+    ||want - start|| (0 when bitwise; else on the card, float64 norms,
+    ``start()`` giving the stage's initial leaves)."""
+    out = {}
+    for path, g in got.items():
+        if np.array_equal(g, want[path]):
+            out[path] = {"bitwise": True, "update_rel_err": 0.0}
+            continue
+        gt = torch.tensor(g, device="cuda")
+        wt = torch.tensor(want[path], device="cuda")
+        st = start()[path]
+        out[path] = {
+            "bitwise": False,
+            "update_rel_err": float((gt - wt).double().norm()
+                                    / (wt - st).double().norm().clamp_min(
+                                        1e-30))}
+    return out
+
+
+def flat_paths(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else k
+        out.update(flat_paths(v, path) if isinstance(v, dict)
+                   else {path: v})
+    return out
+
+
+def phase_mpmd(torch, np, seed, smi, peak_flops, trained):
+    """``mpmd``: the MPMD pipeline trainer (``train/pipeline.py``) at
+    Llama-3-1B full width and depth, SGD, a global batch of 8 x 2049
+    tokens as 8 one-row microbatches; K = 2 stage actors at half a card
+    each on one card, K = 4 at a card each when four are visible; 1F1B
+    and GPipe in turn, 3 warm-up and 5 timed steps each, activations and
+    grads crossing stages on ``device_channels`` edges as CUDA tensors.
+    Then, the stage actors gone, ``reference_llama_losses`` (the same
+    stage math in this process on this card) from the same seeded init.
+    Gates: losses within rtol 3e-3 of the reference's, each param leaf's
+    update within 3e-2 of the reference's by norm (bitwise printed); no
+    serialized bytes on any stage; stash at most K under 1F1B; each
+    stage on one card (its own when four are visible) and free of JAX;
+    the kernels' launches in the timed steps exact on every stage.
+    Readings: step ms, tokens/s per card, MFU, the measured bubble
+    against (K-1)/(M+K-1), the stages' peak memory, 1F1B against GPipe,
+    the hop alone (a 2-actor chain at the activation's shape) and, on
+    four cards, the launch path's ``pipe`` step. Returns each schedule's
+    launches over all stages in the timed steps."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.train.pipeline import (reference_llama_losses,
+                                              split_llama_stages)
+
+    t_phase = time.perf_counter()
+    cards = torch.cuda.device_count()
+    K = 4 if cards >= 4 else 2
+    share = 1 if cards >= K else 0.5
+    cfg = llama.LlamaConfig.llama3_1b()
+    M = MPMD_MICROBATCHES
+    tokens = np.random.RandomState(seed).randint(
+        0, cfg.vocab_size, (MPMD_ROWS, MPMD_T + 1)).astype(np.int32)
+    steps = MPMD_WARMUP + MPMD_TIMED
+    want_launches = mpmd_launches(cfg, K, M, MPMD_TIMED)
+    # the stages' params come back through the object store at once (3.0
+    # GB a stage at K = 2; the arena's allocator rounds each block up to a
+    # power of two)
+    rt.init(object_store_memory=16 << 30)
+    try:
+        runs = [mpmd_run(rt, cfg, tokens, K, share, schedule, seed)
+                for schedule in ("1f1b", "gpipe")]
+        hop = hop_ms(rt, torch, share, MPMD_SLOT_BYTES)
+    finally:
+        rt.shutdown()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_ref = time.perf_counter()
+    ref_losses, ref_params = reference_llama_losses(
+        cfg, seed, tokens, steps=steps, num_microbatches=M, num_stages=K,
+        lr=MPMD_LR, return_params=True, device="cuda")
+    ref_s = time.perf_counter() - t_ref
+    ref_peak = torch.cuda.max_memory_allocated()
+    starts = []
+
+    def start_of(c):
+        """Stage ``c``'s initial leaves (the seeded init), made once and
+        only for a leaf that is not bitwise."""
+        if not starts:
+            gen = torch.Generator(device="cuda").manual_seed(seed)
+            starts.extend(flat_paths(sp) for sp in split_llama_stages(
+                cfg, llama.init_params(cfg, gen, "cuda"), K))
+        return starts[c]
+
+    n_params = cfg.num_params()
+    out_runs = {}
+    for run in runs:
+        name = run["schedule"]
+        for w in run["where"]:
+            check(w["device_count"] == 1,
+                  f"mpmd {name}: stage {w['stage']} sees "
+                  f"{w['device_count']} cards")
+            check(not [m for m in w["modules"] if m in FORBIDDEN_TOP],
+                  f"mpmd {name}: stage {w['stage']} loaded "
+                  f"{[m for m in w['modules'] if m in FORBIDDEN_TOP]}")
+        uuids = [w["uuid"] for w in run["where"]]
+        if share == 1:
+            check(len(set(uuids)) == K,
+                  f"mpmd {name}: stages share cards: {uuids}")
+        got_launches = [p["launches"] for p in run["probes"]]
+        check(got_launches == want_launches,
+              f"mpmd {name}: stages launched {got_launches}, want "
+              f"{want_launches}")
+        for i, cs in enumerate(run["channels"]):
+            check(cs["serialized_bytes"] == 0,
+                  f"mpmd {name}: stage {i} serialized {cs}")
+        if name == "1f1b":
+            check(run["stats"]["stash_max"] <= K,
+                  f"mpmd 1f1b: stash_max {run['stats']['stash_max']} > {K}")
+        losses = run["losses"]
+        check(all(math.isfinite(x) for x in losses)
+              and losses[-1] < losses[0], f"mpmd {name}: losses {losses}")
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)]
+        check(len(losses) == steps and max(rel) <= TRAIN_RTOL,
+              f"mpmd {name}: losses {losses} vs the reference's "
+              f"{ref_losses}, rel {rel}")
+        leaves = {}
+        for c, (got, want) in enumerate(zip(run["params"], ref_params)):
+            for path, v in leaf_gate(torch, np, flat_paths(got),
+                                     flat_paths(want),
+                                     lambda c=c: start_of(c)).items():
+                leaves[f"stage{c}/{path}"] = v
+        worst = max(v["update_rel_err"] for v in leaves.values())
+        check(worst <= MPMD_LEAF_RTOL,
+              f"mpmd {name}: a leaf's update is {worst} off the "
+              f"reference's: {leaves}")
+        step_s = sum(run["step_s"]) / MPMD_TIMED
+        tokens_per_s = MPMD_ROWS * MPMD_T / step_s
+        cards_used = K * share
+        out_runs[name] = {
+            "build_s": run["build_s"], "warmup_s": run["warm_s"],
+            "get_params_s": run["params_s"],
+            "step_ms": step_s * 1e3,
+            "step_ms_each": [s * 1e3 for s in run["step_s"]],
+            "tokens_per_s": tokens_per_s,
+            "tokens_per_s_per_card": tokens_per_s / cards_used,
+            "mfu": 6.0 * n_params * tokens_per_s / cards_used / peak_flops,
+            "bubble_measured": 1.0 - run["efficiency"],
+            "pipeline_efficiency": run["efficiency"],
+            "stage_busy_s": run["busy_s"], "pipeline_wall_s": run["wall_s"],
+            "stash_max": run["stats"]["stash_max"],
+            "window": run["stats"]["window"],
+            "peak_bytes_per_stage": [p["peak_bytes"] for p in run["probes"]],
+            "launches_per_stage": got_launches,
+            "serialized_bytes": [cs["serialized_bytes"]
+                                 for cs in run["channels"]],
+            "tensor_bytes": [cs["tensor_bytes"] for cs in run["channels"]],
+            "losses": losses, "loss_rel_diff": rel,
+            "losses_bitwise": losses == ref_losses,
+            "params_bitwise": all(v["bitwise"] for v in leaves.values()),
+            "leaf_update_rel_err_max": worst,
+            "stages": [{"stage": w["stage"], "uuid": w["uuid"],
+                        "cuda_visible_devices": w["cuda_visible_devices"]}
+                       for w in run["where"]]}
+    emit({"phase": "mpmd", "card": smi, "cards": cards,
+          "model": "llama3_1b", "n_layers": cfg.n_layers, "dim": cfg.dim,
+          "params": n_params, "stages": K, "gpus_per_stage": share,
+          "stage_layers": mpmd_stage_layers(cfg, K),
+          "global_batch": [MPMD_ROWS, MPMD_T + 1], "microbatches": M,
+          "optimizer": f"SGD(lr={MPMD_LR})",
+          "buffer_size_bytes": MPMD_SLOT_BYTES,
+          "warmup_steps": MPMD_WARMUP, "timed_steps": MPMD_TIMED,
+          "bubble_theory": (K - 1) / (M + K - 1),
+          "rtol": TRAIN_RTOL, "leaf_update_rtol": MPMD_LEAF_RTOL,
+          "schedules": out_runs,
+          "gpipe_over_1f1b_step": out_runs["gpipe"]["step_ms"]
+          / out_runs["1f1b"]["step_ms"],
+          "reference": {"losses": ref_losses, "seconds": ref_s,
+                        "peak_bytes": ref_peak},
+          "hop": hop,
+          "launch_path_pipe_step_ms": trained.get("pipe_step_ms"),
+          "phase_s": time.perf_counter() - t_phase})
+    return {f"mpmd_{name}": {k: sum(p["launches"][k] for p in run["probes"])
+                             for k in ("fwd", "dq", "dkv")}
+            for name, run in zip(out_runs, runs)}
+
+
+TUNE_LRS = (3e-4, 1e-3)
+
+
+def runtime_processes(own: int) -> dict:
+    """pid -> (holds a card, has mapped a JAX library) for every process
+    below ``own``: a card is held by a process with a ``/dev/nvidiaN``
+    open (a CUDA context), JAX by one that mapped a ``jaxlib`` or ``jax``
+    library."""
+    parent = {}
+    for d in os.listdir("/proc"):
+        if d.isdigit():
+            try:
+                with open(f"/proc/{d}/stat") as f:
+                    parent[int(d)] = int(f.read().rsplit(")", 1)[1].split()[1])
+            except (OSError, IndexError, ValueError):
+                continue
+    out = {}
+    for pid in parent:
+        p = parent[pid]
+        while p not in (own, 0, 1) and p in parent:
+            p = parent[p]
+        if p != own:
+            continue
+        try:
+            fds = [os.readlink(f"/proc/{pid}/fd/{fd}")
+                   for fd in os.listdir(f"/proc/{pid}/fd")]
+            with open(f"/proc/{pid}/maps") as f:
+                maps = f.read()
+        except OSError:
+            continue  # exited while read
+        out[pid] = (any(re.fullmatch(r"/dev/nvidia\d+", x) for x in fds),
+                    "jaxlib" in maps or "/jax/" in maps)
+    return out
+
+
+def phase_tune(torch, seed, smi):
+    """``tune``: ``Tuner(TorchTrainer(...))`` on the default loop
+    (``spmd_runs.tune_probe_loop``: the loop under the trainer phase's
+    probe, its last row also carrying the loss) at Llama-3-1B widths and
+    2 layers, T 2048, 3 steps, B 4 a worker, a grid of two learning
+    rates: one trial at a time on one card, two at once on four. Gates:
+    each trial's loss equals a direct ``TorchTrainer.fit`` of the same
+    merged config (bitwise; rtol 3e-3 allowed and stated if not); the
+    best result is the lower loss; each trial's worker on one card, its
+    launches exact and free of JAX; concurrent trials' workers on
+    different cards; no process of the runtime but the trainers' workers
+    holds a card (sampled every 0.25 s through the sweep) and none has
+    loaded JAX; ``experiment_state.json`` written. Readings: seconds a
+    trial and over a direct fit's. Returns the trials' launches."""
+    import shutil
+    import tempfile
+    import threading
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.train import RunConfig, ScalingConfig, TorchTrainer
+    from ray_tpu_torch.train.spmd_runs import tune_probe_loop
+
+    t_phase = time.perf_counter()
+    cards = torch.cuda.device_count()
+    concurrent = 2 if cards >= 4 else 1
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_1b(), n_layers=2)
+    steps = 3
+    base = {"llama_config": cfg, "steps": steps, "seq": 2048, "seed": seed,
+            "batch_per_device": 4, "distinct_batches": 1}
+    scaling = ScalingConfig(num_workers=1, use_gpu=True)
+    want = rank_launches(cfg, steps, {"mesh": {"data": 1}, "coords": {}})
+    storage = tempfile.mkdtemp(prefix="chip_smoke_tune_")
+    seen: dict = {}
+    gpus_in_use = []
+    done = threading.Event()
+
+    def sample():
+        while not done.wait(0.25):
+            for pid, v in runtime_processes(os.getpid()).items():
+                old = seen.get(pid, (False, False))
+                seen[pid] = (old[0] or v[0], old[1] or v[1])
+            free = rt.available_resources().get("GPU", 0.0)
+            gpus_in_use.append(rt.cluster_resources().get("GPU", 0.0)
+                               - free)
+
+    rt.init()
+    try:
+        sampler = threading.Thread(target=sample, daemon=True)
+        sampler.start()
+        t0 = time.perf_counter()
+        try:
+            grid = tune.Tuner(
+                TorchTrainer(tune_probe_loop, train_loop_config=base,
+                             scaling_config=scaling),
+                param_space={"lr": tune.grid_search(list(TUNE_LRS))},
+                tune_config=tune.TuneConfig(
+                    metric="loss", mode="min",
+                    max_concurrent_trials=concurrent),
+                run_config=RunConfig(storage_path=storage,
+                                     name="sweep")).fit()
+        finally:
+            sweep_s = time.perf_counter() - t0
+            done.set()
+            sampler.join(timeout=30)
+        check(len(grid) == len(TUNE_LRS) and not grid.errors,
+              f"tune: {len(grid)} trials, errors {grid.errors}")
+        trials = {grid[i].config["lr"]: grid[i].metrics
+                  for i in range(len(grid))}
+        direct, direct_s = {}, {}
+        for lr in TUNE_LRS:
+            t = time.perf_counter()
+            result = TorchTrainer(
+                tune_probe_loop, train_loop_config={**base, "lr": lr},
+                scaling_config=scaling,
+                run_config=RunConfig(storage_path=storage,
+                                     name=f"direct_{lr}")).fit()
+            direct_s[lr] = time.perf_counter() - t
+            check(result.error is None, f"tune direct fit: {result.error}")
+            direct[lr] = result.metrics["loss"]
+        state = os.path.exists(os.path.join(storage, "sweep",
+                                            "experiment_state.json"))
+    finally:
+        rt.shutdown()
+        shutil.rmtree(storage, ignore_errors=True)
+    workers = set()
+    for lr, m in trials.items():
+        hold_ranks(f"tune lr={lr}", m["ranks"], 1, want)
+        workers.update(r["pid"] for r in m["ranks"])
+    check(state, "tune: no experiment_state.json")
+    uuids = [trials[lr]["ranks"][0]["uuid"] for lr in TUNE_LRS]
+    if concurrent > 1:
+        check(len(set(uuids)) == len(uuids),
+              f"tune: concurrent trials' workers share a card: {uuids}")
+    holders = sorted(p for p, (card, _) in seen.items() if card)
+    check(set(holders) <= workers,
+          f"tune: processes {sorted(set(holders) - workers)} other than "
+          f"the trainers' workers {sorted(workers)} hold a card")
+    check(len(set(seen) - workers) >= 1,
+          "tune: the sampler saw no trial actor")
+    check(not [p for p, (_, jax) in seen.items() if jax],
+          f"tune: processes loaded JAX: "
+          f"{[p for p, (_, jax) in seen.items() if jax]}")
+    check(max(gpus_in_use, default=0.0) <= concurrent,
+          f"tune: {max(gpus_in_use)} GPUs reserved at once, want at most "
+          f"{concurrent} (a worker a trial)")
+    got = {lr: trials[lr]["loss"] for lr in TUNE_LRS}
+    bitwise = got == direct
+    rel = {lr: abs(got[lr] - direct[lr]) / abs(direct[lr])
+           for lr in TUNE_LRS}
+    check(max(rel.values()) <= TRAIN_RTOL,
+          f"tune: trials' losses {got} vs direct fits' {direct}")
+    best = grid.get_best_result("loss", "min").config["lr"]
+    check(best == min(direct, key=direct.get),
+          f"tune: best lr {best}, direct fits {direct}")
+    trial_s = sweep_s * concurrent / len(TUNE_LRS)
+    emit({"phase": "tune", "card": smi, "cards": cards,
+          "model": "llama3_1b", "n_layers": cfg.n_layers, "T": 2048,
+          "steps": steps, "batch_per_worker": 4,
+          "param_space": {"lr": list(TUNE_LRS)},
+          "max_concurrent_trials": concurrent,
+          "trial_losses": {str(k): v for k, v in got.items()},
+          "direct_losses": {str(k): v for k, v in direct.items()},
+          "bitwise": bitwise, "loss_rel_diff": {str(k): v
+                                                for k, v in rel.items()},
+          "best_lr": best,
+          "workers": {str(lr): {"uuid": trials[lr]["ranks"][0]["uuid"],
+                                "pid": trials[lr]["ranks"][0]["pid"]}
+                      for lr in TUNE_LRS},
+          "processes_seen": len(seen), "card_holders": holders,
+          "gpus_in_use_max": max(gpus_in_use, default=0.0),
+          "experiment_state": state, "sweep_s": sweep_s,
+          "seconds_a_trial": trial_s,
+          "direct_fit_s": {str(k): v for k, v in direct_s.items()},
+          "trial_over_direct": trial_s / (sum(direct_s.values())
+                                          / len(direct_s)),
+          "phase_s": time.perf_counter() - t_phase})
+    return {"tune_all_trials": {
+        k: sum(r["launches"][k] for m in trials.values()
+               for r in m["ranks"]) for k in ("fwd", "dq", "dkv")}}
+
+
 def layer_matmul_params(cfg) -> int:
     """Weights one decoder layer multiplies by: wq, wk, wv, wo and the
     SwiGLU's gate, up and down."""
@@ -3391,16 +3895,24 @@ def main(argv=None) -> int:
     trainer_launches = phase_trainer_paths(torch, args.seed, smi, peaks[0],
                                            trained)
     torch.cuda.empty_cache()
+    mpmd_launches = phase_mpmd(torch, np, args.seed, smi, peaks[0], trained)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tune_launches = phase_tune(torch, args.seed, smi)
+    torch.cuda.empty_cache()
     moe_launches = phase_moe(torch, args.seed, smi, peaks[0])
     gc.collect()
     torch.cuda.empty_cache()
     phase_observability(torch, np, args.seed, smi, peaks, served, trained)
 
     # each path's launches, read from its own run: the one-card ring, the
-    # single-device step, the sharded steps, the pipeline (all ranks) and
-    # the MoE decoder's steps (one card, and all ranks across cards)
+    # single-device step, the sharded steps, the pipeline (all ranks), the
+    # trainer's paths, the MPMD pipeline's stages (timed steps), the Tune
+    # trials' workers and the MoE decoder's steps (one card, and all ranks
+    # across cards)
     by_path = {"seq_ring": seq_ring_launches, "training": train_launches,
-               **spmd_launches, **trainer_launches, **moe_launches}
+               **spmd_launches, **trainer_launches, **mpmd_launches,
+               **tune_launches, **moe_launches}
     timed = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
              "ratio_to_library", "achieved_tflops", "share_of_bound")
     shapes = {label: fwd_timing[label]["shape"] for label in fwd_timing}

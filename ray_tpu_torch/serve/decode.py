@@ -239,32 +239,39 @@ class DecodeScheduler:
             _t0 = _fr.now()
             entry = self.prefix_cache.lookup(key)
             was_hit = entry is not None
+            tail: List[int] = []
             if entry is not None:
                 logits = entry.blob
             else:
                 n_pages = pages_for(n_prompt, self.page_size)
                 # +1: a non-aligned prompt also needs the COW tail page
-                if n_pages + (1 if n_prompt % self.page_size else 0) \
-                        > self.pool.n_pages:
+                n_tail = 1 if n_prompt % self.page_size else 0
+                if n_pages + n_tail > self.pool.n_pages:
                     self.waiting.popleft()
                     replies.append((corr, "error", ValueError(
                         f"prompt of {n_prompt} tokens can never fit: "
                         f"needs {n_pages} pages, pool holds "
                         f"{self.pool.n_pages}")))
                     continue
-                pages = self.prefix_cache.alloc_with_evict(n_pages)
+                # the prompt's pages and its tail page at once: a prefill
+                # runs only when its sequence can be admitted, so its
+                # entry never waits idle for a tail page (the next round
+                # would count it a prefix hit, or evict it and prefill
+                # the prompt again)
+                pages = self.prefix_cache.alloc_with_evict(n_pages + n_tail)
                 if pages is None:
                     break  # pool pressure: retry next iteration
+                pages, tail = pages[:n_pages], pages[n_pages:]
                 try:
                     logits = self.engine.prefill(prompt, pages)
                 except Exception as e:  # noqa: BLE001 — fail one request
-                    self.pool.release(pages)
+                    self.pool.release(pages + tail)
                     self.waiting.popleft()
                     replies.append((corr, "error", e))
                     continue
                 entry = self.prefix_cache.insert(key, n_prompt, pages,
                                                  blob=logits)
-            kv = self._sequence_kv(entry, n_prompt)
+            kv = self._sequence_kv(entry, n_prompt, tail)
             if kv is None:  # tail-page copy could not get a page
                 self.prefix_cache.release(entry)
                 break
@@ -286,17 +293,19 @@ class DecodeScheduler:
             if self._finished(seq, first):
                 self._retire_locked(seq, replies)
 
-    def _sequence_kv(self, entry, n_prompt: int) -> Optional[SequenceKV]:
+    def _sequence_kv(self, entry, n_prompt: int,
+                     tail: List[int]) -> Optional[SequenceKV]:
         """Build the sequence's page table over a prefix entry: full
         prefix pages are shared read-only; a partial tail page is
         copy-on-write duplicated so concurrent sequences never write the
-        same physical slot."""
+        same physical slot. ``tail`` is a page reserved for that copy
+        with a cold prefill; a prefix hit allocates one here."""
         n_full, rem = divmod(n_prompt, self.page_size)
         kv = SequenceKV(page_size=self.page_size,
                         shared=list(entry.pages[:n_full]),
                         prefix=entry)
         if rem:
-            tail = self.prefix_cache.alloc_with_evict(1)
+            tail = tail or self.prefix_cache.alloc_with_evict(1)
             if tail is None:
                 return None
             self.engine.copy_page(entry.pages[n_full], tail[0])

@@ -7,9 +7,11 @@ report/get_context/get_dataset_shard. ``TorchTrainer`` gang-schedules one
 worker actor a card and joins them in one ``torch.distributed`` process
 group; its default loop is ``spmd.spmd_train_loop``.
 
-The sharded steps (``spmd``) load torch and the model stack, so their
-names resolve on first use: the runtime imports this package (the health
-monitor) in processes that never train.
+The sharded steps (``spmd``) and the MPMD pipeline trainer
+(``pipeline``: ``MPMDPipelineTrainer``, stage actors on one card each
+over compiled-graph device edges) load torch and the model stack, so
+their names resolve on first use: the runtime imports this package
+(the health monitor) in processes that never train.
 """
 
 from ray_tpu_torch.util.usage_stats import record_library_usage as _rlu
@@ -42,9 +44,19 @@ _SPMD = ("build_train_mesh", "llama_partition_rules",
          "match_partition_rules", "spmd_train_loop")
 
 
+# the MPMD pipeline trainer (train/pipeline.py), resolved the same way
+_PIPELINE = ("MPMDPipelineTrainer", "PipelineStageActor", "init_mlp_params",
+             "reference_llama_losses", "reference_train_losses",
+             "split_llama_stages", "split_stages")
+
+
 def __getattr__(name: str):
     if name in _SPMD:
         from ray_tpu_torch.train import spmd
 
         return getattr(spmd, name)
+    if name in _PIPELINE:
+        from ray_tpu_torch.train import pipeline
+
+        return getattr(pipeline, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -572,18 +572,20 @@ def _foreign_modules() -> List[str]:
                   if m.split(".")[0] in ("jax", "jaxlib", "ray_tpu"))
 
 
-def _probed(loop, config: Dict[str, Any]):
+def _probed(loop, config: Dict[str, Any], with_loss: bool = False):
     """``loop(config)`` in a ``TorchTrainer`` worker with a probe of this
     worker around it: the kernels' launch counts are set to 0 just before
     the loop and read just after, with the peak device memory over the
     loop. Rank 0 then reports one more row, ``{"ranks": [...]}``, one
-    probe a rank (all-gathered): its ``CUDA_VISIBLE_DEVICES``, the cards
-    it sees and the first one's UUID, its launches, its peak bytes, the
-    modules of JAX or of ``ray_tpu`` it has loaded, the count and seconds
+    probe a rank (all-gathered): its process id, its
+    ``CUDA_VISIBLE_DEVICES``, the cards it sees and the first one's UUID,
+    its launches, its peak bytes, the modules of JAX or of ``ray_tpu``
+    it has loaded, the count and seconds
     of each ``spmd.*`` span the loop recorded (at the recorder's
     configured duration floor, ``flight_recorder_min_span_us``: shorter
-    spans are not recorded) and what the loop returned (``result``).
-    Returns that."""
+    spans are not recorded) and what the loop returned (``result``);
+    ``with_loss`` puts that result in the row as ``loss`` too. Returns
+    that."""
     from ray_tpu_torch.train import session
 
     cuda = dist.get_backend() == "nccl"
@@ -602,7 +604,7 @@ def _probed(loop, config: Dict[str, Any]):
             acc = spans.setdefault(name, {"count": 0, "s": 0.0})
             acc["count"] += 1
             acc["s"] += event[4]
-    mine = {"rank": dist.get_rank(),
+    mine = {"rank": dist.get_rank(), "pid": os.getpid(),
             "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES"),
             "device_count": torch.cuda.device_count() if cuda else 0,
             "uuid": str(torch.cuda.get_device_properties(0).uuid)
@@ -616,7 +618,10 @@ def _probed(loop, config: Dict[str, Any]):
     ranks: List[Any] = [None] * dist.get_world_size()
     dist.all_gather_object(ranks, mine)
     if dist.get_rank() == 0:
-        session.report({"ranks": ranks})
+        row = {"ranks": ranks}
+        if with_loss:
+            row["loss"] = result
+        session.report(row)
     return result
 
 
@@ -628,6 +633,17 @@ def trainer_probe_loop(config: Dict[str, Any]):
 
 
 trainer_probe_loop.reads_whole_datasets = True
+
+
+def tune_probe_loop(config: Dict[str, Any]):
+    """:func:`trainer_probe_loop` for a Tune trial (``Tuner(TorchTrainer(
+    tune_probe_loop, ...))``): its last row carries the loop's last loss
+    beside the probe, so the trial's final metrics, which Tune ranks,
+    hold ``loss`` and every rank's card."""
+    return _probed(spmd_train_loop, config, with_loss=True)
+
+
+tune_probe_loop.reads_whole_datasets = True
 
 
 # --------------------------------------------------------------------------- #

@@ -12,6 +12,7 @@ import re
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -71,7 +72,8 @@ print(json.dumps({"imported": names,
                  "data.datasource_ml", "data.avro", "data.iceberg",
                  "train.dcp_checkpoint", "cluster_utils", "serve",
                  *(f"serve.{m}" for m in SERVE_MODULES),
-                 *COMPILED_GRAPH_MODULES):
+                 *COMPILED_GRAPH_MODULES, "train.pipeline",
+                 *(f"tune.{m}" for m in TUNE_MODULES)):
         assert f"ray_tpu_torch.{name}" in report["imported"]
     assert not [m for m in report["new"] if _forbidden(m)]
     # the HTTP proxy is on the standard library and gRPC loads only when
@@ -85,6 +87,41 @@ SERVE_MODULES = ("api", "batching", "compiled_dispatch", "config",
                  "handle", "multiplex", "observability", "proxy", "replica")
 COMPILED_GRAPH_MODULES = ("dag", "experimental.channel", "core.net_ring",
                           "serve.compiled_dispatch")
+TUNE_MODULES = ("callbacks", "controller", "sample", "schedulers", "search",
+                "session", "tuner")
+
+
+def test_train_and_tune_load_no_model_stack():
+    """``import ray_tpu_torch.train`` (the runtime imports it for the
+    health monitor) and ``import ray_tpu_torch.tune`` in a fresh process
+    load no model stack: not torch, no model, no kernel, not the MPMD
+    pipeline (its names resolve on first use), and nothing of JAX, the
+    JAX package or pandas. ``train.MPMDPipelineTrainer`` then resolves
+    to the pipeline's class."""
+    code = f"""
+import json, sys
+before = set(sys.modules)
+import ray_tpu_torch.train as train
+import ray_tpu_torch.tune
+for m in {TUNE_MODULES!r}:
+    assert "ray_tpu_torch.tune." + m in sys.modules, m
+new = sorted(set(sys.modules) - before)
+from ray_tpu_torch.train import pipeline
+assert train.MPMDPipelineTrainer is pipeline.MPMDPipelineTrainer
+assert train.split_llama_stages is pipeline.split_llama_stages
+print(json.dumps(new))
+"""
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    new = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "ray_tpu_torch.train" in new and "ray_tpu_torch.tune" in new
+    assert not [m for m in new if _forbidden(m)
+                or m.split(".")[0] in ("torch", "pandas")
+                or m.startswith(("ray_tpu_torch.models",
+                                 "ray_tpu_torch.ops",
+                                 "ray_tpu_torch.train.spmd",
+                                 "ray_tpu_torch.train.pipeline"))], new
 
 
 def test_serve_loads_no_jax_and_no_aiohttp():
@@ -301,6 +338,9 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch, tmp_path):
                                           make_mesh_train_step,
                                           make_moe_train_step,
                                           make_spmd_train_step)
+    from ray_tpu_torch.train.pipeline import (MPMDPipelineTrainer,
+                                              reference_llama_losses,
+                                              reference_train_losses)
     from ray_tpu_torch.train.spmd_runs import (checkpoint_jobs, moe_jobs,
                                                train_jobs)
 
@@ -320,7 +360,14 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch, tmp_path):
                  lambda: moe_llama.make_train_step(moe),
                  lambda: make_moe_train_step(moe, None),
                  lambda: launch(moe_jobs, 1),
-                 lambda: launch(checkpoint_jobs, 1)):
+                 lambda: launch(checkpoint_jobs, 1),
+                 lambda: MPMDPipelineTrainer([4, 8, 2]),
+                 lambda: MPMDPipelineTrainer(model="llama", llama_cfg=cfg),
+                 lambda: reference_train_losses(
+                     [4, 8, 2], 0, np.zeros((2, 4)), np.zeros((2, 2)),
+                     1, 1, 2),
+                 lambda: reference_llama_losses(
+                     cfg, 0, np.zeros((2, 9), np.int32), 1, 1, 2)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
     assert resolve_device("cpu") == torch.device("cpu")

@@ -179,3 +179,39 @@ def test_sequence_kv_refuses_writes_into_shared_pages():
     assert kv.writable_for(8) == (3, 0)
     with pytest.raises(IndexError):
         kv.page_for(12)
+
+
+def _admit_under_tail_pressure(decode):
+    """A cold prompt of 5 tokens (2 pages and a copy-on-write tail page)
+    on a 4-page pool with 2 pages held elsewhere: the first round has
+    room for the prompt's pages but not its tail page; then the pages
+    are given back and the request runs. Returns the prefills before the
+    pages came back, the final frame and the engine."""
+    engine = decode.ToyEngine(n_pages=4, page_size=4)
+    held = engine.pool.alloc(2)
+    sched = decode.DecodeScheduler(engine)
+    assert sched.submit("b", {"prompt": [3, 1, 4, 1, 5],
+                              "max_tokens": 2}) is None
+    sched.step()
+    prefills_under_pressure = engine.prefill_calls
+    engine.pool.release(held)
+    return prefills_under_pressure, _finals(_run_all(sched, []))["b"], \
+        engine
+
+
+def test_cold_prefill_reserves_its_tail_page():
+    """A cold prefill runs only once its sequence's tail page is had too,
+    so the request is reported cold and prefilled once. The JAX
+    package's scheduler prefills into the prompt's pages, finds no tail
+    page, leaves the entry idle in the prefix cache and, a round later,
+    admits the request as a prefix hit (``cached_prefix`` True for a
+    prompt prefilled for it; were the idle entry evicted meanwhile, the
+    prompt would be prefilled twice)."""
+    waited, final, engine = _admit_under_tail_pressure(td)
+    assert waited == 0 and engine.prefill_calls == 1
+    assert final["cached_prefix"] is False
+    ref_waited, ref_final, ref_engine = _admit_under_tail_pressure(jd)
+    assert ref_waited == 1 and ref_engine.prefill_calls == 1
+    assert ref_final["cached_prefix"] is True
+    assert final["tokens"] == ref_final["tokens"]
+    _balanced(engine)
