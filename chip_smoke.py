@@ -102,7 +102,18 @@ non-zero and never prints the final ``ok`` line.
    trial at a time on one card, two on four): each trial's loss that of
    a direct fit, the best the lower, the workers' cards and launches,
    no card held and no JAX loaded by any other process of the runtime;
-13. the ``kernels`` line, the card's ``name, power.limit``, and last the
+13. ``rllib`` (after ``tune``): PPO at ``PPOConfig``'s defaults on
+   CartPole-v1, 2 remote CPU env runners and the learner on the card:
+   iteration s (sampling, learning), env steps/s, ms a minibatch update
+   on the card and the CPU, kernels an update, the learner's peak; no
+   runner with a CUDA context, a card or JAX; one PPO, one IMPALA
+   V-trace and one SAC update on the card against the CPU (loss, stats
+   and grads 1e-5, the Adam step on the same grads 1e-6); the
+   reference's CartPole learning gate (450 within 120 iterations) with
+   the learner on the card; on two cards or more, two learners over
+   NCCL against two gloo learners on the CPU. RLlib launches none of
+   the three attention kernels;
+14. the ``kernels`` line, the card's ``name, power.limit``, and last the
    ``{"ok": true, "device": ...}`` line.
 
 Weights are random, made from ``--seed``. Exits non-zero without CUDA.
@@ -3405,6 +3416,432 @@ def phase_tune(torch, seed, smi):
                for r in m["ranks"]) for k in ("fwd", "dq", "dkv")}}
 
 
+RL_WARMUP_ITERS, RL_TIMED_ITERS = 2, 5
+RL_UPDATE_REPS = 50          # updates timed on each device
+RL_PROFILED = 10             # updates under one profile
+RL_RTOL = 1e-5               # loss and stats, card against CPU (atol 1e-7)
+RL_LEAF_RTOL = 1e-5          # a grad leaf, of the leaf's largest |value|
+RL_STEP_RTOL = 1e-6          # a param leaf after a step on the same grads
+RL_GATE_RETURN, RL_GATE_ITERS = 450.0, 120  # tests/test_rllib.py:103-119
+
+
+def leaf_rel_err(torch, got, want) -> float:
+    """Worst over leaves of max |got - want| / max |want| (both dicts or
+    lists of tensors, on any device)."""
+    worst = 0.0
+    pairs = zip(got.values(), want.values()) if isinstance(want, dict) \
+        else zip(got, want)
+    for g, w in pairs:
+        g = g.detach().double().cpu()
+        w = w.detach().double().cpu()
+        scale = max(float(w.abs().max()), 1e-30)
+        worst = max(worst, float((g - w).abs().max()) / scale)
+    return worst
+
+
+def stats_close(got: dict, want: dict) -> dict:
+    """Each stat's relative difference; a stat fails past rtol 1e-5 and
+    atol 1e-7 (a clip fraction or a KL can be near 0)."""
+    out = {}
+    for k in want:
+        g, w = float(got[k]), float(want[k])
+        ok = abs(g - w) <= RL_RTOL * abs(w) + 1e-7
+        out[k] = {"card": g, "cpu": w, "rel": abs(g - w) / max(abs(w), 1e-30),
+                  "ok": ok}
+    return out
+
+
+def compute_apps() -> list:
+    """PIDs nvidia-smi lists as holding a card (they may be another pid
+    namespace's: read beside the /proc check, not instead of it)."""
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    return [int(x) for x in out.stdout.split() if x.strip().isdigit()]
+
+
+def rl_twins(torch, make, state: bytes):
+    """The same learner on the card and on the CPU, from one state."""
+    card, cpu = make(1), make(0)
+    card.set_state(state)
+    cpu.set_state(state)
+    return card, cpu
+
+
+def rl_grad_gates(torch, name, card_out, cpu_out) -> dict:
+    """Loss, stats and grads of one update, card against CPU."""
+    (lc, sc, gc), (lp, sp, gp) = card_out, cpu_out
+    stats = stats_close({"loss": lc, **sc}, {"loss": lp, **sp})
+    grad_err = leaf_rel_err(torch, gc, gp)
+    check(all(s["ok"] for s in stats.values()),
+          f"rllib {name}: card stats off the CPU's: {stats}")
+    check(grad_err <= RL_LEAF_RTOL,
+          f"rllib {name}: a grad leaf {grad_err} of its max off the CPU's")
+    return {"stats": stats, "grad_leaf_rel_err": grad_err}
+
+
+def rl_step_gate(torch, name, card_params, cpu_params) -> float:
+    """The params after a step on each device with the CPU's grads:
+    within 1e-6 of each leaf's largest |value|."""
+    err = leaf_rel_err(torch, card_params, cpu_params)
+    check(err <= RL_STEP_RTOL,
+          f"rllib {name}: the step on the same grads {err} apart")
+    return err
+
+
+def phase_rllib(torch, np, seed, smi):
+    """``rllib``: PPO at ``PPOConfig``'s defaults on CartPole-v1
+    (``envs.CartPoleEnv``): 2 remote CPU env runners x 8 envs x 64 steps,
+    train batch 2048, minibatch 128, 10 epochs, 64x64 tanh towers, Adam
+    3e-4 with a global-norm clip of 0.5, the learner on the card. (a) 2
+    warm-up and 5 timed iterations: iteration s split into sampling and
+    learning, env steps/s, ms a minibatch update on the card and the
+    CPU, kernels an update (profiler), the learner's peak; gates: the
+    learner's params on the card, no runner with a CUDA context, a card,
+    JAX, or a module off the CPU. (b) one PPO update on the card against
+    the CPU from one state and minibatch (TF32 off): loss and stats rtol
+    1e-5, each grad leaf 1e-5 of its max, the Adam step on the same grads
+    1e-6. (c) the same gates for an IMPALA V-trace sequence update and a
+    SAC update (injected draws, a synthetic Pendulum-sized batch). (d)
+    the reference's learning gate with the learner on the card: mean
+    return >= 450 within 120 iterations (on a miss, the same seed with
+    the learner on the CPU, both reported, and the phase fails). (e) two
+    cards or more: ``num_learners=2`` over NCCL, a card each, against
+    gloo learners on the CPU on the same batch and seed (params 1e-5 of
+    each leaf's max) and against each other (equal)."""
+    from ray_tpu_torch.rllib import PPOConfig, RLModuleSpec
+    from ray_tpu_torch.rllib.envs import CartPoleEnv
+    from ray_tpu_torch.rllib.learner import Learner
+    from ray_tpu_torch.rllib.ppo import ppo_loss
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cards = torch.cuda.device_count()
+    env = CartPoleEnv()
+    obs_space, act_space = env.observation_space, env.action_space
+    cfg = PPOConfig().environment(env_creator=CartPoleEnv).debugging(
+        seed=seed)
+    spec = RLModuleSpec()
+    out = {"phase": "rllib", "card": smi, "cards": cards,
+           "config": {"env": "CartPole-v1 (envs.CartPoleEnv)",
+                      "num_env_runners": cfg.num_env_runners,
+                      "num_envs_per_env_runner": cfg.num_envs_per_env_runner,
+                      "rollout_fragment_length": cfg.rollout_fragment_length,
+                      "train_batch_size": cfg.train_batch_size,
+                      "minibatch_size": cfg.minibatch_size,
+                      "num_epochs": cfg.num_epochs,
+                      "hiddens": list(spec.hiddens), "lr": cfg.lr,
+                      "grad_clip": cfg.grad_clip},
+           "gymnasium": importlib.util.find_spec("gymnasium") is not None}
+
+    def ppo_learner(gpus):
+        c = cfg.copy().learners(num_gpus_per_learner=gpus)
+        return Learner(spec.build(obs_space, act_space), c, ppo_loss(c))
+
+    try:
+        rl_readings(torch, np, seed, out, cfg, spec, obs_space, act_space,
+                    cards, ppo_learner)
+    finally:
+        out["phase_s"] = time.perf_counter() - t_phase
+        emit(out)
+    gate = out["learning_gate"]["card"]
+    check(gate["best"] >= RL_GATE_RETURN,
+          f"rllib: PPO on the card reached {gate['best']} in "
+          f"{gate['iterations']} iterations (CPU: "
+          f"{out['learning_gate'].get('cpu')})")
+
+
+def rl_readings(torch, np, seed, out, cfg, spec, obs_space, act_space,
+                cards, ppo_learner) -> None:
+    """(a)-(e) of :func:`phase_rllib`, their readings into ``out`` (the
+    phase's line, printed even when a gate fails)."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.rllib import IMPALAConfig, SACConfig
+    from ray_tpu_torch.rllib import SingleAgentEnvRunner
+    from ray_tpu_torch.rllib.continuous import ContinuousRLModule
+    from ray_tpu_torch.rllib.env_runner import compute_gae
+    from ray_tpu_torch.rllib.envs import Box, CartPoleEnv
+    from ray_tpu_torch.rllib.impala import impala_loss
+    from ray_tpu_torch.rllib.learner import (Learner, LearnerGroup, grads_of,
+                                             to_tensors)
+    from ray_tpu_torch.rllib.ppo import ppo_loss
+    from ray_tpu_torch.rllib.sac import SACLearner
+
+    # ---- (a) PPO at the defaults, learner on the card -------------------
+    rt.init()
+    try:
+        algo = cfg.build()
+        try:
+            learner = algo.learner_group._local
+            check(all(p.is_cuda for p in learner.params.values()),
+                  "rllib: the learner's params are not on the card")
+            learn_s = []
+            update = algo.learner_group.update
+
+            def timed_update(*a, **k):
+                t = time.perf_counter()
+                result = update(*a, **k)
+                learn_s.append(time.perf_counter() - t)
+                return result
+
+            algo.learner_group.update = timed_update
+            for _ in range(RL_WARMUP_ITERS):
+                algo.train()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            learn_s.clear()
+            steps0 = learner.optimizer.count
+            iters = [algo.train() for _ in range(RL_TIMED_ITERS)]
+            peak = torch.cuda.max_memory_allocated()
+            updates = (learner.optimizer.count - steps0) / RL_TIMED_ITERS
+            iter_s = [r["time_this_iter_s"] for r in iters]
+            sample_s = [a - b for a, b in zip(iter_s, learn_s)]
+            env_steps = [r["num_env_steps_sampled"] for r in iters]
+            runners = algo.env_runner_group._runners
+            probes = rt.get([r.probe.remote() for r in runners], timeout=60)
+            procs = runtime_processes(os.getpid())
+            smi_pids = compute_apps()
+            for p in probes:
+                check(p["module_device"] == "cpu",
+                      f"rllib: a runner's module on {p['module_device']}")
+                check(not p["cuda_initialized"] and not p["jax_loaded"],
+                      f"rllib: runner {p}")
+                check(not procs.get(p["pid"], (False, False))[0]
+                      and p["pid"] not in smi_pids,
+                      f"rllib: runner {p['pid']} holds a card")
+            check(len({p["pid"] for p in probes}) == cfg.num_env_runners,
+                  f"rllib: runners {probes}")
+            state = learner.get_state()
+            weights = learner.get_weights()
+            batches, _ = algo.env_runner_group.sample(weights)
+        finally:
+            algo.cleanup()
+        parts = [compute_gae(b, cfg.gamma, cfg.lambda_) for b in batches]
+        flat = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+        mb = {k: v[:cfg.minibatch_size] for k, v in flat.items()}
+        card, cpu = rl_twins(torch, ppo_learner, state)
+        mb_card, mb_cpu = to_tensors(mb, card.device), to_tensors(mb, "cpu")
+        card_ms = cuda_ms(lambda: card._step(mb_card), iters=RL_UPDATE_REPS,
+                          warmup=5)
+        for _ in range(5):
+            cpu._step(mb_cpu)
+        t = time.perf_counter()
+        for _ in range(RL_UPDATE_REPS):
+            cpu._step(mb_cpu)
+        cpu_ms = (time.perf_counter() - t) * 1e3 / RL_UPDATE_REPS
+        # ten updates under one profile: a single update's profile inside
+        # the whole smoke (after the earlier phases' profiles) counted 112
+        # kernels where the phase alone counted 171
+        prof = profile_ms(torch, lambda: [card._step(mb_card)
+                                          for _ in range(RL_PROFILED)])
+        out["ppo"] = {
+            "iteration_s": iter_s, "sampling_s": sample_s,
+            "learning_s": learn_s, "env_steps": env_steps,
+            "env_steps_per_s": sum(env_steps) / sum(iter_s),
+            "env_steps_per_sampling_s": sum(env_steps) / sum(sample_s),
+            "updates_per_iteration": updates,
+            "learner_ms_per_update": {"card": card_ms, "cpu": cpu_ms,
+                                      "cpu_over_card": cpu_ms / card_ms,
+                                      "cpu_threads": torch.get_num_threads()},
+            "learner_ms_in_iteration": sum(learn_s) * 1e3 / (
+                updates * RL_TIMED_ITERS),
+            "kernels_per_update": prof["device_kernels"] / RL_PROFILED
+            if isinstance(prof["device_kernels"], int) else "not measured",
+            "profiled_updates": RL_PROFILED,
+            "update_profile": {k: prof[k] for k in (
+                "wall_ms", "device_ms", "device_busy_share",
+                "top_kernels")},
+            "learner_peak_bytes": peak,
+            "episode_return_mean": [r.get("episode_return_mean")
+                                    for r in iters],
+            "runners": probes, "compute_app_pids": smi_pids}
+
+        # ---- (b) one PPO update, card against CPU ------------------------
+        card, cpu = rl_twins(torch, ppo_learner, state)
+        gates = rl_grad_gates(torch, "ppo", card.compute_gradients(mb_card),
+                              cpu.compute_gradients(mb_cpu))
+        _, _, grads = cpu.compute_gradients(mb_cpu)
+        card.apply_gradients([g.to(card.device) for g in grads])
+        cpu.apply_gradients(grads)
+        gates["step_leaf_rel_err"] = rl_step_gate(
+            torch, "ppo", card.params, cpu.params)
+        out["ppo_update_parity"] = gates
+
+        # ---- (e) two learners over NCCL, a card each ---------------------
+        if cards >= 2:
+            out["multi_learner"] = rl_multi_learner(
+                torch, rt, cfg, spec, obs_space, act_space, flat, weights,
+                LearnerGroup, ppo_loss)
+        else:
+            out["multi_learner"] = "needs two cards"
+    finally:
+        rt.shutdown()
+
+    # ---- (c) IMPALA V-trace and SAC, card against CPU -------------------
+    icfg = IMPALAConfig().environment(env_creator=CartPoleEnv).debugging(
+        seed=seed)
+
+    def impala_learner(gpus):
+        c = icfg.copy().learners(num_gpus_per_learner=gpus)
+        return Learner(spec.build(obs_space, act_space), c, impala_loss(c))
+
+    runner = SingleAgentEnvRunner(CartPoleEnv, spec, 8, 64, seed=seed)
+    batch, _ = runner.sample(weights)
+    seq = {k: batch[k] for k in ("obs", "actions", "rewards", "dones",
+                                 "valid", "logp", "last_obs")}
+    card, cpu = rl_twins(torch, impala_learner, state)
+    s_card, s_cpu = to_tensors(seq, card.device), to_tensors(seq, "cpu")
+    gates = rl_grad_gates(torch, "impala", card.compute_gradients(s_card),
+                          cpu.compute_gradients(s_cpu))
+    _, _, grads = cpu.compute_gradients(s_cpu)
+    card.apply_gradients([g.to(card.device) for g in grads])
+    cpu.apply_gradients(grads)
+    gates["step_leaf_rel_err"] = rl_step_gate(torch, "impala", card.params,
+                                              cpu.params)
+    gates["shape"] = list(seq["actions"].shape)
+    out["impala_update_parity"] = gates
+    out["sac_update_parity"] = rl_sac_parity(torch, np, seed, SACConfig,
+                                             SACLearner, ContinuousRLModule,
+                                             Box, to_tensors, grads_of)
+
+    # ---- (d) the learning gate, learner on the card ---------------------
+    out["learning_gate"] = {"card": rl_learning_gate(seed, 1)}
+    if out["learning_gate"]["card"]["best"] < RL_GATE_RETURN:
+        out["learning_gate"]["cpu"] = rl_learning_gate(seed, 0)
+
+
+def rl_sac_parity(torch, np, seed, SACConfig, SACLearner, ContinuousRLModule,
+                  Box, to_tensors, grads_of) -> dict:
+    """One SAC update at Pendulum-v1's sizes (obs 3, action 1, 256 x 256
+    relu, batch 256), card against CPU from one state, the draws given:
+    critic and actor losses and grads, the critic's Adam step on the same
+    grads, then a whole update's stats."""
+    B, obs_dim, act_dim = 256, 3, 1
+    rng = np.random.default_rng(seed)
+    mb = {"obs": rng.normal(size=(B, obs_dim)).astype(np.float32),
+          "actions": rng.uniform(-1, 1, (B, act_dim)).astype(np.float32),
+          "rewards": rng.normal(size=B).astype(np.float32),
+          "next_obs": rng.normal(size=(B, obs_dim)).astype(np.float32),
+          "dones": (rng.random(B) < 0.05).astype(np.float32)}
+    draws = {k: rng.normal(size=(B, act_dim)).astype(np.float32)
+             for k in ("next", "pi")}
+    cfg = SACConfig().debugging(seed=seed)
+    box = Box(-1.0, 1.0, (obs_dim,))
+    act = Box(-2.0, 2.0, (act_dim,))
+
+    def make(gpus):
+        c = cfg.copy().learners(num_gpus_per_learner=gpus)
+        return SACLearner(cfg.rl_module_spec.build(box, act), c)
+
+    state = make(1).get_state()
+    out = {"batch": B, "hiddens": list(cfg.rl_module_spec.hiddens)}
+    card, cpu = rl_twins(torch, make, state)
+    res = {}
+    for name, lrn in (("card", card), ("cpu", cpu)):
+        m = to_tensors(mb, lrn.device)
+        d = to_tensors(draws, lrn.device)
+        alpha = torch.exp(lrn.log_alpha.detach())
+        c_loss, _, _ = lrn.critic_loss(m, d, alpha)
+        a_loss, _ = lrn.actor_loss(m, d["pi"], alpha)
+        res[name] = ((c_loss.detach(), {},
+                      grads_of(c_loss, lrn.critic_params())),
+                     (a_loss.detach(), {},
+                      grads_of(a_loss, list(lrn.actor.values()))))
+    out["critic"] = rl_grad_gates(torch, "sac critic", res["card"][0],
+                                  res["cpu"][0])
+    out["actor"] = rl_grad_gates(torch, "sac actor", res["card"][1],
+                                 res["cpu"][1])
+    grads = res["cpu"][0][2]
+    card._opt_critic.step(card.critic_params(),
+                          [g.to(card.device) for g in grads])
+    cpu._opt_critic.step(cpu.critic_params(), grads)
+    out["critic_step_leaf_rel_err"] = rl_step_gate(
+        torch, "sac critic", card.critic_params(), cpu.critic_params())
+    card, cpu = rl_twins(torch, make, state)
+    got, got_td = card.update(mb, draws=draws)
+    want, want_td = cpu.update(mb, draws=draws)
+    out["update_stats"] = stats_close(got, want)
+    check(all(s["ok"] for s in out["update_stats"].values()),
+          f"rllib: a SAC update's stats off the CPU's: {out['update_stats']}")
+    out["td_abs_rel_err"] = float(np.abs(got_td - want_td).max()
+                                  / np.abs(want_td).max())
+    return out
+
+
+def rl_learning_gate(seed, gpus) -> dict:
+    """tests/test_rllib.py:103-119's config (a local runner, 8 envs x 128
+    steps, batch 1024, minibatch 256, 12 epochs, lr 3e-4, entropy 0.01),
+    the learner on ``gpus`` cards (0: the CPU): iterations to a mean
+    return of 450, at most 120."""
+    from ray_tpu_torch.rllib import PPOConfig
+    from ray_tpu_torch.rllib.envs import CartPoleEnv
+
+    config = (PPOConfig()
+              .environment(env_creator=CartPoleEnv)
+              .env_runners(num_env_runners=0, num_envs_per_env_runner=8,
+                           rollout_fragment_length=128)
+              .training(train_batch_size=1024, minibatch_size=256,
+                        num_epochs=12, lr=3e-4, entropy_coeff=0.01)
+              .learners(num_gpus_per_learner=gpus)
+              .debugging(seed=seed))
+    t = time.perf_counter()
+    algo = config.build()
+    best, returns = 0.0, []
+    for _ in range(RL_GATE_ITERS):
+        r = algo.train()
+        returns.append(r.get("episode_return_mean"))
+        best = max(best, r.get("episode_return_mean", 0.0))
+        if best >= RL_GATE_RETURN:
+            break
+    algo.cleanup()
+    return {"device": str(algo.learner_group._local.device),
+            "best": best, "iterations": len(returns),
+            "timesteps": algo._timesteps_total,
+            "seconds": time.perf_counter() - t,
+            "returns": returns}
+
+
+def rl_multi_learner(torch, rt, cfg, spec, obs_space, act_space, flat,
+                     weights, LearnerGroup, ppo_loss) -> dict:
+    """``num_learners=2``: NCCL learners on a card each against gloo
+    learners on the CPU, the same weights, batch (1,024 rows) and seed,
+    one epoch of minibatch 128."""
+    import numpy as np
+
+    batch = {k: v[:1024] for k, v in flat.items()}
+    out, final = {}, {}
+    for name, gpus in (("nccl", 1), ("gloo", 0)):
+        c = cfg.copy().learners(num_learners=2, num_gpus_per_learner=gpus)
+        group = LearnerGroup(c, spec, obs_space, act_space, ppo_loss(c))
+        try:
+            devices = rt.get([a.device.remote() for a in group._actors],
+                             timeout=120)
+            group.set_weights(weights)
+            t = time.perf_counter()
+            stats = group.update(batch, num_epochs=1, minibatch_size=128,
+                                 seed=7)
+            seconds = time.perf_counter() - t
+            w = rt.get([a.get_weights.remote() for a in group._actors],
+                       timeout=120)
+        finally:
+            group.stop()
+        check(all(np.array_equal(w[0][k], w[1][k]) for k in w[0]),
+              f"rllib {name}: the two learners differ")
+        final[name] = {k: torch.from_numpy(v) for k, v in w[0].items()}
+        out[name] = {"devices": devices, "stats": stats,
+                     "update_s": seconds}
+    visible = [d["cuda_visible_devices"] for d in out["nccl"]["devices"]]
+    check(all(d["device"].startswith("cuda") for d in out["nccl"]["devices"])
+          and len(set(visible)) == 2,
+          f"rllib: NCCL learners not on a card each: {out['nccl']}")
+    out["param_leaf_rel_err"] = leaf_rel_err(torch, final["nccl"],
+                                             final["gloo"])
+    check(out["param_leaf_rel_err"] <= RL_LEAF_RTOL,
+          f"rllib: NCCL learners {out['param_leaf_rel_err']} off gloo's")
+    return out
+
+
 def layer_matmul_params(cfg) -> int:
     """Weights one decoder layer multiplies by: wq, wk, wv, wo and the
     SwiGLU's gate, up and down."""
@@ -3864,7 +4301,9 @@ def main(argv=None) -> int:
           "capability": list(cap), "torch": torch.__version__,
           "cuda": torch.version.cuda, "python": sys.version.split()[0],
           # the serve proxy is on the standard library either way
-          "aiohttp": importlib.util.find_spec("aiohttp") is not None})
+          "aiohttp": importlib.util.find_spec("aiohttp") is not None,
+          # the RL path steps its own envs either way
+          "gymnasium": importlib.util.find_spec("gymnasium") is not None})
     check(cap == (9, 0), f"needs an sm_90 card, found sm_{cap[0]}{cap[1]}")
 
     phase_build(_build)
@@ -3899,6 +4338,9 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     tune_launches = phase_tune(torch, args.seed, smi)
+    torch.cuda.empty_cache()
+    phase_rllib(torch, np, args.seed, smi)  # launches no attention kernel
+    gc.collect()
     torch.cuda.empty_cache()
     moe_launches = phase_moe(torch, args.seed, smi, peaks[0])
     gc.collect()

@@ -73,9 +73,13 @@ print(json.dumps({"imported": names,
                  "train.dcp_checkpoint", "cluster_utils", "serve",
                  *(f"serve.{m}" for m in SERVE_MODULES),
                  *COMPILED_GRAPH_MODULES, "train.pipeline",
-                 *(f"tune.{m}" for m in TUNE_MODULES)):
+                 *(f"tune.{m}" for m in TUNE_MODULES),
+                 *(f"rllib.{m}" for m in RLLIB_MODULES)):
         assert f"ray_tpu_torch.{name}" in report["imported"]
     assert not [m for m in report["new"] if _forbidden(m)]
+    # the RL path steps its own envs: gymnasium loads only when a config
+    # names a gymnasium env id
+    assert not [m for m in report["new"] if m.split(".")[0] == "gymnasium"]
     # the HTTP proxy is on the standard library and gRPC loads only when
     # its ingress starts: serving needs neither package
     assert not [m for m in report["new"]
@@ -89,6 +93,34 @@ COMPILED_GRAPH_MODULES = ("dag", "experimental.channel", "core.net_ring",
                           "serve.compiled_dispatch")
 TUNE_MODULES = ("callbacks", "controller", "sample", "schedulers", "search",
                 "session", "tuner")
+RLLIB_MODULES = ("algorithm", "appo", "config", "continuous", "dqn",
+                 "env_runner", "envs", "impala", "learner", "multi_agent",
+                 "multi_agent_env", "multi_agent_episode", "offline", "ppo",
+                 "replay_buffers", "rl_module", "sac")
+
+
+def test_rllib_and_each_module_load_no_jax_and_no_gymnasium():
+    """``ray_tpu_torch.rllib`` and each of its modules, each in a fresh
+    process: none loads JAX, the JAX package or gymnasium; every module
+    of the JAX package's ``rllib`` has its counterpart, plus ``envs``."""
+    jax_side = sorted(p.stem for p in (ROOT / "ray_tpu" / "rllib").glob(
+        "*.py") if p.stem != "__init__")
+    assert sorted(set(RLLIB_MODULES) - {"envs"}) == jax_side
+    code = """
+import importlib, json, sys
+before = set(sys.modules)
+importlib.import_module(sys.argv[1])
+print(json.dumps(sorted(set(sys.modules) - before)))
+"""
+    for name in ("", *RLLIB_MODULES):
+        module = "ray_tpu_torch.rllib" + (f".{name}" if name else "")
+        out = subprocess.run([sys.executable, "-c", code, module], cwd=ROOT,
+                             capture_output=True, text=True, timeout=120)
+        assert out.returncode == 0, out.stderr
+        new = json.loads(out.stdout.strip().splitlines()[-1])
+        assert module in new
+        assert not [m for m in new if _forbidden(m)
+                    or m.split(".")[0] == "gymnasium"], (module, new)
 
 
 def test_train_and_tune_load_no_model_stack():
