@@ -113,7 +113,24 @@ non-zero and never prints the final ``ok`` line.
    the learner on the card; on two cards or more, two learners over
    NCCL against two gloo learners on the CPU. RLlib launches none of
    the three attention kernels;
-14. the ``kernels`` line, the card's ``name, power.limit``, and last the
+14. ``dashboard`` (after ``observability``): the operator's surface. A
+   head started as ``python -m ray_tpu_torch head`` (its dashboard and
+   job manager) and a node daemon holding the card started as ``python
+   -m ray_tpu_torch start``, this process a client driver of both; a
+   ``num_gpus=1`` actor on the daemon's node runs, observed, one
+   request of a 2-layer Llama-3-8B engine (prefill and greedy decode)
+   and one AdamW step of a 2-layer Llama-3-1B; ``GET /api/xla`` (the
+   head's fold across processes) holds each of its programs to the
+   actor's own report, its measured steps to the actor's spans and its
+   MFU to the H100 peak, and ``python -m ray_tpu_torch xla`` prints the
+   same programs; ``/api/goodput``'s compile column is the actor's
+   first calls; the daemon's agent serves the node's metrics with its
+   card; ``/api/memory`` and ``/metrics`` answer; a job submitted
+   through ``JobSubmissionClient`` runs the forward kernel against its
+   plain version and succeeds; a two-step workflow (its first step a
+   forward on the card) fails in its second step, and its resume loads
+   the first step's result without launching the kernel again;
+15. the ``kernels`` line, the card's ``name, power.limit``, and last the
    ``{"ok": true, "device": ...}`` line.
 
 Weights are random, made from ``--seed``. Exits non-zero without CUDA.
@@ -4279,6 +4296,466 @@ def phase_observability(torch, np, seed, smi, peaks, served, trained,
           "report": po.format_programs(report).splitlines()})
 
 
+# the dashboard phase: one request of this many prompt tokens and greedy
+# tokens on a 2-layer Llama-3-8B, one AdamW step of a 2-layer Llama-3-1B
+# on a batch of rows x T
+DASHBOARD_PROMPT = 200
+DASHBOARD_MAX_TOKENS = 8
+DASHBOARD_TRAIN = (4, 2048)
+# the environment of the phase's head and daemon: output unbuffered (the
+# phase reads the head's addresses from its stdout) and the knobs its
+# workers adopt: fast metric and span reports, every span kept
+DASHBOARD_ENV = {"PYTHONUNBUFFERED": "1",
+                 "RAY_TPU_METRICS_REPORT_INTERVAL_MS": "300",
+                 "RAY_TPU_FLIGHT_RECORDER_REPORT_INTERVAL_MS": "300",
+                 "RAY_TPU_FLIGHT_RECORDER_MIN_SPAN_US": "0"}
+# seconds to wait for a process to come up, a report to reach the head,
+# a job or a workflow to end
+DASHBOARD_WAIT_S = 120
+# the span family each observed program of the phase is measured by
+DASHBOARD_SPANS = {"llama.prefill": "serve.prefill",
+                   "llama.decode": "serve.decode_step",
+                   "spmd.train_step": "spmd.compute"}
+# the job's entrypoint: the forward kernel against its plain version at
+# the table shape, in a driver that joined the head
+DASHBOARD_JOB = """\
+import json, sys
+import torch
+import ray_tpu_torch as rt
+from ray_tpu_torch.ops import flash_attention as fa
+
+rt.init()
+nodes = sum(1 for n in rt.nodes() if n["Alive"])
+dev, (B, T, Hq, Hkv, D) = sys.argv[1], json.loads(sys.argv[2])
+gen = torch.Generator(device=dev).manual_seed(int(sys.argv[3]))
+q, k, v = (torch.randn(B, T, h, D, device=dev, generator=gen).to(
+    torch.bfloat16) for h in (Hq, Hkv, Hkv))
+fa.flash_attention_forward.launches = 0
+out = fa.flash_attention(q, k, v, causal=True)
+launches = fa.flash_attention_forward.launches
+ref = fa.flash_attention_reference(q, k, v, True)[0].float()
+err = (out.float() - ref).abs()
+atol, rtol = float(sys.argv[4]), float(sys.argv[5])
+print(json.dumps({"job": "flash_attention_forward", "nodes": nodes,
+                  "launches": launches, "max_abs_err": err.max().item(),
+                  "err_over_tolerance": (err / (atol + rtol * ref.abs()))
+                  .max().item(), "jax_loaded": "jax" in sys.modules}))
+rt.shutdown()
+"""
+
+
+class DashboardProbe:
+    """The observed work of the ``dashboard`` phase, in an actor: one
+    request through a DecodeScheduler over a 2-layer Llama-3-8B engine
+    and one observed AdamW step of a 2-layer Llama-3-1B (its step inside
+    an ``spmd.compute`` span), with the kernel launches, this process's
+    program report and span counts."""
+
+    def run(self, seed: int, device: str, tiny: bool) -> dict:
+        import numpy as np
+        import torch
+
+        import ray_tpu_torch as rt
+        from ray_tpu_torch.models import llama
+        from ray_tpu_torch.ops import flash_attention as fa
+        from ray_tpu_torch.serve.decode import DecodeScheduler
+        from ray_tpu_torch.train.spmd import _sp_compute
+        from ray_tpu_torch.util import flight_recorder as fr
+        from ray_tpu_torch.util import program_observatory as po
+
+        fr.configure(min_span_us=0.0)
+        serve_cfg = llama.LlamaConfig.debug() if tiny \
+            else llama.LlamaConfig.llama3_8b()
+        train_cfg = llama.LlamaConfig.debug() if tiny \
+            else llama.LlamaConfig.llama3_1b()
+        serve_cfg = dataclasses.replace(serve_cfg, n_layers=2)
+        train_cfg = dataclasses.replace(train_cfg, n_layers=2)
+        reset_launches(fa)
+        t0 = time.perf_counter()
+        engine = llama.LlamaDecodeEngine(serve_cfg, n_pages=64,
+                                         page_size=16, seed=seed,
+                                         device=device)
+        sched = DecodeScheduler(engine, deployment="dashboard")
+        prompt = np.random.RandomState(seed).randint(
+            0, serve_cfg.vocab_size, DASHBOARD_PROMPT).tolist()
+        check(sched.submit("d0", {"prompt": prompt,
+                                  "max_tokens": DASHBOARD_MAX_TOKENS})
+              is None, "the dashboard request was refused")
+        tokens, active = None, True
+        while active:
+            replies, active = sched.step()
+            for corr, kind, payload in replies:
+                check(kind != "error", f"request {corr} failed: {payload}")
+                if kind == "final":
+                    tokens = json.loads(payload)["tokens"]
+        serve_s = time.perf_counter() - t0
+
+        rows, T = (2, 64) if tiny else DASHBOARD_TRAIN
+        gen = torch.Generator(device=device).manual_seed(seed)
+        batch = torch.randint(0, train_cfg.vocab_size, (rows, T + 1),
+                              device=device, generator=gen)
+        init_state, train_step = llama.make_train_step(train_cfg,
+                                                       device=device)
+        state = init_state(seed)
+        step = po.observe_program(train_step, "spmd.train_step")
+        t1 = time.perf_counter()
+        t_span = fr.now()
+        loss = float(step(state, batch))
+        _sp_compute.end(t_span)
+        train_s = time.perf_counter() - t1
+        launches = read_launches(fa)
+        spans, first_call_s = {}, {}
+        for ev in fr.build_span_events([fr.snapshot_payload()]):
+            if ev.get("ph") != "X":
+                continue
+            spans[ev["name"]] = spans.get(ev["name"], 0) + 1
+            if ev["name"] == "program.first_call":
+                prog = ev["args"]["program"]
+                first_call_s[prog] = first_call_s.get(prog, 0.0) \
+                    + ev["dur"] / 1e6
+        return {"node": rt.get_runtime_context().get_node_id(),
+                "cuda_visible_devices": os.environ.get(
+                    "CUDA_VISIBLE_DEVICES"),
+                "device": (torch.cuda.get_device_name(0)
+                           if device == "cuda" else "cpu"),
+                "tokens": tokens, "loss": loss, "launches": launches,
+                "expected_train_launches": expected_launches(train_cfg, 1),
+                "report": po.program_report(), "spans": spans,
+                "first_call_s": first_call_s, "serve_s": serve_s,
+                "train_s": train_s,
+                "forbidden_modules": sorted(
+                    m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "ray_tpu"))}
+
+
+def dashboard_forward(seed: int, device: str, count_path: str,
+                      shape) -> dict:
+    """The workflow's first step: one causal forward of ``shape`` (B, T,
+    Hq, Hkv, D) through ``flash_attention``; each run appends its
+    launches to ``count_path``."""
+    import torch
+
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    B, T, Hq, Hkv, D = shape
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q, k, v = (torch.randn(B, T, h, D, device=device, generator=gen).to(
+        torch.bfloat16) for h in (Hq, Hkv, Hkv))
+    fa.flash_attention_forward.launches = 0
+    out = fa.flash_attention(q, k, v, causal=True)
+    launches = fa.flash_attention_forward.launches
+    with open(count_path, "a") as f:
+        f.write(f"{launches}\n")
+    return {"sum": float(out.float().sum()), "launches": launches}
+
+
+def dashboard_check(first: dict, marker: str) -> dict:
+    """The workflow's second step: fails the first time it runs (the
+    marker file absent), then passes the first step's result on."""
+    if not os.path.exists(marker):
+        with open(marker, "w") as f:
+            f.write("1")
+        raise RuntimeError("the dashboard workflow's planned failure")
+    return dict(first, checked=math.isfinite(first["sum"]))
+
+
+class _ChildLines:
+    """A child process's stdout lines, read on a thread so its pipe never
+    fills."""
+
+    def __init__(self, proc):
+        import threading
+
+        self.proc, self.lines = proc, []
+        threading.Thread(target=self._read, daemon=True).start()
+
+    def _read(self) -> None:
+        for line in self.proc.stdout:
+            self.lines.append(line.rstrip("\n"))
+
+    def wait_for(self, text: str, timeout: float) -> None:
+        deadline = time.monotonic() + timeout
+        while not any(text in line for line in self.lines):
+            check(self.proc.poll() is None,
+                  f"the child exited {self.proc.returncode}: {self.lines}")
+            check(time.monotonic() < deadline,
+                  f"no {text!r} from the child: {self.lines}")
+            time.sleep(0.1)
+
+
+def _get_json(url: str):
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=DASHBOARD_WAIT_S) as r:
+        check(r.status == 200, f"{url} answered {r.status}")
+        return json.loads(r.read().decode())
+
+
+def _stop_child(proc, sig) -> None:
+    import signal
+
+    if proc.poll() is None:
+        try:
+            os.killpg(proc.pid, sig)
+            proc.wait(timeout=30)
+        except (ProcessLookupError, subprocess.TimeoutExpired):
+            pass
+    if proc.poll() is None:
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        proc.wait(timeout=30)
+
+
+def phase_dashboard(torch, seed, smi, peaks, device="cuda",
+                    tiny=False) -> dict:
+    """The operator's surface on the card (see the module docstring,
+    item 14). Returns the launches of the phase's path (the actor's and
+    the workflow's first step's; the job's are a comparison and are
+    reported, not counted). ``device="cpu"`` with ``tiny`` drives the
+    same flow on the CPU at a tiny width, where nothing launches."""
+    import signal
+    import tempfile
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import workflow
+    from ray_tpu_torch.jobs import JobStatus, JobSubmissionClient
+
+    check(not rt.is_initialized(), "a runtime is still up before dashboard")
+    t_phase = time.perf_counter()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    work = tempfile.mkdtemp(prefix="dashboard_")
+    env = dict(os.environ, **DASHBOARD_ENV)
+    env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")
+    cards = 1 if device == "cuda" else 0
+    # the forward of the job and the workflow: the table shape
+    shape = [1, 64, 4, 2, 16] if tiny else list(dict(TIMED_SHAPES)["table"])
+    timings = {}
+    head = daemon = None
+    try:
+        t = time.perf_counter()
+        head = subprocess.Popen(
+            [sys.executable, "-m", "ray_tpu_torch", "head", "--host",
+             "127.0.0.1", "--dashboard-port", "0", "--num-cpus", "4",
+             "--num-gpus", "0"], env=env, cwd=work, text=True,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            start_new_session=True)
+        head_out = _ChildLines(head)
+        head_out.wait_for("Ctrl-C to stop.", DASHBOARD_WAIT_S)
+        text = "\n".join(head_out.lines)
+        client = re.search(r"client address : ray_tpu://(\S+)", text)
+        key = re.search(r"cluster key    : (\S+)", text)
+        base = re.search(r"dashboard      : (http://\S+)", text)
+        node_server = re.search(r"node server    : (\S+)", text)
+        check(all((client, key, base, node_server)),
+              f"the head printed no addresses: {head_out.lines}")
+        base = base.group(1)
+        timings["head_start_s"] = time.perf_counter() - t
+
+        t = time.perf_counter()
+        daemon = subprocess.Popen(
+            [sys.executable, "-m", "ray_tpu_torch", "start", "--address",
+             node_server.group(1), "--key", key.group(1), "--num-cpus", "4",
+             "--num-gpus", str(cards)], env=env, cwd=work, text=True,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            start_new_session=True)
+        _ChildLines(daemon)
+        deadline = time.monotonic() + DASHBOARD_WAIT_S
+        while True:
+            nodes = _get_json(base + "/api/nodes")
+            if sum(1 for n in nodes if n["alive"]) == 2:
+                break
+            check(daemon.poll() is None and time.monotonic() < deadline,
+                  f"the node daemon did not join: {nodes}")
+            time.sleep(0.2)
+        timings["daemon_join_s"] = time.perf_counter() - t
+
+        rt.init(address=f"ray_tpu://{client.group(1)}",
+                cluster_key=key.group(1))
+        try:
+            t = time.perf_counter()
+            probe = rt.remote(num_gpus=cards, num_cpus=1)(
+                DashboardProbe).remote()
+            got = rt.get(probe.run.remote(seed, device, tiny),
+                         timeout=DASHBOARD_WAIT_S * 5)
+            timings["actor_s"] = time.perf_counter() - t
+            daemon_hex = got["node"]
+            head_hex = next(n["node_id"] for n in nodes
+                            if n["node_id"] != daemon_hex)
+            check(not got["forbidden_modules"],
+                  f"the actor loaded {got['forbidden_modules']}")
+            check(len(got["tokens"] or ()) == DASHBOARD_MAX_TOKENS,
+                  f"the request gave {got['tokens']}")
+            check(math.isfinite(got["loss"]), f"loss {got['loss']}")
+            train = got["expected_train_launches"]
+            want = ({"fwd": 2 + train["fwd"], "dq": train["dq"],
+                     "dkv": train["dkv"]} if cards
+                    else {"fwd": 0, "dq": 0, "dkv": 0})
+            check(got["launches"] == want,
+                  f"the actor launched {got['launches']}, want {want}")
+            local = got["report"]["programs"]
+
+            # /api/xla: the head's fold across processes
+            t = time.perf_counter()
+            deadline = time.monotonic() + DASHBOARD_WAIT_S
+            while True:
+                api = _get_json(base + "/api/xla")
+                rows = api["programs"]
+                if all(rows.get(p, {}).get("measured_steps")
+                       == got["spans"].get(span)
+                       and rows[p].get("flops") == local[p].get("flops")
+                       for p, span in DASHBOARD_SPANS.items()):
+                    break
+                check(time.monotonic() < deadline,
+                      f"/api/xla never matched the actor: {rows}")
+                time.sleep(0.2)
+            timings["fold_s"] = time.perf_counter() - t
+            fold = {}
+            for p, span in DASHBOARD_SPANS.items():
+                row, mine = rows[p], local[p]
+                for col in ("flops", "bytes_accessed", "variants",
+                            "compiles", "peak_bytes"):
+                    check(row.get(col) == mine.get(col),
+                          f"/api/xla {p}.{col} {row.get(col)}, the actor's "
+                          f"{mine.get(col)}")
+                check(row["measured_span"] == span
+                      and row["measured_steps"] == got["spans"][span],
+                      f"/api/xla {p} measured {row.get('measured_steps')} "
+                      f"x {row.get('measured_span')}, the actor ran "
+                      f"{got['spans'].get(span)} {span}")
+                mfu = row["achieved_flops_per_s"] / peaks[0]
+                check(abs(row["mfu"] - mfu) <= 1e-6,
+                      f"/api/xla {p} MFU {row['mfu']} against {mfu}")
+                fold[p] = {k: row.get(k) for k in (
+                    "flops", "bytes_accessed", "variants", "compiles",
+                    "measured_steps", "mean_step_s", "mfu", "verdict")}
+            check(api["peak_flops_per_chip"] == peaks[0]
+                  and api["device_kind"] == got["device"],
+                  f"the fold's peaks {api['peak_flops_per_chip']} on "
+                  f"{api['device_kind']}, the actor on {got['device']}")
+            cli = subprocess.run(
+                [sys.executable, "-m", "ray_tpu_torch", "xla",
+                 "--address", base], env=env, cwd=work, text=True,
+                capture_output=True, timeout=DASHBOARD_WAIT_S)
+            check(cli.returncode == 0
+                  and all(p in cli.stdout for p in DASHBOARD_SPANS),
+                  f"`xla` printed {cli.stdout!r} {cli.stderr!r}")
+
+            # the other endpoints
+            goodput = _get_json(base + "/api/goodput")
+            first_calls = round(sum(got["first_call_s"].values()), 6)
+            check(goodput["badput_s"]["compile"] > 0 and abs(
+                goodput["badput_s"]["compile"] - first_calls) <= 1e-5,
+                f"/api/goodput compile {goodput['badput_s']}, the actor's "
+                f"first calls {got['first_call_s']}")
+            agent = _get_json(f"{base}/api/nodes/{daemon_hex}/metrics")
+            check(agent["node_hex"] == daemon_hex
+                  and len(agent["devices"]) == cards
+                  and all(c["memory_used_mib"] for c in agent["devices"]),
+                  f"the daemon's agent served {agent.get('devices')}")
+            check(_get_json(f"{base}/api/nodes/{head_hex}/metrics")
+                  ["node_hex"] == head_hex, "the head node's agent")
+            memory = _get_json(base + "/api/memory")
+            check("totals" in memory, f"/api/memory answered {memory}")
+            import urllib.request
+
+            with urllib.request.urlopen(base + "/metrics",
+                                        timeout=DASHBOARD_WAIT_S) as r:
+                prom = r.read().decode()
+            check("port_program_compiles_total" in prom,
+                  "/metrics has no program series")
+            # the actor's card goes back to the node for the workflow
+            rt.kill(probe)
+            deadline = time.monotonic() + DASHBOARD_WAIT_S
+            while rt.available_resources().get("GPU", 0) < cards:
+                check(time.monotonic() < deadline,
+                      "the actor's card was not released")
+                time.sleep(0.2)
+
+            # a job: the forward kernel against its plain version
+            t = time.perf_counter()
+            script = os.path.join(work, "dashboard_job.py")
+            with open(script, "w") as f:
+                f.write(DASHBOARD_JOB)
+            jobs = JobSubmissionClient(base)
+            sid = jobs.submit_job(
+                entrypoint=" ".join([
+                    sys.executable, script, device,
+                    f"'{json.dumps(shape)}'", str(seed), str(KERNEL_ATOL),
+                    str(KERNEL_RTOL)]),
+                runtime_env={"working_dir": work,
+                             "env_vars": {"PYTHONPATH": repo}})
+            deadline = time.monotonic() + DASHBOARD_WAIT_S * 2
+            while jobs.get_job_status(sid) not in JobStatus.TERMINAL:
+                check(time.monotonic() < deadline, f"job {sid} never ended")
+                time.sleep(0.2)
+            with urllib.request.urlopen(f"{base}/api/jobs/{sid}/logs",
+                                        timeout=DASHBOARD_WAIT_S) as r:
+                logs = r.read().decode()
+            status = jobs.get_job_status(sid)
+            check(status == JobStatus.SUCCEEDED,
+                  f"job {sid} ended {status}: {logs}")
+            job = json.loads(next(line for line in logs.splitlines()
+                                  if line.startswith('{"job"')))
+            check(job["nodes"] == 2 and not job["jax_loaded"]
+                  and job["launches"] == cards
+                  and job["err_over_tolerance"] <= 1.0,
+                  f"the job reported {job}")
+            timings["job_s"] = time.perf_counter() - t
+
+            # a workflow: its first step on the card, its resume loading
+            # that step's result instead of launching again
+            t = time.perf_counter()
+            workflow.init(os.path.join(work, "workflows"))
+            count_path = os.path.join(work, "forward_launches")
+            marker = os.path.join(work, "fail_once")
+            first = rt.remote(num_gpus=cards, num_cpus=1, max_retries=0)(
+                dashboard_forward)
+            second = rt.remote(num_cpus=1, max_retries=0)(dashboard_check)
+            dag = second.bind(first.bind(seed, device, count_path, shape),
+                              marker)
+            try:
+                workflow.run(dag, workflow_id="dashboard")
+                check(False, "the workflow's planned failure did not fail")
+            except Exception as e:  # noqa: BLE001 — the planned failure
+                check("planned failure" in repr(e) or
+                      workflow.get_status("dashboard")
+                      == workflow.WorkflowStatus.RESUMABLE,
+                      f"the workflow failed otherwise: {e!r}")
+            check(workflow.get_status("dashboard")
+                  == workflow.WorkflowStatus.RESUMABLE,
+                  "the failed workflow is not resumable")
+            with open(count_path) as f:
+                before = f.read().split()
+            result = workflow.resume("dashboard")
+            with open(count_path) as f:
+                after = f.read().split()
+            check(before == after == [str(cards)] and result["checked"]
+                  and result["launches"] == cards,
+                  f"resume: step launches {before} -> {after}, {result}")
+            timings["workflow_s"] = time.perf_counter() - t
+        finally:
+            rt.shutdown()
+    finally:
+        for proc, sig in ((daemon, signal.SIGTERM), (head, signal.SIGINT)):
+            if proc is not None:
+                _stop_child(proc, sig)
+    timings["phase_s"] = time.perf_counter() - t_phase
+    launches = {"fwd": got["launches"]["fwd"] + cards,
+                "dq": got["launches"]["dq"], "dkv": got["launches"]["dkv"]}
+    emit({"phase": "dashboard", "card": smi, "device": got["device"],
+          "actor": {k: got[k] for k in ("cuda_visible_devices", "loss",
+                                        "launches", "spans", "serve_s",
+                                        "train_s", "first_call_s")},
+          "api_xla": fold, "peak_flops_per_chip": api["peak_flops_per_chip"],
+          "goodput_compile_s": goodput["badput_s"]["compile"],
+          "agent_devices": agent["devices"], "job": job,
+          "workflow": {"step_launches": after, "result": result},
+          "launches": launches, "timings": timings})
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4346,6 +4823,9 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_observability(torch, np, args.seed, smi, peaks, served, trained)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dashboard_launches = phase_dashboard(torch, args.seed, smi, peaks)
 
     # each path's launches, read from its own run: the one-card ring, the
     # single-device step, the sharded steps, the pipeline (all ranks), the
@@ -4354,7 +4834,8 @@ def main(argv=None) -> int:
     # across cards)
     by_path = {"seq_ring": seq_ring_launches, "training": train_launches,
                **spmd_launches, **trainer_launches, **mpmd_launches,
-               **tune_launches, **moe_launches}
+               **tune_launches, **moe_launches,
+               "dashboard": dashboard_launches}
     timed = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
              "ratio_to_library", "achieved_tflops", "share_of_bound")
     shapes = {label: fwd_timing[label]["shape"] for label in fwd_timing}

@@ -578,6 +578,9 @@ def main(argv=None) -> int:
     ap.add_argument("--key", required=True, help="cluster auth key (hex)")
     ap.add_argument("--num-cpus", type=float, default=None)
     ap.add_argument("--num-tpus", type=float, default=None)
+    ap.add_argument("--num-gpus", type=float, default=None,
+                    help="GPUs to advertise (default: the cards visible "
+                    "to this process)")
     ap.add_argument("--resources", default="{}", help="JSON resource dict")
     ap.add_argument("--labels", default="{}", help="JSON label dict")
     ap.add_argument("--session-dir", default=None)
@@ -593,6 +596,7 @@ def main(argv=None) -> int:
     resources = detect_resources(
         num_cpus=int(args.num_cpus) if args.num_cpus is not None else None,
         num_tpus=int(args.num_tpus) if args.num_tpus is not None else None,
+        num_gpus=int(args.num_gpus) if args.num_gpus is not None else None,
         extra=json.loads(args.resources))
     labels = json.loads(args.labels)
 
@@ -628,17 +632,21 @@ def main(argv=None) -> int:
                 session_dir, labels, node_ip=node_ip)
     head.node = node
     server = node.start_object_server(key)
-    # the per-node dashboard agent (ray_tpu/core/node_daemon.py:633) is
-    # not ported (ROADMAP.md, queue 1, item 5.7): the node advertises no
-    # agent address, which the head accepts (runtime.py, agent_addr).
-    # The payload is retained on the proxy: re-registration after a head bounce resends
+    # per-node dashboard agent (reference: dashboard/agent.py:26): logs,
+    # metrics with the node's cards, profile trigger — the head
+    # dashboard proxies /api/nodes/<hex>/*
+    from ray_tpu_torch.dashboard.agent import NodeAgent
+
+    loopback = node_ip in ("127.0.0.1", "localhost")
+    agent = NodeAgent(node, host="127.0.0.1" if loopback else "0.0.0.0")
+    # retained on the proxy: re-registration after a head bounce resends
     # this payload (plus a replay snapshot) under the same node hex
     head.ready_payload = {
         "resources": resources,
         "labels": labels,
         "object_addr": list(server.address),
         "pid": os.getpid(),
-        "agent_addr": None,
+        "agent_addr": [node_ip, agent.address[1]],
     }
     channel.send("node_ready", head.ready_payload)
     from .syncer import NodeSyncer

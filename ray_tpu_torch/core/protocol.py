@@ -36,7 +36,11 @@ from .fault_injection import should_drop as _fault_should_drop
 # tags/payload shapes — mixed-version clusters fail fast with a clear
 # error instead of unpickling garbage (the pickle-schema analog of the
 # reference's versioned protobuf wire format, src/ray/protobuf/).
-PROTOCOL_VERSION = 12  # v12: cluster stack dump. ADDED the "stack"
+PROTOCOL_VERSION = 13  # v13: the PyTorch runtime's own wire-op set.
+# Its compiled-dispatch, device-edge and ring ops differ from the JAX
+# runtime's at v12, so the number names this package's op set (the two
+# runtimes never join one cluster).
+# (v12: cluster stack dump. ADDED the "stack"
 # request (head -> worker/daemon: one bounded sampling-profiler round,
 # duration_ms) and its one-way "stack_rep" reply (collapsed-stack text
 # per process) behind `python -m ray_tpu stack` / GET /api/stacks.

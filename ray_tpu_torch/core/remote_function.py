@@ -124,11 +124,10 @@ class RemoteFunction:
 
     def bind(self, *args, **kwargs):
         """Author a task-DAG node for workflows (reference: dag_node.py
-        bind / workflow DAG authoring). Workflows (``ray_tpu/workflow``)
-        are not ported yet."""
-        raise NotImplementedError(
-            "workflows are not ported to ray_tpu_torch yet (ROADMAP.md, "
-            "queue 1, item 5.8)")
+        bind / workflow DAG authoring)."""
+        from ray_tpu_torch.workflow.api import FunctionNode
+
+        return FunctionNode(self, args, kwargs)
 
     def _ensure_registered(self, runtime) -> None:
         self._materialize_payload()

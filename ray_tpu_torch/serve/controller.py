@@ -178,6 +178,10 @@ class ServeController:
                     "target": rec["target"],
                     "num_replicas": len(rec["replicas"]),
                     "version": rec["version"],
+                    # each replica's version: a rollout is done once
+                    # every one is ``version``
+                    "replica_versions": [r["version"]
+                                         for r in rec["replicas"]],
                     "route_prefix": rec["config"].get("route_prefix"),
                 }
                 for name, rec in self._deployments.items()

@@ -33,6 +33,23 @@ from ray_tpu_torch.train.checkpoint import Checkpoint
 from ray_tpu_torch.train.session import TrainContext, set_context
 
 
+def _await_dead(actors, timeout: float) -> None:
+    """Wait (bounded) until the head records every actor DEAD: its
+    process exited and its resources are free. A client driver, which
+    has no head to ask, returns at once."""
+    from ray_tpu_torch.core.runtime import get_current_runtime
+
+    head = getattr(get_current_runtime(), "head", None)
+    if head is None:
+        return
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        states = [head.actor_location(a._actor_id) for a in actors]
+        if all(s is None or s["state"] == "DEAD" for s in states):
+            return
+        time.sleep(0.05)
+
+
 class Backend:
     """Framework-backend plugin interface (reference: train/backend.py:16)."""
 
@@ -229,6 +246,10 @@ class BackendExecutor:
     # seconds the gang's placement group may take to be reserved before
     # start() gives up with PlacementGroupError
     PLACEMENT_TIMEOUT_S = 120.0
+    # how long shutdown waits for its workers' processes to be gone, so
+    # fit() returns with the gang's resources back and the next gang
+    # never races this one's teardown
+    TEARDOWN_WAIT_S = 60.0
 
     def __init__(self, scaling: ScalingConfig, backend: Optional[Backend],
                  experiment_name: str, trial_dir: str):
@@ -321,4 +342,5 @@ class BackendExecutor:
             remove_placement_group(self.state.pg)
         except Exception:
             pass
+        _await_dead(self.state.actors, self.TEARDOWN_WAIT_S)
         self.state = None

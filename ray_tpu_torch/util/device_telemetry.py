@@ -27,6 +27,9 @@ must not open a context on another rank's card.
 
 from __future__ import annotations
 
+import os
+import shutil
+import subprocess
 import sys
 import threading
 from typing import List, Optional
@@ -120,6 +123,56 @@ def collect_device_stats(devices: List, node_hex: str = "") -> int:
         _PEAK_BYTES.set(float(stats["allocated_bytes.all.peak"]), tags=tags)
         n += 1
     return n
+
+
+# nvidia-smi query fields -> the keys of a card's reading
+_CARD_FIELDS = (("index", "index"), ("name", "name"),
+                ("memory.used", "memory_used_mib"),
+                ("memory.total", "memory_total_mib"),
+                ("utilization.gpu", "utilization_pct"),
+                ("power.draw", "power_draw_w"),
+                ("power.limit", "power_limit_w"))
+
+
+def query_cards(timeout: float = 5.0) -> List[dict]:
+    """This node's cards as ``nvidia-smi`` reads them (name, memory used
+    and total in MiB, utilization, power draw and limit), without a CUDA
+    context: the node agent's view of the cards its workers hold. Cards
+    outside ``CUDA_VISIBLE_DEVICES`` (when it lists indices) are left
+    out; where ``nvidia-smi`` is missing or fails, an empty list."""
+    exe = shutil.which("nvidia-smi")
+    if exe is None:
+        return []
+    query = ",".join(q for q, _ in _CARD_FIELDS)
+    try:
+        out = subprocess.run(
+            [exe, f"--query-gpu={query}", "--format=csv,noheader,nounits"],
+            capture_output=True, text=True, timeout=timeout)
+    except (OSError, subprocess.TimeoutExpired):
+        return []
+    if out.returncode != 0:
+        return []
+    visible = [v.strip() for v in
+               os.environ.get("CUDA_VISIBLE_DEVICES", "").split(",")
+               if v.strip()]
+    keep = set(visible) if visible and all(v.isdigit() for v in visible) \
+        else None
+    cards = []
+    for line in out.stdout.splitlines():
+        vals = [v.strip() for v in line.split(",")]
+        if len(vals) != len(_CARD_FIELDS) or (keep and vals[0] not in keep):
+            continue
+        card: dict = {}
+        for (_, key), val in zip(_CARD_FIELDS, vals):
+            if key == "name":
+                card[key] = val
+                continue
+            try:
+                card[key] = int(val) if key == "index" else float(val)
+            except ValueError:  # "[N/A]"
+                card[key] = None
+        cards.append(card)
+    return cards
 
 
 def _knobs():

@@ -53,6 +53,9 @@ _CKPT = ("ckpt.save", "ckpt.restore")
 _PIPE_BUSY = ("pipe.fwd", "pipe.bwd", "pipe.loss_bwd")
 _WINDOW_SPANS = (_PRODUCTIVE + _INGEST + _COMPILE + _CKPT +
                  ("pipe.step",) + _PIPE_BUSY)
+# the program observatory's span for one analysed first call
+# (util/program_observatory.py): the compile column's back-fill
+_FIRST_CALL = "program.first_call"
 
 
 def recovery_intervals(cluster_events: Iterable[dict],
@@ -141,16 +144,16 @@ def classify_badput(events: Sequence[Dict[str, Any]],
     ingest_s = per_source_mean(_INGEST)
     ckpt_s = per_source_mean(_CKPT)
     # compile column: spmd.compile is the train-step compile wall; the
-    # observatory's per-program xla.compile spans back-fill sources that
-    # never hit the spmd seam (serve decode, placement jits). A source
-    # with spmd.compile keeps that number — its xla.compile spans are
-    # the same wall time seen program-by-program, not additional badput.
-    # xla.compile does NOT define the window (serve-only clusters would
+    # program observatory's per-program first-call spans back-fill
+    # sources that never hit the spmd seam (serve decode). A source with
+    # spmd.compile keeps that number — its first-call spans are the same
+    # wall time seen program-by-program, not additional badput. First
+    # calls do NOT define the window (serve-only clusters would
     # otherwise grow a fake "train window" out of compile spans alone).
-    xla_pool = [ev for ev in events
-                if ev.get("ph") == "X" and ev.get("cat") == "span"
-                and ev.get("name") == "xla.compile"]
-    compile_per = per_source(("xla.compile",), pool=xla_pool)
+    first_pool = [ev for ev in events
+                  if ev.get("ph") == "X" and ev.get("cat") == "span"
+                  and ev.get("name") == _FIRST_CALL]
+    compile_per = per_source((_FIRST_CALL,), pool=first_pool)
     compile_per.update(per_source(_COMPILE))
     compile_s = (sum(compile_per.values()) / len(compile_per)
                  if compile_per else 0.0)
@@ -241,9 +244,9 @@ class LedgerAccumulator:
         self._steps = 0        # spmd.compute spans folded
         self._pipe_steps = 0   # pipe.step spans folded
         self._sources: set = set()
-        # xla.compile seconds per source — compile-column back-fill for
+        # first-call seconds per source — compile-column back-fill for
         # sources with no spmd.compile (see classify_badput)
-        self._xla_compile: Dict[str, float] = {}
+        self._first_calls: Dict[str, float] = {}
         self._t_lo: Optional[float] = None   # wall seconds
         self._t_hi: Optional[float] = None
 
@@ -263,12 +266,12 @@ class LedgerAccumulator:
             if ev.get("ph") != "X" or ev.get("cat") != "span":
                 continue
             name = ev.get("name")
-            if name == "xla.compile":
+            if name == _FIRST_CALL:
                 # tracked for the compile column, but never widens the
                 # train window or the source census
                 args = ev.get("args") or {}
                 src = str(args.get("source", ev.get("pid")))
-                self._xla_compile[src] = (self._xla_compile.get(src, 0.0)
+                self._first_calls[src] = (self._first_calls.get(src, 0.0)
                                           + ev.get("dur", 0.0) / 1e6)
                 continue
             if name not in _WINDOW_SPANS:
@@ -313,8 +316,8 @@ class LedgerAccumulator:
         compute_s = fam_mean("compute")
         ingest_s = fam_mean("ingest")
         ckpt_s = fam_mean("checkpoint")
-        # spmd.compile wins per source; xla.compile back-fills the rest
-        compile_per = dict(self._xla_compile)
+        # spmd.compile wins per source; first calls back-fill the rest
+        compile_per = dict(self._first_calls)
         for src, d in self._fam.items():
             if "compile" in d:
                 compile_per[src] = d["compile"]

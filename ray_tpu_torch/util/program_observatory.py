@@ -56,13 +56,20 @@ per-program achieved FLOP/s, arithmetic intensity, MFU and a
 compute-bound / memory-bound verdict against the card's peaks (the H100
 table, :data:`PEAKS`). An unknown CUDA card gets no peaks, so no MFU and
 no verdict; the CPU gets nominal, trend-only ceilings whose verdict is
-not enforced. Left out until the runtime is ported: the recompile-storm
-detector, the goodput column and the head-side fold across processes.
+not enforced. ``program_report(head=...)`` is the head-side fold across
+processes behind ``GET /api/xla`` and ``python -m ray_tpu_torch xla``,
+with the recompile storms of the head's health monitor
+(``train/health.py``); the goodput ledger's compile column back-fills
+from the ``program.first_call`` spans (``util/goodput.py``). Nothing of
+the JAX package's observatory is left out; the fingerprint-only counting
+of later first calls is the port's own (above).
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import functools
 import threading
 import time
 import weakref
@@ -77,7 +84,8 @@ from ray_tpu_torch.core.config import global_config
 from ray_tpu_torch.ops.flash_attention import KernelTally
 from ray_tpu_torch.util import device_telemetry
 from ray_tpu_torch.util import flight_recorder as _fr
-from ray_tpu_torch.util.metrics import Counter, Gauge
+from ray_tpu_torch.util.metrics import (Counter, Gauge, aggregate_series,
+                                        registry)
 
 __all__ = [
     "PEAKS",
@@ -87,6 +95,7 @@ __all__ = [
     "get_program",
     "program_names",
     "program_report",
+    "publish_report",
     "format_programs",
     "peak_flops_per_chip",
     "peak_hbm_bytes_per_sec",
@@ -327,7 +336,11 @@ class _CountingMode(TorchDispatchMode):
         self.failed = False
         self._arg_keys = arg_keys
         self._live: Dict[Any, int] = {}
-        # storages are freed on whichever thread drops them last
+        # storages are freed on whichever thread drops them last, maybe
+        # by the GC on a thread inside ``with self._lock``: the finalizer
+        # only queues the key (no lock), and the lock's holders drain
+        # the queue (the runtime's ObjectRef drop queue, the same way)
+        self._freed: "collections.deque" = collections.deque()
         self._lock = threading.Lock()
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -356,6 +369,7 @@ class _CountingMode(TorchDispatchMode):
         count = flop_registry.get(packet)
         if count is not None:
             with self._lock:
+                self._drain_freed()
                 self.flops[str(packet)] = self.flops.get(str(packet), 0) \
                     + int(count(*args, **kwargs, out_val=out))
         outs = _op_tensors(out if isinstance(out, tuple) else (out,), {})
@@ -363,6 +377,7 @@ class _CountingMode(TorchDispatchMode):
             nbytes = sum(_tensor_bytes(t) for t in outs) + sum(
                 _tensor_bytes(t) for t in ins)
             with self._lock:
+                self._drain_freed()
                 self.bytes += nbytes
         for t in outs:
             key, st = _storage_key(t)
@@ -370,26 +385,27 @@ class _CountingMode(TorchDispatchMode):
             if not nbytes or key in self._arg_keys:
                 continue
             with self._lock:
+                # a freed storage's address may be reused: drain first
+                self._drain_freed()
                 if key in self._live:
                     continue
                 self._live[key] = nbytes
                 self.live += nbytes
                 self.peak_live = max(self.peak_live, self.live)
-            weakref.finalize(st, self._free, key)
+            weakref.finalize(st, self._freed.append, key)
 
-    def _free(self, key) -> None:
-        with self._lock:
-            self.live -= self._live.pop(key, 0)
+    def _drain_freed(self) -> None:
+        """Release the storages freed since the last drain (lock held)."""
+        while self._freed:
+            self.live -= self._live.pop(self._freed.popleft(), 0)
 
     def output_bytes(self, out) -> int:
         """Bytes of the storages of ``out`` allocated under the mode."""
-        seen = {}
-        for t in tree_leaves(out):
-            if isinstance(t, torch.Tensor):
-                key, _ = _storage_key(t)
-                with self._lock:
-                    seen[key] = self._live.get(key, 0)
-        return sum(seen.values())
+        keys = {_storage_key(t)[0] for t in tree_leaves(out)
+                if isinstance(t, torch.Tensor)}
+        with self._lock:
+            self._drain_freed()
+            return sum(self._live.get(key, 0) for key in keys)
 
 
 def _arg_storages(args, kwargs) -> Dict[Any, int]:
@@ -647,26 +663,55 @@ def _device_info() -> Tuple[str, str]:
     return "cpu", "cpu"
 
 
-def _peak(override: float, index: int, nominal: float) -> Optional[float]:
+@functools.lru_cache(maxsize=1)
+def _host_cards() -> Tuple[str, int]:
+    """(name, count) of this host's cards by ``nvidia-smi``, read once a
+    process: a dashboard polling ``/api/xla`` starts no process a
+    request."""
+    cards = device_telemetry.query_cards()
+    return (cards[0]["name"], len(cards)) if cards else ("", 0)
+
+
+def _fold_device_info() -> Tuple[str, str, int]:
+    """(platform, device kind, cards) for the head-side fold: this
+    process's card once it has initialised CUDA, else the cards of this
+    host (a head process never opens a context, and its workers run on
+    the host's cards), else the CPU."""
+    platform, kind = _device_info()
+    if platform == "cuda":
+        return platform, kind, torch.cuda.device_count()
+    name, count = _host_cards()
+    if count:
+        return "cuda", name, count
+    return "cpu", "cpu", 1
+
+
+def _peak(override: float, index: int, nominal: float,
+          device: Optional[Tuple[str, str]] = None) -> Optional[float]:
     if override > 0:
         return float(override)
-    platform, kind = _device_info()
+    platform, kind = device or _device_info()
     if platform == "cuda":
         peaks = peaks_for(kind)
         return peaks[index] if peaks else None
     return nominal
 
 
-def peak_flops_per_chip() -> Optional[float]:
+def peak_flops_per_chip(device: Optional[Tuple[str, str]] = None
+                        ) -> Optional[float]:
     """bf16 peak FLOP/s of the card (``xla_peak_flops`` overrides); None
-    for a CUDA card not in :data:`PEAKS`."""
-    return _peak(global_config().xla_peak_flops, 0, _CPU_NOMINAL_FLOPS)
+    for a CUDA card not in :data:`PEAKS`. ``device`` is a (platform,
+    kind) pair; default: this process's."""
+    return _peak(global_config().xla_peak_flops, 0, _CPU_NOMINAL_FLOPS,
+                 device)
 
 
-def peak_hbm_bytes_per_sec() -> Optional[float]:
+def peak_hbm_bytes_per_sec(device: Optional[Tuple[str, str]] = None
+                           ) -> Optional[float]:
     """Memory rate of the card in bytes/s (``xla_peak_hbm_bytes``
     overrides); None for a CUDA card not in :data:`PEAKS`."""
-    return _peak(global_config().xla_peak_hbm_bytes, 1, _CPU_NOMINAL_HBM)
+    return _peak(global_config().xla_peak_hbm_bytes, 1, _CPU_NOMINAL_HBM,
+                 device)
 
 
 # --------------------------------------------------------------------------- #
@@ -687,11 +732,10 @@ _COLUMNS = ("compiles", "analysed", "recompiles", "compile_seconds", "flops",
             "memory", "kernels", "flops_by_op")
 
 
-def _measured_span_stats(since: int) -> Dict[str, Dict[str, float]]:
-    """span name -> {count, total_s} over this process's ring, records
-    from seq ``since`` on."""
+def _span_stats(payloads: List[dict]) -> Dict[str, Dict[str, float]]:
+    """span name -> {count, total_s} over span payloads."""
     stats: Dict[str, Dict[str, float]] = {}
-    for ev in _fr.build_span_events([_fr.snapshot_payload_since(since)]):
+    for ev in _fr.build_span_events(payloads):
         if ev.get("ph") != "X" or ev.get("cat") != "span":
             continue
         row = stats.setdefault(ev["name"], {"count": 0, "total_s": 0.0})
@@ -700,22 +744,91 @@ def _measured_span_stats(since: int) -> Dict[str, Dict[str, float]]:
     return stats
 
 
-def program_report(spans_since: int = 0) -> Dict[str, Any]:
-    """This process's programs joined with its measured spans (those
-    from flight-recorder seq ``spans_since`` on), rooflined against the
-    card's peaks. The report dict keeps the JAX package's keys."""
-    platform, kind = _device_info()
-    n_devices = torch.cuda.device_count() if platform == "cuda" else 1
-    peak_f = peak_flops_per_chip()
-    peak_b = peak_hbm_bytes_per_sec()
+def _measured_span_stats(since: int, head=None
+                         ) -> Dict[str, Dict[str, float]]:
+    """span name -> {count, total_s}: cluster-wide when a head is given
+    (every process's drained payloads), else this process's ring from
+    seq ``since`` on."""
+    if head is not None:
+        return _span_stats(_fr.cluster_span_payloads(head))
+    return _span_stats([_fr.snapshot_payload_since(since)])
+
+
+def _merged_program_columns() -> Dict[str, Dict[str, Any]]:
+    """Per-program numeric columns from the (head-side merged) metrics
+    registry: counters sum across sources, gauges take the max."""
+    flat = aggregate_series(registry())
+    programs: Dict[str, Dict[str, Any]] = {}
+
+    def fold(metric: str, field: str, how: str) -> None:
+        for tags, value in flat.get(metric, ()):
+            prog = dict(tags).get("program")
+            if not prog:
+                continue
+            row = programs.setdefault(prog, {})
+            if how == "sum":
+                row[field] = row.get(field, 0.0) + value
+            else:
+                row[field] = max(row.get(field, 0.0), value)
+
+    fold("port_program_compiles_total", "compiles", "sum")
+    fold("port_program_recompiles_total", "recompiles", "sum")
+    fold("port_program_compile_seconds_total", "compile_seconds", "sum")
+    fold("port_program_flops", "flops", "max")
+    fold("port_program_bytes_accessed", "bytes_accessed", "max")
+    fold("port_program_peak_bytes", "peak_bytes", "max")
+    fold("port_program_variants", "variants", "max")
+    for tags, _value in flat.get("port_program_shape_churn", ()):
+        d = dict(tags)
+        prog = d.get("program")
+        if not prog:
+            continue
+        programs.setdefault(prog, {}).setdefault("churn", []).append(
+            {"from": d.get("from", ""), "to": d.get("to", "")})
+    return programs
+
+
+# per-process detail the head adds to the merged columns of the programs
+# it ran itself (the counts stay cluster-wide)
+_DETAIL = ("avals", "memory", "kernels", "flops_by_op", "churn")
+
+
+def program_report(spans_since: int = 0, head=None) -> Dict[str, Any]:
+    """The program report, rooflined against the card's peaks; the
+    report dict keeps the JAX package's keys.
+
+    Without ``head``: this process's programs joined with its measured
+    spans (those from flight-recorder seq ``spans_since`` on). With
+    ``head`` (the head-side fold, the counterpart of ``xla_report``):
+    every process's ``port_program_*`` series merged through the head's
+    registry (counters summed, gauges at their max), the detail of the
+    programs the head ran itself, the spans of every process
+    (``cluster_span_payloads``) and the recompile storms the head's
+    health monitor holds active. The fold's peaks are those of the card
+    this process uses, or, in a head that never opened one, of this
+    host's cards (``nvidia-smi``)."""
+    if head is None:
+        platform, kind = _device_info()
+        n_devices = torch.cuda.device_count() if platform == "cuda" else 1
+    else:
+        platform, kind, n_devices = _fold_device_info()
+    peak_f = peak_flops_per_chip((platform, kind))
+    peak_b = peak_hbm_bytes_per_sec((platform, kind))
     ridge = peak_f / peak_b if peak_f and peak_b else None
     enforced = platform == "cuda"
 
-    programs: Dict[str, Dict[str, Any]] = {}
-    for name, rec in snapshot().items():
-        programs[name] = {k: rec[k] for k in _COLUMNS
-                          if rec.get(k) not in (None, "", [])}
-    spans = _measured_span_stats(spans_since)
+    if head is None:
+        programs: Dict[str, Dict[str, Any]] = {}
+        for name, rec in snapshot().items():
+            programs[name] = {k: rec[k] for k in _COLUMNS
+                              if rec.get(k) not in (None, "", [])}
+    else:
+        programs = _merged_program_columns()
+        for name, rec in snapshot().items():
+            row = programs.setdefault(name, {})
+            row.update({k: rec[k] for k in _DETAIL
+                        if rec.get(k) not in (None, "", [])})
+    spans = _measured_span_stats(spans_since, head)
     recompiles_total = 0
     for name, row in programs.items():
         recompiles_total += row.get("recompiles", 0)
@@ -731,7 +844,7 @@ def program_report(spans_since: int = 0) -> Dict[str, Any]:
             row["measured_steps"] = int(st["count"])
             row["mean_step_s"] = round(mean_s, 6)
             if flops:
-                # the counts are this process's, one card's share of the
+                # the counts are one process's, one card's share of the
                 # work: roofline against one card's peak
                 achieved = flops / mean_s
                 row["achieved_flops_per_s"] = round(achieved, 2)
@@ -752,17 +865,28 @@ def program_report(spans_since: int = 0) -> Dict[str, Any]:
         "programs": {k: programs[k] for k in sorted(programs)},
         "recompiles_total": int(recompiles_total),
     }
-    _g_report_programs.set(float(len(programs)))
-    _g_report_recompiles.set(float(recompiles_total))
+    monitor = getattr(head, "health_monitor", None)
+    if monitor is not None and hasattr(monitor, "recompile"):
+        report["storms"] = sorted(monitor.recompile.active)
+    publish_report(report)
     return report
+
+
+def publish_report(report: Dict[str, Any]) -> None:
+    """Mirror the report onto the registry so /api/metrics/history has
+    the program plane as time series."""
+    _g_report_programs.set(float(len(report.get("programs", {}))))
+    _g_report_recompiles.set(float(report.get("recompiles_total", 0)))
 
 
 _g_report_programs = Gauge(
     "port_programs",
-    "Observed programs in this process (from the program report)")
+    "Observed programs (from the program report: this process's, or "
+    "cluster-wide from the head fold)")
 _g_report_recompiles = Gauge(
     "port_program_recompiles",
-    "Recompile total in this process (from the program report)")
+    "Recompile total (from the program report: this process's, or "
+    "cluster-wide from the head fold)")
 
 
 def _fmt_num(v: float) -> str:
@@ -821,4 +945,8 @@ def format_programs(report: Dict[str, Any]) -> str:
                 + (f", achieved "
                    f"{_fmt_num(row['achieved_flops_per_s'])}FLOP/s"
                    if row.get("achieved_flops_per_s") else ""))
+    storms = report.get("storms")
+    if storms:
+        lines.append("")
+        lines.append("ACTIVE RECOMPILE STORMS: " + ", ".join(storms))
     return "\n".join(lines)

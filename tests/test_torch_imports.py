@@ -74,7 +74,8 @@ print(json.dumps({"imported": names,
                  *(f"serve.{m}" for m in SERVE_MODULES),
                  *COMPILED_GRAPH_MODULES, "train.pipeline",
                  *(f"tune.{m}" for m in TUNE_MODULES),
-                 *(f"rllib.{m}" for m in RLLIB_MODULES)):
+                 *(f"rllib.{m}" for m in RLLIB_MODULES),
+                 *OPERATOR_MODULES):
         assert f"ray_tpu_torch.{name}" in report["imported"]
     assert not [m for m in report["new"] if _forbidden(m)]
     # the RL path steps its own envs: gymnasium loads only when a config
@@ -93,6 +94,13 @@ COMPILED_GRAPH_MODULES = ("dag", "experimental.channel", "core.net_ring",
                           "serve.compiled_dispatch")
 TUNE_MODULES = ("callbacks", "controller", "sample", "schedulers", "search",
                 "session", "tuner")
+# the operator's surface: dashboard and agents, jobs, workflows, the CLI,
+# the autoscaler and launcher, multiprocessing and joblib
+OPERATOR_MODULES = ("dashboard", "dashboard.agent", "jobs", "jobs.manager",
+                    "workflow", "workflow.api", "__main__", "autoscaler",
+                    "autoscaler.autoscaler", "autoscaler.node_provider",
+                    "cluster_launcher", "util.multiprocessing",
+                    "util.joblib_backend")
 RLLIB_MODULES = ("algorithm", "appo", "config", "continuous", "dqn",
                  "env_runner", "envs", "impala", "learner", "multi_agent",
                  "multi_agent_env", "multi_agent_episode", "offline", "ppo",

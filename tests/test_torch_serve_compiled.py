@@ -91,6 +91,16 @@ def _drain():
     obs.drain_deferred()
 
 
+def _rolled_out(deployment, version):
+    """Whether the controller holds the deployment's target number of
+    replicas, every one at ``version``."""
+    from ray_tpu_torch.serve import api as serve_api
+
+    dep = rt.get(serve_api._controller.list_deployments.remote(),
+                 timeout=T).get(deployment, {})
+    return dep.get("replica_versions") == [version] * dep.get("target", -1)
+
+
 def _planes(deployment):
     _drain()
     return serve.status().get(deployment, {}).get("dispatch_planes", {})
@@ -344,9 +354,14 @@ def test_rolling_update_moves_lanes_to_new_version(serve_instance):
         return "v2"
 
     h = serve.run(v2.bind(), route_prefix=None)
+    # wait on the controller: the rollout is done once every replica is
+    # version 2 (the v1 replica retired); the handle's router then takes
+    # that replica set. A "v2" reply alone comes from the surge replica
+    # and says nothing of whether the v1 replica still serves.
     deadline = time.time() + 180
     while time.time() < deadline:
-        if h.remote(0).result(timeout=T) == "v2":
+        if _rolled_out("rollv", "2"):
+            h._router._refresh(force=True)
             break
         time.sleep(0.2)
     assert h.remote(0).result(timeout=T) == "v2"
