@@ -1,0 +1,97 @@
+#!/usr/bin/env python3
+"""Times the bf16 attention kernels of one tree of the port on one card:
+``python3 chip_kernel_ab.py <root>``, where ``<root>`` holds a
+``ray_tpu_torch`` package (``.`` for this checkout).
+
+At ``chip_smoke.py``'s two timed shapes (the Llama-3-8B heads at a 2k
+prefill, "table"; the Llama-3-1B training step's attention, "train";
+bf16, causal) each kernel (forward, dQ, dK/dV) is timed with CUDA events
+in turns with SDPA's forward on the same inputs (kernel, SDPA, SDPA,
+kernel), 50 calls a reading after 5 to warm up. Prints one JSON line:
+the tree, its build seconds, and per shape and kernel the mean of its
+two readings, both readings and SDPA's mean.
+
+To compare two commits on one card, unpack the other commit's package
+under a directory that ``.gitignore`` lists (``git archive <commit>
+ray_tpu_torch | tar -x -C _checkout/parent``) and run both trees in one
+call, in turns: parent, change, change, parent. Each run is a process
+of its own, so each imports its own tree. Exits 2 without a card.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import sys
+import time
+
+# chip_smoke.py's TIMED_SHAPES: (B, T, Hq, Hkv, D)
+SHAPES = (("table", (1, 2048, 32, 8, 128)), ("train", (4, 2048, 32, 8, 64)))
+ITERS, WARMUP = 50, 5
+
+
+def mean_ms(torch, fn) -> float:
+    for _ in range(WARMUP):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(ITERS):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / ITERS
+
+
+def main(argv) -> int:
+    if len(argv) != 1:
+        print(__doc__.splitlines()[0], file=sys.stderr)
+        return 2
+    root = os.path.abspath(argv[0])
+    sys.path.insert(0, root)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_kernel_ab: no CUDA device", file=sys.stderr)
+        return 2
+    from ray_tpu_torch.ops import _build
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    if not fa.__file__.startswith(root):
+        raise RuntimeError(f"imported {fa.__file__}, not the tree {root}")
+    t0 = time.perf_counter()
+    # a tree from before the per-dtype libraries names its sources only
+    _build.build(list(getattr(_build, "LIBRARIES", _build.SOURCES)))
+    out = {"tree": argv[0], "build_s": time.perf_counter() - t0}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for label, (B, T, Hq, Hkv, D) in SHAPES:
+        q, k, v, do = (torch.randn(B, T, h, D, device="cuda", generator=gen)
+                       .to(torch.bfloat16) for h in (Hq, Hkv, Hkv, Hq))
+        o, lse = fa.flash_attention_forward(q, k, v, True)
+        _, delta = fa.flash_attention_bwd_dq(q, k, v, o, do, lse, True)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+
+        def sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True)
+
+        kernels = {
+            "fwd": lambda: fa.flash_attention_forward(q, k, v, True),
+            "dq": lambda: fa.flash_attention_bwd_dq(q, k, v, o, do, lse,
+                                                    True),
+            "dkv": lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse,
+                                                      delta, True)}
+        out[label] = {}
+        for name, fn in kernels.items():
+            first, s1, s2, second = (mean_ms(torch, f)
+                                     for f in (fn, sdpa, sdpa, fn))
+            out[label][name] = {"ms": (first + second) / 2,
+                                "ms_each": [first, second],
+                                "sdpa_forward_ms": (s1 + s2) / 2}
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

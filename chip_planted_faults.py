@@ -31,6 +31,18 @@ bounds, the block gate of o and of each grad, the merged lse, against
 the whole-T kernels and the fp32 plain version) at the Llama-3-1B heads,
 T 8192 over 4 positions.
 
+Two more are planted in the widened variants and read by ``chip_smoke``'s
+``kernel_dtypes`` gates of one variant (its element and block bounds over
+its lengths, causal and full, GQA groups), beside the sound kernels'
+readings of the same variants:
+
+- ``f32_dp_rounded_once``: the fp32 backward kernels form dP from dO and
+  V rounded to bf16 once (without the products of what the rounding
+  left), read at ``float32:64``;
+- ``d256_second_half``: the 256-column RS product (O += P V, dQ += dS K)
+  reads its second 128 columns from the tile's second column block, not
+  its third, read at ``bfloat16:256``.
+
 Readings: the block gate (per (batch, 64-row block, head) rms(err) /
 (rms(ref) + 1e-3) of dq, dk, dv against their plain versions, limit
 ``chip_smoke.GRAD_BLOCK_RTOL``) at the training shape, the 8B table shape
@@ -59,6 +71,27 @@ FAULTS = {
         "sum;\n",
         "      if (tg == 0 && (row ^ 8) < T)\n"
         "        delta[((int64_t)b * Hq + h) * T + (row ^ 8)] = sum;\n"),
+}
+
+# faults in the widened variants: (file under csrc/, its edits (old, new,
+# ...), the variant of chip_smoke.DTYPE_VARIANTS whose gates read it)
+VARIANT_FAULTS = {
+    "f32_dp_rounded_once": (
+        "flash_attention_bwd.cu",
+        ("      if constexpr (!kTma) {\n"
+         "        // fp32: dP += dO_lo V_hi^T + dO_hi V_lo^T (the tiles' "
+         "rests)\n",
+         "      if constexpr (false) {\n",
+         "          if constexpr (!kTma) {\n"
+         "            // fp32: dP^T += V_hi dO_lo^T + V_lo dO_hi^T (the "
+         "tiles' rests)\n",
+         "          if constexpr (false) {\n"),
+        ("float32", 64)),
+    "d256_second_half": (
+        "flash_attention_sm90.cuh",
+        ("desc_sw128(addr + 2 * half * lbo, lbo, 1024)",
+         "desc_sw128(addr + half * lbo, lbo, 1024)"),
+        ("bfloat16", 256)),
 }
 
 # (B, T, Hq, Hkv, D): the 1B training shape, the 8B table shape and a
@@ -109,6 +142,37 @@ def leaf_readings(torch, seed: int) -> dict:
     return {"worst_leaf": max(leaves, key=leaves.get) if leaves else None,
             "worst_leaf_rel_diff": max(leaves.values()) if leaves else None,
             "rel_diff": line.get("rel_diff"), "smoke_check": caught}
+
+
+def variant_gate_readings(torch, seed: int) -> dict:
+    """chip_smoke's kernel_dtypes gates of the variants the variant faults
+    are read at: each one's worst error over tolerance and failed
+    cases."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    out = {}
+    for _, _, (dtype, D) in VARIANT_FAULTS.values():
+        r = cs.variant_readings(torch, gen, getattr(torch, dtype), D)
+        out[f"{dtype}:{D}"] = {"worst": r["worst_err_over_tolerance"],
+                               "failed_cases": len(r["failed"])}
+    return out
+
+
+def plant(root, name: str, sound_csrc, file: str, edits) -> "Path":
+    """A copy of the kernel sources under ``root/name`` with ``edits``
+    (old, new, ...) made in ``file``; its csrc directory."""
+    csrc = root / name / "csrc"
+    shutil.copytree(sound_csrc, csrc)
+    src = csrc / file
+    text = src.read_text()
+    # the faults match exact lines of the kernels: an edit there needs the
+    # anchors in FAULTS and VARIANT_FAULTS edited too
+    for old, new in zip(edits[::2], edits[1::2]):
+        if text.count(old) != 1:
+            raise RuntimeError(f"{name}: the fault's anchor is not in "
+                               f"{file} once: {old!r}")
+        text = text.replace(old, new)
+    src.write_text(text)
+    return csrc
 
 
 def local_lse_backward_steps(q, k, v, o, lse, do, rank, size, causal):
@@ -192,19 +256,8 @@ def main() -> int:
     for name in ("sound", *FAULTS):
         csrc = sound_csrc
         if name != "sound":
-            csrc = root / name / "csrc"
-            shutil.copytree(sound_csrc, csrc)
-            src = csrc / "flash_attention_bwd.cu"
-            text = src.read_text()
-            # the faults match exact lines of the dQ kernel: an edit
-            # there needs the anchors in FAULTS edited too
-            edits = FAULTS[name]
-            for old, new in zip(edits[::2], edits[1::2]):
-                if text.count(old) != 1:
-                    raise RuntimeError(f"{name}: the fault's anchor is not "
-                                       f"in the source once: {old!r}")
-                text = text.replace(old, new)
-            src.write_text(text)
+            csrc = plant(root, name, sound_csrc, "flash_attention_bwd.cu",
+                         FAULTS[name])
         _build.CSRC = csrc
         _build.BUILD_DIR = sound_build if name == "sound" \
             else root / name / "build"
@@ -231,6 +284,24 @@ def main() -> int:
                                           or result["leaf_gate_catches"])
         # back to the sound kernels: the libraries loaded from the
         # planted build go too
+        _build.CSRC, _build.BUILD_DIR = sound_csrc, sound_build
+        _build._loaded.clear()
+        torch.cuda.empty_cache()
+    for name in ("sound variants", *VARIANT_FAULTS):
+        if name in VARIANT_FAULTS:
+            file, edits, _ = VARIANT_FAULTS[name]
+            _build.CSRC = plant(root, name, sound_csrc, file, edits)
+            _build.BUILD_DIR = root / name / "build"
+            _build._loaded.clear()
+        readings = variant_gate_readings(torch, seed=0)
+        cs.emit({"kernels": name, "variant_gates": readings,
+                 "limit": "err over tolerance at most 1, every case"})
+        if name in VARIANT_FAULTS:
+            variant = "{}:{}".format(*VARIANT_FAULTS[name][2])
+            caught[name] = readings[variant]["failed_cases"] > 0
+        else:
+            caught["sound variants pass"] = not any(
+                r["failed_cases"] for r in readings.values())
         _build.CSRC, _build.BUILD_DIR = sound_csrc, sound_build
         _build._loaded.clear()
         torch.cuda.empty_cache()

@@ -34,6 +34,13 @@ non-zero and never prints the final ``ok`` line.
 6. one train step at Llama-3-1B widths and 2 layers, kernels against
    autograd through plain attention (loss, global grad norm and the
    grads of each layer's wq, wk, wv), with no plain delta on the way;
+   then ``kernel_dtypes``: each element type and head_dim beyond bf16
+   at 64 and 128 (DTYPE_VARIANTS) on the three kernels against their
+   plain versions over five lengths, causal and full, three GQA groups;
+   the JAX suite's float32 cases; a float32 step and a head_dim-256
+   (8/1 heads) bf16 step, each at Llama-3-1B widths and 2 layers against
+   plain attention with exact launches, their step ms and peak memory;
+   the "train f32" and "d256" shapes timed beside SDPA;
 7. full-depth Llama-3-8B serving: a DecodeScheduler over the paged-KV
    engine answers six requests (one a prefix-cache hit), with the forward
    kernel's launch count read from this run; then ``serve_plane``: the
@@ -371,6 +378,10 @@ def block_rel_err(torch, got, ref, rows: int = 64) -> float:
     return (err_rms / (ref_rms + GRAD_FLOOR)).max().item()
 
 
+# the shared memory a block may use on an H100 (227 KB)
+SMEM_PER_BLOCK = 232448
+
+
 def ptxas_report(log: str):
     """Registers, static shared memory and spills per kernel
     instantiation from ``nvcc -Xptxas -v`` output."""
@@ -400,40 +411,45 @@ def ptxas_report(log: str):
 
 def launch_shapes(_build) -> dict:
     """Dynamic shared memory, threads, registers at launch and rows of a
-    block of each kernel, per head_dim it is built for, as their
-    libraries report them."""
+    block of each kernel, per element type and head_dim it is built for,
+    as their libraries report them."""
     import ctypes
 
     shapes = {}
-    for lib, entry, kernel in (
+    for src, entry, kernel in (
             ("flash_attention_fwd", "flash_attention_fwd_config",
              "flash_fwd_kernel"),
             ("flash_attention_bwd", "flash_attention_bwd_dq_config",
              "flash_bwd_dq_kernel"),
             ("flash_attention_bwd", "flash_attention_bwd_dkv_config",
              "flash_bwd_dkv_kernel")):
-        fn = getattr(_build.load(lib), entry)
-        fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
-        fn.restype = ctypes.c_int
-        for D in (64, 128):
-            out = (ctypes.c_int * 4)()
-            check(fn(D, out) == 0, f"{entry}({D}) failed")
-            shapes[f"{kernel}<{D}>"] = {
-                "dynamic_smem_bytes": out[0], "threads": out[1],
-                "registers_at_launch": out[2], "rows": out[3]}
+        for code, dtype in enumerate(_build.DTYPE_NAMES):
+            fn = getattr(_build.load(_build.library_name(src, code)), entry)
+            fn.argtypes = [ctypes.c_int, ctypes.c_int,
+                           ctypes.POINTER(ctypes.c_int)]
+            fn.restype = ctypes.c_int
+            for D in (64, 128, 256):
+                out = (ctypes.c_int * 4)()
+                check(fn(D, code, out) == 0, f"{entry}({D}, {dtype}) failed")
+                check(out[0] <= SMEM_PER_BLOCK,
+                      f"{kernel}<{D}, {dtype}> asks {out[0]} bytes of "
+                      f"shared memory")
+                shapes[f"{kernel}<{D}, {dtype}>"] = {
+                    "dynamic_smem_bytes": out[0], "threads": out[1],
+                    "registers_at_launch": out[2], "rows": out[3]}
     return shapes
 
 
 def phase_build(_build) -> None:
-    """Build every kernel source (one nvcc each, all started together)
-    and print ptxas's report of each instantiation and the launch shape
-    of each kernel."""
+    """Build every kernel library (a source for an element type: one
+    nvcc each, all started together) and print ptxas's report of each
+    instantiation and the launch shape of each kernel."""
     t0 = time.perf_counter()
-    built = _build.build()
+    built = _build.build(list(_build.LIBRARIES))
     build_s = time.perf_counter() - t0
     # a library built earlier from the same source keeps its ptxas log
     logs = {n: _build.library_path(n).with_suffix(".log").read_text()
-            for n in _build.SOURCES}
+            for n in _build.LIBRARIES}
     emit({"phase": "build", "seconds": build_s, "built": sorted(built),
           "seconds_each": {n: r["seconds"] for n, r in built.items()},
           "ptxas": {n: ptxas_report(log) for n, log in logs.items()},
@@ -553,25 +569,42 @@ def phase_kernel(torch, gen, peaks):
 
     timings = {}
     for label, (B, T, Hq, Hkv, D) in TIMED_SHAPES:
-        q, k, v = inputs(B, T, Hq, Hkv, D)
-        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-        timing = in_turns(
-            torch, lambda: flash_attention_forward(q, k, v, True),
-            lambda: torch.nn.functional.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True))
-        timing.update(
-            shape={"B": B, "T": T, "Hq": Hq, "Hkv": Hkv, "D": D,
-                   "causal": True, "dtype": "bfloat16"},
-            plain_ms=cuda_ms(
-                lambda: flash_attention_reference(q, k, v, True), iters=5),
-            library="torch.nn.functional.scaled_dot_product_attention",
-            **bound(*attention_work(B, T, Hq, Hkv, D, True), peaks))
-        timing.update(rates(timing))
-        timings[label] = timing
+        timings[label] = forward_timing(torch, *inputs(B, T, Hq, Hkv, D),
+                                        peaks)
         emit({"phase": "kernel_timing", "kernel": "fwd", "at": label,
-              **timing})
-        del qt, kt, vt
+              **timings[label]})
     return worst_o, worst_lse, worst_ratio, timings
+
+
+def dtype_name(dtype) -> str:
+    return str(dtype).replace("torch.", "")
+
+
+def forward_timing(torch, q, k, v, peaks) -> dict:
+    """The forward kernel and SDPA timed in turns on q, k, v (causal),
+    with the plain version's time and the bound of this work in q's
+    dtype (the products run on the bf16 or fp16 tensor cores for every
+    dtype, so the bf16 peak is the ceiling)."""
+    from ray_tpu_torch.ops.flash_attention import (flash_attention_forward,
+                                                   flash_attention_reference)
+
+    B, T, Hq, D = q.shape
+    Hkv = k.shape[2]
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    timing = in_turns(
+        torch, lambda: flash_attention_forward(q, k, v, True),
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True))
+    timing.update(
+        shape={"B": B, "T": T, "Hq": Hq, "Hkv": Hkv, "D": D,
+               "causal": True, "dtype": dtype_name(q.dtype)},
+        plain_ms=cuda_ms(
+            lambda: flash_attention_reference(q, k, v, True), iters=5),
+        library="torch.nn.functional.scaled_dot_product_attention",
+        **bound(*attention_work(B, T, Hq, Hkv, D, True,
+                                elem_bytes=q.element_size()), peaks))
+    timing.update(rates(timing))
+    return timing
 
 
 def phase_backward(torch, gen, peaks):
@@ -663,62 +696,82 @@ def phase_backward(torch, gen, peaks):
 
     timings = {}
     for label, (B, T, Hq, Hkv, D) in TIMED_SHAPES:
-        q, k, v, o, lse, do = inputs(B, T, Hq, Hkv, D, True)
-        _, delta = fa.flash_attention_bwd_dq(q, k, v, o, do, lse, True)
-        # SDPA's backward alone (dq, dk, dv together): the yardstick,
-        # never called by the port
-        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
-                      for x in (q, k, v))
-        out = torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True)
-        dot = do.transpose(1, 2).contiguous()
-
-        def library():
-            return torch.autograd.grad(out, (qt, kt, vt), dot,
-                                       retain_graph=True)
-
-        runs = {
-            "dq": (lambda: fa.flash_attention_bwd_dq(
-                q, k, v, o, do, lse, True),
-                lambda: fa.flash_attention_bwd_dq_reference(
-                    q, k, v, o, do, lse, True)),
-            "dkv": (lambda: fa.flash_attention_bwd_dkv(
-                q, k, v, do, lse, delta, True),
-                lambda: fa.flash_attention_bwd_dkv_reference(
-                    q, k, v, do, lse, delta, True)),
-            # the port's whole backward (dQ with delta, then dK/dV): the
-            # same function as SDPA's backward
-            "bwd": (lambda: fa.flash_attention_backward(
-                q, k, v, o, lse, do, True),
-                lambda: fa.flash_attention_backward_reference(
-                    q, k, v, o, lse, do, True)),
-        }
-        timings[label] = {}
-        for name, (kern, plain) in runs.items():
-            timing = in_turns(torch, kern, library)
-            timing.update(
-                plain_ms=cuda_ms(plain, iters=3, warmup=1),
-                **bound(*attention_work(B, T, Hq, Hkv, D, True, name),
-                        peaks))
-            timing.update(rates(timing))
-            timings[label][name] = timing
-        # what the two-kernel design does beyond the function: S and dP,
-        # computed in both kernels (not part of the bound)
-        done = sum(attention_work(B, T, Hq, Hkv, D, True, name)[0]
-                   for name in ("dq", "dkv"))
-        whole = timings[label]["bwd"]
-        whole["split_design"] = {
-            "flops_done": done, "repeated_flops": done - whole["flops"],
-            "tflops_done": done / (whole["ms"] * 1e-3) / 1e12}
+        timings[label] = backward_timings(
+            torch, *inputs(B, T, Hq, Hkv, D, True), peaks)
         emit({"phase": "kernel_timing_backward", "at": label,
-              "shape": {"B": B, "T": T, "Hq": Hq, "Hkv": Hkv, "D": D,
-                        "causal": True, "dtype": "bfloat16"},
-              "grid_blocks": {"dq": -(-T // (128 if D > 64 else 64))
-                              * Hq * B, "dkv": -(-T // 64) * Hkv * B},
-              "library": "scaled_dot_product_attention backward "
-                         "(dq, dk, dv together)", **timings[label]})
-        del out, qt, kt, vt, delta
+              **backward_line(timings[label])})
     return worst, worst_ratio, worst_block, worst_delta, timings
+
+
+def backward_timings(torch, q, k, v, o, lse, do, peaks) -> dict:
+    """The dQ kernel, the dK/dV kernel and the whole backward (causal),
+    each timed in turns with SDPA's backward on the same inputs, with
+    their plain versions' times and the bounds of their work in q's
+    dtype; ``{"dq", "dkv", "bwd"}`` and the shape."""
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    B, T, Hq, D = q.shape
+    Hkv = k.shape[2]
+    _, delta = fa.flash_attention_bwd_dq(q, k, v, o, do, lse, True)
+    # SDPA's backward alone (dq, dk, dv together): the yardstick, never
+    # called by the port
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                  for x in (q, k, v))
+    out = torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True)
+    dot = do.transpose(1, 2).contiguous()
+
+    def library():
+        return torch.autograd.grad(out, (qt, kt, vt), dot,
+                                   retain_graph=True)
+
+    runs = {
+        "dq": (lambda: fa.flash_attention_bwd_dq(q, k, v, o, do, lse, True),
+               lambda: fa.flash_attention_bwd_dq_reference(
+                   q, k, v, o, do, lse, True)),
+        "dkv": (lambda: fa.flash_attention_bwd_dkv(
+            q, k, v, do, lse, delta, True),
+            lambda: fa.flash_attention_bwd_dkv_reference(
+                q, k, v, do, lse, delta, True)),
+        # the port's whole backward (dQ with delta, then dK/dV): the same
+        # function as SDPA's backward
+        "bwd": (lambda: fa.flash_attention_backward(
+            q, k, v, o, lse, do, True),
+            lambda: fa.flash_attention_backward_reference(
+                q, k, v, o, lse, do, True)),
+    }
+    timings = {"shape": {"B": B, "T": T, "Hq": Hq, "Hkv": Hkv, "D": D,
+                         "causal": True, "dtype": dtype_name(q.dtype)}}
+    for name, (kern, plain) in runs.items():
+        timing = in_turns(torch, kern, library)
+        timing.update(
+            plain_ms=cuda_ms(plain, iters=3, warmup=1),
+            **bound(*attention_work(B, T, Hq, Hkv, D, True, name,
+                                    q.element_size()), peaks))
+        timing.update(rates(timing))
+        timings[name] = timing
+    # what the two-kernel design does beyond the function: S and dP,
+    # computed in both kernels (not part of the bound)
+    done = sum(attention_work(B, T, Hq, Hkv, D, True, name)[0]
+               for name in ("dq", "dkv"))
+    whole = timings["bwd"]
+    whole["split_design"] = {
+        "flops_done": done, "repeated_flops": done - whole["flops"],
+        "tflops_done": done / (whole["ms"] * 1e-3) / 1e12}
+    return timings
+
+
+def backward_line(timings: dict) -> dict:
+    """A ``kernel_timing_backward`` line's fields: the shape, each
+    kernel's blocks, the yardstick and the timings."""
+    shape = timings["shape"]
+    B, T, Hq, Hkv, D = (shape[k] for k in ("B", "T", "Hq", "Hkv", "D"))
+    return {"shape": shape,
+            "grid_blocks": {"dq": -(-T // (128 if 64 < D <= 128 else 64))
+                            * Hq * B, "dkv": -(-T // 64) * Hkv * B},
+            "library": "scaled_dot_product_attention backward "
+                       "(dq, dk, dv together)",
+            **{k: v for k, v in timings.items() if k != "shape"}}
 
 
 # the ring of the seq_ring phase: R virtual positions in one process, at
@@ -909,22 +962,24 @@ def _grad_norm(torch, model) -> float:
                          for p in model.parameters()))
 
 
-def phase_reduced_depth_train(torch, seed):
-    """One train step at Llama-3-1B widths and 2 layers through the
-    kernels, against the same step with attention autograd through the
-    plain forward."""
+def reduced_depth_step(torch, seed, cfg, label: str) -> dict:
+    """One train step of ``cfg`` through the kernels against the same
+    step with attention autograd through the plain forward: the loss and
+    global grad norm within TRAIN_RTOL, each layer's wq, wk, wv grad within
+    ATTN_GRAD_RTOL, the step's launches exactly ``expected_launches``, no
+    plain delta. Then a second step on the kernels, timed. Returns the
+    readings; raises (after the caller's line) through ``check``."""
     from unittest import mock
 
     from ray_tpu_torch.models import llama
     from ray_tpu_torch.ops import flash_attention as fa
 
-    cfg = dataclasses.replace(llama.LlamaConfig.llama3_1b(), n_layers=2)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     tokens = torch.randint(0, cfg.vocab_size, (1, 2049), device="cuda",
                            generator=gen)
     init_state, train_step = llama.make_train_step(cfg)
 
-    def one_step():
+    def one_step(timed: bool):
         state = init_state(seed)
         loss = float(train_step(state, tokens))
         layers = state["params"].layers
@@ -932,43 +987,282 @@ def phase_reduced_depth_train(torch, seed):
         leaves = {f"{name}[{i}]": g.clone()
                   for name in ("wq", "wk", "wv")
                   for i, g in enumerate(getattr(layers, name).grad)}
-        return loss, _grad_norm(torch, state["params"]), leaves
+        gnorm = _grad_norm(torch, state["params"])
+        if not timed:
+            return loss, gnorm, leaves, None
+        launches = read_launches(fa)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        float(train_step(state, tokens))
+        step_ms = (time.perf_counter() - t0) * 1e3
+        return loss, gnorm, leaves, {
+            "launches": launches, "step_ms": step_ms,
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
 
     reset_launches(fa)
     patch, delta_calls = counting_plain_delta(fa)
     with patch:
-        loss, gnorm, leaves = one_step()
-    counts = read_launches(fa)
-    check(counts == expected_launches(cfg, 1),
-          f"reduced-depth train step launched {counts}")
-    check(not delta_calls, f"the kernel step took the plain delta "
-                           f"{len(delta_calls)} times")
+        loss, gnorm, leaves, timed = one_step(True)
+    counts = timed.pop("launches")
     with mock.patch.object(
             llama, "flash_attention",
             lambda q, k, v, causal: fa.flash_attention_reference(
                 q, k, v, causal)[0]):
-        plain_loss, plain_gnorm, plain_leaves = one_step()
+        plain_loss, plain_gnorm, plain_leaves, _ = one_step(False)
     torch.cuda.empty_cache()
     rel = {"loss": abs(loss - plain_loss) / abs(plain_loss),
            "grad_norm": abs(gnorm - plain_gnorm) / abs(plain_gnorm)}
     leaf_rel = {name: ((g - plain_leaves[name]).norm()
                        / plain_leaves[name].norm()).item()
                 for name, g in leaves.items()}
-    emit({"phase": "reduced_depth_train", "n_layers": cfg.n_layers,
-          "dim": cfg.dim, "batch": 1, "T": tokens.shape[1] - 1,
-          "loss": loss,
-          "plain_loss": plain_loss, "grad_norm": gnorm,
-          "plain_grad_norm": plain_gnorm, "rel_diff": rel,
-          "rtol": TRAIN_RTOL, "attn_leaf_rel_diff": leaf_rel,
-          "attn_leaf_rtol": ATTN_GRAD_RTOL, "launches": counts,
-          "plain_delta_calls": len(delta_calls)})
-    check(math.isfinite(loss) and math.isfinite(gnorm),
-          "non-finite reduced-depth loss or grad norm")
-    check(max(rel.values()) <= TRAIN_RTOL,
-          f"kernel train step differs from plain attention: {rel}")
-    check(max(leaf_rel.values()) <= ATTN_GRAD_RTOL,
-          f"kernel train step's attention-leaf grads differ from plain "
-          f"attention: {leaf_rel}")
+    reading = {
+        "n_layers": cfg.n_layers, "dim": cfg.dim, "heads": cfg.n_heads,
+        "kv_heads": cfg.n_kv_heads, "head_dim": cfg.head_dim,
+        "dtype": dtype_name(cfg.dtype), "batch": 1,
+        "T": tokens.shape[1] - 1, "loss": loss, "plain_loss": plain_loss,
+        "grad_norm": gnorm, "plain_grad_norm": plain_gnorm,
+        "rel_diff": rel, "rtol": TRAIN_RTOL, "attn_leaf_rel_diff": leaf_rel,
+        "attn_leaf_rtol": ATTN_GRAD_RTOL, "launches": counts,
+        "plain_delta_calls": len(delta_calls), **timed}
+
+    def gates():
+        check(counts == expected_launches(cfg, 1),
+              f"{label} launched {counts}")
+        check(not delta_calls, f"the kernel step ({label}) took the plain "
+                               f"delta {len(delta_calls)} times")
+        check(math.isfinite(loss) and math.isfinite(gnorm),
+              f"non-finite {label} loss or grad norm")
+        check(max(rel.values()) <= TRAIN_RTOL,
+              f"kernel train step ({label}) differs from plain attention: "
+              f"{rel}")
+        check(max(leaf_rel.values()) <= ATTN_GRAD_RTOL,
+              f"kernel train step's ({label}) attention-leaf grads differ "
+              f"from plain attention: {leaf_rel}")
+
+    reading["gates"] = gates
+    return reading
+
+
+def phase_reduced_depth_train(torch, seed):
+    """One train step at Llama-3-1B widths and 2 layers through the
+    kernels, against the same step with attention autograd through the
+    plain forward."""
+    from ray_tpu_torch.models import llama
+
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_1b(), n_layers=2)
+    reading = reduced_depth_step(torch, seed, cfg, "reduced-depth train step")
+    gates = reading.pop("gates")
+    emit({"phase": "reduced_depth_train", **reading})
+    gates()
+
+
+# the kernel_dtypes phase: every element type and head_dim the kernels
+# take beyond the bf16 head_dims 64 and 128 the phases above hold (bf16 at
+# 256; fp16 and fp32 at 64, 128 and 256; bf16 at head_dims read through a
+# narrower TMA map, 72, 80, 96 and 200), each at lengths at and past the
+# tile edges, causal and full, and GQA groups of 1, 4 and 8 (8 q heads)
+DTYPE_VARIANTS = (("bfloat16", 256), ("float16", 64), ("float16", 128),
+                  ("float16", 256), ("float32", 64), ("float32", 128),
+                  ("float32", 256), ("bfloat16", 72), ("bfloat16", 80),
+                  ("bfloat16", 96), ("bfloat16", 200))
+DTYPE_LENGTHS = (1, 65, 129, 257, 2048)
+DTYPE_GROUPS = (1, 4, 8)
+# the timed shapes of the new variants: the 1B training step's attention
+# in float32, and Gemma-2B's attention shape (8 q heads over one kv head,
+# head_dim 256) at a 2k prefill, bf16
+DTYPE_TIMED = (("train f32", (4, 2048, 32, 8, 64), "float32"),
+               ("d256", (1, 2048, 8, 1, 256), "bfloat16"))
+# the JAX suite's own flash-attention cases (tests/test_flash_attention.py:
+# CASES with RandomState(0), the grad case with RandomState(1), the odd
+# case T 100, D 32 with RandomState(2)), float32; its bounds are 2e-2
+# forward and 5e-2 grads, 1e-5 on its exact path for the odd case, which
+# the kernel does not compute at float32 precision (bf16 operands), so the
+# odd case is held at the forward bound 2e-2
+REFERENCE_CASES = ((1, 128, 2, 1, 64, True), (1, 128, 2, 2, 128, False))
+REFERENCE_GRAD_CASE = (1, 128, 2, 1, 64, True)
+REFERENCE_ODD_CASE = (1, 100, 2, 2, 32, True)
+
+
+def variant_readings(torch, gen, dtype, D) -> dict:
+    """One element type and head_dim on the three kernels against their
+    plain versions over DTYPE_LENGTHS x causal x DTYPE_GROUPS: the worst
+    error over tolerance of o, lse, each grad (element and 64-row block)
+    and delta, each kernel run twice (bitwise), and the cases that fail."""
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    worst: dict = {}
+    failed = []
+    for T in DTYPE_LENGTHS:
+        for causal in (True, False):
+            for group in DTYPE_GROUPS:
+                Hq, Hkv = 8, 8 // group
+
+                def r(h):
+                    return torch.randn(1, T, h, D, device="cuda",
+                                       generator=gen).to(dtype)
+
+                q, k, v, do = r(Hq), r(Hkv), r(Hkv), r(Hq)
+                runs = []
+                for _ in range(2):
+                    o, lse = fa.flash_attention_forward(q, k, v, causal)
+                    dq, delta = fa.flash_attention_bwd_dq(q, k, v, o, do,
+                                                          lse, causal)
+                    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse,
+                                                        delta, causal)
+                    runs.append((o, lse, dq, delta, dk, dv))
+                torch.cuda.synchronize()
+                repeatable = all(torch.equal(a, b)
+                                 for a, b in zip(*runs))
+                o, lse, dq, delta, dk, dv = runs[0]
+                ro, rlse = fa.flash_attention_reference(q, k, v, causal)
+                want = fa.flash_attention_backward_reference(
+                    q, k, v, o, lse, do, causal)
+                prod = o.float() * do.float()
+                reading = {
+                    "o": ((o.float() - ro.float()).abs()
+                          / (KERNEL_ATOL + KERNEL_RTOL * ro.float().abs())
+                          ).max().item(),
+                    "lse": (lse - rlse).abs().max().item() / KERNEL_ATOL,
+                    "delta": ((delta - prod.sum(-1).transpose(1, 2)).abs()
+                              / (DELTA_RTOL * prod.abs().sum(-1)
+                                 .transpose(1, 2)).clamp_min(1e-30)
+                              ).max().item()}
+                for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv),
+                                          want):
+                    reading[name] = ((got.float() - ref.float()).abs()
+                                     / (GRAD_ATOL + GRAD_RTOL
+                                        * ref.float().abs())).max().item()
+                    reading[f"{name}_block"] = block_rel_err(
+                        torch, got, ref) / GRAD_BLOCK_RTOL
+                for key, x in reading.items():
+                    worst[key] = max(worst.get(key, 0.0),
+                                     x if math.isfinite(x) else math.inf)
+                worst["bitwise_repeatable"] = repeatable and worst.get(
+                    "bitwise_repeatable", True)
+                bad = {key: x for key, x in reading.items()
+                       if not x <= 1.0}
+                if bad or not repeatable:
+                    failed.append({"T": T, "causal": causal, "Hq": Hq,
+                                   "Hkv": Hkv, "over": bad,
+                                   "bitwise_repeatable": repeatable})
+                del runs, o, lse, dq, delta, dk, dv, ro, rlse, want, prod
+    return {"worst_err_over_tolerance": worst,
+            "cases": len(DTYPE_LENGTHS) * 2 * len(DTYPE_GROUPS),
+            "failed": failed}
+
+
+def reference_suite_readings(torch, np) -> dict:
+    """The JAX suite's flash-attention cases on the card in float32 with
+    its seeds: the forward kernel (flash_attention, no grad) and the
+    backward kernels (FlashAttention's backward of sum(o * o)) against the
+    plain version and autograd through it; each max |err| and its share
+    of the bound."""
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    def qkv(seed, B, T, Hq, Hkv, D):
+        rng = np.random.RandomState(seed)
+        return [torch.from_numpy(rng.randn(*shape).astype(np.float32))
+                .cuda() for shape in ((B, T, Hq, D), (B, T, Hkv, D),
+                                      (B, T, Hkv, D))]
+
+    def share(got, want, tol):
+        err = (got - want).abs()
+        return {"max_abs_err": err.max().item(), "tolerance": tol,
+                "err_over_tolerance":
+                    (err / (tol + tol * want.abs())).max().item()}
+
+    out = {}
+    for case in REFERENCE_CASES + (REFERENCE_ODD_CASE,):
+        B, T, Hq, Hkv, D, causal = case
+        q, k, v = qkv(2 if case == REFERENCE_ODD_CASE else 0, B, T, Hq,
+                      Hkv, D)
+        got = fa.flash_attention(q, k, v, causal)
+        out["x".join(map(str, case))] = share(
+            got, fa.flash_attention_reference(q, k, v, causal)[0],
+            KERNEL_ATOL)
+    B, T, Hq, Hkv, D, causal = REFERENCE_GRAD_CASE
+    grads = []
+    for attention in (fa.flash_attention,
+                      lambda q, k, v, c: fa.flash_attention_reference(
+                          q, k, v, c)[0]):
+        leaves = [x.requires_grad_(True) for x in qkv(1, B, T, Hq, Hkv, D)]
+        o = attention(*leaves, causal)
+        (o * o).sum().backward()
+        grads.append([x.grad for x in leaves])
+    for name, got, want in zip(("dq", "dk", "dv"), *grads):
+        out[f"grad {name}"] = share(got, want, GRAD_ATOL)
+    return out
+
+
+def phase_kernel_dtypes(torch, np, gen, seed, peaks, smi) -> dict:
+    """The kernels on every element type and head_dim beyond bf16 at 64
+    and 128: each variant against its plain version (DTYPE_VARIANTS), the
+    JAX suite's float32 cases, a float32 train step at Llama-3-1B widths
+    and a head_dim-256 (8/1 heads) bf16 one, each at 2 layers against
+    plain attention with exact launches, and the timed rows of
+    DTYPE_TIMED beside SDPA. Returns the variants' readings, the timings
+    and the two steps' launches."""
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    t0 = time.perf_counter()
+    variants = {f"{dtype}:{D}": variant_readings(
+        torch, gen, getattr(torch, dtype), D)
+        for dtype, D in DTYPE_VARIANTS}
+    reference = reference_suite_readings(torch, np)
+    torch.cuda.empty_cache()
+    emit({"phase": "kernel_dtypes", "card": smi,
+          "variants": variants, "reference_suite": reference,
+          "tolerance": {"atol": KERNEL_ATOL, "rtol": KERNEL_RTOL,
+                        "grad_atol": GRAD_ATOL, "grad_rtol": GRAD_RTOL,
+                        "block_rtol": GRAD_BLOCK_RTOL,
+                        "delta_rtol_of_abs_rowsum": DELTA_RTOL},
+          "gates_s": time.perf_counter() - t0})
+    bad = {name: r["failed"][:3] for name, r in variants.items()
+           if r["failed"]}
+    check(not bad, f"kernel variants disagree with their plain versions or "
+                   f"are not bitwise repeatable: {bad}")
+    check(all(r["err_over_tolerance"] <= 1.0 for r in reference.values()),
+          f"the JAX suite's cases fail on the card: {reference}")
+
+    timings = {}
+    for label, (B, T, Hq, Hkv, D), dtype in DTYPE_TIMED:
+        def r(h):
+            return torch.randn(B, T, h, D, device="cuda",
+                               generator=gen).to(getattr(torch, dtype))
+        q, k, v, do = r(Hq), r(Hkv), r(Hkv), r(Hq)
+        fwd = forward_timing(torch, q, k, v, peaks)
+        o, lse = fa.flash_attention_forward(q, k, v, True)
+        timings[label] = {"fwd": fwd, **backward_timings(
+            torch, q, k, v, o, lse, do, peaks)}
+        emit({"phase": "kernel_timing", "kernel": "fwd", "at": label,
+              "card": smi, **fwd})
+        emit({"phase": "kernel_timing_backward", "at": label, "card": smi,
+              **backward_line({k: x for k, x in timings[label].items()
+                               if k != "fwd"})})
+        del q, k, v, do, o, lse
+        torch.cuda.empty_cache()
+
+    steps = {}
+    base = llama.LlamaConfig.llama3_1b()
+    for label, cfg in (
+            ("f32", dataclasses.replace(base, n_layers=2,
+                                        dtype=torch.float32)),
+            ("d256", dataclasses.replace(base, n_layers=2, n_heads=8,
+                                         n_kv_heads=1))):
+        steps[label] = reduced_depth_step(torch, seed, cfg,
+                                          f"{label} train step")
+        torch.cuda.empty_cache()
+    gates = {label: r.pop("gates") for label, r in steps.items()}
+    launches = {k: sum(r["launches"][k] for r in steps.values())
+                for k in ("fwd", "dq", "dkv")}
+    emit({"phase": "kernel_dtypes_train", "card": smi, "steps": steps,
+          "launches": launches, "phase_s": time.perf_counter() - t0})
+    for gate in gates.values():
+        gate()
+    return {"variants": variants, "reference_suite": reference,
+            "timings": timings, "launches": launches}
 
 
 def expected_launches(cfg, steps: int) -> dict:
@@ -4756,6 +5050,22 @@ def phase_dashboard(torch, seed, smi, peaks, device="cuda",
     return launches
 
 
+def dtype_entries(dtypes: dict, kern: str, errs, timed) -> dict:
+    """A kernel's part of the ``kernel_dtypes`` phase for the kernels
+    line: each variant's worst errors over tolerance and bitwise
+    repeatability, and its rows of DTYPE_TIMED (shape and timed keys)."""
+    return {
+        "variants": {
+            name: {**{e: r["worst_err_over_tolerance"][e] for e in errs},
+                   "bitwise_repeatable":
+                       r["worst_err_over_tolerance"]["bitwise_repeatable"]}
+            for name, r in dtypes["variants"].items()},
+        **{f"at_{label.replace(' ', '_')}": {
+            "shape": t["fwd"]["shape"],
+            **{k: t[kern][k] for k in timed}}
+           for label, t in dtypes["timings"].items()}}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4796,6 +5106,8 @@ def main(argv=None) -> int:
     phase_reduced_depth(torch, args.seed)
     phase_reduced_depth_train(torch, args.seed)
     torch.cuda.empty_cache()
+    dtypes = phase_kernel_dtypes(torch, np, gen, args.seed, peaks, smi)
+    torch.cuda.empty_cache()
     serving_launches, served = phase_serving(torch, np, args.seed, smi)
     gc.collect()  # the serving engine holds reference cycles
     torch.cuda.empty_cache()
@@ -4832,7 +5144,9 @@ def main(argv=None) -> int:
     # trainer's paths, the MPMD pipeline's stages (timed steps), the Tune
     # trials' workers and the MoE decoder's steps (one card, and all ranks
     # across cards)
-    by_path = {"seq_ring": seq_ring_launches, "training": train_launches,
+    by_path = {"seq_ring": seq_ring_launches,
+               "kernel_dtypes": dtypes["launches"],
+               "training": train_launches,
                **spmd_launches, **trainer_launches, **mpmd_launches,
                **tune_launches, **moe_launches,
                "dashboard": dashboard_launches}
@@ -4840,11 +5154,13 @@ def main(argv=None) -> int:
              "ratio_to_library", "achieved_tflops", "share_of_bound")
     shapes = {label: fwd_timing[label]["shape"] for label in fwd_timing}
     src = "ray_tpu_torch/ops/csrc/"
+    types_note = ("a library per dtype: bf16 and fp16 operands as they are, "
+             "fp32 rounded to bf16 by the producer threads; head_dim 1-256")
     kernels = [{
         "name": "flash_attention_fwd", "route": "cuda",
         "source": src + "flash_attention_fwd.cu",
         "replaces": "ray_tpu/ops/flash_attention.py:62",
-        "design": "wgmma fed by TMA (flash_attention_sm90.cuh)",
+        "design": "wgmma fed by TMA (flash_attention_sm90.cuh); " + types_note,
         "launches": serving_launches + sum(serve_plane_launches) + sum(
             n["fwd"] for n in by_path.values()),
         "launches_by_path": {"serving": serving_launches,
@@ -4859,12 +5175,14 @@ def main(argv=None) -> int:
         **{k: fwd_timing["table"][k] for k in timed},
         "shape": shapes["table"],
         "at_train_shape": {"shape": shapes["train"],
-                           **{k: fwd_timing["train"][k] for k in timed}}}]
+                           **{k: fwd_timing["train"][k] for k in timed}},
+        **dtype_entries(dtypes, "fwd", ("o", "lse"), timed)}]
     for kern, replaces, errs, design in (
             ("dq", ":135", ("dq",),
-             "wgmma fed by TMA (flash_attention_sm90.cuh), delta fused"),
+             "wgmma fed by TMA (flash_attention_sm90.cuh), delta fused; "
+             + types_note),
             ("dkv", ":169", ("dk", "dv"),
-             "wgmma fed by TMA (flash_attention_sm90.cuh)")):
+             "wgmma fed by TMA (flash_attention_sm90.cuh); " + types_note)):
         kernels.append({
             "name": f"flash_attention_bwd_{kern}", "route": "cuda",
             "source": src + "flash_attention_bwd.cu",
@@ -4884,7 +5202,10 @@ def main(argv=None) -> int:
             "shape": shapes["train"],
             "at_table_shape": {"shape": shapes["table"],
                                **{k: bwd_timing["table"][kern][k]
-                                  for k in timed}}})
+                                  for k in timed}},
+            **dtype_entries(dtypes, kern, tuple(
+                f"{e}{b}" for e in errs for b in ("", "_block"))
+                + (("delta",) if kern == "dq" else ()), timed)})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

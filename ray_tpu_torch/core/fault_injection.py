@@ -43,6 +43,9 @@ Instrumented points (each one ``fire()`` call in production code):
                             the dispatch as a dead-worker report)
     daemon.sync             NodeSyncer loop (``drop`` loses a snapshot)
     head.daemon_req[.<op>]  Head._handle_daemon_req
+    launch.rendezvous[.<n>] train/launch.py, a rank before it joins its
+                            process group on the launch's n-th start
+                            (counted from 0)
 """
 
 from __future__ import annotations

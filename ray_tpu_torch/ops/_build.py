@@ -1,10 +1,12 @@
 """Build the port's CUDA kernels from the sources in ``ops/csrc`` at
 first use, and load them with ``ctypes``.
 
-Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library
+Each source is compiled by ``nvcc`` for ``sm_90a`` into shared libraries
 with a plain C interface (no PyTorch headers, so a build takes seconds,
-not minutes). Libraries go to ``ray_tpu_torch/_build/`` (listed in
-``.gitignore``), named by a hash of their source and the shared headers
+not minutes): one library per element type the kernels take
+(``-DFLASH_DTYPE=<code>``, :data:`LIBRARIES`), all compiled side by side.
+Libraries go to ``ray_tpu_torch/_build/`` (listed in ``.gitignore``),
+named by a hash of their source, their type and the shared headers
 (``csrc/*.cuh``), so an edited source is rebuilt and an unchanged one is
 reused. A failed build raises; nothing falls back. Each build and load
 is counted as a compile-plane event (``util/device_telemetry.py``).
@@ -29,6 +31,12 @@ BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 # kernel name -> source file under csrc/
 SOURCES = {"flash_attention_fwd": "flash_attention_fwd.cu",
            "flash_attention_bwd": "flash_attention_bwd.cu"}
+# the element types, by their code in the C entry points (the wrapper's
+# KERNEL_DTYPES): a library is built for one of them
+DTYPE_NAMES = ("bf16", "f16", "f32")
+# library name -> (kernel name, type code): "flash_attention_fwd_bf16", ...
+LIBRARIES = {f"{name}_{t}": (name, code) for name in SOURCES
+             for code, t in enumerate(DTYPE_NAMES)}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -50,28 +58,36 @@ def _nvcc() -> str:
         "PATH): the CUDA kernels are built from source at first use")
 
 
+def library_name(kernel: str, code: int) -> str:
+    """The library of kernel ``kernel`` built for type code ``code``."""
+    return f"{kernel}_{DTYPE_NAMES[code]}"
+
+
 def library_path(name: str) -> Path:
-    h = hashlib.sha256((CSRC / SOURCES[name]).read_bytes())
+    kernel, code = LIBRARIES[name]
+    h = hashlib.sha256((CSRC / SOURCES[kernel]).read_bytes())
+    h.update(f"FLASH_DTYPE={code}".encode())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.read_bytes())
     digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def build(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, dict]:
-    """Compile every named kernel that is not built yet, one ``nvcc`` per
-    source, all started together. Returns ``{name: {"path", "seconds",
-    "log"}}`` for the ones compiled here (``log`` holds ptxas's register
-    and shared-memory report)."""
+def build(names: Iterable[str] = tuple(LIBRARIES)) -> Dict[str, dict]:
+    """Compile every named library (of :data:`LIBRARIES`) that is not
+    built yet, one ``nvcc`` each, all started together. Returns ``{name:
+    {"path", "seconds", "log"}}`` for the ones compiled here (``log``
+    holds ptxas's register and shared-memory report)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = {}
     for name in names:
         out = library_path(name)
         if out.is_file():
             continue
+        kernel, code = LIBRARIES[name]
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               str(CSRC / SOURCES[name])]
+        cmd = [_nvcc(), *NVCC_FLAGS, f"-DFLASH_DTYPE={code}", "-o",
+               str(tmp), str(CSRC / SOURCES[kernel])]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         jobs[name] = (proc, tmp, out, time.perf_counter())
@@ -94,7 +110,8 @@ def build(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, dict]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built first if needed."""
+    """The loaded library ``name`` (of :data:`LIBRARIES`), built first if
+    needed."""
     lib = _loaded.get(name)
     if lib is None:
         build([name])

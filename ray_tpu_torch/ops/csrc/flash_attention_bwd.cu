@@ -1,5 +1,5 @@
-// Flash-attention backward for Hopper (sm_90a): dQ and dK/dV, bf16 in,
-// fp32 accumulate.
+// Flash-attention backward for Hopper (sm_90a): dQ and dK/dV, bf16, fp16
+// or fp32 in, fp32 accumulate.
 //
 // Replaces the TPU kernels `_dq_kernel` and `_dkv_kernel` in
 // ray_tpu/ops/flash_attention.py (launched by `_bwd`). Both recompute the
@@ -44,6 +44,10 @@
 //   precede a tile's keys (the diagonal's last tile of the first
 //   consumer) waits for it and frees it without computing.
 //
+// dQ at head_dim 256: one consumer on 64-key stages, two of them (Q and
+// dO of 64 rows and two stages of K and V fill 193 KB of the 227 KB a
+// block may use); dQ += dS K is two products of 128 columns.
+//
 // dK/dV:
 // - one block per (64-row kv tile, kv head, batch), 384 threads: a
 //   producer warpgroup and two consumer warpgroups (240 registers);
@@ -61,9 +65,30 @@
 //   consumers' sums meet in shared memory at the end, first plus second:
 //   no per-head buffers, no atomics; splitting the q rows between two
 //   consumers halves the longest block's walk (kv tile 0 under causal),
-//   and blocks run longest first (low kv tiles, of every head).
+//   and blocks run longest first (low kv tiles, of every head);
+// - at head_dim 256 the dK and dV accumulators of 64 kv rows (2 x 128
+//   floats a thread) would not fit a consumer's 240 registers, so the two
+//   consumers split the columns instead of the q rows: each computes S^T
+//   and dP^T of all 64 q rows of a stage (contracted over all 256
+//   columns; both compute them, 1.5x the products), then dV and dK of its
+//   own 128 columns, which it writes itself. Stages are 64 q rows.
 //
-// Both kernels are built for head_dim 64 and 128; a narrower head_dim is
+// Types (flash_attention_sm90.cuh, `Elem`): bf16 and fp16 run wgmma in
+// their own type (P and dS are rounded to it as A operands); fp32 tiles are
+// loaded by all four producer warps (which keep 40 registers), rounded to
+// bf16 into the same swizzled tiles, and run the bf16 products: an fp32
+// call computes its products with bf16 operands and fp32 sums. delta is
+// taken from O and dO in fp32 as they lie in device memory, so dP = dO
+// V^T, which dS sets against it, takes dO and V each as two bf16 tiles
+// (the rounded value and what the rounding left) in three products, hi
+// hi + lo hi + hi lo: with one rounded product, dP - delta, which is 0
+// where a row has one key, came out at the operands' rounding (2^-9 of
+// |dO| |V|) and failed the block gate at T = 1. The extra tiles cost the
+// rings stages: dQ keeps one at head_dim 256 (its producer then loads K
+// and V of a tile in turn), dK/dV one at 128 and 256. Outputs are written
+// in the input type.
+//
+// Both kernels are built for head_dim 64, 128 and 256; a narrower head_dim is
 // read through TMA maps of its true width (missing columns arrive as
 // zeros and add exact zeros to every product), scaled by 1/sqrt(true
 // head_dim) and stored at its true width. Both mask the causal diagonal
@@ -104,39 +129,59 @@ template <>
 struct Shape<128> {
   static constexpr int kBlockN = 64, kStages = 3, kConsumers = 2;
 };
+template <>
+struct Shape<256> {
+  static constexpr int kBlockN = 64, kStages = 2, kConsumers = 1;
+};
+
+// the register split: a producer that converts fp32 tiles keeps 40
+template <int D, typename In>
+using DqSplit = Split<Shape<D>::kConsumers, Elem<In>::kTma ? 24 : 40>;
+
+// stages of the K/V ring: fp32 stages hold V twice (rounded, and what the
+// rounding left), so two up to head_dim 128 and one at 256
+template <int D, typename In>
+__host__ __device__ constexpr int stages() {
+  return Elem<In>::kTma ? Shape<D>::kStages : D > 128 ? 1 : 2;
+}
 
 }  // namespace dqk
 
-template <int D>
-__global__ void __launch_bounds__(
-    Split<dqk::Shape<D>::kConsumers>::kThreads,
-    Split<dqk::Shape<D>::kConsumers>::kBlocksPerSm)
+template <int D, typename In>
+__global__ void __launch_bounds__(dqk::DqSplit<D, In>::kThreads,
+                                  dqk::DqSplit<D, In>::kBlocksPerSm)
     flash_bwd_dq_kernel(__grid_constant__ const CUtensorMap tm_q,
                         __grid_constant__ const CUtensorMap tm_k,
                         __grid_constant__ const CUtensorMap tm_v,
                         __grid_constant__ const CUtensorMap tm_do,
-                        const __nv_bfloat16* __restrict__ o,
+                        const Src src, const In* __restrict__ o,
                         const float* __restrict__ lse,
-                        float* __restrict__ delta,
-                        __nv_bfloat16* __restrict__ dq, int T, int Hq, int B,
-                        int rep, int d_true, int64_t o_sb, int64_t o_st,
-                        int64_t o_sh, int64_t dq_sb, int64_t dq_st,
-                        int64_t dq_sh, float scale, int causal) {
+                        float* __restrict__ delta, In* __restrict__ dq,
+                        int T, int Hq, int B, int rep, int d_true,
+                        int64_t o_sb, int64_t o_st, int64_t o_sh,
+                        int64_t dq_sb, int64_t dq_st, int64_t dq_sh,
+                        float scale, int causal) {
   constexpr int kBlockN = dqk::Shape<D>::kBlockN;  // keys a stage
-  constexpr int kStages = dqk::Shape<D>::kStages;
+  constexpr int kStages = dqk::stages<D, In>();
   constexpr int kConsumers = dqk::Shape<D>::kConsumers;
-  using S = Split<kConsumers>;
+  using S = dqk::DqSplit<D, In>;
+  using Op = typename Elem<In>::Op;
+  constexpr bool kTma = Elem<In>::kTma;
   constexpr int kBlockM = 64 * kConsumers;    // q rows of the block
   constexpr int kColBlocks = D / 64;          // 64-column TMA boxes per row
   constexpr int kQBytes = kBlockM * D * 2;    // Q or dO
   constexpr int kKVBytes = kBlockN * D * 2;   // K or V of one stage
+  // a stage's tiles: K, V (fp32: and what rounding V to bf16 left)
+  constexpr int kStageTiles = kTma ? 2 : 3;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t q_full;
   __shared__ __align__(8) uint64_t k_full[kStages], v_full[kStages],
       k_empty[kStages], v_empty[kStages];
   uint8_t* q_s = align_1024(smem_raw);
   uint8_t* do_s = q_s + kQBytes;
-  uint8_t* kv_s = do_s + kQBytes;  // stage s: K at 2s * kKVBytes, V after
+  // fp32: what rounding dO to bf16 left, a tile of its own
+  uint8_t* do_lo_s = do_s + kQBytes;
+  uint8_t* kv_s = do_lo_s + (kTma ? 0 : kQBytes);  // the stages
 
   const int heads = Hq * B;
   const int n_qtiles = cdiv(T, kBlockM);
@@ -147,10 +192,13 @@ __global__ void __launch_bounds__(
   const int n_tiles = cdiv(causal ? min(q0 + kBlockM, T) : T, kBlockN);
 
   if (threadIdx.x == 0) {
-    mbar_init(&q_full, 1);
+    // a TMA tile completes on one arrival (and its bytes), a converted one
+    // on each producer thread's
+    constexpr int kFillers = kTma ? 1 : 128;
+    mbar_init(&q_full, kFillers);
     for (int s = 0; s < kStages; ++s) {
-      mbar_init(&k_full[s], 1);
-      mbar_init(&v_full[s], 1);
+      mbar_init(&k_full[s], kFillers);
+      mbar_init(&v_full[s], kFillers);
       mbar_init(&k_empty[s], 4 * kConsumers);
       mbar_init(&v_empty[s], 4 * kConsumers);
     }
@@ -162,7 +210,44 @@ __global__ void __launch_bounds__(
   if (wg == 0) {
     // ---------------------------------------------------------- producer
     setmaxnreg_dec<S::kProducerRegs>();
-    if (threadIdx.x == 0) {
+    if constexpr (!kTma) {
+      // fp32: the whole warpgroup converts each tile into its place
+      const int tid = threadIdx.x, hk = h / rep;
+      const float* k_rows = head_rows(src.ptr[1], src.stride[1], b, hk);
+      const float* v_rows = head_rows(src.ptr[2], src.stride[2], b, hk);
+      auto load = [&](int j, int which, uint64_t* full, uint64_t* empty) {
+        const int s = j % kStages;
+        mbar_wait(&empty[s], ((j / kStages) & 1) ^ 1);
+        uint8_t* dst = kv_s + (kStageTiles * s + which) * kKVBytes;
+        convert_rows<kBlockN, D>(dst, which ? v_rows : k_rows,
+                                 src.stride[which + 1][1], j * kBlockN, T,
+                                 d_true, tid,
+                                 which ? dst + kKVBytes : nullptr);
+        fence_proxy_async();
+        mbar_arrive(&full[s]);
+      };
+      convert_rows<kBlockM, D>(q_s, head_rows(src.ptr[0], src.stride[0], b, h),
+                               src.stride[0][1], q0, T, d_true, tid);
+      convert_rows<kBlockM, D>(do_s,
+                               head_rows(src.ptr[3], src.stride[3], b, h),
+                               src.stride[3][1], q0, T, d_true, tid,
+                               do_lo_s);
+      fence_proxy_async();
+      mbar_arrive(&q_full);
+      if constexpr (kStages == 1) {
+        // one stage: K of the next tile can only follow this tile's V
+        for (int j = 0; j < n_tiles; ++j) {
+          load(j, 0, k_full, k_empty);
+          load(j, 1, v_full, v_empty);
+        }
+      } else {
+        load(0, 0, k_full, k_empty);
+        for (int j = 0; j < n_tiles; ++j) {
+          if (j + 1 < n_tiles) load(j + 1, 0, k_full, k_empty);
+          load(j, 1, v_full, v_empty);
+        }
+      }
+    } else if (threadIdx.x == 0) {
       const int hk = h / rep;
       // tile j's K or V into its stage, once the consumers have freed it
       auto load = [&](int j, int which, uint64_t* full, uint64_t* empty) {
@@ -208,6 +293,7 @@ __global__ void __launch_bounds__(
     const float scale_log2 = scale * kLog2e;
     const uint32_t q_addr = smem_addr(q_s) + c * 64 * 128;
     const uint32_t do_addr = smem_addr(do_s) + c * 64 * 128;
+    const uint32_t do_lo_addr = smem_addr(do_lo_s) + c * 64 * 128;
     const uint32_t kv_addr = smem_addr(kv_s);
 
     float lse2[2], dlt[2];
@@ -226,27 +312,39 @@ __global__ void __launch_bounds__(
       const int tr = r0 + 8 * r, row = q0 + tr;
       float sum = 0.f;
       if (row < T) {
-        const __nv_bfloat16* o_row = o + b * o_sb + h * o_sh + row * o_st;
+        const In* o_row = o + b * o_sb + h * o_sh + row * o_st;
 #pragma unroll
         for (int i = 0; i < D / 32; ++i) {
           const int ch = tg + 4 * i;  // 8 columns at 8 * ch
           if (8 * ch >= d_true) continue;
-          const uint4 ov = *reinterpret_cast<const uint4*>(o_row + 8 * ch);
-          // dO's chunk in the 128-byte-swizzled tile (16-byte chunk
-          // index XOR the row's index within its 8-row atom)
-          const uint4 dv = *reinterpret_cast<const uint4*>(
-              do_s + (ch / 8) * kBlockM * 128 + tr * 128 +
-              (((ch % 8) ^ (tr & 7)) << 4));
-          const __nv_bfloat162* o2 =
-              reinterpret_cast<const __nv_bfloat162*>(&ov);
-          const __nv_bfloat162* do2 =
-              reinterpret_cast<const __nv_bfloat162*>(&dv);
+          if constexpr (!kTma) {
+            // fp32: O and dO as they lie in device memory (the dO tile
+            // holds them rounded to bf16); a chunk the row's end cuts is
+            // read element by element
+            const float* do_row =
+                head_rows(src.ptr[3], src.stride[3], b, h) +
+                (int64_t)row * src.stride[3][1];
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float2 a = __bfloat1622float2(o2[e]);
-            const float2 d = __bfloat1622float2(do2[e]);
-            sum += a.x * d.x;  // bf16 x bf16 is exact in fp32
-            sum += a.y * d.y;
+            for (int e = 0; e < 8; ++e) {
+              const int col = 8 * ch + e;
+              if (col < d_true) sum += o_row[col] * do_row[col];
+            }
+          } else {
+            const uint4 ov = *reinterpret_cast<const uint4*>(o_row + 8 * ch);
+            // dO's chunk in the 128-byte-swizzled tile (16-byte chunk
+            // index XOR the row's index within its 8-row atom)
+            const uint4 dv = *reinterpret_cast<const uint4*>(
+                do_s + (ch / 8) * kBlockM * 128 + tr * 128 +
+                (((ch % 8) ^ (tr & 7)) << 4));
+            const uint32_t* o2 = reinterpret_cast<const uint32_t*>(&ov);
+            const uint32_t* do2 = reinterpret_cast<const uint32_t*>(&dv);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float2 a = unpack2<In>(o2[e]);
+              const float2 d = unpack2<In>(do2[e]);
+              sum += a.x * d.x;  // 16-bit x 16-bit is exact in fp32
+              sum += a.y * d.y;
+            }
           }
         }
       }
@@ -263,7 +361,7 @@ __global__ void __launch_bounds__(
     for (int j = 0; j < n_live; ++j) {
       const int s = j % kStages;
       const uint32_t parity = (j / kStages) & 1;
-      const uint32_t k_addr = kv_addr + 2 * s * kKVBytes;
+      const uint32_t k_addr = kv_addr + kStageTiles * s * kKVBytes;
       const uint32_t v_addr = k_addr + kKVBytes;
       const int k0 = j * kBlockN;
       // both stages before either product: a barrier wait (a loop) while
@@ -277,7 +375,7 @@ __global__ void __launch_bounds__(
 #pragma unroll
       for (int ks = 0; ks < D / 16; ++ks) {
         const uint32_t col = (ks % 4) * 32;  // bytes into the column block
-        wgmma_ss<kBlockN>(
+        wgmma_ss<kBlockN, Op>(
             sc, desc_sw128(q_addr + (ks / 4) * kBlockM * 128 + col, 16, 1024),
             desc_sw128(k_addr + (ks / 4) * kBlockN * 128 + col, 16, 1024),
             ks > 0);
@@ -286,10 +384,25 @@ __global__ void __launch_bounds__(
 #pragma unroll
       for (int ks = 0; ks < D / 16; ++ks) {
         const uint32_t col = (ks % 4) * 32;
-        wgmma_ss<kBlockN>(
+        wgmma_ss<kBlockN, Op>(
             dp, desc_sw128(do_addr + (ks / 4) * kBlockM * 128 + col, 16, 1024),
             desc_sw128(v_addr + (ks / 4) * kBlockN * 128 + col, 16, 1024),
             ks > 0);
+      }
+      if constexpr (!kTma) {
+        // fp32: dP += dO_lo V_hi^T + dO_hi V_lo^T (the tiles' rests)
+#pragma unroll
+        for (int ks = 0; ks < D / 16; ++ks) {
+          const uint32_t col = (ks % 4) * 32;
+          const uint32_t a_off = (ks / 4) * kBlockM * 128 + col;
+          const uint32_t b_off = (ks / 4) * kBlockN * 128 + col;
+          wgmma_ss<kBlockN, Op>(dp, desc_sw128(do_lo_addr + a_off, 16, 1024),
+                                desc_sw128(v_addr + b_off, 16, 1024), 1);
+          wgmma_ss<kBlockN, Op>(dp, desc_sw128(do_addr + a_off, 16, 1024),
+                                desc_sw128(v_addr + kKVBytes + b_off, 16,
+                                           1024),
+                                1);
+        }
       }
       wgmma_commit();
 
@@ -312,21 +425,21 @@ __global__ void __launch_bounds__(
       fence_regs(dp);
       if (lane == 0) mbar_arrive(&v_empty[s]);  // this warp is done with V
 
-      // dS = P (dP - delta) scale, as bf16 A registers
+      // dS = P (dP - delta) scale, as A registers of the operand type
       uint32_t dsa[kBlockN / 16][4];
 #pragma unroll
       for (int e = 0; e < kBlockN / 2; ++e) {
         dp[e] = sc[e] * (dp[e] - dlt[(e >> 1) & 1]) * scale;
       }
 #pragma unroll
-      for (int kk = 0; kk < kBlockN / 16; ++kk) pack_a(dsa[kk], dp, kk);
+      for (int kk = 0; kk < kBlockN / 16; ++kk) pack_a<Op>(dsa[kk], dp, kk);
 
       // dQ += dS K: the stage's keys are the contraction
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kBlockN / 16; ++kk) {
-        wgmma_rs<D>(acc, dsa[kk],
-                    desc_sw128(k_addr + kk * 16 * 128, kBlockN * 128, 1024));
+        wgmma_rs_cols<D, Op>(acc, dsa[kk], k_addr + kk * 16 * 128,
+                             kBlockN * 128);
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -352,14 +465,12 @@ __global__ void __launch_bounds__(
     for (int r = 0; r < 2; ++r) {
       const int row = row0 + r * 8;
       if (row >= T) continue;
-      __nv_bfloat16* out = dq + b * dq_sb + h * dq_sh + (int64_t)row * dq_st;
+      In* out = dq + b * dq_sb + h * dq_sh + (int64_t)row * dq_st;
 #pragma unroll
       for (int jn = 0; jn < D / 8; ++jn) {
         const int col = 8 * jn + 2 * tg;
         if (col < d_true) {
-          *reinterpret_cast<__nv_bfloat162*>(out + col) =
-              __floats2bfloat162_rn(acc[4 * jn + 2 * r],
-                                    acc[4 * jn + 2 * r + 1]);
+          store2(out + col, acc[4 * jn + 2 * r], acc[4 * jn + 2 * r + 1]);
         }
       }
     }
@@ -371,52 +482,73 @@ __global__ void __launch_bounds__(
 namespace dkv {
 
 constexpr int kKvRows = 64;   // kv rows of a block; both consumers own them
-constexpr int kQRows = 128;   // q rows of a stage: 64 for each consumer
 constexpr int kConsumerWarps = 8;
-using S = Split<2>;  // producer warpgroup + 2 consumer warpgroups
-constexpr int kThreads = S::kThreads;
-constexpr int kLaunchRegs = S::kLaunchRegs;
-constexpr int kProducerRegs = S::kProducerRegs;
-constexpr int kConsumerRegs = S::kConsumerRegs;
+constexpr int kThreads = Split<2>::kThreads;  // producer + 2 consumers
+constexpr int kLaunchRegs = Split<2>::kLaunchRegs;
+
+// the register split: a producer that converts fp32 tiles keeps 40
+template <typename In>
+using DkvSplit = Split<2, Elem<In>::kTma ? 24 : 40>;
+
+// The consumers' division of the work: up to head_dim 128 each takes 64 of
+// a stage's 128 q rows against every column (their partial sums meet at
+// the end); at 256 each takes all 64 q rows of a stage against its own
+// half of the columns.
+template <int D, typename In>
+struct Shape {
+  static constexpr bool kSplitCols = D > 128;
+  static constexpr int kQRows = kSplitCols ? 64 : 128;  // q rows a stage
+  static constexpr int kAccCols = kSplitCols ? D / 2 : D;  // a consumer's
+  // a stage: Q, dO (fp32: and what rounding dO left), then its rows of
+  // lse (log2 domain) and delta, padded to 1024 bytes so the next
+  // stage's tiles keep their alignment
+  static constexpr int kTiles = Elem<In>::kTma ? 2 : 3;
+  static constexpr int kStageBytes =
+      kTiles * kQRows * D * 2 + cdiv(2 * kQRows * 4, 1024) * 1024;
+};
 
 }  // namespace dkv
 
-template <int D, int kStages>
+template <int D, int kStages, typename In>
 __global__ void __launch_bounds__(dkv::kThreads, 1)
     flash_bwd_dkv_kernel(__grid_constant__ const CUtensorMap tm_q,
                          __grid_constant__ const CUtensorMap tm_k,
                          __grid_constant__ const CUtensorMap tm_v,
                          __grid_constant__ const CUtensorMap tm_do,
-                         const float* __restrict__ lse,
+                         const Src src, const float* __restrict__ lse,
                          const float* __restrict__ delta,
-                         __nv_bfloat16* __restrict__ dk,
-                         __nv_bfloat16* __restrict__ dv, int T, int Hq,
-                         int Hkv, int B, int rep, int d_true, int64_t dk_sb,
-                         int64_t dk_st, int64_t dk_sh, int64_t dv_sb,
-                         int64_t dv_st, int64_t dv_sh, float scale,
-                         int causal) {
-  using dkv::kConsumerRegs;
+                         In* __restrict__ dk, In* __restrict__ dv, int T,
+                         int Hq, int Hkv, int B, int rep, int d_true,
+                         int64_t dk_sb, int64_t dk_st, int64_t dk_sh,
+                         int64_t dv_sb, int64_t dv_st, int64_t dv_sh,
+                         float scale, int causal) {
   using dkv::kConsumerWarps;
   using dkv::kKvRows;
-  using dkv::kProducerRegs;
-  using dkv::kQRows;
   using sm90::desc_sw128;
   using sm90::mbar_arrive;
   using sm90::mbar_arrive_expect_tx;
   using sm90::mbar_wait;
   using sm90::smem_addr;
   using sm90::tma_load_4d;
+  using S = dkv::DkvSplit<In>;
+  using Op = typename Elem<In>::Op;
+  constexpr bool kTma = Elem<In>::kTma;
+  using Sh = dkv::Shape<D, In>;
+  constexpr bool kSplitCols = Sh::kSplitCols;
+  constexpr int kQRows = Sh::kQRows;
+  constexpr int kAccCols = Sh::kAccCols;
   constexpr int kColBlocks = D / 64;           // 64-column TMA boxes per row
   constexpr int kKvBytes = kKvRows * D * 2;    // K or V
   constexpr int kTileBytes = kQRows * D * 2;   // Q or dO of a stage
-  // a stage: Q, dO, then the stage's rows of lse (log2 domain) and delta
-  constexpr int kStageBytes = 2 * kTileBytes + 2 * kQRows * 4;
+  constexpr int kStageBytes = Sh::kStageBytes;
+  constexpr int kRowsAt = Sh::kTiles * kTileBytes;  // lse, delta of a stage
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t kv_full;
   __shared__ __align__(8) uint64_t full[kStages], empty[kStages];
   uint8_t* k_s = sm90::align_1024(smem_raw);
   uint8_t* v_s = k_s + kKvBytes;
-  uint8_t* ring = v_s + kKvBytes;
+  // fp32: what rounding V to bf16 left, after V
+  uint8_t* ring = v_s + (kTma ? 1 : 2) * kKvBytes;
 
   // causal: kv tile 0 sees every q row, so low tiles are the longest;
   // heads inner, so the longest tiles of every head are scheduled first
@@ -430,10 +562,11 @@ __global__ void __launch_bounds__(dkv::kThreads, 1)
   const int n_iter = rep * n_qs;  // (q head, stage) pairs, head-major
 
   if (threadIdx.x == 0) {
-    sm90::mbar_init(&kv_full, 1);
+    // TMA: one expect_tx arrival plus the 32 lanes that write lse, delta;
+    // fp32: every producer thread (each converts and writes its share)
+    sm90::mbar_init(&kv_full, kTma ? 1 : 128);
     for (int s = 0; s < kStages; ++s) {
-      // the TMA thread's expect_tx plus the 32 lanes that write lse, delta
-      sm90::mbar_init(&full[s], 1 + 32);
+      sm90::mbar_init(&full[s], kTma ? 1 + 32 : 128);
       sm90::mbar_init(&empty[s], kConsumerWarps);
     }
     sm90::mbar_fence_init();
@@ -443,10 +576,21 @@ __global__ void __launch_bounds__(dkv::kThreads, 1)
   const int wg = threadIdx.x / 128;
   if (wg == 0) {
     // ---------------------------------------------------------- producer
-    sm90::setmaxnreg_dec<kProducerRegs>();
-    if (threadIdx.x < 32) {
+    sm90::setmaxnreg_dec<S::kProducerRegs>();
+    // the threads that fill the ring: warp 0 (TMA), or all four (fp32)
+    constexpr int kFillThreads = kTma ? 32 : 128;
+    if (threadIdx.x < kFillThreads) {
       const int lane = threadIdx.x;
-      if (lane == 0) {
+      if constexpr (!kTma) {
+        sm90::convert_rows<kKvRows, D>(
+            k_s, sm90::head_rows(src.ptr[1], src.stride[1], b, hk),
+            src.stride[1][1], k0, T, d_true, lane);
+        sm90::convert_rows<kKvRows, D>(
+            v_s, sm90::head_rows(src.ptr[2], src.stride[2], b, hk),
+            src.stride[2][1], k0, T, d_true, lane, v_s + kKvBytes);
+        sm90::fence_proxy_async();
+        mbar_arrive(&kv_full);
+      } else if (lane == 0) {
         mbar_arrive_expect_tx(&kv_full, 2 * kKvBytes);
 #pragma unroll
         for (int cb = 0; cb < kColBlocks; ++cb) {
@@ -462,7 +606,17 @@ __global__ void __launch_bounds__(dkv::kThreads, 1)
         const int s = it % kStages;
         mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
         uint8_t* stage = ring + s * kStageBytes;
-        if (lane == 0) {
+        if constexpr (!kTma) {
+          sm90::convert_rows<kQRows, D>(
+              stage, sm90::head_rows(src.ptr[0], src.stride[0], b, h),
+              src.stride[0][1], qs0, T, d_true, lane);
+          sm90::convert_rows<kQRows, D>(
+              stage + kTileBytes,
+              sm90::head_rows(src.ptr[3], src.stride[3], b, h),
+              src.stride[3][1], qs0, T, d_true, lane,
+              stage + 2 * kTileBytes);
+          sm90::fence_proxy_async();
+        } else if (lane == 0) {
           mbar_arrive_expect_tx(&full[s], 2 * kTileBytes);
 #pragma unroll
           for (int cb = 0; cb < kColBlocks; ++cb) {
@@ -472,9 +626,9 @@ __global__ void __launch_bounds__(dkv::kThreads, 1)
                         &full[s], cb * 64, h, qs0, b);
           }
         }
-        float* lse_s = reinterpret_cast<float*>(stage + 2 * kTileBytes);
+        float* lse_s = reinterpret_cast<float*>(stage + kRowsAt);
         const int64_t row = ((int64_t)b * Hq + h) * T;
-        for (int i = lane; i < kQRows; i += 32) {
+        for (int i = lane; i < kQRows; i += kFillThreads) {
           const int t = qs0 + i;
           lse_s[i] = t < T ? lse[row + t] * kLog2e : 0.f;
           lse_s[kQRows + i] = t < T ? delta[row + t] : 0.f;
@@ -484,28 +638,32 @@ __global__ void __launch_bounds__(dkv::kThreads, 1)
     }
   } else {
     // --------------------------------------------------------- consumers
-    sm90::setmaxnreg_inc<kConsumerRegs>();
-    const int c = wg - 1;  // q rows 64c .. 64c + 63 of every stage
+    sm90::setmaxnreg_inc<S::kConsumerRegs>();
+    const int c = wg - 1;
+    // this consumer's q rows within a stage (64 cq .. 64 cq + 63) and
+    // first column of dK and dV
+    const int cq = kSplitCols ? 0 : c;
+    const int col0 = kSplitCols ? c * kAccCols : 0;
     const int t = threadIdx.x % 128, w = t / 32, lane = t % 32;
     const int g = lane >> 2, tg = lane & 3;
     const int key0 = k0 + 16 * w + g;  // this thread's keys: key0, key0 + 8
     const float scale_log2 = scale * 1.4426950408889634f;
     const uint32_t k_addr = smem_addr(k_s), v_addr = smem_addr(v_s);
 
-    float dk_acc[D / 2], dv_acc[D / 2];
+    float dk_acc[kAccCols / 2], dv_acc[kAccCols / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+    for (int i = 0; i < kAccCols / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
 
     mbar_wait(&kv_full, 0);
     for (int it = 0; it < n_iter; ++it) {
       const int jq = it % n_qs;
-      const int wq0 = q_start + jq * kQRows + 64 * c;  // this warpgroup's
-      const int s = it % kStages;                      // first q row
+      const int wq0 = q_start + jq * kQRows + 64 * cq;  // this warpgroup's
+      const int s = it % kStages;                       // first q row
       uint8_t* stage = ring + s * kStageBytes;
-      const uint32_t q_addr = smem_addr(stage) + c * 64 * 128;
+      const uint32_t q_addr = smem_addr(stage) + cq * 64 * 128;
       const uint32_t do_addr = q_addr + kTileBytes;
       const float* lse_s =
-          reinterpret_cast<const float*>(stage + 2 * kTileBytes) + 64 * c;
+          reinterpret_cast<const float*>(stage + kRowsAt) + 64 * cq;
       const float* dlt_s = lse_s + kQRows;
       mbar_wait(&full[s], (it / kStages) & 1);
 
@@ -518,10 +676,20 @@ __global__ void __launch_bounds__(dkv::kThreads, 1)
           const uint32_t col = (ks % 4) * 32;  // bytes into the column block
           const uint32_t a_off = (ks / 4) * kKvRows * 128 + col;
           const uint32_t b_off = (ks / 4) * kQRows * 128 + col;
-          sm90::wgmma_ss<64>(st, desc_sw128(k_addr + a_off, 16, 1024),
-                             desc_sw128(q_addr + b_off, 16, 1024), ks > 0);
-          sm90::wgmma_ss<64>(dpt, desc_sw128(v_addr + a_off, 16, 1024),
-                             desc_sw128(do_addr + b_off, 16, 1024), ks > 0);
+          sm90::wgmma_ss<64, Op>(st, desc_sw128(k_addr + a_off, 16, 1024),
+                                 desc_sw128(q_addr + b_off, 16, 1024), ks > 0);
+          sm90::wgmma_ss<64, Op>(dpt, desc_sw128(v_addr + a_off, 16, 1024),
+                                 desc_sw128(do_addr + b_off, 16, 1024),
+                                 ks > 0);
+          if constexpr (!kTma) {
+            // fp32: dP^T += V_hi dO_lo^T + V_lo dO_hi^T (the tiles' rests)
+            sm90::wgmma_ss<64, Op>(
+                dpt, desc_sw128(v_addr + a_off, 16, 1024),
+                desc_sw128(do_addr + kTileBytes + b_off, 16, 1024), 1);
+            sm90::wgmma_ss<64, Op>(
+                dpt, desc_sw128(v_addr + kKvBytes + a_off, 16, 1024),
+                desc_sw128(do_addr + b_off, 16, 1024), 1);
+          }
         }
         sm90::wgmma_commit();
         sm90::wgmma_wait<0>();
@@ -531,7 +699,7 @@ __global__ void __launch_bounds__(dkv::kThreads, 1)
         // P^T and dS^T; mask the ragged tail and, on the diagonal, the
         // queries before each key (keys past T are never stored)
         const bool need_mask =
-            wq0 + 64 > T || (causal && jq == 0 && c == 0);
+            wq0 + 64 > T || (causal && jq == 0 && cq == 0);
 #pragma unroll
         for (int e = 0; e < 32; ++e) {
           const int qi = 8 * (e / 4) + 2 * tg + (e & 1);  // in the 64 rows
@@ -547,19 +715,23 @@ __global__ void __launch_bounds__(dkv::kThreads, 1)
         uint32_t pa[4][4], dsa[4][4];
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk) {
-          sm90::pack_a(pa[kk], st, kk);
-          sm90::pack_a(dsa[kk], dpt, kk);
+          sm90::pack_a<Op>(pa[kk], st, kk);
+          sm90::pack_a<Op>(dsa[kk], dpt, kk);
         }
 
-        // dV += P^T dO and dK += dS^T Q: the 64 queries are the contraction
+        // dV += P^T dO and dK += dS^T Q over this consumer's columns: the
+        // 64 queries are the contraction
+        const uint32_t cols = (col0 / 64) * kQRows * 128;
         sm90::wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk) {
           const uint32_t rows = kk * 16 * 128;
-          sm90::wgmma_rs<D>(dv_acc, pa[kk],
-                            desc_sw128(do_addr + rows, kQRows * 128, 1024));
-          sm90::wgmma_rs<D>(dk_acc, dsa[kk],
-                            desc_sw128(q_addr + rows, kQRows * 128, 1024));
+          sm90::wgmma_rs<kAccCols, Op>(
+              dv_acc, pa[kk],
+              desc_sw128(do_addr + cols + rows, kQRows * 128, 1024));
+          sm90::wgmma_rs<kAccCols, Op>(
+              dk_acc, dsa[kk],
+              desc_sw128(q_addr + cols + rows, kQRows * 128, 1024));
         }
         sm90::wgmma_commit();
         sm90::wgmma_wait<0>();
@@ -569,134 +741,211 @@ __global__ void __launch_bounds__(dkv::kThreads, 1)
       if (lane == 0) mbar_arrive(&empty[s]);  // this warp is done with it
     }
 
-    // the two consumers' partial sums meet in shared memory (the ring is
-    // idle now): the second writes, the first adds in a fixed order
-    float* red = reinterpret_cast<float*>(ring);
-    sm90::fence_proxy_async();
-    sm90::named_barrier(1, 256);
-    if (c == 1) {
-#pragma unroll
-      for (int i = 0; i < D / 2; ++i) {
-        red[i * 128 + t] = dk_acc[i];
-        red[(D / 2 + i) * 128 + t] = dv_acc[i];
-      }
-    }
-    sm90::named_barrier(1, 256);
-    if (c == 0) {
+    // the stores of this consumer's columns of the key rows it holds;
+    // red(i) adds the other consumer's partial sum of accumulator entry i
+    auto store = [&](auto red) {
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int key = key0 + 8 * r;
         if (key >= T) continue;
-        __nv_bfloat16* dk_row = dk + b * dk_sb + hk * dk_sh + key * dk_st;
-        __nv_bfloat16* dv_row = dv + b * dv_sb + hk * dv_sh + key * dv_st;
+        In* dk_row = dk + b * dk_sb + hk * dk_sh + key * dk_st;
+        In* dv_row = dv + b * dv_sb + hk * dv_sh + key * dv_st;
 #pragma unroll
-        for (int jn = 0; jn < D / 8; ++jn) {
-          const int col = 8 * jn + 2 * tg;
+        for (int jn = 0; jn < kAccCols / 8; ++jn) {
+          const int col = col0 + 8 * jn + 2 * tg;
           if (col >= d_true) continue;
           const int i0 = 4 * jn + 2 * r, i1 = i0 + 1;
-          *reinterpret_cast<__nv_bfloat162*>(dk_row + col) =
-              __floats2bfloat162_rn(dk_acc[i0] + red[i0 * 128 + t],
-                                    dk_acc[i1] + red[i1 * 128 + t]);
-          *reinterpret_cast<__nv_bfloat162*>(dv_row + col) =
-              __floats2bfloat162_rn(
-                  dv_acc[i0] + red[(D / 2 + i0) * 128 + t],
-                  dv_acc[i1] + red[(D / 2 + i1) * 128 + t]);
+          sm90::store2(dk_row + col, dk_acc[i0] + red(i0),
+                       dk_acc[i1] + red(i1));
+          sm90::store2(dv_row + col, dv_acc[i0] + red(kAccCols / 2 + i0),
+                       dv_acc[i1] + red(kAccCols / 2 + i1));
         }
       }
+    };
+    if constexpr (kSplitCols) {
+      store([](int) { return 0.f; });  // the columns are this consumer's
+    } else {
+      // the two consumers' partial sums meet in shared memory (K, V and
+      // the ring are idle now): the second writes, the first adds in a
+      // fixed order
+      float* red = reinterpret_cast<float*>(k_s);
+      sm90::fence_proxy_async();
+      sm90::named_barrier(1, 256);
+      if (c == 1) {
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) {
+          red[i * 128 + t] = dk_acc[i];
+          red[(D / 2 + i) * 128 + t] = dv_acc[i];
+        }
+      }
+      sm90::named_barrier(1, 256);
+      if (c == 0) store([&](int i) { return red[i * 128 + t]; });
     }
   }
 }
 
-using bf16 = __nv_bfloat16;
-
-template <int D>
+template <int D, typename In>
 constexpr int dq_smem_bytes() {  // + 1024: the tiles' 1024-byte alignment
   using Sh = dqk::Shape<D>;
-  return 2 * 64 * Sh::kConsumers * D * 2 +
-         Sh::kStages * 2 * Sh::kBlockN * D * 2 + 1024;
+  // Q and dO, and a stage's K and V; fp32 has dO's and V's rests too
+  constexpr int kTiles = Elem<In>::kTma ? 2 : 3;
+  return kTiles * 64 * Sh::kConsumers * D * 2 +
+         dqk::stages<D, In>() * kTiles * Sh::kBlockN * D * 2 + 1024;
 }
 
-template <int D>
+template <int D, typename In>
 int dq_config(int* out) {
-  using S = Split<dqk::Shape<D>::kConsumers>;
-  out[0] = dq_smem_bytes<D>();
+  using S = dqk::DqSplit<D, In>;
+  static_assert(dq_smem_bytes<D, In>() <= 232448,
+                "a block may use 227 KB of shared memory");
+  out[0] = dq_smem_bytes<D, In>();
   out[1] = S::kThreads;
   out[2] = S::kLaunchRegs;
   out[3] = 64 * dqk::Shape<D>::kConsumers;
   return 0;
 }
 
-template <int D>
+template <int D, typename In>
 int launch_dq(const void* q, const void* k, const void* v, const void* o,
               const void* dout, const void* lse, void* delta, void* dq, int B,
               int T, int Hq, int Hkv, int d_true, const long long* s,
               float scale, int causal, cudaStream_t stream) {
-  using S = Split<dqk::Shape<D>::kConsumers>;
+  using S = dqk::DqSplit<D, In>;
   constexpr int kBlockM = 64 * dqk::Shape<D>::kConsumers;
   constexpr int kBlockN = dqk::Shape<D>::kBlockN;
   CUtensorMap tm_q, tm_k, tm_v, tm_do;
-  int err = encode_rows(&tm_q, q, B, T, Hq, d_true, s[0], s[1], s[2], kBlockM);
-  if (!err) err = encode_rows(&tm_k, k, B, T, Hkv, d_true, s[3], s[4], s[5],
-                              kBlockN);
-  if (!err) err = encode_rows(&tm_v, v, B, T, Hkv, d_true, s[6], s[7], s[8],
-                              kBlockN);
-  if (!err) err = encode_rows(&tm_do, dout, B, T, Hq, d_true, s[12], s[13],
-                              s[14], kBlockM);
-  constexpr int kSmem = dq_smem_bytes<D>();
-  auto kernel = flash_bwd_dq_kernel<D>;
+  Src src = {};
+  int err = prepare_input<In>(&tm_q, &src, 0, q, B, T, Hq, d_true, s,
+                              kBlockM);
+  if (!err) err = prepare_input<In>(&tm_k, &src, 1, k, B, T, Hkv, d_true,
+                                    s + 3, kBlockN);
+  if (!err) err = prepare_input<In>(&tm_v, &src, 2, v, B, T, Hkv, d_true,
+                                    s + 6, kBlockN);
+  if (!err) err = prepare_input<In>(&tm_do, &src, 3, dout, B, T, Hq, d_true,
+                                    s + 12, kBlockM);
+  constexpr int kSmem = dq_smem_bytes<D, In>();
+  auto kernel = flash_bwd_dq_kernel<D, In>;
   if (!err) err = prepare_launch(kernel, kSmem, S::kLaunchRegs);
   if (err) return err;
   const int grid = cdiv(T, kBlockM) * Hq * B;
   kernel<<<grid, S::kThreads, kSmem, stream>>>(
-      tm_q, tm_k, tm_v, tm_do, static_cast<const bf16*>(o),
+      tm_q, tm_k, tm_v, tm_do, src, static_cast<const In*>(o),
       static_cast<const float*>(lse), static_cast<float*>(delta),
-      static_cast<bf16*>(dq), T, Hq, B, Hq / Hkv, d_true, s[9], s[10], s[11],
+      static_cast<In*>(dq), T, Hq, B, Hq / Hkv, d_true, s[9], s[10], s[11],
       s[15], s[16], s[17], scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D, int kStages>
+template <int D, int kStages, typename In>
 constexpr int dkv_smem_bytes() {  // + 1024: the tiles' 1024-byte alignment
-  return 2 * dkv::kKvRows * D * 2 +
-         kStages * (2 * dkv::kQRows * D * 2 + 2 * dkv::kQRows * 4) + 1024;
+  // K and V (fp32: and V's rest), then the ring
+  return (Elem<In>::kTma ? 2 : 3) * dkv::kKvRows * D * 2 +
+         kStages * dkv::Shape<D, In>::kStageBytes + 1024;
 }
 
-template <int D, int kStages>
+template <int D, int kStages, typename In>
 int dkv_config(int* out) {
-  out[0] = dkv_smem_bytes<D, kStages>();
+  static_assert(dkv_smem_bytes<D, kStages, In>() <= 232448,
+                "a block may use 227 KB of shared memory");
+  // the two consumers' partial sums meet over K, V and the ring
+  static_assert(dkv::Shape<D, In>::kSplitCols ||
+                    D * 1024 <= dkv_smem_bytes<D, kStages, In>() - 1024,
+                "no room for the consumers' partial sums");
+  out[0] = dkv_smem_bytes<D, kStages, In>();
   out[1] = dkv::kThreads;
   out[2] = dkv::kLaunchRegs;
   out[3] = dkv::kKvRows;
   return 0;
 }
 
-template <int D, int kStages>
+template <int D, int kStages, typename In>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* dk, void* dv, int B,
                int T, int Hq, int Hkv, int d_true, const long long* s,
                float scale, int causal, cudaStream_t stream) {
   using dkv::kKvRows;
-  using dkv::kQRows;
+  constexpr int kQRows = dkv::Shape<D, In>::kQRows;
   CUtensorMap tm_q, tm_k, tm_v, tm_do;
-  int err = sm90::encode_rows(&tm_q, q, B, T, Hq, d_true, s[0], s[1], s[2],
+  Src src = {};
+  int err = prepare_input<In>(&tm_q, &src, 0, q, B, T, Hq, d_true, s,
                               kQRows);
-  if (!err) err = sm90::encode_rows(&tm_k, k, B, T, Hkv, d_true, s[3], s[4],
-                                    s[5], kKvRows);
-  if (!err) err = sm90::encode_rows(&tm_v, v, B, T, Hkv, d_true, s[6], s[7],
-                                    s[8], kKvRows);
-  if (!err) err = sm90::encode_rows(&tm_do, dout, B, T, Hq, d_true, s[9],
-                                    s[10], s[11], kQRows);
-  constexpr int kSmem = dkv_smem_bytes<D, kStages>();
-  auto kernel = flash_bwd_dkv_kernel<D, kStages>;
+  if (!err) err = prepare_input<In>(&tm_k, &src, 1, k, B, T, Hkv, d_true,
+                                    s + 3, kKvRows);
+  if (!err) err = prepare_input<In>(&tm_v, &src, 2, v, B, T, Hkv, d_true,
+                                    s + 6, kKvRows);
+  if (!err) err = prepare_input<In>(&tm_do, &src, 3, dout, B, T, Hq, d_true,
+                                    s + 9, kQRows);
+  constexpr int kSmem = dkv_smem_bytes<D, kStages, In>();
+  auto kernel = flash_bwd_dkv_kernel<D, kStages, In>;
   if (!err) err = sm90::prepare_launch(kernel, kSmem, dkv::kLaunchRegs);
   if (err) return err;
   const int grid = cdiv(T, kKvRows) * Hkv * B;
   kernel<<<grid, dkv::kThreads, kSmem, stream>>>(
-      tm_q, tm_k, tm_v, tm_do, static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), T, Hq, Hkv, B, Hq / Hkv, d_true, s[12], s[13],
+      tm_q, tm_k, tm_v, tm_do, src, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<In*>(dk),
+      static_cast<In*>(dv), T, Hq, Hkv, B, Hq / Hkv, d_true, s[12], s[13],
       s[14], s[15], s[16], s[17], scale, causal);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The instantiations head_dim D runs on: dQ at 64, 128 or 256 (see
+// dqk::Shape); dK/dV at <64, 3 stages>, <128, 2> or <256, 2>, and for
+// fp32, whose stages hold a third tile, <64, 3>, <128, 1> or <256, 1>.
+template <typename In>
+constexpr int dkv_stages(int D) {
+  return D <= 64 ? 3 : Elem<In>::kTma ? 2 : 1;
+}
+
+template <typename In>
+int launch_dq_for(const void* q, const void* k, const void* v, const void* o,
+                  const void* dout, const void* lse, void* delta, void* dq,
+                  int B, int T, int Hq, int Hkv, int D, const long long* s,
+                  float scale, int causal, cudaStream_t st) {
+  if (D <= 64) {
+    return launch_dq<64, In>(q, k, v, o, dout, lse, delta, dq, B, T, Hq, Hkv,
+                             D, s, scale, causal, st);
+  }
+  if (D <= 128) {
+    return launch_dq<128, In>(q, k, v, o, dout, lse, delta, dq, B, T, Hq,
+                              Hkv, D, s, scale, causal, st);
+  }
+  return launch_dq<256, In>(q, k, v, o, dout, lse, delta, dq, B, T, Hq, Hkv,
+                            D, s, scale, causal, st);
+}
+
+template <typename In>
+int launch_dkv_for(const void* q, const void* k, const void* v,
+                   const void* dout, const void* lse, const void* delta,
+                   void* dk, void* dv, int B, int T, int Hq, int Hkv, int D,
+                   const long long* s, float scale, int causal,
+                   cudaStream_t st) {
+  if (D <= 64) {
+    return launch_dkv<64, dkv_stages<In>(64), In>(
+        q, k, v, dout, lse, delta, dk, dv, B, T, Hq, Hkv, D, s, scale,
+        causal, st);
+  }
+  if (D <= 128) {
+    return launch_dkv<128, dkv_stages<In>(128), In>(
+        q, k, v, dout, lse, delta, dk, dv, B, T, Hq, Hkv, D, s, scale,
+        causal, st);
+  }
+  return launch_dkv<256, dkv_stages<In>(256), In>(
+      q, k, v, dout, lse, delta, dk, dv, B, T, Hq, Hkv, D, s, scale, causal,
+      st);
+}
+
+template <typename In>
+int dq_config_for(int D, int* out) {
+  return D <= 64    ? dq_config<64, In>(out)
+         : D <= 128 ? dq_config<128, In>(out)
+                    : dq_config<256, In>(out);
+}
+
+template <typename In>
+int dkv_config_for(int D, int* out) {
+  return D <= 64    ? dkv_config<64, dkv_stages<In>(64), In>(out)
+         : D <= 128 ? dkv_config<128, dkv_stages<In>(128), In>(out)
+                    : dkv_config<256, dkv_stages<In>(256), In>(out);
 }
 
 bool bad_shape(int B, int T, int Hq, int Hkv) {
@@ -707,78 +956,76 @@ bool bad_shape(int B, int T, int Hq, int Hkv) {
 
 extern "C" {
 
-// q, o, dout, dq: [B, T, Hq, D] bf16; k, v: [B, T, Hkv, D] bf16; lse: [B,
-// Hq, T] fp32 contiguous, in natural-log units. Writes dq and delta =
-// rowsum(o * dout), [B, Hq, T] fp32 contiguous (the dK/dV kernel reads
-// it). strides: 18 element strides (batch, time, head) of q, k, v, o,
-// dout and dq in that order; the head_dim stride is 1, every stride a
-// multiple of 8 and every base 16-byte aligned (TMA). D is a multiple
-// of 16 up to 128. Launches on `stream`; returns 0 on success, else a
-// cudaError_t or one of the codes that flash_attention_error_string
-// names.
-int flash_attention_bwd_dq_bf16(const void* q, const void* k, const void* v,
-                                const void* o, const void* dout,
-                                const void* lse, void* delta, void* dq, int B,
-                                int T, int Hq, int Hkv, int D,
-                                const long long* strides, int causal,
-                                void* stream) {
-  if (bad_shape(B, T, Hq, Hkv) || D < 16 || D > 128 || D % 16 != 0) {
+// q, o, dout, dq: [B, T, Hq, D]; k, v: [B, T, Hkv, D], all of the type
+// `dtype` names (0 bf16, 1 fp16, 2 fp32), the one this library is built
+// for (FLASH_DTYPE); lse: [B, Hq, T] fp32 contiguous, in natural-log
+// units. Writes dq and delta = rowsum(o *
+// dout), [B, Hq, T] fp32 contiguous (the dK/dV kernel reads it). strides:
+// 18 element strides (batch, time, head) of q, k, v, o, dout and dq in
+// that order; the head_dim stride is 1, every stride a multiple of 16
+// bytes and every base 16-byte aligned (TMA). D is the tensors' head_dim,
+// 1 to 256 with rows a multiple of 16 bytes; d_head <= D the true
+// head_dim (the scale is 1/sqrt(d_head); columns d_head .. D - 1 are
+// zeros the wrapper padded with). Launches on `stream`; returns 0 on
+// success, else a cudaError_t or one of the codes that
+// flash_attention_error_string names.
+int flash_attention_bwd_dq(const void* q, const void* k, const void* v,
+                           const void* o, const void* dout, const void* lse,
+                           void* delta, void* dq, int B, int T, int Hq,
+                           int Hkv, int D, int d_head, int dtype,
+                           const long long* strides, int causal,
+                           void* stream) {
+  if (bad_shape(B, T, Hq, Hkv) || dtype != FLASH_DTYPE ||
+      bad_head_dim(D, d_head, dtype)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const float scale = 1.f / sqrtf(static_cast<float>(D));
+  const float scale = 1.f / sqrtf(static_cast<float>(d_head));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D <= 64) {
-    return launch_dq<64>(q, k, v, o, dout, lse, delta, dq, B, T, Hq, Hkv, D,
-                         strides, scale, causal, st);
-  }
-  return launch_dq<128>(q, k, v, o, dout, lse, delta, dq, B, T, Hq, Hkv, D,
-                        strides, scale, causal, st);
+  return launch_dq_for<Built>(q, k, v, o, dout, lse, delta, dq, B, T, Hq,
+                              Hkv, D, strides, scale, causal, st);
 }
 
-// The launch shape of the dQ kernel that head_dim D runs on: out[0] bytes
-// of dynamic shared memory, out[1] threads a block, out[2] registers a
-// thread at launch, out[3] q rows a block. Returns 0, or
-// cudaErrorInvalidValue for a D the kernel does not take.
-int flash_attention_bwd_dq_config(int D, int* out) {
-  if (D < 16 || D > 128 || D % 16 != 0) {
+// The launch shape of the dQ kernel that head_dim D of type `dtype` runs
+// on: out[0] bytes of dynamic shared memory, out[1] threads a block,
+// out[2] registers a thread at launch, out[3] q rows a block. Returns 0,
+// or cudaErrorInvalidValue for a D or type the library does not take.
+int flash_attention_bwd_dq_config(int D, int dtype, int* out) {
+  if (dtype != FLASH_DTYPE || bad_head_dim(D, D, dtype)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return D <= 64 ? dq_config<64>(out) : dq_config<128>(out);
+  return dq_config_for<Built>(D, out);
 }
 
-// As above, writing dk and dv [B, T, Hkv, D] bf16 (summed over the rep
-// q heads of each kv head). strides: 18 element strides (batch, time,
-// head) of q, k, v, dout, dk and dv in that order; every base is 16-byte
-// aligned (TMA). Returns 0 on success, else a cudaError_t or one of the
-// codes that flash_attention_error_string names.
-int flash_attention_bwd_dkv_bf16(const void* q, const void* k, const void* v,
-                                 const void* dout, const void* lse,
-                                 const void* delta, void* dk, void* dv, int B,
-                                 int T, int Hq, int Hkv, int D,
-                                 const long long* strides, int causal,
-                                 void* stream) {
-  if (bad_shape(B, T, Hq, Hkv) || D < 16 || D > 128 || D % 16 != 0) {
+// As above, writing dk and dv [B, T, Hkv, D] in the input type (summed
+// over the rep q heads of each kv head). strides: 18 element strides
+// (batch, time, head) of q, k, v, dout, dk and dv in that order; every
+// base is 16-byte aligned (TMA). Returns 0 on success, else a cudaError_t
+// or one of the codes that flash_attention_error_string names.
+int flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
+                            const void* dout, const void* lse,
+                            const void* delta, void* dk, void* dv, int B,
+                            int T, int Hq, int Hkv, int D, int d_head,
+                            int dtype, const long long* strides, int causal,
+                            void* stream) {
+  if (bad_shape(B, T, Hq, Hkv) || dtype != FLASH_DTYPE ||
+      bad_head_dim(D, d_head, dtype)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const float scale = 1.f / sqrtf(static_cast<float>(D));
+  const float scale = 1.f / sqrtf(static_cast<float>(d_head));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D <= 64) {
-    return launch_dkv<64, 3>(q, k, v, dout, lse, delta, dk, dv, B, T, Hq, Hkv,
-                             D, strides, scale, causal, st);
-  }
-  return launch_dkv<128, 2>(q, k, v, dout, lse, delta, dk, dv, B, T, Hq, Hkv,
-                            D, strides, scale, causal, st);
+  return launch_dkv_for<Built>(q, k, v, dout, lse, delta, dk, dv, B, T, Hq,
+                               Hkv, D, strides, scale, causal, st);
 }
 
-// The launch shape of the dK/dV kernel that head_dim D runs on: out[0]
-// bytes of dynamic shared memory, out[1] threads a block, out[2]
-// registers a thread at launch, out[3] kv rows a block. Returns 0, or
-// cudaErrorInvalidValue for a D the kernel does not take.
-int flash_attention_bwd_dkv_config(int D, int* out) {
-  if (D < 16 || D > 128 || D % 16 != 0) {
+// The launch shape of the dK/dV kernel that head_dim D of type `dtype`
+// runs on: out[0] bytes of dynamic shared memory, out[1] threads a block,
+// out[2] registers a thread at launch, out[3] kv rows a block. Returns 0,
+// or cudaErrorInvalidValue for a D or type the library does not take.
+int flash_attention_bwd_dkv_config(int D, int dtype, int* out) {
+  if (dtype != FLASH_DTYPE || bad_head_dim(D, D, dtype)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return D <= 64 ? dkv_config<64, 3>(out) : dkv_config<128, 2>(out);
+  return dkv_config_for<Built>(D, out);
 }
 
 const char* flash_attention_error_string(int err) {

@@ -1,4 +1,5 @@
-// Flash-attention forward for Hopper (sm_90a), bf16 in, fp32 accumulate.
+// Flash-attention forward for Hopper (sm_90a): bf16, fp16 or fp32 in, fp32
+// accumulate.
 //
 // Replaces the TPU kernel `_fwd_kernel` in ray_tpu/ops/flash_attention.py
 // (launched by `_fwd`): causal or full attention with an online softmax,
@@ -32,11 +33,19 @@
 // - only the causal diagonal tile and the ragged tail (keys >= T) are
 //   masked; rows past T are read as zeros (TMA) and never stored, so any
 //   T >= 1 runs on the kernel;
-// - built for head_dim 64 and 128: a narrower head_dim (16 .. 112, a
-//   multiple of 16) is read through a TMA map of its true width, whose
-//   missing columns arrive as zeros and add exact zeros to every product;
-//   the scale is 1/sqrt(true head_dim) and only the true columns of O are
-//   stored;
+// - built for head_dim 64, 128 and 256: a narrower head_dim is read
+//   through a TMA map of its true width, whose missing columns arrive as
+//   zeros and add exact zeros to every product; the scale is 1/sqrt(true
+//   head_dim) and only the true columns of O are stored. At 256 a K/V
+//   stage is 64 keys (two stages of 64 x 256 K and V and a 128-row Q tile
+//   fill 193 KB of the 227 KB a block may use), and O += P V is two
+//   products of 128 columns;
+// - types (flash_attention_sm90.cuh, `Elem`): bf16 and fp16 run wgmma in
+//   their own type; fp32 tiles are loaded by all four producer warps,
+//   rounded to bf16 into the same swizzled tiles, and run the bf16
+//   products (P is rounded to the operand type in every case), so an fp32
+//   call computes with bf16 operands and fp32 sums; that producer keeps
+//   40 registers (Split); O is written in the input type;
 // - causal blocks run longest first (the last q tiles, of every head);
 // - inputs are read through their [B, T, H, D] strides; no atomics and
 //   no split over keys, so the result is bitwise repeatable.
@@ -52,20 +61,29 @@ namespace {
 
 using namespace sm90;
 
-constexpr int kBlockN = 128;  // key rows per K/V stage
 constexpr unsigned kFull = 0xffffffffu;
 
-template <int D, int kStages, int kConsumers>
-__global__ void __launch_bounds__(Split<kConsumers>::kThreads,
-                                  Split<kConsumers>::kBlocksPerSm)
+// key rows per K/V stage
+__host__ __device__ constexpr int block_n(int D) { return D > 128 ? 64 : 128; }
+
+// the register split: a producer that converts fp32 tiles keeps 40
+template <int kConsumers, typename In>
+using FwdSplit = Split<kConsumers, Elem<In>::kTma ? 24 : 40>;
+
+template <int D, int kStages, int kConsumers, typename In>
+__global__ void __launch_bounds__(FwdSplit<kConsumers, In>::kThreads,
+                                  FwdSplit<kConsumers, In>::kBlocksPerSm)
     flash_fwd_kernel(__grid_constant__ const CUtensorMap tm_q,
                      __grid_constant__ const CUtensorMap tm_k,
                      __grid_constant__ const CUtensorMap tm_v,
-                     __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-                     int T, int Hq, int B, int rep, int d_true, int64_t o_sb,
-                     int64_t o_st, int64_t o_sh, float scale_log2,
-                     int causal) {
-  using S = Split<kConsumers>;
+                     const Src src, In* __restrict__ o,
+                     float* __restrict__ lse, int T, int Hq, int B, int rep,
+                     int d_true, int64_t o_sb, int64_t o_st, int64_t o_sh,
+                     float scale_log2, int causal) {
+  using S = FwdSplit<kConsumers, In>;
+  using Op = typename Elem<In>::Op;
+  constexpr bool kTma = Elem<In>::kTma;
+  constexpr int kBlockN = block_n(D);
   constexpr int kBlockM = 64 * kConsumers;    // q rows of the block
   constexpr int kColBlocks = D / 64;          // 64-column TMA boxes per row
   constexpr int kQBytes = kBlockM * D * 2;
@@ -89,10 +107,13 @@ __global__ void __launch_bounds__(Split<kConsumers>::kThreads,
   const int n_tiles = cdiv(causal ? min(q0 + kBlockM, T) : T, kBlockN);
 
   if (threadIdx.x == 0) {
-    mbar_init(&q_full, 1);
+    // a TMA tile completes on one arrival (and its bytes), a converted one
+    // on each producer thread's
+    constexpr int kFillers = kTma ? 1 : 128;
+    mbar_init(&q_full, kFillers);
     for (int s = 0; s < kStages; ++s) {
-      mbar_init(&k_full[s], 1);
-      mbar_init(&v_full[s], 1);
+      mbar_init(&k_full[s], kFillers);
+      mbar_init(&v_full[s], kFillers);
       mbar_init(&k_empty[s], 4 * kConsumers);
       mbar_init(&v_empty[s], 4 * kConsumers);
     }
@@ -104,7 +125,31 @@ __global__ void __launch_bounds__(Split<kConsumers>::kThreads,
   if (wg == 0) {
     // ---------------------------------------------------------- producer
     setmaxnreg_dec<S::kProducerRegs>();
-    if (threadIdx.x == 0) {
+    if constexpr (!kTma) {
+      // fp32: the whole warpgroup converts each tile into its place
+      const int tid = threadIdx.x, hk = h / rep;
+      const float* k_rows = head_rows(src.ptr[1], src.stride[1], b, hk);
+      const float* v_rows = head_rows(src.ptr[2], src.stride[2], b, hk);
+      auto load = [&](int j, int which, uint64_t* full, uint64_t* empty) {
+        const int s = j % kStages;
+        mbar_wait(&empty[s], ((j / kStages) & 1) ^ 1);
+        convert_rows<kBlockN, D>(kv_s + (2 * s + which) * kKVBytes,
+                                 which ? v_rows : k_rows,
+                                 src.stride[which + 1][1], j * kBlockN, T,
+                                 d_true, tid);
+        fence_proxy_async();
+        mbar_arrive(&full[s]);
+      };
+      convert_rows<kBlockM, D>(q_s, head_rows(src.ptr[0], src.stride[0], b, h),
+                               src.stride[0][1], q0, T, d_true, tid);
+      fence_proxy_async();
+      mbar_arrive(&q_full);
+      load(0, 0, k_full, k_empty);
+      for (int j = 0; j < n_tiles; ++j) {
+        if (j + 1 < n_tiles) load(j + 1, 0, k_full, k_empty);
+        load(j, 1, v_full, v_empty);
+      }
+    } else if (threadIdx.x == 0) {
       const int hk = h / rep;
       // tile j's K or V into its stage, once the consumers have freed it
       auto load = [&](int j, int which, uint64_t* full, uint64_t* empty) {
@@ -161,7 +206,7 @@ __global__ void __launch_bounds__(Split<kConsumers>::kThreads,
 #pragma unroll
       for (int ks = 0; ks < D / 16; ++ks) {
         const uint32_t col = (ks % 4) * 32;  // bytes into the column block
-        wgmma_ss<kBlockN>(
+        wgmma_ss<kBlockN, Op>(
             sc, desc_sw128(q_addr + (ks / 4) * kBlockM * 128 + col, 16, 1024),
             desc_sw128(k_addr + (ks / 4) * kBlockN * 128 + col, 16, 1024),
             ks > 0);
@@ -218,15 +263,16 @@ __global__ void __launch_bounds__(Split<kConsumers>::kThreads,
       }
       uint32_t pa[kBlockN / 16][4];
 #pragma unroll
-      for (int kk = 0; kk < kBlockN / 16; ++kk) pack_a(pa[kk], sc, kk);
+      for (int kk = 0; kk < kBlockN / 16; ++kk) pack_a<Op>(pa[kk], sc, kk);
 
-      // O += P V: V's 128 rows are the contraction, head_dim the columns
+      // O += P V: V's kBlockN rows are the contraction, head_dim the
+      // columns
       mbar_wait(&v_full[s], parity);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kBlockN / 16; ++kk) {
-        wgmma_rs<D>(acc, pa[kk],
-                    desc_sw128(v_addr + kk * 16 * 128, kBlockN * 128, 1024));
+        wgmma_rs_cols<D, Op>(acc, pa[kk], v_addr + kk * 16 * 128,
+                             kBlockN * 128);
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -248,14 +294,13 @@ __global__ void __launch_bounds__(Split<kConsumers>::kThreads,
       if (tg == 0) {
         lse[((int64_t)b * Hq + h) * T + row] = m[r] * kLn2 + logf(sum);
       }
-      __nv_bfloat16* out = o + b * o_sb + h * o_sh + (int64_t)row * o_st;
+      In* out = o + b * o_sb + h * o_sh + (int64_t)row * o_st;
 #pragma unroll
       for (int jn = 0; jn < D / 8; ++jn) {
         const int col = 8 * jn + 2 * tg;
         if (col < d_true) {
-          *reinterpret_cast<__nv_bfloat162*>(out + col) =
-              __floats2bfloat162_rn(acc[4 * jn + 2 * r] * inv,
-                                    acc[4 * jn + 2 * r + 1] * inv);
+          store2(out + col, acc[4 * jn + 2 * r] * inv,
+                 acc[4 * jn + 2 * r + 1] * inv);
         }
       }
     }
@@ -264,79 +309,111 @@ __global__ void __launch_bounds__(Split<kConsumers>::kThreads,
 
 template <int D, int kStages, int kConsumers>
 constexpr int smem_bytes() {  // + 1024: the tiles' 1024-byte alignment
-  return 64 * kConsumers * D * 2 + kStages * 2 * kBlockN * D * 2 + 1024;
+  return 64 * kConsumers * D * 2 + kStages * 2 * block_n(D) * D * 2 + 1024;
 }
 
-template <int D, int kStages, int kConsumers>
+template <int D, int kStages, int kConsumers, typename In>
 int config(int* out) {
+  using S = FwdSplit<kConsumers, In>;
+  static_assert(smem_bytes<D, kStages, kConsumers>() <= 232448,
+                "a block may use 227 KB of shared memory");
   out[0] = smem_bytes<D, kStages, kConsumers>();
-  out[1] = Split<kConsumers>::kThreads;
-  out[2] = Split<kConsumers>::kLaunchRegs;
+  out[1] = S::kThreads;
+  out[2] = S::kLaunchRegs;
   out[3] = 64 * kConsumers;
   return 0;
 }
 
-template <int D, int kStages, int kConsumers>
+template <int D, int kStages, int kConsumers, typename In>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse,
            int B, int T, int Hq, int Hkv, int d_true, const long long* s,
            float scale_log2, int causal, cudaStream_t stream) {
-  using S = Split<kConsumers>;
+  using S = FwdSplit<kConsumers, In>;
   constexpr int kBlockM = 64 * kConsumers;
+  constexpr int kBlockN = block_n(D);
   CUtensorMap tm_q, tm_k, tm_v;
-  int err = encode_rows(&tm_q, q, B, T, Hq, d_true, s[0], s[1], s[2], kBlockM);
-  if (!err) err = encode_rows(&tm_k, k, B, T, Hkv, d_true, s[3], s[4], s[5],
-                              kBlockN);
-  if (!err) err = encode_rows(&tm_v, v, B, T, Hkv, d_true, s[6], s[7], s[8],
-                              kBlockN);
+  Src src = {};
+  int err = prepare_input<In>(&tm_q, &src, 0, q, B, T, Hq, d_true, s,
+                              kBlockM);
+  if (!err) err = prepare_input<In>(&tm_k, &src, 1, k, B, T, Hkv, d_true,
+                                    s + 3, kBlockN);
+  if (!err) err = prepare_input<In>(&tm_v, &src, 2, v, B, T, Hkv, d_true,
+                                    s + 6, kBlockN);
   constexpr int kSmem = smem_bytes<D, kStages, kConsumers>();
-  auto kernel = flash_fwd_kernel<D, kStages, kConsumers>;
+  auto kernel = flash_fwd_kernel<D, kStages, kConsumers, In>;
   if (!err) err = prepare_launch(kernel, kSmem, S::kLaunchRegs);
   if (err) return err;
   const int grid = cdiv(T, kBlockM) * Hq * B;
   kernel<<<grid, S::kThreads, kSmem, stream>>>(
-      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(o),
-      static_cast<float*>(lse), T, Hq, B, Hq / Hkv, d_true, s[9], s[10],
-      s[11], scale_log2, causal);
+      tm_q, tm_k, tm_v, src, static_cast<In*>(o), static_cast<float*>(lse),
+      T, Hq, B, Hq / Hkv, d_true, s[9], s[10], s[11], scale_log2, causal);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The instantiation head_dim D runs on, <built D, stages, consumer
+// warpgroups>: 64 (one consumer, two blocks a SM), 128 and 256 (two).
+template <typename In>
+int launch_for(const void* q, const void* k, const void* v, void* o,
+               void* lse, int B, int T, int Hq, int Hkv, int D,
+               const long long* s, float scale_log2, int causal,
+               cudaStream_t stream) {
+  if (D <= 64) {
+    return launch<64, 2, 1, In>(q, k, v, o, lse, B, T, Hq, Hkv, D, s,
+                                scale_log2, causal, stream);
+  }
+  if (D <= 128) {
+    return launch<128, 2, 2, In>(q, k, v, o, lse, B, T, Hq, Hkv, D, s,
+                                 scale_log2, causal, stream);
+  }
+  return launch<256, 2, 2, In>(q, k, v, o, lse, B, T, Hq, Hkv, D, s,
+                               scale_log2, causal, stream);
+}
+
+template <typename In>
+int config_for(int D, int* out) {
+  return D <= 64    ? config<64, 2, 1, In>(out)
+         : D <= 128 ? config<128, 2, 2, In>(out)
+                    : config<256, 2, 2, In>(out);
 }
 
 }  // namespace
 
 extern "C" {
 
-// q, o: [B, T, Hq, D] bf16; k, v: [B, T, Hkv, D] bf16; lse: [B, Hq, T] fp32
-// contiguous. strides: 12 element strides (batch, time, head) of q, k, v
-// and o in that order; the head_dim stride is 1, every stride a multiple
-// of 8 and every base 16-byte aligned. D is a multiple of 16 up to 128.
-// Launches on `stream`; returns 0 on success, else a cudaError_t or one
-// of the codes that flash_attention_error_string names.
-int flash_attention_fwd_bf16(const void* q, const void* k, const void* v,
-                             void* o, void* lse, int B, int T, int Hq, int Hkv,
-                             int D, const long long* strides, int causal,
-                             void* stream) {
-  if (B < 1 || T < 1 || Hkv < 1 || Hq % Hkv != 0 || D < 16 || D > 128 ||
-      D % 16 != 0) {
+// q, o: [B, T, Hq, D]; k, v: [B, T, Hkv, D], all of the type `dtype` names
+// (0 bf16, 1 fp16, 2 fp32), the one this library is built for
+// (FLASH_DTYPE); lse: [B, Hq, T] fp32 contiguous. strides: 12
+// element strides (batch, time, head) of q, k, v and o in that order; the
+// head_dim stride is 1, every stride a multiple of 16 bytes and every
+// base 16-byte aligned. D is the tensors' head_dim, 1 to 256 with rows a
+// multiple of 16 bytes; d_head <= D the true head_dim (the scale is
+// 1/sqrt(d_head); columns d_head .. D - 1 are zeros the wrapper padded
+// with). Launches on `stream`; returns 0 on success, else a cudaError_t or
+// one of the codes that flash_attention_error_string names.
+int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
+                        void* lse, int B, int T, int Hq, int Hkv, int D,
+                        int d_head, int dtype, const long long* strides,
+                        int causal, void* stream) {
+  if (B < 1 || T < 1 || Hkv < 1 || Hq % Hkv != 0 || dtype != FLASH_DTYPE ||
+      bad_head_dim(D, d_head, dtype)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const float scale_log2 = 1.4426950408889634f / sqrtf(static_cast<float>(D));
+  const float scale_log2 =
+      1.4426950408889634f / sqrtf(static_cast<float>(d_head));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D <= 64) {
-    return launch<64, 2, 1>(q, k, v, o, lse, B, T, Hq, Hkv, D, strides,
-                            scale_log2, causal, st);
-  }
-  return launch<128, 2, 2>(q, k, v, o, lse, B, T, Hq, Hkv, D, strides,
+  return launch_for<Built>(q, k, v, o, lse, B, T, Hq, Hkv, D, strides,
                            scale_log2, causal, st);
 }
 
-// The launch shape of the kernel that head_dim D runs on: out[0] bytes of
-// dynamic shared memory, out[1] threads a block, out[2] registers a
-// thread at launch, out[3] q rows a block. Returns 0, or
-// cudaErrorInvalidValue for a D the kernel does not take.
-int flash_attention_fwd_config(int D, int* out) {
-  if (D < 16 || D > 128 || D % 16 != 0) {
+// The launch shape of the kernel that head_dim D of type `dtype` runs on:
+// out[0] bytes of dynamic shared memory, out[1] threads a block, out[2]
+// registers a thread at launch, out[3] q rows a block. Returns 0, or
+// cudaErrorInvalidValue for a D or type the library does not take.
+int flash_attention_fwd_config(int D, int dtype, int* out) {
+  if (dtype != FLASH_DTYPE || bad_head_dim(D, D, dtype)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return D <= 64 ? config<64, 2, 1>(out) : config<128, 2, 2>(out);
+  return config_for<Built>(D, out);
 }
 
 const char* flash_attention_error_string(int err) {

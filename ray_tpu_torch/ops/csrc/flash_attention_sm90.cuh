@@ -4,13 +4,24 @@
 // forms the kernels use, setmaxnreg and the register split it serves, and
 // on the host the encoding of a [B, T, H, D] tensor's TMA map.
 //
-// Tiles. Every bf16 tile in shared memory is `rows` rows of 64 columns
-// (128 bytes) written by TMA with CU_TENSOR_MAP_SWIZZLE_128B; a head_dim
-// of 128 is two such tiles side by side ("column blocks", the second at
-// rows * 128 bytes). Each tile starts on a 1024-byte boundary (one
-// swizzle atom: 8 rows of 128 bytes).
+// Element types (`Elem`). The kernels take bf16, fp16 and fp32 inputs.
+// bf16 and fp16 tiles reach shared memory by TMA as they are, and the
+// products are wgmma in that type (`.bf16` or `.f16`). fp32 tiles are
+// loaded by the producer warpgroup's threads and rounded to bf16 on their
+// way into shared memory (`convert_rows`), in the same swizzled layout,
+// so an fp32 input runs the bf16 products: TF32 wgmma would take both
+// operands K-major only, while P V, dS K, dS^T Q and P^T dO contract
+// along the sequence, over which V, K, Q and dO are MN-major. Every
+// product accumulates in fp32, and outputs are written in the input type.
 //
-// The two product forms (m64nNk16, bf16 in, fp32 accumulate):
+// Tiles. Every tile in shared memory is `rows` rows of 64 16-bit columns
+// (128 bytes), 128-byte swizzled (by TMA with CU_TENSOR_MAP_SWIZZLE_128B,
+// or by `convert_rows` in the same layout); a head_dim of 128 is two such
+// tiles side by side ("column blocks", the second at rows * 128 bytes),
+// of 256 four. Each tile starts on a 1024-byte boundary (one swizzle
+// atom: 8 rows of 128 bytes).
+//
+// The two product forms (m64nNk16, 16-bit in, fp32 accumulate):
 // - SS, "rows as the K-major B operand": C[64 x N] += A[64 x 16] B[N x 16]^T
 //   with A and B both row tiles in shared memory, contracted over their
 //   columns (head_dim). K-major, 128-byte swizzle: SBO = 1024 bytes (the
@@ -25,17 +36,22 @@
 // Accumulator layout (per warp w of the warpgroup, lane = 4 * g + tg):
 // element 4 * j + e holds row 16 * w + g + 8 * (e >> 1), column
 // 8 * j + 2 * tg + (e & 1). Two neighbouring n8 column blocks 2kk and
-// 2kk + 1 of an accumulator are, packed to bf16, exactly the A registers
-// of the k16 slice kk (see `pack_a`).
+// 2kk + 1 of an accumulator are, packed to 16 bits, exactly the A
+// registers of the k16 slice kk (see `pack_a`). An accumulator of 256
+// columns is two of 128 side by side (`wgmma_rs_cols`).
 
 #pragma once
 
 #include <cuda.h>
 #include <cudaTypedefs.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <stdio.h>
+#include <string.h>
+
+#include <type_traits>
 
 namespace sm90 {
 
@@ -149,13 +165,17 @@ __device__ __forceinline__ void setmaxnreg_inc() {
 // prepare_launch):
 // - 2 consumers, 1 block a SM: 384 x 168 = 128 x 24 + 256 x 240;
 // - 1 consumer, 2 blocks a SM: 256 x 128 = 128 x 24 + 128 x 232.
-template <int kConsumers>
+// A producer that converts fp32 tiles itself keeps kProducerRegs = 40, and
+// the consumers get what is left: 232 (2 consumers) or 216 (1).
+template <int kConsumers, int kProducerRegs_ = 24>
 struct Split {
   static constexpr int kThreads = 128 * (1 + kConsumers);
   static constexpr int kBlocksPerSm = kConsumers == 2 ? 1 : 2;
   static constexpr int kLaunchRegs = kConsumers == 2 ? 168 : 128;
-  static constexpr int kProducerRegs = 24;
-  static constexpr int kConsumerRegs = kConsumers == 2 ? 240 : 232;
+  static constexpr int kProducerRegs = kProducerRegs_;
+  static constexpr int kConsumerRegs =
+      (kLaunchRegs * kThreads - 128 * kProducerRegs) / (128 * kConsumers) /
+      8 * 8;
 };
 
 __host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
@@ -179,146 +199,301 @@ __device__ __forceinline__ void named_barrier(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
-// Two floats as one bf16x2 register; `lo` lands in the low half (the
-// smaller column index of a fragment).
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+// ------------------------------------------------------------ element types
+
+// What the kernels do with each input type: `Op` is the type of the
+// tensor-core operands in shared memory and in the A registers; `kTma`
+// whether the tiles arrive by TMA as they are (else the producer's
+// threads convert them, see convert_rows); `kMapType` the TMA map's type.
+template <typename T>
+struct Elem;
+template <>
+struct Elem<__nv_bfloat16> {
+  using Op = __nv_bfloat16;
+  static constexpr bool kTma = true;
+  static constexpr CUtensorMapDataType kMapType =
+      CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+};
+template <>
+struct Elem<__half> {
+  using Op = __half;
+  static constexpr bool kTma = true;
+  static constexpr CUtensorMapDataType kMapType =
+      CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+};
+template <>
+struct Elem<float> {
+  using Op = __nv_bfloat16;  // rounded to bf16 in shared memory
+  static constexpr bool kTma = false;
+  static constexpr CUtensorMapDataType kMapType =
+      CU_TENSOR_MAP_DATA_TYPE_FLOAT32;  // never encoded
+};
+
+// The element types' codes (the wrapper's KERNEL_DTYPES). Each source is
+// built once per type, into a library of its own (ops/_build.py passes
+// -DFLASH_DTYPE=code), which takes that type only: `Built`.
+enum DType { kBf16 = 0, kF16 = 1, kF32 = 2 };
+template <int kCode>
+struct TypeOf;
+template <>
+struct TypeOf<kBf16> {
+  using T = __nv_bfloat16;
+};
+template <>
+struct TypeOf<kF16> {
+  using T = __half;
+};
+template <>
+struct TypeOf<kF32> {
+  using T = float;
+};
+#ifndef FLASH_DTYPE
+#define FLASH_DTYPE 0
+#endif
+using Built = typename TypeOf<FLASH_DTYPE>::T;
+
+// Two floats as one 16-bit pair register of type Op; `lo` lands in the
+// low half (the smaller column index of a fragment).
+template <typename Op>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (std::is_same<Op, __half>::value) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  } else {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+}
+
+// A 16-bit pair (bf16 or fp16) as two floats.
+template <typename Op>
+__device__ __forceinline__ float2 unpack2(uint32_t r) {
+  if constexpr (std::is_same<Op, __half>::value) {
+    return __half22float2(*reinterpret_cast<const __half2*>(&r));
+  } else {
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r));
+  }
+}
+
+// Two floats stored at `out` (8-byte aligned for fp32, 4 for 16 bits) in
+// the output type T.
+template <typename T>
+__device__ __forceinline__ void store2(T* out, float a, float b) {
+  if constexpr (std::is_same<T, float>::value) {
+    *reinterpret_cast<float2*>(out) = make_float2(a, b);
+  } else {
+    *reinterpret_cast<uint32_t*>(out) = pack2<T>(a, b);
+  }
 }
 
 // The A registers of k16 slice kk from an fp32 accumulator (its n8 column
-// blocks 2kk and 2kk + 1), rounded to bf16.
-template <int N>
+// blocks 2kk and 2kk + 1), rounded to Op.
+template <typename Op = __nv_bfloat16, int N>
 __device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float (&c)[N],
                                        int kk) {
-  a[0] = pack_bf16(c[8 * kk + 0], c[8 * kk + 1]);
-  a[1] = pack_bf16(c[8 * kk + 2], c[8 * kk + 3]);
-  a[2] = pack_bf16(c[8 * kk + 4], c[8 * kk + 5]);
-  a[3] = pack_bf16(c[8 * kk + 6], c[8 * kk + 7]);
+  a[0] = pack2<Op>(c[8 * kk + 0], c[8 * kk + 1]);
+  a[1] = pack2<Op>(c[8 * kk + 2], c[8 * kk + 3]);
+  a[2] = pack2<Op>(c[8 * kk + 4], c[8 * kk + 5]);
+  a[3] = pack2<Op>(c[8 * kk + 6], c[8 * kk + 7]);
 }
 
-// C[64 x N] (N / 2 floats a thread) += A B^T, SS form; scale_d = 0
-// overwrites C instead of adding to it.
-template <int N>
+// fp32 inputs: rows t0 .. t0 + kRows - 1 of one head of a [B, T, H, D]
+// fp32 tensor (`src` points at row 0 of that head, rows `st` elements
+// apart, 16-byte aligned), columns 0 .. kD - 1, rounded to bf16 into kD /
+// 64 column blocks of kRows 128-byte rows, swizzled as TMA lays a bf16
+// tile (the 16-byte chunk c of row r at byte ((c ^ (r & 7)) << 4) of its
+// row); rows >= T and columns >= d_true arrive as zeros, as TMA's do.
+// Run by the 128 threads of the producer warpgroup (`tid` 0 .. 127),
+// neighbouring threads on neighbouring 32-byte pieces of a row. The
+// caller fences (fence_proxy_async) before it arrives on the tile's
+// barrier, since wgmma reads the tile through the async proxy. Given
+// `lo`, the tile there gets what the rounding left, x - bf16(x), rounded
+// to bf16 in turn: the two tiles' products sum to that of x within about
+// 2^-16 of it, where one tile's is within 2^-9.
+template <int kRows, int kD>
+__device__ __forceinline__ void convert_rows(uint8_t* dst, const float* src,
+                                             int64_t st, int t0, int T,
+                                             int d_true, int tid,
+                                             uint8_t* lo = nullptr) {
+  constexpr int kChunks = kD / 8;  // 8 columns: 16 bytes of bf16
+#pragma unroll 4
+  for (int i = tid; i < kRows * kChunks; i += 128) {
+    const int r = i / kChunks, ch = i % kChunks;
+    const int row = t0 + r, col = 8 * ch;
+    float x[8];
+    if (row < T && col + 8 <= d_true) {
+      const float4* p =
+          reinterpret_cast<const float4*>(src + (int64_t)row * st + col);
+      const float4 a = p[0], b = p[1];
+      x[0] = a.x, x[1] = a.y, x[2] = a.z, x[3] = a.w;
+      x[4] = b.x, x[5] = b.y, x[6] = b.z, x[7] = b.w;
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        x[e] = row < T && col + e < d_true ? src[(int64_t)row * st + col + e]
+                                           : 0.f;
+      }
+    }
+    uint32_t v[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      v[e] = pack2<__nv_bfloat16>(x[2 * e], x[2 * e + 1]);
+    }
+    const int at = (ch / 8) * kRows * 128 + r * 128 +
+                   (((ch % 8) ^ (r & 7)) << 4);
+    *reinterpret_cast<uint4*>(dst + at) = make_uint4(v[0], v[1], v[2], v[3]);
+    if (lo != nullptr) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 h = unpack2<__nv_bfloat16>(v[e]);
+        v[e] =
+            pack2<__nv_bfloat16>(x[2 * e] - h.x, x[2 * e + 1] - h.y);
+      }
+      *reinterpret_cast<uint4*>(lo + at) = make_uint4(v[0], v[1], v[2], v[3]);
+    }
+  }
+}
+
+// The first element of head h, batch b of an fp32 [B, T, H, D] input
+// (`s` its element strides: batch, time, head).
+__device__ __forceinline__ const float* head_rows(const void* base,
+                                                  const long long* s, int b,
+                                                  int h) {
+  return static_cast<const float*>(base) + b * s[0] + h * s[2];
+}
+
+// Where the producer's threads read fp32 inputs (unused for bf16, fp16):
+// each input's base and (batch, time, head) element strides.
+struct Src {
+  const void* ptr[4];
+  long long stride[4][3];
+};
+
+// ------------------------------------------------------------------- wgmma
+
+// The operand lists of the asm statements below: 32 or 64 accumulator
+// floats, read and written.
+#define SM90_ACC32(d)                                                       \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),  \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),         \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),     \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),     \
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),     \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),     \
+      "+f"(d[31])
+#define SM90_ACC64(d)                                                       \
+  SM90_ACC32(d), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),       \
+      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),     \
+      "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),     \
+      "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),     \
+      "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),     \
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),     \
+      "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+#define SM90_REGS32                                                      \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"                   \
+  " %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"         \
+  " %24, %25, %26, %27, %28, %29, %30, %31}"
+#define SM90_REGS64                                                      \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"                   \
+  " %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"         \
+  " %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"         \
+  " %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"         \
+  " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"         \
+  " %60, %61, %62, %63}"
+
+// SS: C[64 x N] += A B^T (TY is "bf16" or "f16")
+#define SM90_WGMMA_SS64(TY)                                                 \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                 \
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "  \
+               SM90_REGS32 ", %32, %33, p, 1, 1, 0, 0;\n}\n"                \
+               : SM90_ACC32(d)                                             \
+               : "l"(desc_a), "l"(desc_b), "r"(scale_d))
+#define SM90_WGMMA_SS128(TY)                                                \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                 \
+               "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " " \
+               SM90_REGS64 ", %64, %65, p, 1, 1, 0, 0;\n}\n"                \
+               : SM90_ACC64(d)                                             \
+               : "l"(desc_a), "l"(desc_b), "r"(scale_d))
+// RS: C[64 x N] += A X, A in registers, X transposed from shared memory
+#define SM90_WGMMA_RS64(TY)                                                 \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                 \
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "  \
+               SM90_REGS32 ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"  \
+               : SM90_ACC32(d)                                             \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),  \
+                 "r"(1))
+#define SM90_WGMMA_RS128(TY)                                                \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                 \
+               "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " " \
+               SM90_REGS64 ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"  \
+               : SM90_ACC64(d)                                             \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),  \
+                 "r"(1))
+
+// C[64 x N] (N / 2 floats a thread) += A B^T, SS form, operands of type
+// Op; scale_d = 0 overwrites C instead of adding to it.
+template <int N, typename Op = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a,
-                                         uint64_t desc_b, int scale_d);
+                                         uint64_t desc_b, int scale_d) {
+  static_assert(N == 64 || N == 128, "wgmma_ss is built for N 64 and 128");
+  constexpr bool kHalf = std::is_same<Op, __half>::value;
+  if constexpr (N == 64 && kHalf) {
+    SM90_WGMMA_SS64("f16");
+  } else if constexpr (N == 64) {
+    SM90_WGMMA_SS64("bf16");
+  } else if constexpr (kHalf) {
+    SM90_WGMMA_SS128("f16");
+  } else {
+    SM90_WGMMA_SS128("bf16");
+  }
+}
+
 // C[64 x N] += A X, RS form (A in registers, X transposed from shared).
-template <int N>
+template <int N, typename Op = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4],
-                                         uint64_t desc_b);
-
-template <>
-__device__ __forceinline__ void wgmma_ss<64>(
-    float (&d)[32], uint64_t desc_a, uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
-      " %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
-      " %24, %25, %26, %27, %28, %29, %30, %31}"
-      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+                                         uint64_t desc_b) {
+  static_assert(N == 64 || N == 128, "wgmma_rs is built for N 64 and 128");
+  constexpr bool kHalf = std::is_same<Op, __half>::value;
+  if constexpr (N == 64 && kHalf) {
+    SM90_WGMMA_RS64("f16");
+  } else if constexpr (N == 64) {
+    SM90_WGMMA_RS64("bf16");
+  } else if constexpr (kHalf) {
+    SM90_WGMMA_RS128("f16");
+  } else {
+    SM90_WGMMA_RS128("bf16");
+  }
 }
 
-template <>
-__device__ __forceinline__ void wgmma_ss<128>(
-    float (&d)[64], uint64_t desc_a, uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
-      " %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
-      " %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
-      " %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
-      " %60, %61, %62, %63}"
-      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+// C[64 x N] += A X over N columns of X, a row tile of N / 64 column blocks
+// `lbo` bytes apart starting at shared address `addr`: one RS product for
+// N up to 128, two of 128 columns side by side for N = 256 (the
+// accumulator's halves are its columns 0-127 and 128-255).
+template <int N, typename Op = __nv_bfloat16>
+__device__ __forceinline__ void wgmma_rs_cols(float (&d)[N / 2],
+                                              const uint32_t (&a)[4],
+                                              uint32_t addr, uint32_t lbo) {
+  if constexpr (N <= 128) {
+    wgmma_rs<N, Op>(d, a, desc_sw128(addr, lbo, 1024));
+  } else {
+    static_assert(N == 256, "wgmma_rs_cols is built for N up to 256");
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      wgmma_rs<128, Op>(*reinterpret_cast<float(*)[64]>(&d[64 * half]), a,
+                        desc_sw128(addr + 2 * half * lbo, lbo, 1024));
+    }
+  }
 }
 
-template <>
-__device__ __forceinline__ void wgmma_rs<64>(
-    float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
-      " %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
-      " %24, %25, %26, %27, %28, %29, %30, %31}"
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
-        "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<128>(
-    float (&d)[64], const uint32_t (&a)[4], uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
-      " %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
-      " %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
-      " %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
-      " %60, %61, %62, %63}"
-      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
-        "r"(1));
-}
+#undef SM90_WGMMA_SS64
+#undef SM90_WGMMA_SS128
+#undef SM90_WGMMA_RS64
+#undef SM90_WGMMA_RS128
+#undef SM90_REGS32
+#undef SM90_REGS64
+#undef SM90_ACC32
+#undef SM90_ACC64
 
 
 // ------------------------------------------------------------------- host
@@ -368,17 +543,20 @@ inline PFN_cuTensorMapEncodeTiled_v12000 encode_fn() {
   return fn;
 }
 
-// The TMA map of a [B, T, H, D] bf16 tensor with element strides (sb, st,
-// sh) and a unit head_dim stride, for boxes of `rows` rows of 64 columns
-// of one head, 128-byte swizzled. Dimensions are ordered (D, H, T, B), so
-// a box {64, 1, rows, 1} at coordinates (c, h, t, b) lands as rows t ..
-// t + rows - 1 of columns c .. c + 63. Columns past D (a kernel built for
-// a head_dim of 64 or 128 reading a narrower tensor) and rows past T
-// arrive as zeros. The kernels' guard (strides a multiple of 8 elements,
-// 16-byte aligned base) is TMA's own rule. Returns 0 or an error code.
+// The TMA map of a [B, T, H, D] bf16 or fp16 tensor (`type`) with
+// element strides (sb, st, sh) and a unit head_dim stride, for boxes of
+// `rows` rows of 64 columns of one head, 128-byte swizzled. Dimensions are
+// ordered (D, H, T, B), so a box {64, 1, rows, 1} at coordinates (c, h, t,
+// b) lands as rows t .. t + rows - 1 of columns c .. c + 63. Columns past
+// D (a kernel built for a head_dim of 64, 128 or 256 reading a narrower
+// tensor, up to whole boxes of them) and rows past T arrive as zeros. The
+// kernels' guard (strides a multiple of 16 bytes, 16-byte aligned base) is
+// TMA's own rule. Returns 0 or an error code.
 inline int encode_rows(CUtensorMap* map, const void* base, int B, int T,
                        int H, int D, long long sb, long long st,
-                       long long sh, int rows) {
+                       long long sh, int rows,
+                       CUtensorMapDataType type =
+                           CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   PFN_cuTensorMapEncodeTiled_v12000 encode = encode_fn();
   if (encode == nullptr) return kErrNoEncode;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)T,
@@ -388,11 +566,40 @@ inline int encode_rows(CUtensorMap* map, const void* base, int B, int T,
   const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+      map, type, 4, const_cast<void*>(base), dims,
       strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kErrEncodeBase + static_cast<int>(r);
+}
+
+// Whether the entry points take head_dim D (the tensors' width, 1 to 256,
+// rows a whole number of 16-byte units) and the true head_dim `d_head` of
+// the scale (at most D: the wrapper may pad D with zeros) for type code
+// `dtype`.
+inline bool bad_head_dim(int D, int d_head, int dtype) {
+  const int esize = dtype == kF32 ? 4 : 2;
+  return D < 1 || D > 256 || (D * esize) % 16 != 0 || d_head < 1 ||
+         d_head > D;
+}
+
+// Input `i` of a kernel, [B, T, H, D] at `base` with element strides s[0 ..
+// 2], as the kernel reads it: for bf16 and fp16 its TMA map for boxes of
+// `rows` rows, for fp32 its base and strides in `src` (the map is zeroed,
+// never used). Returns 0 or an error code.
+template <typename In>
+inline int prepare_input(CUtensorMap* map, Src* src, int i, const void* base,
+                         int B, int T, int H, int D, const long long* s,
+                         int rows) {
+  if constexpr (Elem<In>::kTma) {
+    return encode_rows(map, base, B, T, H, D, s[0], s[1], s[2], rows,
+                       Elem<In>::kMapType);
+  } else {
+    memset(map, 0, sizeof(*map));
+    src->ptr[i] = base;
+    for (int d = 0; d < 3; ++d) src->stride[i][d] = s[d];
+    return 0;
+  }
 }
 
 // Before a launch: allow `smem_bytes` of dynamic shared memory, and refuse

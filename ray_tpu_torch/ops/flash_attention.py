@@ -19,13 +19,23 @@ On CPU tensors the plain versions (:func:`flash_attention_reference`,
 two halves together, as the JAX package's ``custom_vjp`` does.
 
 The kernels mask a ragged last tile themselves, so every T >= 1 runs on
-them, where the JAX package falls back for T that does not block. The
-kernels are built for head_dim 64 and 128; a narrower
-head_dim (a multiple of 16) is read through TMA maps of its true width,
-whose missing columns arrive as zeros: the counterpart of the JAX
-package's zero-padding of head_dim to 128 lanes, with no padded copy.
-Zero columns add exact zeros to every product, the softmax scale is
-1/sqrt(D) of the true head_dim, and only the true columns are stored.
+them, where the JAX package falls back for T that does not block. They
+take what the Pallas kernels take:
+
+- bfloat16, float16 and float32 q/k/v (one dtype throughout); o and the
+  grads come back in that dtype, lse and delta in float32. bf16 and fp16
+  run the tensor cores in their own type; float32 tiles are rounded to
+  bf16 in shared memory and run the bf16 products, summed in float32
+  (``csrc/flash_attention_sm90.cuh`` says why not TF32);
+- head_dim 1 to 256 (:data:`MAX_HEAD_DIM`). The kernels are built for 64,
+  128 and 256; a narrower head_dim is read through TMA maps of its true
+  width, whose missing columns arrive as zeros: the counterpart of the
+  JAX package's zero-padding of head_dim to 128 lanes. Where a row of
+  head_dim elements is not a whole number of 16-byte units (TMA's rule
+  for strides), the wrapper pads head_dim with zeros into a copy
+  (:func:`pad_head_dim`) and slices the outputs back, as the JAX package
+  pads. Zero columns add exact zeros to every product, the softmax scale
+  is 1/sqrt(D) of the true head_dim, and only the true columns are used.
 
 The kernels launch through ``ctypes``, where no dispatch mode sees them.
 So each launch reports its exact work (:func:`attention_work`) to every
@@ -46,7 +56,9 @@ from typing import Dict, List
 import torch
 
 NEG_INF = -1e30
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256
+# the dtypes the CUDA kernels take, by their code in the C entry points
+KERNEL_DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
 
 
 def _scores(q, k, causal):
@@ -144,9 +156,11 @@ def flash_attention_backward_reference(q, k, v, o, lse, do,
 def _vector_loadable(t: torch.Tensor) -> bool:
     """Whether the kernels can read ``t``: TMA's rule for a tensor map
     (unit head_dim stride, other strides a multiple of 16 bytes, a
-    16-byte aligned base), which also covers the dQ kernel's 16-byte
-    loads of o."""
-    return t.stride(3) == 1 and not any(s % 8 for s in t.stride()[:3]) \
+    16-byte aligned base), which also covers the 16-byte loads of the
+    float32 producers and of the dQ kernel's o."""
+    size = t.element_size()
+    return t.stride(3) == 1 \
+        and not any(s * size % 16 for s in t.stride()[:3]) \
         and t.data_ptr() % 16 == 0
 
 
@@ -154,8 +168,26 @@ def _check_vector_loads(name: str, t: torch.Tensor) -> None:
     if not _vector_loadable(t):
         raise ValueError(
             f"{name} must have a unit head_dim stride, other strides a "
-            f"multiple of 8 and a 16-byte aligned start; got strides "
-            f"{t.stride()}")
+            f"multiple of 16 bytes and a 16-byte aligned start; got "
+            f"strides {t.stride()} of {t.element_size()}-byte elements")
+
+
+def kernel_width(D: int, dtype: torch.dtype) -> int:
+    """The head_dim the kernels read for a true head_dim ``D``: D itself
+    where a row of D elements is a whole number of 16-byte units (TMA's
+    rule for strides), else D rounded up to one (8 elements of 2 bytes,
+    4 of 4), zero-padded by :func:`pad_head_dim`."""
+    per = 16 // dtype.itemsize
+    return -(-D // per) * per
+
+
+def pad_head_dim(t: torch.Tensor, width: int) -> torch.Tensor:
+    """``t`` [B, T, H, D] with head_dim zero-padded to ``width``: a fresh
+    contiguous copy, or ``t`` itself where D is already ``width``. Zero
+    columns add exact zeros to every product of the kernels."""
+    if t.shape[-1] == width:
+        return t
+    return torch.nn.functional.pad(t, (0, width - t.shape[-1]))
 
 
 def check_kernel_inputs(q: torch.Tensor, k: torch.Tensor,
@@ -175,15 +207,21 @@ def check_kernel_inputs(q: torch.Tensor, k: torch.Tensor,
             f"over the prompt); got Tq={T}, Tk={k.shape[1]}")
     if Hq % k.shape[2]:
         raise ValueError(f"Hq={Hq} is not a multiple of Hkv={k.shape[2]}")
-    if D % 16 or not 16 <= D <= MAX_HEAD_DIM:
+    if not 1 <= D <= MAX_HEAD_DIM:
         raise ValueError(
-            f"the flash-attention kernel takes head_dim a multiple of 16 "
-            f"up to {MAX_HEAD_DIM}; got {D}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"the flash-attention kernel takes bfloat16; "
-                            f"{name} is {t.dtype}")
-        _check_vector_loads(name, t)
+            f"the flash-attention kernels take head_dim 1 to "
+            f"{MAX_HEAD_DIM}; got {D}")
+    if q.dtype not in KERNEL_DTYPES:
+        raise TypeError(f"the flash-attention kernels take "
+                        f"{', '.join(map(str, KERNEL_DTYPES))}; q is "
+                        f"{q.dtype}")
+    for name, t in (("k", k), ("v", v)):
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name} is {t.dtype}, q {q.dtype}: the "
+                            f"flash-attention kernels take one dtype")
+    if kernel_width(D, q.dtype) == D:  # else read through a padded copy
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            _check_vector_loads(name, t)
     # a kernel's output has no grad_fn: a wrapper called on inputs that
     # need grad would drop their gradient without a word
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
@@ -202,11 +240,12 @@ def check_backward_inputs(q, k, v, do, lse, delta=None, o=None) -> None:
     for name, t in (("do", do), ("o", o)):
         if t is None:
             continue
-        if t.shape != q.shape or t.dtype != torch.bfloat16:
-            raise TypeError(f"{name} must be bfloat16 of q's shape "
-                            f"{tuple(q.shape)}; got {t.dtype} "
+        if t.shape != q.shape or t.dtype != q.dtype:
+            raise TypeError(f"{name} must be of q's dtype {q.dtype} and "
+                            f"shape {tuple(q.shape)}; got {t.dtype} "
                             f"{tuple(t.shape)}")
-        _check_vector_loads(name, t)
+        if kernel_width(q.shape[3], q.dtype) == q.shape[3]:
+            _check_vector_loads(name, t)
     B, T, Hq, _ = q.shape
     for name, t in (("lse", lse), ("delta", delta)):
         if t is None:
@@ -218,7 +257,7 @@ def check_backward_inputs(q, k, v, do, lse, delta=None, o=None) -> None:
                              f"{tuple(t.shape)} strides {t.stride()}")
 
 
-def attention_work(B, T, Hq, Hkv, D, causal, kernel="fwd"):
+def attention_work(B, T, Hq, Hkv, D, causal, kernel="fwd", elem_bytes=2):
     """(flops, bytes) a kernel needs, counting each unmasked (query, key)
     pair: the forward does 2 products (S, P V), 4*D flops a pair, reads
     q, k, v and writes o and lse; dQ does 3 (S, dP, dS K), 6*D flops,
@@ -227,14 +266,16 @@ def attention_work(B, T, Hq, Hkv, D, causal, kernel="fwd"):
     writes dk, dv; the whole backward ("bwd"), the function SDPA's
     backward computes, needs 5 (S, dP, P^T dO, dS^T Q, dS K), 10*D flops,
     reads q, k, v, o, do, lse and writes dq, dk, dv: the S and dP that
-    the dQ and dK/dV kernels both compute are counted once. bf16
-    tensors, fp32 row terms; each read once, each written once."""
+    the dQ and dK/dV kernels both compute are counted once. Tensors of
+    ``elem_bytes`` a value (2 for bf16 and fp16, 4 for fp32), fp32 row
+    terms; each read once, each written once, at the true head_dim D.
+    The products run on the bf16 or fp16 tensor cores for every dtype."""
     pairs = T * (T + 1) // 2 if causal else T * T
     products, q_sized, kv_sized, rows = {
         "fwd": (2, 2, 2, 1), "dq": (3, 4, 2, 2), "dkv": (4, 2, 4, 2),
         "bwd": (5, 4, 4, 1)}[kernel]
     flops = 2 * products * D * pairs * B * Hq
-    nbytes = 2 * B * T * D * (q_sized * Hq + kv_sized * Hkv) \
+    nbytes = elem_bytes * B * T * D * (q_sized * Hq + kv_sized * Hkv) \
         + 4 * rows * B * Hq * T
     return flops, nbytes
 
@@ -270,12 +311,15 @@ class KernelTally:
         return sum(c[key] for c in self.counts.values())
 
 
-def report_kernel_work(kernel: str, B, T, Hq, Hkv, D, causal) -> None:
-    """Add one launch of ``kernel`` at these shapes to every open
-    :class:`KernelTally`; with none open this is one read of a list."""
+def report_kernel_work(kernel: str, B, T, Hq, Hkv, D, causal,
+                       elem_bytes=2) -> None:
+    """Add one launch of ``kernel`` at these shapes (tensors of
+    ``elem_bytes`` a value) to every open :class:`KernelTally`; with none
+    open this is one read of a list."""
     if not _open_tallies:
         return
-    flops, nbytes = attention_work(B, T, Hq, Hkv, D, causal, kernel)
+    flops, nbytes = attention_work(B, T, Hq, Hkv, D, causal, kernel,
+                                   elem_bytes)
     with _tally_lock:
         for tally in _open_tallies:
             c = tally.counts.setdefault(
@@ -296,16 +340,17 @@ def _same_device(*ts) -> torch.device:
     return dev
 
 
-def _launch(library: str, entry: str, device, pointers, ints, strided,
+def _launch(kernel: str, entry: str, device, pointers, ints, strided,
             causal: bool) -> None:
-    """Call C entry point ``entry`` of kernel library ``library`` (built at
-    first use) on the current stream: the tensors' data pointers, the int
-    arguments, the (batch, time, head) strides of ``strided``, causal and
-    the stream. Raise if the launch was refused (each library names a
-    cudaError_t with its own ``flash_attention_error_string``)."""
-    from ray_tpu_torch.ops._build import load
+    """Call C entry point ``entry`` of ``kernel``'s library for the dtype
+    of the first pointer (built at first use) on the current stream: the
+    tensors' data pointers, the int arguments (the last the dtype's code),
+    the (batch, time, head) strides of ``strided``, causal and the stream.
+    Raise if the launch was refused (each library names a cudaError_t
+    with its own ``flash_attention_error_string``)."""
+    from ray_tpu_torch.ops._build import library_name, load
 
-    lib = load(library)
+    lib = load(library_name(kernel, KERNEL_DTYPES[pointers[0].dtype]))
     fn = getattr(lib, entry)
     fn.argtypes = ([ctypes.c_void_p] * len(pointers)
                    + [ctypes.c_int] * len(ints)
@@ -332,14 +377,18 @@ def flash_attention_forward(q: torch.Tensor, k: torch.Tensor,
         return flash_attention_reference(q, k, v, causal)
     check_kernel_inputs(q, k, v)
     B, T, Hq, D = q.shape
-    o = torch.empty((B, T, Hq, D), dtype=q.dtype, device=q.device)
+    W = kernel_width(D, q.dtype)
+    q, k, v = (pad_head_dim(t, W) for t in (q, k, v))
+    o = torch.empty((B, T, Hq, W), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, Hq, T), dtype=torch.float32, device=q.device)
-    _launch("flash_attention_fwd", "flash_attention_fwd_bf16", q.device,
-            (q, k, v, o, lse), (B, T, Hq, k.shape[2], D), (q, k, v, o),
-            causal)
+    _launch("flash_attention_fwd", "flash_attention_fwd", q.device,
+            (q, k, v, o, lse),
+            (B, T, Hq, k.shape[2], W, D, KERNEL_DTYPES[q.dtype]),
+            (q, k, v, o), causal)
     flash_attention_forward.launches += 1
-    report_kernel_work("fwd", B, T, Hq, k.shape[2], D, causal)
-    return o, lse
+    report_kernel_work("fwd", B, T, Hq, k.shape[2], D, causal,
+                       q.element_size())
+    return (o if W == D else o[..., :D]), lse
 
 
 flash_attention_forward.launches = 0  # kernel launches, for run reports
@@ -354,14 +403,18 @@ def flash_attention_bwd_dq(q, k, v, o, do, lse, causal: bool = True):
         return flash_attention_bwd_dq_reference(q, k, v, o, do, lse, causal)
     check_backward_inputs(q, k, v, do, lse, o=o)
     B, T, Hq, D = q.shape
-    dq = torch.empty((B, T, Hq, D), dtype=q.dtype, device=q.device)
+    W = kernel_width(D, q.dtype)
+    q, k, v, o, do = (pad_head_dim(t, W) for t in (q, k, v, o, do))
+    dq = torch.empty((B, T, Hq, W), dtype=q.dtype, device=q.device)
     delta = torch.empty((B, Hq, T), dtype=torch.float32, device=q.device)
-    _launch("flash_attention_bwd", "flash_attention_bwd_dq_bf16", q.device,
-            (q, k, v, o, do, lse, delta, dq), (B, T, Hq, k.shape[2], D),
+    _launch("flash_attention_bwd", "flash_attention_bwd_dq", q.device,
+            (q, k, v, o, do, lse, delta, dq),
+            (B, T, Hq, k.shape[2], W, D, KERNEL_DTYPES[q.dtype]),
             (q, k, v, o, do, dq), causal)
     flash_attention_bwd_dq.launches += 1
-    report_kernel_work("dq", B, T, Hq, k.shape[2], D, causal)
-    return dq, delta
+    report_kernel_work("dq", B, T, Hq, k.shape[2], D, causal,
+                       q.element_size())
+    return (dq if W == D else dq[..., :D]), delta
 
 
 flash_attention_bwd_dq.launches = 0
@@ -376,13 +429,19 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal: bool = True):
                                                  causal)
     check_backward_inputs(q, k, v, do, lse, delta)
     B, T, Hq, D = q.shape
+    W = kernel_width(D, q.dtype)
+    q, k, v, do = (pad_head_dim(t, W) for t in (q, k, v, do))
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-    _launch("flash_attention_bwd", "flash_attention_bwd_dkv_bf16", q.device,
-            (q, k, v, do, lse, delta, dk, dv), (B, T, Hq, k.shape[2], D),
+    _launch("flash_attention_bwd", "flash_attention_bwd_dkv", q.device,
+            (q, k, v, do, lse, delta, dk, dv),
+            (B, T, Hq, k.shape[2], W, D, KERNEL_DTYPES[q.dtype]),
             (q, k, v, do, dk, dv), causal)
     flash_attention_bwd_dkv.launches += 1
-    report_kernel_work("dkv", B, T, Hq, k.shape[2], D, causal)
+    report_kernel_work("dkv", B, T, Hq, k.shape[2], D, causal,
+                       q.element_size())
+    if W != D:
+        dk, dv = dk[..., :D], dv[..., :D]
     return dk, dv
 
 
@@ -391,8 +450,10 @@ flash_attention_bwd_dkv.launches = 0
 
 def kernel_readable(do: torch.Tensor) -> torch.Tensor:
     """An output gradient the backward kernels can read: ``do`` itself,
-    or on CUDA a fresh aligned copy where autograd laid it out otherwise."""
-    if do.is_cuda and not _vector_loadable(do):
+    or on CUDA a fresh aligned copy where autograd laid it out otherwise
+    (a head_dim the kernels read padded is copied by the padding)."""
+    if do.is_cuda and kernel_width(do.shape[3], do.dtype) == do.shape[3] \
+            and not _vector_loadable(do):
         return do.clone(memory_format=torch.contiguous_format)
     return do
 

@@ -13,10 +13,14 @@ The rendezvous is a file in a temporary directory, not a TCP port, so
 launches that run side by side never collide. ``fn`` must be a function
 of ``ray_tpu_torch``: a rank imports nothing else of the caller. A rank
 that raises fails the launch with its traceback; a launch that outlasts
-``timeout`` seconds kills every rank and raises. The ranks stay in the
-caller's process group, and on Linux the kernel kills each rank when
-the launching process dies, so a launcher killed from outside leaves no
-rank running.
+``timeout`` seconds kills every rank and raises. Ranks that fail to form
+their process group, before any of them has run ``fn``, are started
+again on a fresh rendezvous (:data:`RENDEZVOUS_ATTEMPTS` in all): gloo's
+TCP mesh on one host fails now and then ("connectFullMesh failed ...
+Connection closed by peer") when several launches start at once. The
+ranks stay in the caller's process group, and on Linux the kernel kills
+each rank when the launching process dies, so a launcher killed from
+outside leaves no rank running.
 """
 
 from __future__ import annotations
@@ -34,6 +38,13 @@ from typing import Any, Callable, List, Sequence
 
 PACKAGE = "ray_tpu_torch"
 ROOT = Path(__file__).resolve().parents[2]
+# times a launch starts its ranks, while they fail to form their process
+# group; the launch's deadline covers them all
+RENDEZVOUS_ATTEMPTS = 3
+
+
+class _RendezvousFailed(RuntimeError):
+    """A rank failed while joining its process group, before ``fn``."""
 
 
 def launch(fn: Callable, world: int, args: Sequence[Any] = (),
@@ -55,14 +66,29 @@ def launch(fn: Callable, world: int, args: Sequence[Any] = (),
                                f"have {have}")
         from ray_tpu_torch.ops import _build
 
-        _build.build(list(_build.SOURCES))
+        _build.build(list(_build.LIBRARIES))
     backend = "nccl" if dev.type == "cuda" else "gloo"
+    deadline = time.monotonic() + timeout
+    for attempt in range(RENDEZVOUS_ATTEMPTS):
+        try:
+            return _launch_once(fn, world, args, dev.type, backend, attempt,
+                                deadline, timeout)
+        except _RendezvousFailed as e:
+            failed = e
+    raise RuntimeError(f"{world} ranks could not form their process group "
+                       f"in {RENDEZVOUS_ATTEMPTS} attempts; the last:\n"
+                       f"{failed}")
+
+
+def _launch_once(fn, world, args, device, backend, attempt, deadline,
+                 timeout):
+    """One start of the ranks on a fresh rendezvous; their results."""
     work = Path(tempfile.mkdtemp(prefix="ray_tpu_torch_launch_"))
     try:
         (work / "job.pkl").write_bytes(pickle.dumps({
             "module": fn.__module__, "name": fn.__qualname__,
             "args": tuple(args), "world": world, "backend": backend,
-            "device": dev.type,
+            "device": device, "attempt": attempt,
             "init_method": f"file://{work / 'rendezvous'}"}))
         env = dict(os.environ)
         env["PYTHONPATH"] = os.pathsep.join(
@@ -74,7 +100,7 @@ def launch(fn: Callable, world: int, args: Sequence[Any] = (),
             stdout=2)
             for rank in range(world)]
         try:
-            _wait(procs, work, timeout)
+            _wait(procs, work, deadline, timeout)
         finally:
             for p in procs:
                 if p.poll() is None:
@@ -92,15 +118,20 @@ def loaded_modules() -> List[str]:
     return sorted(sys.modules)
 
 
-def _wait(procs, work: Path, timeout: float) -> None:
+def _wait(procs, work: Path, deadline: float, timeout: float) -> None:
     """Wait for every rank; raise on the first that fails (its peers may
-    be blocked in a collective, so they are killed) or at the deadline."""
-    deadline = time.monotonic() + timeout
+    be blocked in a collective, so they are killed; _RendezvousFailed if
+    it failed joining the process group) or at the deadline."""
     while True:
         codes = [p.poll() for p in procs]
         failed = [r for r, c in enumerate(codes) if c not in (None, 0)]
         if failed:
             r = failed[0]
+            joining = work / f"rendezvous-error-{r}.txt"
+            if joining.is_file():
+                raise _RendezvousFailed(f"rank {r} of {len(procs)} failed "
+                                        f"joining its process group:\n"
+                                        f"{joining.read_text()}")
             err = work / f"error-{r}.txt"
             why = err.read_text() if err.is_file() else \
                 f"exit code {codes[r]}"
@@ -134,15 +165,23 @@ def _rank_main(work: Path, rank: int, parent: int) -> int:
     import torch
     import torch.distributed as dist
 
+    from ray_tpu_torch.core import fault_injection
+
     job = pickle.loads((work / "job.pkl").read_bytes())
     try:
         if job["device"] == "cuda":
             torch.cuda.set_device(rank)
         else:
             torch.set_num_threads(1)
+        fault_injection.fire("launch.rendezvous", str(job["attempt"]))
         dist.init_process_group(job["backend"],
                                 init_method=job["init_method"],
                                 world_size=job["world"], rank=rank)
+    except BaseException:
+        (work / f"rendezvous-error-{rank}.txt").write_text(
+            traceback.format_exc())
+        return 1
+    try:
         try:
             fn = getattr(importlib.import_module(job["module"]), job["name"])
             result = fn(*job["args"])

@@ -103,8 +103,8 @@ def test_forward_at_ring_edges(cuda, D, T, causal):
     assert torch.equal(o, o2) and torch.equal(lse, lse2)
 
 
-@pytest.mark.parametrize("case", ["tq_ne_tk", "fp32", "big_d", "grad",
-                                  "wrapper_grad"])
+@pytest.mark.parametrize("case", ["tq_ne_tk", "fp64", "d_over_256",
+                                  "mixed_dtypes", "grad", "wrapper_grad"])
 def test_cuda_tensors_never_fall_back(cuda, case):
     from ray_tpu_torch.ops import flash_attention as fa
 
@@ -113,12 +113,14 @@ def test_cuda_tensors_never_fall_back(cuda, case):
     call = fa.flash_attention
     if case == "tq_ne_tk":
         k, v = k[:, :32], v[:, :32]
-    elif case == "fp32":
-        q, k, v, exc = q.float(), k.float(), v.float(), TypeError
-    elif case == "big_d":
-        q, k, v = _qkv(64, 4, 2, 256, cuda)
+    elif case == "fp64":
+        q, k, v, exc = q.double(), k.double(), v.double(), TypeError
+    elif case == "d_over_256":
+        q, k, v = _qkv(64, 4, 2, 264, cuda)
+    elif case == "mixed_dtypes":
+        k, exc = k.float(), TypeError
     elif case == "grad":  # inputs that need grad take the autograd path
-        q, k, v, exc = q.float(), k.float(), v.float(), TypeError
+        q, k, v, exc = q.double(), k.double(), v.double(), TypeError
         q.requires_grad_(True)
     else:  # the kernel wrapper alone would drop their gradient: it refuses
         q.requires_grad_(True)
@@ -211,6 +213,48 @@ def test_backward_kernels_match_plain_versions(cuda, D, T, Hq, Hkv, causal):
         assert _block_rel_err(a, b) <= GRAD_BLOCK_RTOL, name
     dq, delta = fa.flash_attention_bwd_dq(q, k, v, o, do, lse, causal)
     again = (dq, *fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal))
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype,D", [
+    (torch.float16, 64), (torch.float16, 256), (torch.float32, 64),
+    (torch.float32, 128), (torch.float32, 256), (torch.bfloat16, 256),
+    (torch.bfloat16, 200), (torch.bfloat16, 100), (torch.float16, 36)])
+@pytest.mark.parametrize("T,Hq,Hkv,causal", [(1, 8, 8, True),
+                                            (129, 8, 1, False),
+                                            (257, 8, 2, True)])
+def test_kernels_take_every_dtype_and_head_dim(cuda, dtype, D, T, Hq, Hkv,
+                                               causal):
+    """fp16 and fp32 inputs and head_dims to 256 (100 and 36 in bf16 and
+    fp16 read through a zero-padded copy, rows not whole 16-byte units):
+    each kernel launches once a call, its outputs come back in q's dtype,
+    within the bounds above of the plain versions, bitwise repeatable."""
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device=cuda).manual_seed(D + T)
+    q, k, v, do = (torch.randn(1, T, h, D, device=cuda, generator=g)
+                   .to(dtype) for h in (Hq, Hkv, Hkv, Hq))
+    before = [fn.launches for fn in (fa.flash_attention_forward,
+                                     fa.flash_attention_bwd_dq,
+                                     fa.flash_attention_bwd_dkv)]
+    o, lse = fa.flash_attention_forward(q, k, v, causal)
+    got = fa.flash_attention_backward(q, k, v, o, lse, do, causal)
+    torch.cuda.synchronize()
+    assert [fn.launches for fn in (fa.flash_attention_forward,
+                                   fa.flash_attention_bwd_dq,
+                                   fa.flash_attention_bwd_dkv)] == [
+        n + 1 for n in before]
+    ro, rlse = fa.flash_attention_reference(q, k, v, causal)
+    assert o.dtype == dtype and o.shape == q.shape
+    torch.testing.assert_close(o.float(), ro.float(), atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(lse, rlse, atol=2e-2, rtol=0)
+    want = fa.flash_attention_backward_reference(q, k, v, o, lse, do, causal)
+    for a, b, name in zip(got, want, ("dq", "dk", "dv")):
+        assert a.dtype == dtype and a.shape == b.shape, name
+        torch.testing.assert_close(a.float(), b.float(), atol=5e-2,
+                                   rtol=5e-2, msg=name)
+        assert _block_rel_err(a, b) <= GRAD_BLOCK_RTOL, name
+    again = fa.flash_attention_backward(q, k, v, o, lse, do, causal)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 

@@ -22,7 +22,22 @@ Tolerances:
   |err| <= 1e-5 * rowsum(|o * do|), the float32 bound of one row sum
   taken in another order (a bound relative to delta itself fails where
   the row sum cancels).
+- the head_dims and dtypes the kernels took on in the widening (head_dim
+  256, 72; float16) against JAX's ``flash_attention`` through the Pallas
+  kernels in interpret mode: the JAX suite's own bounds, atol = rtol =
+  2e-2 forward and 5e-2 grads, in float32 and in float16 alike (float16
+  inputs, both sides computing in float32 and rounding o and the grads
+  to float16 once, well inside them).
+- head_dim padding (the wrapper's copy of an unaligned head_dim): the
+  padded plain version against the unpadded one, 1e-5 (the same float32
+  arithmetic with exact zero columns added).
+- a head_dim-256 debug-width Llama step, float32, against the JAX model:
+  loss and global grad norm rtol 3e-3, chip_smoke's train-step bound
+  (TRAIN_RTOL).
 """
+
+import dataclasses
+import math
 
 import jax
 import jax.numpy as jnp
@@ -30,9 +45,11 @@ import numpy as np
 import pytest
 import torch
 
+from ray_tpu.models import llama as jl
 from ray_tpu.ops.flash_attention import _bwd, _fwd
 from ray_tpu.ops.flash_attention import flash_attention as jax_flash
 from ray_tpu.parallel.ring_attention import plain_attention
+from ray_tpu_torch.models import llama as tl
 from ray_tpu_torch.ops import flash_attention as fa
 
 TOL = dict(atol=1e-4, rtol=1e-4)
@@ -102,11 +119,11 @@ def _bf16(shape_q, shape_k):
 
 @pytest.mark.parametrize("shape_q,shape_k,dtype,exc", [
     ((1, 64, 4, 64), (1, 32, 2, 64), torch.bfloat16, ValueError),  # Tq!=Tk
-    ((1, 64, 2, 256), (1, 64, 2, 256), torch.bfloat16, ValueError),  # D>128
-    ((1, 64, 2, 72), (1, 64, 2, 72), torch.bfloat16, ValueError),  # D%16
+    ((1, 64, 2, 264), (1, 64, 2, 264), torch.bfloat16, ValueError),  # D>256
+    ((1, 64, 2, 264), (1, 64, 2, 264), torch.float32, ValueError),  # D>256
     ((1, 64, 3, 64), (1, 64, 2, 64), torch.bfloat16, ValueError),  # GQA
-    ((1, 64, 4, 64), (1, 64, 2, 64), torch.float32, TypeError),
-    ((1, 64, 4, 64), (1, 64, 2, 64), torch.float16, TypeError),
+    ((1, 64, 4, 64), (1, 64, 2, 64), torch.float64, TypeError),
+    ((1, 64, 4, 64), (1, 64, 2, 64), torch.int32, TypeError),
 ])
 def test_kernel_guard_rejects_before_launch(shape_q, shape_k, dtype, exc):
     q, k, v = (t.to(dtype) for t in _bf16(shape_q, shape_k))
@@ -114,8 +131,84 @@ def test_kernel_guard_rejects_before_launch(shape_q, shape_k, dtype, exc):
         fa.check_kernel_inputs(q, k, v)
 
 
+@pytest.mark.parametrize("which,dtype", [
+    ("k", torch.float32), ("v", torch.float16), ("k", torch.bfloat16)])
+def test_kernel_guard_rejects_mixed_dtypes(which, dtype):
+    """One dtype throughout: q's. A k or v in another raises before any
+    launch (q is float16 where the other is bfloat16)."""
+    q, k, v = _bf16((1, 64, 4, 64), (1, 64, 2, 64))
+    if dtype == torch.bfloat16:
+        q = q.half()
+    inputs = {"q": q, "k": k, "v": v}
+    inputs[which] = inputs[which].to(dtype)
+    with pytest.raises(TypeError, match="one dtype"):
+        fa.check_kernel_inputs(*inputs.values())
+
+
+@pytest.mark.parametrize("D,dtype", [
+    (256, torch.bfloat16),  # was refused as D > 128
+    (72, torch.bfloat16),  # was refused as D % 16
+    (64, torch.float32),  # was refused as not bfloat16
+    (64, torch.float16),  # was refused as not bfloat16
+    (256, torch.float32), (256, torch.float16), (200, torch.bfloat16),
+    (1, torch.bfloat16), (100, torch.float16), (3, torch.float32),
+])
+def test_kernel_guard_accepts(D, dtype):
+    """bf16, fp16 and fp32 q/k/v of one dtype at any head_dim from 1 to
+    256: a head_dim whose rows are not whole 16-byte units is read
+    through a padded copy, so its strides are not held to TMA's rule."""
+    q, k, v = (t.to(dtype) for t in _bf16((1, 64, 4, D), (1, 64, 2, D)))
+    fa.check_kernel_inputs(q, k, v)
+    fa.check_backward_inputs(q, k, v, torch.zeros_like(q),
+                             torch.zeros(1, 4, 64), torch.zeros(1, 4, 64),
+                             torch.zeros_like(q))
+
+
 def test_kernel_guard_accepts_the_8b_prefill_shape():
     fa.check_kernel_inputs(*_bf16((1, 208, 32, 128), (1, 208, 8, 128)))
+
+
+@pytest.mark.parametrize("D,dtype,width", [
+    (64, torch.bfloat16, 64), (72, torch.bfloat16, 72),
+    (100, torch.bfloat16, 104), (1, torch.float16, 8),
+    (256, torch.float16, 256), (100, torch.float32, 100),
+    (3, torch.float32, 4), (250, torch.float32, 252)])
+def test_kernel_width_is_whole_16_byte_rows(D, dtype, width):
+    assert fa.kernel_width(D, dtype) == width
+    t = torch.randn(2, 5, 3, D).to(dtype)
+    padded = fa.pad_head_dim(t, width)
+    assert padded.shape == (2, 5, 3, width) and padded.dtype == dtype
+    if width == D:
+        assert padded is t  # read in place
+    else:
+        assert padded.is_contiguous()
+        assert torch.equal(padded[..., :D], t)
+        assert not padded[..., D:].any()
+
+
+@pytest.mark.parametrize("D,width", [(100, 104), (3, 8), (36, 40)])
+def test_padded_head_dim_gives_the_unpadded_attention(D, width):
+    """What the wrapper does for an unaligned head_dim, on the plain
+    versions: zero columns up to ``width``, the softmax scale of the true
+    head_dim (here by scaling q, as the JAX package does), outputs sliced
+    back. o, dk and dv equal the unpadded ones; dq carries the scale
+    factor of q; every padded column of every output is zero."""
+    q, k, v, do = _torch(*_bwd_inputs(1, 40, 4, 2, D, seed=8))
+    o, lse = fa.flash_attention_reference(q, k, v, True)
+    grads = fa.flash_attention_backward_reference(q, k, v, o, lse, do, True)
+    factor = (width / D) ** 0.5
+    qp, kp, vp, dop = (fa.pad_head_dim(t, width) for t in (q, k, v, do))
+    op, lsep = fa.flash_attention_reference(qp * factor, kp, vp, True)
+    dqp, dkp, dvp = fa.flash_attention_backward_reference(
+        qp * factor, kp, vp, op, lsep, dop, True)
+    assert not op[..., D:].any() and not dkp[..., D:].any()
+    assert not dvp[..., D:].any() and not dqp[..., D:].any()
+    for got, want, name in ((op[..., :D], o, "o"), (lsep, lse, "lse"),
+                            (dqp[..., :D] * factor, grads[0], "dq"),
+                            (dkp[..., :D], grads[1], "dk"),
+                            (dvp[..., :D], grads[2], "dv")):
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5,
+                                   msg=name)
 
 
 def test_kernel_guard_rejects_inputs_that_need_grad():
@@ -268,9 +361,14 @@ def test_cpu_backward_takes_the_plain_versions():
 
 @pytest.mark.parametrize("case", ["do_fp32", "do_shape", "lse_layout",
                                   "delta_dtype", "do_strides", "o_fp32",
-                                  "o_strides"])
+                                  "o_strides", "do_bf16_q_fp32",
+                                  "o_fp16_q_fp32", "do_fp16"])
 def test_backward_guard_rejects_before_launch(case):
+    """do and o take q's dtype, whichever it is: do_fp32 / o_fp32 (q
+    bf16) and the cases below are each a dtype that differs from q's."""
     q, k, v = _bf16((1, 64, 4, 64), (1, 64, 2, 64))
+    if case.endswith("q_fp32"):
+        q, k, v = q.float(), k.float(), v.float()
     do = torch.zeros_like(q)
     o = torch.zeros_like(q)
     lse = torch.zeros(1, 4, 64)
@@ -278,6 +376,12 @@ def test_backward_guard_rejects_before_launch(case):
     exc = ValueError
     if case == "do_fp32":
         do, exc = do.float(), TypeError
+    elif case == "do_bf16_q_fp32":
+        do, exc = do.bfloat16(), TypeError
+    elif case == "o_fp16_q_fp32":
+        o, exc = o.half(), TypeError
+    elif case == "do_fp16":
+        do, exc = do.half(), TypeError
     elif case == "do_shape":
         do, exc = do[:, :32], TypeError
     elif case == "lse_layout":
@@ -303,3 +407,82 @@ def test_backward_guard_accepts_what_each_kernel_reads():
                              o=torch.zeros_like(q))
     fa.check_backward_inputs(q, k, v, torch.zeros_like(q), lse,
                              torch.zeros(1, 4, 64))
+
+
+# --------------------------------------------------------------------------- #
+# The widened inputs against the Pallas kernels (interpret mode)
+# --------------------------------------------------------------------------- #
+
+WIDE_TOL = dict(atol=2e-2, rtol=2e-2)  # the JAX suite's forward bound
+
+WIDE_CASES = [
+    # (B, T, Hq, Hkv, D, causal, dtype): head_dim 256 (the kernels' new
+    # instantiation; JAX takes it without padding) with GQA 2/1, causal
+    # and full; head_dim 72 (JAX pads it to 128 lanes); float16 at 64
+    (1, 128, 2, 1, 256, True, "float32"),
+    (1, 128, 2, 1, 256, False, "float32"),
+    (1, 128, 2, 2, 72, True, "float32"),
+    (1, 128, 2, 1, 72, False, "float32"),
+    (1, 128, 2, 1, 64, True, "float16"),
+    (1, 128, 2, 2, 64, False, "float16"),
+]
+
+
+def _wide_inputs(B, T, Hq, Hkv, D, dtype, seed):
+    q, k, v, do = _bwd_inputs(B, T, Hq, Hkv, D, seed)
+    return tuple(x.astype(dtype) for x in (q, k, v, do))
+
+
+@pytest.mark.parametrize("B,T,Hq,Hkv,D,causal,dtype", WIDE_CASES)
+def test_widened_forward_matches_pallas(B, T, Hq, Hkv, D, causal, dtype):
+    q, k, v, _ = _wide_inputs(B, T, Hq, Hkv, D, dtype, seed=9)
+    want = jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                     causal=causal, interpret=True)
+    o, lse = fa.flash_attention_reference(*_torch(q, k, v), causal)
+    assert o.dtype == getattr(torch, dtype) and lse.dtype == torch.float32
+    np.testing.assert_allclose(o.float().numpy(),
+                               np.asarray(want, np.float32), **WIDE_TOL)
+
+
+@pytest.mark.parametrize("B,T,Hq,Hkv,D,causal,dtype", WIDE_CASES)
+def test_widened_backward_matches_pallas_grads(B, T, Hq, Hkv, D, causal,
+                                               dtype):
+    q, k, v, do = _wide_inputs(B, T, Hq, Hkv, D, dtype, seed=10)
+    want = _jax_grads(lambda q, k, v: jax_flash(q, k, v, causal=causal,
+                                                interpret=True), q, k, v, do)
+    got = _port_grads(q, k, v, do, causal)
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        assert g.shape == w.shape and g.dtype == getattr(torch, dtype), name
+        np.testing.assert_allclose(g.float().numpy(),
+                                   np.asarray(w, np.float32),
+                                   err_msg=name, **PALLAS_GRAD_TOL)
+
+
+@pytest.mark.parametrize("n_kv_heads", [1, 2])
+def test_head_dim_256_llama_step_matches_jax(n_kv_heads):
+    """A debug-width Llama whose head_dim is 256 (dim 512 over 2 heads,
+    one kv head or two, 2 layers, float32): the loss of one step's
+    loss_fn and the global norm of its grads against the JAX model's,
+    from the same params and tokens."""
+    kw = dict(dim=512, n_heads=2, n_kv_heads=n_kv_heads, n_layers=2)
+    jcfg = dataclasses.replace(jl.LlamaConfig.debug(), dtype=jnp.float32,
+                               **kw)
+    tcfg = dataclasses.replace(tl.LlamaConfig.debug(), dtype=torch.float32,
+                               **kw)
+    assert tcfg.head_dim == jcfg.head_dim == 256
+    tree = jax.tree.map(np.asarray,
+                        jl.init_params(jcfg, jax.random.PRNGKey(0)))
+    toks = np.random.RandomState(11).randint(
+        0, jcfg.vocab_size, (2, 33)).astype(np.int32)
+    jloss, jgrads = jax.value_and_grad(
+        lambda p: jl.loss_fn(jcfg, p, jnp.asarray(toks)))(
+            jax.tree.map(jnp.asarray, tree))
+    model = tl.params_from_numpy(tcfg, tree, device="cpu")
+    loss = tl.loss_fn(tcfg, model.tree(), torch.from_numpy(toks))
+    loss.backward()
+    norm = math.sqrt(sum(float(p.grad.double().pow(2).sum())
+                         for p in model.parameters()))
+    jnorm = math.sqrt(sum(float(np.sum(np.asarray(g, np.float64) ** 2))
+                          for g in jax.tree.leaves(jgrads)))
+    np.testing.assert_allclose(loss.item(), float(jloss), rtol=3e-3)
+    np.testing.assert_allclose(norm, jnorm, rtol=3e-3)
