@@ -4,10 +4,14 @@
 ``ray_tpu_torch`` package (``.`` for this checkout).
 
 At ``chip_smoke.py``'s two timed shapes (the Llama-3-8B heads at a 2k
-prefill, "table"; the Llama-3-1B training step's attention, "train";
-bf16, causal) each kernel (forward, dQ, dK/dV) is timed with CUDA events
+prefill, "table"; the Llama-3-1B training step's attention, "train")
+and its head_dim-256 row ("d256", Gemma-2B's 8/1 heads at a 2k prefill;
+the widest instantiation a tree from before the slab kernels has), all
+bf16 and causal, each kernel (forward, dQ, dK/dV) is timed with CUDA events
 in turns with SDPA's forward on the same inputs (kernel, SDPA, SDPA,
-kernel), 50 calls a reading after 5 to warm up. Prints one JSON line:
+kernel), 50 calls a reading after 5 to warm up, once the shape's
+kernels and SDPA have run untimed for SETTLE_S (the first readings of a
+fresh process came out up to 45 % slow without it). Prints one JSON line:
 the tree, its build seconds, and per shape and kernel the mean of its
 two readings, both readings and SDPA's mean.
 
@@ -25,9 +29,11 @@ import os
 import sys
 import time
 
-# chip_smoke.py's TIMED_SHAPES: (B, T, Hq, Hkv, D)
-SHAPES = (("table", (1, 2048, 32, 8, 128)), ("train", (4, 2048, 32, 8, 64)))
+# chip_smoke.py's TIMED_SHAPES and its "d256" row: (B, T, Hq, Hkv, D)
+SHAPES = (("table", (1, 2048, 32, 8, 128)), ("train", (4, 2048, 32, 8, 64)),
+          ("d256", (1, 2048, 8, 1, 256)))
 ITERS, WARMUP = 50, 5
+SETTLE_S = 2.0
 
 
 def mean_ms(torch, fn) -> float:
@@ -82,6 +88,11 @@ def main(argv) -> int:
                                                     True),
             "dkv": lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse,
                                                       delta, True)}
+        t_settle = time.perf_counter()
+        while time.perf_counter() - t_settle < SETTLE_S:
+            for fn in (*kernels.values(), sdpa):
+                fn()
+            torch.cuda.synchronize()
         out[label] = {}
         for name, fn in kernels.items():
             first, s1, s2, second = (mean_ms(torch, f)

@@ -31,7 +31,7 @@ bounds, the block gate of o and of each grad, the merged lse, against
 the whole-T kernels and the fp32 plain version) at the Llama-3-1B heads,
 T 8192 over 4 positions.
 
-Two more are planted in the widened variants and read by ``chip_smoke``'s
+Four more are planted in the widened variants and read by ``chip_smoke``'s
 ``kernel_dtypes`` gates of one variant (its element and block bounds over
 its lengths, causal and full, GQA groups), beside the sound kernels'
 readings of the same variants:
@@ -41,7 +41,17 @@ readings of the same variants:
   left), read at ``float32:64``;
 - ``d256_second_half``: the 256-column RS product (O += P V, dQ += dS K)
   reads its second 128 columns from the tile's second column block, not
-  its third, read at ``bfloat16:256``.
+  its third, read at ``bfloat16:256``;
+
+and two in the slab kernels that take head_dim past 256, read at
+``bfloat16:512``:
+
+- ``wide_s_last_slice``: the forward's S = Q K^T restarts at each
+  64-column slice instead of summing them, so S holds the last slice's
+  product alone;
+- ``wide_dq_k_first_slab``: the dQ kernel's TMA load of K for dQ += dS K
+  reads the first slab's columns whatever slab the block owns, so every
+  slab past the first gets the first slab's dQ.
 
 Readings: the block gate (per (batch, 64-row block, head) rms(err) /
 (rms(ref) + 1e-3) of dq, dk, dv against their plain versions, limit
@@ -92,6 +102,14 @@ VARIANT_FAULTS = {
         ("desc_sw128(addr + 2 * half * lbo, lbo, 1024)",
          "desc_sw128(addr + half * lbo, lbo, 1024)"),
         ("bfloat16", 256)),
+    "wide_s_last_slice": (
+        "flash_attention_fwd.cu",
+        ("cb > 0 || ks > 0);", "ks > 0);"),
+        ("bfloat16", 512)),
+    "wide_dq_k_first_slab": (
+        "flash_attention_bwd.cu",
+        ("c0 + 64 * cb, hk, 64 * j, b);", "64 * cb, hk, 64 * j, b);"),
+        ("bfloat16", 512)),
 }
 
 # (B, T, Hq, Hkv, D): the 1B training shape, the 8B table shape and a
@@ -150,7 +168,7 @@ def variant_gate_readings(torch, seed: int) -> dict:
     cases."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     out = {}
-    for _, _, (dtype, D) in VARIANT_FAULTS.values():
+    for dtype, D in sorted({v for _, _, v in VARIANT_FAULTS.values()}):
         r = cs.variant_readings(torch, gen, getattr(torch, dtype), D)
         out[f"{dtype}:{D}"] = {"worst": r["worst_err_over_tolerance"],
                                "failed_cases": len(r["failed"])}

@@ -35,12 +35,15 @@ non-zero and never prints the final ``ok`` line.
    autograd through plain attention (loss, global grad norm and the
    grads of each layer's wq, wk, wv), with no plain delta on the way;
    then ``kernel_dtypes``: each element type and head_dim beyond bf16
-   at 64 and 128 (DTYPE_VARIANTS) on the three kernels against their
-   plain versions over five lengths, causal and full, three GQA groups;
+   at 64 and 128 (DTYPE_VARIANTS, up to head_dim 1024 on the slab
+   kernels that take every head_dim past 256) on the three kernels
+   against their plain versions over five lengths, causal and full,
+   three GQA groups;
    the JAX suite's float32 cases; a float32 step and a head_dim-256
    (8/1 heads) bf16 step, each at Llama-3-1B widths and 2 layers against
    plain attention with exact launches, their step ms and peak memory;
-   the "train f32" and "d256" shapes timed beside SDPA;
+   the "train f32", "d256" and "d512 train" shapes timed beside SDPA
+   (its backend named: flash takes head_dim up to 256 only);
 7. full-depth Llama-3-8B serving: a DecodeScheduler over the paged-KV
    engine answers six requests (one a prefix-cache hit), with the forward
    kernel's launch count read from this run; then ``serve_plane``: the
@@ -95,7 +98,8 @@ non-zero and never prints the final ``ok`` line.
    NCCL device time by collective and, under ``tensor``, a checksum of
    each layer's picks equal across each tensor group;
 11. ``mpmd`` (after the trainer's paths): the MPMD pipeline trainer
-   (``train/pipeline.py``) at Llama-3-1B full width and depth, SGD, 8
+   (``train/pipeline.py``) at Llama-3-1B full width, 8 of its 16
+   layers (MPMD_LAYERS: the depth cut that holds the smoke's time), SGD, 8
    one-row microbatches of 2048 tokens a step, K = 2 stage actors at
    half a card each on one card (K = 4, a card each, on four); 1F1B and
    GPipe, 3 warm-up and 5 timed steps each, activations and grads on
@@ -137,7 +141,20 @@ non-zero and never prints the final ``ok`` line.
    plain version and succeeds; a two-step workflow (its first step a
    forward on the card) fails in its second step, and its resume loads
    the first step's result without launching the kernel again;
-15. the ``kernels`` line, the card's ``name, power.limit``, and last the
+15. ``wide_head`` (after ``dashboard``): Llama-3-1B's widths with its
+   heads regrouped into 4/1 of head_dim 512 (``dataclasses.replace(
+   LlamaConfig.llama3_1b(), n_heads=4, n_kv_heads=1)``: the 1B's
+   parameter count and attention FLOPs) on the slab kernels. A
+   DecodeScheduler over its engine answers three prompts and a repeat
+   (a prefix-cache hit, its cold run's tokens), twice over an emptied
+   cache, bitwise the same streams, forward launches 16 a cold prefill;
+   a 1000-token prefill's logits against plain attention within
+   LOGITS_REL_TOL; a 2-layer step against autograd through plain
+   attention (as above); 1 warm-up and 3 timed steps at full depth, B 4
+   x 2048: losses finite and falling, exact launches, step ms and peak
+   memory. It runs after ``observability``, whose program records its
+   engine would add to;
+16. the ``kernels`` line, the card's ``name, power.limit``, and last the
    ``{"ok": true, "device": ...}`` line.
 
 Weights are random, made from ``--seed``. Exits non-zero without CUDA.
@@ -391,8 +408,10 @@ def ptxas_report(log: str):
         if m:
             name = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_kernel)ILi(\d+)E",
                              m.group(1))
-            cur = {"kernel": f"{name.group(1)}<{name.group(2)}>"
-                   if name else m.group(1)}
+            wide = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_wide_kernel)I",
+                             m.group(1))
+            cur = {"kernel": f"{name.group(1)}<{name.group(2)}>" if name
+                   else wide.group(1) if wide else m.group(1)}
             out.append(cur)
             continue
         if cur is None:
@@ -412,7 +431,8 @@ def ptxas_report(log: str):
 def launch_shapes(_build) -> dict:
     """Dynamic shared memory, threads, registers at launch and rows of a
     block of each kernel, per element type and head_dim it is built for,
-    as their libraries report them."""
+    as their libraries report them (512: the slab kernels that take
+    every head_dim past 256)."""
     import ctypes
 
     shapes = {}
@@ -428,13 +448,14 @@ def launch_shapes(_build) -> dict:
             fn.argtypes = [ctypes.c_int, ctypes.c_int,
                            ctypes.POINTER(ctypes.c_int)]
             fn.restype = ctypes.c_int
-            for D in (64, 128, 256):
+            for D in (64, 128, 256, 512):
                 out = (ctypes.c_int * 4)()
                 check(fn(D, code, out) == 0, f"{entry}({D}, {dtype}) failed")
+                label = (f"{kernel}<{D}, {dtype}>" if D <= 256 else
+                         kernel.replace("_kernel", f"_wide_kernel<{dtype}>"))
                 check(out[0] <= SMEM_PER_BLOCK,
-                      f"{kernel}<{D}, {dtype}> asks {out[0]} bytes of "
-                      f"shared memory")
-                shapes[f"{kernel}<{D}, {dtype}>"] = {
+                      f"{label} asks {out[0]} bytes of shared memory")
+                shapes[label] = {
                     "dynamic_smem_bytes": out[0], "threads": out[1],
                     "registers_at_launch": out[2], "rows": out[3]}
     return shapes
@@ -580,6 +601,20 @@ def dtype_name(dtype) -> str:
     return str(dtype).replace("torch.", "")
 
 
+def sdpa_backend(torch, qt, kt, vt) -> str:
+    """The backend SDPA's dispatcher picks for causal GQA attention on
+    these [B, H, T, D] inputs (flash takes head_dim up to 256 only), as
+    torch names it; "unknown" where this torch has no such query."""
+    try:
+        from torch.nn.attention import SDPBackend
+
+        return SDPBackend(torch._fused_sdp_choice(
+            qt, kt, vt, is_causal=True, enable_gqa=True)).name
+    except (AttributeError, ImportError, TypeError, ValueError,
+            RuntimeError) as e:
+        return f"unknown ({type(e).__name__})"
+
+
 def forward_timing(torch, q, k, v, peaks) -> dict:
     """The forward kernel and SDPA timed in turns on q, k, v (causal),
     with the plain version's time and the bound of this work in q's
@@ -601,6 +636,7 @@ def forward_timing(torch, q, k, v, peaks) -> dict:
         plain_ms=cuda_ms(
             lambda: flash_attention_reference(q, k, v, True), iters=5),
         library="torch.nn.functional.scaled_dot_product_attention",
+        library_backend=sdpa_backend(torch, qt, kt, vt),
         **bound(*attention_work(B, T, Hq, Hkv, D, True,
                                 elem_bytes=q.element_size()), peaks))
     timing.update(rates(timing))
@@ -717,6 +753,7 @@ def backward_timings(torch, q, k, v, o, lse, do, peaks) -> dict:
     # called by the port
     qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
                   for x in (q, k, v))
+    backend = sdpa_backend(torch, qt, kt, vt)
     out = torch.nn.functional.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True, enable_gqa=True)
     dot = do.transpose(1, 2).contiguous()
@@ -746,6 +783,7 @@ def backward_timings(torch, q, k, v, o, lse, do, peaks) -> dict:
         timing = in_turns(torch, kern, library)
         timing.update(
             plain_ms=cuda_ms(plain, iters=3, warmup=1),
+            library_backend=backend,
             **bound(*attention_work(B, T, Hq, Hkv, D, True, name,
                                     q.element_size()), peaks))
         timing.update(rates(timing))
@@ -766,9 +804,11 @@ def backward_line(timings: dict) -> dict:
     kernel's blocks, the yardstick and the timings."""
     shape = timings["shape"]
     B, T, Hq, Hkv, D = (shape[k] for k in ("B", "T", "Hq", "Hkv", "D"))
+    slabs = -(-D // 256)  # past 256: a block a slab of 256 columns
     return {"shape": shape,
             "grid_blocks": {"dq": -(-T // (128 if 64 < D <= 128 else 64))
-                            * Hq * B, "dkv": -(-T // 64) * Hkv * B},
+                            * Hq * B * slabs,
+                            "dkv": -(-T // 64) * Hkv * B * slabs},
             "library": "scaled_dot_product_attention backward "
                        "(dq, dk, dv together)",
             **{k: v for k, v in timings.items() if k != "shape"}}
@@ -1060,19 +1100,27 @@ def phase_reduced_depth_train(torch, seed):
 # the kernel_dtypes phase: every element type and head_dim the kernels
 # take beyond the bf16 head_dims 64 and 128 the phases above hold (bf16 at
 # 256; fp16 and fp32 at 64, 128 and 256; bf16 at head_dims read through a
-# narrower TMA map, 72, 80, 96 and 200), each at lengths at and past the
-# tile edges, causal and full, and GQA groups of 1, 4 and 8 (8 q heads)
+# narrower TMA map, 72, 80, 96 and 200; past 256 on the slab kernels, bf16
+# at 264, 300 (read padded to 304), 320, 384, 512, 576 and 1024, fp16 at
+# 512, fp32 at 384 and 512), each at lengths at and past the tile edges,
+# causal and full, and GQA groups of 1, 4 and 8 (8 q heads)
 DTYPE_VARIANTS = (("bfloat16", 256), ("float16", 64), ("float16", 128),
                   ("float16", 256), ("float32", 64), ("float32", 128),
                   ("float32", 256), ("bfloat16", 72), ("bfloat16", 80),
-                  ("bfloat16", 96), ("bfloat16", 200))
+                  ("bfloat16", 96), ("bfloat16", 200), ("bfloat16", 264),
+                  ("bfloat16", 300), ("bfloat16", 320), ("bfloat16", 384),
+                  ("bfloat16", 512), ("bfloat16", 576), ("bfloat16", 1024),
+                  ("float16", 512), ("float32", 384), ("float32", 512))
 DTYPE_LENGTHS = (1, 65, 129, 257, 2048)
 DTYPE_GROUPS = (1, 4, 8)
 # the timed shapes of the new variants: the 1B training step's attention
-# in float32, and Gemma-2B's attention shape (8 q heads over one kv head,
-# head_dim 256) at a 2k prefill, bf16
+# in float32, Gemma-2B's attention shape (8 q heads over one kv head,
+# head_dim 256) at a 2k prefill, bf16, and the wide-head 1B's training
+# step (4 q heads over one kv head, head_dim 512; Hq * D is the 1B's 2048,
+# so its bounds are those of "train"), bf16
 DTYPE_TIMED = (("train f32", (4, 2048, 32, 8, 64), "float32"),
-               ("d256", (1, 2048, 8, 1, 256), "bfloat16"))
+               ("d256", (1, 2048, 8, 1, 256), "bfloat16"),
+               ("d512 train", (4, 2048, 4, 1, 512), "bfloat16"))
 # the JAX suite's own flash-attention cases (tests/test_flash_attention.py:
 # CASES with RandomState(0), the grad case with RandomState(1), the odd
 # case T 100, D 32 with RandomState(2)), float32; its bounds are 2e-2
@@ -1263,6 +1311,216 @@ def phase_kernel_dtypes(torch, np, gen, seed, peaks, smi) -> dict:
         gate()
     return {"variants": variants, "reference_suite": reference,
             "timings": timings, "launches": launches}
+
+
+# the wide_head phase: Llama-3-1B's widths with its 32/8 heads regrouped
+# into 4/1 heads of head_dim 512 (the same GQA group of 4, the 1B's own
+# wq/wk/wv/wo shapes, so its parameter count and a step's attention FLOPs
+# are the 1B's), served and trained on the slab kernels; the serving
+# prompts (one repeated: a prefix-cache hit) and the full-depth steps
+WIDE_HEAD_PROMPTS = {"p7": 7, "p200": 200, "p1000": 1000}
+WIDE_HEAD_MAX_TOKENS = 16
+WIDE_HEAD_STEPS = (1, 3)  # warm-up, timed
+WIDE_HEAD_BATCH = (4, 2048)
+
+
+def wide_head_config():
+    from ray_tpu_torch.models import llama
+
+    return dataclasses.replace(llama.LlamaConfig.llama3_1b(), n_heads=4,
+                               n_kv_heads=1)
+
+
+def wide_head_serving(torch, np, seed, cfg) -> dict:
+    """A DecodeScheduler over the wide-head engine on the card answers
+    WIDE_HEAD_PROMPTS and a repeat of p200 (admitted from the prefix
+    cache), twice over an emptied cache: each run's streams, its forward
+    launches against its cold prefills, and one cold prefill's logits
+    through the kernel and through plain attention."""
+    from unittest import mock
+
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.serve.decode import DecodeScheduler
+
+    t0 = time.perf_counter()
+    engine = llama.LlamaDecodeEngine(cfg, n_pages=256, page_size=16,
+                                     seed=seed)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.RandomState(seed)
+    prompts = {c: rng.randint(0, cfg.vocab_size, n).tolist()
+               for c, n in WIDE_HEAD_PROMPTS.items()}
+    prompts["p200_repeat"] = list(prompts["p200"])
+
+    def serve():
+        # every prefix of an earlier run evicted: its prompts prefill cold
+        engine.prefix_cache.evict_lru(engine.pool.n_pages)
+        sched = DecodeScheduler(engine, deployment="llama3_1b_wide_head")
+        finals = {}
+        prefills = engine.prefill_calls
+        fa.flash_attention_forward.launches = 0
+        t = time.perf_counter()
+
+        def step():
+            replies, active = sched.step()
+            for corr, kind, payload in replies:
+                check(kind != "error", f"wide-head request {corr} failed: "
+                                       f"{payload}")
+                if kind == "final":
+                    finals[corr] = json.loads(payload)
+            return active
+
+        for corr in WIDE_HEAD_PROMPTS:
+            check(sched.submit(corr, {"prompt": prompts[corr],
+                                      "max_tokens": WIDE_HEAD_MAX_TOKENS})
+                  is None, f"wide-head request {corr} refused")
+        step()
+        check(sched.submit("p200_repeat", {
+            "prompt": prompts["p200_repeat"],
+            "max_tokens": WIDE_HEAD_MAX_TOKENS}) is None,
+            "wide-head repeat refused")
+        while step():
+            pass
+        torch.cuda.synchronize()
+        return {"finals": finals, "wall_s": time.perf_counter() - t,
+                "cold_prefills": engine.prefill_calls - prefills,
+                "launches": fa.flash_attention_forward.launches}
+
+    runs = [serve(), serve()]
+    # one cold prefill at full depth, kernel against plain attention
+    n = len(prompts["p1000"])
+    toks = torch.zeros((1, llama.pages_for(n, 16) * 16), dtype=torch.long,
+                       device="cuda")
+    toks[0, :n] = torch.as_tensor(prompts["p1000"], device="cuda")
+    with torch.inference_mode():
+        kern = llama.prefill_with_cache(cfg, engine.params, toks)[0][0, :n]
+        with mock.patch.object(
+                llama, "flash_attention",
+                lambda q, k, v, causal: fa.flash_attention_reference(
+                    q, k, v, causal)[0]):
+            plain = llama.prefill_with_cache(cfg, engine.params, toks)[0][
+                0, :n]
+    finite = bool(torch.isfinite(kern).all())
+    diff = (kern.float() - plain.float()).abs().max().item()
+    scale = plain.float().abs().max().item()
+    top1 = (kern.argmax(-1) == plain.argmax(-1)).float().mean().item()
+    del kern, plain, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    first = runs[0]["finals"]
+    return {
+        "engine_init_s": init_s, "page_size": 16, "n_pages": 256,
+        "prompt_lengths": {c: len(p) for c, p in prompts.items()},
+        "max_tokens": WIDE_HEAD_MAX_TOKENS,
+        "runs": [{k: r[k] for k in ("wall_s", "cold_prefills", "launches")}
+                 for r in runs],
+        "tokens": {c: f["tokens"] for c, f in first.items()},
+        "streams_bitwise_repeatable": all(
+            r["finals"].get(c, {}).get("tokens") == f["tokens"]
+            for r in runs[1:] for c, f in first.items()),
+        "prefix_hit": first.get("p200_repeat", {}).get("cached_prefix"),
+        "prefix_hit_tokens_equal_cold": first.get("p200_repeat", {}).get(
+            "tokens") == first.get("p200", {}).get("tokens"),
+        "prefill_T": n, "prefill_finite": finite,
+        "prefill_max_abs_diff": diff, "prefill_max_abs_logit": scale,
+        "prefill_rel_diff": diff / scale, "rel_tolerance": LOGITS_REL_TOL,
+        "prefill_top1_agreement": top1}
+
+
+def wide_head_training(torch, seed, cfg) -> dict:
+    """WIDE_HEAD_STEPS AdamW steps of the wide-head model at full depth on
+    one batch of WIDE_HEAD_BATCH tokens: losses, launches, step ms and
+    peak memory."""
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    (B, T), (warmup, timed) = WIDE_HEAD_BATCH, WIDE_HEAD_STEPS
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab_size, (B, T + 1), device="cuda",
+                           generator=gen)
+    init_state, train_step = llama.make_train_step(cfg)
+    state = init_state(seed)
+    torch.cuda.synchronize()
+    reset_launches(fa)
+    patch, delta_calls = counting_plain_delta(fa)
+    with patch:
+        losses = [train_step(state, tokens) for _ in range(warmup)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses += [train_step(state, tokens) for _ in range(timed)]
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / timed
+    launches = read_launches(fa)
+    peak = torch.cuda.max_memory_allocated()
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"n_layers": cfg.n_layers, "batch": B, "T": T,
+            "warmup_steps": warmup, "timed_steps": timed,
+            "losses": [float(x) for x in losses], "launches": launches,
+            "expected_launches": expected_launches(cfg, warmup + timed),
+            "plain_delta_calls": len(delta_calls),
+            "step_ms": step_s * 1e3, "tokens_per_s": B * T / step_s,
+            "max_memory_allocated_bytes": peak}
+
+
+def phase_wide_head(torch, np, seed, smi) -> dict:
+    """The wide-head Llama-3-1B (4/1 heads of head_dim 512) on the slab
+    kernels: served (wide_head_serving), one 2-layer step against autograd
+    through plain attention (reduced_depth_step), and full-depth steps
+    (wide_head_training). Returns the forward, dQ and dK/dV launches of
+    its paths."""
+    t0 = time.perf_counter()
+    cfg = wide_head_config()
+    check(cfg.head_dim == 512 and cfg.n_heads // cfg.n_kv_heads == 4,
+          f"wide-head config has head_dim {cfg.head_dim}")
+    served = wide_head_serving(torch, np, seed, cfg)
+    step = reduced_depth_step(torch, seed,
+                              dataclasses.replace(cfg, n_layers=2),
+                              "wide-head train step")
+    step_gates = step.pop("gates")
+    torch.cuda.empty_cache()
+    trained = wide_head_training(torch, seed, cfg)
+    emit({"phase": "wide_head", "card": smi, "model":
+          "llama3_1b, 4/1 heads of head_dim 512", "dim": cfg.dim,
+          "n_layers": cfg.n_layers, "heads": cfg.n_heads,
+          "kv_heads": cfg.n_kv_heads, "head_dim": cfg.head_dim,
+          "params": cfg.num_params(), "serving": served,
+          "reduced_depth_step": step, "training": trained,
+          "phase_s": time.perf_counter() - t0})
+    finals = served["tokens"]
+    check(set(finals) == set(WIDE_HEAD_PROMPTS) | {"p200_repeat"}
+          and all(len(t) == WIDE_HEAD_MAX_TOKENS for t in finals.values()),
+          f"wide-head serving finished {sorted(finals)}")
+    check(served["streams_bitwise_repeatable"],
+          "wide-head served streams are not bitwise repeatable")
+    check(served["prefix_hit"] is True
+          and served["prefix_hit_tokens_equal_cold"],
+          "the wide-head repeat was not a prefix hit with its cold tokens")
+    for run in served["runs"]:
+        check(run["cold_prefills"] == len(WIDE_HEAD_PROMPTS)
+              and run["launches"] == cfg.n_layers * run["cold_prefills"],
+              f"wide-head serving launched {run['launches']} forward "
+              f"kernels for {run['cold_prefills']} cold prefills")
+    check(served["prefill_finite"]
+          and served["prefill_rel_diff"] <= LOGITS_REL_TOL,
+          f"wide-head prefill logits differ from plain: "
+          f"{served['prefill_rel_diff']}")
+    step_gates()
+    losses = trained["losses"]
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"wide-head training losses {losses}")
+    check(trained["launches"] == trained["expected_launches"],
+          f"wide-head training launched {trained['launches']}")
+    check(not trained["plain_delta_calls"],
+          "wide-head training took the plain delta")
+    serve_fwd = sum(r["launches"] for r in served["runs"])
+    return {"fwd": serve_fwd + step["launches"]["fwd"]
+            + trained["launches"]["fwd"],
+            "dq": step["launches"]["dq"] + trained["launches"]["dq"],
+            "dkv": step["launches"]["dkv"] + trained["launches"]["dkv"]}
 
 
 def expected_launches(cfg, steps: int) -> dict:
@@ -3241,8 +3499,12 @@ def phase_dag(torch, smi):
           "phase_s": time.perf_counter() - t_phase})
 
 
-# the MPMD pipeline cell: Llama-3-1B, a global batch of 8 rows of 2048
-# tokens (+1 target) as 8 one-row microbatches, SGD
+# the MPMD pipeline cell: Llama-3-1B at 8 of its 16 layers (the depth
+# cut that holds the whole smoke inside its time limit: the stages' init,
+# warm-up, param return and the reference's replay scale with it), a
+# global batch of 8 rows of 2048 tokens (+1 target) as 8 one-row
+# microbatches, SGD
+MPMD_LAYERS = 8
 MPMD_ROWS = 8
 MPMD_MICROBATCHES = 8
 MPMD_T = 2048
@@ -3394,7 +3656,7 @@ def flat_paths(tree, prefix=""):
 
 def phase_mpmd(torch, np, seed, smi, peak_flops, trained):
     """``mpmd``: the MPMD pipeline trainer (``train/pipeline.py``) at
-    Llama-3-1B full width and depth, SGD, a global batch of 8 x 2049
+    Llama-3-1B full width and MPMD_LAYERS of its layers, SGD, a global batch of 8 x 2049
     tokens as 8 one-row microbatches; K = 2 stage actors at half a card
     each on one card, K = 4 at a card each when four are visible; 1F1B
     and GPipe in turn, 3 warm-up and 5 timed steps each, activations and
@@ -3420,15 +3682,16 @@ def phase_mpmd(torch, np, seed, smi, peak_flops, trained):
     cards = torch.cuda.device_count()
     K = 4 if cards >= 4 else 2
     share = 1 if cards >= K else 0.5
-    cfg = llama.LlamaConfig.llama3_1b()
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_1b(),
+                              n_layers=MPMD_LAYERS)
     M = MPMD_MICROBATCHES
     tokens = np.random.RandomState(seed).randint(
         0, cfg.vocab_size, (MPMD_ROWS, MPMD_T + 1)).astype(np.int32)
     steps = MPMD_WARMUP + MPMD_TIMED
     want_launches = mpmd_launches(cfg, K, M, MPMD_TIMED)
-    # the stages' params come back through the object store at once (3.0
-    # GB a stage at K = 2; the arena's allocator rounds each block up to a
-    # power of two)
+    # the stages' params come back through the object store at once (2.0
+    # GB a stage at K = 2 and 8 layers, 3.0 at 16; the arena's allocator
+    # rounds each block up to a power of two)
     rt.init(object_store_memory=16 << 30)
     try:
         runs = [mpmd_run(rt, cfg, tokens, K, share, schedule, seed)
@@ -5138,24 +5401,32 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     dashboard_launches = phase_dashboard(torch, args.seed, smi, peaks)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # after observability: its engine's programs would add variants to
+    # the serving engine's records that phase reads
+    wide_head_launches = phase_wide_head(torch, np, args.seed, smi)
 
     # each path's launches, read from its own run: the one-card ring, the
     # single-device step, the sharded steps, the pipeline (all ranks), the
     # trainer's paths, the MPMD pipeline's stages (timed steps), the Tune
-    # trials' workers and the MoE decoder's steps (one card, and all ranks
-    # across cards)
+    # trials' workers, the MoE decoder's steps (one card, and all ranks
+    # across cards) and the wide-head 1B's serving and steps
     by_path = {"seq_ring": seq_ring_launches,
                "kernel_dtypes": dtypes["launches"],
                "training": train_launches,
                **spmd_launches, **trainer_launches, **mpmd_launches,
                **tune_launches, **moe_launches,
-               "dashboard": dashboard_launches}
+               "dashboard": dashboard_launches,
+               "wide_head": wide_head_launches}
     timed = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
              "ratio_to_library", "achieved_tflops", "share_of_bound")
     shapes = {label: fwd_timing[label]["shape"] for label in fwd_timing}
     src = "ray_tpu_torch/ops/csrc/"
     types_note = ("a library per dtype: bf16 and fp16 operands as they are, "
-             "fp32 rounded to bf16 by the producer threads; head_dim 1-256")
+                  "fp32 rounded to bf16 by the producer threads; any head_dim "
+                  ">= 1, past 256 on flash_*_wide_kernel, a block a slab of "
+                  "256 output columns")
     kernels = [{
         "name": "flash_attention_fwd", "route": "cuda",
         "source": src + "flash_attention_fwd.cu",

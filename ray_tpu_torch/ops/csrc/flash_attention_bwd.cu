@@ -91,7 +91,9 @@
 // Both kernels are built for head_dim 64, 128 and 256; a narrower head_dim is
 // read through TMA maps of its true width (missing columns arrive as
 // zeros and add exact zeros to every product), scaled by 1/sqrt(true
-// head_dim) and stored at its true width. Both mask the causal diagonal
+// head_dim) and stored at its true width. A head_dim past 256 runs on the
+// slab kernels (flash_bwd_dq_wide_kernel, flash_bwd_dkv_wide_kernel
+// below), any width. Both mask the causal diagonal
 // and the ragged tail (positions >= T; rows past T arrive as zeros and
 // are never stored), so any T >= 1 runs on them; inputs are read
 // through their [B, T, H, D] strides; no atomics and no split over the
@@ -888,9 +890,689 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ------------------------------------------------------- head_dim above 256
+//
+// Past 256 columns no whole-head_dim tile fits (a 64-row fp32 accumulator
+// of D columns is D / 2 registers a thread; the tiles outgrow the 227 KB),
+// so each block owns one slab of kSlab output columns, the blocks of one
+// row tile side by side on the grid (slabs innermost):
+// - dQ: a (64-row q tile, q head, batch, slab) block, one consumer. Per
+//   key tile, S = Q K^T and dP = dO V^T are summed over every column from
+//   a ring of 64-column slices of Q, dO, K and V (fp32: and the rests of
+//   dO and V, dP in three products as above); dQ += dS K reads the slab's
+//   columns of K from a second ring. delta = rowsum(O o dO) over every
+//   column comes from O and dO in device memory;
+// - dK/dV: a (64-row kv tile, kv head, batch, slab) block, two consumers
+//   that split the slab's columns (128 each, as at head_dim 256). Per
+//   (q head of the group, 64 q rows), both compute S^T = K Q^T and dP^T =
+//   V dO^T over every column from a ring of 64-column slices of K, V, Q
+//   and dO; dV += P^T dO and dK += dS^T Q read the slab's columns of dO
+//   and Q from a second ring whose stages also carry the rows of lse and
+//   delta. The GQA group-sum stays in the accumulators: no atomics;
+// - shared memory and registers are those of head_dim 256 whatever D is;
+//   the price is S and dP computed once per slab (and in dK/dV by both
+//   consumers), D / 256 times rounded up;
+// - every slab computes the same P, dS and delta in the same order, so
+//   they agree bitwise; the first slab writes delta;
+// - only the column blocks inside the tensor are loaded (a slab tile's
+//   others keep what shared memory held, which reaches only output
+//   columns past the tensor's, never stored).
+namespace wide {
+
+constexpr int kSlab = 256;                 // output columns a block owns
+constexpr int kTile = 64 * 128;            // 64 rows of 64 16-bit columns
+constexpr int kSlabTile = 64 * kSlab * 2;  // 64 rows of the slab's columns
+
+// a slice stage: Q, dO, K, V (dK/dV: K, V, Q, dO), and for fp32 the rests
+// of dO and V (dK/dV: of V and dO)
+template <typename In>
+__host__ __device__ constexpr int slice_bytes() {
+  return (Elem<In>::kTma ? 4 : 6) * kTile;
+}
+template <typename In>
+__host__ __device__ constexpr int dq_slice_stages() {
+  return Elem<In>::kTma ? 3 : 2;
+}
+constexpr int kDqKStages = 2;  // the slab's columns of K
+template <typename In>
+__host__ __device__ constexpr int dq_smem() {
+  return dq_slice_stages<In>() * slice_bytes<In>() + kDqKStages * kSlabTile +
+         1024;
+}
+template <typename In>
+using DqSplit = Split<1, Elem<In>::kTma ? 24 : 40>;
+
+constexpr int kDkvSliceStages = 2;
+// a slab stage of dK/dV: the slab's columns of Q and of dO, then the 64
+// rows of lse (log2 domain) and delta, padded to 1024 bytes
+constexpr int kSlabStageBytes = 2 * kSlabTile + 1024;
+template <typename In>
+__host__ __device__ constexpr int dkv_slab_stages() {
+  return Elem<In>::kTma ? 2 : 1;
+}
+template <typename In>
+__host__ __device__ constexpr int dkv_smem() {
+  return kDkvSliceStages * slice_bytes<In>() +
+         dkv_slab_stages<In>() * kSlabStageBytes + 1024;
+}
+
+}  // namespace wide
+
+template <typename In>
+__global__ void __launch_bounds__(wide::DqSplit<In>::kThreads,
+                                  wide::DqSplit<In>::kBlocksPerSm)
+    flash_bwd_dq_wide_kernel(__grid_constant__ const CUtensorMap tm_q,
+                             __grid_constant__ const CUtensorMap tm_k,
+                             __grid_constant__ const CUtensorMap tm_v,
+                             __grid_constant__ const CUtensorMap tm_do,
+                             const Src src, const In* __restrict__ o,
+                             const In* __restrict__ dout,
+                             const float* __restrict__ lse,
+                             float* __restrict__ delta, In* __restrict__ dq,
+                             int T, int Hq, int B, int rep, int d_true,
+                             int64_t o_sb, int64_t o_st, int64_t o_sh,
+                             int64_t do_sb, int64_t do_st, int64_t do_sh,
+                             int64_t dq_sb, int64_t dq_st, int64_t dq_sh,
+                             float scale, int causal) {
+  using namespace wide;
+  using S = DqSplit<In>;
+  using Op = typename Elem<In>::Op;
+  constexpr bool kTma = Elem<In>::kTma;
+  constexpr int kStages = dq_slice_stages<In>();
+  constexpr int kSliceBytes = slice_bytes<In>();
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t sl_full[kStages], sl_empty[kStages],
+      k_full[kDqKStages], k_empty[kDqKStages];
+  uint8_t* slices = align_1024(smem_raw);
+  uint8_t* k_s = slices + kStages * kSliceBytes;
+
+  const int n_cb = cdiv(d_true, 64);  // 64-column slices of a row
+  const int n_slabs = cdiv(d_true, kSlab);
+  const int heads = Hq * B;
+  const int n_qtiles = cdiv(T, 64);
+  // slabs innermost, then heads: longest tiles first
+  const int slab = blockIdx.x % n_slabs, tile = blockIdx.x / n_slabs;
+  const int rank = tile / heads;
+  const int qtile = causal ? n_qtiles - 1 - rank : rank;
+  const int h = (tile % heads) % Hq, b = (tile % heads) / Hq;
+  const int q0 = qtile * 64, c0 = slab * kSlab;
+  const int n_kcb = min(kSlab / 64, n_cb - c0 / 64);  // K boxes inside
+  const int n_tiles = cdiv(causal ? min(q0 + 64, T) : T, 64);
+
+  if (threadIdx.x == 0) {
+    constexpr int kFillers = kTma ? 1 : 128;
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&sl_full[s], kFillers);
+      mbar_init(&sl_empty[s], 4);
+    }
+    for (int s = 0; s < kDqKStages; ++s) {
+      mbar_init(&k_full[s], kFillers);
+      mbar_init(&k_empty[s], 4);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ---------------------------------------------------------- producer
+    setmaxnreg_dec<S::kProducerRegs>();
+    const int hk = h / rep;
+    // per key tile: the slab's columns of K first (their stage frees two
+    // tiles earlier), then every slice of Q, dO, K and V
+    if constexpr (!kTma) {
+      const int tid = threadIdx.x;
+      const float* q_rows = head_rows(src.ptr[0], src.stride[0], b, h);
+      const float* k_rows = head_rows(src.ptr[1], src.stride[1], b, hk);
+      const float* v_rows = head_rows(src.ptr[2], src.stride[2], b, hk);
+      const float* do_rows = head_rows(src.ptr[3], src.stride[3], b, h);
+      int it = 0;
+      for (int j = 0; j < n_tiles; ++j) {
+        const int ks = j % kDqKStages;
+        mbar_wait(&k_empty[ks], ((j / kDqKStages) & 1) ^ 1);
+        convert_rows<64, kSlab>(k_s + ks * kSlabTile, k_rows + c0,
+                                src.stride[1][1], 64 * j, T, d_true - c0,
+                                tid);
+        fence_proxy_async();
+        mbar_arrive(&k_full[ks]);
+        for (int cb = 0; cb < n_cb; ++cb, ++it) {
+          const int s = it % kStages;
+          mbar_wait(&sl_empty[s], ((it / kStages) & 1) ^ 1);
+          uint8_t* stage = slices + s * kSliceBytes;
+          const int left = d_true - 64 * cb;
+          convert_rows<64, 64>(stage, q_rows + 64 * cb, src.stride[0][1], q0,
+                               T, left, tid);
+          convert_rows<64, 64>(stage + kTile, do_rows + 64 * cb,
+                               src.stride[3][1], q0, T, left, tid,
+                               stage + 4 * kTile);
+          convert_rows<64, 64>(stage + 2 * kTile, k_rows + 64 * cb,
+                               src.stride[1][1], 64 * j, T, left, tid);
+          convert_rows<64, 64>(stage + 3 * kTile, v_rows + 64 * cb,
+                               src.stride[2][1], 64 * j, T, left, tid,
+                               stage + 5 * kTile);
+          fence_proxy_async();
+          mbar_arrive(&sl_full[s]);
+        }
+      }
+    } else if (threadIdx.x == 0) {
+      int it = 0;
+      for (int j = 0; j < n_tiles; ++j) {
+        const int ks = j % kDqKStages;
+        mbar_wait(&k_empty[ks], ((j / kDqKStages) & 1) ^ 1);
+        mbar_arrive_expect_tx(&k_full[ks], n_kcb * kTile);
+        for (int cb = 0; cb < n_kcb; ++cb) {
+          tma_load_4d(k_s + ks * kSlabTile + cb * kTile, &tm_k, &k_full[ks],
+                      c0 + 64 * cb, hk, 64 * j, b);
+        }
+        for (int cb = 0; cb < n_cb; ++cb, ++it) {
+          const int s = it % kStages;
+          mbar_wait(&sl_empty[s], ((it / kStages) & 1) ^ 1);
+          mbar_arrive_expect_tx(&sl_full[s], 4 * kTile);
+          uint8_t* stage = slices + s * kSliceBytes;
+          tma_load_4d(stage, &tm_q, &sl_full[s], 64 * cb, h, q0, b);
+          tma_load_4d(stage + kTile, &tm_do, &sl_full[s], 64 * cb, h, q0, b);
+          tma_load_4d(stage + 2 * kTile, &tm_k, &sl_full[s], 64 * cb, hk,
+                      64 * j, b);
+          tma_load_4d(stage + 3 * kTile, &tm_v, &sl_full[s], 64 * cb, hk,
+                      64 * j, b);
+        }
+      }
+    }
+  } else {
+    // ---------------------------------------------------------- consumer
+    setmaxnreg_inc<S::kConsumerRegs>();
+    const int t = threadIdx.x % 128, w = t / 32, lane = t % 32;
+    const int g = lane >> 2, tg = lane & 3;
+    const int row0 = q0 + 16 * w + g;  // this thread's rows: row0, +8
+    const float scale_log2 = scale * kLog2e;
+
+    // lse in the log2 domain, and delta = rowsum(O o dO) over every
+    // column: the quad of a row takes its 8-column chunks tg, tg + 4, ...
+    // in order, then sums the four partials (every lane, every slab, the
+    // same bits)
+    float lse2[2], dlt[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      lse2[r] = row < T ? lse[((int64_t)b * Hq + h) * T + row] * kLog2e : 0.f;
+      float sum = 0.f;
+      if (row < T) {
+        const In* o_row = o + b * o_sb + h * o_sh + row * o_st;
+        const In* do_row = dout + b * do_sb + h * do_sh + row * do_st;
+        for (int ch = tg; 8 * ch < d_true; ch += 4) {
+          if constexpr (!kTma) {
+            // fp32: a chunk the row's end cuts is read element by element
+#pragma unroll
+            for (int e = 0; e < 8; ++e) {
+              const int col = 8 * ch + e;
+              if (col < d_true) sum += o_row[col] * do_row[col];
+            }
+          } else {
+            const uint4 ov = *reinterpret_cast<const uint4*>(o_row + 8 * ch);
+            const uint4 dv = *reinterpret_cast<const uint4*>(do_row + 8 * ch);
+            const uint32_t* o2 = reinterpret_cast<const uint32_t*>(&ov);
+            const uint32_t* do2 = reinterpret_cast<const uint32_t*>(&dv);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float2 a = unpack2<In>(o2[e]);
+              const float2 d = unpack2<In>(do2[e]);
+              sum += a.x * d.x;  // 16-bit x 16-bit is exact in fp32
+              sum += a.y * d.y;
+            }
+          }
+        }
+      }
+      sum += __shfl_xor_sync(kFull, sum, 1);
+      sum += __shfl_xor_sync(kFull, sum, 2);
+      dlt[r] = sum;
+      if (slab == 0 && tg == 0 && row < T) {
+        delta[((int64_t)b * Hq + h) * T + row] = sum;
+      }
+    }
+
+    float acc[kSlab / 2];
+#pragma unroll
+    for (int i = 0; i < kSlab / 2; ++i) acc[i] = 0.f;
+
+    int it = 0;
+    for (int j = 0; j < n_tiles; ++j) {
+      // S = Q K^T and dP = dO V^T: 64 rows x 64 keys, over the slices
+      float sc[32], dp[32];
+      for (int cb = 0; cb < n_cb; ++cb, ++it) {
+        const int s = it % kStages;
+        mbar_wait(&sl_full[s], (it / kStages) & 1);
+        const uint32_t base = smem_addr(slices) + s * kSliceBytes;
+        const uint32_t q_a = base, do_a = base + kTile;
+        const uint32_t k_a = base + 2 * kTile, v_a = base + 3 * kTile;
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks) {
+          wgmma_ss<64, Op>(sc, desc_sw128(q_a + 32 * ks, 16, 1024),
+                           desc_sw128(k_a + 32 * ks, 16, 1024),
+                           cb > 0 || ks > 0);
+        }
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks) {
+          wgmma_ss<64, Op>(dp, desc_sw128(do_a + 32 * ks, 16, 1024),
+                           desc_sw128(v_a + 32 * ks, 16, 1024),
+                           cb > 0 || ks > 0);
+        }
+        if constexpr (!kTma) {
+          // fp32: dP += dO_lo V_hi^T + dO_hi V_lo^T (the tiles' rests)
+#pragma unroll
+          for (int ks = 0; ks < 4; ++ks) {
+            wgmma_ss<64, Op>(dp, desc_sw128(base + 4 * kTile + 32 * ks, 16,
+                                            1024),
+                             desc_sw128(v_a + 32 * ks, 16, 1024), 1);
+            wgmma_ss<64, Op>(dp, desc_sw128(do_a + 32 * ks, 16, 1024),
+                             desc_sw128(base + 5 * kTile + 32 * ks, 16,
+                                        1024),
+                             1);
+          }
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(sc);
+        fence_regs(dp);
+        if (lane == 0) mbar_arrive(&sl_empty[s]);  // this warp is done
+      }
+
+      // P and dS = P (dP - delta) scale; mask the ragged tail and the
+      // diagonal
+      const int k0 = 64 * j;
+      const bool need_mask = k0 + 64 > T || (causal && k0 + 63 > q0);
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        float p = exp2f(sc[e] * scale_log2 - lse2[(e >> 1) & 1]);
+        if (need_mask) {
+          const int col = k0 + 8 * (e / 4) + 2 * tg + (e & 1);
+          const int row = row0 + ((e >> 1) & 1) * 8;
+          if (col >= T || (causal && col > row)) p = 0.f;
+        }
+        dp[e] = p * (dp[e] - dlt[(e >> 1) & 1]) * scale;
+      }
+      uint32_t dsa[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) pack_a<Op>(dsa[kk], dp, kk);
+
+      // dQ += dS K over the slab's columns: the tile's keys are the
+      // contraction
+      const int ks = j % kDqKStages;
+      mbar_wait(&k_full[ks], (j / kDqKStages) & 1);
+      const uint32_t k_addr = smem_addr(k_s) + ks * kSlabTile;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        wgmma_rs_cols<kSlab, Op>(acc, dsa[kk], k_addr + kk * 16 * 128, kTile);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      if (lane == 0) mbar_arrive(&k_empty[ks]);
+    }
+
+    // epilogue: the slab's columns of dQ, the real rows
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + r * 8;
+      if (row >= T) continue;
+      In* out = dq + b * dq_sb + h * dq_sh + (int64_t)row * dq_st;
+#pragma unroll
+      for (int jn = 0; jn < kSlab / 8; ++jn) {
+        const int col = c0 + 8 * jn + 2 * tg;
+        if (col < d_true) {
+          store2(out + col, acc[4 * jn + 2 * r], acc[4 * jn + 2 * r + 1]);
+        }
+      }
+    }
+  }
+}
+
+template <typename In>
+__global__ void __launch_bounds__(dkv::kThreads, 1)
+    flash_bwd_dkv_wide_kernel(__grid_constant__ const CUtensorMap tm_q,
+                              __grid_constant__ const CUtensorMap tm_k,
+                              __grid_constant__ const CUtensorMap tm_v,
+                              __grid_constant__ const CUtensorMap tm_do,
+                              const Src src, const float* __restrict__ lse,
+                              const float* __restrict__ delta,
+                              In* __restrict__ dk, In* __restrict__ dv,
+                              int T, int Hq, int Hkv, int B, int rep,
+                              int d_true, int64_t dk_sb, int64_t dk_st,
+                              int64_t dk_sh, int64_t dv_sb, int64_t dv_st,
+                              int64_t dv_sh, float scale, int causal) {
+  using namespace wide;
+  using S = dkv::DkvSplit<In>;
+  using Op = typename Elem<In>::Op;
+  constexpr bool kTma = Elem<In>::kTma;
+  constexpr int kStages = kDkvSliceStages;
+  constexpr int kSlabStages = dkv_slab_stages<In>();
+  constexpr int kSliceBytes = slice_bytes<In>();
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t sl_full[kStages], sl_empty[kStages],
+      sb_full[kSlabStages], sb_empty[kSlabStages];
+  uint8_t* slices = align_1024(smem_raw);  // stage: K, V, Q, dO (, rests)
+  uint8_t* slabs = slices + kStages * kSliceBytes;
+
+  const int n_cb = cdiv(d_true, 64);
+  const int n_slabs = cdiv(d_true, kSlab);
+  // slabs innermost, then heads: under causal kv tile 0 sees every q row,
+  // so low tiles, of every head, run first
+  const int heads = Hkv * B;
+  const int slab = blockIdx.x % n_slabs, tile = blockIdx.x / n_slabs;
+  const int kvtile = tile / heads;
+  const int hk = (tile % heads) % Hkv, b = (tile % heads) / Hkv;
+  const int k0 = 64 * kvtile, c0 = slab * kSlab;
+  const int n_scb = min(kSlab / 64, n_cb - c0 / 64);  // slab boxes inside
+  // 64 q rows a step; a q head's steps start at the diagonal when causal
+  const int q_start = causal ? k0 : 0;
+  const int n_qs = cdiv(T - q_start, 64);
+  const int n_iter = rep * n_qs;  // (q head, step) pairs, head-major
+
+  if (threadIdx.x == 0) {
+    // TMA: one expect_tx arrival (plus, on a slab stage, the 32 lanes that
+    // write lse and delta); fp32: every producer thread
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&sl_full[s], kTma ? 1 : 128);
+      mbar_init(&sl_empty[s], dkv::kConsumerWarps);
+    }
+    for (int s = 0; s < kSlabStages; ++s) {
+      mbar_init(&sb_full[s], kTma ? 1 + 32 : 128);
+      mbar_init(&sb_empty[s], dkv::kConsumerWarps);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ---------------------------------------------------------- producer
+    setmaxnreg_dec<S::kProducerRegs>();
+    constexpr int kFillThreads = kTma ? 32 : 128;
+    if (threadIdx.x < kFillThreads) {
+      const int lane = threadIdx.x;
+      const float* k_rows = nullptr;
+      const float* v_rows = nullptr;
+      if constexpr (!kTma) {
+        k_rows = head_rows(src.ptr[1], src.stride[1], b, hk);
+        v_rows = head_rows(src.ptr[2], src.stride[2], b, hk);
+      }
+      int sit = 0;
+      for (int it = 0; it < n_iter; ++it) {
+        const int h = hk * rep + it / n_qs;
+        const int qs0 = q_start + (it % n_qs) * 64;
+        // the slab stage first (the consumers read it after the slices)
+        const int bs = it % kSlabStages;
+        mbar_wait(&sb_empty[bs], ((it / kSlabStages) & 1) ^ 1);
+        uint8_t* stage = slabs + bs * kSlabStageBytes;
+        if constexpr (!kTma) {
+          convert_rows<64, kSlab>(
+              stage, head_rows(src.ptr[0], src.stride[0], b, h) + c0,
+              src.stride[0][1], qs0, T, d_true - c0, lane);
+          convert_rows<64, kSlab>(
+              stage + kSlabTile,
+              head_rows(src.ptr[3], src.stride[3], b, h) + c0,
+              src.stride[3][1], qs0, T, d_true - c0, lane);
+          fence_proxy_async();
+        } else if (lane == 0) {
+          mbar_arrive_expect_tx(&sb_full[bs], 2 * n_scb * kTile);
+          for (int cb = 0; cb < n_scb; ++cb) {
+            tma_load_4d(stage + cb * kTile, &tm_q, &sb_full[bs],
+                        c0 + 64 * cb, h, qs0, b);
+            tma_load_4d(stage + kSlabTile + cb * kTile, &tm_do, &sb_full[bs],
+                        c0 + 64 * cb, h, qs0, b);
+          }
+        }
+        float* lse_s = reinterpret_cast<float*>(stage + 2 * kSlabTile);
+        const int64_t row = ((int64_t)b * Hq + h) * T;
+        for (int i = lane; i < 64; i += kFillThreads) {
+          const int t = qs0 + i;
+          lse_s[i] = t < T ? lse[row + t] * kLog2e : 0.f;
+          lse_s[64 + i] = t < T ? delta[row + t] : 0.f;
+        }
+        mbar_arrive(&sb_full[bs]);  // release: this lane's rows are visible
+
+        // then every 64-column slice of K, V, Q and dO
+        for (int cb = 0; cb < n_cb; ++cb, ++sit) {
+          const int s = sit % kStages;
+          uint8_t* sl = slices + s * kSliceBytes;
+          if constexpr (!kTma) {
+            mbar_wait(&sl_empty[s], ((sit / kStages) & 1) ^ 1);
+            const int left = d_true - 64 * cb;
+            convert_rows<64, 64>(sl, k_rows + 64 * cb, src.stride[1][1], k0,
+                                 T, left, lane);
+            convert_rows<64, 64>(sl + kTile, v_rows + 64 * cb,
+                                 src.stride[2][1], k0, T, left, lane,
+                                 sl + 4 * kTile);
+            convert_rows<64, 64>(
+                sl + 2 * kTile,
+                head_rows(src.ptr[0], src.stride[0], b, h) + 64 * cb,
+                src.stride[0][1], qs0, T, left, lane);
+            convert_rows<64, 64>(
+                sl + 3 * kTile,
+                head_rows(src.ptr[3], src.stride[3], b, h) + 64 * cb,
+                src.stride[3][1], qs0, T, left, lane, sl + 5 * kTile);
+            fence_proxy_async();
+            mbar_arrive(&sl_full[s]);
+          } else if (lane == 0) {
+            mbar_wait(&sl_empty[s], ((sit / kStages) & 1) ^ 1);
+            mbar_arrive_expect_tx(&sl_full[s], 4 * kTile);
+            tma_load_4d(sl, &tm_k, &sl_full[s], 64 * cb, hk, k0, b);
+            tma_load_4d(sl + kTile, &tm_v, &sl_full[s], 64 * cb, hk, k0, b);
+            tma_load_4d(sl + 2 * kTile, &tm_q, &sl_full[s], 64 * cb, h, qs0,
+                        b);
+            tma_load_4d(sl + 3 * kTile, &tm_do, &sl_full[s], 64 * cb, h, qs0,
+                        b);
+          }
+        }
+      }
+    }
+  } else {
+    // --------------------------------------------------------- consumers
+    setmaxnreg_inc<S::kConsumerRegs>();
+    const int c = wg - 1;
+    const int col0 = c0 + 128 * c;  // this consumer's 128 columns
+    const int t = threadIdx.x % 128, w = t / 32, lane = t % 32;
+    const int g = lane >> 2, tg = lane & 3;
+    const int key0 = k0 + 16 * w + g;  // this thread's keys: key0, key0 + 8
+    const float scale_log2 = scale * kLog2e;
+
+    float dk_acc[64], dv_acc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+    int sit = 0;
+    for (int it = 0; it < n_iter; ++it) {
+      const int jq = it % n_qs;
+      const int wq0 = q_start + 64 * jq;  // the step's first q row
+      // S^T = K Q^T and dP^T = V dO^T: 64 keys x 64 queries, over the
+      // slices
+      float st[32], dpt[32];
+      for (int cb = 0; cb < n_cb; ++cb, ++sit) {
+        const int s = sit % kStages;
+        mbar_wait(&sl_full[s], (sit / kStages) & 1);
+        const uint32_t base = smem_addr(slices) + s * kSliceBytes;
+        const uint32_t k_a = base, v_a = base + kTile;
+        const uint32_t q_a = base + 2 * kTile, do_a = base + 3 * kTile;
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks) {
+          wgmma_ss<64, Op>(st, desc_sw128(k_a + 32 * ks, 16, 1024),
+                           desc_sw128(q_a + 32 * ks, 16, 1024),
+                           cb > 0 || ks > 0);
+          wgmma_ss<64, Op>(dpt, desc_sw128(v_a + 32 * ks, 16, 1024),
+                           desc_sw128(do_a + 32 * ks, 16, 1024),
+                           cb > 0 || ks > 0);
+          if constexpr (!kTma) {
+            // fp32: dP^T also takes V_hi dO_lo^T + V_lo dO_hi^T
+            wgmma_ss<64, Op>(dpt, desc_sw128(v_a + 32 * ks, 16, 1024),
+                             desc_sw128(base + 5 * kTile + 32 * ks, 16,
+                                        1024),
+                             1);
+            wgmma_ss<64, Op>(dpt, desc_sw128(base + 4 * kTile + 32 * ks, 16,
+                                             1024),
+                             desc_sw128(do_a + 32 * ks, 16, 1024), 1);
+          }
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(st);
+        fence_regs(dpt);
+        if (lane == 0) mbar_arrive(&sl_empty[s]);  // this warp is done
+      }
+
+      // P^T and dS^T; mask the ragged tail and, on the diagonal, the
+      // queries before each key (keys past T are never stored)
+      const int bs = it % kSlabStages;
+      mbar_wait(&sb_full[bs], (it / kSlabStages) & 1);
+      uint8_t* stage = slabs + bs * kSlabStageBytes;
+      const float* lse_s = reinterpret_cast<const float*>(stage +
+                                                          2 * kSlabTile);
+      const float* dlt_s = lse_s + 64;
+      const bool need_mask = wq0 + 64 > T || (causal && jq == 0);
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int qi = 8 * (e / 4) + 2 * tg + (e & 1);  // in the 64 rows
+        float p = exp2f(st[e] * scale_log2 - lse_s[qi]);
+        if (need_mask) {
+          const int col = wq0 + qi;
+          const int key = key0 + ((e >> 1) & 1) * 8;
+          if (col >= T || (causal && col < key)) p = 0.f;
+        }
+        st[e] = p;
+        dpt[e] = p * (dpt[e] - dlt_s[qi]) * scale;
+      }
+      uint32_t pa[4][4], dsa[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        pack_a<Op>(pa[kk], st, kk);
+        pack_a<Op>(dsa[kk], dpt, kk);
+      }
+
+      // dV += P^T dO and dK += dS^T Q over this consumer's columns of the
+      // slab: the 64 queries are the contraction
+      const uint32_t q_slab = smem_addr(stage) + 2 * c * kTile;
+      const uint32_t do_slab = q_slab + kSlabTile;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint32_t rows = kk * 16 * 128;
+        wgmma_rs<128, Op>(dv_acc, pa[kk],
+                          desc_sw128(do_slab + rows, kTile, 1024));
+        wgmma_rs<128, Op>(dk_acc, dsa[kk],
+                          desc_sw128(q_slab + rows, kTile, 1024));
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dv_acc);
+      fence_regs(dk_acc);
+      if (lane == 0) mbar_arrive(&sb_empty[bs]);
+    }
+
+    // epilogue: this consumer's columns of the key rows it holds
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int key = key0 + 8 * r;
+      if (key >= T) continue;
+      In* dk_row = dk + b * dk_sb + hk * dk_sh + (int64_t)key * dk_st;
+      In* dv_row = dv + b * dv_sb + hk * dv_sh + (int64_t)key * dv_st;
+#pragma unroll
+      for (int jn = 0; jn < 16; ++jn) {
+        const int col = col0 + 8 * jn + 2 * tg;
+        if (col >= d_true) continue;
+        store2(dk_row + col, dk_acc[4 * jn + 2 * r],
+               dk_acc[4 * jn + 2 * r + 1]);
+        store2(dv_row + col, dv_acc[4 * jn + 2 * r],
+               dv_acc[4 * jn + 2 * r + 1]);
+      }
+    }
+  }
+}
+
+template <typename In>
+int dq_config_wide(int* out) {
+  static_assert(wide::dq_smem<In>() <= 232448,
+                "a block may use 227 KB of shared memory");
+  out[0] = wide::dq_smem<In>();
+  out[1] = wide::DqSplit<In>::kThreads;
+  out[2] = wide::DqSplit<In>::kLaunchRegs;
+  out[3] = 64;
+  return 0;
+}
+
+template <typename In>
+int dkv_config_wide(int* out) {
+  static_assert(wide::dkv_smem<In>() <= 232448,
+                "a block may use 227 KB of shared memory");
+  out[0] = wide::dkv_smem<In>();
+  out[1] = dkv::kThreads;
+  out[2] = dkv::kLaunchRegs;
+  out[3] = dkv::kKvRows;
+  return 0;
+}
+
+template <typename In>
+int launch_dq_wide(const void* q, const void* k, const void* v,
+                   const void* o, const void* dout, const void* lse,
+                   void* delta, void* dq, int B, int T, int Hq, int Hkv,
+                   int d_true, const long long* s, float scale, int causal,
+                   cudaStream_t stream) {
+  using S = wide::DqSplit<In>;
+  CUtensorMap tm_q, tm_k, tm_v, tm_do;
+  Src src = {};
+  int err = prepare_input<In>(&tm_q, &src, 0, q, B, T, Hq, d_true, s, 64);
+  if (!err) err = prepare_input<In>(&tm_k, &src, 1, k, B, T, Hkv, d_true,
+                                    s + 3, 64);
+  if (!err) err = prepare_input<In>(&tm_v, &src, 2, v, B, T, Hkv, d_true,
+                                    s + 6, 64);
+  if (!err) err = prepare_input<In>(&tm_do, &src, 3, dout, B, T, Hq, d_true,
+                                    s + 12, 64);
+  constexpr int kSmem = wide::dq_smem<In>();
+  auto kernel = flash_bwd_dq_wide_kernel<In>;
+  if (!err) err = prepare_launch(kernel, kSmem, S::kLaunchRegs);
+  if (err) return err;
+  const int grid = cdiv(T, 64) * Hq * B * cdiv(d_true, wide::kSlab);
+  kernel<<<grid, S::kThreads, kSmem, stream>>>(
+      tm_q, tm_k, tm_v, tm_do, src, static_cast<const In*>(o),
+      static_cast<const In*>(dout), static_cast<const float*>(lse),
+      static_cast<float*>(delta), static_cast<In*>(dq), T, Hq, B, Hq / Hkv,
+      d_true, s[9], s[10], s[11], s[12], s[13], s[14], s[15], s[16], s[17],
+      scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename In>
+int launch_dkv_wide(const void* q, const void* k, const void* v,
+                    const void* dout, const void* lse, const void* delta,
+                    void* dk, void* dv, int B, int T, int Hq, int Hkv,
+                    int d_true, const long long* s, float scale, int causal,
+                    cudaStream_t stream) {
+  CUtensorMap tm_q, tm_k, tm_v, tm_do;
+  Src src = {};
+  int err = prepare_input<In>(&tm_q, &src, 0, q, B, T, Hq, d_true, s, 64);
+  if (!err) err = prepare_input<In>(&tm_k, &src, 1, k, B, T, Hkv, d_true,
+                                    s + 3, 64);
+  if (!err) err = prepare_input<In>(&tm_v, &src, 2, v, B, T, Hkv, d_true,
+                                    s + 6, 64);
+  if (!err) err = prepare_input<In>(&tm_do, &src, 3, dout, B, T, Hq, d_true,
+                                    s + 9, 64);
+  constexpr int kSmem = wide::dkv_smem<In>();
+  auto kernel = flash_bwd_dkv_wide_kernel<In>;
+  if (!err) err = prepare_launch(kernel, kSmem, dkv::kLaunchRegs);
+  if (err) return err;
+  const int grid = cdiv(T, 64) * Hkv * B * cdiv(d_true, wide::kSlab);
+  kernel<<<grid, dkv::kThreads, kSmem, stream>>>(
+      tm_q, tm_k, tm_v, tm_do, src, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<In*>(dk),
+      static_cast<In*>(dv), T, Hq, Hkv, B, Hq / Hkv, d_true, s[12], s[13],
+      s[14], s[15], s[16], s[17], scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // The instantiations head_dim D runs on: dQ at 64, 128 or 256 (see
 // dqk::Shape); dK/dV at <64, 3 stages>, <128, 2> or <256, 2>, and for
-// fp32, whose stages hold a third tile, <64, 3>, <128, 1> or <256, 1>.
+// fp32, whose stages hold a third tile, <64, 3>, <128, 1> or <256, 1>;
+// past 256 the slab kernels above.
 template <typename In>
 constexpr int dkv_stages(int D) {
   return D <= 64 ? 3 : Elem<In>::kTma ? 2 : 1;
@@ -901,6 +1583,10 @@ int launch_dq_for(const void* q, const void* k, const void* v, const void* o,
                   const void* dout, const void* lse, void* delta, void* dq,
                   int B, int T, int Hq, int Hkv, int D, const long long* s,
                   float scale, int causal, cudaStream_t st) {
+  if (D > wide::kSlab) {
+    return launch_dq_wide<In>(q, k, v, o, dout, lse, delta, dq, B, T, Hq,
+                              Hkv, D, s, scale, causal, st);
+  }
   if (D <= 64) {
     return launch_dq<64, In>(q, k, v, o, dout, lse, delta, dq, B, T, Hq, Hkv,
                              D, s, scale, causal, st);
@@ -919,6 +1605,10 @@ int launch_dkv_for(const void* q, const void* k, const void* v,
                    void* dk, void* dv, int B, int T, int Hq, int Hkv, int D,
                    const long long* s, float scale, int causal,
                    cudaStream_t st) {
+  if (D > wide::kSlab) {
+    return launch_dkv_wide<In>(q, k, v, dout, lse, delta, dk, dv, B, T, Hq,
+                               Hkv, D, s, scale, causal, st);
+  }
   if (D <= 64) {
     return launch_dkv<64, dkv_stages<In>(64), In>(
         q, k, v, dout, lse, delta, dk, dv, B, T, Hq, Hkv, D, s, scale,
@@ -936,6 +1626,7 @@ int launch_dkv_for(const void* q, const void* k, const void* v,
 
 template <typename In>
 int dq_config_for(int D, int* out) {
+  if (D > wide::kSlab) return dq_config_wide<In>(out);
   return D <= 64    ? dq_config<64, In>(out)
          : D <= 128 ? dq_config<128, In>(out)
                     : dq_config<256, In>(out);
@@ -943,6 +1634,7 @@ int dq_config_for(int D, int* out) {
 
 template <typename In>
 int dkv_config_for(int D, int* out) {
+  if (D > wide::kSlab) return dkv_config_wide<In>(out);
   return D <= 64    ? dkv_config<64, dkv_stages<In>(64), In>(out)
          : D <= 128 ? dkv_config<128, dkv_stages<In>(128), In>(out)
                     : dkv_config<256, dkv_stages<In>(256), In>(out);
@@ -964,7 +1656,7 @@ extern "C" {
 // 18 element strides (batch, time, head) of q, k, v, o, dout and dq in
 // that order; the head_dim stride is 1, every stride a multiple of 16
 // bytes and every base 16-byte aligned (TMA). D is the tensors' head_dim,
-// 1 to 256 with rows a multiple of 16 bytes; d_head <= D the true
+// any D >= 1 with rows a multiple of 16 bytes; d_head <= D the true
 // head_dim (the scale is 1/sqrt(d_head); columns d_head .. D - 1 are
 // zeros the wrapper padded with). Launches on `stream`; returns 0 on
 // success, else a cudaError_t or one of the codes that

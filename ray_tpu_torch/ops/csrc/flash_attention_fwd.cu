@@ -39,7 +39,8 @@
 //   head_dim) and only the true columns of O are stored. At 256 a K/V
 //   stage is 64 keys (two stages of 64 x 256 K and V and a 128-row Q tile
 //   fill 193 KB of the 227 KB a block may use), and O += P V is two
-//   products of 128 columns;
+//   products of 128 columns; past 256 a block owns a slab of 256 output
+//   columns (flash_fwd_wide_kernel below), any width;
 // - types (flash_attention_sm90.cuh, `Elem`): bf16 and fp16 run wgmma in
 //   their own type; fp32 tiles are loaded by all four producer warps,
 //   rounded to bf16 into the same swizzled tiles, and run the bf16
@@ -350,13 +351,325 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ------------------------------------------------------- head_dim above 256
+//
+// No whole-head_dim tile fits a block past 256 columns (a 64-row fp32
+// accumulator of D columns is D / 2 registers a thread; Q, K and V tiles
+// of D columns outgrow the 227 KB), so each block owns one slab of
+// kSlab output columns (blocks of one (q tile, head) are neighbours on
+// the grid and read Q and K from L2):
+// - S = Q K^T is summed over every column by streaming 64-column slices
+//   of Q (128 rows) and K (64 keys) through a ring (kSliceStages), one
+//   SS product group a slice into the 64 x 64 S accumulator;
+// - only the slab's columns of V feed O += P V (a second ring of 64 x
+//   kSlab V tiles, two RS products of 128 columns);
+// - shared memory and registers are those of head_dim 256 whatever D
+//   is; the price is S computed once per slab (D / 256 times, rounded
+//   up), about 1.5x the forward's work at D 512;
+// - every slab computes the same m, l and lse in the same order, so they
+//   agree bitwise; the first slab writes lse;
+// - only the column blocks inside the tensor are loaded (a V tile's
+//   others keep what shared memory held, which reaches only O's columns
+//   past the tensor's, never stored).
+namespace wide {
+
+constexpr int kSlab = 256;         // output columns a block owns
+constexpr int kBlockN = 64;        // keys a tile
+constexpr int kConsumers = 2;      // 128 q rows a block
+constexpr int kSliceStages = 4;    // (Q, K) 64-column slices in flight
+constexpr int kVStages = 2;
+constexpr int kBlockM = 64 * kConsumers;
+constexpr int kQSlice = kBlockM * 128;   // 128 rows of 64 16-bit columns
+constexpr int kKSlice = kBlockN * 128;
+constexpr int kSliceBytes = kQSlice + kKSlice;
+constexpr int kVBytes = kBlockN * kSlab * 2;
+constexpr int kSmem = kSliceStages * kSliceBytes + kVStages * kVBytes + 1024;
+
+}  // namespace wide
+
+template <typename In>
+__global__ void __launch_bounds__(FwdSplit<wide::kConsumers, In>::kThreads,
+                                  FwdSplit<wide::kConsumers, In>::kBlocksPerSm)
+    flash_fwd_wide_kernel(__grid_constant__ const CUtensorMap tm_q,
+                          __grid_constant__ const CUtensorMap tm_k,
+                          __grid_constant__ const CUtensorMap tm_v,
+                          const Src src, In* __restrict__ o,
+                          float* __restrict__ lse, int T, int Hq, int B,
+                          int rep, int d_true, int64_t o_sb, int64_t o_st,
+                          int64_t o_sh, float scale_log2, int causal) {
+  using namespace wide;
+  using S = FwdSplit<kConsumers, In>;
+  using Op = typename Elem<In>::Op;
+  constexpr bool kTma = Elem<In>::kTma;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t sl_full[kSliceStages],
+      sl_empty[kSliceStages], v_full[kVStages], v_empty[kVStages];
+  uint8_t* slices = align_1024(smem_raw);  // stage s: Q, then K
+  uint8_t* v_s = slices + kSliceStages * kSliceBytes;
+
+  const int n_cb = cdiv(d_true, 64);        // 64-column slices of a row
+  const int n_slabs = cdiv(d_true, kSlab);
+  const int heads = Hq * B;
+  const int n_qtiles = cdiv(T, kBlockM);
+  // slabs innermost, then heads: the slabs of a (q tile, head) side by
+  // side, and the longest tiles of every head first
+  const int slab = blockIdx.x % n_slabs, tile = blockIdx.x / n_slabs;
+  const int rank = tile / heads;
+  const int qtile = causal ? n_qtiles - 1 - rank : rank;
+  const int h = (tile % heads) % Hq, b = (tile % heads) / Hq;
+  const int q0 = qtile * kBlockM, c0 = slab * kSlab;
+  const int n_vcb = min(kSlab / 64, n_cb - c0 / 64);  // V boxes inside
+  const int n_tiles = cdiv(causal ? min(q0 + kBlockM, T) : T, kBlockN);
+
+  if (threadIdx.x == 0) {
+    constexpr int kFillers = kTma ? 1 : 128;
+    for (int s = 0; s < kSliceStages; ++s) {
+      mbar_init(&sl_full[s], kFillers);
+      mbar_init(&sl_empty[s], 4 * kConsumers);
+    }
+    for (int s = 0; s < kVStages; ++s) {
+      mbar_init(&v_full[s], kFillers);
+      mbar_init(&v_empty[s], 4 * kConsumers);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ---------------------------------------------------------- producer
+    setmaxnreg_dec<S::kProducerRegs>();
+    const int hk = h / rep;
+    // per key tile: V of the slab first (its stage frees two tiles
+    // earlier), then every slice of Q and K
+    if constexpr (!kTma) {
+      // fp32: the whole warpgroup converts each tile into its place
+      const int tid = threadIdx.x;
+      const float* q_rows = head_rows(src.ptr[0], src.stride[0], b, h);
+      const float* k_rows = head_rows(src.ptr[1], src.stride[1], b, hk);
+      const float* v_rows = head_rows(src.ptr[2], src.stride[2], b, hk);
+      int it = 0;
+      for (int j = 0; j < n_tiles; ++j) {
+        const int vs = j % kVStages;
+        mbar_wait(&v_empty[vs], ((j / kVStages) & 1) ^ 1);
+        convert_rows<kBlockN, kSlab>(v_s + vs * kVBytes, v_rows + c0,
+                                     src.stride[2][1], j * kBlockN, T,
+                                     d_true - c0, tid);
+        fence_proxy_async();
+        mbar_arrive(&v_full[vs]);
+        for (int cb = 0; cb < n_cb; ++cb, ++it) {
+          const int s = it % kSliceStages;
+          mbar_wait(&sl_empty[s], ((it / kSliceStages) & 1) ^ 1);
+          uint8_t* stage = slices + s * kSliceBytes;
+          convert_rows<kBlockM, 64>(stage, q_rows + 64 * cb,
+                                    src.stride[0][1], q0, T,
+                                    d_true - 64 * cb, tid);
+          convert_rows<kBlockN, 64>(stage + kQSlice, k_rows + 64 * cb,
+                                    src.stride[1][1], j * kBlockN, T,
+                                    d_true - 64 * cb, tid);
+          fence_proxy_async();
+          mbar_arrive(&sl_full[s]);
+        }
+      }
+    } else if (threadIdx.x == 0) {
+      int it = 0;
+      for (int j = 0; j < n_tiles; ++j) {
+        const int vs = j % kVStages;
+        mbar_wait(&v_empty[vs], ((j / kVStages) & 1) ^ 1);
+        mbar_arrive_expect_tx(&v_full[vs], n_vcb * kBlockN * 128);
+        for (int cb = 0; cb < n_vcb; ++cb) {
+          tma_load_4d(v_s + vs * kVBytes + cb * kBlockN * 128, &tm_v,
+                      &v_full[vs], c0 + 64 * cb, hk, j * kBlockN, b);
+        }
+        for (int cb = 0; cb < n_cb; ++cb, ++it) {
+          const int s = it % kSliceStages;
+          mbar_wait(&sl_empty[s], ((it / kSliceStages) & 1) ^ 1);
+          mbar_arrive_expect_tx(&sl_full[s], kSliceBytes);
+          uint8_t* stage = slices + s * kSliceBytes;
+          tma_load_4d(stage, &tm_q, &sl_full[s], 64 * cb, h, q0, b);
+          tma_load_4d(stage + kQSlice, &tm_k, &sl_full[s], 64 * cb, hk,
+                      j * kBlockN, b);
+        }
+      }
+    }
+  } else {
+    // --------------------------------------------------------- consumers
+    setmaxnreg_inc<S::kConsumerRegs>();
+    const int c = wg - 1;  // q rows 64c .. 64c + 63 of the tile
+    const int t = threadIdx.x % 128, w = t / 32, lane = t % 32;
+    const int g = lane >> 2, tg = lane & 3;
+    const int row0 = q0 + 64 * c + 16 * w + g;  // this thread's rows: row0, +8
+    const uint32_t slices_addr = smem_addr(slices) + c * 64 * 128;
+    const uint32_t v_addr0 = smem_addr(v_s);
+
+    float acc[kSlab / 2];
+#pragma unroll
+    for (int i = 0; i < kSlab / 2; ++i) acc[i] = 0.f;
+    float m[2] = {-CUDART_INF_F, -CUDART_INF_F};  // running max, log2 domain
+    float l[2] = {0.f, 0.f};  // this thread's share of the running sum
+
+    int it = 0;
+    for (int j = 0; j < n_tiles; ++j) {
+      // S = Q K^T: 64 rows x 64 keys, summed over the slices
+      float sc[kBlockN / 2];
+      for (int cb = 0; cb < n_cb; ++cb, ++it) {
+        const int s = it % kSliceStages;
+        mbar_wait(&sl_full[s], (it / kSliceStages) & 1);
+        const uint32_t q_addr = slices_addr + s * kSliceBytes;
+        const uint32_t k_addr = smem_addr(slices) + s * kSliceBytes + kQSlice;
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks) {
+          wgmma_ss<kBlockN, Op>(sc, desc_sw128(q_addr + ks * 32, 16, 1024),
+                                desc_sw128(k_addr + ks * 32, 16, 1024),
+                                cb > 0 || ks > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(sc);
+        if (lane == 0) mbar_arrive(&sl_empty[s]);  // this warp is done
+      }
+
+      // scale into the log2 domain; mask the ragged tail and the diagonal
+      const int k0 = j * kBlockN;
+      const bool need_mask =
+          k0 + kBlockN > T || (causal && k0 + kBlockN - 1 > q0 + 64 * c);
+#pragma unroll
+      for (int e = 0; e < kBlockN / 2; ++e) {
+        float x = sc[e] * scale_log2;
+        if (need_mask) {
+          const int col = k0 + 8 * (e / 4) + 2 * tg + (e & 1);
+          const int row = row0 + ((e >> 1) & 1) * 8;
+          if (col >= T || (causal && col > row)) x = -CUDART_INF_F;
+        }
+        sc[e] = x;
+      }
+
+      // online softmax; the four threads of a quad share each row
+      float corr[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = m[r];
+#pragma unroll
+        for (int jn = 0; jn < kBlockN / 8; ++jn) {
+          mx = fmaxf(mx, fmaxf(sc[4 * jn + 2 * r], sc[4 * jn + 2 * r + 1]));
+        }
+        mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
+        const float base = (mx == -CUDART_INF_F) ? 0.f : mx;
+        corr[r] = exp2f(m[r] - base);
+        m[r] = mx;
+        float sum = 0.f;
+#pragma unroll
+        for (int jn = 0; jn < kBlockN / 8; ++jn) {
+          sc[4 * jn + 2 * r] = exp2f(sc[4 * jn + 2 * r] - base);
+          sc[4 * jn + 2 * r + 1] = exp2f(sc[4 * jn + 2 * r + 1] - base);
+          sum += sc[4 * jn + 2 * r] + sc[4 * jn + 2 * r + 1];
+        }
+        l[r] = l[r] * corr[r] + sum;
+      }
+#pragma unroll
+      for (int jn = 0; jn < kSlab / 8; ++jn) {
+        acc[4 * jn + 0] *= corr[0];
+        acc[4 * jn + 1] *= corr[0];
+        acc[4 * jn + 2] *= corr[1];
+        acc[4 * jn + 3] *= corr[1];
+      }
+      uint32_t pa[kBlockN / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kBlockN / 16; ++kk) pack_a<Op>(pa[kk], sc, kk);
+
+      // O += P V over the slab's columns
+      const int vs = j % kVStages;
+      mbar_wait(&v_full[vs], (j / kVStages) & 1);
+      const uint32_t v_addr = v_addr0 + vs * kVBytes;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBlockN / 16; ++kk) {
+        wgmma_rs_cols<kSlab, Op>(acc, pa[kk], v_addr + kk * 16 * 128,
+                                 kBlockN * 128);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      if (lane == 0) mbar_arrive(&v_empty[vs]);
+    }
+
+    // epilogue: the slab's columns of O; lse from the first slab
+    constexpr float kLn2 = 0.6931471805599453f;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float sum = l[r];
+      sum += __shfl_xor_sync(kFull, sum, 1);
+      sum += __shfl_xor_sync(kFull, sum, 2);
+      sum = fmaxf(sum, 1e-30f);
+      const float inv = 1.f / sum;
+      const int row = row0 + r * 8;
+      if (row >= T) continue;
+      if (tg == 0 && slab == 0) {
+        lse[((int64_t)b * Hq + h) * T + row] = m[r] * kLn2 + logf(sum);
+      }
+      In* out = o + b * o_sb + h * o_sh + (int64_t)row * o_st;
+#pragma unroll
+      for (int jn = 0; jn < kSlab / 8; ++jn) {
+        const int col = c0 + 8 * jn + 2 * tg;
+        if (col < d_true) {
+          store2(out + col, acc[4 * jn + 2 * r] * inv,
+                 acc[4 * jn + 2 * r + 1] * inv);
+        }
+      }
+    }
+  }
+}
+
+template <typename In>
+int config_wide(int* out) {
+  static_assert(wide::kSmem <= 232448,
+                "a block may use 227 KB of shared memory");
+  out[0] = wide::kSmem;
+  out[1] = FwdSplit<wide::kConsumers, In>::kThreads;
+  out[2] = FwdSplit<wide::kConsumers, In>::kLaunchRegs;
+  out[3] = wide::kBlockM;
+  return 0;
+}
+
+template <typename In>
+int launch_wide(const void* q, const void* k, const void* v, void* o,
+                void* lse, int B, int T, int Hq, int Hkv, int d_true,
+                const long long* s, float scale_log2, int causal,
+                cudaStream_t stream) {
+  using S = FwdSplit<wide::kConsumers, In>;
+  CUtensorMap tm_q, tm_k, tm_v;
+  Src src = {};
+  int err = prepare_input<In>(&tm_q, &src, 0, q, B, T, Hq, d_true, s,
+                              wide::kBlockM);
+  if (!err) err = prepare_input<In>(&tm_k, &src, 1, k, B, T, Hkv, d_true,
+                                    s + 3, wide::kBlockN);
+  if (!err) err = prepare_input<In>(&tm_v, &src, 2, v, B, T, Hkv, d_true,
+                                    s + 6, wide::kBlockN);
+  auto kernel = flash_fwd_wide_kernel<In>;
+  if (!err) err = prepare_launch(kernel, wide::kSmem, S::kLaunchRegs);
+  if (err) return err;
+  const int grid =
+      cdiv(T, wide::kBlockM) * Hq * B * cdiv(d_true, wide::kSlab);
+  kernel<<<grid, S::kThreads, wide::kSmem, stream>>>(
+      tm_q, tm_k, tm_v, src, static_cast<In*>(o), static_cast<float*>(lse),
+      T, Hq, B, Hq / Hkv, d_true, s[9], s[10], s[11], scale_log2, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // The instantiation head_dim D runs on, <built D, stages, consumer
-// warpgroups>: 64 (one consumer, two blocks a SM), 128 and 256 (two).
+// warpgroups>: 64 (one consumer, two blocks a SM), 128 and 256 (two);
+// past 256 the slab kernel above.
 template <typename In>
 int launch_for(const void* q, const void* k, const void* v, void* o,
                void* lse, int B, int T, int Hq, int Hkv, int D,
                const long long* s, float scale_log2, int causal,
                cudaStream_t stream) {
+  if (D > wide::kSlab) {
+    return launch_wide<In>(q, k, v, o, lse, B, T, Hq, Hkv, D, s, scale_log2,
+                           causal, stream);
+  }
   if (D <= 64) {
     return launch<64, 2, 1, In>(q, k, v, o, lse, B, T, Hq, Hkv, D, s,
                                 scale_log2, causal, stream);
@@ -371,6 +684,7 @@ int launch_for(const void* q, const void* k, const void* v, void* o,
 
 template <typename In>
 int config_for(int D, int* out) {
+  if (D > wide::kSlab) return config_wide<In>(out);
   return D <= 64    ? config<64, 2, 1, In>(out)
          : D <= 128 ? config<128, 2, 2, In>(out)
                     : config<256, 2, 2, In>(out);
@@ -385,8 +699,8 @@ extern "C" {
 // (FLASH_DTYPE); lse: [B, Hq, T] fp32 contiguous. strides: 12
 // element strides (batch, time, head) of q, k, v and o in that order; the
 // head_dim stride is 1, every stride a multiple of 16 bytes and every
-// base 16-byte aligned. D is the tensors' head_dim, 1 to 256 with rows a
-// multiple of 16 bytes; d_head <= D the true head_dim (the scale is
+// base 16-byte aligned. D is the tensors' head_dim, any D >= 1 with rows
+// a multiple of 16 bytes; d_head <= D the true head_dim (the scale is
 // 1/sqrt(d_head); columns d_head .. D - 1 are zeros the wrapper padded
 // with). Launches on `stream`; returns 0 on success, else a cudaError_t or
 // one of the codes that flash_attention_error_string names.

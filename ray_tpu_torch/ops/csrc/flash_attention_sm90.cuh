@@ -573,14 +573,14 @@ inline int encode_rows(CUtensorMap* map, const void* base, int B, int T,
   return r == CUDA_SUCCESS ? 0 : kErrEncodeBase + static_cast<int>(r);
 }
 
-// Whether the entry points take head_dim D (the tensors' width, 1 to 256,
-// rows a whole number of 16-byte units) and the true head_dim `d_head` of
-// the scale (at most D: the wrapper may pad D with zeros) for type code
+// Whether the entry points take head_dim D (the tensors' width, any D >=
+// 1 whose rows are a whole number of 16-byte units; past 256 the kernels
+// own slabs of the output columns) and the true head_dim `d_head` of the
+// scale (at most D: the wrapper may pad D with zeros) for type code
 // `dtype`.
 inline bool bad_head_dim(int D, int d_head, int dtype) {
   const int esize = dtype == kF32 ? 4 : 2;
-  return D < 1 || D > 256 || (D * esize) % 16 != 0 || d_head < 1 ||
-         d_head > D;
+  return D < 1 || (D * esize) % 16 != 0 || d_head < 1 || d_head > D;
 }
 
 // Input `i` of a kernel, [B, T, H, D] at `base` with element strides s[0 ..

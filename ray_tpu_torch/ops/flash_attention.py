@@ -27,15 +27,19 @@ take what the Pallas kernels take:
   run the tensor cores in their own type; float32 tiles are rounded to
   bf16 in shared memory and run the bf16 products, summed in float32
   (``csrc/flash_attention_sm90.cuh`` says why not TF32);
-- head_dim 1 to 256 (:data:`MAX_HEAD_DIM`). The kernels are built for 64,
-  128 and 256; a narrower head_dim is read through TMA maps of its true
-  width, whose missing columns arrive as zeros: the counterpart of the
-  JAX package's zero-padding of head_dim to 128 lanes. Where a row of
-  head_dim elements is not a whole number of 16-byte units (TMA's rule
-  for strides), the wrapper pads head_dim with zeros into a copy
-  (:func:`pad_head_dim`) and slices the outputs back, as the JAX package
-  pads. Zero columns add exact zeros to every product, the softmax scale
-  is 1/sqrt(D) of the true head_dim, and only the true columns are used.
+- any head_dim >= 1, as the JAX package's wrapper takes any. The kernels
+  are built for 64, 128 and 256; a narrower head_dim is read through TMA
+  maps of its true width, whose missing columns arrive as zeros: the
+  counterpart of the JAX package's zero-padding of head_dim to 128
+  lanes. Past 256 each block of the three kernels owns a slab of 256
+  output columns and sums S = Q K^T (and dP = dO V^T) over 64-column
+  slices of every column, so S and dP are computed once per slab. Where
+  a row of head_dim elements is not a whole number of 16-byte units
+  (TMA's rule for strides), the wrapper pads head_dim with zeros into a
+  copy (:func:`pad_head_dim`) and slices the outputs back, as the JAX
+  package pads. Zero columns add exact zeros to every product, the
+  softmax scale is 1/sqrt(D) of the true head_dim, and only the true
+  columns are used.
 
 The kernels launch through ``ctypes``, where no dispatch mode sees them.
 So each launch reports its exact work (:func:`attention_work`) to every
@@ -56,7 +60,6 @@ from typing import Dict, List
 import torch
 
 NEG_INF = -1e30
-MAX_HEAD_DIM = 256
 # the dtypes the CUDA kernels take, by their code in the C entry points
 KERNEL_DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
 
@@ -207,10 +210,9 @@ def check_kernel_inputs(q: torch.Tensor, k: torch.Tensor,
             f"over the prompt); got Tq={T}, Tk={k.shape[1]}")
     if Hq % k.shape[2]:
         raise ValueError(f"Hq={Hq} is not a multiple of Hkv={k.shape[2]}")
-    if not 1 <= D <= MAX_HEAD_DIM:
-        raise ValueError(
-            f"the flash-attention kernels take head_dim 1 to "
-            f"{MAX_HEAD_DIM}; got {D}")
+    if D < 1:
+        raise ValueError(f"the flash-attention kernels take head_dim >= 1; "
+                         f"got {D}")
     if q.dtype not in KERNEL_DTYPES:
         raise TypeError(f"the flash-attention kernels take "
                         f"{', '.join(map(str, KERNEL_DTYPES))}; q is "

@@ -103,7 +103,7 @@ def test_forward_at_ring_edges(cuda, D, T, causal):
     assert torch.equal(o, o2) and torch.equal(lse, lse2)
 
 
-@pytest.mark.parametrize("case", ["tq_ne_tk", "fp64", "d_over_256",
+@pytest.mark.parametrize("case", ["tq_ne_tk", "fp64", "d_zero",
                                   "mixed_dtypes", "grad", "wrapper_grad"])
 def test_cuda_tensors_never_fall_back(cuda, case):
     from ray_tpu_torch.ops import flash_attention as fa
@@ -115,8 +115,8 @@ def test_cuda_tensors_never_fall_back(cuda, case):
         k, v = k[:, :32], v[:, :32]
     elif case == "fp64":
         q, k, v, exc = q.double(), k.double(), v.double(), TypeError
-    elif case == "d_over_256":
-        q, k, v = _qkv(64, 4, 2, 264, cuda)
+    elif case == "d_zero":  # every head_dim >= 1 runs on the kernels
+        q, k, v = _qkv(64, 4, 2, 0, cuda)
     elif case == "mixed_dtypes":
         k, exc = k.float(), TypeError
     elif case == "grad":  # inputs that need grad take the autograd path
@@ -219,14 +219,17 @@ def test_backward_kernels_match_plain_versions(cuda, D, T, Hq, Hkv, causal):
 @pytest.mark.parametrize("dtype,D", [
     (torch.float16, 64), (torch.float16, 256), (torch.float32, 64),
     (torch.float32, 128), (torch.float32, 256), (torch.bfloat16, 256),
-    (torch.bfloat16, 200), (torch.bfloat16, 100), (torch.float16, 36)])
+    (torch.bfloat16, 200), (torch.bfloat16, 100), (torch.float16, 36),
+    (torch.bfloat16, 264), (torch.bfloat16, 300), (torch.bfloat16, 512),
+    (torch.float16, 512), (torch.float32, 384), (torch.bfloat16, 1024)])
 @pytest.mark.parametrize("T,Hq,Hkv,causal", [(1, 8, 8, True),
                                             (129, 8, 1, False),
                                             (257, 8, 2, True)])
 def test_kernels_take_every_dtype_and_head_dim(cuda, dtype, D, T, Hq, Hkv,
                                                causal):
-    """fp16 and fp32 inputs and head_dims to 256 (100 and 36 in bf16 and
-    fp16 read through a zero-padded copy, rows not whole 16-byte units):
+    """fp16 and fp32 inputs and head_dims to 256, and past it on the slab
+    kernels (100, 36 and 300 in bf16 and fp16 read through a zero-padded
+    copy, rows not whole 16-byte units):
     each kernel launches once a call, its outputs come back in q's dtype,
     within the bounds above of the plain versions, bitwise repeatable."""
     from ray_tpu_torch.ops import flash_attention as fa

@@ -23,17 +23,17 @@ Tolerances:
   taken in another order (a bound relative to delta itself fails where
   the row sum cancels).
 - the head_dims and dtypes the kernels took on in the widening (head_dim
-  256, 72; float16) against JAX's ``flash_attention`` through the Pallas
-  kernels in interpret mode: the JAX suite's own bounds, atol = rtol =
-  2e-2 forward and 5e-2 grads, in float32 and in float16 alike (float16
-  inputs, both sides computing in float32 and rounding o and the grads
-  to float16 once, well inside them).
+  256, 72, and past 256 320, 384, 512; float16, bfloat16) against JAX's
+  ``flash_attention`` through the Pallas kernels in interpret mode: the
+  JAX suite's own bounds, atol = rtol = 2e-2 forward and 5e-2 grads, in
+  every dtype alike (16-bit inputs, both sides computing in float32 and
+  rounding o and the grads to the input dtype once, well inside them).
 - head_dim padding (the wrapper's copy of an unaligned head_dim): the
   padded plain version against the unpadded one, 1e-5 (the same float32
   arithmetic with exact zero columns added).
-- a head_dim-256 debug-width Llama step, float32, against the JAX model:
-  loss and global grad norm rtol 3e-3, chip_smoke's train-step bound
-  (TRAIN_RTOL).
+- a head_dim-256 and a head_dim-512 debug-width Llama step, float32,
+  against the JAX model: loss and global grad norm rtol 3e-3,
+  chip_smoke's train-step bound (TRAIN_RTOL).
 """
 
 import dataclasses
@@ -74,7 +74,11 @@ def _inputs(B, T, Hq, Hkv, D, seed=0):
 
 
 def _torch(*xs):
-    return tuple(torch.from_numpy(x) for x in xs)
+    # bfloat16 arrays (ml_dtypes', as JAX makes them) go through float32,
+    # which holds each of their values exactly
+    return tuple(torch.from_numpy(x.astype(np.float32)).to(torch.bfloat16)
+                 if x.dtype == jnp.bfloat16 else torch.from_numpy(x)
+                 for x in xs)
 
 
 @pytest.mark.parametrize("B,T,Hq,Hkv,D,causal", CASES)
@@ -119,8 +123,8 @@ def _bf16(shape_q, shape_k):
 
 @pytest.mark.parametrize("shape_q,shape_k,dtype,exc", [
     ((1, 64, 4, 64), (1, 32, 2, 64), torch.bfloat16, ValueError),  # Tq!=Tk
-    ((1, 64, 2, 264), (1, 64, 2, 264), torch.bfloat16, ValueError),  # D>256
-    ((1, 64, 2, 264), (1, 64, 2, 264), torch.float32, ValueError),  # D>256
+    ((1, 64, 2, 0), (1, 64, 2, 0), torch.bfloat16, ValueError),  # D < 1
+    ((1, 64, 2, 0), (1, 64, 2, 0), torch.float32, ValueError),  # D < 1
     ((1, 64, 3, 64), (1, 64, 2, 64), torch.bfloat16, ValueError),  # GQA
     ((1, 64, 4, 64), (1, 64, 2, 64), torch.float64, TypeError),
     ((1, 64, 4, 64), (1, 64, 2, 64), torch.int32, TypeError),
@@ -152,11 +156,15 @@ def test_kernel_guard_rejects_mixed_dtypes(which, dtype):
     (64, torch.float16),  # was refused as not bfloat16
     (256, torch.float32), (256, torch.float16), (200, torch.bfloat16),
     (1, torch.bfloat16), (100, torch.float16), (3, torch.float32),
+    (264, torch.bfloat16),  # was refused as D > 256
+    (264, torch.float32),  # was refused as D > 256
+    (300, torch.bfloat16), (512, torch.bfloat16), (1024, torch.float32),
 ])
 def test_kernel_guard_accepts(D, dtype):
-    """bf16, fp16 and fp32 q/k/v of one dtype at any head_dim from 1 to
-    256: a head_dim whose rows are not whole 16-byte units is read
-    through a padded copy, so its strides are not held to TMA's rule."""
+    """bf16, fp16 and fp32 q/k/v of one dtype at any head_dim >= 1 (past
+    256 on the slab kernels): a head_dim whose rows are not whole 16-byte
+    units is read through a padded copy, so its strides are not held to
+    TMA's rule."""
     q, k, v = (t.to(dtype) for t in _bf16((1, 64, 4, D), (1, 64, 2, D)))
     fa.check_kernel_inputs(q, k, v)
     fa.check_backward_inputs(q, k, v, torch.zeros_like(q),
@@ -172,7 +180,8 @@ def test_kernel_guard_accepts_the_8b_prefill_shape():
     (64, torch.bfloat16, 64), (72, torch.bfloat16, 72),
     (100, torch.bfloat16, 104), (1, torch.float16, 8),
     (256, torch.float16, 256), (100, torch.float32, 100),
-    (3, torch.float32, 4), (250, torch.float32, 252)])
+    (3, torch.float32, 4), (250, torch.float32, 252),
+    (300, torch.bfloat16, 304), (514, torch.float32, 516)])
 def test_kernel_width_is_whole_16_byte_rows(D, dtype, width):
     assert fa.kernel_width(D, dtype) == width
     t = torch.randn(2, 5, 3, D).to(dtype)
@@ -425,11 +434,22 @@ WIDE_CASES = [
     (1, 128, 2, 1, 72, False, "float32"),
     (1, 128, 2, 1, 64, True, "float16"),
     (1, 128, 2, 2, 64, False, "float16"),
+    # head_dim past 256, the slab kernels' inputs (JAX pads 320 to 384),
+    # bf16 and fp32, GQA 2/1 and 2/2, causal and full
+    (1, 128, 2, 1, 320, True, "bfloat16"),
+    (1, 128, 2, 2, 320, False, "float32"),
+    (1, 128, 2, 1, 384, False, "float32"),
+    (1, 128, 2, 2, 384, True, "bfloat16"),
+    (1, 128, 2, 1, 512, True, "float32"),
+    (1, 128, 2, 2, 512, False, "bfloat16"),
+    (1, 128, 2, 1, 512, False, "bfloat16"),
+    (1, 128, 2, 2, 512, True, "float32"),
 ]
 
 
 def _wide_inputs(B, T, Hq, Hkv, D, dtype, seed):
     q, k, v, do = _bwd_inputs(B, T, Hq, Hkv, D, seed)
+    dtype = jnp.bfloat16 if dtype == "bfloat16" else dtype
     return tuple(x.astype(dtype) for x in (q, k, v, do))
 
 
@@ -464,12 +484,24 @@ def test_head_dim_256_llama_step_matches_jax(n_kv_heads):
     one kv head or two, 2 layers, float32): the loss of one step's
     loss_fn and the global norm of its grads against the JAX model's,
     from the same params and tokens."""
-    kw = dict(dim=512, n_heads=2, n_kv_heads=n_kv_heads, n_layers=2)
+    _wide_head_llama_step_matches_jax(256, n_kv_heads)
+
+
+@pytest.mark.parametrize("n_kv_heads", [1, 2])
+def test_head_dim_512_llama_step_matches_jax(n_kv_heads):
+    """As above at head_dim 512 (dim 1024 over 2 heads), the width the
+    slab kernels take on the card."""
+    _wide_head_llama_step_matches_jax(512, n_kv_heads)
+
+
+def _wide_head_llama_step_matches_jax(head_dim, n_kv_heads):
+    kw = dict(dim=2 * head_dim, n_heads=2, n_kv_heads=n_kv_heads,
+              n_layers=2)
     jcfg = dataclasses.replace(jl.LlamaConfig.debug(), dtype=jnp.float32,
                                **kw)
     tcfg = dataclasses.replace(tl.LlamaConfig.debug(), dtype=torch.float32,
                                **kw)
-    assert tcfg.head_dim == jcfg.head_dim == 256
+    assert tcfg.head_dim == jcfg.head_dim == head_dim
     tree = jax.tree.map(np.asarray,
                         jl.init_params(jcfg, jax.random.PRNGKey(0)))
     toks = np.random.RandomState(11).randint(
