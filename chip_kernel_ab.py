@@ -7,13 +7,17 @@ At ``chip_smoke.py``'s two timed shapes (the Llama-3-8B heads at a 2k
 prefill, "table"; the Llama-3-1B training step's attention, "train")
 and its head_dim-256 row ("d256", Gemma-2B's 8/1 heads at a 2k prefill;
 the widest instantiation a tree from before the slab kernels has), all
-bf16 and causal, each kernel (forward, dQ, dK/dV) is timed with CUDA events
-in turns with SDPA's forward on the same inputs (kernel, SDPA, SDPA,
-kernel), 50 calls a reading after 5 to warm up, once the shape's
-kernels and SDPA have run untimed for SETTLE_S (the first readings of a
-fresh process came out up to 45 % slow without it). Prints one JSON line:
-the tree, its build seconds, and per shape and kernel the mean of its
-two readings, both readings and SDPA's mean.
+bf16 and causal, each kernel (forward, dQ, dK/dV) and the whole backward
+(dQ with delta, then dK/dV: ``flash_attention_backward``) is timed with
+CUDA events in turns with SDPA on the same inputs (kernel, SDPA, SDPA,
+kernel): SDPA's forward beside the kernels, its backward (dq, dk, dv
+together) beside the whole backward. 50 calls a reading after 5 to warm
+up, once the shape's kernels and SDPA have run untimed for SETTLE_S (the
+first readings of a fresh process came out up to 45 % slow without
+it). Prints one JSON line: the tree, its build seconds, and per shape
+and kernel the mean of its two readings, both readings and SDPA's mean,
+and the split the tree's head_dim-256 kernels take there (null for a
+tree from before the split).
 
 To compare two commits on one card, unpack the other commit's package
 under a directory that ``.gitignore`` lists (``git archive <commit>
@@ -50,6 +54,21 @@ def mean_ms(torch, fn) -> float:
     return start.elapsed_time(end) / ITERS
 
 
+def split_of(fa, B, T, Hq, Hkv, D):
+    """The split the tree's kernels take at this causal bf16 shape on
+    this card, or None for a tree without flash_schedule."""
+    try:
+        from ray_tpu_torch.ops import flash_schedule as fs
+    except ImportError:
+        return None
+    import torch
+
+    sms = fa.sm_count(torch.device("cuda"))
+    return {"fwd_split_tiles": fs.forward_split_tiles(B, T, Hq, D, True,
+                                                      sms),
+            "dkv_chunks": fs.dkv_split(B, T, Hq, Hkv, D, True, sms)}
+
+
 def main(argv) -> int:
     if len(argv) != 1:
         print(__doc__.splitlines()[0], file=sys.stderr)
@@ -76,30 +95,44 @@ def main(argv) -> int:
                        .to(torch.bfloat16) for h in (Hq, Hkv, Hkv, Hq))
         o, lse = fa.flash_attention_forward(q, k, v, True)
         _, delta = fa.flash_attention_bwd_dq(q, k, v, o, do, lse, True)
-        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                      for x in (q, k, v))
+        dot = do.transpose(1, 2).contiguous()
 
         def sdpa():
-            return torch.nn.functional.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True)
+            with torch.no_grad():
+                return torch.nn.functional.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True)
+
+        sdpa_out = torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+
+        def sdpa_backward():
+            return torch.autograd.grad(sdpa_out, (qt, kt, vt), dot,
+                                       retain_graph=True)
 
         kernels = {
             "fwd": lambda: fa.flash_attention_forward(q, k, v, True),
             "dq": lambda: fa.flash_attention_bwd_dq(q, k, v, o, do, lse,
                                                     True),
             "dkv": lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse,
-                                                      delta, True)}
+                                                      delta, True),
+            "bwd": lambda: fa.flash_attention_backward(q, k, v, o, lse, do,
+                                                       True)}
         t_settle = time.perf_counter()
         while time.perf_counter() - t_settle < SETTLE_S:
-            for fn in (*kernels.values(), sdpa):
+            for fn in (*kernels.values(), sdpa, sdpa_backward):
                 fn()
             torch.cuda.synchronize()
-        out[label] = {}
+        out[label] = {"split": split_of(fa, B, T, Hq, Hkv, D)}
         for name, fn in kernels.items():
+            yardstick = sdpa_backward if name == "bwd" else sdpa
             first, s1, s2, second = (mean_ms(torch, f)
-                                     for f in (fn, sdpa, sdpa, fn))
-            out[label][name] = {"ms": (first + second) / 2,
-                                "ms_each": [first, second],
-                                "sdpa_forward_ms": (s1 + s2) / 2}
+                                     for f in (fn, yardstick, yardstick, fn))
+            out[label][name] = {
+                "ms": (first + second) / 2, "ms_each": [first, second],
+                ("sdpa_backward_ms" if name == "bwd" else "sdpa_forward_ms"):
+                    (s1 + s2) / 2}
     print(json.dumps(out), flush=True)
     return 0
 

@@ -1,0 +1,187 @@
+#!/usr/bin/env python3
+"""Device time of the attention kernels of one tree of the port, by
+kernel, on one card: ``python3 chip_kernel_probe.py <root> [--sweep]
+[--sass-against <other root>]``, where ``<root>`` holds a
+``ray_tpu_torch`` package (``.`` for this checkout).
+
+``chip_kernel_ab.py`` times whole wrapper calls back to back with CUDA
+events, which at 0.05–0.15 ms kernels also reads the host's launch path
+(ctypes, TMA maps). This script reads what the card spent in each kernel
+instead: ``torch.profiler``'s device time of each kernel over 60 calls
+of each wrapper (forward, dQ, dK/dV) at ``chip_kernel_ab.py``'s shapes,
+bf16 causal, beside the host's time to enqueue a call (with the card
+kept busy, so the enqueue is not waited on). With ``--sweep`` (a tree
+with ``ops/flash_schedule.py``), it forces the head_dim-256 split counts
+at the "d256" row instead, five rounds in turns, and reads each count's
+device time (kernel and second pass): the forward's split q tiles and
+the dK/dV chunks. With ``--sass-against``, it compares the SASS of every
+kernel instantiation the two trees' libraries share (``cuobjdump``,
+register numbers aside). Prints one JSON line. Exits 2 without a card.
+"""
+
+from __future__ import annotations
+
+import glob
+import json
+import os
+import re
+import statistics
+import subprocess
+import sys
+import time
+
+SHAPES = (("table", (1, 2048, 32, 8, 128)), ("train", (4, 2048, 32, 8, 64)),
+          ("d256", (1, 2048, 8, 1, 256)))
+CALLS = 60
+FWD_SPLITS = (0, 2, 3, 4, 5, 6, 8, 10, 14)
+DKV_CHUNKS = (1, 4, 6, 7, 8, 9, 12, 16)
+ROUNDS = 5
+
+
+def device_ms(torch, fn, calls: int = CALLS) -> dict:
+    """Device ms a call of each kernel ``fn`` launches, from the
+    profiler, after a warm-up."""
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        t = getattr(ev, "self_device_time_total", 0)
+        if t and "flash" in ev.key:
+            name = re.sub(r"^void |\(anonymous namespace\)::", "", ev.key)
+            out[name.split("(")[0]] = t / calls / 1e3
+    return out
+
+
+def host_us(torch, fn, calls: int = 50) -> float:
+    """Host microseconds to enqueue a call while the card is busy."""
+    a = torch.randn(8192, 8192, device="cuda", dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    a @ a
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return dt
+
+
+def inputs(torch, fa, gen, B, T, Hq, Hkv, D):
+    q, k, v, do = (torch.randn(B, T, h, D, device="cuda", generator=gen)
+                   .to(torch.bfloat16) for h in (Hq, Hkv, Hkv, Hq))
+    o, lse = fa.flash_attention_forward(q, k, v, True)
+    _, delta = fa.flash_attention_bwd_dq(q, k, v, o, do, lse, True)
+    return {"fwd": lambda: fa.flash_attention_forward(q, k, v, True),
+            "dq": lambda: fa.flash_attention_bwd_dq(q, k, v, o, do, lse,
+                                                    True),
+            "dkv": lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse,
+                                                      delta, True)}
+
+
+def sweep(torch, fa, gen) -> dict:
+    """The d256 forward and dK/dV at forced split counts: each count's
+    device ms (kernel and second pass) in ROUNDS rounds, and the median."""
+    from ray_tpu_torch.ops import flash_schedule as fs
+
+    calls = inputs(torch, fa, gen, *dict(SHAPES)["d256"])
+    real = fs.forward_split_tiles, fs.dkv_split
+    runs = {"fwd_split_tiles": {}, "dkv_chunks": {}}
+    try:
+        for _ in range(ROUNDS):
+            for n in FWD_SPLITS:
+                fs.forward_split_tiles = lambda *a, n=n: n
+                runs["fwd_split_tiles"].setdefault(n, []).append(
+                    sum(device_ms(torch, calls["fwd"]).values()))
+            for n in DKV_CHUNKS:
+                fs.dkv_split = lambda *a, n=n: n
+                runs["dkv_chunks"].setdefault(n, []).append(
+                    sum(device_ms(torch, calls["dkv"]).values()))
+    finally:
+        fs.forward_split_tiles, fs.dkv_split = real
+    return {kind: {n: {"median_ms": statistics.median(r), "ms_each": r}
+                   for n, r in by.items()} for kind, by in runs.items()}
+
+
+def sass(lib: str) -> dict:
+    """Each kernel function's SASS instructions, register numbers and
+    immediates blanked, from ``cuobjdump -sass``."""
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    text = subprocess.run([os.path.join(home, "bin", "cuobjdump"), "-sass",
+                           lib], capture_output=True, text=True,
+                          check=True).stdout
+    out, cur = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s+Function : (\S+)", line)
+        if m:
+            k = re.search(r"\d(flash_(?:fwd|bwd)\w*?_kernel"
+                          r"(?:ILi\d+E(?:Li\d+E)*)?)", m.group(1))
+            cur = out.setdefault(k.group(1) if k else m.group(1), [])
+            continue
+        m = re.search(r"/\*[0-9a-f]{4}\*/\s+(.*?);", line)
+        if m and cur is not None:
+            cur.append(re.sub(r"\bU?R\d+\b|\bU?P\d\b|0x[0-9a-f]+|\.reuse",
+                              "_", m.group(1)))
+    return out
+
+
+def sass_against(root: str, other: str) -> dict:
+    """"same" or the instruction counts, per library and kernel both
+    trees' built libraries have."""
+    out = {}
+    for lib in sorted(glob.glob(os.path.join(
+            root, "ray_tpu_torch/_build/libflash_attention_*.so"))):
+        name = os.path.basename(lib).rsplit("-", 1)[0]
+        theirs = glob.glob(os.path.join(
+            other, f"ray_tpu_torch/_build/{name}-*.so"))
+        if not theirs:
+            continue
+        a, b = sass(theirs[0]), sass(lib)
+        for kernel in sorted(set(a) & set(b)):
+            out[f"{name}:{kernel}"] = ("same" if a[kernel] == b[kernel] else
+                                       f"{len(a[kernel])} -> "
+                                       f"{len(b[kernel])} instructions")
+    return out
+
+
+def main(argv) -> int:
+    if not argv or argv[0].startswith("-"):
+        print(__doc__.splitlines()[0], file=sys.stderr)
+        return 2
+    root = os.path.abspath(argv[0])
+    sys.path.insert(0, root)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_kernel_probe: no CUDA device", file=sys.stderr)
+        return 2
+    from ray_tpu_torch.ops import _build
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    if not fa.__file__.startswith(root):
+        raise RuntimeError(f"imported {fa.__file__}, not the tree {root}")
+    _build.build(list(getattr(_build, "LIBRARIES", _build.SOURCES)))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = {"tree": argv[0]}
+    if "--sweep" in argv:
+        out["sweep_d256"] = sweep(torch, fa, gen)
+    else:
+        for label, shape in SHAPES:
+            out[label] = {name: {"device_ms": device_ms(torch, fn),
+                                 "host_us": host_us(torch, fn)}
+                          for name, fn in inputs(torch, fa, gen,
+                                                 *shape).items()}
+            torch.cuda.empty_cache()
+    if "--sass-against" in argv:
+        out["sass_against"] = sass_against(
+            root, os.path.abspath(argv[argv.index("--sass-against") + 1]))
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Planted-fault check of ``chip_smoke.py``'s backward gates, on one card:
-``python3 chip_planted_faults.py``. It is run by hand, after a change to
-the dQ kernel or to the gates, and by nothing else; ``chip_smoke.py``
-does not call it.
+``python3 chip_planted_faults.py [fault ...]`` (named faults: those
+alone, beside the sound kernels' readings of the same gates). It is run
+by hand, after a change to the kernels or to the gates, and by nothing
+else; ``chip_smoke.py`` does not call it.
 
 Builds the backward kernels from patched copies of
 ``ray_tpu_torch/ops/csrc`` (written under the gitignored
@@ -51,7 +52,16 @@ and two in the slab kernels that take head_dim past 256, read at
   product alone;
 - ``wide_dq_k_first_slab``: the dQ kernel's TMA load of K for dQ += dS K
   reads the first slab's columns whatever slab the block owns, so every
-  slab past the first gets the first slab's dQ.
+  slab past the first gets the first slab's dQ;
+
+and two in the second passes of the head_dim-256 split, read at
+``bfloat16:256`` (whose cases take both splits on an H100):
+
+- ``split_reduce_drops_last_chunk``: the dK/dV reduction adds every
+  chunk's partial sums but the last;
+- ``split_merge_part1_lse``: the forward's merge of a split tile's two
+  halves weighs part 0 by part 1's lse as well as part 1, so both halves
+  get equal weights.
 
 Readings: the block gate (per (batch, 64-row block, head) rms(err) /
 (rms(ref) + 1e-3) of dq, dk, dv against their plain versions, limit
@@ -110,6 +120,16 @@ VARIANT_FAULTS = {
         "flash_attention_bwd.cu",
         ("c0 + 64 * cb, hk, 64 * j, b);", "64 * cb, hk, 64 * j, b);"),
         ("bfloat16", 512)),
+    "split_reduce_drops_last_chunk": (
+        "flash_attention_bwd.cu",
+        ("    for (int c = 1; c < n_split; ++c) {\n",
+         "    for (int c = 1; c < n_split - 1; ++c) {\n"),
+        ("bfloat16", 256)),
+    "split_merge_part1_lse": (
+        "flash_attention_fwd.cu",
+        ("  const float e0 = expf(l0 - mx);\n",
+         "  const float e0 = expf(l1 - mx);\n"),
+        ("bfloat16", 256)),
 }
 
 # (B, T, Hq, Hkv, D): the 1B training shape, the 8B table shape and a
@@ -162,13 +182,13 @@ def leaf_readings(torch, seed: int) -> dict:
             "rel_diff": line.get("rel_diff"), "smoke_check": caught}
 
 
-def variant_gate_readings(torch, seed: int) -> dict:
+def variant_gate_readings(torch, seed: int, faults=VARIANT_FAULTS) -> dict:
     """chip_smoke's kernel_dtypes gates of the variants the variant faults
-    are read at: each one's worst error over tolerance and failed
-    cases."""
+    ``faults`` are read at: each one's worst error over tolerance and
+    failed cases."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     out = {}
-    for dtype, D in sorted({v for _, _, v in VARIANT_FAULTS.values()}):
+    for dtype, D in sorted({VARIANT_FAULTS[f][2] for f in faults}):
         r = cs.variant_readings(torch, gen, getattr(torch, dtype), D)
         out[f"{dtype}:{D}"] = {"worst": r["worst_err_over_tolerance"],
                                "failed_cases": len(r["failed"])}
@@ -257,7 +277,12 @@ def ring_readings(torch) -> dict:
     return out
 
 
-def main() -> int:
+def main(argv) -> int:
+    unknown = [n for n in argv if n not in FAULTS and n not in VARIANT_FAULTS]
+    if unknown:
+        print(f"chip_planted_faults: no fault named {unknown}; the faults: "
+              f"{[*FAULTS, *VARIANT_FAULTS]}", file=sys.stderr)
+        return 2
     import torch
 
     if not torch.cuda.is_available():
@@ -271,7 +296,9 @@ def main() -> int:
     root = sound_build / "planted"
     shutil.rmtree(root, ignore_errors=True)
     caught = {}
-    for name in ("sound", *FAULTS):
+    dq_faults = [n for n in FAULTS if not argv or n in argv]
+    variant_faults = [n for n in VARIANT_FAULTS if not argv or n in argv]
+    for name in ("sound", *dq_faults) if dq_faults else ():
         csrc = sound_csrc
         if name != "sound":
             csrc = plant(root, name, sound_csrc, "flash_attention_bwd.cu",
@@ -305,13 +332,15 @@ def main() -> int:
         _build.CSRC, _build.BUILD_DIR = sound_csrc, sound_build
         _build._loaded.clear()
         torch.cuda.empty_cache()
-    for name in ("sound variants", *VARIANT_FAULTS):
+    for name in ("sound variants", *variant_faults) if variant_faults \
+            else ():
         if name in VARIANT_FAULTS:
             file, edits, _ = VARIANT_FAULTS[name]
             _build.CSRC = plant(root, name, sound_csrc, file, edits)
             _build.BUILD_DIR = root / name / "build"
             _build._loaded.clear()
-        readings = variant_gate_readings(torch, seed=0)
+        readings = variant_gate_readings(torch, seed=0,
+                                         faults=variant_faults)
         cs.emit({"kernels": name, "variant_gates": readings,
                  "limit": "err over tolerance at most 1, every case"})
         if name in VARIANT_FAULTS:
@@ -323,16 +352,17 @@ def main() -> int:
         _build.CSRC, _build.BUILD_DIR = sound_csrc, sound_build
         _build._loaded.clear()
         torch.cuda.empty_cache()
-    ring = ring_readings(torch)
-    for name, r in ring.items():
-        cs.emit({"ring": name, **r})
-    caught["sound ring passes"] = not ring["sound_ring"][
-        "numeric_gates_failed"]
-    for name in ("ring_local_lse", "ring_unweighted_merge"):
-        caught[name] = bool(ring[name]["numeric_gates_failed"])
+    if not argv:  # the ring's faults run with the whole set only
+        ring = ring_readings(torch)
+        for name, r in ring.items():
+            cs.emit({"ring": name, **r})
+        caught["sound ring passes"] = not ring["sound_ring"][
+            "numeric_gates_failed"]
+        for name in ("ring_local_lse", "ring_unweighted_merge"):
+            caught[name] = bool(ring[name]["numeric_gates_failed"])
     cs.emit({"caught": caught, "ok": all(caught.values())})
     return 0 if all(caught.values()) else 1
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -408,10 +408,13 @@ def ptxas_report(log: str):
         if m:
             name = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_kernel)ILi(\d+)E",
                              m.group(1))
-            wide = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_wide_kernel)I",
-                             m.group(1))
+            # the slab kernels and the head_dim-256 split's second passes
+            other = re.search(
+                r"(flash_(?:fwd|bwd_dq|bwd_dkv)_wide_kernel|"
+                r"flash_fwd_merge_kernel|flash_bwd_dkv_reduce_kernel)I",
+                m.group(1))
             cur = {"kernel": f"{name.group(1)}<{name.group(2)}>" if name
-                   else wide.group(1) if wide else m.group(1)}
+                   else other.group(1) if other else m.group(1)}
             out.append(cur)
             continue
         if cur is None:
@@ -615,6 +618,23 @@ def sdpa_backend(torch, qt, kt, vt) -> str:
         return f"unknown ({type(e).__name__})"
 
 
+def split_counts(torch, q, k, causal) -> dict:
+    """The split the forward and dK/dV wrappers take on these inputs
+    (ray_tpu_torch/ops/flash_schedule.py, on this card's SMs): the q
+    tiles the forward splits in two and the chunks of each dK/dV kv
+    tile; 0 and 1 outside head_dim 129-256 or on a card these fill."""
+    from ray_tpu_torch.ops import flash_schedule as fs
+    from ray_tpu_torch.ops.flash_attention import kernel_width, sm_count
+
+    B, T, Hq, D = q.shape
+    W = kernel_width(D, q.dtype)
+    sms = sm_count(q.device)
+    return {"fwd_split_tiles": fs.forward_split_tiles(B, T, Hq, W, causal,
+                                                      sms),
+            "dkv_chunks": fs.dkv_split(B, T, Hq, k.shape[2], W, causal,
+                                       sms)}
+
+
 def forward_timing(torch, q, k, v, peaks) -> dict:
     """The forward kernel and SDPA timed in turns on q, k, v (causal),
     with the plain version's time and the bound of this work in q's
@@ -633,6 +653,7 @@ def forward_timing(torch, q, k, v, peaks) -> dict:
     timing.update(
         shape={"B": B, "T": T, "Hq": Hq, "Hkv": Hkv, "D": D,
                "causal": True, "dtype": dtype_name(q.dtype)},
+        split_tiles=split_counts(torch, q, k, True)["fwd_split_tiles"],
         plain_ms=cuda_ms(
             lambda: flash_attention_reference(q, k, v, True), iters=5),
         library="torch.nn.functional.scaled_dot_product_attention",
@@ -779,8 +800,11 @@ def backward_timings(torch, q, k, v, o, lse, do, peaks) -> dict:
     }
     timings = {"shape": {"B": B, "T": T, "Hq": Hq, "Hkv": Hkv, "D": D,
                          "causal": True, "dtype": dtype_name(q.dtype)}}
+    chunks = split_counts(torch, q, k, True)["dkv_chunks"]
     for name, (kern, plain) in runs.items():
         timing = in_turns(torch, kern, library)
+        if name != "dq":
+            timing["dkv_chunks"] = chunks
         timing.update(
             plain_ms=cuda_ms(plain, iters=3, warmup=1),
             library_backend=backend,
@@ -805,10 +829,13 @@ def backward_line(timings: dict) -> dict:
     shape = timings["shape"]
     B, T, Hq, Hkv, D = (shape[k] for k in ("B", "T", "Hq", "Hkv", "D"))
     slabs = -(-D // 256)  # past 256: a block a slab of 256 columns
+    # at head_dim 129-256 a launch that leaves the card under-filled is
+    # split: dkv_chunks blocks a kv tile (and a second pass)
+    chunks = timings["dkv"].get("dkv_chunks", 1)
     return {"shape": shape,
             "grid_blocks": {"dq": -(-T // (128 if 64 < D <= 128 else 64))
                             * Hq * B * slabs,
-                            "dkv": -(-T // 64) * Hkv * B * slabs},
+                            "dkv": -(-T // 64) * Hkv * B * slabs * chunks},
             "library": "scaled_dot_product_attention backward "
                        "(dq, dk, dv together)",
             **{k: v for k, v in timings.items() if k != "shape"}}
@@ -1141,6 +1168,10 @@ def variant_readings(torch, gen, dtype, D) -> dict:
 
     worst: dict = {}
     failed = []
+    splits = []  # the head_dim-256 split of each case that takes one
+    split_runs = [fa.flash_attention_forward.split_launches,
+                  fa.flash_attention_bwd_dkv.split_launches]
+    want_split_runs = [0, 0]
     for T in DTYPE_LENGTHS:
         for causal in (True, False):
             for group in DTYPE_GROUPS:
@@ -1151,6 +1182,13 @@ def variant_readings(torch, gen, dtype, D) -> dict:
                                        generator=gen).to(dtype)
 
                 q, k, v, do = r(Hq), r(Hkv), r(Hkv), r(Hq)
+                split = split_counts(torch, q, k, causal)
+                if split["fwd_split_tiles"] or split["dkv_chunks"] > 1:
+                    splits.append({"T": T, "causal": causal, "Hkv": Hkv,
+                                   **split})
+                # each case runs twice
+                want_split_runs[0] += 2 * bool(split["fwd_split_tiles"])
+                want_split_runs[1] += 2 * (split["dkv_chunks"] > 1)
                 runs = []
                 for _ in range(2):
                     o, lse = fa.flash_attention_forward(q, k, v, causal)
@@ -1195,9 +1233,61 @@ def variant_readings(torch, gen, dtype, D) -> dict:
                                    "Hkv": Hkv, "over": bad,
                                    "bitwise_repeatable": repeatable})
                 del runs, o, lse, dq, delta, dk, dv, ro, rlse, want, prod
+    split_runs = [fa.flash_attention_forward.split_launches - split_runs[0],
+                  fa.flash_attention_bwd_dkv.split_launches - split_runs[1]]
+    if split_runs != want_split_runs:  # the wrappers took another split
+        failed.append({"split_launches": split_runs,
+                       "want": want_split_runs})
     return {"worst_err_over_tolerance": worst,
             "cases": len(DTYPE_LENGTHS) * 2 * len(DTYPE_GROUPS),
+            "splits": splits, "split_launches": split_runs,
             "failed": failed}
+
+
+# Tq != Tk on the card: (Tq, Tk) longer and shorter, causal and full,
+# GQA 4 (8 q heads over 2), head_dim 64, float32 and bfloat16
+TQ_TK_CASES = tuple((tq, tk, causal, dtype)
+                    for tq, tk in ((300, 200), (129, 1000))
+                    for causal in (True, False)
+                    for dtype in ("float32", "bfloat16"))
+
+
+def tq_tk_readings(torch, gen) -> dict:
+    """flash_attention on Tq != Tk inputs on the card, forward and
+    backward: the port's plain attention on the device (the JAX package's
+    _fallback), against the plain version with autograd through it (the
+    same function: max |err| over the forward bound), with no kernel
+    launched and a plain call counted for each."""
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    kernels = (fa.flash_attention_forward, fa.flash_attention_bwd_dq,
+               fa.flash_attention_bwd_dkv)
+    launches = [f.launches for f in kernels]
+    plain = fa.flash_attention.plain_calls
+    worst = 0.0
+    for tq, tk, causal, dtype in TQ_TK_CASES:
+        def r(t, h):
+            return torch.randn(1, t, h, 64, device="cuda", generator=gen,
+                               dtype=torch.float32).to(getattr(torch, dtype))
+        inputs = (r(tq, 8), r(tk, 2), r(tk, 2))
+        do = r(tq, 8)
+        outs = []
+        for attention in (fa.flash_attention,
+                          lambda q, k, v, c: fa.flash_attention_reference(
+                              q, k, v, c)[0]):
+            leaves = [x.clone().requires_grad_(True) for x in inputs]
+            o = attention(*leaves, causal)
+            o.backward(do)
+            outs.append([o.detach(), *(x.grad for x in leaves)])
+        for got, want in zip(*outs):
+            worst = max(worst, ((got.float() - want.float()).abs()
+                                / (KERNEL_ATOL + KERNEL_RTOL
+                                   * want.float().abs())).max().item())
+    return {"cases": len(TQ_TK_CASES),
+            "worst_err_over_tolerance": worst,
+            "plain_calls": fa.flash_attention.plain_calls - plain,
+            "kernel_launches": [f.launches - n
+                                for f, n in zip(kernels, launches)]}
 
 
 def reference_suite_readings(torch, np) -> dict:
@@ -1253,15 +1343,18 @@ def phase_kernel_dtypes(torch, np, gen, seed, peaks, smi) -> dict:
     and the two steps' launches."""
     from ray_tpu_torch.models import llama
     from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.ops import flash_schedule as fs
 
     t0 = time.perf_counter()
     variants = {f"{dtype}:{D}": variant_readings(
         torch, gen, getattr(torch, dtype), D)
         for dtype, D in DTYPE_VARIANTS}
     reference = reference_suite_readings(torch, np)
+    tq_tk = tq_tk_readings(torch, gen)
     torch.cuda.empty_cache()
     emit({"phase": "kernel_dtypes", "card": smi,
           "variants": variants, "reference_suite": reference,
+          "tq_ne_tk": tq_tk,
           "tolerance": {"atol": KERNEL_ATOL, "rtol": KERNEL_RTOL,
                         "grad_atol": GRAD_ATOL, "grad_rtol": GRAD_RTOL,
                         "block_rtol": GRAD_BLOCK_RTOL,
@@ -1273,6 +1366,21 @@ def phase_kernel_dtypes(torch, np, gen, seed, peaks, smi) -> dict:
                    f"are not bitwise repeatable: {bad}")
     check(all(r["err_over_tolerance"] <= 1.0 for r in reference.values()),
           f"the JAX suite's cases fail on the card: {reference}")
+    check(tq_tk["worst_err_over_tolerance"] <= 1.0
+          and tq_tk["plain_calls"] == len(TQ_TK_CASES)
+          and tq_tk["kernel_launches"] == [0, 0, 0],
+          f"Tq != Tk is not the plain attention on the device: {tq_tk}")
+    # the head_dim-256 variants run both split paths in their gates
+    from ray_tpu_torch.ops.flash_attention import kernel_width
+    from ray_tpu_torch.ops.flash_schedule import splits
+    unsplit = [name for (dtype, D), name in zip(DTYPE_VARIANTS, variants)
+               if splits(kernel_width(D, getattr(torch, dtype)))
+               and not (any(c["fwd_split_tiles"] for c in
+                            variants[name]["splits"])
+                        and any(c["dkv_chunks"] > 1 for c in
+                                variants[name]["splits"]))]
+    check(not unsplit, f"head_dim-256 variants whose cases take no split: "
+                       f"{unsplit}")
 
     timings = {}
     for label, (B, T, Hq, Hkv, D), dtype in DTYPE_TIMED:
@@ -1299,8 +1407,26 @@ def phase_kernel_dtypes(torch, np, gen, seed, peaks, smi) -> dict:
                                         dtype=torch.float32)),
             ("d256", dataclasses.replace(base, n_layers=2, n_heads=8,
                                          n_kv_heads=1))):
+        split_runs = [fa.flash_attention_forward.split_launches,
+                      fa.flash_attention_bwd_dkv.split_launches]
         steps[label] = reduced_depth_step(torch, seed, cfg,
                                           f"{label} train step")
+        # the split launches of the step's two runs (its own
+        # batch 1 x 2048), against the schedule's split on this card
+        step = steps[label]
+        sms = fa.sm_count(torch.device("cuda"))
+        split = (fs.forward_split_tiles(1, step["T"], cfg.n_heads,
+                                        cfg.head_dim, True, sms),
+                 fs.dkv_split(1, step["T"], cfg.n_heads, cfg.n_kv_heads,
+                              cfg.head_dim, True, sms))
+        step["split"] = {"fwd_split_tiles": split[0],
+                         "dkv_chunks": split[1]}
+        step["split_launches"] = [
+            fa.flash_attention_forward.split_launches - split_runs[0],
+            fa.flash_attention_bwd_dkv.split_launches - split_runs[1]]
+        step["split_launches_want"] = [
+            step["launches"]["fwd"] * 2 * bool(split[0]),
+            step["launches"]["dkv"] * 2 * (split[1] > 1)]
         torch.cuda.empty_cache()
     gates = {label: r.pop("gates") for label, r in steps.items()}
     launches = {k: sum(r["launches"][k] for r in steps.values())
@@ -1309,6 +1435,14 @@ def phase_kernel_dtypes(torch, np, gen, seed, peaks, smi) -> dict:
           "launches": launches, "phase_s": time.perf_counter() - t0})
     for gate in gates.values():
         gate()
+    for label, step in steps.items():
+        check(step["split_launches"] == step["split_launches_want"],
+              f"the {label} step's split launches "
+              f"{step['split_launches']}, want "
+              f"{step['split_launches_want']}")
+    check(steps["d256"]["split_launches"][0] > 0
+          and steps["d256"]["split_launches"][1] > 0,
+          f"the d256 step took no split: {steps['d256']['split']}")
     return {"variants": variants, "reference_suite": reference,
             "timings": timings, "launches": launches}
 
@@ -5427,11 +5561,21 @@ def main(argv=None) -> int:
                   "fp32 rounded to bf16 by the producer threads; any head_dim "
                   ">= 1, past 256 on flash_*_wide_kernel, a block a slab of "
                   "256 output columns")
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    # the head_dim-256 split (ops/flash_schedule.py); split_launches: the
+    # run's launches that took it
+    split_note = "; at head_dim 129-256 a launch under one block an SM {}"
     kernels = [{
         "name": "flash_attention_fwd", "route": "cuda",
         "source": src + "flash_attention_fwd.cu",
         "replaces": "ray_tpu/ops/flash_attention.py:62",
-        "design": "wgmma fed by TMA (flash_attention_sm90.cuh); " + types_note,
+        "design": "wgmma fed by TMA (flash_attention_sm90.cuh); " + types_note
+        + split_note.format(
+            "splits its longest causal q tiles into two halves of their "
+            "keys, merged by lse, part 0 then part 1, by "
+            "flash_fwd_merge_kernel"),
+        "split_launches": fa.flash_attention_forward.split_launches,
         "launches": serving_launches + sum(serve_plane_launches) + sum(
             n["fwd"] for n in by_path.values()),
         "launches_by_path": {"serving": serving_launches,
@@ -5453,12 +5597,18 @@ def main(argv=None) -> int:
              "wgmma fed by TMA (flash_attention_sm90.cuh), delta fused; "
              + types_note),
             ("dkv", ":169", ("dk", "dv"),
-             "wgmma fed by TMA (flash_attention_sm90.cuh); " + types_note)):
+             "wgmma fed by TMA (flash_attention_sm90.cuh); " + types_note
+             + split_note.format(
+                 "cuts each kv tile's (q head, q stage) pairs into chunks, "
+                 "their fp32 partials summed in chunk order by "
+                 "flash_bwd_dkv_reduce_kernel"))):
         kernels.append({
             "name": f"flash_attention_bwd_{kern}", "route": "cuda",
             "source": src + "flash_attention_bwd.cu",
             "replaces": "ray_tpu/ops/flash_attention.py" + replaces,
             "design": design,
+            **({"split_launches": fa.flash_attention_bwd_dkv.split_launches}
+               if kern == "dkv" else {}),
             "launches": sum(n[kern] for n in by_path.values()),
             "launches_by_path": {p: n[kern] for p, n in by_path.items()},
             "max_abs_err": max(bwd_err[e] for e in errs),

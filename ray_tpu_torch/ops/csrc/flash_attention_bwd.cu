@@ -73,6 +73,25 @@
 //   columns; both compute them, 1.5x the products), then dV and dK of its
 //   own 128 columns, which it writes itself. Stages are 64 q rows.
 //
+// dK/dV at head_dim 256, split. A block fills an SM (200 KB of shared
+// memory), and the grid is cdiv(T, 64) * Hkv * B blocks: under MQA at a
+// 2k prefill (Gemma-2B's 8/1 heads) 32 blocks on 132 SMs, kv tile 0
+// walking 8 heads x 32 stages while the card averages 32 stages an SM,
+// so the launch was bound by one SM's walk, not by operations. Where the
+// unsplit grid is under one block an SM, the wrapper
+// (ray_tpu_torch/ops/flash_schedule.py:dkv_split, from the shape and the
+// SM count only) cuts each kv tile's (q head, q stage) pairs, in the
+// head-major order a block walks them, into n_split contiguous chunks
+// [n * c / n_split, n * (c + 1) / n_split), a block each, chunks innermost
+// on the grid and kv tiles longest first as before. A chunk's block
+// writes its fp32 partial dK and dV (the GQA group-sum of its own heads)
+// to part [2, n_split, B, T, Hkv, 256]; flash_bwd_dkv_reduce_kernel then
+// adds the partials of each row in chunk order, 0, 1, ..., never in the
+// order the blocks ended, and writes dK and dV in the input type: no
+// atomics, so the result is bitwise repeatable. At n_split 1 the block
+// runs as before and writes dK and dV itself. At 2k x 8/1: 8 chunks of
+// 32 stages, 256 blocks, and a pass over 33.5 MB of partials.
+//
 // Types (flash_attention_sm90.cuh, `Elem`): bf16 and fp16 run wgmma in
 // their own type (P and dS are rounded to it as A operands); fp32 tiles are
 // loaded by all four producer warps (which keep 40 registers), rounded to
@@ -96,8 +115,9 @@
 // below), any width. Both mask the causal diagonal
 // and the ragged tail (positions >= T; rows past T arrive as zeros and
 // are never stored), so any T >= 1 runs on them; inputs are read
-// through their [B, T, H, D] strides; no atomics and no split over the
-// reduced axis across blocks, so results are bitwise repeatable.
+// through their [B, T, H, D] strides; no atomics, and the one split over
+// the reduced axis across blocks (dK/dV at head_dim 256, above) is summed
+// in a fixed order, so results are bitwise repeatable.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -519,7 +539,8 @@ __global__ void __launch_bounds__(dkv::kThreads, 1)
                          __grid_constant__ const CUtensorMap tm_do,
                          const Src src, const float* __restrict__ lse,
                          const float* __restrict__ delta,
-                         In* __restrict__ dk, In* __restrict__ dv, int T,
+                         In* __restrict__ dk, In* __restrict__ dv,
+                         float* __restrict__ part, int n_split, int T,
                          int Hq, int Hkv, int B, int rep, int d_true,
                          int64_t dk_sb, int64_t dk_st, int64_t dk_sh,
                          int64_t dv_sb, int64_t dv_st, int64_t dv_sh,
@@ -553,15 +574,24 @@ __global__ void __launch_bounds__(dkv::kThreads, 1)
   uint8_t* ring = v_s + (kTma ? 1 : 2) * kKvBytes;
 
   // causal: kv tile 0 sees every q row, so low tiles are the longest;
-  // heads inner, so the longest tiles of every head are scheduled first
+  // heads inner, so the longest tiles of every head are scheduled first;
+  // split (head_dim 256), a block a chunk of a tile's pairs, chunks
+  // innermost
   const int heads = Hkv * B;
-  const int kvtile = blockIdx.x / heads;
-  const int hk = (blockIdx.x % heads) % Hkv, b = (blockIdx.x % heads) / Hkv;
+  const int kvtile = blockIdx.x / (kSplitCols ? heads * n_split : heads);
+  const unsigned hb = kSplitCols ? blockIdx.x % (heads * n_split) / n_split
+                                 : blockIdx.x % heads;
+  const int chunk = kSplitCols ? blockIdx.x % n_split : 0;
+  const int hk = hb % Hkv, b = hb / Hkv;
   const int k0 = kvtile * kKvRows;
   // the stages of one q head start at the diagonal when causal
   const int q_start = causal ? k0 : 0;
   const int n_qs = cdiv(T - q_start, kQRows);
-  const int n_iter = rep * n_qs;  // (q head, stage) pairs, head-major
+  // (q head, stage) pairs, head-major: the tile's rep * n_qs, or split,
+  // chunk `chunk` of n_split contiguous ones, [it0, it0 + n_iter)
+  const int it0 = kSplitCols ? rep * n_qs * chunk / n_split : 0;
+  const int n_iter =
+      kSplitCols ? rep * n_qs * (chunk + 1) / n_split - it0 : rep * n_qs;
 
   if (threadIdx.x == 0) {
     // TMA: one expect_tx arrival plus the 32 lanes that write lse, delta;
@@ -602,11 +632,12 @@ __global__ void __launch_bounds__(dkv::kThreads, 1)
                       k0, b);
         }
       }
-      for (int it = 0; it < n_iter; ++it) {
+      for (int i = 0; i < n_iter; ++i) {
+        const int it = it0 + i;
         const int h = hk * rep + it / n_qs;
         const int qs0 = q_start + (it % n_qs) * kQRows;
-        const int s = it % kStages;
-        mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
+        const int s = i % kStages;
+        mbar_wait(&empty[s], ((i / kStages) & 1) ^ 1);
         uint8_t* stage = ring + s * kStageBytes;
         if constexpr (!kTma) {
           sm90::convert_rows<kQRows, D>(
@@ -657,17 +688,17 @@ __global__ void __launch_bounds__(dkv::kThreads, 1)
     for (int i = 0; i < kAccCols / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
 
     mbar_wait(&kv_full, 0);
-    for (int it = 0; it < n_iter; ++it) {
-      const int jq = it % n_qs;
+    for (int i = 0; i < n_iter; ++i) {
+      const int jq = (it0 + i) % n_qs;
       const int wq0 = q_start + jq * kQRows + 64 * cq;  // this warpgroup's
-      const int s = it % kStages;                       // first q row
+      const int s = i % kStages;                        // first q row
       uint8_t* stage = ring + s * kStageBytes;
       const uint32_t q_addr = smem_addr(stage) + cq * 64 * 128;
       const uint32_t do_addr = q_addr + kTileBytes;
       const float* lse_s =
           reinterpret_cast<const float*>(stage + kRowsAt) + 64 * cq;
       const float* dlt_s = lse_s + kQRows;
-      mbar_wait(&full[s], (it / kStages) & 1);
+      mbar_wait(&full[s], (i / kStages) & 1);
 
       if (wq0 < T) {
         // S^T = K Q^T and dP^T = V dO^T: 64 keys x 64 queries
@@ -765,7 +796,28 @@ __global__ void __launch_bounds__(dkv::kThreads, 1)
       }
     };
     if constexpr (kSplitCols) {
-      store([](int) { return 0.f; });  // the columns are this consumer's
+      if (n_split == 1) {
+        store([](int) { return 0.f; });  // the columns are this consumer's
+      } else {
+        // this chunk's fp32 partial sums, for flash_bwd_dkv_reduce_kernel:
+        // part [2 (dK, dV), n_split, B, T, Hkv, D]
+        const int64_t plane = (int64_t)n_split * B * T * Hkv * D;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int key = key0 + 8 * r;
+          if (key >= T) continue;
+          float* dk_row =
+              part + ((((int64_t)chunk * B + b) * T + key) * Hkv + hk) * D;
+#pragma unroll
+          for (int jn = 0; jn < kAccCols / 8; ++jn) {
+            const int col = col0 + 8 * jn + 2 * tg;
+            if (col >= d_true) continue;
+            const int i0 = 4 * jn + 2 * r;
+            sm90::store2(dk_row + col, dk_acc[i0], dk_acc[i0 + 1]);
+            sm90::store2(dk_row + plane + col, dv_acc[i0], dv_acc[i0 + 1]);
+          }
+        }
+      }
     } else {
       // the two consumers' partial sums meet in shared memory (K, V and
       // the ring are idle now): the second writes, the first adds in a
@@ -783,6 +835,44 @@ __global__ void __launch_bounds__(dkv::kThreads, 1)
       sm90::named_barrier(1, 256);
       if (c == 0) store([&](int i) { return red[i * 128 + t]; });
     }
+  }
+}
+
+// The split's second pass (head_dim 256): dK and dV from the chunks' fp32
+// partial sums, added in chunk order (chunk 0, then 1, ...) whatever order
+// the chunks ended in, so the result is bitwise repeatable; no atomics.
+// A warp a (dK or dV, b, key, kv head) row, 8 rows a block. Bound by
+// bytes: n_split fp32 rows read, one row written in the input type.
+constexpr int kReduceRows = 8;  // rows a block, a warp each
+
+template <typename In>
+__global__ void __launch_bounds__(32 * kReduceRows)
+    flash_bwd_dkv_reduce_kernel(const float* __restrict__ part,
+                                In* __restrict__ dk, In* __restrict__ dv,
+                                int n_split, int T, int Hkv, int B,
+                                int d_true, int64_t dk_sb, int64_t dk_st,
+                                int64_t dk_sh, int64_t dv_sb, int64_t dv_st,
+                                int64_t dv_sh) {
+  constexpr int kD = 256;  // the partials' row width
+  const int lane = threadIdx.x % 32;
+  const int64_t rows = (int64_t)B * T * Hkv;  // a plane's rows, a chunk's
+  const int64_t at = (int64_t)blockIdx.x * kReduceRows + threadIdx.x / 32;
+  if (at >= 2 * rows) return;
+  const int which = at / rows;  // 0: dK, 1: dV
+  const int64_t row = at % rows;
+  const int hk = row % Hkv, t = (row / Hkv) % T, b = row / ((int64_t)Hkv * T);
+  const float* src = part + ((int64_t)which * n_split * rows + row) * kD;
+  In* out = which ? dv + b * dv_sb + t * dv_st + hk * dv_sh
+                  : dk + b * dk_sb + t * dk_st + hk * dk_sh;
+  for (int col = 2 * lane; col < d_true; col += 64) {
+    float2 sum = *reinterpret_cast<const float2*>(src + col);
+    for (int c = 1; c < n_split; ++c) {
+      const float2 x =
+          *reinterpret_cast<const float2*>(src + c * rows * kD + col);
+      sum.x += x.x;
+      sum.y += x.y;
+    }
+    sm90::store2(out + col, sum.x, sum.y);
   }
 }
 
@@ -862,9 +952,10 @@ int dkv_config(int* out) {
 
 template <int D, int kStages, typename In>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
-               const void* lse, const void* delta, void* dk, void* dv, int B,
-               int T, int Hq, int Hkv, int d_true, const long long* s,
-               float scale, int causal, cudaStream_t stream) {
+               const void* lse, const void* delta, void* dk, void* dv,
+               void* part, int n_split, int B, int T, int Hq, int Hkv,
+               int d_true, const long long* s, float scale, int causal,
+               cudaStream_t stream) {
   using dkv::kKvRows;
   constexpr int kQRows = dkv::Shape<D, In>::kQRows;
   CUtensorMap tm_q, tm_k, tm_v, tm_do;
@@ -881,12 +972,22 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   auto kernel = flash_bwd_dkv_kernel<D, kStages, In>;
   if (!err) err = sm90::prepare_launch(kernel, kSmem, dkv::kLaunchRegs);
   if (err) return err;
-  const int grid = cdiv(T, kKvRows) * Hkv * B;
+  // split: n_split blocks a (kv tile, kv head, batch)
+  const int grid = cdiv(T, kKvRows) * Hkv * B * n_split;
   kernel<<<grid, dkv::kThreads, kSmem, stream>>>(
       tm_q, tm_k, tm_v, tm_do, src, static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<In*>(dk),
-      static_cast<In*>(dv), T, Hq, Hkv, B, Hq / Hkv, d_true, s[12], s[13],
-      s[14], s[15], s[16], s[17], scale, causal);
+      static_cast<In*>(dv), static_cast<float*>(part), n_split, T, Hq, Hkv,
+      B, Hq / Hkv, d_true, s[12], s[13], s[14], s[15], s[16], s[17], scale,
+      causal);
+  err = static_cast<int>(cudaGetLastError());
+  if (err || n_split == 1) return err;
+  const int64_t rows = 2 * (int64_t)B * T * Hkv;
+  flash_bwd_dkv_reduce_kernel<In>
+      <<<(int)((rows + kReduceRows - 1) / kReduceRows), 32 * kReduceRows, 0,
+         stream>>>(static_cast<const float*>(part), static_cast<In*>(dk),
+                   static_cast<In*>(dv), n_split, T, Hkv, B, d_true, s[12],
+                   s[13], s[14], s[15], s[16], s[17]);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1602,26 +1703,26 @@ int launch_dq_for(const void* q, const void* k, const void* v, const void* o,
 template <typename In>
 int launch_dkv_for(const void* q, const void* k, const void* v,
                    const void* dout, const void* lse, const void* delta,
-                   void* dk, void* dv, int B, int T, int Hq, int Hkv, int D,
-                   const long long* s, float scale, int causal,
-                   cudaStream_t st) {
+                   void* dk, void* dv, void* part, int n_split, int B, int T,
+                   int Hq, int Hkv, int D, const long long* s, float scale,
+                   int causal, cudaStream_t st) {
   if (D > wide::kSlab) {
     return launch_dkv_wide<In>(q, k, v, dout, lse, delta, dk, dv, B, T, Hq,
                                Hkv, D, s, scale, causal, st);
   }
   if (D <= 64) {
     return launch_dkv<64, dkv_stages<In>(64), In>(
-        q, k, v, dout, lse, delta, dk, dv, B, T, Hq, Hkv, D, s, scale,
-        causal, st);
+        q, k, v, dout, lse, delta, dk, dv, nullptr, 1, B, T, Hq, Hkv, D, s,
+        scale, causal, st);
   }
   if (D <= 128) {
     return launch_dkv<128, dkv_stages<In>(128), In>(
-        q, k, v, dout, lse, delta, dk, dv, B, T, Hq, Hkv, D, s, scale,
-        causal, st);
+        q, k, v, dout, lse, delta, dk, dv, nullptr, 1, B, T, Hq, Hkv, D, s,
+        scale, causal, st);
   }
   return launch_dkv<256, dkv_stages<In>(256), In>(
-      q, k, v, dout, lse, delta, dk, dv, B, T, Hq, Hkv, D, s, scale, causal,
-      st);
+      q, k, v, dout, lse, delta, dk, dv, part, n_split, B, T, Hq, Hkv, D, s,
+      scale, causal, st);
 }
 
 template <typename In>
@@ -1691,22 +1792,30 @@ int flash_attention_bwd_dq_config(int D, int dtype, int* out) {
 // As above, writing dk and dv [B, T, Hkv, D] in the input type (summed
 // over the rep q heads of each kv head). strides: 18 element strides
 // (batch, time, head) of q, k, v, dout, dk and dv in that order; every
-// base is 16-byte aligned (TMA). Returns 0 on success, else a cudaError_t
-// or one of the codes that flash_attention_error_string names.
+// base is 16-byte aligned (TMA). n_split: the chunks each kv tile's (q
+// head, q stage) pairs are cut into, 1 or, at 128 < D <= 256 only, up to
+// 64 (ray_tpu_torch/ops/flash_schedule.py chooses it); part [2, n_split,
+// B, T, Hkv, 256] fp32 holds the chunks' partial dK and dV (null when
+// n_split is 1). Launches on `stream` (the kernel and, split, the
+// reduction); returns 0 on success, else a cudaError_t or one of the
+// codes that flash_attention_error_string names.
 int flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
                             const void* dout, const void* lse,
-                            const void* delta, void* dk, void* dv, int B,
-                            int T, int Hq, int Hkv, int D, int d_head,
-                            int dtype, const long long* strides, int causal,
+                            const void* delta, void* dk, void* dv,
+                            void* part, int B, int T, int Hq, int Hkv, int D,
+                            int d_head, int n_split, int dtype,
+                            const long long* strides, int causal,
                             void* stream) {
   if (bad_shape(B, T, Hq, Hkv) || dtype != FLASH_DTYPE ||
-      bad_head_dim(D, d_head, dtype)) {
+      bad_head_dim(D, d_head, dtype) || n_split < 1 || n_split > 64 ||
+      (n_split > 1 && (D <= 128 || D > wide::kSlab || part == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const float scale = 1.f / sqrtf(static_cast<float>(d_head));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return launch_dkv_for<Built>(q, k, v, dout, lse, delta, dk, dv, B, T, Hq,
-                               Hkv, D, strides, scale, causal, st);
+  return launch_dkv_for<Built>(q, k, v, dout, lse, delta, dk, dv, part,
+                               n_split, B, T, Hq, Hkv, D, strides, scale,
+                               causal, st);
 }
 
 // The launch shape of the dK/dV kernel that head_dim D of type `dtype`

@@ -48,8 +48,30 @@
 //   call computes with bf16 operands and fp32 sums; that producer keeps
 //   40 registers (Split); O is written in the input type;
 // - causal blocks run longest first (the last q tiles, of every head);
-// - inputs are read through their [B, T, H, D] strides; no atomics and
-//   no split over keys, so the result is bitwise repeatable.
+// - at head_dim 256, causal, a launch under one block an SM is split over
+//   keys (below); inputs are read through their [B, T, H, D] strides; no
+//   atomics, and the split's halves are merged in a fixed order, so the
+//   result is bitwise repeatable.
+//
+// Split (head_dim 256, causal). A block fills an SM (193 KB), and q tile
+// i walks 2 (i + 1) key stages: at a 2k prefill of 8 heads the grid is
+// 128 blocks on 132 SMs, the last tiles walking 32 stages against an
+// average of 17, so the launch was bound by the longest walk. Where the
+// unsplit grid is under one block an SM, the wrapper
+// (ray_tpu_torch/ops/flash_schedule.py:forward_split_tiles, from the
+// shape and the SM count only) names n_split, and the last n_split q
+// tiles (the longest) each become two blocks, over the first half of
+// their key stages and over the rest, still 128 q rows a block, so each
+// K/V stage feeds as many rows as before. A half writes its fp32 o (over
+// its own l) and lse to a workspace; flash_fwd_merge_kernel then weighs
+// part 0 and part 1 by exp(lse_p - lse), in that order, and writes o and
+// the merged lse (which the backward kernels read). The grid runs its
+// units longest first (fwd_unit). What bounds it then: a stage takes
+// about a fifth longer on a full card than on a partly idle one (each
+// block streams 64 KB of K and V a stage from L2), so splitting more than
+// the tiles whose walk is above three quarters of the longest does not
+// pay; at 2k x 8/1 heads on an H100, 4 tiles split, 160 blocks, the
+// longest walking 24 stages, 0.054 ms against 0.062 unsplit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -71,6 +93,45 @@ __host__ __device__ constexpr int block_n(int D) { return D > 128 ? 64 : 128; }
 template <int kConsumers, typename In>
 using FwdSplit = Split<kConsumers, Elem<In>::kTma ? 24 : 40>;
 
+// The split (head_dim 256): the key stages a causal q tile walks, and the
+// unit of the grid a block takes. Units run longest first: the halves of
+// the last n_split q tiles (the second half of a tile first) merged with
+// the whole tiles, a half before a whole tile of its length. Mirrored by
+// ray_tpu_torch/ops/flash_schedule.py:forward_units.
+constexpr int kSplitRows = 128, kSplitKeys = 64;  // the D-256 tile, stage
+
+__device__ inline int causal_walk(int qtile, int T) {
+  const int end = (qtile + 1) * kSplitRows;
+  return cdiv(end < T ? end : T, kSplitKeys);
+}
+
+// q tile and part (0: the first half of its stages, 1: the second, -1:
+// all) of unit `rank`
+__device__ inline void fwd_unit(int rank, int n_qtiles, int n_split, int T,
+                                int* qtile, int* part) {
+  int s = 0, w = 0;  // halves and whole tiles taken
+  const int n_whole = n_qtiles - n_split;
+  for (;; --rank) {
+    int ls = -1, lw = -1;
+    if (s < 2 * n_split) {
+      const int n = causal_walk(n_qtiles - 1 - s / 2, T);
+      ls = s % 2 == 0 ? n - n / 2 : n / 2;
+    }
+    if (w < n_whole) lw = causal_walk(n_whole - 1 - w, T);
+    const bool half = ls >= lw;
+    if (rank == 0) {
+      *qtile = half ? n_qtiles - 1 - s / 2 : n_whole - 1 - w;
+      *part = half ? 1 - s % 2 : -1;
+      return;
+    }
+    if (half) {
+      ++s;
+    } else {
+      ++w;
+    }
+  }
+}
+
 template <int D, int kStages, int kConsumers, typename In>
 __global__ void __launch_bounds__(FwdSplit<kConsumers, In>::kThreads,
                                   FwdSplit<kConsumers, In>::kBlocksPerSm)
@@ -78,8 +139,9 @@ __global__ void __launch_bounds__(FwdSplit<kConsumers, In>::kThreads,
                      __grid_constant__ const CUtensorMap tm_k,
                      __grid_constant__ const CUtensorMap tm_v,
                      const Src src, In* __restrict__ o,
-                     float* __restrict__ lse, int T, int Hq, int B, int rep,
-                     int d_true, int64_t o_sb, int64_t o_st, int64_t o_sh,
+                     float* __restrict__ lse, float* __restrict__ halves,
+                     int n_split, int T, int Hq, int B, int rep, int d_true,
+                     int64_t o_sb, int64_t o_st, int64_t o_sh,
                      float scale_log2, int causal) {
   using S = FwdSplit<kConsumers, In>;
   using Op = typename Elem<In>::Op;
@@ -102,10 +164,17 @@ __global__ void __launch_bounds__(FwdSplit<kConsumers, In>::kThreads,
   const int heads = Hq * B;
   const int n_qtiles = cdiv(T, kBlockM);
   const int rank = blockIdx.x / heads;  // heads inner: longest tiles first
-  const int qtile = causal ? n_qtiles - 1 - rank : rank;
+  int qtile = causal ? n_qtiles - 1 - rank : rank;
+  int part = -1;  // the whole key range, or a half of a split tile's
+  if constexpr (D > 128) {
+    if (n_split > 0) fwd_unit(rank, n_qtiles, n_split, T, &qtile, &part);
+  }
   const int h = (blockIdx.x % heads) % Hq, b = (blockIdx.x % heads) / Hq;
   const int q0 = qtile * kBlockM;
   const int n_tiles = cdiv(causal ? min(q0 + kBlockM, T) : T, kBlockN);
+  // the key stages [j0, j1) this block walks
+  const int j0 = part == 1 ? n_tiles / 2 : 0;
+  const int j1 = part == 0 ? n_tiles / 2 : n_tiles;
 
   if (threadIdx.x == 0) {
     // a TMA tile completes on one arrival (and its bytes), a converted one
@@ -132,8 +201,8 @@ __global__ void __launch_bounds__(FwdSplit<kConsumers, In>::kThreads,
       const float* k_rows = head_rows(src.ptr[1], src.stride[1], b, hk);
       const float* v_rows = head_rows(src.ptr[2], src.stride[2], b, hk);
       auto load = [&](int j, int which, uint64_t* full, uint64_t* empty) {
-        const int s = j % kStages;
-        mbar_wait(&empty[s], ((j / kStages) & 1) ^ 1);
+        const int s = (j - j0) % kStages;
+        mbar_wait(&empty[s], (((j - j0) / kStages) & 1) ^ 1);
         convert_rows<kBlockN, D>(kv_s + (2 * s + which) * kKVBytes,
                                  which ? v_rows : k_rows,
                                  src.stride[which + 1][1], j * kBlockN, T,
@@ -145,17 +214,17 @@ __global__ void __launch_bounds__(FwdSplit<kConsumers, In>::kThreads,
                                src.stride[0][1], q0, T, d_true, tid);
       fence_proxy_async();
       mbar_arrive(&q_full);
-      load(0, 0, k_full, k_empty);
-      for (int j = 0; j < n_tiles; ++j) {
-        if (j + 1 < n_tiles) load(j + 1, 0, k_full, k_empty);
+      load(j0, 0, k_full, k_empty);
+      for (int j = j0; j < j1; ++j) {
+        if (j + 1 < j1) load(j + 1, 0, k_full, k_empty);
         load(j, 1, v_full, v_empty);
       }
     } else if (threadIdx.x == 0) {
       const int hk = h / rep;
       // tile j's K or V into its stage, once the consumers have freed it
       auto load = [&](int j, int which, uint64_t* full, uint64_t* empty) {
-        const int s = j % kStages;
-        mbar_wait(&empty[s], ((j / kStages) & 1) ^ 1);
+        const int s = (j - j0) % kStages;
+        mbar_wait(&empty[s], (((j - j0) / kStages) & 1) ^ 1);
         mbar_arrive_expect_tx(&full[s], kKVBytes);
         uint8_t* dst = kv_s + (2 * s + which) * kKVBytes;
 #pragma unroll
@@ -171,9 +240,9 @@ __global__ void __launch_bounds__(FwdSplit<kConsumers, In>::kThreads,
                     b);
       }
       // K runs one tile ahead of V, as the consumers use them
-      load(0, 0, k_full, k_empty);
-      for (int j = 0; j < n_tiles; ++j) {
-        if (j + 1 < n_tiles) load(j + 1, 0, k_full, k_empty);
+      load(j0, 0, k_full, k_empty);
+      for (int j = j0; j < j1; ++j) {
+        if (j + 1 < j1) load(j + 1, 0, k_full, k_empty);
         load(j, 1, v_full, v_empty);
       }
     }
@@ -194,9 +263,9 @@ __global__ void __launch_bounds__(FwdSplit<kConsumers, In>::kThreads,
     float l[2] = {0.f, 0.f};  // this thread's share of the running sum
 
     mbar_wait(&q_full, 0);
-    for (int j = 0; j < n_tiles; ++j) {
-      const int s = j % kStages;
-      const uint32_t parity = (j / kStages) & 1;
+    for (int j = j0; j < j1; ++j) {
+      const int s = (j - j0) % kStages;
+      const uint32_t parity = ((j - j0) / kStages) & 1;
       const uint32_t k_addr = kv_addr + 2 * s * kKVBytes;
       const uint32_t v_addr = k_addr + kKVBytes;
 
@@ -292,6 +361,26 @@ __global__ void __launch_bounds__(FwdSplit<kConsumers, In>::kThreads,
       const float inv = 1.f / sum;
       const int row = row0 + r * 8;
       if (row >= T) continue;
+      if (D > 128 && part >= 0) {
+        // a half's fp32 o and lse, for flash_fwd_merge_kernel: row `at` of
+        // part p's [B, Hq, n_split, kBlockM] rows of 256 columns, the lse
+        // of all rows after all rows of o
+        const int64_t rows = (int64_t)B * Hq * n_split * kBlockM;
+        const int64_t at =
+            part * rows +
+            (((int64_t)b * Hq + h) * n_split + qtile - (n_qtiles - n_split)) *
+                kBlockM + row - q0;
+        if (tg == 0) halves[2 * rows * D + at] = m[r] * kLn2 + logf(sum);
+#pragma unroll
+        for (int jn = 0; jn < D / 8; ++jn) {
+          const int col = 8 * jn + 2 * tg;
+          if (col < d_true) {
+            store2(halves + at * D + col, acc[4 * jn + 2 * r] * inv,
+                   acc[4 * jn + 2 * r + 1] * inv);
+          }
+        }
+        continue;
+      }
       if (tg == 0) {
         lse[((int64_t)b * Hq + h) * T + row] = m[r] * kLn2 + logf(sum);
       }
@@ -304,6 +393,61 @@ __global__ void __launch_bounds__(FwdSplit<kConsumers, In>::kThreads,
                  acc[4 * jn + 2 * r + 1] * inv);
         }
       }
+    }
+  }
+}
+
+// The split's second pass: o and lse of the split q tiles' rows from their
+// two halves, part 0 then part 1, each weighed by exp(its lse - the merged
+// lse), as parallel/ring_attention.py merges the ring's blocks; a fixed
+// order, so it is bitwise repeatable. Bound by bytes (two fp32 rows read,
+// one row of o written): a warp a row, eight columns a lane, each lane's
+// four 16-byte loads issued before any is used; 8 rows a block.
+constexpr int kMergeRows = 8;
+
+template <typename In>
+__global__ void __launch_bounds__(32 * kMergeRows)
+    flash_fwd_merge_kernel(const float* __restrict__ part,
+                           In* __restrict__ o, float* __restrict__ lse,
+                           int n_split, int T, int Hq, int B, int d_true,
+                           int64_t o_sb, int64_t o_st, int64_t o_sh) {
+  constexpr int kD = 256;  // the halves' row width
+  const int lane = threadIdx.x % 32;
+  // row `at` of part 0's [B, Hq, n_split, 128] rows; part 1's follow
+  const int64_t at = (int64_t)blockIdx.x * kMergeRows + threadIdx.x / 32;
+  const int64_t rows = (int64_t)B * Hq * n_split * kSplitRows;
+  if (at >= rows) return;
+  const int r = at % kSplitRows;
+  const int64_t slot = at / kSplitRows;
+  const int sj = slot % n_split, h = (slot / n_split) % Hq,
+            b = slot / ((int64_t)n_split * Hq);
+  const int row = (cdiv(T, kSplitRows) - n_split + sj) * kSplitRows + r;
+  if (row >= T) return;
+  float4 x[2][2];  // [part][column group]: columns 4 lane + 128 g
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+#pragma unroll
+    for (int g = 0; g < 2; ++g) {
+      x[p][g] = *reinterpret_cast<const float4*>(
+          part + (p * rows + at) * kD + 4 * lane + 128 * g);
+    }
+  }
+  const float l0 = part[2 * rows * kD + at];
+  const float l1 = part[2 * rows * kD + rows + at];
+  const float mx = fmaxf(l0, l1);
+  const float e0 = expf(l0 - mx);
+  const float e1 = expf(l1 - mx);
+  const float sum = e0 + e1;
+  const float w0 = e0 / sum, w1 = e1 / sum;
+  if (lane == 0) lse[((int64_t)b * Hq + h) * T + row] = mx + logf(sum);
+  In* out = o + b * o_sb + h * o_sh + (int64_t)row * o_st;
+#pragma unroll
+  for (int g = 0; g < 2; ++g) {
+    const int col = 4 * lane + 128 * g;
+    const float4 a = x[0][g], c = x[1][g];
+    if (col < d_true) store2(out + col, w0 * a.x + w1 * c.x, w0 * a.y + w1 * c.y);
+    if (col + 2 < d_true) {
+      store2(out + col + 2, w0 * a.z + w1 * c.z, w0 * a.w + w1 * c.w);
     }
   }
 }
@@ -327,8 +471,9 @@ int config(int* out) {
 
 template <int D, int kStages, int kConsumers, typename In>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse,
-           int B, int T, int Hq, int Hkv, int d_true, const long long* s,
-           float scale_log2, int causal, cudaStream_t stream) {
+           void* part, int n_split, int B, int T, int Hq,
+           int Hkv, int d_true, const long long* s, float scale_log2,
+           int causal, cudaStream_t stream) {
   using S = FwdSplit<kConsumers, In>;
   constexpr int kBlockM = 64 * kConsumers;
   constexpr int kBlockN = block_n(D);
@@ -344,10 +489,20 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
   auto kernel = flash_fwd_kernel<D, kStages, kConsumers, In>;
   if (!err) err = prepare_launch(kernel, kSmem, S::kLaunchRegs);
   if (err) return err;
-  const int grid = cdiv(T, kBlockM) * Hq * B;
+  // split: a block per half of each of the last n_split q tiles
+  const int grid = (cdiv(T, kBlockM) + n_split) * Hq * B;
   kernel<<<grid, S::kThreads, kSmem, stream>>>(
       tm_q, tm_k, tm_v, src, static_cast<In*>(o), static_cast<float*>(lse),
-      T, Hq, B, Hq / Hkv, d_true, s[9], s[10], s[11], scale_log2, causal);
+      static_cast<float*>(part), n_split, T, Hq, B, Hq / Hkv, d_true, s[9],
+      s[10], s[11], scale_log2, causal);
+  err = static_cast<int>(cudaGetLastError());
+  if (err || n_split == 0) return err;
+  const int64_t rows = (int64_t)B * Hq * n_split * kSplitRows;
+  flash_fwd_merge_kernel<In>
+      <<<(int)((rows + kMergeRows - 1) / kMergeRows), 32 * kMergeRows, 0,
+         stream>>>(static_cast<const float*>(part), static_cast<In*>(o),
+                   static_cast<float*>(lse), n_split, T, Hq, B, d_true, s[9],
+                   s[10], s[11]);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -663,23 +818,23 @@ int launch_wide(const void* q, const void* k, const void* v, void* o,
 // past 256 the slab kernel above.
 template <typename In>
 int launch_for(const void* q, const void* k, const void* v, void* o,
-               void* lse, int B, int T, int Hq, int Hkv, int D,
-               const long long* s, float scale_log2, int causal,
-               cudaStream_t stream) {
+               void* lse, void* part, int n_split, int B, int T, int Hq,
+               int Hkv, int D, const long long* s,
+               float scale_log2, int causal, cudaStream_t stream) {
   if (D > wide::kSlab) {
     return launch_wide<In>(q, k, v, o, lse, B, T, Hq, Hkv, D, s, scale_log2,
                            causal, stream);
   }
   if (D <= 64) {
-    return launch<64, 2, 1, In>(q, k, v, o, lse, B, T, Hq, Hkv, D, s,
-                                scale_log2, causal, stream);
+    return launch<64, 2, 1, In>(q, k, v, o, lse, nullptr, 0, B, T, Hq, Hkv,
+                                D, s, scale_log2, causal, stream);
   }
   if (D <= 128) {
-    return launch<128, 2, 2, In>(q, k, v, o, lse, B, T, Hq, Hkv, D, s,
-                                 scale_log2, causal, stream);
+    return launch<128, 2, 2, In>(q, k, v, o, lse, nullptr, 0, B, T, Hq, Hkv,
+                                 D, s, scale_log2, causal, stream);
   }
-  return launch<256, 2, 2, In>(q, k, v, o, lse, B, T, Hq, Hkv, D, s,
-                               scale_log2, causal, stream);
+  return launch<256, 2, 2, In>(q, k, v, o, lse, part, n_split, B, T, Hq, Hkv,
+                               D, s, scale_log2, causal, stream);
 }
 
 template <typename In>
@@ -702,21 +857,29 @@ extern "C" {
 // base 16-byte aligned. D is the tensors' head_dim, any D >= 1 with rows
 // a multiple of 16 bytes; d_head <= D the true head_dim (the scale is
 // 1/sqrt(d_head); columns d_head .. D - 1 are zeros the wrapper padded
-// with). Launches on `stream`; returns 0 on success, else a cudaError_t or
-// one of the codes that flash_attention_error_string names.
+// with). n_split: the q tiles (the last ones) split into two halves of
+// their keys, 0 or, causal at 128 < D <= 256 only, up to cdiv(T, 128)
+// (ray_tpu_torch/ops/flash_schedule.py chooses it); part, fp32, holds the
+// halves' o [2, B, Hq, n_split, 128, 256] and then their lse [2, B, Hq,
+// n_split, 128], null when n_split is 0. Launches on `stream` (the kernel
+// and, split, the merge); returns 0 on success, else a cudaError_t or one
+// of the codes that flash_attention_error_string names.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                        void* lse, int B, int T, int Hq, int Hkv, int D,
-                        int d_head, int dtype, const long long* strides,
-                        int causal, void* stream) {
+                        void* lse, void* part, int B, int T, int Hq, int Hkv,
+                        int D, int d_head, int n_split, int dtype,
+                        const long long* strides, int causal, void* stream) {
   if (B < 1 || T < 1 || Hkv < 1 || Hq % Hkv != 0 || dtype != FLASH_DTYPE ||
-      bad_head_dim(D, d_head, dtype)) {
+      bad_head_dim(D, d_head, dtype) || n_split < 0 ||
+      n_split > cdiv(T, kSplitRows) ||
+      (n_split > 0 &&
+       (!causal || D <= 128 || D > wide::kSlab || part == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const float scale_log2 =
       1.4426950408889634f / sqrtf(static_cast<float>(d_head));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return launch_for<Built>(q, k, v, o, lse, B, T, Hq, Hkv, D, strides,
-                           scale_log2, causal, st);
+  return launch_for<Built>(q, k, v, o, lse, part, n_split, B, T, Hq, Hkv, D,
+                           strides, scale_log2, causal, st);
 }
 
 // The launch shape of the kernel that head_dim D of type `dtype` runs on:

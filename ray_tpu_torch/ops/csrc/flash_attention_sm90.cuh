@@ -51,7 +51,10 @@
 #include <stdio.h>
 #include <string.h>
 
+#include <mutex>
 #include <type_traits>
+#include <utility>
+#include <vector>
 
 namespace sm90 {
 
@@ -606,14 +609,32 @@ inline int prepare_input(CUtensorMap* map, Src* src, int i, const void* base,
 // (kErrRegisters) a kernel whose register count is not `regs`, the count
 // its setmaxnreg split is planned on (another count would leave the
 // consumers' setmaxnreg.inc waiting for registers that never come free).
+// Done once a kernel and device: both hold for the process, and the two
+// runtime calls cost microseconds of host time a launch.
 template <typename Kernel>
 inline int prepare_launch(Kernel kernel, int smem_bytes, int regs) {
+  static std::mutex mu;
+  static std::vector<std::pair<const void*, int>> prepared;
+  const void* key = reinterpret_cast<const void*>(kernel);
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    for (const auto& p : prepared) {
+      if (p.first == key && p.second == dev) return 0;
+    }
+  }
   cudaFuncAttributes attr;
-  cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
+  e = cudaFuncGetAttributes(&attr, kernel);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (attr.numRegs != regs) return kErrRegisters;
   e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            smem_bytes);
+  if (e == cudaSuccess) {
+    std::lock_guard<std::mutex> lock(mu);
+    prepared.emplace_back(key, dev);
+  }
   return static_cast<int>(e);
 }
 

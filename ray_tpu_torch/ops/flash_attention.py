@@ -19,7 +19,11 @@ On CPU tensors the plain versions (:func:`flash_attention_reference`,
 two halves together, as the JAX package's ``custom_vjp`` does.
 
 The kernels mask a ragged last tile themselves, so every T >= 1 runs on
-them, where the JAX package falls back for T that does not block. They
+them, where the JAX package falls back for T that does not block. A
+query length other than the key length (Tq != Tk) is what the JAX
+package's ``flash_attention`` sends to its plain ``_fallback`` on every
+backend; :func:`flash_attention` does the same on every device
+(:func:`plain_attention`), and the kernels themselves refuse it. They
 take what the Pallas kernels take:
 
 - bfloat16, float16 and float32 q/k/v (one dtype throughout); o and the
@@ -41,6 +45,14 @@ take what the Pallas kernels take:
   softmax scale is 1/sqrt(D) of the true head_dim, and only the true
   columns are used.
 
+At head_dim 129–256, where a block fills an SM, a launch of few heads
+that leaves the card under-filled is split (:mod:`flash_schedule`): the
+dK/dV kernel cuts each kv tile's (q head, q stage) pairs into chunks
+summed by a second pass in chunk order, the causal forward its longest q
+tiles into two halves of their keys merged by lse in a second pass. The
+partials are float32 in a workspace the wrapper allocates; the order of
+each sum is fixed, so results stay bitwise repeatable.
+
 The kernels launch through ``ctypes``, where no dispatch mode sees them.
 So each launch reports its exact work (:func:`attention_work`) to every
 open :class:`KernelTally`; the program observatory opens one around a
@@ -53,11 +65,14 @@ therefore counts other FLOPs on the CPU than on the card.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 import threading
 from typing import Dict, List
 
 import torch
+
+from ray_tpu_torch.ops import flash_schedule
 
 NEG_INF = -1e30
 # the dtypes the CUDA kernels take, by their code in the C entry points
@@ -346,10 +361,11 @@ def _launch(kernel: str, entry: str, device, pointers, ints, strided,
             causal: bool) -> None:
     """Call C entry point ``entry`` of ``kernel``'s library for the dtype
     of the first pointer (built at first use) on the current stream: the
-    tensors' data pointers, the int arguments (the last the dtype's code),
-    the (batch, time, head) strides of ``strided``, causal and the stream.
-    Raise if the launch was refused (each library names a cudaError_t
-    with its own ``flash_attention_error_string``)."""
+    tensors' data pointers (None: a null pointer), the int arguments (the
+    last the dtype's code), the (batch, time, head) strides of
+    ``strided``, causal and the stream. Raise if the launch was refused
+    (each library names a cudaError_t with its own
+    ``flash_attention_error_string``)."""
     from ray_tpu_torch.ops._build import library_name, load
 
     lib = load(library_name(kernel, KERNEL_DTYPES[pointers[0].dtype]))
@@ -362,19 +378,36 @@ def _launch(kernel: str, entry: str, device, pointers, ints, strided,
     strides = (ctypes.c_longlong * (3 * len(strided)))(
         *(s for t in strided for s in t.stride()[:3]))
     with torch.cuda.device(device):
-        err = fn(*(t.data_ptr() for t in pointers), *ints, strides,
-                 int(causal), torch.cuda.current_stream().cuda_stream)
+        err = fn(*(None if t is None else t.data_ptr() for t in pointers),
+                 *ints, strides, int(causal),
+                 torch.cuda.current_stream().cuda_stream)
     if err:
         what = lib.flash_attention_error_string
         what.argtypes, what.restype = [ctypes.c_int], ctypes.c_char_p
         raise RuntimeError(f"{entry} launch failed: {what(err).decode()}")
 
 
+def sm_count(device: torch.device) -> int:
+    """The SMs of CUDA device ``device``: what the head_dim-256 kernels
+    split their launches by (:mod:`flash_schedule`)."""
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    return _sm_count(index)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def flash_attention_forward(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, causal: bool = True):
     """``(o, lse)`` of flash attention; see :func:`flash_attention_reference`
     for shapes. CUDA tensors go through the kernel, CPU tensors through
-    the plain version."""
+    the plain version. At head_dim 129–256 a causal launch that leaves the
+    card under-filled splits its longest q tiles in two over their keys
+    (:func:`flash_schedule.forward_split_tiles`): the halves' float32 o
+    and lse go to a workspace that the kernel's second pass merges."""
     if _same_device(q, k, v).type == "cpu":
         return flash_attention_reference(q, k, v, causal)
     check_kernel_inputs(q, k, v)
@@ -383,17 +416,27 @@ def flash_attention_forward(q: torch.Tensor, k: torch.Tensor,
     q, k, v = (pad_head_dim(t, W) for t in (q, k, v))
     o = torch.empty((B, T, Hq, W), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, Hq, T), dtype=torch.float32, device=q.device)
+    n_split = flash_schedule.forward_split_tiles(B, T, Hq, W, causal,
+                                                 sm_count(q.device))
+    part = None
+    if n_split:
+        # the halves' fp32 o rows, then their lse
+        rows = 2 * B * Hq * n_split * flash_schedule.FWD_Q_ROWS
+        part = torch.empty(rows * (flash_schedule.PARTIAL_WIDTH + 1),
+                           dtype=torch.float32, device=q.device)
     _launch("flash_attention_fwd", "flash_attention_fwd", q.device,
-            (q, k, v, o, lse),
-            (B, T, Hq, k.shape[2], W, D, KERNEL_DTYPES[q.dtype]),
+            (q, k, v, o, lse, part),
+            (B, T, Hq, k.shape[2], W, D, n_split, KERNEL_DTYPES[q.dtype]),
             (q, k, v, o), causal)
     flash_attention_forward.launches += 1
+    flash_attention_forward.split_launches += bool(n_split)
     report_kernel_work("fwd", B, T, Hq, k.shape[2], D, causal,
                        q.element_size())
     return (o if W == D else o[..., :D]), lse
 
 
 flash_attention_forward.launches = 0  # kernel launches, for run reports
+flash_attention_forward.split_launches = 0  # of them split over keys
 
 
 def flash_attention_bwd_dq(q, k, v, o, do, lse, causal: bool = True):
@@ -425,21 +468,34 @@ flash_attention_bwd_dq.launches = 0
 def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal: bool = True):
     """``(dk, dv)`` of flash attention (see
     :func:`flash_attention_bwd_dkv_reference`). CUDA tensors go through
-    the dK/dV kernel, CPU tensors through the plain version."""
+    the dK/dV kernel, CPU tensors through the plain version. At head_dim
+    129–256 a launch that leaves the card under-filled cuts each kv
+    tile's (q head, q stage) pairs into chunks
+    (:func:`flash_schedule.dkv_split`), whose float32 partial sums the
+    kernel's second pass adds in chunk order."""
     if _same_device(q, k, v, do, lse, delta).type == "cpu":
         return flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta,
                                                  causal)
     check_backward_inputs(q, k, v, do, lse, delta)
     B, T, Hq, D = q.shape
+    Hkv = k.shape[2]
     W = kernel_width(D, q.dtype)
     q, k, v, do = (pad_head_dim(t, W) for t in (q, k, v, do))
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    n_split = flash_schedule.dkv_split(B, T, Hq, Hkv, W, causal,
+                                       sm_count(q.device))
+    part = None
+    if n_split > 1:
+        part = torch.empty((2 * n_split * B * T * Hkv,
+                            flash_schedule.PARTIAL_WIDTH),
+                           dtype=torch.float32, device=q.device)
     _launch("flash_attention_bwd", "flash_attention_bwd_dkv", q.device,
-            (q, k, v, do, lse, delta, dk, dv),
-            (B, T, Hq, k.shape[2], W, D, KERNEL_DTYPES[q.dtype]),
+            (q, k, v, do, lse, delta, dk, dv, part),
+            (B, T, Hq, Hkv, W, D, n_split, KERNEL_DTYPES[q.dtype]),
             (q, k, v, do, dk, dv), causal)
     flash_attention_bwd_dkv.launches += 1
+    flash_attention_bwd_dkv.split_launches += n_split > 1
     report_kernel_work("dkv", B, T, Hq, k.shape[2], D, causal,
                        q.element_size())
     if W != D:
@@ -448,6 +504,7 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal: bool = True):
 
 
 flash_attention_bwd_dkv.launches = 0
+flash_attention_bwd_dkv.split_launches = 0  # of them split, with the sum
 
 
 def kernel_readable(do: torch.Tensor) -> torch.Tensor:
@@ -494,15 +551,39 @@ class FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None
 
 
+def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True) -> torch.Tensor:
+    """Exact attention on the tensors' own device, differentiable by
+    autograd: k, v repeated to the q heads, float32 softmax, a top-left
+    causal mask (row i sees keys 0 .. i) when q and k differ in length;
+    o in q's dtype. The port of the JAX package's ``_fallback``
+    (``ray_tpu/ops/flash_attention.py:333``, which calls
+    ``ray_tpu/parallel/ring_attention.py:plain_attention``)."""
+    return flash_attention_reference(q, k, v, causal)[0]
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
     """Blockwise (flash) attention, GQA-aware: pass k/v unrepeated.
 
-    q: [B, T, Hq, D]; k, v: [B, T, Hkv, D] with Hq % Hkv == 0. Returns
-    [B, T, Hq, D] in q's dtype. Differentiable through
+    q: [B, Tq, Hq, D]; k, v: [B, Tk, Hkv, D] with Hq % Hkv == 0. Returns
+    [B, Tq, Hq, D] in q's dtype. Differentiable through
     :class:`FlashAttention` when grad is on and an input needs it;
     otherwise (serving, ``inference_mode``) the forward alone runs.
+
+    Tq != Tk returns :func:`plain_attention` on every device (counted in
+    ``flash_attention.plain_calls``), as the JAX package's
+    ``flash_attention`` sends such shapes to its ``_fallback``
+    (``ray_tpu/ops/flash_attention.py:308-309``, its ``_supported``
+    rule): the kernels take Tq == Tk only. The check is on shapes, made
+    before any launch.
     """
+    if q.shape[1] != k.shape[1]:
+        flash_attention.plain_calls += 1
+        return plain_attention(q, k, v, causal)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return FlashAttention.apply(q, k, v, causal)
     return flash_attention_forward(q, k, v, causal)[0]
+
+
+flash_attention.plain_calls = 0  # Tq != Tk calls sent to plain_attention

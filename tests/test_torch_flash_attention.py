@@ -176,6 +176,68 @@ def test_kernel_guard_accepts_the_8b_prefill_shape():
     fa.check_kernel_inputs(*_bf16((1, 208, 32, 128), (1, 208, 8, 128)))
 
 
+# Tq != Tk: JAX's flash_attention returns its _fallback (plain attention,
+# top-left causal mask) on every backend, and so does the port's
+# flash_attention, on every device; the kernels are never reached.
+# Bounds: 1e-5 in float32 (the same float32 formulas; the port takes
+# exp(s - logsumexp), JAX softmax), 2e-2 in bfloat16 (both round o to
+# bf16 once); grads 5e-2, the JAX suite's grad bound.
+TQ_TK_CASES = [(tq, tk, causal, rep, dtype)
+               for tq, tk in ((48, 32), (32, 80))
+               for causal in (True, False)
+               for rep in (1, 4)
+               for dtype in ("float32", "bfloat16")]
+
+
+def _tq_tk_inputs(tq, tk, rep, dtype, seed):
+    rng = np.random.RandomState(seed)
+    jdtype = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    return tuple(rng.randn(2, t, h, 16).astype(np.float32).astype(jdtype)
+                 for t, h in ((tq, 4), (tk, 4 // rep), (tk, 4 // rep),
+                              (tq, 4)))
+
+
+def _tq_tk_tol(dtype):
+    return dict(atol=1e-5, rtol=1e-5) if dtype == "float32" \
+        else dict(atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("tq,tk,causal,rep,dtype", TQ_TK_CASES)
+def test_tq_ne_tk_returns_the_jax_fallback(tq, tk, causal, rep, dtype):
+    q, k, v, _ = _tq_tk_inputs(tq, tk, rep, dtype, seed=30)
+    want = jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                     causal=causal, interpret=True)
+    launches = [f.launches for f in (fa.flash_attention_forward,
+                                     fa.flash_attention_bwd_dq,
+                                     fa.flash_attention_bwd_dkv)]
+    plain = fa.flash_attention.plain_calls
+    got = fa.flash_attention(*_torch(q, k, v), causal)
+    assert fa.flash_attention.plain_calls == plain + 1
+    assert [f.launches for f in (fa.flash_attention_forward,
+                                 fa.flash_attention_bwd_dq,
+                                 fa.flash_attention_bwd_dkv)] == launches
+    assert got.shape == (2, tq, 4, 16) and got.dtype == getattr(torch, dtype)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               **_tq_tk_tol(dtype))
+
+
+@pytest.mark.parametrize("tq,tk,causal,rep,dtype", TQ_TK_CASES)
+def test_tq_ne_tk_grads_match_jax_vjp(tq, tk, causal, rep, dtype):
+    q, k, v, do = _tq_tk_inputs(tq, tk, rep, dtype, seed=31)
+    want = _jax_grads(lambda q, k, v: jax_flash(q, k, v, causal=causal,
+                                                interpret=True), q, k, v, do)
+    leaves = [x.requires_grad_(True) for x in _torch(q, k, v)]
+    plain = fa.flash_attention.plain_calls
+    fa.flash_attention(*leaves, causal).backward(_torch(do)[0])
+    assert fa.flash_attention.plain_calls == plain + 1
+    for x, w, name in zip(leaves, want, ("dq", "dk", "dv")):
+        assert x.grad.shape == w.shape, name
+        np.testing.assert_allclose(x.grad.float().numpy(),
+                                   np.asarray(w, np.float32), err_msg=name,
+                                   **PALLAS_GRAD_TOL)
+
+
 @pytest.mark.parametrize("D,dtype,width", [
     (64, torch.bfloat16, 64), (72, torch.bfloat16, 72),
     (100, torch.bfloat16, 104), (1, torch.float16, 8),

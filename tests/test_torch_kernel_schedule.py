@@ -1,0 +1,321 @@
+"""The head_dim-256 kernels' split schedules (ray_tpu_torch/ops/
+flash_schedule.py), on the CPU.
+
+The CUDA kernels run only on the card; what they compute when split is
+held here through the schedule they follow:
+
+- coverage: every (kv tile, q head, q stage) pair of a dK/dV launch is
+  walked by exactly one chunk, and every causal q tile's key stages by
+  exactly one of its units, for any shape and SM count (hypothesis);
+- arithmetic: a plain-torch emulation of the split kernels (each block
+  over its own pairs or keys in float32; the dK/dV chunks' partial sums
+  added in chunk order, the forward's halves merged by lse as
+  ``flash_fwd_merge_kernel`` does) against the plain versions
+  ``flash_attention_bwd_dkv_reference`` and ``flash_attention_reference``
+  at 1e-5 (the same float32 arithmetic summed in another order), and
+  against the JAX package's Pallas kernels in interpret mode at the JAX
+  suite's own bounds, 2e-2 forward and 5e-2 grads.
+"""
+
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
+
+from ray_tpu.ops.flash_attention import flash_attention as jax_flash
+from ray_tpu_torch.ops import flash_attention as fa
+from ray_tpu_torch.ops import flash_schedule as fs
+
+EXACT = dict(atol=1e-5, rtol=1e-5)
+PALLAS_FWD_TOL = dict(atol=2e-2, rtol=2e-2)
+PALLAS_GRAD_TOL = dict(atol=5e-2, rtol=5e-2)
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+# ------------------------------------------------------------ coverage
+
+shapes = st.tuples(
+    st.integers(1, 2),                 # B
+    st.integers(1, 8192),              # T
+    st.integers(1, 4),                 # Hkv
+    st.sampled_from([1, 2, 4, 8]),     # rep
+    st.sampled_from([200, 256]),       # head_dim (the kernels' width)
+    st.booleans(),                     # causal
+    st.integers(1, 132))               # SMs
+
+
+@settings(max_examples=60, deadline=None)
+@given(shapes)
+def test_every_dkv_pair_is_walked_by_one_chunk(shape):
+    B, T, Hkv, rep, D, causal, sms = shape
+    Hq = Hkv * rep
+    n_split = fs.dkv_split(B, T, Hq, Hkv, D, causal, sms)
+    tiles = _cdiv(T, fs.DKV_KV_ROWS)
+    assert 1 <= n_split <= fs.MAX_DKV_SPLIT
+    if tiles * Hkv * B >= sms:
+        assert n_split == 1  # a launch that fills the card is not split
+    blocks = fs.dkv_blocks(B, T, Hq, Hkv, causal, n_split)
+    assert len(blocks) == tiles * Hkv * B * n_split
+    n_qs_max = _cdiv(T, fs.DKV_Q_ROWS)
+    walked = np.zeros((tiles, B, Hq, n_qs_max), np.int64)
+    for kvtile, hk, b, chunk, it0, it1 in blocks:
+        n_iter = fs.dkv_tile_iters(T, rep, kvtile, causal)
+        n_qs = n_iter // rep
+        q_start = kvtile * fs.DKV_KV_ROWS if causal else 0
+        it = np.arange(it0, it1)
+        # pair it: q head hk * rep + it // n_qs, q stage it % n_qs (its
+        # rows from q_start on); stage index in 64-row units of T
+        stage = q_start // fs.DKV_Q_ROWS + it % n_qs
+        np.add.at(walked, (kvtile, b, hk * rep + it // n_qs, stage), 1)
+    for kvtile in range(tiles):
+        first = kvtile if causal else 0  # the diagonal's stage
+        assert (walked[kvtile, :, :, first:] == 1).all()
+        assert (walked[kvtile, :, :, :first] == 0).all()
+
+
+@settings(max_examples=60, deadline=None)
+@given(shapes)
+def test_every_causal_q_tile_is_walked_once_by_its_units(shape):
+    B, T, Hkv, rep, D, causal, sms = shape
+    Hq = Hkv * rep
+    ns = fs.forward_split_tiles(B, T, Hq, D, causal, sms)
+    n_qtiles = _cdiv(T, fs.FWD_Q_ROWS)
+    assert 0 <= ns <= n_qtiles
+    if not causal or n_qtiles * Hq * B >= sms:
+        assert ns == 0
+    units = fs.forward_units(T, ns, causal)
+    assert len(units) == n_qtiles + ns
+    walked = {}
+    for qt, j0, j1 in units:
+        assert 0 <= j0 < j1  # no unit is empty
+        walked.setdefault(qt, []).append((j0, j1))
+    assert sorted(walked) == list(range(n_qtiles))
+    for qt, ranges in walked.items():
+        ranges.sort()
+        assert ranges[0][0] == 0
+        assert ranges[-1][1] == fs.forward_walk(T, qt, causal)
+        assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+        # split tiles are the last ns, in two halves
+        assert len(ranges) == (2 if qt >= n_qtiles - ns else 1)
+    # longest first: the grid's units never grow in length
+    lengths = [j1 - j0 for _, j0, j1 in units]
+    assert lengths == sorted(lengths, reverse=True)
+
+
+@pytest.mark.parametrize("D", [64, 128, 264, 512])
+def test_other_head_dims_are_not_split(D):
+    """Only the head_dim-256 instantiation splits: D 64 and 128 keep
+    their kernels, the slab kernels past 256 theirs."""
+    assert fs.dkv_split(1, 2048, 8, 1, D, True, 132) == 1
+    assert fs.forward_split_tiles(1, 2048, 8, D, True, 132) == 0
+
+
+def test_the_d256_row_splits_to_fill_the_card():
+    """Gemma-2B's attention at a 2k prefill (B 1, 8 q heads over one kv
+    head, head_dim 256, causal) on an H100's 132 SMs: the dK/dV kernel's
+    32 blocks become 256 (kv tile 0's 256 pairs in chunks of 32, the
+    average an SM walks), and the forward splits the 4 of its 16 q tiles
+    that walk more than 24 of the longest's 32 key stages."""
+    assert fs.dkv_split(1, 2048, 8, 1, 256, True, 132) == 8
+    blocks = fs.dkv_blocks(1, 2048, 8, 1, True, 8)
+    assert len(blocks) == 256
+    assert max(it1 - it0 for *_, it0, it1 in blocks) == 32
+    ns = fs.forward_split_tiles(1, 2048, 8, 256, True, 132)
+    assert ns == 4
+    units = fs.forward_units(2048, ns)
+    assert len(units) == 20
+    assert max(j1 - j0 for _, j0, j1 in units) == 24  # from 32
+
+
+# --------------------------------------------------------- arithmetic
+
+
+def _qkv(B, T, Hq, Hkv, D, seed):
+    rng = np.random.RandomState(seed)
+    return tuple(torch.from_numpy(rng.randn(B, T, h, D).astype(np.float32))
+                 for h in (Hq, Hkv, Hkv, Hq))
+
+
+def emulate_dkv(q, k, v, do, lse, delta, causal, n_split):
+    """dK, dV as the split dK/dV kernel and its reduction compute them:
+    each block sums its chunk's pairs into float32 partials, then the
+    partials are added in chunk order, 0 first."""
+    B, T, Hq, D = q.shape
+    Hkv = k.shape[2]
+    rep = Hq // Hkv
+    scale = 1.0 / math.sqrt(D)
+    part = torch.zeros(n_split, 2, B, T, Hkv, D)
+    for kvtile, hk, b, chunk, it0, it1 in fs.dkv_blocks(
+            B, T, Hq, Hkv, causal, n_split):
+        k0 = kvtile * fs.DKV_KV_ROWS
+        keys = torch.arange(k0, min(k0 + fs.DKV_KV_ROWS, T))
+        n_qs = fs.dkv_tile_iters(T, rep, kvtile, causal) // rep
+        q_start = k0 if causal else 0
+        for it in range(it0, it1):
+            h = hk * rep + it // n_qs
+            r0 = q_start + (it % n_qs) * fs.DKV_Q_ROWS
+            rows = torch.arange(r0, min(r0 + fs.DKV_Q_ROWS, T))
+            s = q[b, rows, h] @ k[b, keys, hk].T
+            p = torch.exp(s * scale - lse[b, h, rows, None])
+            if causal:
+                p = torch.where(keys[None] > rows[:, None],
+                                torch.zeros_like(p), p)
+            dp = do[b, rows, h] @ v[b, keys, hk].T
+            ds = p * (dp - delta[b, h, rows, None]) * scale
+            part[chunk, 0, b, keys, hk] += ds.T @ q[b, rows, h]
+            part[chunk, 1, b, keys, hk] += p.T @ do[b, rows, h]
+    total = part[0]
+    for chunk in range(1, n_split):
+        total = total + part[chunk]
+    return total[0], total[1]
+
+
+def _unit_softmax(q, k, v, rows, keys, causal, scale):
+    """o and lse of q rows ``rows`` over keys ``keys`` alone, as one
+    block computes them: a row that sees none of the keys gets o = 0 and
+    lse = -inf (the kernel's max(l, 1e-30) over m = -inf)."""
+    s = torch.einsum("rhd,khd->hrk", q[rows], k[keys]) * scale
+    if causal:
+        s = torch.where(keys[None, None] > rows[None, :, None],
+                        torch.full_like(s, -math.inf), s)
+    m = s.amax(-1, keepdim=True)
+    base = torch.where(torch.isinf(m), torch.zeros_like(m), m)
+    p = torch.exp(s - base)
+    l_sum = p.sum(-1, keepdim=True).clamp_min(1e-30)
+    o = torch.einsum("hrk,khd->rhd", p / l_sum, v[keys])
+    return o, (m + torch.log(l_sum))[..., 0]
+
+
+def emulate_forward(q, k, v, causal, n_split_tiles):
+    """o and lse as the split forward and its merge compute them: a block
+    per unit over its key stages, the split tiles' two halves merged,
+    part 0 then part 1, each weighted by exp(its lse - the merged lse)."""
+    B, T, Hq, D = q.shape
+    rep = Hq // k.shape[2]
+    k, v = (x.repeat_interleave(rep, dim=2) for x in (k, v))
+    scale = 1.0 / math.sqrt(D)
+    o = torch.zeros(B, T, Hq, D)
+    lse = torch.zeros(B, Hq, T)
+    halves = {}
+    for qt, j0, j1 in fs.forward_units(T, n_split_tiles, causal):
+        rows = torch.arange(qt * fs.FWD_Q_ROWS,
+                            min((qt + 1) * fs.FWD_Q_ROWS, T))
+        keys = torch.arange(j0 * fs.FWD_KEYS, min(j1 * fs.FWD_KEYS, T))
+        for b in range(B):
+            o_u, lse_u = _unit_softmax(q[b], k[b], v[b], rows, keys, causal,
+                                       scale)
+            whole = j0 == 0 and j1 == fs.forward_walk(T, qt, causal)
+            if whole:
+                o[b, rows], lse[b, :, rows] = o_u, lse_u
+            else:
+                halves.setdefault((b, qt), {})[int(j0 > 0)] = (o_u, lse_u)
+    for (b, qt), parts in halves.items():
+        (o0, l0), (o1, l1) = parts[0], parts[1]
+        mx = torch.maximum(l0, l1)
+        e0, e1 = torch.exp(l0 - mx), torch.exp(l1 - mx)
+        total = e0 + e1
+        w0, w1 = (e0 / total).T[..., None], (e1 / total).T[..., None]
+        rows = torch.arange(qt * fs.FWD_Q_ROWS,
+                            min((qt + 1) * fs.FWD_Q_ROWS, T))
+        o[b, rows] = w0 * o0 + w1 * o1
+        lse[b, :, rows] = mx + torch.log(total)
+    return o, lse
+
+
+def _all_splits(T):
+    """The most q tiles a forward can split (every one walking two key
+    stages or more)."""
+    return sum(fs.forward_walk(T, qt, True) >= 2
+               for qt in range(_cdiv(T, fs.FWD_Q_ROWS)))
+
+
+DKV_CASES = [
+    # (B, T, Hq, Hkv, D, causal, n_split): the kernel's split counts on
+    # ragged lengths, MQA and GQA, causal and full
+    (1, 1, 4, 1, 16, True, 3),
+    (1, 65, 4, 1, 16, True, 2),
+    (1, 200, 4, 1, 16, True, 5),
+    (2, 200, 4, 2, 16, False, 3),
+    (1, 130, 8, 1, 8, True, 16),
+    (1, 129, 2, 2, 16, False, 1),
+]
+
+
+@pytest.mark.parametrize("B,T,Hq,Hkv,D,causal,n_split", DKV_CASES)
+def test_split_dkv_sums_equal_the_plain_version(B, T, Hq, Hkv, D, causal,
+                                                n_split):
+    q, k, v, do = _qkv(B, T, Hq, Hkv, D, seed=20)
+    o, lse = fa.flash_attention_reference(q, k, v, causal)
+    delta = fa.attention_delta(o, do)
+    dk, dv = emulate_dkv(q, k, v, do, lse, delta, causal, n_split)
+    want_dk, want_dv = fa.flash_attention_bwd_dkv_reference(
+        q, k, v, do, lse, delta, causal)
+    torch.testing.assert_close(dk, want_dk, **EXACT)
+    torch.testing.assert_close(dv, want_dv, **EXACT)
+
+
+def test_split_dkv_at_the_rules_count_equals_the_plain_version():
+    """The count the rule picks for a head_dim-256 MQA launch on a card
+    of 16 SMs, emulated at a narrow head_dim."""
+    B, T, Hq, Hkv = 1, 190, 4, 1
+    n_split = fs.dkv_split(B, T, Hq, Hkv, 256, True, 16)
+    assert n_split > 1
+    q, k, v, do = _qkv(B, T, Hq, Hkv, 16, seed=21)
+    o, lse = fa.flash_attention_reference(q, k, v, True)
+    delta = fa.attention_delta(o, do)
+    got = emulate_dkv(q, k, v, do, lse, delta, True, n_split)
+    want = fa.flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta,
+                                                True)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **EXACT)
+
+
+@pytest.mark.parametrize("B,T,Hq,Hkv,D", [
+    (1, 65, 2, 1, 16), (1, 129, 4, 2, 16), (2, 300, 2, 1, 8),
+    (1, 520, 2, 2, 8)])
+@pytest.mark.parametrize("which", ["all", "rule"])
+def test_split_forward_merge_equals_the_plain_version(B, T, Hq, Hkv, D,
+                                                      which):
+    """Every splittable q tile split, or the count the rule picks on a
+    card of 4 SMs."""
+    ns = _all_splits(T) if which == "all" else \
+        fs.forward_split_tiles(B, T, Hq, 256, True, 4)
+    q, k, v, _ = _qkv(B, T, Hq, Hkv, D, seed=22)
+    o, lse = emulate_forward(q, k, v, True, ns)
+    want_o, want_lse = fa.flash_attention_reference(q, k, v, True)
+    torch.testing.assert_close(o, want_o, **EXACT)
+    torch.testing.assert_close(lse, want_lse, **EXACT)
+
+
+def _jax(x):
+    return jnp.asarray(x.numpy())
+
+
+def test_split_kernels_match_the_pallas_kernels():
+    """The split forward (every splittable tile) and the split dK/dV (5
+    chunks) against the JAX package's flash_attention through its Pallas
+    kernels in interpret mode: its output at 2e-2 and its dk, dv at
+    5e-2 (its suite's bounds)."""
+    B, T, Hq, Hkv, D = 1, 192, 4, 1, 32
+    q, k, v, do = _qkv(B, T, Hq, Hkv, D, seed=23)
+    o, lse = emulate_forward(q, k, v, True, _all_splits(T))
+    fn = lambda q, k, v: jax_flash(q, k, v, causal=True,  # noqa: E731
+                                   interpret=True)
+    want_o, vjp = jax.vjp(fn, _jax(q), _jax(k), _jax(v))
+    np.testing.assert_allclose(o.numpy(), np.asarray(want_o),
+                               **PALLAS_FWD_TOL)
+    _, want_dk, want_dv = vjp(_jax(do))
+    delta = fa.attention_delta(o, do)
+    dk, dv = emulate_dkv(q, k, v, do, lse, delta, True, 5)
+    np.testing.assert_allclose(dk.numpy(), np.asarray(want_dk),
+                               **PALLAS_GRAD_TOL)
+    np.testing.assert_allclose(dv.numpy(), np.asarray(want_dv),
+                               **PALLAS_GRAD_TOL)
