@@ -4,10 +4,12 @@
 ``ray_tpu_torch`` package (``.`` for this checkout).
 
 At ``chip_smoke.py``'s two timed shapes (the Llama-3-8B heads at a 2k
-prefill, "table"; the Llama-3-1B training step's attention, "train")
-and its head_dim-256 row ("d256", Gemma-2B's 8/1 heads at a 2k prefill;
-the widest instantiation a tree from before the slab kernels has), all
-bf16 and causal, each kernel (forward, dQ, dK/dV) and the whole backward
+prefill, "table"; the Llama-3-1B training step's attention, "train"),
+its head_dim-256 row ("d256", Gemma-2B's 8/1 heads at a 2k prefill) and
+its "d512 train" row (the wide-head 1B's training step, B 4 x 2048, 4/1
+heads of head_dim 512: the slab kernels, beside SDPA on its ``MATH``
+backend, the one that runs past head_dim 256), all bf16 and causal,
+each kernel (forward, dQ, dK/dV) and the whole backward
 (dQ with delta, then dK/dV: ``flash_attention_backward``) is timed with
 CUDA events in turns with SDPA on the same inputs (kernel, SDPA, SDPA,
 kernel): SDPA's forward beside the kernels, its backward (dq, dk, dv
@@ -35,7 +37,8 @@ import time
 
 # chip_smoke.py's TIMED_SHAPES and its "d256" row: (B, T, Hq, Hkv, D)
 SHAPES = (("table", (1, 2048, 32, 8, 128)), ("train", (4, 2048, 32, 8, 64)),
-          ("d256", (1, 2048, 8, 1, 256)))
+          ("d256", (1, 2048, 8, 1, 256)),
+          ("d512 train", (4, 2048, 4, 1, 512)))
 ITERS, WARMUP = 50, 5
 SETTLE_S = 2.0
 

@@ -1,20 +1,25 @@
 #!/usr/bin/env python3
 """Device time of the attention kernels of one tree of the port, by
 kernel, on one card: ``python3 chip_kernel_probe.py <root> [--sweep]
-[--sass-against <other root>]``, where ``<root>`` holds a
+[--trace] [--sass-against <other root>]``, where ``<root>`` holds a
 ``ray_tpu_torch`` package (``.`` for this checkout).
 
 ``chip_kernel_ab.py`` times whole wrapper calls back to back with CUDA
 events, which at 0.05–0.15 ms kernels also reads the host's launch path
 (ctypes, TMA maps). This script reads what the card spent in each kernel
 instead: ``torch.profiler``'s device time of each kernel over 60 calls
-of each wrapper (forward, dQ, dK/dV) at ``chip_kernel_ab.py``'s shapes,
-bf16 causal, beside the host's time to enqueue a call (with the card
+of each wrapper (forward, dQ, dK/dV) at ``chip_kernel_ab.py``'s shapes
+(the head_dim-512 slab kernels at "d512 train"), bf16 causal, beside the host's time to enqueue a call (with the card
 kept busy, so the enqueue is not waited on). With ``--sweep`` (a tree
 with ``ops/flash_schedule.py``), it forces the head_dim-256 split counts
 at the "d256" row instead, five rounds in turns, and reads each count's
 device time (kernel and second pass): the forward's split q tiles and
-the dK/dV chunks. With ``--sass-against``, it compares the SASS of every
+the dK/dV chunks. With ``--trace`` (a tree whose backward source takes
+``-DWIDE_TRACE=1``), it also builds the bf16 backward with the cluster
+dK/dV kernel's phase counters and reads, at "d512 train", the clock64
+cycles a step of each consumer spends in each phase (thread 0 of each
+consumer warpgroup, summed over blocks and steps, over the steps).
+With ``--sass-against``, it compares the SASS of every
 kernel instantiation the two trees' libraries share (``cuobjdump``,
 register numbers aside). Prints one JSON line. Exits 2 without a card.
 """
@@ -31,7 +36,8 @@ import sys
 import time
 
 SHAPES = (("table", (1, 2048, 32, 8, 128)), ("train", (4, 2048, 32, 8, 64)),
-          ("d256", (1, 2048, 8, 1, 256)))
+          ("d256", (1, 2048, 8, 1, 256)),
+          ("d512 train", (4, 2048, 4, 1, 512)))
 CALLS = 60
 FWD_SPLITS = (0, 2, 3, 4, 5, 6, 8, 10, 14)
 DKV_CHUNKS = (1, 4, 6, 7, 8, 9, 12, 16)
@@ -107,6 +113,58 @@ def sweep(torch, fa, gen) -> dict:
                    for n, r in by.items()} for kind, by in runs.items()}
 
 
+# the cluster dK/dV kernel's phases, by their index in its TRACE points
+TRACE_PHASES = ("stage wait", "partial", "sent slot free", "send",
+                "receive wait", "sum", "P/dS and hand-off", "slab product")
+
+
+def trace(torch, fa, gen) -> dict:
+    """Cycles a step of each consumer of the cluster dK/dV kernel spends
+    in each phase at "d512 train" (bf16, causal), from a build with
+    -DWIDE_TRACE=1, over 5 calls; beside both builds' device ms."""
+    import ctypes
+
+    from ray_tpu_torch.ops import _build
+    from ray_tpu_torch.ops import flash_schedule as fs
+
+    B, T, Hq, Hkv, D = dict(SHAPES)["d512 train"]
+    calls = inputs(torch, fa, gen, B, T, Hq, Hkv, D)["dkv"]
+    sound_ms = sum(device_ms(torch, calls).values())
+    out = _build.BUILD_DIR / "trace" / "libflash_attention_bwd_bf16.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-DWIDE_TRACE=1",
+                    "-DFLASH_DTYPE=0", "-o", str(out),
+                    str(_build.CSRC / "flash_attention_bwd.cu")],
+                   check=True, capture_output=True)
+    sound = _build._loaded.get("flash_attention_bwd_bf16")
+    lib = _build._loaded["flash_attention_bwd_bf16"] = ctypes.CDLL(str(out))
+    try:
+        counts = (ctypes.c_ulonglong * 32)()
+        calls()
+        torch.cuda.synchronize()
+        lib.flash_wide_trace(counts)  # read and zeroed
+        n_calls = 5
+        for _ in range(n_calls):
+            calls()
+        torch.cuda.synchronize()
+        lib.flash_wide_trace(counts)
+        traced_ms = sum(device_ms(torch, calls).values())
+    finally:
+        _build._loaded["flash_attention_bwd_bf16"] = sound
+    rep = Hq // Hkv
+    steps = n_calls * B * Hkv * _cdiv(D, fs.WIDE_SLAB) * sum(
+        rep * _cdiv(T - 64 * t, 64) for t in range(_cdiv(T, 64)))
+    return {"device_ms": sound_ms, "traced_device_ms": traced_ms,
+            "steps": steps, "cycles_a_step": {
+                f"consumer {c}": {name: counts[16 * c + i] / steps
+                                  for i, name in enumerate(TRACE_PHASES)}
+                for c in (0, 1)}}
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
 def sass(lib: str) -> dict:
     """Each kernel function's SASS instructions, register numbers and
     immediates blanked, from ``cuobjdump -sass``."""
@@ -169,6 +227,8 @@ def main(argv) -> int:
     out = {"tree": argv[0]}
     if "--sweep" in argv:
         out["sweep_d256"] = sweep(torch, fa, gen)
+    elif "--trace" in argv:
+        out["trace_d512_dkv"] = trace(torch, fa, gen)
     else:
         for label, shape in SHAPES:
             out[label] = {name: {"device_ms": device_ms(torch, fn),

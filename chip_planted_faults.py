@@ -50,9 +50,20 @@ and two in the slab kernels that take head_dim past 256, read at
 - ``wide_s_last_slice``: the forward's S = Q K^T restarts at each
   64-column slice instead of summing them, so S holds the last slice's
   product alone;
-- ``wide_dq_k_first_slab``: the dQ kernel's TMA load of K for dQ += dS K
-  reads the first slab's columns whatever slab the block owns, so every
-  slab past the first gets the first slab's dQ;
+- ``wide_dq_k_first_slab``: the dQ kernel's dQ += dS K reads the first
+  slab's columns of K whatever slab the consumer owns, so every slab
+  past the first gets the first slab's dQ;
+
+two in the slab backward kernels' exchanges, read at ``bfloat16:512``:
+
+- ``wide_dq_stale_p``: the dQ kernel's consumer 1 reads the exchange
+  buffer before its named barrier (it meets the barrier after), so it
+  forms dS from what the buffer held before consumer 0's P of this key
+  step arrived: the last key step's dS and P, or, racing, part of this
+  step's P;
+- ``cluster_own_partial``: each block of a dK/dV cluster sums its own
+  partial S^T and dP^T in the place of every peer's, so S^T and dP^T
+  are the cluster's size times the block's own;
 
 and two in the second passes of the head_dim-256 split, read at
 ``bfloat16:256`` (whose cases take both splits on an H100):
@@ -118,7 +129,29 @@ VARIANT_FAULTS = {
         ("bfloat16", 512)),
     "wide_dq_k_first_slab": (
         "flash_attention_bwd.cu",
-        ("c0 + 64 * cb, hk, 64 * j, b);", "64 * cb, hk, 64 * j, b);"),
+        ("k_addr + 4 * c * kTile + kk * 16 * 128,",
+         "k_addr + kk * 16 * 128,"),
+        ("bfloat16", 512)),
+    "wide_dq_stale_p": (
+        "flash_attention_bwd.cu",
+        ("        named_barrier(kBarP, 256);  // P of this tile is in ex\n"
+         "        // dS = P (dP - delta) scale, every P read before dS "
+         "overwrites it\n"
+         "#pragma unroll\n"
+         "        for (int e = 0; e < 32; ++e) {\n"
+         "          x[e] = ex[e * 128 + t] * (x[e] - rowv[(e >> 1) & 1]) * "
+         "scale;\n"
+         "        }\n",
+         "#pragma unroll\n"
+         "        for (int e = 0; e < 32; ++e) {\n"
+         "          x[e] = ex[e * 128 + t] * (x[e] - rowv[(e >> 1) & 1]) * "
+         "scale;\n"
+         "        }\n"
+         "        named_barrier(kBarP, 256);\n"),
+        ("bfloat16", 512)),
+    "cluster_own_partial": (
+        "flash_attention_bwd.cu",
+        ("          if (r != slab) v = from[q * 128];\n", ""),
         ("bfloat16", 512)),
     "split_reduce_drops_last_chunk": (
         "flash_attention_bwd.cu",

@@ -35,8 +35,10 @@ non-zero and never prints the final ``ok`` line.
    autograd through plain attention (loss, global grad norm and the
    grads of each layer's wq, wk, wv), with no plain delta on the way;
    then ``kernel_dtypes``: each element type and head_dim beyond bf16
-   at 64 and 128 (DTYPE_VARIANTS, up to head_dim 1024 on the slab
-   kernels that take every head_dim past 256) on the three kernels
+   at 64 and 128 (DTYPE_VARIANTS, up to head_dim 1280 on the slab
+   kernels that take every head_dim past 256: dK/dV in clusters of a
+   block a slab up to 1024, fp32 512, then in blocks of their own) on
+   the three kernels
    against their plain versions over five lengths, causal and full,
    three GQA groups;
    the JAX suite's float32 cases; a float32 step and a head_dim-256
@@ -411,6 +413,7 @@ def ptxas_report(log: str):
             # the slab kernels and the head_dim-256 split's second passes
             other = re.search(
                 r"(flash_(?:fwd|bwd_dq|bwd_dkv)_wide_kernel|"
+                r"flash_bwd_dkv_cluster_kernel|"
                 r"flash_fwd_merge_kernel|flash_bwd_dkv_reduce_kernel)I",
                 m.group(1))
             cur = {"kernel": f"{name.group(1)}<{name.group(2)}>" if name
@@ -435,7 +438,8 @@ def launch_shapes(_build) -> dict:
     """Dynamic shared memory, threads, registers at launch and rows of a
     block of each kernel, per element type and head_dim it is built for,
     as their libraries report them (512: the slab kernels that take
-    every head_dim past 256)."""
+    every head_dim past 256, dK/dV's in clusters; 2048: dK/dV past the
+    widest cluster, a block a slab)."""
     import ctypes
 
     shapes = {}
@@ -451,11 +455,16 @@ def launch_shapes(_build) -> dict:
             fn.argtypes = [ctypes.c_int, ctypes.c_int,
                            ctypes.POINTER(ctypes.c_int)]
             fn.restype = ctypes.c_int
-            for D in (64, 128, 256, 512):
+            for D in (64, 128, 256, 512, 2048):
+                if D == 2048 and kernel != "flash_bwd_dkv_kernel":
+                    continue  # the same slab kernels as at 512
                 out = (ctypes.c_int * 4)()
                 check(fn(D, code, out) == 0, f"{entry}({D}, {dtype}) failed")
+                slab = ("_cluster_kernel" if D == 512
+                        and kernel == "flash_bwd_dkv_kernel" else
+                        "_wide_kernel")
                 label = (f"{kernel}<{D}, {dtype}>" if D <= 256 else
-                         kernel.replace("_kernel", f"_wide_kernel<{dtype}>"))
+                         kernel.replace("_kernel", f"{slab}<{dtype}>"))
                 check(out[0] <= SMEM_PER_BLOCK,
                       f"{label} asks {out[0]} bytes of shared memory")
                 shapes[label] = {
@@ -1128,8 +1137,10 @@ def phase_reduced_depth_train(torch, seed):
 # take beyond the bf16 head_dims 64 and 128 the phases above hold (bf16 at
 # 256; fp16 and fp32 at 64, 128 and 256; bf16 at head_dims read through a
 # narrower TMA map, 72, 80, 96 and 200; past 256 on the slab kernels, bf16
-# at 264, 300 (read padded to 304), 320, 384, 512, 576 and 1024, fp16 at
-# 512, fp32 at 384 and 512), each at lengths at and past the tile edges,
+# at 264, 300 (read padded to 304), 320, 384, 512, 576, 1024 and 1280,
+# fp16 at 512, fp32 at 384, 512 and 768: dK/dV in clusters of two, three
+# and four blocks, and past them, bf16 1280 and fp32 768, in blocks of a
+# slab on their own), each at lengths at and past the tile edges,
 # causal and full, and GQA groups of 1, 4 and 8 (8 q heads)
 DTYPE_VARIANTS = (("bfloat16", 256), ("float16", 64), ("float16", 128),
                   ("float16", 256), ("float32", 64), ("float32", 128),
@@ -1137,7 +1148,8 @@ DTYPE_VARIANTS = (("bfloat16", 256), ("float16", 64), ("float16", 128),
                   ("bfloat16", 96), ("bfloat16", 200), ("bfloat16", 264),
                   ("bfloat16", 300), ("bfloat16", 320), ("bfloat16", 384),
                   ("bfloat16", 512), ("bfloat16", 576), ("bfloat16", 1024),
-                  ("float16", 512), ("float32", 384), ("float32", 512))
+                  ("bfloat16", 1280), ("float16", 512), ("float32", 384),
+                  ("float32", 512), ("float32", 768))
 DTYPE_LENGTHS = (1, 65, 129, 257, 2048)
 DTYPE_GROUPS = (1, 4, 8)
 # the timed shapes of the new variants: the 1B training step's attention
@@ -5559,8 +5571,13 @@ def main(argv=None) -> int:
     src = "ray_tpu_torch/ops/csrc/"
     types_note = ("a library per dtype: bf16 and fp16 operands as they are, "
                   "fp32 rounded to bf16 by the producer threads; any head_dim "
-                  ">= 1, past 256 on flash_*_wide_kernel, a block a slab of "
-                  "256 output columns")
+                  ">= 1, past 256 on the slab kernels, a consumer warpgroup "
+                  "a slab of 256 output columns, S and dP split between a "
+                  "block's two consumers by product: dQ a block two slabs "
+                  "(flash_bwd_dq_wide_kernel), dK/dV a cluster of a block a "
+                  "slab summing the blocks' partial S^T and dP^T sent by "
+                  "st.async (flash_bwd_dkv_cluster_kernel; past 4 slabs, "
+                  "fp32 2, flash_bwd_dkv_wide_kernel)")
     from ray_tpu_torch.ops import flash_attention as fa
 
     # the head_dim-256 split (ops/flash_schedule.py); split_launches: the

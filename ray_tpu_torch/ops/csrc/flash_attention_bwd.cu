@@ -111,8 +111,9 @@
 // read through TMA maps of its true width (missing columns arrive as
 // zeros and add exact zeros to every product), scaled by 1/sqrt(true
 // head_dim) and stored at its true width. A head_dim past 256 runs on the
-// slab kernels (flash_bwd_dq_wide_kernel, flash_bwd_dkv_wide_kernel
-// below), any width. Both mask the causal diagonal
+// slab kernels (flash_bwd_dq_wide_kernel, flash_bwd_dkv_cluster_kernel
+// and flash_bwd_dkv_wide_kernel below), any width. Both mask the causal
+// diagonal
 // and the ragged tail (positions >= T; rows past T arrive as zeros and
 // are never stored), so any T >= 1 runs on them; inputs are read
 // through their [B, T, H, D] strides; no atomics, and the one split over
@@ -995,73 +996,197 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
 //
 // Past 256 columns no whole-head_dim tile fits (a 64-row fp32 accumulator
 // of D columns is D / 2 registers a thread; the tiles outgrow the 227 KB),
-// so each block owns one slab of kSlab output columns, the blocks of one
-// row tile side by side on the grid (slabs innermost):
-// - dQ: a (64-row q tile, q head, batch, slab) block, one consumer. Per
-//   key tile, S = Q K^T and dP = dO V^T are summed over every column from
-//   a ring of 64-column slices of Q, dO, K and V (fp32: and the rests of
-//   dO and V, dP in three products as above); dQ += dS K reads the slab's
-//   columns of K from a second ring. delta = rowsum(O o dO) over every
-//   column comes from O and dO in device memory;
-// - dK/dV: a (64-row kv tile, kv head, batch, slab) block, two consumers
-//   that split the slab's columns (128 each, as at head_dim 256). Per
-//   (q head of the group, 64 q rows), both compute S^T = K Q^T and dP^T =
-//   V dO^T over every column from a ring of 64-column slices of K, V, Q
-//   and dO; dV += P^T dO and dK += dS^T Q read the slab's columns of dO
-//   and Q from a second ring whose stages also carry the rows of lse and
-//   delta. The GQA group-sum stays in the accumulators: no atomics;
-// - shared memory and registers are those of head_dim 256 whatever D is;
-//   the price is S and dP computed once per slab (and in dK/dV by both
-//   consumers), D / 256 times rounded up;
-// - every slab computes the same P, dS and delta in the same order, so
-//   they agree bitwise; the first slab writes delta;
-// - only the column blocks inside the tensor are loaded (a slab tile's
-//   others keep what shared memory held, which reaches only output
-//   columns past the tensor's, never stored).
+// so each consumer warpgroup owns a 256-column slab of the output (a
+// 64 x 256 fp32 accumulator, 128 registers). S = Q K^T and dP = dO V^T
+// contract over every column; the two consumers of a block split them by
+// product, not by columns, so that each is computed once a block (a
+// block a slab that computed both itself, in dK/dV in both of its
+// consumers, would issue 2.14x the backward's products at head_dim 512).
+// The
+// probabilities pass between the consumers through shared memory in fp32,
+// in the accumulator's fragment order (thread t's element e at float
+// e * 128 + t, or float4 q * 128 + t for elements 4q .. 4q + 3), so the
+// thread of the other warpgroup with the same index reads exactly its own
+// elements, without bank conflicts, under named barriers.
+//
+// What bounds them on an H100: L2. A block streaming every 64-column
+// slice of its operands reads 256-320 KB from L2 at each (row tile, row
+// tile) step at head_dim 512, against 12-16 MFLOP of products: a block a
+// slab read about 6 TB/s from L2 at "d512 train" (PERF.md), where the
+// products take a fifth of the time. So the designs below cut what a
+// step reads as well as what it computes:
+// - dQ (flash_bwd_dq_wide_kernel): a (64-row q tile, q head, batch, pair)
+//   block owns two slabs, 512 output columns (a D of 264-512 is one
+//   pair; past 512 a row takes cdiv(D, 512) blocks, which compute S and
+//   dP again). Consumer 0 sums S over 64-column slices and takes P;
+//   consumer 1 sums dP, takes delta = rowsum(O o dO) over every column
+//   (once a block; the first pair's blocks write it), reads P, forms dS
+//   = P (dP - delta) scale and writes it back, rounded to the operand
+//   type, over the P it read; then both run dQ += dS K over their own
+//   slab. K of the whole key tile stays in shared memory for the tile
+//   (two stages; fp32 one), the B operand of S's slices inside the pair
+//   and of both dS K products, so K is read once a tile; a ring slot holds
+//   a slice's Q, dO and V (fp32: the rests of dO and V), and K where the
+//   slice lies outside the pair (D > 512). A consumer keeps one wgmma
+//   group in flight behind the one it issues and frees a slot when the
+//   group that read it completes; K's stage is freed once the first slice
+//   of the next tile has retired dS K. 256 KB of L2 a step at D 512,
+//   against 576 KB for two blocks of a slab each.
+// - dK/dV (flash_bwd_dkv_cluster_kernel): a thread-block cluster of
+//   n_slabs blocks per (64-row kv tile, kv head, batch), a block a slab
+//   (slabs innermost on the grid, so a cluster's blocks are neighbours).
+//   A block keeps its slab's columns of K and V, and a step (q head of
+//   the group, 64 q rows) brings only the slab's columns of Q and dO: its
+//   consumer 0 sums the block's partial S^T = K Q^T over the slab's
+//   columns, consumer 1 the partial dP^T = V dO^T. Each sends its partial
+//   to every peer with st.async (bytes counted on the peer's mbarrier, as
+//   TMA's are: no fence), and every block sums the cluster's partials in
+//   rank order (its own from registers), so every block holds the same
+//   bits of S^T and dP^T. Consumer 0 takes P^T, hands it to consumer 1
+//   over its consumed receive slot and runs dV += P^T dO over the slab;
+//   consumer 1 forms dS^T and runs dK += dS^T Q over the slab. Each
+//   product is computed once per (kv tile, step) across the cluster, and
+//   a block reads 64 KB of L2 a step, against 320 KB streaming slices. A
+//   receiver frees its slots with a remote arrival on the sender's
+//   barrier; no block exits before every peer has freed its last partial.
+//   The receive slots take (n_slabs - 1) x 32 KB, so clusters are of at
+//   most four blocks (fp32, whose tiles keep their rests, two);
+// - dK/dV past that (flash_bwd_dkv_wide_kernel: D > 1024, fp32 D > 512):
+//   a (64-row kv tile, kv head, batch, slab) block on its own, consumer 0
+//   summing S^T over a ring of 64-column slices of K, V, Q and dO and
+//   running dV += P^T dO, consumer 1 summing dP^T, reading P^T (two
+//   buffers, so consumer 0 runs a step ahead) and running dK += dS^T Q;
+//   the slab's dO (with lse) and Q (with delta) come through two rings,
+//   one a consumer. S and dP are computed once a slab;
+// - the GQA group-sum stays in the accumulators: no atomics, and every sum
+//   is taken in a fixed order, so results are bitwise repeatable;
+// - a tile's column blocks past the tensor's columns are zeros (TMA fills
+//   a box outside the tensor with zeros; fp32 converts zeros) or keep what
+//   shared memory held, which reaches only output columns past the
+//   tensor's, never stored.
+// -DWIDE_TRACE=1 (chip_kernel_probe.py --trace) counts clock64 cycles by
+// phase of the cluster dK/dV kernel's steps in wide_trace, per consumer,
+// summed over its blocks (thread 0 of each consumer); off, it is nothing
+#ifndef WIDE_TRACE
+#define WIDE_TRACE 0
+#endif
+#if WIDE_TRACE
+__device__ unsigned long long wide_trace[2][16];
+#define TRACE_START long long tr_last = clock64();
+#define TRACE(i)                                                 \
+  if (t == 0) {                                                  \
+    const long long now = clock64();                             \
+    atomicAdd(&wide_trace[c][i], (unsigned long long)(now - tr_last)); \
+    tr_last = now;                                               \
+  }
+#else
+#define TRACE_START
+#define TRACE(i)
+#endif
 namespace wide {
 
-constexpr int kSlab = 256;                 // output columns a block owns
+constexpr int kSlab = 256;                 // output columns a consumer owns
 constexpr int kTile = 64 * 128;            // 64 rows of 64 16-bit columns
-constexpr int kSlabTile = 64 * kSlab * 2;  // 64 rows of the slab's columns
+constexpr int kSlabTile = 64 * kSlab * 2;  // 64 rows of a slab's columns
+constexpr int kPair = 2 * kSlab;           // dQ: output columns a block owns
+constexpr int kPairTile = 2 * kSlabTile;   // 64 rows of a pair's columns
+// a 64 x 64 fp32 tile in the accumulator's fragment order (P, dS)
+constexpr int kExFloats = 32 * 128;
+constexpr int kExBytes = 4 * kExFloats;
 
-// a slice stage: Q, dO, K, V (dK/dV: K, V, Q, dO), and for fp32 the rests
-// of dO and V (dK/dV: of V and dO)
+// named barriers of the exchange (0 is __syncthreads): dQ's P and dS
+// hand-offs; dK/dV's two P buffers, full and free
+constexpr int kBarP = 1, kBarDs = 2;
+constexpr int kBarPFull = 1, kBarPFree = 3;
+// the cluster dK/dV kernel: each consumer's threads meet before its one
+// thread's remote arrivals (ids 5 and 6)
+constexpr int kBarConsumer = 5;
+
+// dQ: K stages of a pair's columns (fp32 rings hold the rests of dO and
+// V, so one), and the bytes of the slice ring after them
+template <typename In>
+__host__ __device__ constexpr int dq_k_stages() {
+  return Elem<In>::kTma ? 2 : 1;
+}
+template <typename In>
+__host__ __device__ constexpr int dq_ring_bytes() {
+  return Elem<In>::kTma ? 80 * 1024 : 144 * 1024;
+}
+constexpr int kDqMaxSlots = 4;
+// a dQ slot's tiles: Q, dO, V (fp32: and the rests of dO and V), then K
+// where the slice lies outside the block's pair
+template <typename In>
+__host__ __device__ constexpr int dq_slot_tiles() {
+  return Elem<In>::kTma ? 3 : 5;
+}
+template <typename In>
+__host__ __device__ constexpr int dq_smem() {
+  return dq_k_stages<In>() * kPairTile + kExBytes + dq_ring_bytes<In>() +
+         1024;
+}
+template <typename In>
+using DqSplit = Split<2, Elem<In>::kTma ? 24 : 40>;
+
+// dK/dV: a slice slot holds K, V, Q, dO (fp32: and the rests of V, dO)
 template <typename In>
 __host__ __device__ constexpr int slice_bytes() {
   return (Elem<In>::kTma ? 4 : 6) * kTile;
 }
-template <typename In>
-__host__ __device__ constexpr int dq_slice_stages() {
-  return Elem<In>::kTma ? 3 : 2;
-}
-constexpr int kDqKStages = 2;  // the slab's columns of K
-template <typename In>
-__host__ __device__ constexpr int dq_smem() {
-  return dq_slice_stages<In>() * slice_bytes<In>() + kDqKStages * kSlabTile +
-         1024;
-}
-template <typename In>
-using DqSplit = Split<1, Elem<In>::kTma ? 24 : 40>;
-
 constexpr int kDkvSliceStages = 2;
-// a slab stage of dK/dV: the slab's columns of Q and of dO, then the 64
-// rows of lse (log2 domain) and delta, padded to 1024 bytes
-constexpr int kSlabStageBytes = 2 * kSlabTile + 1024;
+// stages of each slab ring (dO's with lse, Q's with delta)
 template <typename In>
 __host__ __device__ constexpr int dkv_slab_stages() {
   return Elem<In>::kTma ? 2 : 1;
 }
 template <typename In>
 __host__ __device__ constexpr int dkv_smem() {
+  // slices, the two slab rings, two P buffers, the rows of lse and
+  // delta (1024 bytes), the tiles' 1024-byte alignment
   return kDkvSliceStages * slice_bytes<In>() +
-         dkv_slab_stages<In>() * kSlabStageBytes + 1024;
+         2 * dkv_slab_stages<In>() * kSlabTile + 2 * kExBytes + 1024 + 1024;
+}
+
+// dK/dV in a cluster of n_slabs blocks, one a slab: the slab's K and V
+// (fp32: and V's rest) stay; a stage holds the slab's Q and dO (fp32: and
+// dO's rest) of a step; each peer's partial S^T and dP^T land in receive
+// slots of their own. Two stages at two slabs, one at three or four
+// (their receive slots take the room); past four slabs (fp32: two) the
+// slots do not fit and the slab kernel above runs instead.
+template <typename In>
+__host__ __device__ constexpr int dkc_max_slabs() {
+  return Elem<In>::kTma ? 4 : 2;
+}
+template <typename In>
+__host__ __device__ constexpr int dkc_stages(int n_slabs) {
+  return Elem<In>::kTma && n_slabs == 2 ? 2 : 1;
+}
+template <typename In>
+__host__ __device__ constexpr int dkc_kv_tiles() {
+  return Elem<In>::kTma ? 2 : 3;
+}
+template <typename In>
+__host__ __device__ constexpr int dkc_stage_tiles() {
+  return Elem<In>::kTma ? 2 : 3;
+}
+template <typename In>
+__host__ __device__ constexpr int dkc_smem_for(int n_slabs) {
+  // K, V, the stages, two receive slots a peer, the rows (1024 bytes),
+  // alignment
+  return (dkc_kv_tiles<In>() + dkc_stages<In>(n_slabs) * dkc_stage_tiles<In>()) *
+             kSlabTile +
+         2 * (n_slabs - 1) * kExBytes + 1024 + 1024;
+}
+template <typename In>
+__host__ __device__ constexpr int dkc_smem() {  // the most of any cluster
+  return dkc_smem_for<In>(2) > dkc_smem_for<In>(dkc_max_slabs<In>())
+             ? dkc_smem_for<In>(2)
+             : dkc_smem_for<In>(dkc_max_slabs<In>());
 }
 
 }  // namespace wide
 
 template <typename In>
-__global__ void __launch_bounds__(wide::DqSplit<In>::kThreads,
-                                  wide::DqSplit<In>::kBlocksPerSm)
+__global__ void __launch_bounds__(wide::DqSplit<In>::kThreads, 1)
     flash_bwd_dq_wide_kernel(__grid_constant__ const CUtensorMap tm_q,
                              __grid_constant__ const CUtensorMap tm_k,
                              __grid_constant__ const CUtensorMap tm_v,
@@ -1079,36 +1204,44 @@ __global__ void __launch_bounds__(wide::DqSplit<In>::kThreads,
   using S = DqSplit<In>;
   using Op = typename Elem<In>::Op;
   constexpr bool kTma = Elem<In>::kTma;
-  constexpr int kStages = dq_slice_stages<In>();
-  constexpr int kSliceBytes = slice_bytes<In>();
+  constexpr int kKStages = dq_k_stages<In>();
+  // with two K stages a consumer frees tile j's K once dQ += dS K of tile
+  // j has completed behind the first slice of tile j + 1; with one, the
+  // producer needs it back before tile j + 1 starts
+  constexpr bool kDeferK = kKStages > 1;
+  constexpr int kBaseTiles = dq_slot_tiles<In>();
   extern __shared__ uint8_t smem_raw[];
-  __shared__ __align__(8) uint64_t sl_full[kStages], sl_empty[kStages],
-      k_full[kDqKStages], k_empty[kDqKStages];
-  uint8_t* slices = align_1024(smem_raw);
-  uint8_t* k_s = slices + kStages * kSliceBytes;
+  __shared__ __align__(8) uint64_t sl_full[kDqMaxSlots],
+      sl_empty[kDqMaxSlots], k_full[kKStages], k_empty[kKStages];
+  uint8_t* k_s = align_1024(smem_raw);  // kKStages x a pair's K columns
+  float* ex = reinterpret_cast<float*>(k_s + kKStages * kPairTile);
+  uint8_t* ring = reinterpret_cast<uint8_t*>(ex) + kExBytes;
 
   const int n_cb = cdiv(d_true, 64);  // 64-column slices of a row
-  const int n_slabs = cdiv(d_true, kSlab);
+  const int n_pairs = cdiv(d_true, kPair);
   const int heads = Hq * B;
   const int n_qtiles = cdiv(T, 64);
-  // slabs innermost, then heads: longest tiles first
-  const int slab = blockIdx.x % n_slabs, tile = blockIdx.x / n_slabs;
+  // pairs innermost, then heads: longest tiles first
+  const int pair = blockIdx.x % n_pairs, tile = blockIdx.x / n_pairs;
   const int rank = tile / heads;
   const int qtile = causal ? n_qtiles - 1 - rank : rank;
   const int h = (tile % heads) % Hq, b = (tile % heads) / Hq;
-  const int q0 = qtile * 64, c0 = slab * kSlab;
-  const int n_kcb = min(kSlab / 64, n_cb - c0 / 64);  // K boxes inside
+  const int q0 = qtile * 64, c0 = pair * kPair, cb0 = c0 / 64;
+  const int n_kcb = min(kPair / 64, n_cb - cb0);  // the pair's K boxes
   const int n_tiles = cdiv(causal ? min(q0 + 64, T) : T, 64);
+  // slices outside the pair bring their own K (D > 512 only)
+  const int slot_bytes = (kBaseTiles + (n_cb > kPair / 64)) * kTile;
+  const int n_slots = min(kDqMaxSlots, dq_ring_bytes<In>() / slot_bytes);
 
   if (threadIdx.x == 0) {
     constexpr int kFillers = kTma ? 1 : 128;
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < n_slots; ++s) {
       mbar_init(&sl_full[s], kFillers);
-      mbar_init(&sl_empty[s], 4);
+      mbar_init(&sl_empty[s], 8);  // both consumers' warps
     }
-    for (int s = 0; s < kDqKStages; ++s) {
+    for (int s = 0; s < kKStages; ++s) {
       mbar_init(&k_full[s], kFillers);
-      mbar_init(&k_empty[s], 4);
+      mbar_init(&k_empty[s], 8);
     }
     mbar_fence_init();
   }
@@ -1119,83 +1252,98 @@ __global__ void __launch_bounds__(wide::DqSplit<In>::kThreads,
     // ---------------------------------------------------------- producer
     setmaxnreg_dec<S::kProducerRegs>();
     const int hk = h / rep;
-    // per key tile: the slab's columns of K first (their stage frees two
-    // tiles earlier), then every slice of Q, dO, K and V
+    // per key tile: the pair's columns of K (a stage freed two tiles
+    // earlier), then every slice of Q, dO and V, with K outside the pair
     if constexpr (!kTma) {
       const int tid = threadIdx.x;
       const float* q_rows = head_rows(src.ptr[0], src.stride[0], b, h);
       const float* k_rows = head_rows(src.ptr[1], src.stride[1], b, hk);
       const float* v_rows = head_rows(src.ptr[2], src.stride[2], b, hk);
       const float* do_rows = head_rows(src.ptr[3], src.stride[3], b, h);
-      int it = 0;
+      int slot = 0, phase = 0;
       for (int j = 0; j < n_tiles; ++j) {
-        const int ks = j % kDqKStages;
-        mbar_wait(&k_empty[ks], ((j / kDqKStages) & 1) ^ 1);
-        convert_rows<64, kSlab>(k_s + ks * kSlabTile, k_rows + c0,
+        const int ks = j % kKStages;
+        mbar_wait(&k_empty[ks], ((j / kKStages) & 1) ^ 1);
+        convert_rows<64, kPair>(k_s + ks * kPairTile, k_rows + c0,
                                 src.stride[1][1], 64 * j, T, d_true - c0,
                                 tid);
         fence_proxy_async();
         mbar_arrive(&k_full[ks]);
-        for (int cb = 0; cb < n_cb; ++cb, ++it) {
-          const int s = it % kStages;
-          mbar_wait(&sl_empty[s], ((it / kStages) & 1) ^ 1);
-          uint8_t* stage = slices + s * kSliceBytes;
+        for (int cb = 0; cb < n_cb; ++cb) {
+          mbar_wait(&sl_empty[slot], phase ^ 1);
+          uint8_t* st = ring + slot * slot_bytes;
           const int left = d_true - 64 * cb;
-          convert_rows<64, 64>(stage, q_rows + 64 * cb, src.stride[0][1], q0,
-                               T, left, tid);
-          convert_rows<64, 64>(stage + kTile, do_rows + 64 * cb,
+          convert_rows<64, 64>(st, q_rows + 64 * cb, src.stride[0][1], q0, T,
+                               left, tid);
+          convert_rows<64, 64>(st + kTile, do_rows + 64 * cb,
                                src.stride[3][1], q0, T, left, tid,
-                               stage + 4 * kTile);
-          convert_rows<64, 64>(stage + 2 * kTile, k_rows + 64 * cb,
-                               src.stride[1][1], 64 * j, T, left, tid);
-          convert_rows<64, 64>(stage + 3 * kTile, v_rows + 64 * cb,
+                               st + 3 * kTile);
+          convert_rows<64, 64>(st + 2 * kTile, v_rows + 64 * cb,
                                src.stride[2][1], 64 * j, T, left, tid,
-                               stage + 5 * kTile);
+                               st + 4 * kTile);
+          if (cb < cb0 || cb >= cb0 + n_kcb) {
+            convert_rows<64, 64>(st + kBaseTiles * kTile, k_rows + 64 * cb,
+                                 src.stride[1][1], 64 * j, T, left, tid);
+          }
           fence_proxy_async();
-          mbar_arrive(&sl_full[s]);
+          mbar_arrive(&sl_full[slot]);
+          if (++slot == n_slots) slot = 0, phase ^= 1;
         }
       }
     } else if (threadIdx.x == 0) {
-      int it = 0;
+      int slot = 0, phase = 0;
       for (int j = 0; j < n_tiles; ++j) {
-        const int ks = j % kDqKStages;
-        mbar_wait(&k_empty[ks], ((j / kDqKStages) & 1) ^ 1);
+        const int ks = j % kKStages;
+        mbar_wait(&k_empty[ks], ((j / kKStages) & 1) ^ 1);
         mbar_arrive_expect_tx(&k_full[ks], n_kcb * kTile);
         for (int cb = 0; cb < n_kcb; ++cb) {
-          tma_load_4d(k_s + ks * kSlabTile + cb * kTile, &tm_k, &k_full[ks],
+          tma_load_4d(k_s + ks * kPairTile + cb * kTile, &tm_k, &k_full[ks],
                       c0 + 64 * cb, hk, 64 * j, b);
         }
-        for (int cb = 0; cb < n_cb; ++cb, ++it) {
-          const int s = it % kStages;
-          mbar_wait(&sl_empty[s], ((it / kStages) & 1) ^ 1);
-          mbar_arrive_expect_tx(&sl_full[s], 4 * kTile);
-          uint8_t* stage = slices + s * kSliceBytes;
-          tma_load_4d(stage, &tm_q, &sl_full[s], 64 * cb, h, q0, b);
-          tma_load_4d(stage + kTile, &tm_do, &sl_full[s], 64 * cb, h, q0, b);
-          tma_load_4d(stage + 2 * kTile, &tm_k, &sl_full[s], 64 * cb, hk,
+        for (int cb = 0; cb < n_cb; ++cb) {
+          const bool outer = cb < cb0 || cb >= cb0 + n_kcb;
+          mbar_wait(&sl_empty[slot], phase ^ 1);
+          mbar_arrive_expect_tx(&sl_full[slot], (outer ? 4 : 3) * kTile);
+          uint8_t* st = ring + slot * slot_bytes;
+          tma_load_4d(st, &tm_q, &sl_full[slot], 64 * cb, h, q0, b);
+          tma_load_4d(st + kTile, &tm_do, &sl_full[slot], 64 * cb, h, q0, b);
+          tma_load_4d(st + 2 * kTile, &tm_v, &sl_full[slot], 64 * cb, hk,
                       64 * j, b);
-          tma_load_4d(stage + 3 * kTile, &tm_v, &sl_full[s], 64 * cb, hk,
-                      64 * j, b);
+          if (outer) {
+            tma_load_4d(st + kBaseTiles * kTile, &tm_k, &sl_full[slot],
+                        64 * cb, hk, 64 * j, b);
+          }
+          if (++slot == n_slots) slot = 0, phase ^= 1;
         }
       }
     }
   } else {
-    // ---------------------------------------------------------- consumer
+    // --------------------------------------------------------- consumers
     setmaxnreg_inc<S::kConsumerRegs>();
+    // 0: S and P; 1: dP, delta and dS. Consumer c owns output columns
+    // c0 + 256 c .. c0 + 256 c + 255.
+    const int c = wg - 1;
     const int t = threadIdx.x % 128, w = t / 32, lane = t % 32;
     const int g = lane >> 2, tg = lane & 3;
     const int row0 = q0 + 16 * w + g;  // this thread's rows: row0, +8
+    const int col0 = c0 + kSlab * c;
+    const bool has_cols = col0 < d_true;
     const float scale_log2 = scale * kLog2e;
+    uint32_t* exu = reinterpret_cast<uint32_t*>(ex);
 
-    // lse in the log2 domain, and delta = rowsum(O o dO) over every
-    // column: the quad of a row takes its 8-column chunks tg, tg + 4, ...
-    // in order, then sums the four partials (every lane, every slab, the
-    // same bits)
-    float lse2[2], dlt[2];
+    // consumer 0: lse in the log2 domain; consumer 1: delta =
+    // rowsum(O o dO) over every column, the quad of a row taking its
+    // 8-column chunks tg, tg + 4, ... in order, then summing the four
+    // partials (every lane, every pair, the same bits)
+    float rowv[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = row0 + 8 * r;
-      lse2[r] = row < T ? lse[((int64_t)b * Hq + h) * T + row] * kLog2e : 0.f;
+      if (c == 0) {
+        rowv[r] =
+            row < T ? lse[((int64_t)b * Hq + h) * T + row] * kLog2e : 0.f;
+        continue;
+      }
       float sum = 0.f;
       if (row < T) {
         const In* o_row = o + b * o_sb + h * o_sh + row * o_st;
@@ -1225,8 +1373,8 @@ __global__ void __launch_bounds__(wide::DqSplit<In>::kThreads,
       }
       sum += __shfl_xor_sync(kFull, sum, 1);
       sum += __shfl_xor_sync(kFull, sum, 2);
-      dlt[r] = sum;
-      if (slab == 0 && tg == 0 && row < T) {
+      rowv[r] = sum;
+      if (pair == 0 && tg == 0 && row < T) {
         delta[((int64_t)b * Hq + h) * T + row] = sum;
       }
     }
@@ -1235,94 +1383,143 @@ __global__ void __launch_bounds__(wide::DqSplit<In>::kThreads,
 #pragma unroll
     for (int i = 0; i < kSlab / 2; ++i) acc[i] = 0.f;
 
-    int it = 0;
+    // the A registers of dQ += dS K, kept until the product completes
+    uint32_t dsa[4][4];
+    int slot = 0, phase = 0;
     for (int j = 0; j < n_tiles; ++j) {
-      // S = Q K^T and dP = dO V^T: 64 rows x 64 keys, over the slices
-      float sc[32], dp[32];
-      for (int cb = 0; cb < n_cb; ++cb, ++it) {
-        const int s = it % kStages;
-        mbar_wait(&sl_full[s], (it / kStages) & 1);
-        const uint32_t base = smem_addr(slices) + s * kSliceBytes;
-        const uint32_t q_a = base, do_a = base + kTile;
-        const uint32_t k_a = base + 2 * kTile, v_a = base + 3 * kTile;
+      const int ks = j % kKStages;
+      const uint32_t kpar = (j / kKStages) & 1;
+      const uint32_t k_addr = smem_addr(k_s) + ks * kPairTile;
+      // S reads the pair's K (and so does dQ += dS K of either consumer)
+      mbar_wait(&k_full[ks], kpar);
+      // consumer 0: S = Q K^T; consumer 1: dP = dO V^T; 64 rows x 64
+      // keys, over the slices. Both issue the same products on their own
+      // operands (a product in a branch of one consumer's would make
+      // ptxas serialise every wgmma, C7520).
+      float x[32];
+      int prev = -1;  // the slot the group before the last one read
+      for (int cb = 0; cb < n_cb; ++cb) {
+        mbar_wait(&sl_full[slot], phase);
+        const uint32_t base = smem_addr(ring) + slot * slot_bytes;
+        const bool outer = cb < cb0 || cb >= cb0 + n_kcb;
+        const uint32_t a_t = base + c * kTile;  // Q or dO
+        const uint32_t b_t = c ? base + 2 * kTile  // V
+                             : outer ? base + kBaseTiles * kTile
+                                     : k_addr + (cb - cb0) * kTile;  // K
         wgmma_fence();
 #pragma unroll
-        for (int ks = 0; ks < 4; ++ks) {
-          wgmma_ss<64, Op>(sc, desc_sw128(q_a + 32 * ks, 16, 1024),
-                           desc_sw128(k_a + 32 * ks, 16, 1024),
-                           cb > 0 || ks > 0);
-        }
-#pragma unroll
-        for (int ks = 0; ks < 4; ++ks) {
-          wgmma_ss<64, Op>(dp, desc_sw128(do_a + 32 * ks, 16, 1024),
-                           desc_sw128(v_a + 32 * ks, 16, 1024),
-                           cb > 0 || ks > 0);
+        for (int kq = 0; kq < 4; ++kq) {
+          wgmma_ss<64, Op>(x, desc_sw128(a_t + 32 * kq, 16, 1024),
+                           desc_sw128(b_t + 32 * kq, 16, 1024),
+                           cb > 0 || kq > 0);
         }
         if constexpr (!kTma) {
-          // fp32: dP += dO_lo V_hi^T + dO_hi V_lo^T (the tiles' rests)
+          if (c == 1) {
+            // fp32: dP += dO_lo V_hi^T + dO_hi V_lo^T (the tiles' rests)
 #pragma unroll
-          for (int ks = 0; ks < 4; ++ks) {
-            wgmma_ss<64, Op>(dp, desc_sw128(base + 4 * kTile + 32 * ks, 16,
-                                            1024),
-                             desc_sw128(v_a + 32 * ks, 16, 1024), 1);
-            wgmma_ss<64, Op>(dp, desc_sw128(do_a + 32 * ks, 16, 1024),
-                             desc_sw128(base + 5 * kTile + 32 * ks, 16,
-                                        1024),
-                             1);
+            for (int kq = 0; kq < 4; ++kq) {
+              wgmma_ss<64, Op>(x, desc_sw128(base + 3 * kTile + 32 * kq, 16,
+                                             1024),
+                               desc_sw128(b_t + 32 * kq, 16, 1024), 1);
+              wgmma_ss<64, Op>(x, desc_sw128(a_t + 32 * kq, 16, 1024),
+                               desc_sw128(base + 4 * kTile + 32 * kq, 16,
+                                          1024),
+                               1);
+            }
           }
         }
         wgmma_commit();
-        wgmma_wait<0>();
-        fence_regs(sc);
-        fence_regs(dp);
-        if (lane == 0) mbar_arrive(&sl_empty[s]);  // this warp is done
-      }
-
-      // P and dS = P (dP - delta) scale; mask the ragged tail and the
-      // diagonal
-      const int k0 = 64 * j;
-      const bool need_mask = k0 + 64 > T || (causal && k0 + 63 > q0);
-#pragma unroll
-      for (int e = 0; e < 32; ++e) {
-        float p = exp2f(sc[e] * scale_log2 - lse2[(e >> 1) & 1]);
-        if (need_mask) {
-          const int col = k0 + 8 * (e / 4) + 2 * tg + (e & 1);
-          const int row = row0 + ((e >> 1) & 1) * 8;
-          if (col >= T || (causal && col > row)) p = 0.f;
+        // the group before this one has completed: free what it read
+        wgmma_wait<1>();
+        if (cb == 0) fence_regs(dsa);
+        if (lane == 0) {
+          if (prev >= 0) {
+            mbar_arrive(&sl_empty[prev]);
+          } else if (kDeferK && j > 0) {
+            mbar_arrive(&k_empty[(j - 1) % kKStages]);  // dQ of tile j - 1
+          }
         }
-        dp[e] = p * (dp[e] - dlt[(e >> 1) & 1]) * scale;
+        prev = slot;
+        if (++slot == n_slots) slot = 0, phase ^= 1;
       }
-      uint32_t dsa[4][4];
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) pack_a<Op>(dsa[kk], dp, kk);
+      wgmma_wait<0>();
+      fence_regs(x);
+      if (lane == 0) mbar_arrive(&sl_empty[prev]);
 
-      // dQ += dS K over the slab's columns: the tile's keys are the
-      // contraction
-      const int ks = j % kDqKStages;
-      mbar_wait(&k_full[ks], (j / kDqKStages) & 1);
-      const uint32_t k_addr = smem_addr(k_s) + ks * kSlabTile;
+      // the exchange: P from consumer 0, dS back from consumer 1, each
+      // thread's elements at float (or 16-bit pair) e * 128 + t
+      if (c == 0) {
+        // P; mask the ragged tail and the diagonal
+        const int k0 = 64 * j;
+        const bool need_mask = k0 + 64 > T || (causal && k0 + 63 > q0);
+#pragma unroll
+        for (int e = 0; e < 32; ++e) {
+          float p = exp2f(x[e] * scale_log2 - rowv[(e >> 1) & 1]);
+          if (need_mask) {
+            const int col = k0 + 8 * (e / 4) + 2 * tg + (e & 1);
+            const int row = row0 + ((e >> 1) & 1) * 8;
+            if (col >= T || (causal && col > row)) p = 0.f;
+          }
+          ex[e * 128 + t] = p;
+        }
+        named_barrier_arrive(kBarP, 256);
+        named_barrier(kBarDs, 256);  // dS of this tile is in ex
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+          for (int r = 0; r < 4; ++r) dsa[kk][r] = exu[(4 * kk + r) * 128 + t];
+        }
+      } else {
+        named_barrier(kBarP, 256);  // P of this tile is in ex
+        // dS = P (dP - delta) scale, every P read before dS overwrites it
+#pragma unroll
+        for (int e = 0; e < 32; ++e) {
+          x[e] = ex[e * 128 + t] * (x[e] - rowv[(e >> 1) & 1]) * scale;
+        }
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          pack_a<Op>(dsa[kk], x, kk);
+#pragma unroll
+          for (int r = 0; r < 4; ++r) exu[(4 * kk + r) * 128 + t] = dsa[kk][r];
+        }
+        named_barrier_arrive(kBarDs, 256);
+      }
+
+      // dQ += dS K over this consumer's slab: the tile's keys are the
+      // contraction (a slab wholly past the tensor's columns computes
+      // what is never stored)
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
-        wgmma_rs_cols<kSlab, Op>(acc, dsa[kk], k_addr + kk * 16 * 128, kTile);
+        wgmma_rs_cols<kSlab, Op>(acc, dsa[kk],
+                                 k_addr + 4 * c * kTile + kk * 16 * 128,
+                                 kTile);
       }
       wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(acc);
-      if (lane == 0) mbar_arrive(&k_empty[ks]);
+      if constexpr (!kDeferK) {
+        wgmma_wait<0>();
+        fence_regs(acc);
+        fence_regs(dsa);
+        if (lane == 0) mbar_arrive(&k_empty[ks]);
+      }
     }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    fence_regs(dsa);
 
-    // epilogue: the slab's columns of dQ, the real rows
+    // epilogue: this consumer's columns of dQ, the real rows
+    if (has_cols) {
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = row0 + r * 8;
-      if (row >= T) continue;
-      In* out = dq + b * dq_sb + h * dq_sh + (int64_t)row * dq_st;
+      for (int r = 0; r < 2; ++r) {
+        const int row = row0 + r * 8;
+        if (row >= T) continue;
+        In* out = dq + b * dq_sb + h * dq_sh + (int64_t)row * dq_st;
 #pragma unroll
-      for (int jn = 0; jn < kSlab / 8; ++jn) {
-        const int col = c0 + 8 * jn + 2 * tg;
-        if (col < d_true) {
-          store2(out + col, acc[4 * jn + 2 * r], acc[4 * jn + 2 * r + 1]);
+        for (int jn = 0; jn < kSlab / 8; ++jn) {
+          const int col = col0 + 8 * jn + 2 * tg;
+          if (col < d_true) {
+            store2(out + col, acc[4 * jn + 2 * r], acc[4 * jn + 2 * r + 1]);
+          }
         }
       }
     }
@@ -1351,9 +1548,17 @@ __global__ void __launch_bounds__(dkv::kThreads, 1)
   constexpr int kSliceBytes = slice_bytes<In>();
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t sl_full[kStages], sl_empty[kStages],
-      sb_full[kSlabStages], sb_empty[kSlabStages];
-  uint8_t* slices = align_1024(smem_raw);  // stage: K, V, Q, dO (, rests)
-  uint8_t* slabs = slices + kStages * kSliceBytes;
+      do_full[kSlabStages], do_empty[kSlabStages], q_full[kSlabStages],
+      q_empty[kSlabStages];
+  uint8_t* slices = align_1024(smem_raw);  // slot: K, V, Q, dO (, rests)
+  // the slab's columns of dO (consumer 0's) and of Q (consumer 1's)
+  uint8_t* do_ring = slices + kStages * kSliceBytes;
+  uint8_t* q_ring = do_ring + kSlabStages * kSlabTile;
+  float* ex = reinterpret_cast<float*>(q_ring + kSlabStages * kSlabTile);
+  // each slab stage's 64 rows of lse (log2 domain; dO's ring) and delta
+  // (Q's ring)
+  float* lse_rows = ex + 2 * kExFloats;
+  float* dlt_rows = lse_rows + kSlabStages * 64;
 
   const int n_cb = cdiv(d_true, 64);
   const int n_slabs = cdiv(d_true, kSlab);
@@ -1372,14 +1577,16 @@ __global__ void __launch_bounds__(dkv::kThreads, 1)
 
   if (threadIdx.x == 0) {
     // TMA: one expect_tx arrival (plus, on a slab stage, the 32 lanes that
-    // write lse and delta); fp32: every producer thread
+    // write lse or delta); fp32: every producer thread
     for (int s = 0; s < kStages; ++s) {
       mbar_init(&sl_full[s], kTma ? 1 : 128);
       mbar_init(&sl_empty[s], dkv::kConsumerWarps);
     }
     for (int s = 0; s < kSlabStages; ++s) {
-      mbar_init(&sb_full[s], kTma ? 1 + 32 : 128);
-      mbar_init(&sb_empty[s], dkv::kConsumerWarps);
+      mbar_init(&do_full[s], kTma ? 1 + 32 : 128);
+      mbar_init(&q_full[s], kTma ? 1 + 32 : 128);
+      mbar_init(&do_empty[s], 4);  // one consumer's warps
+      mbar_init(&q_empty[s], 4);
     }
     mbar_fence_init();
   }
@@ -1402,36 +1609,38 @@ __global__ void __launch_bounds__(dkv::kThreads, 1)
       for (int it = 0; it < n_iter; ++it) {
         const int h = hk * rep + it / n_qs;
         const int qs0 = q_start + (it % n_qs) * 64;
-        // the slab stage first (the consumers read it after the slices)
-        const int bs = it % kSlabStages;
-        mbar_wait(&sb_empty[bs], ((it / kSlabStages) & 1) ^ 1);
-        uint8_t* stage = slabs + bs * kSlabStageBytes;
-        if constexpr (!kTma) {
-          convert_rows<64, kSlab>(
-              stage, head_rows(src.ptr[0], src.stride[0], b, h) + c0,
-              src.stride[0][1], qs0, T, d_true - c0, lane);
-          convert_rows<64, kSlab>(
-              stage + kSlabTile,
-              head_rows(src.ptr[3], src.stride[3], b, h) + c0,
-              src.stride[3][1], qs0, T, d_true - c0, lane);
-          fence_proxy_async();
-        } else if (lane == 0) {
-          mbar_arrive_expect_tx(&sb_full[bs], 2 * n_scb * kTile);
-          for (int cb = 0; cb < n_scb; ++cb) {
-            tma_load_4d(stage + cb * kTile, &tm_q, &sb_full[bs],
-                        c0 + 64 * cb, h, qs0, b);
-            tma_load_4d(stage + kSlabTile + cb * kTile, &tm_do, &sb_full[bs],
-                        c0 + 64 * cb, h, qs0, b);
-          }
-        }
-        float* lse_s = reinterpret_cast<float*>(stage + 2 * kSlabTile);
         const int64_t row = ((int64_t)b * Hq + h) * T;
-        for (int i = lane; i < 64; i += kFillThreads) {
-          const int t = qs0 + i;
-          lse_s[i] = t < T ? lse[row + t] * kLog2e : 0.f;
-          lse_s[64 + i] = t < T ? delta[row + t] : 0.f;
+        // the slab stages first (the consumers read them after the
+        // slices): dO with lse, then Q with delta
+        const int bs = it % kSlabStages;
+        const uint32_t bpar = ((it / kSlabStages) & 1) ^ 1;
+        for (int which = 0; which < 2; ++which) {
+          uint64_t* full = which ? &q_full[bs] : &do_full[bs];
+          mbar_wait(which ? &q_empty[bs] : &do_empty[bs], bpar);
+          uint8_t* stage = (which ? q_ring : do_ring) + bs * kSlabTile;
+          if constexpr (!kTma) {
+            // Q is input 0, dO input 3
+            const void* ptr = which ? src.ptr[0] : src.ptr[3];
+            const long long* st = which ? src.stride[0] : src.stride[3];
+            convert_rows<64, kSlab>(stage, head_rows(ptr, st, b, h) + c0,
+                                    st[1], qs0, T, d_true - c0, lane);
+            fence_proxy_async();
+          } else if (lane == 0) {
+            mbar_arrive_expect_tx(full, n_scb * kTile);
+            for (int cb = 0; cb < n_scb; ++cb) {
+              tma_load_4d(stage + cb * kTile, which ? &tm_q : &tm_do, full,
+                          c0 + 64 * cb, h, qs0, b);
+            }
+          }
+          float* rows_s = (which ? dlt_rows : lse_rows) + bs * 64;
+          for (int i = lane; i < 64; i += kFillThreads) {
+            const int t = qs0 + i;
+            rows_s[i] = t >= T ? 0.f
+                        : which ? delta[row + t]
+                                : lse[row + t] * kLog2e;
+          }
+          mbar_arrive(full);  // release: this lane's rows are visible
         }
-        mbar_arrive(&sb_full[bs]);  // release: this lane's rows are visible
 
         // then every 64-column slice of K, V, Q and dO
         for (int cb = 0; cb < n_cb; ++cb, ++sit) {
@@ -1471,120 +1680,494 @@ __global__ void __launch_bounds__(dkv::kThreads, 1)
   } else {
     // --------------------------------------------------------- consumers
     setmaxnreg_inc<S::kConsumerRegs>();
+    // 0: S^T, P^T and dV; 1: dP^T, dS^T and dK; each over the whole slab
     const int c = wg - 1;
-    const int col0 = c0 + 128 * c;  // this consumer's 128 columns
     const int t = threadIdx.x % 128, w = t / 32, lane = t % 32;
     const int g = lane >> 2, tg = lane & 3;
     const int key0 = k0 + 16 * w + g;  // this thread's keys: key0, key0 + 8
     const float scale_log2 = scale * kLog2e;
+    uint64_t* slab_full = c == 0 ? do_full : q_full;
+    uint64_t* slab_empty = c == 0 ? do_empty : q_empty;
+    uint8_t* slab_ring = c == 0 ? do_ring : q_ring;
+    const float* slab_rows = c == 0 ? lse_rows : dlt_rows;
 
-    float dk_acc[64], dv_acc[64];
+    float acc[kSlab / 2];  // dV (consumer 0) or dK (consumer 1)
 #pragma unroll
-    for (int i = 0; i < 64; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+    for (int i = 0; i < kSlab / 2; ++i) acc[i] = 0.f;
 
     int sit = 0;
     for (int it = 0; it < n_iter; ++it) {
       const int jq = it % n_qs;
       const int wq0 = q_start + 64 * jq;  // the step's first q row
-      // S^T = K Q^T and dP^T = V dO^T: 64 keys x 64 queries, over the
-      // slices
-      float st[32], dpt[32];
+      const int bs = it % kSlabStages;
+      // consumer 0: S^T = K Q^T; consumer 1: dP^T = V dO^T; 64 keys x 64
+      // queries, over the slices
+      float x[32];
+      int prev = -1;  // the slot the group before the last one read
       for (int cb = 0; cb < n_cb; ++cb, ++sit) {
         const int s = sit % kStages;
         mbar_wait(&sl_full[s], (sit / kStages) & 1);
         const uint32_t base = smem_addr(slices) + s * kSliceBytes;
-        const uint32_t k_a = base, v_a = base + kTile;
-        const uint32_t q_a = base + 2 * kTile, do_a = base + 3 * kTile;
+        const uint32_t a_t = base + c * kTile;            // K or V
+        const uint32_t b_t = base + (2 + c) * kTile;      // Q or dO
         wgmma_fence();
 #pragma unroll
-        for (int ks = 0; ks < 4; ++ks) {
-          wgmma_ss<64, Op>(st, desc_sw128(k_a + 32 * ks, 16, 1024),
-                           desc_sw128(q_a + 32 * ks, 16, 1024),
-                           cb > 0 || ks > 0);
-          wgmma_ss<64, Op>(dpt, desc_sw128(v_a + 32 * ks, 16, 1024),
-                           desc_sw128(do_a + 32 * ks, 16, 1024),
-                           cb > 0 || ks > 0);
-          if constexpr (!kTma) {
+        for (int kq = 0; kq < 4; ++kq) {
+          wgmma_ss<64, Op>(x, desc_sw128(a_t + 32 * kq, 16, 1024),
+                           desc_sw128(b_t + 32 * kq, 16, 1024),
+                           cb > 0 || kq > 0);
+        }
+        if constexpr (!kTma) {
+          if (c == 1) {
             // fp32: dP^T also takes V_hi dO_lo^T + V_lo dO_hi^T
-            wgmma_ss<64, Op>(dpt, desc_sw128(v_a + 32 * ks, 16, 1024),
-                             desc_sw128(base + 5 * kTile + 32 * ks, 16,
-                                        1024),
-                             1);
-            wgmma_ss<64, Op>(dpt, desc_sw128(base + 4 * kTile + 32 * ks, 16,
+#pragma unroll
+            for (int kq = 0; kq < 4; ++kq) {
+              wgmma_ss<64, Op>(x, desc_sw128(a_t + 32 * kq, 16, 1024),
+                               desc_sw128(base + 5 * kTile + 32 * kq, 16,
+                                          1024),
+                               1);
+              wgmma_ss<64, Op>(x, desc_sw128(base + 4 * kTile + 32 * kq, 16,
                                              1024),
-                             desc_sw128(do_a + 32 * ks, 16, 1024), 1);
+                               desc_sw128(b_t + 32 * kq, 16, 1024), 1);
+            }
           }
         }
         wgmma_commit();
-        wgmma_wait<0>();
-        fence_regs(st);
-        fence_regs(dpt);
-        if (lane == 0) mbar_arrive(&sl_empty[s]);  // this warp is done
+        // the group before this one has completed: free what it read
+        wgmma_wait<1>();
+        if (lane == 0 && prev >= 0) mbar_arrive(&sl_empty[prev]);
+        prev = s;
       }
+      wgmma_wait<0>();
+      fence_regs(x);
+      if (lane == 0) mbar_arrive(&sl_empty[prev]);
 
-      // P^T and dS^T; mask the ragged tail and, on the diagonal, the
-      // queries before each key (keys past T are never stored)
-      const int bs = it % kSlabStages;
-      mbar_wait(&sb_full[bs], (it / kSlabStages) & 1);
-      uint8_t* stage = slabs + bs * kSlabStageBytes;
-      const float* lse_s = reinterpret_cast<const float*>(stage +
-                                                          2 * kSlabTile);
-      const float* dlt_s = lse_s + 64;
-      const bool need_mask = wq0 + 64 > T || (causal && jq == 0);
+      mbar_wait(&slab_full[bs], (it / kSlabStages) & 1);
+      const float* rows_s = slab_rows + bs * 64;
+      uint32_t a[4][4];
+      if (c == 0) {
+        // P^T; mask the ragged tail and, on the diagonal, the queries
+        // before each key (keys past T are never stored)
+        const bool need_mask = wq0 + 64 > T || (causal && jq == 0);
+        float* p_out = ex + (it & 1) * kExFloats;
+        if (it >= 2) named_barrier(kBarPFree + (it & 1), 256);
 #pragma unroll
-      for (int e = 0; e < 32; ++e) {
-        const int qi = 8 * (e / 4) + 2 * tg + (e & 1);  // in the 64 rows
-        float p = exp2f(st[e] * scale_log2 - lse_s[qi]);
-        if (need_mask) {
-          const int col = wq0 + qi;
-          const int key = key0 + ((e >> 1) & 1) * 8;
-          if (col >= T || (causal && col < key)) p = 0.f;
+        for (int e = 0; e < 32; ++e) {
+          const int qi = 8 * (e / 4) + 2 * tg + (e & 1);  // in the 64 rows
+          float p = exp2f(x[e] * scale_log2 - rows_s[qi]);
+          if (need_mask) {
+            const int col = wq0 + qi;
+            const int key = key0 + ((e >> 1) & 1) * 8;
+            if (col >= T || (causal && col < key)) p = 0.f;
+          }
+          x[e] = p;
+          p_out[e * 128 + t] = p;
         }
-        st[e] = p;
-        dpt[e] = p * (dpt[e] - dlt_s[qi]) * scale;
-      }
-      uint32_t pa[4][4], dsa[4][4];
+        named_barrier_arrive(kBarPFull + (it & 1), 256);
+      } else {
+        // dS^T = P^T (dP^T - delta) scale, P^T from consumer 0
+        named_barrier(kBarPFull + (it & 1), 256);
+        const float* p_in = ex + (it & 1) * kExFloats;
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        pack_a<Op>(pa[kk], st, kk);
-        pack_a<Op>(dsa[kk], dpt, kk);
+        for (int e = 0; e < 32; ++e) {
+          const int qi = 8 * (e / 4) + 2 * tg + (e & 1);
+          x[e] = p_in[e * 128 + t] * (x[e] - rows_s[qi]) * scale;
+        }
+        if (it + 2 < n_iter) named_barrier_arrive(kBarPFree + (it & 1), 256);
       }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) pack_a<Op>(a[kk], x, kk);
 
-      // dV += P^T dO and dK += dS^T Q over this consumer's columns of the
-      // slab: the 64 queries are the contraction
-      const uint32_t q_slab = smem_addr(stage) + 2 * c * kTile;
-      const uint32_t do_slab = q_slab + kSlabTile;
+      // dV += P^T dO or dK += dS^T Q over the slab: the 64 queries are
+      // the contraction
+      const uint32_t slab_addr = smem_addr(slab_ring) + bs * kSlabTile;
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
-        const uint32_t rows = kk * 16 * 128;
-        wgmma_rs<128, Op>(dv_acc, pa[kk],
-                          desc_sw128(do_slab + rows, kTile, 1024));
-        wgmma_rs<128, Op>(dk_acc, dsa[kk],
-                          desc_sw128(q_slab + rows, kTile, 1024));
+        wgmma_rs_cols<kSlab, Op>(acc, a[kk], slab_addr + kk * 16 * 128,
+                                 kTile);
       }
       wgmma_commit();
+      // waited for here, not behind the next step's slices (a product in
+      // flight across the loop made ptxas serialise every wgmma, C7515)
       wgmma_wait<0>();
-      fence_regs(dv_acc);
-      fence_regs(dk_acc);
-      if (lane == 0) mbar_arrive(&sb_empty[bs]);
+      fence_regs(acc);
+      if (lane == 0) mbar_arrive(&slab_empty[bs]);
     }
 
-    // epilogue: this consumer's columns of the key rows it holds
+    // epilogue: this consumer's output (dV or dK), the slab's columns of
+    // the key rows it holds
+    In* out = c == 0 ? dv : dk;
+    const int64_t o_sb = c == 0 ? dv_sb : dk_sb;
+    const int64_t o_st = c == 0 ? dv_st : dk_st;
+    const int64_t o_sh = c == 0 ? dv_sh : dk_sh;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int key = key0 + 8 * r;
       if (key >= T) continue;
-      In* dk_row = dk + b * dk_sb + hk * dk_sh + (int64_t)key * dk_st;
-      In* dv_row = dv + b * dv_sb + hk * dv_sh + (int64_t)key * dv_st;
+      In* o_row = out + b * o_sb + hk * o_sh + (int64_t)key * o_st;
 #pragma unroll
-      for (int jn = 0; jn < 16; ++jn) {
-        const int col = col0 + 8 * jn + 2 * tg;
+      for (int jn = 0; jn < kSlab / 8; ++jn) {
+        const int col = c0 + 8 * jn + 2 * tg;
         if (col >= d_true) continue;
-        store2(dk_row + col, dk_acc[4 * jn + 2 * r],
-               dk_acc[4 * jn + 2 * r + 1]);
-        store2(dv_row + col, dv_acc[4 * jn + 2 * r],
-               dv_acc[4 * jn + 2 * r + 1]);
+        store2(o_row + col, acc[4 * jn + 2 * r], acc[4 * jn + 2 * r + 1]);
+      }
+    }
+  }
+}
+
+template <typename In>
+__global__ void __launch_bounds__(dkv::kThreads, 1)
+    flash_bwd_dkv_cluster_kernel(__grid_constant__ const CUtensorMap tm_q,
+                                 __grid_constant__ const CUtensorMap tm_k,
+                                 __grid_constant__ const CUtensorMap tm_v,
+                                 __grid_constant__ const CUtensorMap tm_do,
+                                 const Src src, const float* __restrict__ lse,
+                                 const float* __restrict__ delta,
+                                 In* __restrict__ dk, In* __restrict__ dv,
+                                 int T, int Hq, int Hkv, int B, int rep,
+                                 int d_true, int64_t dk_sb, int64_t dk_st,
+                                 int64_t dk_sh, int64_t dv_sb, int64_t dv_st,
+                                 int64_t dv_sh, float scale, int causal) {
+  using namespace wide;
+  using S = dkv::DkvSplit<In>;
+  using Op = typename Elem<In>::Op;
+  constexpr bool kTma = Elem<In>::kTma;
+  constexpr int kStageBytes = dkc_stage_tiles<In>() * kSlabTile;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t kv_full, st_full[2], st_empty[2],
+      s_recv_full, dp_recv_full, s_sent_free, dp_sent_free;
+
+  // the cluster: the n_slabs blocks of one (kv tile, kv head, batch), a
+  // slab each, side by side on the grid
+  const int n_slabs = cdiv(d_true, kSlab);
+  const int n_peers = n_slabs - 1;
+  const int n_stages = dkc_stages<In>(n_slabs);
+  // the slab's K and V (fp32: and V's rest), resident; the stages, each
+  // the slab's Q and dO (fp32: and dO's rest) of a step; a receive slot
+  // for each peer's partial S^T and dP^T; the rows of lse and delta
+  uint8_t* kv_s = align_1024(smem_raw);
+  uint8_t* ring = kv_s + dkc_kv_tiles<In>() * kSlabTile;
+  float* s_recv = reinterpret_cast<float*>(ring + n_stages * kStageBytes);
+  float* dp_recv = s_recv + n_peers * kExFloats;
+  float* lse_rows = dp_recv + n_peers * kExFloats;
+  float* dlt_rows = lse_rows + 2 * 64;
+
+  const int slab = cluster_ctarank(), tile = blockIdx.x / n_slabs;
+  const int heads = Hkv * B;
+  const int kvtile = tile / heads;
+  const int hk = (tile % heads) % Hkv, b = (tile % heads) / Hkv;
+  const int k0 = 64 * kvtile, c0 = slab * kSlab;
+  // all four boxes of the slab are loaded: those wholly past the tensor's
+  // columns arrive as zeros (TMA; fp32 converts zeros), so the partials
+  // run over all four column blocks, an unrolled loop (a loop over the
+  // boxes inside made ptxas serialise every wgmma, C7515)
+  const int q_start = causal ? k0 : 0;
+  const int n_qs = cdiv(T - q_start, 64);
+  const int n_iter = rep * n_qs;  // (q head, step) pairs, head-major
+
+  if (threadIdx.x == 0) {
+    mbar_init(&kv_full, kTma ? 1 : 128);
+    for (int s = 0; s < n_stages; ++s) {
+      // TMA: one expect_tx arrival plus the 32 lanes that write the rows
+      mbar_init(&st_full[s], kTma ? 1 + 32 : 128);
+      mbar_init(&st_empty[s], dkv::kConsumerWarps);
+    }
+    // a receive slot fills when this block's consumer has announced the
+    // bytes it expects and every peer's bytes have landed; a peer may
+    // send the next partial once every receiver has freed its slot
+    mbar_init(&s_recv_full, 1);
+    mbar_init(&dp_recv_full, 1);
+    mbar_init(&s_sent_free, n_peers);
+    mbar_init(&dp_sent_free, n_peers);
+    mbar_fence_init();
+  }
+  // no block sends to a peer's barriers before the peer has made them
+  cluster_sync();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ---------------------------------------------------------- producer
+    setmaxnreg_dec<S::kProducerRegs>();
+    constexpr int kFillThreads = kTma ? 32 : 128;
+    if (threadIdx.x < kFillThreads) {
+      const int lane = threadIdx.x;
+      // the slab's K and V, once
+      if constexpr (!kTma) {
+        convert_rows<64, kSlab>(
+            kv_s, head_rows(src.ptr[1], src.stride[1], b, hk) + c0,
+            src.stride[1][1], k0, T, d_true - c0, lane);
+        convert_rows<64, kSlab>(
+            kv_s + kSlabTile, head_rows(src.ptr[2], src.stride[2], b, hk) + c0,
+            src.stride[2][1], k0, T, d_true - c0, lane,
+            kv_s + 2 * kSlabTile);
+        fence_proxy_async();
+        mbar_arrive(&kv_full);
+      } else if (lane == 0) {
+        mbar_arrive_expect_tx(&kv_full, 2 * kSlabTile);
+        for (int cb = 0; cb < kSlab / 64; ++cb) {
+          tma_load_4d(kv_s + cb * kTile, &tm_k, &kv_full, c0 + 64 * cb, hk,
+                      k0, b);
+          tma_load_4d(kv_s + kSlabTile + cb * kTile, &tm_v, &kv_full,
+                      c0 + 64 * cb, hk, k0, b);
+        }
+      }
+      for (int it = 0; it < n_iter; ++it) {
+        const int h = hk * rep + it / n_qs;
+        const int qs0 = q_start + (it % n_qs) * 64;
+        const int bs = it % n_stages;
+        mbar_wait(&st_empty[bs], ((it / n_stages) & 1) ^ 1);
+        uint8_t* stage = ring + bs * kStageBytes;
+        if constexpr (!kTma) {
+          convert_rows<64, kSlab>(
+              stage, head_rows(src.ptr[0], src.stride[0], b, h) + c0,
+              src.stride[0][1], qs0, T, d_true - c0, lane);
+          convert_rows<64, kSlab>(
+              stage + kSlabTile,
+              head_rows(src.ptr[3], src.stride[3], b, h) + c0,
+              src.stride[3][1], qs0, T, d_true - c0, lane,
+              stage + 2 * kSlabTile);
+          fence_proxy_async();
+        } else if (lane == 0) {
+          mbar_arrive_expect_tx(&st_full[bs], 2 * kSlabTile);
+          for (int cb = 0; cb < kSlab / 64; ++cb) {
+            tma_load_4d(stage + cb * kTile, &tm_q, &st_full[bs],
+                        c0 + 64 * cb, h, qs0, b);
+            tma_load_4d(stage + kSlabTile + cb * kTile, &tm_do, &st_full[bs],
+                        c0 + 64 * cb, h, qs0, b);
+          }
+        }
+        const int64_t row = ((int64_t)b * Hq + h) * T;
+        for (int i = lane; i < 64; i += kFillThreads) {
+          const int t = qs0 + i;
+          lse_rows[bs * 64 + i] = t < T ? lse[row + t] * kLog2e : 0.f;
+          dlt_rows[bs * 64 + i] = t < T ? delta[row + t] : 0.f;
+        }
+        mbar_arrive(&st_full[bs]);  // release: this lane's rows are visible
+      }
+    }
+  } else {
+    // --------------------------------------------------------- consumers
+    setmaxnreg_inc<S::kConsumerRegs>();
+    // 0: the partial S^T, the sum S^T, P^T (passed to consumer 1 through
+    // its first receive slot) and dV; 1: the partial dP^T, the sum dP^T,
+    // dS^T and dK; each over the block's slab
+    const int c = wg - 1;
+    const int t = threadIdx.x % 128, w = t / 32, lane = t % 32;
+    const int g = lane >> 2, tg = lane & 3;
+    const int key0 = k0 + 16 * w + g;  // this thread's keys: key0, key0 + 8
+    const float scale_log2 = scale * kLog2e;
+    // K (consumer 0) or V (consumer 1) of the slab: the A operand of the
+    // partial; Q or dO of a stage its B operand
+    const uint32_t a_slab = smem_addr(kv_s) + c * kSlabTile;
+    float* recv = c == 0 ? s_recv : dp_recv;
+    uint64_t* recv_full = c == 0 ? &s_recv_full : &dp_recv_full;
+    uint64_t* sent_free = c == 0 ? &s_sent_free : &dp_sent_free;
+    // a block's receive slots: one a peer, in rank order, the receiving
+    // block's own rank left out
+    const uint32_t recv_a = smem_addr(recv) + 16 * t;
+    const uint32_t peer_full = smem_addr(recv_full);
+
+    float acc[kSlab / 2];  // dV (consumer 0) or dK (consumer 1)
+#pragma unroll
+    for (int i = 0; i < kSlab / 2; ++i) acc[i] = 0.f;
+
+    mbar_wait(&kv_full, 0);
+    TRACE_START
+    for (int it = 0; it < n_iter; ++it) {
+      const int jq = it % n_qs;
+      const int wq0 = q_start + 64 * jq;  // the step's first q row
+      const int bs = it % n_stages;
+      const uint32_t stage = smem_addr(ring) + bs * kStageBytes;
+      mbar_wait(&st_full[bs], (it / n_stages) & 1);
+      TRACE(0)
+      // the bytes this step's receive slots expect, announced early
+      if (t == 0) mbar_arrive_expect_tx(recv_full, n_peers * kExBytes);
+
+      // this block's partial S^T = K Q^T (consumer 0) or dP^T = V dO^T
+      // (consumer 1) over the slab's columns: 64 keys x 64 queries
+      float x[32];
+      const uint32_t b_slab = stage + c * kSlabTile;  // Q or dO
+      wgmma_fence();
+#pragma unroll
+      for (int cb = 0; cb < kSlab / 64; ++cb) {
+#pragma unroll
+        for (int kq = 0; kq < 4; ++kq) {
+          wgmma_ss<64, Op>(
+              x, desc_sw128(a_slab + cb * kTile + 32 * kq, 16, 1024),
+              desc_sw128(b_slab + cb * kTile + 32 * kq, 16, 1024),
+              cb > 0 || kq > 0);
+        }
+        if constexpr (!kTma) {
+          if (c == 1) {
+            // fp32: dP^T also takes V_hi dO_lo^T + V_lo dO_hi^T
+#pragma unroll
+            for (int kq = 0; kq < 4; ++kq) {
+              wgmma_ss<64, Op>(
+                  x, desc_sw128(a_slab + cb * kTile + 32 * kq, 16, 1024),
+                  desc_sw128(stage + 2 * kSlabTile + cb * kTile + 32 * kq, 16,
+                             1024),
+                  1);
+              wgmma_ss<64, Op>(
+                  x,
+                  desc_sw128(smem_addr(kv_s) + 2 * kSlabTile + cb * kTile +
+                                 32 * kq,
+                             16, 1024),
+                  desc_sw128(b_slab + cb * kTile + 32 * kq, 16, 1024), 1);
+            }
+          }
+        }
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(x);
+      TRACE(1)
+
+      // send the partial to every peer once every peer has freed this
+      // block's slot (its last one read): asynchronous stores that land
+      // in the peer's slot and count their bytes on its barrier, in
+      // fragment order (thread t's elements 4 q .. 4 q + 3 at float4
+      // q * 128 + t)
+      if (it > 0) mbar_wait_cluster(sent_free, (it - 1) & 1);
+      TRACE(2)
+      for (int r = 0; r < n_slabs; ++r) {
+        if (r == slab) continue;
+        const uint32_t to =
+            mapa(recv_a + (slab < r ? slab : slab - 1) * kExBytes, r);
+        const uint32_t bar = mapa(peer_full, r);
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          st_async_f4(to + q * 128 * 16, x[4 * q], x[4 * q + 1],
+                      x[4 * q + 2], x[4 * q + 3], bar);
+        }
+      }
+      TRACE(3)
+
+      // the sum over the cluster's blocks in rank order (this block's own
+      // partial from its registers): every block the same bits
+      float sum[32];
+      mbar_wait(recv_full, it & 1);
+      TRACE(4)
+      for (int r = 0; r < n_slabs; ++r) {
+        const float4* from = reinterpret_cast<const float4*>(
+                                 recv + (r < slab ? r : r - 1) * kExFloats) +
+                             t;
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          float4 v = make_float4(x[4 * q], x[4 * q + 1], x[4 * q + 2],
+                                 x[4 * q + 3]);
+          if (r != slab) v = from[q * 128];
+          if (r == 0) {
+            sum[4 * q] = v.x, sum[4 * q + 1] = v.y;
+            sum[4 * q + 2] = v.z, sum[4 * q + 3] = v.w;
+          } else {
+            sum[4 * q] += v.x, sum[4 * q + 1] += v.y;
+            sum[4 * q + 2] += v.z, sum[4 * q + 3] += v.w;
+          }
+        }
+      }
+      TRACE(5)
+
+      const float* lse_s = lse_rows + bs * 64;
+      const float* dlt_s = dlt_rows + bs * 64;
+      if (c == 0) {
+        // P^T; mask the ragged tail and, on the diagonal, the queries
+        // before each key (keys past T are never stored)
+        const bool need_mask = wq0 + 64 > T || (causal && jq == 0);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float2 l2 =
+              *reinterpret_cast<const float2*>(lse_s + 8 * j + 2 * tg);
+#pragma unroll
+          for (int e4 = 0; e4 < 4; ++e4) {
+            const int e = 4 * j + e4;
+            float p = exp2f(sum[e] * scale_log2 - ((e & 1) ? l2.y : l2.x));
+            if (need_mask) {
+              const int col = wq0 + 8 * j + 2 * tg + (e & 1);
+              const int key = key0 + ((e >> 1) & 1) * 8;
+              if (col >= T || (causal && col < key)) p = 0.f;
+            }
+            sum[e] = p;
+          }
+        }
+        // P^T to consumer 1 over the first receive slot, read now
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          reinterpret_cast<float4*>(s_recv)[q * 128 + t] =
+              make_float4(sum[4 * q], sum[4 * q + 1], sum[4 * q + 2],
+                          sum[4 * q + 3]);
+        }
+        named_barrier_arrive(kBarPFull, 256);
+      } else {
+        // every thread has its dP^T: the peers may send the next
+        named_barrier(kBarConsumer, 128);
+        if (t == 0) {
+          for (int r = 0; r < n_slabs; ++r) {
+            if (r != slab) mbar_arrive_remote(mapa(smem_addr(sent_free), r));
+          }
+        }
+        // dS^T = P^T (dP^T - delta) scale, P^T from consumer 0
+        named_barrier(kBarPFull, 256);
+        const float4* p_in = reinterpret_cast<const float4*>(s_recv) + t;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float2 d2 =
+              *reinterpret_cast<const float2*>(dlt_s + 8 * j + 2 * tg);
+          const float4 p = p_in[j * 128];
+          sum[4 * j] = p.x * (sum[4 * j] - d2.x) * scale;
+          sum[4 * j + 1] = p.y * (sum[4 * j + 1] - d2.y) * scale;
+          sum[4 * j + 2] = p.z * (sum[4 * j + 2] - d2.x) * scale;
+          sum[4 * j + 3] = p.w * (sum[4 * j + 3] - d2.y) * scale;
+        }
+        // every thread has its P^T: the peers may send the next S^T
+        named_barrier(kBarConsumer, 128);
+        if (t == 0) {
+          for (int r = 0; r < n_slabs; ++r) {
+            if (r != slab) mbar_arrive_remote(mapa(smem_addr(&s_sent_free), r));
+          }
+        }
+      }
+      TRACE(6)
+      uint32_t a[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) pack_a<Op>(a[kk], sum, kk);
+
+      // dV += P^T dO or dK += dS^T Q over the slab: the 64 queries are
+      // the contraction
+      const uint32_t slab_b = stage + (1 - c) * kSlabTile;  // dO or Q
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        wgmma_rs_cols<kSlab, Op>(acc, a[kk], slab_b + kk * 16 * 128, kTile);
+      }
+      wgmma_commit();
+      // waited for here, not behind the next step's partial (a product in
+      // flight across the loop made ptxas serialise every wgmma, C7515)
+      wgmma_wait<0>();
+      fence_regs(acc);
+      if (lane == 0) mbar_arrive(&st_empty[bs]);
+      TRACE(7)
+    }
+    // no peer sends to or arrives on this block after it exits: every
+    // receiver has freed the last partial this block sent
+    mbar_wait_cluster(sent_free, (n_iter - 1) & 1);
+
+    // epilogue: this consumer's output (dV or dK), the slab's columns of
+    // the key rows it holds
+    In* out = c == 0 ? dv : dk;
+    const int64_t o_sb = c == 0 ? dv_sb : dk_sb;
+    const int64_t o_st = c == 0 ? dv_st : dk_st;
+    const int64_t o_sh = c == 0 ? dv_sh : dk_sh;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int key = key0 + 8 * r;
+      if (key >= T) continue;
+      In* o_row = out + b * o_sb + hk * o_sh + (int64_t)key * o_st;
+#pragma unroll
+      for (int jn = 0; jn < kSlab / 8; ++jn) {
+        const int col = c0 + 8 * jn + 2 * tg;
+        if (col >= d_true) continue;
+        store2(o_row + col, acc[4 * jn + 2 * r], acc[4 * jn + 2 * r + 1]);
       }
     }
   }
@@ -1592,7 +2175,7 @@ __global__ void __launch_bounds__(dkv::kThreads, 1)
 
 template <typename In>
 int dq_config_wide(int* out) {
-  static_assert(wide::dq_smem<In>() <= 232448,
+  static_assert(wide::dq_smem<In>() <= 232448 - 256,
                 "a block may use 227 KB of shared memory");
   out[0] = wide::dq_smem<In>();
   out[1] = wide::DqSplit<In>::kThreads;
@@ -1603,7 +2186,7 @@ int dq_config_wide(int* out) {
 
 template <typename In>
 int dkv_config_wide(int* out) {
-  static_assert(wide::dkv_smem<In>() <= 232448,
+  static_assert(wide::dkv_smem<In>() <= 232448 - 256,
                 "a block may use 227 KB of shared memory");
   out[0] = wide::dkv_smem<In>();
   out[1] = dkv::kThreads;
@@ -1632,7 +2215,8 @@ int launch_dq_wide(const void* q, const void* k, const void* v,
   auto kernel = flash_bwd_dq_wide_kernel<In>;
   if (!err) err = prepare_launch(kernel, kSmem, S::kLaunchRegs);
   if (err) return err;
-  const int grid = cdiv(T, 64) * Hq * B * cdiv(d_true, wide::kSlab);
+  // a block a (q tile, q head, batch, pair of slabs), pairs innermost
+  const int grid = cdiv(T, 64) * Hq * B * cdiv(d_true, wide::kPair);
   kernel<<<grid, S::kThreads, kSmem, stream>>>(
       tm_q, tm_k, tm_v, tm_do, src, static_cast<const In*>(o),
       static_cast<const In*>(dout), static_cast<const float*>(lse),
@@ -1668,6 +2252,59 @@ int launch_dkv_wide(const void* q, const void* k, const void* v,
       static_cast<In*>(dv), T, Hq, Hkv, B, Hq / Hkv, d_true, s[12], s[13],
       s[14], s[15], s[16], s[17], scale, causal);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename In>
+int dkv_config_cluster(int* out) {
+  static_assert(wide::dkc_smem<In>() <= 232448 - 256,
+                "a block may use 227 KB of shared memory");
+  out[0] = wide::dkc_smem<In>();
+  out[1] = dkv::kThreads;
+  out[2] = dkv::kLaunchRegs;
+  out[3] = dkv::kKvRows;
+  return 0;
+}
+
+template <typename In>
+int launch_dkv_cluster(const void* q, const void* k, const void* v,
+                       const void* dout, const void* lse, const void* delta,
+                       void* dk, void* dv, int B, int T, int Hq, int Hkv,
+                       int d_true, const long long* s, float scale,
+                       int causal, cudaStream_t stream) {
+  CUtensorMap tm_q, tm_k, tm_v, tm_do;
+  Src src = {};
+  int err = prepare_input<In>(&tm_q, &src, 0, q, B, T, Hq, d_true, s, 64);
+  if (!err) err = prepare_input<In>(&tm_k, &src, 1, k, B, T, Hkv, d_true,
+                                    s + 3, 64);
+  if (!err) err = prepare_input<In>(&tm_v, &src, 2, v, B, T, Hkv, d_true,
+                                    s + 6, 64);
+  if (!err) err = prepare_input<In>(&tm_do, &src, 3, dout, B, T, Hq, d_true,
+                                    s + 9, 64);
+  constexpr int kSmem = wide::dkc_smem<In>();
+  auto kernel = flash_bwd_dkv_cluster_kernel<In>;
+  if (!err) err = prepare_launch(kernel, kSmem, dkv::kLaunchRegs);
+  if (err) return err;
+  // a cluster a (kv tile, kv head, batch), a block a slab
+  const int n_slabs = cdiv(d_true, wide::kSlab);
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(cdiv(T, 64) * Hkv * B * n_slabs);
+  config.blockDim = dim3(dkv::kThreads);
+  config.dynamicSmemBytes = kSmem;
+  config.stream = stream;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = n_slabs;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  config.attrs = cluster;
+  config.numAttrs = 1;
+  err = static_cast<int>(cudaLaunchKernelEx(
+      &config, kernel, tm_q, tm_k, tm_v, tm_do, src,
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<In*>(dk), static_cast<In*>(dv), T, Hq, Hkv, B, Hq / Hkv,
+      d_true, (int64_t)s[12], (int64_t)s[13], (int64_t)s[14], (int64_t)s[15],
+      (int64_t)s[16], (int64_t)s[17], scale, causal));
+  return err ? err : static_cast<int>(cudaGetLastError());
 }
 
 // The instantiations head_dim D runs on: dQ at 64, 128 or 256 (see
@@ -1706,9 +2343,13 @@ int launch_dkv_for(const void* q, const void* k, const void* v,
                    void* dk, void* dv, void* part, int n_split, int B, int T,
                    int Hq, int Hkv, int D, const long long* s, float scale,
                    int causal, cudaStream_t st) {
-  if (D > wide::kSlab) {
+  if (D > wide::dkc_max_slabs<In>() * wide::kSlab) {
     return launch_dkv_wide<In>(q, k, v, dout, lse, delta, dk, dv, B, T, Hq,
                                Hkv, D, s, scale, causal, st);
+  }
+  if (D > wide::kSlab) {
+    return launch_dkv_cluster<In>(q, k, v, dout, lse, delta, dk, dv, B, T,
+                                  Hq, Hkv, D, s, scale, causal, st);
   }
   if (D <= 64) {
     return launch_dkv<64, dkv_stages<In>(64), In>(
@@ -1735,7 +2376,10 @@ int dq_config_for(int D, int* out) {
 
 template <typename In>
 int dkv_config_for(int D, int* out) {
-  if (D > wide::kSlab) return dkv_config_wide<In>(out);
+  if (D > wide::dkc_max_slabs<In>() * wide::kSlab) {
+    return dkv_config_wide<In>(out);
+  }
+  if (D > wide::kSlab) return dkv_config_cluster<In>(out);
   return D <= 64    ? dkv_config<64, dkv_stages<In>(64), In>(out)
          : D <= 128 ? dkv_config<128, dkv_stages<In>(128), In>(out)
                     : dkv_config<256, dkv_stages<In>(256), In>(out);
@@ -1828,6 +2472,14 @@ int flash_attention_bwd_dkv_config(int D, int dtype, int* out) {
   }
   return dkv_config_for<Built>(D, out);
 }
+
+#if WIDE_TRACE
+int flash_wide_trace(unsigned long long* out) {
+  cudaMemcpyFromSymbol(out, wide_trace, sizeof(wide_trace));
+  unsigned long long zero[2][16] = {};
+  return (int)cudaMemcpyToSymbol(wide_trace, zero, sizeof(zero));
+}
+#endif
 
 const char* flash_attention_error_string(int err) {
   return sm90::error_string(err);

@@ -152,6 +152,18 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
+// The same for the A registers of RS products (16-bit pairs), which an
+// asynchronous product reads until its wait: fencing them after the wait
+// keeps the compiler from reusing them while the product is in flight.
+template <int M, int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[M][N]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i) {
+#pragma unroll
+    for (int j = 0; j < N; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+  }
+}
+
 template <int kRegs>
 __device__ __forceinline__ void setmaxnreg_dec() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kRegs));
@@ -200,6 +212,82 @@ __device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
 // Named barrier over `threads` threads (id 0 is __syncthreads).
 __device__ __forceinline__ void named_barrier(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Arrive on named barrier `id` without waiting: the other threads of its
+// `threads` wait for it with named_barrier (this thread's earlier shared
+// stores are visible to them once their wait returns).
+__device__ __forceinline__ void named_barrier_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// ---------------------------------------------------------------- clusters
+
+// This block's rank in its thread-block cluster.
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// Every thread of every block of the cluster arrives and waits (release,
+// acquire: what each wrote before is visible to all after).
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::
+          : "memory");
+}
+
+// The shared::cluster address of `addr` (a shared::cta address of this
+// block's) in the block of rank `rank`.
+__device__ __forceinline__ uint32_t mapa(uint32_t addr, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out)
+               : "r"(addr), "r"(rank));
+  return out;
+}
+
+// One arrival on the mbarrier at shared::cluster address `bar` (a peer
+// block's) that releases at block scope only: for a signal that
+// publishes no data of its own (a receiver's "done with your slot", its
+// values already in registers). An arrival releasing at cluster scope
+// costs about 900 cycles on an H100 (chip_kernel_probe.py --trace).
+__device__ __forceinline__ void mbar_arrive_remote(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// mbar_wait whose completion acquires at cluster scope what the arriving
+// threads of any block of the cluster released.
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar,
+                                                  uint32_t parity) {
+  const uint32_t addr = smem_addr(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// An asynchronous store of 16 bytes to shared::cluster address `addr`
+// (a peer block's), which counts its bytes on the mbarrier at
+// shared::cluster address `bar` in that block (as a TMA load does): the
+// receiver's wait on that barrier sees the bytes, with no fence here.
+__device__ __forceinline__ void st_async_f4(uint32_t addr, float a, float b,
+                                            float c, float d, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], "
+      "{%1, %2, %3, %4}, [%5];\n" ::"r"(addr),
+      "f"(a), "f"(b), "f"(c), "f"(d), "r"(bar)
+      : "memory");
 }
 
 // ------------------------------------------------------------ element types

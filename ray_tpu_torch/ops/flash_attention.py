@@ -35,9 +35,14 @@ take what the Pallas kernels take:
   are built for 64, 128 and 256; a narrower head_dim is read through TMA
   maps of its true width, whose missing columns arrive as zeros: the
   counterpart of the JAX package's zero-padding of head_dim to 128
-  lanes. Past 256 each block of the three kernels owns a slab of 256
-  output columns and sums S = Q K^T (and dP = dO V^T) over 64-column
-  slices of every column, so S and dP are computed once per slab. Where
+  lanes. Past 256 a consumer warpgroup owns a slab of 256 output
+  columns, and a block's two consumers split S = Q K^T and dP = dO V^T
+  by product, so each is computed once a block: the forward sums S over
+  64-column slices in every slab's block; dQ's blocks own two slabs;
+  dK/dV's blocks of one kv tile form a thread-block cluster (up to four
+  slabs, float32 two; past that each block sums S and dP itself) whose
+  blocks sum partial S and dP over their own slab's columns and add the
+  cluster's partials in rank order (:mod:`flash_schedule`). Where
   a row of head_dim elements is not a whole number of 16-byte units
   (TMA's rule for strides), the wrapper pads head_dim with zeros into a
   copy (:func:`pad_head_dim`) and slices the outputs back, as the JAX

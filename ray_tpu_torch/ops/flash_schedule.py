@@ -1,7 +1,9 @@
 """How the head_dim-256 forward and dK/dV kernels spread a launch over
 the card's SMs: the split counts the wrappers pass to the C entry
-points, and the grid order the kernels follow (mirrored here from
-``csrc/flash_attention_{fwd,bwd}.cu``, so that tests can hold it).
+points, and the grid order the kernels follow; and how the slab
+backward kernels past head_dim 256 share a launch's outputs between
+blocks and consumer warpgroups (all mirrored here from
+``csrc/flash_attention_{fwd,bwd}.cu``, so that tests can hold them).
 
 At head_dim 256 a block takes one SM (about 193–200 KB of shared
 memory), and a causal launch of few heads is one under-full wave whose
@@ -27,6 +29,21 @@ cuts kv tile 0's walk into chunks no longer than the stages an SM walks
 on average, and the forward splits the tiles whose walk is above three
 quarters of the longest. A launch that already fills the card (a block
 an SM or more) is not split.
+
+Past head_dim 256 (the slab kernels) a block's two consumer warpgroups
+each own a 256-column slab of the output and split S = Q K^T and dP =
+dO V^T between them by product, so each is computed once a block:
+
+- dQ: a block per (64-row q tile, q head, batch, pair of slabs), pairs
+  innermost, causal q tiles longest first; consumer 0 computes S and P,
+  consumer 1 dP, delta and dS, and each then dQ of its own slab;
+- dK/dV: a block per (64-row kv tile, kv head, batch, slab), slabs
+  innermost; consumer 0 computes S^T, P^T and dV of the slab, consumer 1
+  dP^T, dS^T and dK of the slab. Up to four slabs (float32: two) the
+  blocks of one (kv tile, kv head, batch) form a thread-block cluster,
+  each block's S^T and dP^T a partial sum over its own slab's columns,
+  sent to its peers and summed by every block in rank order; past that
+  each block sums S^T and dP^T over every column itself.
 """
 
 from __future__ import annotations
@@ -171,3 +188,106 @@ def forward_split_tiles(B: int, T: int, Hq: int, width: int, causal: bool,
     split = sum(w > FWD_SPLIT_SHARE * walks[-1] for w in walks)
     longest = max(walks[-1] - walks[-1] // 2, *walks[:n_qtiles - split], 0)
     return split if walks[-1] - longest >= FWD_MIN_GAIN else 0
+
+
+# ------------------------------------------------- the slab kernels (D > 256)
+
+# output columns a consumer warpgroup owns, and rows of a block's tile
+WIDE_SLAB = 256
+WIDE_ROWS = 64
+# dQ: the consumers (slabs) of a block; dK/dV: what each consumer writes
+WIDE_DQ_SLABS = 2
+WIDE_DKV_OUTPUTS = ("dv", "dk")
+# the unit of :func:`wide_products`: a 64 x 64 x 64 multiply-add block
+WIDE_UNIT = 64
+# dK/dV: the most slabs a cluster takes, by element size (a block's
+# receive slots for its peers' partials take the room: float32 tiles
+# keep what rounding to bf16 left, so fewer fit)
+WIDE_CLUSTER_SLABS = {2: 4, 4: 2}
+
+
+def wide_dq_blocks(B: int, T: int, Hq: int, width: int, causal: bool
+                   ) -> List[Tuple[int, int, int, int]]:
+    """The slab dQ grid in order: ``(q tile, q head, batch, pair)`` a
+    block, causal q tiles longest first, then heads (q head inner to
+    batch), pairs of slabs innermost."""
+    n_pairs = _cdiv(width, WIDE_DQ_SLABS * WIDE_SLAB)
+    n_qtiles = _cdiv(T, WIDE_ROWS)
+    out = []
+    for rank in range(n_qtiles):
+        qtile = n_qtiles - 1 - rank if causal else rank
+        for hb in range(Hq * B):
+            for pair in range(n_pairs):
+                out.append((qtile, hb % Hq, hb // Hq, pair))
+    return out
+
+
+def wide_dq_columns(width: int, pair: int, consumer: int
+                    ) -> Tuple[int, int]:
+    """The columns ``[lo, hi)`` of dQ that consumer ``consumer`` of a
+    block of pair ``pair`` writes (empty past the tensor's columns; the
+    consumer still computes dP or S for its block)."""
+    lo = (WIDE_DQ_SLABS * pair + consumer) * WIDE_SLAB
+    return min(lo, width), min(lo + WIDE_SLAB, width)
+
+
+def wide_dkv_blocks(B: int, T: int, Hkv: int, width: int
+                    ) -> List[Tuple[int, int, int, int]]:
+    """The slab dK/dV grid in order: ``(kv tile, kv head, batch, slab)``
+    a block, kv tiles outermost, then heads (kv head inner to batch),
+    slabs innermost. Each block walks every (q head of its group, 64-row
+    q step), from the diagonal on when causal."""
+    n_slabs = _cdiv(width, WIDE_SLAB)
+    out = []
+    for kvtile in range(_cdiv(T, WIDE_ROWS)):
+        for hb in range(Hkv * B):
+            for slab in range(n_slabs):
+                out.append((kvtile, hb % Hkv, hb // Hkv, slab))
+    return out
+
+
+def wide_dkv_cluster(width: int, elem_bytes: int = 2) -> int:
+    """The blocks of a slab dK/dV cluster (its slabs) at head_dim
+    ``width`` for inputs of ``elem_bytes`` bytes, or 1 where the slabs
+    outnumber :data:`WIDE_CLUSTER_SLABS` and each block runs alone."""
+    n_slabs = _cdiv(width, WIDE_SLAB)
+    return n_slabs if n_slabs <= WIDE_CLUSTER_SLABS[elem_bytes] else 1
+
+
+def wide_dkv_partial_columns(width: int, slab: int) -> Tuple[int, int]:
+    """The columns ``[lo, hi)`` over which the cluster block of slab
+    ``slab`` sums its partial S^T and dP^T (its own slab's): the
+    cluster's partials, added in rank order, contract over every column
+    once."""
+    lo = slab * WIDE_SLAB
+    return min(lo, width), min(lo + WIDE_SLAB, width)
+
+
+def wide_dkv_output(width: int, slab: int, consumer: int
+                    ) -> Tuple[str, int, int]:
+    """What consumer ``consumer`` of a block of slab ``slab`` writes:
+    ``("dv" or "dk", lo, hi)``, the slab's columns ``[lo, hi)``."""
+    lo = slab * WIDE_SLAB
+    return (WIDE_DKV_OUTPUTS[consumer], lo, min(lo + WIDE_SLAB, width))
+
+
+def wide_products(width: int, elem_bytes: int = 2) -> dict:
+    """The 64 x 64 x 64 products (:data:`WIDE_UNIT`) the slab kernels
+    issue a (64-row tile, 64-row tile) pair, beside the fewest the
+    backward needs (S, dP and each gradient once; float32's extra dP
+    products of the rests not counted): dQ's S and dP over every slice
+    once a block, dS K over both slabs (a slab past the tensor's columns
+    included); dK/dV in a cluster, each block's partial S^T and dP^T and
+    its P^T dO and dS^T Q over its slab's four column blocks, alone S^T
+    and dP^T over every slice once a block."""
+    n_cb = _cdiv(width, WIDE_UNIT)
+    per_slab = WIDE_SLAB // WIDE_UNIT
+    n_pairs = _cdiv(width, WIDE_DQ_SLABS * WIDE_SLAB)
+    n_slabs = _cdiv(width, WIDE_SLAB)
+    dq = n_pairs * (2 * n_cb + WIDE_DQ_SLABS * per_slab)
+    if wide_dkv_cluster(width, elem_bytes) > 1:
+        dkv = n_slabs * 4 * per_slab
+    else:
+        dkv = n_slabs * (2 * n_cb + 2 * per_slab)
+    return {"dq": dq, "dkv": dkv, "dq_least": 3 * n_cb,
+            "dkv_least": 4 * n_cb}

@@ -221,15 +221,18 @@ def test_backward_kernels_match_plain_versions(cuda, D, T, Hq, Hkv, causal):
     (torch.float32, 128), (torch.float32, 256), (torch.bfloat16, 256),
     (torch.bfloat16, 200), (torch.bfloat16, 100), (torch.float16, 36),
     (torch.bfloat16, 264), (torch.bfloat16, 300), (torch.bfloat16, 512),
-    (torch.float16, 512), (torch.float32, 384), (torch.bfloat16, 1024)])
+    (torch.float16, 512), (torch.float32, 384), (torch.bfloat16, 1024),
+    (torch.bfloat16, 576), (torch.bfloat16, 1280), (torch.float32, 768)])
 @pytest.mark.parametrize("T,Hq,Hkv,causal", [(1, 8, 8, True),
                                             (129, 8, 1, False),
                                             (257, 8, 2, True)])
 def test_kernels_take_every_dtype_and_head_dim(cuda, dtype, D, T, Hq, Hkv,
                                                causal):
     """fp16 and fp32 inputs and head_dims to 256, and past it on the slab
-    kernels (100, 36 and 300 in bf16 and fp16 read through a zero-padded
-    copy, rows not whole 16-byte units):
+    kernels (dK/dV in clusters of two, three and four blocks, and past
+    them, bf16 1280 and fp32 768, in blocks alone; 100, 36 and 300 in bf16
+    and fp16 read through a zero-padded copy, rows not whole 16-byte
+    units):
     each kernel launches once a call, its outputs come back in q's dtype,
     within the bounds above of the plain versions, bitwise repeatable."""
     from ray_tpu_torch.ops import flash_attention as fa

@@ -1,4 +1,5 @@
-"""The head_dim-256 kernels' split schedules (ray_tpu_torch/ops/
+"""The head_dim-256 kernels' split schedules and the slab backward
+kernels' division of a launch past head_dim 256 (ray_tpu_torch/ops/
 flash_schedule.py), on the CPU.
 
 The CUDA kernels run only on the card; what they compute when split is
@@ -14,7 +15,17 @@ held here through the schedule they follow:
   ``flash_attention_bwd_dkv_reference`` and ``flash_attention_reference``
   at 1e-5 (the same float32 arithmetic summed in another order), and
   against the JAX package's Pallas kernels in interpret mode at the JAX
-  suite's own bounds, 2e-2 forward and 5e-2 grads.
+  suite's own bounds, 2e-2 forward and 5e-2 grads;
+- the slab kernels (head_dim past 256): every element of dQ, dK and dV
+  owned by exactly one (block, consumer) and every dK/dV cluster's
+  partials contracting over every column once, at the shapes of
+  ``chip_smoke.py``'s ``kernel_dtypes`` and ``wide_head`` phases; and a
+  plain-torch model of the blocks' arithmetic in their order (S and dP
+  summed over 64-column slices, or over the cluster's slabs in rank
+  order; P passed on in float32; P and dS rounded to the operand type
+  before the products they feed) against the plain versions at 1e-5 in
+  float32 and against the Pallas kernels in interpret mode at 2e-2 / 5e-2
+  in bfloat16.
 """
 
 import math
@@ -319,3 +330,207 @@ def test_split_kernels_match_the_pallas_kernels():
                                **PALLAS_GRAD_TOL)
     np.testing.assert_allclose(dv.numpy(), np.asarray(want_dv),
                                **PALLAS_GRAD_TOL)
+
+
+# ------------------------------------------------ the slab kernels (D > 256)
+
+# chip_smoke's kernel_dtypes variants past 256 (the kernels' widths: bf16
+# 300 is read padded to 304) with their element sizes, its lengths and
+# GQA groups (8 q heads); the wide_head phase's shapes (B, T, Hq, Hkv, D):
+# its step at B 4 x 2048 and its serving prefills at B 1
+SLAB_WIDTHS = ((264, 2), (304, 2), (320, 2), (384, 2), (512, 2), (576, 2),
+               (1024, 2), (1280, 2), (384, 4), (512, 4), (768, 4))
+SLAB_LENGTHS = (1, 65, 129, 257, 2048)
+WIDE_HEAD_SHAPES = ((4, 2048, 4, 1, 512), (1, 7, 4, 1, 512),
+                    (1, 200, 4, 1, 512), (1, 1000, 4, 1, 512))
+
+
+def _slab_ownership(B, T, Hq, Hkv, D, elem_bytes):
+    """dQ, dK and dV element counts over the slab grids' (block,
+    consumer) outputs, and the dK/dV clusters' partial columns."""
+    rows = fs.WIDE_ROWS
+    dq = np.zeros((B, T, Hq, D), np.int8)
+    for qtile, h, b, pair in fs.wide_dq_blocks(B, T, Hq, D, True):
+        for consumer in range(fs.WIDE_DQ_SLABS):
+            lo, hi = fs.wide_dq_columns(D, pair, consumer)
+            dq[b, qtile * rows:(qtile + 1) * rows, h, lo:hi] += 1
+    dkv = {name: np.zeros((B, T, Hkv, D), np.int8)
+           for name in fs.WIDE_DKV_OUTPUTS}
+    blocks = fs.wide_dkv_blocks(B, T, Hkv, D)
+    size = fs.wide_dkv_cluster(D, elem_bytes)
+    for kvtile, hk, b, slab in blocks:
+        for consumer in range(2):
+            name, lo, hi = fs.wide_dkv_output(D, slab, consumer)
+            dkv[name][b, kvtile * rows:(kvtile + 1) * rows, hk, lo:hi] += 1
+    clusters = [blocks[i:i + size] for i in range(0, len(blocks), size)]
+    return dq, dkv, size, clusters
+
+
+@pytest.mark.parametrize("D,elem_bytes", SLAB_WIDTHS)
+@pytest.mark.parametrize("T", SLAB_LENGTHS)
+def test_every_slab_output_is_owned_once(D, elem_bytes, T):
+    for group in (1, 4, 8):
+        _check_slab_ownership(1, T, 8, 8 // group, D, elem_bytes)
+
+
+@pytest.mark.parametrize("B,T,Hq,Hkv,D", WIDE_HEAD_SHAPES)
+def test_every_wide_head_output_is_owned_once(B, T, Hq, Hkv, D):
+    _check_slab_ownership(B, T, Hq, Hkv, D, 2)
+
+
+def _check_slab_ownership(B, T, Hq, Hkv, D, elem_bytes):
+    dq, dkv, size, clusters = _slab_ownership(B, T, Hq, Hkv, D, elem_bytes)
+    assert (dq == 1).all()
+    for name in fs.WIDE_DKV_OUTPUTS:
+        assert (dkv[name] == 1).all(), name
+    n_slabs = _cdiv(D, fs.WIDE_SLAB)
+    assert size in (1, n_slabs)
+    assert size <= fs.WIDE_CLUSTER_SLABS[elem_bytes] <= 8
+    for cluster in clusters:
+        # a cluster's blocks are neighbours on the grid: one (kv tile, kv
+        # head, batch), its slabs in rank order
+        assert len({blk[:3] for blk in cluster}) == 1
+        if size > 1:
+            assert [blk[3] for blk in cluster] == list(range(size))
+            cols = np.zeros(D, np.int8)
+            for blk in cluster:
+                lo, hi = fs.wide_dkv_partial_columns(D, blk[3])
+                cols[lo:hi] += 1
+            assert (cols == 1).all()
+
+
+def test_slab_products_at_head_dim_512():
+    """At head_dim 512 (bf16) each of S, dP and the three gradients is
+    computed once: dQ 24 and dK/dV 32 products of 64 x 64 x 64 a
+    (row tile, row tile) pair, the fewest; a block a slab that computed S
+    and dP itself (in dK/dV in both consumers) issued 40 and 80."""
+    p = fs.wide_products(512)
+    assert (p["dq"], p["dkv"]) == (p["dq_least"], p["dkv_least"]) == (24, 32)
+    n_cb, slabs = 8, 2
+    assert slabs * (2 * n_cb + 4) == 40
+    assert slabs * 2 * (2 * n_cb + 4) == 80
+    assert (40 + 80) / (24 + 32) == pytest.approx(2.142857, rel=1e-6)
+    # float32 at 512: a cluster too; past four slabs (two in float32) the
+    # blocks run alone and sum S and dP over every column themselves
+    assert fs.wide_dkv_cluster(512, 4) == 2
+    assert fs.wide_dkv_cluster(1024, 2) == 4
+    assert fs.wide_dkv_cluster(1280, 2) == fs.wide_dkv_cluster(768, 4) == 1
+
+
+def _rounded(x, op):
+    return x.to(op).float()
+
+
+def emulate_slab_backward(q, k, v, o, do, lse, causal, op):
+    """dq, dk, dv as the slab kernels compute them (float32 inputs holding
+    values of the input type; ``op`` the operand type of the products):
+    the dQ blocks' S and dP summed over 64-column slices in slice order,
+    P in float32 and dS rounded to ``op`` before dQ += dS K; the dK/dV
+    clusters' S^T and dP^T summed over their blocks' slab partials in
+    rank order (a block alone: over its slices), P^T and dS^T rounded to
+    ``op`` before dV += P^T dO and dK += dS^T Q over each slab."""
+    B, T, Hq, D = q.shape
+    Hkv = k.shape[2]
+    rep = Hq // Hkv
+    rows = fs.WIDE_ROWS
+    scale = 1.0 / math.sqrt(D)
+    log2e = 1.4426950408889634
+    delta = (o * do).sum(-1).transpose(1, 2)  # [B, Hq, T]
+    slices = [slice(c, min(c + 64, D)) for c in range(0, D, 64)]
+
+    def contract(a, b, parts):
+        total = None
+        for cols in parts:
+            x = a[:, cols] @ b[:, cols].T
+            total = x if total is None else total + x
+        return total
+
+    def probs(s, lse_rows, qrows, keys):
+        p = torch.exp2(s * scale * log2e - lse_rows[:, None] * log2e)
+        if causal:
+            p = torch.where(keys[None] > qrows[:, None], torch.zeros_like(p),
+                            p)
+        return p
+
+    dq = torch.zeros_like(q)
+    for qtile, h, b, pair in fs.wide_dq_blocks(B, T, Hq, D, causal):
+        qrows = torch.arange(qtile * rows, min((qtile + 1) * rows, T))
+        hk = h // rep
+        n_tiles = _cdiv(min((qtile + 1) * rows, T) if causal else T, rows)
+        for j in range(n_tiles):
+            keys = torch.arange(j * rows, min((j + 1) * rows, T))
+            s = contract(q[b, qrows, h], k[b, keys, hk], slices)
+            p = probs(s, lse[b, h, qrows], qrows, keys)
+            dp = contract(do[b, qrows, h], v[b, keys, hk], slices)
+            ds = _rounded(p * (dp - delta[b, h, qrows, None]) * scale, op)
+            for consumer in range(fs.WIDE_DQ_SLABS):
+                lo, hi = fs.wide_dq_columns(D, pair, consumer)
+                dq[b, qrows, h, lo:hi] += ds @ k[b, keys, hk, lo:hi]
+    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+    size = fs.wide_dkv_cluster(D, 2 if op != torch.float32 else 4)
+    parts = ([slice(*fs.wide_dkv_partial_columns(D, r))
+              for r in range(size)] if size > 1 else slices)
+    for kvtile, hk, b, slab in fs.wide_dkv_blocks(B, T, Hkv, D):
+        keys = torch.arange(kvtile * rows, min((kvtile + 1) * rows, T))
+        q_start = kvtile * rows if causal else 0
+        for h in range(hk * rep, (hk + 1) * rep):
+            for r0 in range(q_start, T, rows):
+                qrows = torch.arange(r0, min(r0 + rows, T))
+                st = contract(k[b, keys, hk], q[b, qrows, h], parts)
+                pt = probs(st.T, lse[b, h, qrows], qrows, keys).T
+                dpt = contract(v[b, keys, hk], do[b, qrows, h], parts)
+                dst = pt * (dpt - delta[b, h, None, qrows]) * scale
+                for name, a, x in (("dv", pt, do), ("dk", dst, q)):
+                    _, lo, hi = fs.wide_dkv_output(
+                        D, slab, fs.WIDE_DKV_OUTPUTS.index(name))
+                    out = dv if name == "dv" else dk
+                    out[b, keys, hk, lo:hi] += (_rounded(a, op)
+                                                @ x[b, qrows, h, lo:hi])
+    return dq, dk, dv
+
+
+SLAB_MODEL_CASES = [
+    # (B, T, Hq, Hkv, D, causal): one pair and a cluster of two, ragged
+    # T; two pairs and a cluster of three; four slabs; past the cluster
+    (1, 100, 2, 1, 320, True),
+    (1, 70, 4, 2, 512, False),
+    (2, 65, 2, 1, 576, True),
+    (1, 40, 2, 2, 1024, True),
+    (1, 33, 2, 1, 1280, False),
+]
+
+
+@pytest.mark.parametrize("B,T,Hq,Hkv,D,causal", SLAB_MODEL_CASES)
+def test_slab_model_equals_the_plain_version(B, T, Hq, Hkv, D, causal):
+    q, k, v, do = _qkv(B, T, Hq, Hkv, D, seed=24)
+    o, lse = fa.flash_attention_reference(q, k, v, causal)
+    got = emulate_slab_backward(q, k, v, o, do, lse, causal, torch.float32)
+    want = fa.flash_attention_backward_reference(q, k, v, o, lse, do,
+                                                 causal)
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        torch.testing.assert_close(g, w, **EXACT, msg=name)
+
+
+@pytest.mark.parametrize("T,Hkv,D,causal", [(128, 1, 320, True),
+                                            (128, 2, 512, False),
+                                            (96, 1, 576, True)])
+def test_slab_model_matches_the_pallas_kernels(T, Hkv, D, causal):
+    """bfloat16 inputs, the products' operands rounded as the kernels
+    round them, against the JAX package's flash_attention through its
+    Pallas kernels in interpret mode (its grads at 5e-2)."""
+    q, k, v, do = (x.bfloat16() for x in _qkv(1, T, 2, Hkv, D, seed=25))
+    fn = lambda q, k, v: jax_flash(q, k, v, causal=causal,  # noqa: E731
+                                   interpret=True)
+    jq, jk, jv, jdo = (jnp.asarray(x.float().numpy(), jnp.bfloat16)
+                       for x in (q, k, v, do))
+    want_o, vjp = jax.vjp(fn, jq, jk, jv)
+    want = vjp(jdo)
+    qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
+    o, lse = fa.flash_attention_reference(qf, kf, vf, causal)
+    o = o.bfloat16().float()  # the forward's output, in the input type
+    got = emulate_slab_backward(qf, kf, vf, o, dof, lse, causal,
+                                torch.bfloat16)
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        np.testing.assert_allclose(g.bfloat16().float().numpy(),
+                                   np.asarray(w, np.float32),
+                                   err_msg=name, **PALLAS_GRAD_TOL)
