@@ -1,25 +1,32 @@
 #!/usr/bin/env python3
-"""Times the bf16 attention kernels of one tree of the port on one card:
+"""Times the attention kernels of one tree of the port on one card:
 ``python3 chip_kernel_ab.py <root>``, where ``<root>`` holds a
 ``ray_tpu_torch`` package (``.`` for this checkout).
 
 At ``chip_smoke.py``'s two timed shapes (the Llama-3-8B heads at a 2k
 prefill, "table"; the Llama-3-1B training step's attention, "train"),
-its head_dim-256 row ("d256", Gemma-2B's 8/1 heads at a 2k prefill) and
-its "d512 train" row (the wide-head 1B's training step, B 4 x 2048, 4/1
-heads of head_dim 512: the slab kernels, beside SDPA on its ``MATH``
-backend, the one that runs past head_dim 256), all bf16 and causal,
+its head_dim-256 row ("d256", Gemma-2B's 8/1 heads at a 2k prefill), its
+"d512 train" row (the wide-head 1B's training step, B 4 x 2048, 4/1
+heads of head_dim 512: the slab kernels), all bf16, and its "train f32"
+row ("train" in float32; dQ with the split pass), all causal,
 each kernel (forward, dQ, dK/dV) and the whole backward
 (dQ with delta, then dK/dV: ``flash_attention_backward``) is timed with
 CUDA events in turns with SDPA on the same inputs (kernel, SDPA, SDPA,
 kernel): SDPA's forward beside the kernels, its backward (dq, dk, dv
-together) beside the whole backward. 50 calls a reading after 5 to warm
+together) beside the whole backward; SDPA as the dispatcher picks its
+backend for GQA inputs (``MATH`` past head_dim 256 and in float32), and
+on its memory-efficient backend, the fastest that takes the function
+where the dispatcher picks ``MATH`` (K/V expanded to the q heads outside
+the timed region; ``chip_smoke.efficient_sdpa``, which prints a line
+with the backend's reason where it refuses). 50 calls a reading after 5 to warm
 up, once the shape's kernels and SDPA have run untimed for SETTLE_S (the
 first readings of a fresh process came out up to 45 % slow without
 it). Prints one JSON line: the tree, its build seconds, and per shape
 and kernel the mean of its two readings, both readings and SDPA's mean,
-and the split the tree's head_dim-256 kernels take there (null for a
-tree from before the split).
+the memory-efficient backend's forward and backward, and the split the
+tree's
+head_dim-256 kernels take there (null for a tree from before the
+split).
 
 To compare two commits on one card, unpack the other commit's package
 under a directory that ``.gitignore`` lists (``git archive <commit>
@@ -35,10 +42,13 @@ import os
 import sys
 import time
 
-# chip_smoke.py's TIMED_SHAPES and its "d256" row: (B, T, Hq, Hkv, D)
-SHAPES = (("table", (1, 2048, 32, 8, 128)), ("train", (4, 2048, 32, 8, 64)),
-          ("d256", (1, 2048, 8, 1, 256)),
-          ("d512 train", (4, 2048, 4, 1, 512)))
+# chip_smoke.py's TIMED_SHAPES and its DTYPE_TIMED rows: (B, T, Hq, Hkv,
+# D), dtype
+SHAPES = (("table", (1, 2048, 32, 8, 128), "bfloat16"),
+          ("train", (4, 2048, 32, 8, 64), "bfloat16"),
+          ("d256", (1, 2048, 8, 1, 256), "bfloat16"),
+          ("d512 train", (4, 2048, 4, 1, 512), "bfloat16"),
+          ("train f32", (4, 2048, 32, 8, 64), "float32"))
 ITERS, WARMUP = 50, 5
 SETTLE_S = 2.0
 
@@ -86,6 +96,8 @@ def main(argv) -> int:
     from ray_tpu_torch.ops import _build
     from ray_tpu_torch.ops import flash_attention as fa
 
+    import chip_smoke
+
     if not fa.__file__.startswith(root):
         raise RuntimeError(f"imported {fa.__file__}, not the tree {root}")
     t0 = time.perf_counter()
@@ -93,9 +105,9 @@ def main(argv) -> int:
     _build.build(list(getattr(_build, "LIBRARIES", _build.SOURCES)))
     out = {"tree": argv[0], "build_s": time.perf_counter() - t0}
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for label, (B, T, Hq, Hkv, D) in SHAPES:
+    for label, (B, T, Hq, Hkv, D), dtype in SHAPES:
         q, k, v, do = (torch.randn(B, T, h, D, device="cuda", generator=gen)
-                       .to(torch.bfloat16) for h in (Hq, Hkv, Hkv, Hq))
+                       .to(getattr(torch, dtype)) for h in (Hq, Hkv, Hkv, Hq))
         o, lse = fa.flash_attention_forward(q, k, v, True)
         _, delta = fa.flash_attention_bwd_dq(q, k, v, o, do, lse, True)
         qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
@@ -127,7 +139,13 @@ def main(argv) -> int:
             for fn in (*kernels.values(), sdpa, sdpa_backward):
                 fn()
             torch.cuda.synchronize()
-        out[label] = {"split": split_of(fa, B, T, Hq, Hkv, D)}
+        out[label] = {
+            "split": split_of(fa, B, T, Hq, Hkv, D), "dtype": dtype,
+            "sdpa_backend": chip_smoke.sdpa_backend(torch, qt, kt, vt),
+            "sdpa_efficient_forward": chip_smoke.efficient_sdpa(
+                torch, qt, kt, vt),
+            "sdpa_efficient_backward": chip_smoke.efficient_sdpa(
+                torch, qt, kt, vt, dot)}
         for name, fn in kernels.items():
             yardstick = sdpa_backward if name == "bwd" else sdpa
             first, s1, s2, second = (mean_ms(torch, f)

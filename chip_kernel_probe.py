@@ -9,7 +9,8 @@ events, which at 0.05–0.15 ms kernels also reads the host's launch path
 (ctypes, TMA maps). This script reads what the card spent in each kernel
 instead: ``torch.profiler``'s device time of each kernel over 60 calls
 of each wrapper (forward, dQ, dK/dV) at ``chip_kernel_ab.py``'s shapes
-(the head_dim-512 slab kernels at "d512 train"), bf16 causal, beside the host's time to enqueue a call (with the card
+(the head_dim-512 slab kernels at "d512 train", float32 with dQ's split
+pass at "train f32"), causal, beside the host's time to enqueue a call (with the card
 kept busy, so the enqueue is not waited on). With ``--sweep`` (a tree
 with ``ops/flash_schedule.py``), it forces the head_dim-256 split counts
 at the "d256" row instead, five rounds in turns, and reads each count's
@@ -35,9 +36,13 @@ import subprocess
 import sys
 import time
 
-SHAPES = (("table", (1, 2048, 32, 8, 128)), ("train", (4, 2048, 32, 8, 64)),
-          ("d256", (1, 2048, 8, 1, 256)),
-          ("d512 train", (4, 2048, 4, 1, 512)))
+# chip_kernel_ab.py's rows: (B, T, Hq, Hkv, D), dtype
+SHAPES = (("table", (1, 2048, 32, 8, 128), "bfloat16"),
+          ("train", (4, 2048, 32, 8, 64), "bfloat16"),
+          ("d256", (1, 2048, 8, 1, 256), "bfloat16"),
+          ("d512 train", (4, 2048, 4, 1, 512), "bfloat16"),
+          ("train f32", (4, 2048, 32, 8, 64), "float32"))
+SHAPE = {label: shape for label, shape, _ in SHAPES}
 CALLS = 60
 FWD_SPLITS = (0, 2, 3, 4, 5, 6, 8, 10, 14)
 DKV_CHUNKS = (1, 4, 6, 7, 8, 9, 12, 16)
@@ -77,9 +82,9 @@ def host_us(torch, fn, calls: int = 50) -> float:
     return dt
 
 
-def inputs(torch, fa, gen, B, T, Hq, Hkv, D):
+def inputs(torch, fa, gen, B, T, Hq, Hkv, D, dtype="bfloat16"):
     q, k, v, do = (torch.randn(B, T, h, D, device="cuda", generator=gen)
-                   .to(torch.bfloat16) for h in (Hq, Hkv, Hkv, Hq))
+                   .to(getattr(torch, dtype)) for h in (Hq, Hkv, Hkv, Hq))
     o, lse = fa.flash_attention_forward(q, k, v, True)
     _, delta = fa.flash_attention_bwd_dq(q, k, v, o, do, lse, True)
     return {"fwd": lambda: fa.flash_attention_forward(q, k, v, True),
@@ -94,7 +99,7 @@ def sweep(torch, fa, gen) -> dict:
     device ms (kernel and second pass) in ROUNDS rounds, and the median."""
     from ray_tpu_torch.ops import flash_schedule as fs
 
-    calls = inputs(torch, fa, gen, *dict(SHAPES)["d256"])
+    calls = inputs(torch, fa, gen, *SHAPE["d256"])
     real = fs.forward_split_tiles, fs.dkv_split
     runs = {"fwd_split_tiles": {}, "dkv_chunks": {}}
     try:
@@ -127,7 +132,7 @@ def trace(torch, fa, gen) -> dict:
     from ray_tpu_torch.ops import _build
     from ray_tpu_torch.ops import flash_schedule as fs
 
-    B, T, Hq, Hkv, D = dict(SHAPES)["d512 train"]
+    B, T, Hq, Hkv, D = SHAPE["d512 train"]
     calls = inputs(torch, fa, gen, B, T, Hq, Hkv, D)["dkv"]
     sound_ms = sum(device_ms(torch, calls).values())
     out = _build.BUILD_DIR / "trace" / "libflash_attention_bwd_bf16.so"
@@ -178,7 +183,13 @@ def sass(lib: str) -> dict:
         if m:
             k = re.search(r"\d(flash_(?:fwd|bwd)\w*?_kernel"
                           r"(?:ILi\d+E(?:Li\d+E)*)?)", m.group(1))
-            cur = out.setdefault(k.group(1) if k else m.group(1), [])
+            key = k.group(1) if k else m.group(1)
+            # a narrow head_dim's instantiation: A operands in two parts
+            parts = re.search(r"(?:__nv_bfloat16|__half|f)Li(\d)EE",
+                              m.group(1))
+            if parts and parts.group(1) != "1":
+                key += f"<{parts.group(1)} parts>"
+            cur = out.setdefault(key, [])
             continue
         m = re.search(r"/\*[0-9a-f]{4}\*/\s+(.*?);", line)
         if m and cur is not None:
@@ -230,11 +241,11 @@ def main(argv) -> int:
     elif "--trace" in argv:
         out["trace_d512_dkv"] = trace(torch, fa, gen)
     else:
-        for label, shape in SHAPES:
+        for label, shape, dtype in SHAPES:
             out[label] = {name: {"device_ms": device_ms(torch, fn),
                                  "host_us": host_us(torch, fn)}
-                          for name, fn in inputs(torch, fa, gen,
-                                                 *shape).items()}
+                          for name, fn in inputs(torch, fa, gen, *shape,
+                                                 dtype).items()}
             torch.cuda.empty_cache()
     if "--sass-against" in argv:
         out["sass_against"] = sass_against(

@@ -32,7 +32,7 @@ bounds, the block gate of o and of each grad, the merged lse, against
 the whole-T kernels and the fp32 plain version) at the Llama-3-1B heads,
 T 8192 over 4 positions.
 
-Four more are planted in the widened variants and read by ``chip_smoke``'s
+More are planted in the widened variants and read by ``chip_smoke``'s
 ``kernel_dtypes`` gates of one variant (its element and block bounds over
 its lengths, causal and full, GQA groups), beside the sound kernels'
 readings of the same variants:
@@ -43,16 +43,21 @@ readings of the same variants:
 - ``d256_second_half``: the 256-column RS product (O += P V, dQ += dS K)
   reads its second 128 columns from the tile's second column block, not
   its third, read at ``bfloat16:256``;
+- ``split_delta_rounded_do``: the fp32 split pass takes delta from dO
+  rounded to bf16 (the dQ kernel's tile) instead of dO as it lies in
+  device memory, read at ``float32:64``;
 
-and two in the slab kernels that take head_dim past 256, read at
-``bfloat16:512``:
+and three in the slab kernels that take head_dim past 256:
 
-- ``wide_s_last_slice``: the forward's S = Q K^T restarts at each
-  64-column slice instead of summing them, so S holds the last slice's
-  product alone;
+- ``wide_s_last_slice``: the forward's S = Q K^T past 512 columns
+  restarts at each 64-column slice instead of summing them, so S holds
+  the last slice's product alone, read at ``bfloat16:576``;
+- ``pair_missing_partial``: the forward up to 512 columns leaves the
+  other consumer's partial S out, so each slab's S is the product of
+  its own 256 columns of Q and K alone, read at ``bfloat16:512``;
 - ``wide_dq_k_first_slab``: the dQ kernel's dQ += dS K reads the first
   slab's columns of K whatever slab the consumer owns, so every slab
-  past the first gets the first slab's dQ;
+  past the first gets the first slab's dQ, read at ``bfloat16:512``;
 
 two in the slab backward kernels' exchanges, read at ``bfloat16:512``:
 
@@ -98,10 +103,10 @@ FAULTS = {
         "    for (int j = n_live; j < n_tiles; ++j) {\n",
         "    for (int j = max(n_live - 1, 0); j < n_tiles; ++j) {\n"),
     "delta_wrong_half": (
-        "      if (tg == 0 && row < T) delta[((int64_t)b * Hq + h) * T + row] = "
-        "sum;\n",
-        "      if (tg == 0 && (row ^ 8) < T)\n"
-        "        delta[((int64_t)b * Hq + h) * T + (row ^ 8)] = sum;\n"),
+        "        if (tg == 0 && row < T) delta[((int64_t)b * Hq + h) * T + row] "
+        "= sum;\n",
+        "        if (tg == 0 && (row ^ 8) < T)\n"
+        "          delta[((int64_t)b * Hq + h) * T + (row ^ 8)] = sum;\n"),
 }
 
 # faults in the widened variants: (file under csrc/, its edits (old, new,
@@ -109,7 +114,7 @@ FAULTS = {
 VARIANT_FAULTS = {
     "f32_dp_rounded_once": (
         "flash_attention_bwd.cu",
-        ("      if constexpr (!kTma) {\n"
+        ("      if constexpr (kLo) {\n"
          "        // fp32: dP += dO_lo V_hi^T + dO_hi V_lo^T (the tiles' "
          "rests)\n",
          "      if constexpr (false) {\n",
@@ -126,7 +131,19 @@ VARIANT_FAULTS = {
     "wide_s_last_slice": (
         "flash_attention_fwd.cu",
         ("cb > 0 || ks > 0);", "ks > 0);"),
+        ("bfloat16", 576)),
+    "pair_missing_partial": (
+        "flash_attention_fwd.cu",
+        ("        const float4 x = theirs[q * 128 + t];\n",
+         "        const float4 x = make_float4(0.f, 0.f, 0.f, 0.f);\n"),
         ("bfloat16", 512)),
+    "split_delta_rounded_do": (
+        "flash_attention_bwd.cu",
+        ("          if (8 * ch + e < d_true) sum += y[e] * x[e];\n",
+         "          if (8 * ch + e < d_true)\n"
+         "            sum += y[e] * __bfloat162float(__float2bfloat16(x[e]));"
+         "\n"),
+        ("float32", 64)),
     "wide_dq_k_first_slab": (
         "flash_attention_bwd.cu",
         ("k_addr + 4 * c * kTile + kk * 16 * 128,",

@@ -413,8 +413,9 @@ def ptxas_report(log: str):
             # the slab kernels and the head_dim-256 split's second passes
             other = re.search(
                 r"(flash_(?:fwd|bwd_dq|bwd_dkv)_wide_kernel|"
-                r"flash_bwd_dkv_cluster_kernel|"
-                r"flash_fwd_merge_kernel|flash_bwd_dkv_reduce_kernel)I",
+                r"flash_bwd_dkv_cluster_kernel|flash_fwd_pair_kernel|"
+                r"flash_fwd_merge_kernel|flash_bwd_dkv_reduce_kernel|"
+                r"flash_bwd_split_kernel)[IE]",
                 m.group(1))
             cur = {"kernel": f"{name.group(1)}<{name.group(2)}>" if name
                    else other.group(1) if other else m.group(1)}
@@ -438,8 +439,9 @@ def launch_shapes(_build) -> dict:
     """Dynamic shared memory, threads, registers at launch and rows of a
     block of each kernel, per element type and head_dim it is built for,
     as their libraries report them (512: the slab kernels that take
-    every head_dim past 256, dK/dV's in clusters; 2048: dK/dV past the
-    widest cluster, a block a slab)."""
+    every head_dim past 256, the forward's a block of both slabs up to
+    512, dK/dV's in clusters; 2048: the forward and dK/dV past them, a
+    block a slab)."""
     import ctypes
 
     shapes = {}
@@ -456,13 +458,14 @@ def launch_shapes(_build) -> dict:
                            ctypes.POINTER(ctypes.c_int)]
             fn.restype = ctypes.c_int
             for D in (64, 128, 256, 512, 2048):
-                if D == 2048 and kernel != "flash_bwd_dkv_kernel":
-                    continue  # the same slab kernels as at 512
+                if D == 2048 and kernel == "flash_bwd_dq_kernel":
+                    continue  # the same slab kernel as at 512
                 out = (ctypes.c_int * 4)()
                 check(fn(D, code, out) == 0, f"{entry}({D}, {dtype}) failed")
-                slab = ("_cluster_kernel" if D == 512
-                        and kernel == "flash_bwd_dkv_kernel" else
-                        "_wide_kernel")
+                slab = ("_wide_kernel" if D == 2048 or
+                        kernel == "flash_bwd_dq_kernel" else
+                        "_cluster_kernel" if kernel == "flash_bwd_dkv_kernel"
+                        else "_pair_kernel")
                 label = (f"{kernel}<{D}, {dtype}>" if D <= 256 else
                          kernel.replace("_kernel", f"{slab}<{dtype}>"))
                 check(out[0] <= SMEM_PER_BLOCK,
@@ -627,6 +630,68 @@ def sdpa_backend(torch, qt, kt, vt) -> str:
         return f"unknown ({type(e).__name__})"
 
 
+def efficient_sdpa(torch, qt, kt, vt, dot=None) -> dict:
+    """SDPA on its memory-efficient backend (no head_dim bound on sm_90,
+    float32 too: past head_dim 256 and in float32 the fastest backend
+    that takes this function where the dispatcher picks ``MATH``), on K/V
+    expanded to the q heads by repeat_interleave outside the timed
+    region, timed twice (20 calls each); with ``dot`` its backward (dq,
+    dk, dv of the expanded heads together, as the yardstick's own
+    backward). Where the backend refuses the inputs, the reason
+    ``can_use_efficient_attention(params, debug=True)`` warns is printed on
+    a line of its own and ``library_efficient_ms`` is None."""
+    import warnings
+
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    rep = qt.shape[1] // kt.shape[1]
+    qe, ke, ve = (x.detach().repeat_interleave(r, dim=1).requires_grad_(
+        dot is not None) for x, r in ((qt, 1), (kt, rep), (vt, rep)))
+    try:
+        params = torch.backends.cuda.SDPAParams(qe, ke, ve, None, 0.0, True,
+                                                False)
+    except TypeError:  # a torch whose params take no enable_gqa
+        params = torch.backends.cuda.SDPAParams(qe, ke, ve, None, 0.0, True)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        takes = torch.backends.cuda.can_use_efficient_attention(params, True)
+    if not takes:
+        reason = "; ".join(str(w.message) for w in caught) or "refused"
+        emit({"phase": "sdpa_efficient_refused",
+              "shape": list(qt.shape), "kv_heads": kt.shape[1],
+              "dtype": dtype_name(qt.dtype), "reason": reason})
+        return {"library_efficient_ms": None, "efficient_refused": reason}
+    if dot is not None:
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            out = torch.nn.functional.scaled_dot_product_attention(
+                qe, ke, ve, is_causal=True)
+
+    def call():
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            if dot is None:
+                with torch.no_grad():
+                    return torch.nn.functional.scaled_dot_product_attention(
+                        qe, ke, ve, is_causal=True)
+            return torch.autograd.grad(out, (qe, ke, ve), dot,
+                                       retain_graph=True)
+
+    reads = [cuda_ms(call), cuda_ms(call)]
+    return {"library_efficient_ms": sum(reads) / 2,
+            "library_efficient_ms_each": reads, "efficient_refused": None}
+
+
+def fastest_library(timing: dict) -> dict:
+    """The faster yardstick of a timing: the dispatcher's pick
+    (``library_ms``, its backend ``library_backend``) or the
+    memory-efficient backend's (``library_efficient_ms``)."""
+    eff = timing.get("library_efficient_ms")
+    if eff is not None and eff < timing["library_ms"]:
+        return {"library_fastest_backend": "EFFICIENT_ATTENTION",
+                "library_fastest_ms": eff}
+    return {"library_fastest_backend": timing["library_backend"],
+            "library_fastest_ms": timing["library_ms"]}
+
+
 def split_counts(torch, q, k, causal) -> dict:
     """The split the forward and dK/dV wrappers take on these inputs
     (ray_tpu_torch/ops/flash_schedule.py, on this card's SMs): the q
@@ -667,9 +732,10 @@ def forward_timing(torch, q, k, v, peaks) -> dict:
             lambda: flash_attention_reference(q, k, v, True), iters=5),
         library="torch.nn.functional.scaled_dot_product_attention",
         library_backend=sdpa_backend(torch, qt, kt, vt),
+        **efficient_sdpa(torch, qt, kt, vt),
         **bound(*attention_work(B, T, Hq, Hkv, D, True,
                                 elem_bytes=q.element_size()), peaks))
-    timing.update(rates(timing))
+    timing.update(rates(timing), **fastest_library(timing))
     return timing
 
 
@@ -810,16 +876,17 @@ def backward_timings(torch, q, k, v, o, lse, do, peaks) -> dict:
     timings = {"shape": {"B": B, "T": T, "Hq": Hq, "Hkv": Hkv, "D": D,
                          "causal": True, "dtype": dtype_name(q.dtype)}}
     chunks = split_counts(torch, q, k, True)["dkv_chunks"]
+    efficient = efficient_sdpa(torch, qt, kt, vt, dot)
     for name, (kern, plain) in runs.items():
         timing = in_turns(torch, kern, library)
         if name != "dq":
             timing["dkv_chunks"] = chunks
         timing.update(
             plain_ms=cuda_ms(plain, iters=3, warmup=1),
-            library_backend=backend,
+            library_backend=backend, **efficient,
             **bound(*attention_work(B, T, Hq, Hkv, D, True, name,
                                     q.element_size()), peaks))
-        timing.update(rates(timing))
+        timing.update(rates(timing), **fastest_library(timing))
         timings[name] = timing
     # what the two-kernel design does beyond the function: S and dP,
     # computed in both kernels (not part of the bound)
@@ -1067,6 +1134,7 @@ def reduced_depth_step(torch, seed, cfg, label: str) -> dict:
         if not timed:
             return loss, gnorm, leaves, None
         launches = read_launches(fa)
+        launches["split"] = fa.flash_attention_bwd_split.launches
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -1102,9 +1170,15 @@ def reduced_depth_step(torch, seed, cfg, label: str) -> dict:
         "attn_leaf_rtol": ATTN_GRAD_RTOL, "launches": counts,
         "plain_delta_calls": len(delta_calls), **timed}
 
+    # float32 up to head_dim 256: one split pass a dQ launch
+    split_want = counts["dq"] if cfg.dtype == torch.float32 \
+        and cfg.head_dim <= 256 else 0
+
     def gates():
-        check(counts == expected_launches(cfg, 1),
-              f"{label} launched {counts}")
+        check({k: n for k, n in counts.items() if k != "split"}
+              == expected_launches(cfg, 1) and counts["split"] == split_want,
+              f"{label} launched {counts}, want {expected_launches(cfg, 1)} "
+              f"and {split_want} split passes")
         check(not delta_calls, f"the kernel step ({label}) took the plain "
                                f"delta {len(delta_calls)} times")
         check(math.isfinite(loss) and math.isfinite(gnorm),
@@ -1140,8 +1214,10 @@ def phase_reduced_depth_train(torch, seed):
 # at 264, 300 (read padded to 304), 320, 384, 512, 576, 1024 and 1280,
 # fp16 at 512, fp32 at 384, 512 and 768: dK/dV in clusters of two, three
 # and four blocks, and past them, bf16 1280 and fp32 768, in blocks of a
-# slab on their own), each at lengths at and past the tile edges,
-# causal and full, and GQA groups of 1, 4 and 8 (8 q heads)
+# slab on their own; the narrow head_dims bf16 1, fp16 4 and fp32 3, whose
+# P and dS pass in two parts and fp32 inputs as bf16 parts), each at
+# lengths at and past the tile edges, causal and full, and GQA groups of
+# 1, 4 and 8 (8 q heads)
 DTYPE_VARIANTS = (("bfloat16", 256), ("float16", 64), ("float16", 128),
                   ("float16", 256), ("float32", 64), ("float32", 128),
                   ("float32", 256), ("bfloat16", 72), ("bfloat16", 80),
@@ -1149,7 +1225,8 @@ DTYPE_VARIANTS = (("bfloat16", 256), ("float16", 64), ("float16", 128),
                   ("bfloat16", 300), ("bfloat16", 320), ("bfloat16", 384),
                   ("bfloat16", 512), ("bfloat16", 576), ("bfloat16", 1024),
                   ("bfloat16", 1280), ("float16", 512), ("float32", 384),
-                  ("float32", 512), ("float32", 768))
+                  ("float32", 512), ("float32", 768), ("bfloat16", 1),
+                  ("float16", 4), ("float32", 3))
 DTYPE_LENGTHS = (1, 65, 129, 257, 2048)
 DTYPE_GROUPS = (1, 4, 8)
 # the timed shapes of the new variants: the 1B training step's attention
@@ -1163,12 +1240,13 @@ DTYPE_TIMED = (("train f32", (4, 2048, 32, 8, 64), "float32"),
 # the JAX suite's own flash-attention cases (tests/test_flash_attention.py:
 # CASES with RandomState(0), the grad case with RandomState(1), the odd
 # case T 100, D 32 with RandomState(2)), float32; its bounds are 2e-2
-# forward and 5e-2 grads, 1e-5 on its exact path for the odd case, which
-# the kernel does not compute at float32 precision (bf16 operands), so the
-# odd case is held at the forward bound 2e-2
+# forward and 5e-2 grads, 1e-5 on its exact path for the odd case: T 100
+# is a length JAX's _supported refuses, and flash_attention sends such
+# float32 inputs to plain attention on the card too (sends_to_plain)
 REFERENCE_CASES = ((1, 128, 2, 1, 64, True), (1, 128, 2, 2, 128, False))
 REFERENCE_GRAD_CASE = (1, 128, 2, 1, 64, True)
 REFERENCE_ODD_CASE = (1, 100, 2, 2, 32, True)
+REFERENCE_ODD_TOL = 1e-5
 
 
 def variant_readings(torch, gen, dtype, D) -> dict:
@@ -1325,12 +1403,14 @@ def reference_suite_readings(torch, np) -> dict:
     out = {}
     for case in REFERENCE_CASES + (REFERENCE_ODD_CASE,):
         B, T, Hq, Hkv, D, causal = case
-        q, k, v = qkv(2 if case == REFERENCE_ODD_CASE else 0, B, T, Hq,
-                      Hkv, D)
+        odd = case == REFERENCE_ODD_CASE
+        q, k, v = qkv(2 if odd else 0, B, T, Hq, Hkv, D)
+        plain = fa.flash_attention.plain_calls
         got = fa.flash_attention(q, k, v, causal)
-        out["x".join(map(str, case))] = share(
-            got, fa.flash_attention_reference(q, k, v, causal)[0],
-            KERNEL_ATOL)
+        out["x".join(map(str, case))] = {
+            **share(got, fa.flash_attention_reference(q, k, v, causal)[0],
+                    REFERENCE_ODD_TOL if odd else KERNEL_ATOL),
+            "plain": fa.flash_attention.plain_calls - plain == 1}
     B, T, Hq, Hkv, D, causal = REFERENCE_GRAD_CASE
     grads = []
     for attention in (fa.flash_attention,
@@ -1343,6 +1423,49 @@ def reference_suite_readings(torch, np) -> dict:
     for name, got, want in zip(("dq", "dk", "dv"), *grads):
         out[f"grad {name}"] = share(got, want, GRAD_ATOL)
     return out
+
+
+def split_timing(torch, q, k, v, o, do, peaks) -> dict:
+    """The float32 split pass (``flash_attention_bwd_split``) on these
+    inputs against its plain version: the bf16 copies bitwise, delta
+    within DELTA_RTOL of rowsum(|o * do|), the largest |error| of either;
+    the pass timed twice and its plain version once, beside the bound of
+    its bytes (q, k, v, o, do read once in float32; the six copies and
+    delta written once). No single PyTorch call computes it."""
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    got = fa.flash_attention_bwd_split(q, k, v, o, do)
+    want = fa.flash_attention_bwd_split_reference(q, k, v, o, do)
+    prod = o.float() * do.float()
+    delta_err = (got.delta - want.delta).abs()
+    B, T, Hq, D = q.shape
+    Hkv = k.shape[2]
+    w8 = -(-D // 8) * 8
+    nbytes = (4 * B * T * D * (3 * Hq + 2 * Hkv)
+              + 2 * B * T * w8 * 3 * (Hq + Hkv) + 4 * B * Hq * T)
+    ms_each = [cuda_ms(lambda: fa.flash_attention_bwd_split(q, k, v, o, do))
+               for _ in range(2)]
+    timing = {
+        "shape": {"B": B, "T": T, "Hq": Hq, "Hkv": Hkv, "D": D,
+                  "dtype": dtype_name(q.dtype)},
+        "ms": sum(ms_each) / 2, "ms_each": ms_each,
+        "plain_ms": cuda_ms(
+            lambda: fa.flash_attention_bwd_split_reference(q, k, v, o, do),
+            iters=5, warmup=1),
+        "library": None, "library_ms": None,
+        "copies_bitwise_equal_plain": all(
+            torch.equal(a, b) for a, b in zip(got[:6], want[:6])),
+        "max_abs_err": max([delta_err.max().item()] + [
+            (a.float() - b.float()).abs().max().item()
+            for a, b in zip(got[:6], want[:6])]),
+        "delta_err_over_bound": (delta_err / (
+            DELTA_RTOL * prod.abs().sum(-1).transpose(1, 2))
+            .clamp_min(1e-30)).max().item(),
+        # delta's products; the bound is the bytes'
+        **bound(2 * B * T * Hq * D, nbytes, peaks)}
+    timing["share_of_bound"] = timing["bound_ms"] / timing["ms"]
+    timing["achieved_gb_per_s"] = nbytes / (timing["ms"] * 1e-3) / 1e9
+    return timing
 
 
 def phase_kernel_dtypes(torch, np, gen, seed, peaks, smi) -> dict:
@@ -1376,7 +1499,8 @@ def phase_kernel_dtypes(torch, np, gen, seed, peaks, smi) -> dict:
            if r["failed"]}
     check(not bad, f"kernel variants disagree with their plain versions or "
                    f"are not bitwise repeatable: {bad}")
-    check(all(r["err_over_tolerance"] <= 1.0 for r in reference.values()),
+    check(all(r["err_over_tolerance"] <= 1.0 for r in reference.values())
+          and reference["x".join(map(str, REFERENCE_ODD_CASE))]["plain"],
           f"the JAX suite's cases fail on the card: {reference}")
     check(tq_tk["worst_err_over_tolerance"] <= 1.0
           and tq_tk["plain_calls"] == len(TQ_TK_CASES)
@@ -1404,6 +1528,11 @@ def phase_kernel_dtypes(torch, np, gen, seed, peaks, smi) -> dict:
         o, lse = fa.flash_attention_forward(q, k, v, True)
         timings[label] = {"fwd": fwd, **backward_timings(
             torch, q, k, v, o, lse, do, peaks)}
+        if q.dtype == torch.float32 and D <= fs.WIDE_SLAB:
+            timings[label]["split"] = split_timing(torch, q, k, v, o, do,
+                                                   peaks)
+            emit({"phase": "kernel_timing", "kernel": "split", "at": label,
+                  "card": smi, **timings[label]["split"]})
         emit({"phase": "kernel_timing", "kernel": "fwd", "at": label,
               "card": smi, **fwd})
         emit({"phase": "kernel_timing_backward", "at": label, "card": smi,
@@ -1442,7 +1571,7 @@ def phase_kernel_dtypes(torch, np, gen, seed, peaks, smi) -> dict:
         torch.cuda.empty_cache()
     gates = {label: r.pop("gates") for label, r in steps.items()}
     launches = {k: sum(r["launches"][k] for r in steps.values())
-                for k in ("fwd", "dq", "dkv")}
+                for k in ("fwd", "dq", "dkv", "split")}
     emit({"phase": "kernel_dtypes_train", "card": smi, "steps": steps,
           "launches": launches, "phase_s": time.perf_counter() - t0})
     for gate in gates.values():
@@ -1455,6 +1584,12 @@ def phase_kernel_dtypes(torch, np, gen, seed, peaks, smi) -> dict:
     check(steps["d256"]["split_launches"][0] > 0
           and steps["d256"]["split_launches"][1] > 0,
           f"the d256 step took no split: {steps['d256']['split']}")
+    split = timings["train f32"]["split"]
+    check(split["copies_bitwise_equal_plain"]
+          and split["delta_err_over_bound"] <= 1.0,
+          f"the float32 split pass disagrees with its plain version: max "
+          f"|err| {split['max_abs_err']}, delta err over bound "
+          f"{split['delta_err_over_bound']}")
     return {"variants": variants, "reference_suite": reference,
             "timings": timings, "launches": launches}
 
@@ -1694,7 +1829,7 @@ def counting_plain_delta(fa):
 
 def reset_launches(fa) -> None:
     for fn in (fa.flash_attention_forward, fa.flash_attention_bwd_dq,
-               fa.flash_attention_bwd_dkv):
+               fa.flash_attention_bwd_dkv, fa.flash_attention_bwd_split):
         fn.launches = 0
 
 
@@ -5502,56 +5637,77 @@ def main(argv=None) -> int:
           "gymnasium": importlib.util.find_spec("gymnasium") is not None})
     check(cap == (9, 0), f"needs an sm_90 card, found sm_{cap[0]}{cap[1]}")
 
-    phase_build(_build)
+    seconds = {}
+
+    def timed(phase, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[phase] = time.perf_counter() - t0
+        return out
+
+    timed("build", phase_build, _build)
     peaks = peaks_for(name)
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    err_o, err_lse, err_ratio, fwd_timing = phase_kernel(torch, gen,
-                                                         peaks)
-    bwd_err, bwd_ratio, bwd_block, bwd_delta, bwd_timing = phase_backward(
-        torch, gen, peaks)
+    err_o, err_lse, err_ratio, fwd_timing = timed(
+        "kernel", phase_kernel, torch, gen, peaks)
+    bwd_err, bwd_ratio, bwd_block, bwd_delta, bwd_timing = timed(
+        "backward", phase_backward, torch, gen, peaks)
     torch.cuda.empty_cache()
-    seq_ring_launches = phase_seq_ring(torch, gen, peaks, smi)
+    seq_ring_launches = timed("seq_ring", phase_seq_ring, torch, gen, peaks,
+                              smi)
     torch.cuda.empty_cache()
-    phase_reduced_depth(torch, args.seed)
-    phase_reduced_depth_train(torch, args.seed)
+    timed("reduced_depth", phase_reduced_depth, torch, args.seed)
+    timed("reduced_depth_train", phase_reduced_depth_train, torch,
+          args.seed)
     torch.cuda.empty_cache()
-    dtypes = phase_kernel_dtypes(torch, np, gen, args.seed, peaks, smi)
+    dtypes = timed("kernel_dtypes", phase_kernel_dtypes, torch, np, gen,
+                   args.seed, peaks, smi)
     torch.cuda.empty_cache()
-    serving_launches, served = phase_serving(torch, np, args.seed, smi)
+    serving_launches, served = timed("serving", phase_serving, torch, np,
+                                     args.seed, smi)
     gc.collect()  # the serving engine holds reference cycles
     torch.cuda.empty_cache()
-    serve_plane_launches = phase_serve_plane(torch, np, args.seed, smi,
-                                             served)
-    phase_dag(torch, smi)
-    train_launches = phase_training(torch, args.seed, smi, peaks[0])
+    serve_plane_launches = timed("serve_plane", phase_serve_plane, torch,
+                                 np, args.seed, smi, served)
+    timed("dag", phase_dag, torch, smi)
+    train_launches = timed("training", phase_training, torch, args.seed, smi,
+                           peaks[0])
     gc.collect()
     torch.cuda.empty_cache()
-    spmd_launches, trained = phase_spmd(torch, args.seed, smi, peaks[0])
+    spmd_launches, trained = timed("spmd", phase_spmd, torch, args.seed, smi,
+                                   peaks[0])
     gc.collect()
     torch.cuda.empty_cache()
-    trainer_launches = phase_trainer_paths(torch, args.seed, smi, peaks[0],
-                                           trained)
+    trainer_launches = timed("trainer_paths", phase_trainer_paths, torch,
+                             args.seed, smi, peaks[0], trained)
     torch.cuda.empty_cache()
-    mpmd_launches = phase_mpmd(torch, np, args.seed, smi, peaks[0], trained)
+    mpmd_launches = timed("mpmd", phase_mpmd, torch, np, args.seed, smi,
+                          peaks[0], trained)
     gc.collect()
     torch.cuda.empty_cache()
-    tune_launches = phase_tune(torch, args.seed, smi)
+    tune_launches = timed("tune", phase_tune, torch, args.seed, smi)
     torch.cuda.empty_cache()
-    phase_rllib(torch, np, args.seed, smi)  # launches no attention kernel
+    # launches no attention kernel
+    timed("rllib", phase_rllib, torch, np, args.seed, smi)
     gc.collect()
     torch.cuda.empty_cache()
-    moe_launches = phase_moe(torch, args.seed, smi, peaks[0])
+    moe_launches = timed("moe", phase_moe, torch, args.seed, smi, peaks[0])
     gc.collect()
     torch.cuda.empty_cache()
-    phase_observability(torch, np, args.seed, smi, peaks, served, trained)
+    timed("observability", phase_observability, torch, np, args.seed, smi,
+          peaks, served, trained)
     gc.collect()
     torch.cuda.empty_cache()
-    dashboard_launches = phase_dashboard(torch, args.seed, smi, peaks)
+    dashboard_launches = timed("dashboard", phase_dashboard, torch,
+                               args.seed, smi, peaks)
     gc.collect()
     torch.cuda.empty_cache()
     # after observability: its engine's programs would add variants to
     # the serving engine's records that phase reads
-    wide_head_launches = phase_wide_head(torch, np, args.seed, smi)
+    wide_head_launches = timed("wide_head", phase_wide_head, torch, np,
+                               args.seed, smi)
+    emit({"phase": "seconds", "seconds": seconds,
+          "total_s": sum(seconds.values())})
 
     # each path's launches, read from its own run: the one-card ring, the
     # single-device step, the sharded steps, the pipeline (all ranks), the
@@ -5566,18 +5722,26 @@ def main(argv=None) -> int:
                "dashboard": dashboard_launches,
                "wide_head": wide_head_launches}
     timed = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-             "ratio_to_library", "achieved_tflops", "share_of_bound")
+             "ratio_to_library", "achieved_tflops", "share_of_bound",
+             "library_efficient_ms", "library_fastest_backend",
+             "library_fastest_ms")
     shapes = {label: fwd_timing[label]["shape"] for label in fwd_timing}
     src = "ray_tpu_torch/ops/csrc/"
     types_note = ("a library per dtype: bf16 and fp16 operands as they are, "
-                  "fp32 rounded to bf16 by the producer threads; any head_dim "
-                  ">= 1, past 256 on the slab kernels, a consumer warpgroup "
-                  "a slab of 256 output columns, S and dP split between a "
-                  "block's two consumers by product: dQ a block two slabs "
-                  "(flash_bwd_dq_wide_kernel), dK/dV a cluster of a block a "
-                  "slab summing the blocks' partial S^T and dP^T sent by "
-                  "st.async (flash_bwd_dkv_cluster_kernel; past 4 slabs, "
-                  "fp32 2, flash_bwd_dkv_wide_kernel)")
+                  "fp32 rounded to bf16 (dQ's by the split pass, "
+                  "flash_bwd_split_kernel, once a call; the others' by the "
+                  "producer threads); any head_dim >= 1, past 256 on the "
+                  "slab kernels, a consumer warpgroup a slab of 256 output "
+                  "columns: the forward up to 512 a block of 64 q rows and "
+                  "both slabs, each consumer's partial S over its slab's "
+                  "columns added to the other's (flash_fwd_pair_kernel; "
+                  "past 512 flash_fwd_wide_kernel, a block a slab); S and "
+                  "dP split between a block's two consumers by product: dQ "
+                  "a block two slabs (flash_bwd_dq_wide_kernel), dK/dV a "
+                  "cluster of a block a slab summing the blocks' partial "
+                  "S^T and dP^T sent by st.async "
+                  "(flash_bwd_dkv_cluster_kernel; past 4 slabs, fp32 2, "
+                  "flash_bwd_dkv_wide_kernel)")
     from ray_tpu_torch.ops import flash_attention as fa
 
     # the head_dim-256 split (ops/flash_schedule.py); split_launches: the
@@ -5644,6 +5808,27 @@ def main(argv=None) -> int:
             **dtype_entries(dtypes, kern, tuple(
                 f"{e}{b}" for e in errs for b in ("", "_block"))
                 + (("delta",) if kern == "dq" else ()), timed)})
+    split = dtypes["timings"]["train f32"]["split"]
+    kernels.append({
+        "name": "flash_attention_bwd_split", "route": "cuda",
+        "source": src + "flash_attention_bwd.cu",
+        # part of the dQ kernel's port for float32 inputs
+        "replaces": "ray_tpu/ops/flash_attention.py:135",
+        "design": "flash_bwd_split_kernel: float32 q, k, v, o, dO read "
+                  "once; bf16 copies (hi = RN(x); of v and dO also lo = "
+                  "RN(x - hi)) and delta = rowsum(o * dO) written once, "
+                  "which the dQ kernel loads by TMA; bound by bytes",
+        "launches": sum(n.get("split", 0) for n in by_path.values()),
+        "launches_by_path": {p: n.get("split", 0)
+                             for p, n in by_path.items()},
+        "max_abs_err": split["max_abs_err"],
+        "copies_bitwise_equal_plain": split["copies_bitwise_equal_plain"],
+        "delta_err_over_bound": split["delta_err_over_bound"],
+        "ok": split["copies_bitwise_equal_plain"]
+        and split["delta_err_over_bound"] <= 1.0,
+        **{k: split[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms", "share_of_bound")},
+        "shape": split["shape"]})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -93,19 +93,25 @@
 // 32 stages, 256 blocks, and a pass over 33.5 MB of partials.
 //
 // Types (flash_attention_sm90.cuh, `Elem`): bf16 and fp16 run wgmma in
-// their own type (P and dS are rounded to it as A operands); fp32 tiles are
-// loaded by all four producer warps (which keep 40 registers), rounded to
-// bf16 into the same swizzled tiles, and run the bf16 products: an fp32
-// call computes its products with bf16 operands and fp32 sums. delta is
-// taken from O and dO in fp32 as they lie in device memory, so dP = dO
-// V^T, which dS sets against it, takes dO and V each as two bf16 tiles
-// (the rounded value and what the rounding left) in three products, hi
-// hi + lo hi + hi lo: with one rounded product, dP - delta, which is 0
+// their own type (P and dS are rounded to it as A operands); fp32 inputs
+// run the bf16 products on tiles rounded to bf16: an fp32 call computes
+// its products with bf16 operands and fp32 sums. dK/dV's fp32 tiles are
+// loaded by all four producer warps (which keep 40 registers) and rounded
+// into the same swizzled tiles; dQ's arrive by TMA from the bf16 copies
+// that the split pass (flash_bwd_split_kernel, below) writes once a call.
+// delta is taken from O and dO in fp32 as they lie in device memory, so
+// dP = dO V^T, which dS sets against it, takes dO and V each as two bf16
+// tiles (the rounded value and what the rounding left) in three products,
+// hi hi + lo hi + hi lo: with one rounded product, dP - delta, which is 0
 // where a row has one key, came out at the operands' rounding (2^-9 of
 // |dO| |V|) and failed the block gate at T = 1. The extra tiles cost the
 // rings stages: dQ keeps one at head_dim 256 (its producer then loads K
 // and V of a tile in turn), dK/dV one at 128 and 256. Outputs are written
 // in the input type.
+//
+// Up to kNarrowWidth columns (flash_attention_sm90.cuh) both take their A
+// operands (dS; P^T and dS^T) in two parts, the rounded value and what
+// the rounding left, two products where one was (kParts = 2).
 //
 // Both kernels are built for head_dim 64, 128 and 256; a narrower head_dim is
 // read through TMA maps of its true width (missing columns arrive as
@@ -133,6 +139,123 @@ using namespace sm90;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr unsigned kFull = 0xffffffffu;
 
+// ------------------------------------------------- fp32: the split pass
+//
+// fp32 inputs reach the products as bf16 tiles (Elem<float>). Before this
+// pass the dQ kernel's producer warpgroup converted every tile itself
+// (convert_rows, no TMA, 40 registers, each K and V tile once a q tile's
+// block), and dQ of "train f32" took 7.4x the bf16 dQ's time. The split
+// pass does the rounding once a call instead, bound by bytes: it reads q,
+// k, v, o and dO (fp32) once and writes bf16 copies [B, T, H, w8] (w8:
+// the width rounded up to 8 columns, 16-byte rows, the rest zeros) of q
+// and k (hi = RN(x)), of v and dO with their rests (lo = RN(x - hi)),
+// exactly convert_rows's rounding, and delta = rowsum(o o dO) in fp32 in
+// the order the dQ kernel took it (the quad of a row takes its 8-column
+// chunks tg, tg + 4, ... in order, each element by element, then sums
+// the four partials by butterfly). The dQ kernel then loads every tile by
+// TMA, the rests included, so each product sees the operands it saw when
+// its producer converted them. A thread an 8-column chunk: 64 rows a
+// block of 256 threads, four threads a row; q-sized rows (q, o, dO) in
+// the first blocks, kv-sized rows (k, v) after them.
+constexpr int kSplitRows = 64;  // rows a block
+
+// strides (batch, time, head) of q, k, v, o and dO, in elements
+struct SplitStrides {
+  long long s[5][3];
+};
+
+// eight floats of a row from column `col` on, zeros past d_true
+__device__ __forceinline__ void load8(const float* row, int col, int d_true,
+                                     float (&x)[8]) {
+  if (col + 8 <= d_true) {
+    const float4 a = reinterpret_cast<const float4*>(row + col)[0];
+    const float4 b = reinterpret_cast<const float4*>(row + col)[1];
+    x[0] = a.x, x[1] = a.y, x[2] = a.z, x[3] = a.w;
+    x[4] = b.x, x[5] = b.y, x[6] = b.z, x[7] = b.w;
+  } else {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) x[e] = col + e < d_true ? row[col + e] : 0.f;
+  }
+}
+
+// x rounded to bf16 into hi (and, given lo, what the rounding left, rounded
+// in turn into lo): convert_rows's arithmetic
+__device__ __forceinline__ void split8(const float (&x)[8], uint4* hi,
+                                       uint4* lo) {
+  uint32_t v[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) v[e] = pack2<__nv_bfloat16>(x[2 * e], x[2 * e + 1]);
+  *hi = make_uint4(v[0], v[1], v[2], v[3]);
+  if (lo != nullptr) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 h = unpack2<__nv_bfloat16>(v[e]);
+      v[e] = pack2<__nv_bfloat16>(x[2 * e] - h.x, x[2 * e + 1] - h.y);
+    }
+    *lo = make_uint4(v[0], v[1], v[2], v[3]);
+  }
+}
+
+__global__ void __launch_bounds__(4 * kSplitRows)
+    flash_bwd_split_kernel(const float* __restrict__ q,
+                           const float* __restrict__ k,
+                           const float* __restrict__ v,
+                           const float* __restrict__ o,
+                           const float* __restrict__ dout,
+                           uint4* __restrict__ q_hi, uint4* __restrict__ k_hi,
+                           uint4* __restrict__ v_hi, uint4* __restrict__ v_lo,
+                           uint4* __restrict__ do_hi,
+                           uint4* __restrict__ do_lo,
+                           float* __restrict__ delta, int B, int T, int Hq,
+                           int Hkv, int d_true, int w8,
+                           const SplitStrides st) {
+  const int tg = threadIdx.x % 4;
+  const int q_blocks = cdiv(B * T * Hq, kSplitRows);
+  const bool q_sized = blockIdx.x < q_blocks;
+  const int H = q_sized ? Hq : Hkv;
+  // row (b, t, h), h fastest, of the copies [B, T, H, w8]
+  const int64_t row = (int64_t)(q_sized ? blockIdx.x : blockIdx.x - q_blocks) *
+                          kSplitRows + threadIdx.x / 4;
+  const bool live = row < (int64_t)B * T * H;
+  const int h = row % H, t = (row / H) % T, b = row / ((int64_t)H * T);
+  const int n_ch = w8 / 8;  // 16-byte chunks of a copy's row
+  auto at = [&](const float* base, int i) {
+    return base + b * st.s[i][0] + t * st.s[i][1] + h * st.s[i][2];
+  };
+  float x[8];
+  if (q_sized) {
+    float sum = 0.f;
+    if (live) {
+      const float *q_row = at(q, 0), *o_row = at(o, 3), *do_row = at(dout, 4);
+      for (int ch = tg; ch < n_ch; ch += 4) {
+        const int64_t out = row * n_ch + ch;
+        load8(q_row, 8 * ch, d_true, x);
+        split8(x, q_hi + out, nullptr);
+        load8(do_row, 8 * ch, d_true, x);
+        split8(x, do_hi + out, do_lo + out);
+        float y[8];
+        load8(o_row, 8 * ch, d_true, y);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          if (8 * ch + e < d_true) sum += y[e] * x[e];
+        }
+      }
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    if (tg == 0 && live) delta[((int64_t)b * Hq + h) * T + t] = sum;
+  } else if (live) {
+    const float *k_row = at(k, 1), *v_row = at(v, 2);
+    for (int ch = tg; ch < n_ch; ch += 4) {
+      const int64_t out = row * n_ch + ch;
+      load8(k_row, 8 * ch, d_true, x);
+      split8(x, k_hi + out, nullptr);
+      load8(v_row, 8 * ch, d_true, x);
+      split8(x, v_hi + out, v_lo + out);
+    }
+  }
+}
+
 // -------------------------------------------------------------------- dQ
 
 namespace dqk {
@@ -157,9 +280,10 @@ struct Shape<256> {
   static constexpr int kBlockN = 64, kStages = 2, kConsumers = 1;
 };
 
-// the register split: a producer that converts fp32 tiles keeps 40
+// the register split: the producer is one TMA thread for every type
+// (fp32 inputs arrive as the split pass's bf16 copies)
 template <int D, typename In>
-using DqSplit = Split<Shape<D>::kConsumers, Elem<In>::kTma ? 24 : 40>;
+using DqSplit = Split<Shape<D>::kConsumers>;
 
 // stages of the K/V ring: fp32 stages hold V twice (rounded, and what the
 // rounding left), so two up to head_dim 128 and one at 256
@@ -170,32 +294,37 @@ __host__ __device__ constexpr int stages() {
 
 }  // namespace dqk
 
-template <int D, typename In>
+template <int D, typename In, int kParts = 1>
 __global__ void __launch_bounds__(dqk::DqSplit<D, In>::kThreads,
                                   dqk::DqSplit<D, In>::kBlocksPerSm)
     flash_bwd_dq_kernel(__grid_constant__ const CUtensorMap tm_q,
                         __grid_constant__ const CUtensorMap tm_k,
                         __grid_constant__ const CUtensorMap tm_v,
                         __grid_constant__ const CUtensorMap tm_do,
-                        const Src src, const In* __restrict__ o,
+                        const In* __restrict__ o,
                         const float* __restrict__ lse,
                         float* __restrict__ delta, In* __restrict__ dq,
                         int T, int Hq, int B, int rep, int d_true,
                         int64_t o_sb, int64_t o_st, int64_t o_sh,
                         int64_t dq_sb, int64_t dq_st, int64_t dq_sh,
-                        float scale, int causal) {
+                        float scale, int causal,
+                        __grid_constant__ const CUtensorMap tm_v_lo,
+                        __grid_constant__ const CUtensorMap tm_do_lo) {
   constexpr int kBlockN = dqk::Shape<D>::kBlockN;  // keys a stage
   constexpr int kStages = dqk::stages<D, In>();
   constexpr int kConsumers = dqk::Shape<D>::kConsumers;
   using S = dqk::DqSplit<D, In>;
   using Op = typename Elem<In>::Op;
-  constexpr bool kTma = Elem<In>::kTma;
+  // fp32: every tile arrives by TMA from the split pass's bf16 copies
+  // (flash_bwd_split_kernel), dO's and V's rests in tiles of their own
+  // (tm_do_lo, tm_v_lo), and delta is the split pass's
+  constexpr bool kLo = !Elem<In>::kTma;
   constexpr int kBlockM = 64 * kConsumers;    // q rows of the block
   constexpr int kColBlocks = D / 64;          // 64-column TMA boxes per row
   constexpr int kQBytes = kBlockM * D * 2;    // Q or dO
   constexpr int kKVBytes = kBlockN * D * 2;   // K or V of one stage
   // a stage's tiles: K, V (fp32: and what rounding V to bf16 left)
-  constexpr int kStageTiles = kTma ? 2 : 3;
+  constexpr int kStageTiles = kLo ? 3 : 2;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t q_full;
   __shared__ __align__(8) uint64_t k_full[kStages], v_full[kStages],
@@ -204,7 +333,7 @@ __global__ void __launch_bounds__(dqk::DqSplit<D, In>::kThreads,
   uint8_t* do_s = q_s + kQBytes;
   // fp32: what rounding dO to bf16 left, a tile of its own
   uint8_t* do_lo_s = do_s + kQBytes;
-  uint8_t* kv_s = do_lo_s + (kTma ? 0 : kQBytes);  // the stages
+  uint8_t* kv_s = do_lo_s + (kLo ? kQBytes : 0);  // the stages
 
   const int heads = Hq * B;
   const int n_qtiles = cdiv(T, kBlockM);
@@ -215,13 +344,11 @@ __global__ void __launch_bounds__(dqk::DqSplit<D, In>::kThreads,
   const int n_tiles = cdiv(causal ? min(q0 + kBlockM, T) : T, kBlockN);
 
   if (threadIdx.x == 0) {
-    // a TMA tile completes on one arrival (and its bytes), a converted one
-    // on each producer thread's
-    constexpr int kFillers = kTma ? 1 : 128;
-    mbar_init(&q_full, kFillers);
+    // a TMA tile completes on one arrival (and its bytes)
+    mbar_init(&q_full, 1);
     for (int s = 0; s < kStages; ++s) {
-      mbar_init(&k_full[s], kFillers);
-      mbar_init(&v_full[s], kFillers);
+      mbar_init(&k_full[s], 1);
+      mbar_init(&v_full[s], 1);
       mbar_init(&k_empty[s], 4 * kConsumers);
       mbar_init(&v_empty[s], 4 * kConsumers);
     }
@@ -233,30 +360,41 @@ __global__ void __launch_bounds__(dqk::DqSplit<D, In>::kThreads,
   if (wg == 0) {
     // ---------------------------------------------------------- producer
     setmaxnreg_dec<S::kProducerRegs>();
-    if constexpr (!kTma) {
-      // fp32: the whole warpgroup converts each tile into its place
-      const int tid = threadIdx.x, hk = h / rep;
-      const float* k_rows = head_rows(src.ptr[1], src.stride[1], b, hk);
-      const float* v_rows = head_rows(src.ptr[2], src.stride[2], b, hk);
+    if (threadIdx.x == 0) {
+      const int hk = h / rep;
+      // tile j's K or V (fp32: V with its rest) into its stage, once the
+      // consumers have freed it
       auto load = [&](int j, int which, uint64_t* full, uint64_t* empty) {
         const int s = j % kStages;
+        const bool lo = kLo && which;
         mbar_wait(&empty[s], ((j / kStages) & 1) ^ 1);
+        mbar_arrive_expect_tx(&full[s], (lo ? 2 : 1) * kKVBytes);
         uint8_t* dst = kv_s + (kStageTiles * s + which) * kKVBytes;
-        convert_rows<kBlockN, D>(dst, which ? v_rows : k_rows,
-                                 src.stride[which + 1][1], j * kBlockN, T,
-                                 d_true, tid,
-                                 which ? dst + kKVBytes : nullptr);
-        fence_proxy_async();
-        mbar_arrive(&full[s]);
+#pragma unroll
+        for (int cb = 0; cb < kColBlocks; ++cb) {
+          tma_load_4d(dst + cb * kBlockN * 128, which ? &tm_v : &tm_k,
+                      &full[s], cb * 64, hk, j * kBlockN, b);
+        }
+        if (lo) {
+#pragma unroll
+          for (int cb = 0; cb < kColBlocks; ++cb) {
+            tma_load_4d(dst + kKVBytes + cb * kBlockN * 128, &tm_v_lo,
+                        &full[s], cb * 64, hk, j * kBlockN, b);
+          }
+        }
       };
-      convert_rows<kBlockM, D>(q_s, head_rows(src.ptr[0], src.stride[0], b, h),
-                               src.stride[0][1], q0, T, d_true, tid);
-      convert_rows<kBlockM, D>(do_s,
-                               head_rows(src.ptr[3], src.stride[3], b, h),
-                               src.stride[3][1], q0, T, d_true, tid,
-                               do_lo_s);
-      fence_proxy_async();
-      mbar_arrive(&q_full);
+      mbar_arrive_expect_tx(&q_full, (kLo ? 3 : 2) * kQBytes);
+#pragma unroll
+      for (int cb = 0; cb < kColBlocks; ++cb) {
+        tma_load_4d(q_s + cb * kBlockM * 128, &tm_q, &q_full, cb * 64, h, q0,
+                    b);
+        tma_load_4d(do_s + cb * kBlockM * 128, &tm_do, &q_full, cb * 64, h,
+                    q0, b);
+        if constexpr (kLo) {
+          tma_load_4d(do_lo_s + cb * kBlockM * 128, &tm_do_lo, &q_full,
+                      cb * 64, h, q0, b);
+        }
+      }
       if constexpr (kStages == 1) {
         // one stage: K of the next tile can only follow this tile's V
         for (int j = 0; j < n_tiles; ++j) {
@@ -264,39 +402,12 @@ __global__ void __launch_bounds__(dqk::DqSplit<D, In>::kThreads,
           load(j, 1, v_full, v_empty);
         }
       } else {
+        // K runs one tile ahead of V, as the consumers use them
         load(0, 0, k_full, k_empty);
         for (int j = 0; j < n_tiles; ++j) {
           if (j + 1 < n_tiles) load(j + 1, 0, k_full, k_empty);
           load(j, 1, v_full, v_empty);
         }
-      }
-    } else if (threadIdx.x == 0) {
-      const int hk = h / rep;
-      // tile j's K or V into its stage, once the consumers have freed it
-      auto load = [&](int j, int which, uint64_t* full, uint64_t* empty) {
-        const int s = j % kStages;
-        mbar_wait(&empty[s], ((j / kStages) & 1) ^ 1);
-        mbar_arrive_expect_tx(&full[s], kKVBytes);
-        uint8_t* dst = kv_s + (2 * s + which) * kKVBytes;
-#pragma unroll
-        for (int cb = 0; cb < kColBlocks; ++cb) {
-          tma_load_4d(dst + cb * kBlockN * 128, which ? &tm_v : &tm_k,
-                      &full[s], cb * 64, hk, j * kBlockN, b);
-        }
-      };
-      mbar_arrive_expect_tx(&q_full, 2 * kQBytes);
-#pragma unroll
-      for (int cb = 0; cb < kColBlocks; ++cb) {
-        tma_load_4d(q_s + cb * kBlockM * 128, &tm_q, &q_full, cb * 64, h, q0,
-                    b);
-        tma_load_4d(do_s + cb * kBlockM * 128, &tm_do, &q_full, cb * 64, h,
-                    q0, b);
-      }
-      // K runs one tile ahead of V, as the consumers use them
-      load(0, 0, k_full, k_empty);
-      for (int j = 0; j < n_tiles; ++j) {
-        if (j + 1 < n_tiles) load(j + 1, 0, k_full, k_empty);
-        load(j, 1, v_full, v_empty);
       }
     }
   } else {
@@ -326,33 +437,29 @@ __global__ void __launch_bounds__(dqk::DqSplit<D, In>::kThreads,
       lse2[r] = row < T ? lse[((int64_t)b * Hq + h) * T + row] * kLog2e : 0.f;
     }
 
-    // delta = rowsum(O o dO): the quad of a row takes its 8-column chunks
-    // tg, tg + 4, ... in order, then sums the four partials
-    // (butterfly; every lane ends with the same bits)
     mbar_wait(&q_full, 0);
+    if constexpr (kLo) {
+      // fp32: delta as the split pass took it, from O and dO as they lie
+      // in device memory
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int tr = r0 + 8 * r, row = q0 + tr;
-      float sum = 0.f;
-      if (row < T) {
-        const In* o_row = o + b * o_sb + h * o_sh + row * o_st;
+      for (int r = 0; r < 2; ++r) {
+        const int row = row0 + 8 * r;
+        dlt[r] = row < T ? delta[((int64_t)b * Hq + h) * T + row] : 0.f;
+      }
+    } else {
+      // delta = rowsum(O o dO): the quad of a row takes its 8-column
+      // chunks tg, tg + 4, ... in order, then sums the four partials
+      // (butterfly; every lane ends with the same bits)
 #pragma unroll
-        for (int i = 0; i < D / 32; ++i) {
-          const int ch = tg + 4 * i;  // 8 columns at 8 * ch
-          if (8 * ch >= d_true) continue;
-          if constexpr (!kTma) {
-            // fp32: O and dO as they lie in device memory (the dO tile
-            // holds them rounded to bf16); a chunk the row's end cuts is
-            // read element by element
-            const float* do_row =
-                head_rows(src.ptr[3], src.stride[3], b, h) +
-                (int64_t)row * src.stride[3][1];
+      for (int r = 0; r < 2; ++r) {
+        const int tr = r0 + 8 * r, row = q0 + tr;
+        float sum = 0.f;
+        if (row < T) {
+          const In* o_row = o + b * o_sb + h * o_sh + row * o_st;
 #pragma unroll
-            for (int e = 0; e < 8; ++e) {
-              const int col = 8 * ch + e;
-              if (col < d_true) sum += o_row[col] * do_row[col];
-            }
-          } else {
+          for (int i = 0; i < D / 32; ++i) {
+            const int ch = tg + 4 * i;  // 8 columns at 8 * ch
+            if (8 * ch >= d_true) continue;
             const uint4 ov = *reinterpret_cast<const uint4*>(o_row + 8 * ch);
             // dO's chunk in the 128-byte-swizzled tile (16-byte chunk
             // index XOR the row's index within its 8-row atom)
@@ -370,11 +477,11 @@ __global__ void __launch_bounds__(dqk::DqSplit<D, In>::kThreads,
             }
           }
         }
+        sum += __shfl_xor_sync(kFull, sum, 1);
+        sum += __shfl_xor_sync(kFull, sum, 2);
+        dlt[r] = sum;
+        if (tg == 0 && row < T) delta[((int64_t)b * Hq + h) * T + row] = sum;
       }
-      sum += __shfl_xor_sync(kFull, sum, 1);
-      sum += __shfl_xor_sync(kFull, sum, 2);
-      dlt[r] = sum;
-      if (tg == 0 && row < T) delta[((int64_t)b * Hq + h) * T + row] = sum;
     }
 
     float acc[D / 2];
@@ -412,7 +519,7 @@ __global__ void __launch_bounds__(dqk::DqSplit<D, In>::kThreads,
             desc_sw128(v_addr + (ks / 4) * kBlockN * 128 + col, 16, 1024),
             ks > 0);
       }
-      if constexpr (!kTma) {
+      if constexpr (kLo) {
         // fp32: dP += dO_lo V_hi^T + dO_hi V_lo^T (the tiles' rests)
 #pragma unroll
         for (int ks = 0; ks < D / 16; ++ks) {
@@ -456,6 +563,14 @@ __global__ void __launch_bounds__(dqk::DqSplit<D, In>::kThreads,
       }
 #pragma unroll
       for (int kk = 0; kk < kBlockN / 16; ++kk) pack_a<Op>(dsa[kk], dp, kk);
+      // narrow head_dims: dS also as what its rounding left
+      uint32_t dsa_lo[kParts > 1 ? kBlockN / 16 : 1][4];
+      if constexpr (kParts > 1) {
+#pragma unroll
+        for (int kk = 0; kk < kBlockN / 16; ++kk) {
+          pack_a_rest<Op>(dsa_lo[kk], dsa[kk], dp, kk);
+        }
+      }
 
       // dQ += dS K: the stage's keys are the contraction
       wgmma_fence();
@@ -463,6 +578,13 @@ __global__ void __launch_bounds__(dqk::DqSplit<D, In>::kThreads,
       for (int kk = 0; kk < kBlockN / 16; ++kk) {
         wgmma_rs_cols<D, Op>(acc, dsa[kk], k_addr + kk * 16 * 128,
                              kBlockN * 128);
+      }
+      if constexpr (kParts > 1) {
+#pragma unroll
+        for (int kk = 0; kk < kBlockN / 16; ++kk) {
+          wgmma_rs_cols<D, Op>(acc, dsa_lo[kk], k_addr + kk * 16 * 128,
+                               kBlockN * 128);
+        }
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -532,7 +654,7 @@ struct Shape {
 
 }  // namespace dkv
 
-template <int D, int kStages, typename In>
+template <int D, int kStages, typename In, int kParts = 1>
 __global__ void __launch_bounds__(dkv::kThreads, 1)
     flash_bwd_dkv_kernel(__grid_constant__ const CUtensorMap tm_q,
                          __grid_constant__ const CUtensorMap tm_k,
@@ -767,6 +889,26 @@ __global__ void __launch_bounds__(dkv::kThreads, 1)
               dk_acc, dsa[kk],
               desc_sw128(q_addr + cols + rows, kQRows * 128, 1024));
         }
+        if constexpr (kParts > 1) {
+          // narrow head_dims: P^T and dS^T also as what rounding left
+          uint32_t pa_lo[4][4], dsa_lo[4][4];
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            sm90::pack_a_rest<Op>(pa_lo[kk], pa[kk], st, kk);
+            sm90::pack_a_rest<Op>(dsa_lo[kk], dsa[kk], dpt, kk);
+          }
+          sm90::wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            const uint32_t rows = kk * 16 * 128;
+            sm90::wgmma_rs<kAccCols, Op>(
+                dv_acc, pa_lo[kk],
+                desc_sw128(do_addr + cols + rows, kQRows * 128, 1024));
+            sm90::wgmma_rs<kAccCols, Op>(
+                dk_acc, dsa_lo[kk],
+                desc_sw128(q_addr + cols + rows, kQRows * 128, 1024));
+          }
+        }
         sm90::wgmma_commit();
         sm90::wgmma_wait<0>();
         sm90::fence_regs(dv_acc);
@@ -898,34 +1040,73 @@ int dq_config(int* out) {
   return 0;
 }
 
-template <int D, typename In>
+// bf16 and fp16 inputs as they are; fp32 inputs as the split pass's bf16
+// copies (launch_dq_split below)
+template <int D, typename In, int kParts = 1>
 int launch_dq(const void* q, const void* k, const void* v, const void* o,
               const void* dout, const void* lse, void* delta, void* dq, int B,
               int T, int Hq, int Hkv, int d_true, const long long* s,
               float scale, int causal, cudaStream_t stream) {
+  static_assert(Elem<In>::kTma, "fp32 dQ runs on the split pass's copies");
   using S = dqk::DqSplit<D, In>;
   constexpr int kBlockM = 64 * dqk::Shape<D>::kConsumers;
   constexpr int kBlockN = dqk::Shape<D>::kBlockN;
   CUtensorMap tm_q, tm_k, tm_v, tm_do;
-  Src src = {};
-  int err = prepare_input<In>(&tm_q, &src, 0, q, B, T, Hq, d_true, s,
-                              kBlockM);
-  if (!err) err = prepare_input<In>(&tm_k, &src, 1, k, B, T, Hkv, d_true,
-                                    s + 3, kBlockN);
-  if (!err) err = prepare_input<In>(&tm_v, &src, 2, v, B, T, Hkv, d_true,
-                                    s + 6, kBlockN);
-  if (!err) err = prepare_input<In>(&tm_do, &src, 3, dout, B, T, Hq, d_true,
-                                    s + 12, kBlockM);
+  const CUtensorMap none = {};  // the rests' maps: fp32 only
+  constexpr CUtensorMapDataType kType = Elem<In>::kMapType;
+  int err = encode_rows(&tm_q, q, B, T, Hq, d_true, s[0], s[1], s[2],
+                        kBlockM, kType);
+  if (!err) err = encode_rows(&tm_k, k, B, T, Hkv, d_true, s[3], s[4], s[5],
+                              kBlockN, kType);
+  if (!err) err = encode_rows(&tm_v, v, B, T, Hkv, d_true, s[6], s[7], s[8],
+                              kBlockN, kType);
+  if (!err) err = encode_rows(&tm_do, dout, B, T, Hq, d_true, s[12], s[13],
+                              s[14], kBlockM, kType);
   constexpr int kSmem = dq_smem_bytes<D, In>();
-  auto kernel = flash_bwd_dq_kernel<D, In>;
+  auto kernel = flash_bwd_dq_kernel<D, In, kParts>;
   if (!err) err = prepare_launch(kernel, kSmem, S::kLaunchRegs);
   if (err) return err;
   const int grid = cdiv(T, kBlockM) * Hq * B;
   kernel<<<grid, S::kThreads, kSmem, stream>>>(
-      tm_q, tm_k, tm_v, tm_do, src, static_cast<const In*>(o),
+      tm_q, tm_k, tm_v, tm_do, static_cast<const In*>(o),
       static_cast<const float*>(lse), static_cast<float*>(delta),
       static_cast<In*>(dq), T, Hq, B, Hq / Hkv, d_true, s[9], s[10], s[11],
-      s[15], s[16], s[17], scale, causal);
+      s[15], s[16], s[17], scale, causal, none, none);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// fp32 dQ from the split pass's copies: q_hi, k_hi, v_hi, v_lo, do_hi and
+// do_lo bf16 [B, T, H, w8] contiguous (w8: the width rounded up to 8
+// columns, the rest zeros), delta as that pass wrote it; dq fp32 at its
+// element strides s[0 .. 2], its true columns d_true
+template <int D, int kParts = 1>
+int launch_dq_split(const void* const* hi_lo, const void* lse,
+                    const void* delta, void* dq, int B, int T, int Hq,
+                    int Hkv, int d_true, int w8, const long long* s,
+                    float scale, int causal, cudaStream_t stream) {
+  using S = dqk::DqSplit<D, float>;
+  constexpr int kBlockM = 64 * dqk::Shape<D>::kConsumers;
+  constexpr int kBlockN = dqk::Shape<D>::kBlockN;
+  // q_hi, k_hi, v_hi, v_lo, do_hi, do_lo
+  CUtensorMap maps[6];
+  int err = 0;
+  for (int i = 0; i < 6 && !err; ++i) {
+    const bool q_sized = i == 0 || i >= 4;
+    const int H = q_sized ? Hq : Hkv;
+    err = encode_rows(&maps[i], hi_lo[i], B, T, H, w8, (long long)T * H * w8,
+                      (long long)H * w8, w8, q_sized ? kBlockM : kBlockN);
+  }
+  constexpr int kSmem = dq_smem_bytes<D, float>();
+  auto kernel = flash_bwd_dq_kernel<D, float, kParts>;
+  if (!err) err = prepare_launch(kernel, kSmem, S::kLaunchRegs);
+  if (err) return err;
+  const int grid = cdiv(T, kBlockM) * Hq * B;
+  kernel<<<grid, S::kThreads, kSmem, stream>>>(
+      maps[0], maps[1], maps[2], maps[4], nullptr,
+      static_cast<const float*>(lse),
+      const_cast<float*>(static_cast<const float*>(delta)),
+      static_cast<float*>(dq), T, Hq, B, Hq / Hkv, d_true, 0, 0, 0, s[0],
+      s[1], s[2], scale, causal, maps[3], maps[5]);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -951,7 +1132,7 @@ int dkv_config(int* out) {
   return 0;
 }
 
-template <int D, int kStages, typename In>
+template <int D, int kStages, typename In, int kParts = 1>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* dk, void* dv,
                void* part, int n_split, int B, int T, int Hq, int Hkv,
@@ -970,7 +1151,7 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   if (!err) err = prepare_input<In>(&tm_do, &src, 3, dout, B, T, Hq, d_true,
                                     s + 9, kQRows);
   constexpr int kSmem = dkv_smem_bytes<D, kStages, In>();
-  auto kernel = flash_bwd_dkv_kernel<D, kStages, In>;
+  auto kernel = flash_bwd_dkv_kernel<D, kStages, In, kParts>;
   if (!err) err = sm90::prepare_launch(kernel, kSmem, dkv::kLaunchRegs);
   if (err) return err;
   // split: n_split blocks a (kv tile, kv head, batch)
@@ -2325,16 +2506,25 @@ int launch_dq_for(const void* q, const void* k, const void* v, const void* o,
     return launch_dq_wide<In>(q, k, v, o, dout, lse, delta, dq, B, T, Hq,
                               Hkv, D, s, scale, causal, st);
   }
-  if (D <= 64) {
-    return launch_dq<64, In>(q, k, v, o, dout, lse, delta, dq, B, T, Hq, Hkv,
-                             D, s, scale, causal, st);
-  }
-  if (D <= 128) {
-    return launch_dq<128, In>(q, k, v, o, dout, lse, delta, dq, B, T, Hq,
+  if constexpr (!Elem<In>::kTma) {
+    // fp32 up to 256 columns: flash_attention_bwd_dq_split
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    if (D <= kNarrowWidth) {  // dS as two parts (flash_attention_sm90.cuh)
+      return launch_dq<64, In, 2>(q, k, v, o, dout, lse, delta, dq, B, T,
+                                  Hq, Hkv, D, s, scale, causal, st);
+    }
+    if (D <= 64) {
+      return launch_dq<64, In>(q, k, v, o, dout, lse, delta, dq, B, T, Hq,
+                               Hkv, D, s, scale, causal, st);
+    }
+    if (D <= 128) {
+      return launch_dq<128, In>(q, k, v, o, dout, lse, delta, dq, B, T, Hq,
+                                Hkv, D, s, scale, causal, st);
+    }
+    return launch_dq<256, In>(q, k, v, o, dout, lse, delta, dq, B, T, Hq,
                               Hkv, D, s, scale, causal, st);
   }
-  return launch_dq<256, In>(q, k, v, o, dout, lse, delta, dq, B, T, Hq, Hkv,
-                            D, s, scale, causal, st);
 }
 
 template <typename In>
@@ -2350,6 +2540,11 @@ int launch_dkv_for(const void* q, const void* k, const void* v,
   if (D > wide::kSlab) {
     return launch_dkv_cluster<In>(q, k, v, dout, lse, delta, dk, dv, B, T,
                                   Hq, Hkv, D, s, scale, causal, st);
+  }
+  if (D <= kNarrowWidth) {  // P^T, dS^T as two parts (sm90.cuh)
+    return launch_dkv<64, dkv_stages<In>(64), In, 2>(
+        q, k, v, dout, lse, delta, dk, dv, nullptr, 1, B, T, Hq, Hkv, D, s,
+        scale, causal, st);
   }
   if (D <= 64) {
     return launch_dkv<64, dkv_stages<In>(64), In>(
@@ -2420,6 +2615,89 @@ int flash_attention_bwd_dq(const void* q, const void* k, const void* v,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return launch_dq_for<Built>(q, k, v, o, dout, lse, delta, dq, B, T, Hq,
                               Hkv, D, strides, scale, causal, st);
+}
+
+// The split pass of fp32 inputs (flash_bwd_split_kernel): q, o, dout [B,
+// T, Hq, D] and k, v [B, T, Hkv, D] fp32 (dtype 2; this library built for
+// it), D any width with 16-byte rows; strides: 15 element strides (batch,
+// time, head) of q, k, v, o and dout. Writes q_hi, do_hi, do_lo [B, T,
+// Hq, w8] and k_hi, v_hi, v_lo [B, T, Hkv, w8] bf16 contiguous, w8 = D
+// rounded up to 8 (the columns past D zeros), and delta = rowsum(o *
+// dout) [B, Hq, T] fp32. `causal` is not read. Launches on `stream`;
+// returns 0 on success, else a cudaError_t.
+int flash_attention_bwd_split(const void* q, const void* k, const void* v,
+                              const void* o, const void* dout, void* q_hi,
+                              void* k_hi, void* v_hi, void* v_lo,
+                              void* do_hi, void* do_lo, void* delta, int B,
+                              int T, int Hq, int Hkv, int D, int dtype,
+                              const long long* strides, int causal,
+                              void* stream) {
+  (void)causal;
+#if FLASH_DTYPE != 2
+  return static_cast<int>(cudaErrorInvalidValue);  // the fp32 library's
+#else
+  if (bad_shape(B, T, Hq, Hkv) || dtype != FLASH_DTYPE ||
+      bad_head_dim(D, D, dtype)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  SplitStrides st;
+  for (int i = 0; i < 15; ++i) st.s[i / 3][i % 3] = strides[i];
+  const int blocks = cdiv(B * T * Hq, kSplitRows) + cdiv(B * T * Hkv,
+                                                         kSplitRows);
+  flash_bwd_split_kernel<<<blocks, 4 * kSplitRows, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(o),
+      static_cast<const float*>(dout), static_cast<uint4*>(q_hi),
+      static_cast<uint4*>(k_hi), static_cast<uint4*>(v_hi),
+      static_cast<uint4*>(v_lo), static_cast<uint4*>(do_hi),
+      static_cast<uint4*>(do_lo), static_cast<float*>(delta), B, T, Hq, Hkv,
+      D, cdiv(D, 8) * 8, st);
+  return static_cast<int>(cudaGetLastError());
+#endif
+}
+
+// fp32 dQ at head_dim D <= 256 from the split pass's copies (q_hi, k_hi,
+// v_hi, v_lo, do_hi, do_lo: bf16, as flash_attention_bwd_split writes
+// them, for inputs of width D) and its delta: dq [B, T, Hq, D] fp32 at
+// the 3 element strides (batch, time, head) in `strides`; lse as for
+// flash_attention_bwd_dq. Launches on `stream`; returns 0 on success,
+// else a cudaError_t or one of the codes that
+// flash_attention_error_string names.
+int flash_attention_bwd_dq_split(const void* q_hi, const void* k_hi,
+                                 const void* v_hi, const void* v_lo,
+                                 const void* do_hi, const void* do_lo,
+                                 const void* lse, const void* delta,
+                                 void* dq, int B, int T, int Hq, int Hkv,
+                                 int D, int d_head, int dtype,
+                                 const long long* strides, int causal,
+                                 void* stream) {
+#if FLASH_DTYPE != 2
+  return static_cast<int>(cudaErrorInvalidValue);  // the fp32 library's
+#else
+  if (bad_shape(B, T, Hq, Hkv) || dtype != FLASH_DTYPE ||
+      bad_head_dim(D, d_head, dtype) || D > wide::kSlab) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const float scale = 1.f / sqrtf(static_cast<float>(d_head));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const void* hi_lo[6] = {q_hi, k_hi, v_hi, v_lo, do_hi, do_lo};
+  const int w8 = cdiv(D, 8) * 8;
+  if (D <= kNarrowWidth) {  // dS as two parts (flash_attention_sm90.cuh)
+    return launch_dq_split<64, 2>(hi_lo, lse, delta, dq, B, T, Hq, Hkv, D,
+                                  w8, strides, scale, causal, st);
+  }
+  if (D <= 64) {
+    return launch_dq_split<64>(hi_lo, lse, delta, dq, B, T, Hq, Hkv, D, w8,
+                               strides, scale, causal, st);
+  }
+  if (D <= 128) {
+    return launch_dq_split<128>(hi_lo, lse, delta, dq, B, T, Hq, Hkv, D, w8,
+                                strides, scale, causal, st);
+  }
+  return launch_dq_split<256>(hi_lo, lse, delta, dq, B, T, Hq, Hkv, D, w8,
+                              strides, scale, causal, st);
+#endif
 }
 
 // The launch shape of the dQ kernel that head_dim D of type `dtype` runs

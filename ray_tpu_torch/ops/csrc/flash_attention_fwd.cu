@@ -39,14 +39,19 @@
 //   head_dim) and only the true columns of O are stored. At 256 a K/V
 //   stage is 64 keys (two stages of 64 x 256 K and V and a 128-row Q tile
 //   fill 193 KB of the 227 KB a block may use), and O += P V is two
-//   products of 128 columns; past 256 a block owns a slab of 256 output
-//   columns (flash_fwd_wide_kernel below), any width;
+//   products of 128 columns; past 256 a consumer owns a slab of 256
+//   output columns: up to 512 a block of 64 q rows both slabs, S summed
+//   once from the two consumers' halves (flash_fwd_pair_kernel below),
+//   past 512 a block a slab (flash_fwd_wide_kernel), any width;
 // - types (flash_attention_sm90.cuh, `Elem`): bf16 and fp16 run wgmma in
 //   their own type; fp32 tiles are loaded by all four producer warps,
 //   rounded to bf16 into the same swizzled tiles, and run the bf16
 //   products (P is rounded to the operand type in every case), so an fp32
 //   call computes with bf16 operands and fp32 sums; that producer keeps
 //   40 registers (Split); O is written in the input type;
+// - up to kNarrowWidth columns (flash_attention_sm90.cuh) the <64>
+//   instantiation takes P in two parts, the rounded value and what the
+//   rounding left, two products where one was (kParts = 2);
 // - causal blocks run longest first (the last q tiles, of every head);
 // - at head_dim 256, causal, a launch under one block an SM is split over
 //   keys (below); inputs are read through their [B, T, H, D] strides; no
@@ -132,7 +137,7 @@ __device__ inline void fwd_unit(int rank, int n_qtiles, int n_split, int T,
   }
 }
 
-template <int D, int kStages, int kConsumers, typename In>
+template <int D, int kStages, int kConsumers, typename In, int kParts = 1>
 __global__ void __launch_bounds__(FwdSplit<kConsumers, In>::kThreads,
                                   FwdSplit<kConsumers, In>::kBlocksPerSm)
     flash_fwd_kernel(__grid_constant__ const CUtensorMap tm_q,
@@ -334,6 +339,14 @@ __global__ void __launch_bounds__(FwdSplit<kConsumers, In>::kThreads,
       uint32_t pa[kBlockN / 16][4];
 #pragma unroll
       for (int kk = 0; kk < kBlockN / 16; ++kk) pack_a<Op>(pa[kk], sc, kk);
+      // narrow head_dims: P also as what its rounding left
+      uint32_t pa_lo[kParts > 1 ? kBlockN / 16 : 1][4];
+      if constexpr (kParts > 1) {
+#pragma unroll
+        for (int kk = 0; kk < kBlockN / 16; ++kk) {
+          pack_a_rest<Op>(pa_lo[kk], pa[kk], sc, kk);
+        }
+      }
 
       // O += P V: V's kBlockN rows are the contraction, head_dim the
       // columns
@@ -343,6 +356,13 @@ __global__ void __launch_bounds__(FwdSplit<kConsumers, In>::kThreads,
       for (int kk = 0; kk < kBlockN / 16; ++kk) {
         wgmma_rs_cols<D, Op>(acc, pa[kk], v_addr + kk * 16 * 128,
                              kBlockN * 128);
+      }
+      if constexpr (kParts > 1) {
+#pragma unroll
+        for (int kk = 0; kk < kBlockN / 16; ++kk) {
+          wgmma_rs_cols<D, Op>(acc, pa_lo[kk], v_addr + kk * 16 * 128,
+                               kBlockN * 128);
+        }
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -458,7 +478,7 @@ constexpr int smem_bytes() {  // + 1024: the tiles' 1024-byte alignment
 }
 
 template <int D, int kStages, int kConsumers, typename In>
-int config(int* out) {
+int config(int* out) {  // every kParts alike
   using S = FwdSplit<kConsumers, In>;
   static_assert(smem_bytes<D, kStages, kConsumers>() <= 232448,
                 "a block may use 227 KB of shared memory");
@@ -469,7 +489,7 @@ int config(int* out) {
   return 0;
 }
 
-template <int D, int kStages, int kConsumers, typename In>
+template <int D, int kStages, int kConsumers, typename In, int kParts = 1>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse,
            void* part, int n_split, int B, int T, int Hq,
            int Hkv, int d_true, const long long* s, float scale_log2,
@@ -486,7 +506,7 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
   if (!err) err = prepare_input<In>(&tm_v, &src, 2, v, B, T, Hkv, d_true,
                                     s + 6, kBlockN);
   constexpr int kSmem = smem_bytes<D, kStages, kConsumers>();
-  auto kernel = flash_fwd_kernel<D, kStages, kConsumers, In>;
+  auto kernel = flash_fwd_kernel<D, kStages, kConsumers, In, kParts>;
   if (!err) err = prepare_launch(kernel, kSmem, S::kLaunchRegs);
   if (err) return err;
   // split: a block per half of each of the last n_split q tiles
@@ -510,9 +530,10 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
 //
 // No whole-head_dim tile fits a block past 256 columns (a 64-row fp32
 // accumulator of D columns is D / 2 registers a thread; Q, K and V tiles
-// of D columns outgrow the 227 KB), so each block owns one slab of
-// kSlab output columns (blocks of one (q tile, head) are neighbours on
-// the grid and read Q and K from L2):
+// of D columns outgrow the 227 KB). Up to 512 columns the pair kernel
+// below runs; past 512 each block owns one slab of kSlab output columns
+// (blocks of one (q tile, head) are neighbours on the grid and read Q and
+// K from L2):
 // - S = Q K^T is summed over every column by streaming 64-column slices
 //   of Q (128 rows) and K (64 keys) through a ring (kSliceStages), one
 //   SS product group a slice into the 64 x 64 S accumulator;
@@ -520,7 +541,7 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
 //   kSlab V tiles, two RS products of 128 columns);
 // - shared memory and registers are those of head_dim 256 whatever D
 //   is; the price is S computed once per slab (D / 256 times, rounded
-//   up), about 1.5x the forward's work at D 512;
+//   up), 2.5x the forward's products at D 1024;
 // - every slab computes the same m, l and lse in the same order, so they
 //   agree bitwise; the first slab writes lse;
 // - only the column blocks inside the tensor are loaded (a V tile's
@@ -777,6 +798,300 @@ __global__ void __launch_bounds__(FwdSplit<wide::kConsumers, In>::kThreads,
   }
 }
 
+// ------------------------------------------------- head_dim 257 to 512
+//
+// The slab kernel above computes S once a slab and streams every slice of
+// Q and K from L2 once a slab: at D 512 a (128 q rows, 64 keys) step of
+// its two blocks reads 448 KB from L2, and "d512 train" ran at the L2's
+// rate with 1.5x the products (PERF.md). Up to two slabs (D 512) a block
+// of 64 q rows owns both slabs of O instead, consumer c slab c (columns
+// 256 c .. 256 c + 255), and S is computed once:
+// - each consumer keeps its own half of the columns of Q resident (the
+//   block's 64 rows, read once) and per key tile gets its half of K and
+//   its slab of V: it sums the partial S = Q K^T over its own 256
+//   columns, so across the block every column of Q and K is read once a
+//   step and S once (128 KB of L2 a 64-row step: K and V once);
+// - the two partials meet in shared memory (a thread's elements at
+//   float4 q * 128 + t, so the other warpgroup's thread t reads exactly
+//   its own elements, without bank conflicts) under named barriers: a
+//   consumer writes its partial and arrives on its "written" barrier,
+//   waits on the other's, adds the other's partial to its own and
+//   arrives on the other's "read" barrier, which the other waits on
+//   before it writes its next partial. fp32 addition commutes, so both
+//   consumers hold the same bits of S, and so the same m, l and lse;
+//   consumer 0 writes lse;
+// - then each runs the online softmax and O += P V over its own slab;
+// - all four boxes of each half are loaded: boxes wholly past the
+//   tensor's columns arrive as zeros (TMA; fp32 converts zeros) and add
+//   exact zeros, so the partial is an unrolled loop of 16 products (a
+//   loop over the boxes inside made ptxas serialise every wgmma, C7515);
+//   only columns inside the tensor are stored;
+// - one stage of each half of K and V (shared memory: Q 64 KB, K 64 KB,
+//   V 64 KB, the partials 32 KB): K of tile j + 1 loads while the
+//   consumers take the softmax and P V of tile j, V of tile j + 1 while
+//   they sum S of tile j + 1.
+// Past 512 columns Q no longer fits resident, and the slab kernel runs.
+namespace pair {
+
+constexpr int kRows = 64;                  // q rows a block
+constexpr int kMaxWidth = 2 * wide::kSlab;  // two slabs, one a consumer
+constexpr int kTile = 64 * 128;            // 64 rows of 64 16-bit columns
+constexpr int kHalf = 4 * kTile;           // 64 rows of a slab's columns
+constexpr int kExFloats = 32 * 128;        // a 64 x 64 fp32 partial
+constexpr int kSmem = 6 * kHalf + 2 * 4 * kExFloats + 1024;
+// named barriers (0 is __syncthreads), + the consumer whose partial it
+// is: written, and read by the other consumer
+constexpr int kBarWritten = 1, kBarRead = 3;
+
+}  // namespace pair
+
+template <typename In>
+__global__ void __launch_bounds__(FwdSplit<2, In>::kThreads,
+                                  FwdSplit<2, In>::kBlocksPerSm)
+    flash_fwd_pair_kernel(__grid_constant__ const CUtensorMap tm_q,
+                          __grid_constant__ const CUtensorMap tm_k,
+                          __grid_constant__ const CUtensorMap tm_v,
+                          const Src src, In* __restrict__ o,
+                          float* __restrict__ lse, int T, int Hq, int B,
+                          int rep, int d_true, int64_t o_sb, int64_t o_st,
+                          int64_t o_sh, float scale_log2, int causal) {
+  using namespace pair;
+  using S = FwdSplit<2, In>;
+  using Op = typename Elem<In>::Op;
+  constexpr bool kTma = Elem<In>::kTma;
+  constexpr int kSlab = wide::kSlab;
+  extern __shared__ uint8_t smem_raw[];
+  // Q of both halves; per consumer a full and an empty barrier of its
+  // half of K and of its slab of V (one stage each)
+  __shared__ __align__(8) uint64_t q_full, k_full[2], k_empty[2], v_full[2],
+      v_empty[2];
+  uint8_t* q_s = align_1024(smem_raw);  // consumer c's half at c * kHalf
+  uint8_t* k_s = q_s + 2 * kHalf;
+  uint8_t* v_s = k_s + 2 * kHalf;
+  float* ex = reinterpret_cast<float*>(v_s + 2 * kHalf);
+
+  const int heads = Hq * B;
+  const int n_qtiles = cdiv(T, kRows);
+  const int rank = blockIdx.x / heads;  // heads inner: longest tiles first
+  const int qtile = causal ? n_qtiles - 1 - rank : rank;
+  const int h = (blockIdx.x % heads) % Hq, b = (blockIdx.x % heads) / Hq;
+  const int q0 = qtile * kRows;
+  const int n_tiles = cdiv(causal ? min(q0 + kRows, T) : T, 64);
+
+  if (threadIdx.x == 0) {
+    constexpr int kFillers = kTma ? 1 : 128;
+    mbar_init(&q_full, kFillers);
+    for (int c = 0; c < 2; ++c) {
+      mbar_init(&k_full[c], kFillers);
+      mbar_init(&v_full[c], kFillers);
+      mbar_init(&k_empty[c], 4);  // the consumer's four warps
+      mbar_init(&v_empty[c], 4);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ---------------------------------------------------------- producer
+    setmaxnreg_dec<S::kProducerRegs>();
+    const int hk = h / rep;
+    // per key tile: both halves of K (freed once S of the tile before is
+    // summed), then both slabs of V (freed once its P V is done)
+    if constexpr (!kTma) {
+      // fp32: the whole warpgroup converts each tile into its place
+      const int tid = threadIdx.x;
+      const float* q_rows = head_rows(src.ptr[0], src.stride[0], b, h);
+      const float* k_rows = head_rows(src.ptr[1], src.stride[1], b, hk);
+      const float* v_rows = head_rows(src.ptr[2], src.stride[2], b, hk);
+      for (int c = 0; c < 2; ++c) {
+        convert_rows<kRows, kSlab>(q_s + c * kHalf, q_rows + kSlab * c,
+                                   src.stride[0][1], q0, T,
+                                   d_true - kSlab * c, tid);
+      }
+      fence_proxy_async();
+      mbar_arrive(&q_full);
+      for (int j = 0; j < n_tiles; ++j) {
+        const uint32_t parity = (j & 1) ^ 1;
+        for (int which = 0; which < 2; ++which) {
+          for (int c = 0; c < 2; ++c) {
+            mbar_wait(which ? &v_empty[c] : &k_empty[c], parity);
+            convert_rows<64, kSlab>(
+                (which ? v_s : k_s) + c * kHalf,
+                (which ? v_rows : k_rows) + kSlab * c,
+                src.stride[which + 1][1], 64 * j, T, d_true - kSlab * c,
+                tid);
+            fence_proxy_async();
+            mbar_arrive(which ? &v_full[c] : &k_full[c]);
+          }
+        }
+      }
+    } else if (threadIdx.x == 0) {
+      mbar_arrive_expect_tx(&q_full, 2 * kHalf);
+      for (int cb = 0; cb < 8; ++cb) {
+        tma_load_4d(q_s + cb * kTile, &tm_q, &q_full, 64 * cb, h, q0, b);
+      }
+      for (int j = 0; j < n_tiles; ++j) {
+        const uint32_t parity = (j & 1) ^ 1;
+        for (int which = 0; which < 2; ++which) {
+          for (int c = 0; c < 2; ++c) {
+            uint64_t* full = which ? &v_full[c] : &k_full[c];
+            mbar_wait(which ? &v_empty[c] : &k_empty[c], parity);
+            mbar_arrive_expect_tx(full, kHalf);
+            uint8_t* dst = (which ? v_s : k_s) + c * kHalf;
+            for (int cb = 0; cb < 4; ++cb) {
+              tma_load_4d(dst + cb * kTile, which ? &tm_v : &tm_k, full,
+                          kSlab * c + 64 * cb, hk, 64 * j, b);
+            }
+          }
+        }
+      }
+    }
+  } else {
+    // --------------------------------------------------------- consumers
+    setmaxnreg_inc<S::kConsumerRegs>();
+    const int c = wg - 1;  // slab c of O, for all 64 q rows of the block
+    const int t = threadIdx.x % 128, w = t / 32, lane = t % 32;
+    const int g = lane >> 2, tg = lane & 3;
+    const int row0 = q0 + 16 * w + g;  // this thread's rows: row0, +8
+    const uint32_t q_addr = smem_addr(q_s) + c * kHalf;
+    const uint32_t k_addr = smem_addr(k_s) + c * kHalf;
+    const uint32_t v_addr = smem_addr(v_s) + c * kHalf;
+    float4* mine = reinterpret_cast<float4*>(ex + c * kExFloats);
+    const float4* theirs =
+        reinterpret_cast<const float4*>(ex + (1 - c) * kExFloats);
+
+    float acc[kSlab / 2];
+#pragma unroll
+    for (int i = 0; i < kSlab / 2; ++i) acc[i] = 0.f;
+    float m[2] = {-CUDART_INF_F, -CUDART_INF_F};  // running max, log2 domain
+    float l[2] = {0.f, 0.f};  // this thread's share of the running sum
+
+    mbar_wait(&q_full, 0);
+    for (int j = 0; j < n_tiles; ++j) {
+      const uint32_t parity = j & 1;
+      // this consumer's partial S = Q K^T over its half of the columns
+      float sc[32];
+      mbar_wait(&k_full[c], parity);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < 16; ++ks) {
+        const uint32_t at = (ks / 4) * kTile + (ks % 4) * 32;
+        wgmma_ss<64, Op>(sc, desc_sw128(q_addr + at, 16, 1024),
+                         desc_sw128(k_addr + at, 16, 1024), ks > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      if (lane == 0) mbar_arrive(&k_empty[c]);  // this warp is done with K
+
+      // the exchange: S = the two partials' sum, the same bits in both
+      if (j > 0) named_barrier(kBarRead + c, 256);  // the last one is read
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        mine[q * 128 + t] =
+            make_float4(sc[4 * q], sc[4 * q + 1], sc[4 * q + 2], sc[4 * q + 3]);
+      }
+      named_barrier_arrive(kBarWritten + c, 256);
+      named_barrier(kBarWritten + 1 - c, 256);
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const float4 x = theirs[q * 128 + t];
+        sc[4 * q] += x.x;
+        sc[4 * q + 1] += x.y;
+        sc[4 * q + 2] += x.z;
+        sc[4 * q + 3] += x.w;
+      }
+      if (j + 1 < n_tiles) named_barrier_arrive(kBarRead + 1 - c, 256);
+
+      // scale into the log2 domain; mask the ragged tail and the diagonal
+      const int k0 = 64 * j;
+      const bool need_mask = k0 + 64 > T || (causal && k0 + 63 > q0);
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        float x = sc[e] * scale_log2;
+        if (need_mask) {
+          const int col = k0 + 8 * (e / 4) + 2 * tg + (e & 1);
+          const int row = row0 + ((e >> 1) & 1) * 8;
+          if (col >= T || (causal && col > row)) x = -CUDART_INF_F;
+        }
+        sc[e] = x;
+      }
+
+      // online softmax; the four threads of a quad share each row
+      float corr[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = m[r];
+#pragma unroll
+        for (int jn = 0; jn < 8; ++jn) {
+          mx = fmaxf(mx, fmaxf(sc[4 * jn + 2 * r], sc[4 * jn + 2 * r + 1]));
+        }
+        mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
+        const float base = (mx == -CUDART_INF_F) ? 0.f : mx;
+        corr[r] = exp2f(m[r] - base);
+        m[r] = mx;
+        float sum = 0.f;
+#pragma unroll
+        for (int jn = 0; jn < 8; ++jn) {
+          sc[4 * jn + 2 * r] = exp2f(sc[4 * jn + 2 * r] - base);
+          sc[4 * jn + 2 * r + 1] = exp2f(sc[4 * jn + 2 * r + 1] - base);
+          sum += sc[4 * jn + 2 * r] + sc[4 * jn + 2 * r + 1];
+        }
+        l[r] = l[r] * corr[r] + sum;
+      }
+#pragma unroll
+      for (int jn = 0; jn < kSlab / 8; ++jn) {
+        acc[4 * jn + 0] *= corr[0];
+        acc[4 * jn + 1] *= corr[0];
+        acc[4 * jn + 2] *= corr[1];
+        acc[4 * jn + 3] *= corr[1];
+      }
+      uint32_t pa[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) pack_a<Op>(pa[kk], sc, kk);
+
+      // O += P V over this consumer's slab
+      mbar_wait(&v_full[c], parity);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        wgmma_rs_cols<kSlab, Op>(acc, pa[kk], v_addr + kk * 16 * 128, kTile);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      if (lane == 0) mbar_arrive(&v_empty[c]);
+    }
+
+    // epilogue: the slab's columns of O; lse from consumer 0
+    constexpr float kLn2 = 0.6931471805599453f;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float sum = l[r];
+      sum += __shfl_xor_sync(kFull, sum, 1);
+      sum += __shfl_xor_sync(kFull, sum, 2);
+      sum = fmaxf(sum, 1e-30f);
+      const float inv = 1.f / sum;
+      const int row = row0 + r * 8;
+      if (row >= T) continue;
+      if (tg == 0 && c == 0) {
+        lse[((int64_t)b * Hq + h) * T + row] = m[r] * kLn2 + logf(sum);
+      }
+      In* out = o + b * o_sb + h * o_sh + (int64_t)row * o_st;
+#pragma unroll
+      for (int jn = 0; jn < kSlab / 8; ++jn) {
+        const int col = kSlab * c + 8 * jn + 2 * tg;
+        if (col < d_true) {
+          store2(out + col, acc[4 * jn + 2 * r] * inv,
+                 acc[4 * jn + 2 * r + 1] * inv);
+        }
+      }
+    }
+  }
+}
+
 template <typename In>
 int config_wide(int* out) {
   static_assert(wide::kSmem <= 232448,
@@ -786,6 +1101,41 @@ int config_wide(int* out) {
   out[2] = FwdSplit<wide::kConsumers, In>::kLaunchRegs;
   out[3] = wide::kBlockM;
   return 0;
+}
+
+template <typename In>
+int config_pair(int* out) {
+  static_assert(pair::kSmem + 64 <= 232448,
+                "a block may use 227 KB of shared memory");
+  out[0] = pair::kSmem;
+  out[1] = FwdSplit<2, In>::kThreads;
+  out[2] = FwdSplit<2, In>::kLaunchRegs;
+  out[3] = pair::kRows;
+  return 0;
+}
+
+template <typename In>
+int launch_pair(const void* q, const void* k, const void* v, void* o,
+                void* lse, int B, int T, int Hq, int Hkv, int d_true,
+                const long long* s, float scale_log2, int causal,
+                cudaStream_t stream) {
+  using S = FwdSplit<2, In>;
+  CUtensorMap tm_q, tm_k, tm_v;
+  Src src = {};
+  int err = prepare_input<In>(&tm_q, &src, 0, q, B, T, Hq, d_true, s,
+                              pair::kRows);
+  if (!err) err = prepare_input<In>(&tm_k, &src, 1, k, B, T, Hkv, d_true,
+                                    s + 3, 64);
+  if (!err) err = prepare_input<In>(&tm_v, &src, 2, v, B, T, Hkv, d_true,
+                                    s + 6, 64);
+  auto kernel = flash_fwd_pair_kernel<In>;
+  if (!err) err = prepare_launch(kernel, pair::kSmem, S::kLaunchRegs);
+  if (err) return err;
+  const int grid = cdiv(T, pair::kRows) * Hq * B;
+  kernel<<<grid, S::kThreads, pair::kSmem, stream>>>(
+      tm_q, tm_k, tm_v, src, static_cast<In*>(o), static_cast<float*>(lse),
+      T, Hq, B, Hq / Hkv, d_true, s[9], s[10], s[11], scale_log2, causal);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename In>
@@ -814,16 +1164,25 @@ int launch_wide(const void* q, const void* k, const void* v, void* o,
 }
 
 // The instantiation head_dim D runs on, <built D, stages, consumer
-// warpgroups>: 64 (one consumer, two blocks a SM), 128 and 256 (two);
-// past 256 the slab kernel above.
+// warpgroups>: 64 (one consumer, two blocks a SM; up to kNarrowWidth with
+// P in two parts), 128 and 256 (two); 257 to 512 the pair kernel, past
+// 512 the slab kernel above.
 template <typename In>
 int launch_for(const void* q, const void* k, const void* v, void* o,
                void* lse, void* part, int n_split, int B, int T, int Hq,
                int Hkv, int D, const long long* s,
                float scale_log2, int causal, cudaStream_t stream) {
+  if (D > wide::kSlab && D <= pair::kMaxWidth) {
+    return launch_pair<In>(q, k, v, o, lse, B, T, Hq, Hkv, D, s, scale_log2,
+                           causal, stream);
+  }
   if (D > wide::kSlab) {
     return launch_wide<In>(q, k, v, o, lse, B, T, Hq, Hkv, D, s, scale_log2,
                            causal, stream);
+  }
+  if (D <= kNarrowWidth) {  // P as two parts (flash_attention_sm90.cuh)
+    return launch<64, 2, 1, In, 2>(q, k, v, o, lse, nullptr, 0, B, T, Hq,
+                                   Hkv, D, s, scale_log2, causal, stream);
   }
   if (D <= 64) {
     return launch<64, 2, 1, In>(q, k, v, o, lse, nullptr, 0, B, T, Hq, Hkv,
@@ -839,6 +1198,7 @@ int launch_for(const void* q, const void* k, const void* v, void* o,
 
 template <typename In>
 int config_for(int D, int* out) {
+  if (D > wide::kSlab && D <= pair::kMaxWidth) return config_pair<In>(out);
   if (D > wide::kSlab) return config_wide<In>(out);
   return D <= 64    ? config<64, 2, 1, In>(out)
          : D <= 128 ? config<128, 2, 2, In>(out)

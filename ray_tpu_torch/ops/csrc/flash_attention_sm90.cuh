@@ -388,6 +388,29 @@ __device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float (&c)[N],
   a[3] = pack2<Op>(c[8 * kk + 6], c[8 * kk + 7]);
 }
 
+// Narrow head_dims. Up to kNarrowWidth columns (the kernels' width) a row
+// of Q K^T sums too few products to average the operands' rounding out:
+// with bf16 A operands P and dS (exp of scores of order |q| |k|, peaked),
+// bf16 head_dim 1 missed the 64-row block gates by up to 12.7x on an H100.
+// There the kernels take each A operand as two parts, the rounded value
+// and what the rounding left (pack_a_rest), two products where one was.
+constexpr int kNarrowWidth = 16;
+
+// The A registers of what rounding slice kk of `c` to `hi` (pack_a's)
+// left, rounded to Op in turn: a product of hi and one of these sums to
+// that of the fp32 values within about 2^-16 of it, where hi's alone is
+// within 2^-9 (Op bf16; 2^-12 fp16).
+template <typename Op = __nv_bfloat16, int N>
+__device__ __forceinline__ void pack_a_rest(uint32_t (&lo)[4],
+                                            const uint32_t (&hi)[4],
+                                            const float (&c)[N], int kk) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const float2 h = unpack2<Op>(hi[r]);
+    lo[r] = pack2<Op>(c[8 * kk + 2 * r] - h.x, c[8 * kk + 2 * r + 1] - h.y);
+  }
+}
+
 // fp32 inputs: rows t0 .. t0 + kRows - 1 of one head of a [B, T, H, D]
 // fp32 tensor (`src` points at row 0 of that head, rows `st` elements
 // apart, 16-byte aligned), columns 0 .. kD - 1, rounded to bf16 into kD /

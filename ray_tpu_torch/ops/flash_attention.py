@@ -36,9 +36,12 @@ take what the Pallas kernels take:
   maps of its true width, whose missing columns arrive as zeros: the
   counterpart of the JAX package's zero-padding of head_dim to 128
   lanes. Past 256 a consumer warpgroup owns a slab of 256 output
-  columns, and a block's two consumers split S = Q K^T and dP = dO V^T
-  by product, so each is computed once a block: the forward sums S over
-  64-column slices in every slab's block; dQ's blocks own two slabs;
+  columns. The forward up to 512 is a block of 64 q rows whose two
+  consumers each sum a partial S over their own slab's columns and add
+  the other's, so S is computed once (past 512 every slab's block sums S
+  over 64-column slices itself); the backward's two consumers split S =
+  Q K^T and dP = dO V^T by product, so each is computed once a block:
+  dQ's blocks own two slabs;
   dK/dV's blocks of one kv tile form a thread-block cluster (up to four
   slabs, float32 two; past that each block sums S and dP itself) whose
   blocks sum partial S and dP over their own slab's columns and add the
@@ -48,7 +51,11 @@ take what the Pallas kernels take:
   copy (:func:`pad_head_dim`) and slices the outputs back, as the JAX
   package pads. Zero columns add exact zeros to every product, the
   softmax scale is 1/sqrt(D) of the true head_dim, and only the true
-  columns are used.
+  columns are used. Up to :data:`NARROW_WIDTH` columns the kernels take
+  P and dS in two parts (the rounded value and what rounding left), and a
+  float32 call passes its inputs as bf16 parts side by side
+  (:func:`_parts`): one rounding of each operand is not averaged out
+  over so few columns.
 
 At head_dim 129–256, where a block fills an SM, a launch of few heads
 that leaves the card under-filled is split (:mod:`flash_schedule`): the
@@ -73,7 +80,7 @@ import ctypes
 import functools
 import math
 import threading
-from typing import Dict, List
+from typing import Dict, List, NamedTuple
 
 import torch
 
@@ -163,6 +170,43 @@ def flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta,
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
+class SplitOperands(NamedTuple):
+    """What the split pass makes of float32 backward inputs: bfloat16
+    copies [B, T, H, W8] (W8 the head_dim rounded up to 8 columns, the
+    rest zeros) of q, k, v and do rounded to nearest (``q``, ``k``,
+    ``v``, ``do``), what that rounding left of v and do rounded in turn
+    (``v_lo``, ``do_lo``), and ``delta = rowsum(o * do)`` [B, Hq, T]
+    float32."""
+    q: torch.Tensor
+    k: torch.Tensor
+    v: torch.Tensor
+    v_lo: torch.Tensor
+    do: torch.Tensor
+    do_lo: torch.Tensor
+    delta: torch.Tensor
+
+
+def _split_width(D: int) -> int:
+    return -(-D // 8) * 8
+
+
+def flash_attention_bwd_split_reference(q, k, v, o, do) -> SplitOperands:
+    """The split pass's plain version: hi = x rounded to bfloat16, lo =
+    (x - hi) rounded to bfloat16, each padded with zero columns to a whole
+    number of 16-byte rows, and delta in float32. Inputs float32."""
+    W8 = _split_width(q.shape[3])
+
+    def hi_lo(x):
+        hi = x.to(torch.bfloat16)
+        lo = (x - hi.float()).to(torch.bfloat16)
+        return tuple(pad_head_dim(t, W8) for t in (hi, lo))
+
+    v_hi, v_lo = hi_lo(v)
+    do_hi, do_lo = hi_lo(do)
+    return SplitOperands(hi_lo(q)[0], hi_lo(k)[0], v_hi, v_lo, do_hi, do_lo,
+                         attention_delta(o, do))
+
+
 def flash_attention_backward_reference(q, k, v, o, lse, do,
                                        causal: bool = True):
     """``(dq, dk, dv)`` of attention from the forward's ``o`` and ``lse``
@@ -211,6 +255,44 @@ def pad_head_dim(t: torch.Tensor, width: int) -> torch.Tensor:
     if t.shape[-1] == width:
         return t
     return torch.nn.functional.pad(t, (0, width - t.shape[-1]))
+
+
+# Narrow head_dims: up to this many columns (the kernels' width) the
+# kernels take their A operands (P, dS) in two parts, the bf16 or fp16
+# value and what rounding it left (csrc/flash_attention_sm90.cuh,
+# kNarrowWidth), and a float32 call passes each input as its bf16 parts
+# side by side (:func:`_parts`): there a row of Q K^T sums too few
+# products to average one rounding of each operand out (bf16 head_dim 1
+# and float32 3 missed the 64-row block gates on the card).
+NARROW_WIDTH = 16
+
+
+def _takes_parts(dtype: torch.dtype, width: int) -> bool:
+    """Whether a float32 call at kernel width ``width`` passes its inputs
+    to the kernels as parts (:func:`_parts`)."""
+    return dtype == torch.float32 and width <= NARROW_WIDTH
+
+
+def _parts(x: torch.Tensor, lo_at: int) -> torch.Tensor:
+    """float32 ``x`` [..., W] as four blocks of W columns holding values
+    bf16 keeps exactly, its rounding to bf16 (hi) and what that left (lo,
+    rounded in turn): 1, q and do, hi | lo | hi | lo; 2, k and v, hi | hi
+    | lo | lo (lo first at block ``lo_at``). A product over the head_dim
+    of a 1 operand and a 2 one sums hi hi + lo hi + hi lo + lo lo, (hi +
+    lo)(hi + lo): the float32 product within about 2^-16, where the
+    kernels' one rounding of each operand leaves 2^-9 (and dP - delta,
+    which is 0 where a row has one key, stays at float32's rounding)."""
+    hi = x.to(torch.bfloat16).float()
+    lo = (x - hi).to(torch.bfloat16).float()
+    return torch.cat((hi, lo, hi, lo) if lo_at == 1 else (hi, hi, lo, lo),
+                     -1)
+
+
+def _join(y: torch.Tensor, width: int, lo_at: int) -> torch.Tensor:
+    """An output [..., 4 W] of a product whose columns ran over
+    :func:`_parts` blocks: block 0 plus block ``lo_at`` (the hi and the lo
+    part of the operand that was split into them)."""
+    return y[..., :width] + y[..., lo_at * width:(lo_at + 1) * width]
 
 
 def check_kernel_inputs(q: torch.Tensor, k: torch.Tensor,
@@ -363,9 +445,10 @@ def _same_device(*ts) -> torch.device:
 
 
 def _launch(kernel: str, entry: str, device, pointers, ints, strided,
-            causal: bool) -> None:
+            causal: bool, code=None) -> None:
     """Call C entry point ``entry`` of ``kernel``'s library for the dtype
-    of the first pointer (built at first use) on the current stream: the
+    of the first pointer, or of type code ``code`` (built at first use)
+    on the current stream: the
     tensors' data pointers (None: a null pointer), the int arguments (the
     last the dtype's code), the (batch, time, head) strides of
     ``strided``, causal and the stream. Raise if the launch was refused
@@ -373,7 +456,9 @@ def _launch(kernel: str, entry: str, device, pointers, ints, strided,
     ``flash_attention_error_string``)."""
     from ray_tpu_torch.ops._build import library_name, load
 
-    lib = load(library_name(kernel, KERNEL_DTYPES[pointers[0].dtype]))
+    if code is None:
+        code = KERNEL_DTYPES[pointers[0].dtype]
+    lib = load(library_name(kernel, code))
     fn = getattr(lib, entry)
     fn.argtypes = ([ctypes.c_void_p] * len(pointers)
                    + [ctypes.c_int] * len(ints)
@@ -419,9 +504,13 @@ def flash_attention_forward(q: torch.Tensor, k: torch.Tensor,
     B, T, Hq, D = q.shape
     W = kernel_width(D, q.dtype)
     q, k, v = (pad_head_dim(t, W) for t in (q, k, v))
-    o = torch.empty((B, T, Hq, W), dtype=q.dtype, device=q.device)
+    parts = _takes_parts(q.dtype, W)
+    if parts:  # O = P V runs over v's parts: o is block 0 plus block 2
+        q, k, v = _parts(q, 1), _parts(k, 2), _parts(v, 2)
+    Wk = q.shape[3]  # the width the kernel reads
+    o = torch.empty((B, T, Hq, Wk), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, Hq, T), dtype=torch.float32, device=q.device)
-    n_split = flash_schedule.forward_split_tiles(B, T, Hq, W, causal,
+    n_split = flash_schedule.forward_split_tiles(B, T, Hq, Wk, causal,
                                                  sm_count(q.device))
     part = None
     if n_split:
@@ -431,12 +520,14 @@ def flash_attention_forward(q: torch.Tensor, k: torch.Tensor,
                            dtype=torch.float32, device=q.device)
     _launch("flash_attention_fwd", "flash_attention_fwd", q.device,
             (q, k, v, o, lse, part),
-            (B, T, Hq, k.shape[2], W, D, n_split, KERNEL_DTYPES[q.dtype]),
+            (B, T, Hq, k.shape[2], Wk, D, n_split, KERNEL_DTYPES[q.dtype]),
             (q, k, v, o), causal)
     flash_attention_forward.launches += 1
     flash_attention_forward.split_launches += bool(n_split)
     report_kernel_work("fwd", B, T, Hq, k.shape[2], D, causal,
                        q.element_size())
+    if parts:
+        o = _join(o, W, 2)
     return (o if W == D else o[..., :D]), lse
 
 
@@ -447,7 +538,9 @@ flash_attention_forward.split_launches = 0  # of them split over keys
 def flash_attention_bwd_dq(q, k, v, o, do, lse, causal: bool = True):
     """``(dq, delta)`` of flash attention (see
     :func:`flash_attention_bwd_dq_reference`). CUDA tensors go through the
-    dQ kernel, which computes delta too, CPU tensors through the plain
+    dQ kernel, which computes delta too (float32 up to head_dim 256: the
+    split pass, :func:`flash_attention_bwd_split`, computes delta and the
+    bf16 copies the dQ kernel reads), CPU tensors through the plain
     version."""
     if _same_device(q, k, v, o, do, lse).type == "cpu":
         return flash_attention_bwd_dq_reference(q, k, v, o, do, lse, causal)
@@ -455,12 +548,32 @@ def flash_attention_bwd_dq(q, k, v, o, do, lse, causal: bool = True):
     B, T, Hq, D = q.shape
     W = kernel_width(D, q.dtype)
     q, k, v, o, do = (pad_head_dim(t, W) for t in (q, k, v, o, do))
-    dq = torch.empty((B, T, Hq, W), dtype=q.dtype, device=q.device)
-    delta = torch.empty((B, Hq, T), dtype=torch.float32, device=q.device)
-    _launch("flash_attention_bwd", "flash_attention_bwd_dq", q.device,
-            (q, k, v, o, do, lse, delta, dq),
-            (B, T, Hq, k.shape[2], W, D, KERNEL_DTYPES[q.dtype]),
-            (q, k, v, o, do, dq), causal)
+    parts = _takes_parts(q.dtype, W)
+    if parts:  # dQ = dS K runs over k's parts; delta = rowsum(o (do_hi
+        # + do_lo)), o beside do's first hi and lo blocks
+        q, k, v, do = _parts(q, 1), _parts(k, 2), _parts(v, 2), _parts(do, 1)
+        zero = torch.zeros_like(o)
+        o = torch.cat((o, o, zero, zero), -1)
+    Wk = q.shape[3]  # the width the kernels read
+    dq = torch.empty((B, T, Hq, Wk), dtype=q.dtype, device=q.device)
+    if q.dtype == torch.float32 and Wk <= flash_schedule.WIDE_SLAB:
+        # the split pass's bf16 copies and delta, then dQ on them by TMA
+        split = flash_attention_bwd_split(q, k, v, o, do)
+        delta = split.delta
+        _launch("flash_attention_bwd", "flash_attention_bwd_dq_split",
+                q.device, (split.q, split.k, split.v, split.v_lo, split.do,
+                           split.do_lo, lse, delta, dq),
+                (B, T, Hq, k.shape[2], Wk, D, KERNEL_DTYPES[q.dtype]),
+                (dq,), causal, code=KERNEL_DTYPES[q.dtype])
+    else:
+        delta = torch.empty((B, Hq, T), dtype=torch.float32,
+                            device=q.device)
+        _launch("flash_attention_bwd", "flash_attention_bwd_dq", q.device,
+                (q, k, v, o, do, lse, delta, dq),
+                (B, T, Hq, k.shape[2], Wk, D, KERNEL_DTYPES[q.dtype]),
+                (q, k, v, o, do, dq), causal)
+    if parts:
+        dq = _join(dq, W, 2)
     flash_attention_bwd_dq.launches += 1
     report_kernel_work("dq", B, T, Hq, k.shape[2], D, causal,
                        q.element_size())
@@ -468,6 +581,45 @@ def flash_attention_bwd_dq(q, k, v, o, do, lse, causal: bool = True):
 
 
 flash_attention_bwd_dq.launches = 0
+
+
+def flash_attention_bwd_split(q, k, v, o, do) -> SplitOperands:
+    """The split pass of float32 backward inputs
+    (:class:`SplitOperands`; plain version
+    :func:`flash_attention_bwd_split_reference`): on CUDA tensors one
+    kernel reads q, k, v, o and do once and writes the bfloat16 copies
+    and delta, which the dQ kernel then loads by TMA (the rounding the
+    producer threads did once a tile, done once a call); CPU tensors go
+    through the plain version. q and o [B, T, Hq, D], k and v [B, T, Hkv,
+    D], all float32."""
+    if _same_device(q, k, v, o, do).type == "cpu":
+        return flash_attention_bwd_split_reference(q, k, v, o, do)
+    check_backward_inputs(q, k, v, do, None, o=o)
+    if q.dtype != torch.float32:
+        raise TypeError(f"the split pass takes float32 inputs; got {q.dtype}")
+    B, T, Hq, D = q.shape
+    Hkv = k.shape[2]
+    W = kernel_width(D, q.dtype)
+    q, k, v, o, do = (pad_head_dim(t, W) for t in (q, k, v, o, do))
+    W8 = _split_width(W)
+
+    def copy(H):
+        return torch.empty((B, T, H, W8), dtype=torch.bfloat16,
+                           device=q.device)
+
+    out = SplitOperands(copy(Hq), copy(Hkv), copy(Hkv), copy(Hkv), copy(Hq),
+                        copy(Hq), torch.empty((B, Hq, T), dtype=torch.float32,
+                                              device=q.device))
+    _launch("flash_attention_bwd", "flash_attention_bwd_split", q.device,
+            (q, k, v, o, do, out.q, out.k, out.v, out.v_lo, out.do,
+             out.do_lo, out.delta),
+            (B, T, Hq, Hkv, W, KERNEL_DTYPES[q.dtype]), (q, k, v, o, do),
+            False)
+    flash_attention_bwd_split.launches += 1
+    return out
+
+
+flash_attention_bwd_split.launches = 0
 
 
 def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal: bool = True):
@@ -486,9 +638,13 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal: bool = True):
     Hkv = k.shape[2]
     W = kernel_width(D, q.dtype)
     q, k, v, do = (pad_head_dim(t, W) for t in (q, k, v, do))
+    parts = _takes_parts(q.dtype, W)
+    if parts:  # dK = dS^T Q, dV = P^T dO run over q's and do's parts
+        q, k, v, do = _parts(q, 1), _parts(k, 2), _parts(v, 2), _parts(do, 1)
+    Wk = q.shape[3]  # the width the kernel reads
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-    n_split = flash_schedule.dkv_split(B, T, Hq, Hkv, W, causal,
+    n_split = flash_schedule.dkv_split(B, T, Hq, Hkv, Wk, causal,
                                        sm_count(q.device))
     part = None
     if n_split > 1:
@@ -497,12 +653,14 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal: bool = True):
                            dtype=torch.float32, device=q.device)
     _launch("flash_attention_bwd", "flash_attention_bwd_dkv", q.device,
             (q, k, v, do, lse, delta, dk, dv, part),
-            (B, T, Hq, Hkv, W, D, n_split, KERNEL_DTYPES[q.dtype]),
+            (B, T, Hq, Hkv, Wk, D, n_split, KERNEL_DTYPES[q.dtype]),
             (q, k, v, do, dk, dv), causal)
     flash_attention_bwd_dkv.launches += 1
     flash_attention_bwd_dkv.split_launches += n_split > 1
     report_kernel_work("dkv", B, T, Hq, k.shape[2], D, causal,
                        q.element_size())
+    if parts:
+        dk, dv = _join(dk, W, 1), _join(dv, W, 1)
     if W != D:
         dk, dv = dk[..., :D], dv[..., :D]
     return dk, dv
@@ -567,6 +725,28 @@ def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return flash_attention_reference(q, k, v, causal)[0]
 
 
+# JAX's _pick_block: the row blocks its kernels take, the smallest last
+JAX_BLOCKS = (512, 256, 128, 64)
+
+
+def sends_to_plain(q: torch.Tensor, k: torch.Tensor) -> bool:
+    """Whether :func:`flash_attention` sends q [B, Tq, Hq, D] and k [B,
+    Tk, Hkv, D] to :func:`plain_attention`: where the JAX package's
+    ``_supported`` (``ray_tpu/ops/flash_attention.py:46``, with
+    ``_pick_block``) refuses them, so that it runs its exact
+    ``_fallback``, and the port's kernels would not compute the same
+    numbers. Tq != Tk on every dtype (the kernels take Tq == Tk only); a T
+    that no block of ``JAX_BLOCKS`` divides for float32, whose kernels run
+    bf16 operands where the fallback is exact (the JAX suite holds that
+    case at 1e-5). bfloat16 and float16 run the kernels at every T; the
+    kernel wrappers themselves take every T."""
+    T = q.shape[1]
+    if T != k.shape[1]:
+        return True
+    return q.dtype == torch.float32 and not any(T % b == 0
+                                                for b in JAX_BLOCKS)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
     """Blockwise (flash) attention, GQA-aware: pass k/v unrepeated.
@@ -576,14 +756,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     :class:`FlashAttention` when grad is on and an input needs it;
     otherwise (serving, ``inference_mode``) the forward alone runs.
 
-    Tq != Tk returns :func:`plain_attention` on every device (counted in
-    ``flash_attention.plain_calls``), as the JAX package's
-    ``flash_attention`` sends such shapes to its ``_fallback``
-    (``ray_tpu/ops/flash_attention.py:308-309``, its ``_supported``
-    rule): the kernels take Tq == Tk only. The check is on shapes, made
-    before any launch.
+    What :func:`sends_to_plain` names returns :func:`plain_attention` on
+    every device (counted in ``flash_attention.plain_calls``), as the JAX
+    package's ``flash_attention`` sends such shapes to its ``_fallback``.
+    The check is on shapes and the dtype, made before any launch.
     """
-    if q.shape[1] != k.shape[1]:
+    if sends_to_plain(q, k):
         flash_attention.plain_calls += 1
         return plain_attention(q, k, v, causal)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
@@ -591,4 +769,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return flash_attention_forward(q, k, v, causal)[0]
 
 
-flash_attention.plain_calls = 0  # Tq != Tk calls sent to plain_attention
+flash_attention.plain_calls = 0  # calls sent to plain_attention

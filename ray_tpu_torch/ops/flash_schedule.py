@@ -31,8 +31,16 @@ quarters of the longest. A launch that already fills the card (a block
 an SM or more) is not split.
 
 Past head_dim 256 (the slab kernels) a block's two consumer warpgroups
-each own a 256-column slab of the output and split S = Q K^T and dP =
-dO V^T between them by product, so each is computed once a block:
+each own a 256-column slab of the output. The forward up to two slabs
+(head_dim 512) is a block per (64-row q tile, q head, batch), causal q
+tiles longest first: consumer c owns slab c of O, keeps its slab's
+columns of Q and sums S's partial over them against the same columns of
+K, and the two consumers add each other's partials, so each column of Q
+and K is read once a (q tile, head) step and S is computed once; past
+two slabs a block per (128-row q tile, q head, batch, slab), slabs
+innermost, each consumer 64 of the rows, summing S over every column
+itself. The backward's two consumers split S = Q K^T and dP = dO V^T
+between them by product, so each is computed once a block:
 
 - dQ: a block per (64-row q tile, q head, batch, pair of slabs), pairs
   innermost, causal q tiles longest first; consumer 0 computes S and P,
@@ -206,6 +214,50 @@ WIDE_UNIT = 64
 WIDE_CLUSTER_SLABS = {2: 4, 4: 2}
 
 
+# the forward: the widest head_dim a block of both slabs takes (Q of its
+# 64 rows resident), and the q rows of a block a slab past it
+WIDE_FWD_PAIR_WIDTH = 2 * WIDE_SLAB
+WIDE_FWD_SLAB_ROWS = 128
+
+
+def wide_fwd_blocks(B: int, T: int, Hq: int, width: int, causal: bool
+                    ) -> List[Tuple[int, int, int, int]]:
+    """The slab forward grid in order: ``(q tile, q head, batch, slab)``
+    a block, causal q tiles longest first, then heads (q head inner to
+    batch), slabs innermost. Up to :data:`WIDE_FWD_PAIR_WIDTH` a block
+    takes :data:`WIDE_ROWS` q rows and both slabs (slab 0 names it); past
+    it :data:`WIDE_FWD_SLAB_ROWS` q rows and one slab."""
+    pair = width <= WIDE_FWD_PAIR_WIDTH
+    rows = WIDE_ROWS if pair else WIDE_FWD_SLAB_ROWS
+    n_slabs = 1 if pair else _cdiv(width, WIDE_SLAB)
+    n_qtiles = _cdiv(T, rows)
+    out = []
+    for rank in range(n_qtiles):
+        qtile = n_qtiles - 1 - rank if causal else rank
+        for hb in range(Hq * B):
+            for slab in range(n_slabs):
+                out.append((qtile, hb % Hq, hb // Hq, slab))
+    return out
+
+
+def wide_fwd_consumer(width: int, slab: int, consumer: int
+                      ) -> Tuple[Tuple[int, int], Tuple[int, int],
+                                 Tuple[int, int]]:
+    """What consumer ``consumer`` of a slab forward block of ``slab``
+    does: the q rows ``(lo, hi)`` of the block's tile whose O it writes,
+    the columns ``(lo, hi)`` of O it writes, and the columns ``(lo, hi)``
+    of Q and K over which it sums S (up to :data:`WIDE_FWD_PAIR_WIDTH`
+    its slab's, a partial the other consumer adds to its own; past it
+    every column, S whole)."""
+    if width <= WIDE_FWD_PAIR_WIDTH:
+        lo = consumer * WIDE_SLAB
+        cols = (min(lo, width), min(lo + WIDE_SLAB, width))
+        return (0, WIDE_ROWS), cols, cols
+    lo = slab * WIDE_SLAB
+    return ((consumer * WIDE_ROWS, (consumer + 1) * WIDE_ROWS),
+            (lo, min(lo + WIDE_SLAB, width)), (0, width))
+
+
 def wide_dq_blocks(B: int, T: int, Hq: int, width: int, causal: bool
                    ) -> List[Tuple[int, int, int, int]]:
     """The slab dQ grid in order: ``(q tile, q head, batch, pair)`` a
@@ -274,20 +326,28 @@ def wide_dkv_output(width: int, slab: int, consumer: int
 def wide_products(width: int, elem_bytes: int = 2) -> dict:
     """The 64 x 64 x 64 products (:data:`WIDE_UNIT`) the slab kernels
     issue a (64-row tile, 64-row tile) pair, beside the fewest the
-    backward needs (S, dP and each gradient once; float32's extra dP
-    products of the rests not counted): dQ's S and dP over every slice
-    once a block, dS K over both slabs (a slab past the tensor's columns
-    included); dK/dV in a cluster, each block's partial S^T and dP^T and
-    its P^T dO and dS^T Q over its slab's four column blocks, alone S^T
-    and dP^T over every slice once a block."""
+    forward and backward need (S, P V; S, dP and each gradient once;
+    float32's extra dP products of the rests not counted): the forward up
+    to two slabs S's two partials over their slabs' four column blocks
+    and P V over both slabs (boxes past the tensor's columns included),
+    past that S over every slice and P V over the slab, a slab's block
+    each; dQ's S and dP over every slice once a block, dS K over both
+    slabs (a slab past the tensor's columns included); dK/dV in a
+    cluster, each block's partial S^T and dP^T and its P^T dO and dS^T Q
+    over its slab's four column blocks, alone S^T and dP^T over every
+    slice once a block."""
     n_cb = _cdiv(width, WIDE_UNIT)
     per_slab = WIDE_SLAB // WIDE_UNIT
     n_pairs = _cdiv(width, WIDE_DQ_SLABS * WIDE_SLAB)
     n_slabs = _cdiv(width, WIDE_SLAB)
+    if width <= WIDE_FWD_PAIR_WIDTH:
+        fwd = 2 * 2 * per_slab
+    else:
+        fwd = n_slabs * (n_cb + per_slab)
     dq = n_pairs * (2 * n_cb + WIDE_DQ_SLABS * per_slab)
     if wide_dkv_cluster(width, elem_bytes) > 1:
         dkv = n_slabs * 4 * per_slab
     else:
         dkv = n_slabs * (2 * n_cb + 2 * per_slab)
-    return {"dq": dq, "dkv": dkv, "dq_least": 3 * n_cb,
-            "dkv_least": 4 * n_cb}
+    return {"fwd": fwd, "dq": dq, "dkv": dkv, "fwd_least": 2 * n_cb,
+            "dq_least": 3 * n_cb, "dkv_least": 4 * n_cb}

@@ -111,8 +111,10 @@ def test_cuda_tensors_never_fall_back(cuda, case):
     q, k, v = _qkv(64, 4, 2, 64, cuda)
     exc = ValueError
     call = fa.flash_attention
-    if case == "tq_ne_tk":
+    if case == "tq_ne_tk":  # flash_attention sends it to plain attention;
+        # the kernel wrapper itself refuses it before a launch
         k, v = k[:, :32], v[:, :32]
+        call = fa.flash_attention_forward
     elif case == "fp64":
         q, k, v, exc = q.double(), k.double(), v.double(), TypeError
     elif case == "d_zero":  # every head_dim >= 1 runs on the kernels
@@ -129,6 +131,65 @@ def test_cuda_tensors_never_fall_back(cuda, case):
     with pytest.raises(exc):
         call(q, k, v, causal=True)
     assert fa.flash_attention_forward.launches == before
+
+
+@pytest.mark.parametrize("tq,tk,dtype,atol", [
+    (64, 32, torch.bfloat16, 2e-2), (100, 100, torch.float32, 1e-5),
+    (129, 200, torch.float32, 1e-5)])
+def test_flash_attention_sends_jax_refused_shapes_to_plain(cuda, tq, tk,
+                                                           dtype, atol):
+    """Tq != Tk, and float32 at a length no JAX block divides: plain
+    attention on the card, counted in ``plain_calls``, no kernel launched,
+    equal to the plain version (float32 at the JAX suite's 1e-5)."""
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device=cuda).manual_seed(tq + tk)
+    q, k, v = (torch.randn(1, t, h, 32, device=cuda, generator=g).to(dtype)
+               for t, h in ((tq, 4), (tk, 2), (tk, 2)))
+    kernels = (fa.flash_attention_forward, fa.flash_attention_bwd_dq,
+               fa.flash_attention_bwd_dkv)
+    before = [fn.launches for fn in kernels]
+    plain = fa.flash_attention.plain_calls
+    got = fa.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.plain_calls == plain + 1
+    assert [fn.launches for fn in kernels] == before
+    want = fa.flash_attention_reference(q, k, v, True)[0]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=atol)
+
+
+@pytest.mark.parametrize("D", [3, 64, 128, 256])
+def test_float32_dq_runs_on_the_split_pass(cuda, D):
+    """float32 dQ up to head_dim 256: one split pass a call, whose bf16
+    copies equal the plain version's bitwise and whose delta is the dQ
+    wrapper's (at a narrow head_dim the wrapper's pass runs on the inputs'
+    parts, and its delta is held to the bound); dq within the bounds
+    above, bitwise repeatable."""
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device=cuda).manual_seed(D)
+    q, k, v, do = (torch.randn(2, 257, h, D, device=cuda, generator=g)
+                   for h in (8, 2, 2, 8))
+    o, lse = fa.flash_attention_forward(q, k, v, True)
+    before = fa.flash_attention_bwd_split.launches
+    dq, delta = fa.flash_attention_bwd_dq(q, k, v, o, do, lse, True)
+    again = fa.flash_attention_bwd_dq(q, k, v, o, do, lse, True)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_bwd_split.launches == before + 2
+    assert torch.equal(dq, again[0]) and torch.equal(delta, again[1])
+    split = fa.flash_attention_bwd_split(q, k, v, o, do)
+    want = fa.flash_attention_bwd_split_reference(q, k, v, o, do)
+    for name, a, b in zip(want._fields[:6], split[:6], want[:6]):
+        assert torch.equal(a, b), name
+    if D > fa.NARROW_WIDTH:
+        assert torch.equal(split.delta, delta)
+    want_dq, want_delta = fa.flash_attention_bwd_dq_reference(
+        q, k, v, o, do, lse, True)
+    torch.testing.assert_close(dq, want_dq, atol=5e-2, rtol=5e-2)
+    assert _block_rel_err(dq, want_dq) <= GRAD_BLOCK_RTOL
+    bound = 1e-5 * (o * do).abs().sum(-1).transpose(1, 2)
+    assert bool(((delta - want_delta).abs() <= bound).all())
 
 
 def test_engine_serves_on_the_card_through_the_kernel(cuda):
@@ -222,7 +283,8 @@ def test_backward_kernels_match_plain_versions(cuda, D, T, Hq, Hkv, causal):
     (torch.bfloat16, 200), (torch.bfloat16, 100), (torch.float16, 36),
     (torch.bfloat16, 264), (torch.bfloat16, 300), (torch.bfloat16, 512),
     (torch.float16, 512), (torch.float32, 384), (torch.bfloat16, 1024),
-    (torch.bfloat16, 576), (torch.bfloat16, 1280), (torch.float32, 768)])
+    (torch.bfloat16, 576), (torch.bfloat16, 1280), (torch.float32, 768),
+    (torch.bfloat16, 1), (torch.float16, 4), (torch.float32, 3)])
 @pytest.mark.parametrize("T,Hq,Hkv,causal", [(1, 8, 8, True),
                                             (129, 8, 1, False),
                                             (257, 8, 2, True)])
@@ -231,8 +293,8 @@ def test_kernels_take_every_dtype_and_head_dim(cuda, dtype, D, T, Hq, Hkv,
     """fp16 and fp32 inputs and head_dims to 256, and past it on the slab
     kernels (dK/dV in clusters of two, three and four blocks, and past
     them, bf16 1280 and fp32 768, in blocks alone; 100, 36 and 300 in bf16
-    and fp16 read through a zero-padded copy, rows not whole 16-byte
-    units):
+    and fp16, and 1, 4 and 3, read through a zero-padded copy, rows not
+    whole 16-byte units):
     each kernel launches once a call, its outputs come back in q's dtype,
     within the bounds above of the plain versions, bitwise repeatable."""
     from ray_tpu_torch.ops import flash_attention as fa

@@ -25,7 +25,15 @@ held here through the schedule they follow:
   order; P passed on in float32; P and dS rounded to the operand type
   before the products they feed) against the plain versions at 1e-5 in
   float32 and against the Pallas kernels in interpret mode at 2e-2 / 5e-2
-  in bfloat16.
+  in bfloat16;
+- the slab forward: every element of O owned by exactly one (block,
+  consumer); up to head_dim 512 one block a (q tile, head) whose two
+  consumers read each column of Q and K once (S computed once,
+  ``wide_products``); and a plain-torch model of its arithmetic (each
+  consumer's partial S over its slab's columns, the two added, the
+  online softmax over 64-key tiles, P rounded to the operand type
+  before P V) against the plain version at 1e-5 in float32 and the
+  Pallas kernel at 2e-2 in bfloat16.
 """
 
 import math
@@ -534,3 +542,138 @@ def test_slab_model_matches_the_pallas_kernels(T, Hkv, D, causal):
         np.testing.assert_allclose(g.bfloat16().float().numpy(),
                                    np.asarray(w, np.float32),
                                    err_msg=name, **PALLAS_GRAD_TOL)
+
+
+# ------------------------------------------------ the slab forward (D > 256)
+
+FWD_WIDTHS = (264, 300, 320, 384, 512, 576, 1024)
+
+
+def _fwd_ownership(B, T, Hq, D):
+    """O element counts over the slab forward grid's (block, consumer)
+    outputs, and per block the columns of Q and K its consumers sum S
+    over."""
+    o = np.zeros((B, T, Hq, D), np.int8)
+    reads = []
+    rows = fs.WIDE_ROWS if D <= fs.WIDE_FWD_PAIR_WIDTH \
+        else fs.WIDE_FWD_SLAB_ROWS
+    for qtile, h, b, slab in fs.wide_fwd_blocks(B, T, Hq, D, True):
+        cols = np.zeros(D, np.int8)
+        for consumer in range(2):
+            (r0, r1), (lo, hi), (s0, s1) = fs.wide_fwd_consumer(D, slab,
+                                                                consumer)
+            o[b, qtile * rows + r0:qtile * rows + r1, h, lo:hi] += 1
+            cols[s0:s1] += 1
+        reads.append(((qtile, h, b), cols))
+    return o, reads
+
+
+@pytest.mark.parametrize("D", FWD_WIDTHS)
+@pytest.mark.parametrize("T", SLAB_LENGTHS)
+def test_every_slab_forward_output_is_owned_once(D, T):
+    for Hq in (1, 8):
+        o, reads = _fwd_ownership(2, T, Hq, D)
+        assert (o == 1).all()
+        if D <= fs.WIDE_FWD_PAIR_WIDTH:
+            # one block a (q tile, head, batch), whose two consumers read
+            # each column of Q and K once a step: S computed once
+            assert len({key for key, _ in reads}) == len(reads)
+            assert all((cols == 1).all() for _, cols in reads)
+        else:
+            # past two slabs each slab's block sums S over every column
+            # in each of its consumers (their own q rows)
+            assert all((cols == 2).all() for _, cols in reads)
+
+
+@pytest.mark.parametrize("B,T,Hq,Hkv,D", WIDE_HEAD_SHAPES)
+def test_wide_head_forward_grid_is_one_block_a_q_tile_and_head(B, T, Hq,
+                                                               Hkv, D):
+    blocks = fs.wide_fwd_blocks(B, T, Hq, D, True)
+    assert len(blocks) == _cdiv(T, fs.WIDE_ROWS) * Hq * B
+    # causal: the longest q tiles first, every head of a tile side by side
+    assert [b[0] for b in blocks[:Hq * B]] == [_cdiv(T, 64) - 1] * (Hq * B)
+    o, _ = _fwd_ownership(B, T, Hq, D)
+    assert (o == 1).all()
+
+
+def test_slab_forward_computes_s_once_at_head_dim_512():
+    """At head_dim 512 the forward issues 16 products of 64 x 64 x 64 a
+    (64-row, 64-key) pair, the fewest (S and P V once); a block a slab
+    summing S itself issued 24 (1.5x); past 512 the slab kernel's count
+    stands (2.5x at 1024)."""
+    p = fs.wide_products(512)
+    assert p["fwd"] == p["fwd_least"] == 16
+    assert 2 * (8 + 4) == 24
+    assert fs.wide_products(300)["fwd"] == 16  # the second slab's empty
+    assert fs.wide_products(1024)["fwd"] == 80 == 2.5 * \
+        fs.wide_products(1024)["fwd_least"]
+
+
+def emulate_pair_forward(q, k, v, causal, op):
+    """o and lse as the slab forward up to two slabs computes them
+    (float32 inputs holding values of the input type; ``op`` the
+    products' operand type): per (64-row q tile, head) block and 64-key
+    tile, each consumer's partial S over its slab's columns, the two
+    added (the same sum in both), the online softmax in float32, P
+    rounded to ``op`` and O += P V over each consumer's slab."""
+    B, T, Hq, D = q.shape
+    rep = Hq // k.shape[2]
+    scale = 1.0 / math.sqrt(D)
+    o = torch.zeros_like(q)
+    lse = torch.zeros(B, Hq, T)
+    for qtile, h, b, _ in fs.wide_fwd_blocks(B, T, Hq, D, causal):
+        rows = torch.arange(qtile * 64, min(qtile * 64 + 64, T))
+        hk = h // rep
+        n_tiles = _cdiv(min(qtile * 64 + 64, T) if causal else T, 64)
+        m = torch.full((len(rows),), -math.inf)
+        l = torch.zeros(len(rows))
+        acc = torch.zeros(len(rows), D)
+        for j in range(n_tiles):
+            keys = torch.arange(j * 64, min(j * 64 + 64, T))
+            parts = []
+            for consumer in range(2):
+                _, _, (s0, s1) = fs.wide_fwd_consumer(D, 0, consumer)
+                parts.append(q[b, rows, h, s0:s1] @ k[b, keys, hk, s0:s1].T)
+            s = (parts[0] + parts[1]) * scale
+            if causal:
+                s = torch.where(keys[None] > rows[:, None],
+                                torch.full_like(s, -math.inf), s)
+            mx = torch.maximum(m, s.max(-1).values)
+            corr = torch.exp(m - mx)
+            p = torch.exp(s - mx[:, None])
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[:, None]
+            for consumer in range(2):
+                _, (lo, hi), _ = fs.wide_fwd_consumer(D, 0, consumer)
+                acc[:, lo:hi] += _rounded(p, op) @ v[b, keys, hk, lo:hi]
+            m = mx
+        o[b, rows, h] = acc / l[:, None]
+        lse[b, h, rows] = m + torch.log(l)
+    return o, lse
+
+
+@pytest.mark.parametrize("B,T,Hq,Hkv,D,causal", [(1, 100, 2, 1, 320, True),
+                                                 (1, 70, 4, 2, 512, False),
+                                                 (2, 65, 2, 1, 264, True)])
+def test_pair_forward_model_equals_the_plain_version(B, T, Hq, Hkv, D,
+                                                     causal):
+    q, k, v, _ = _qkv(B, T, Hq, Hkv, D, seed=26)
+    got_o, got_lse = emulate_pair_forward(q, k, v, causal, torch.float32)
+    want_o, want_lse = fa.flash_attention_reference(q, k, v, causal)
+    torch.testing.assert_close(got_o, want_o, **EXACT)
+    torch.testing.assert_close(got_lse, want_lse, **EXACT)
+
+
+@pytest.mark.parametrize("T,Hkv,D,causal", [(128, 1, 320, True),
+                                            (128, 2, 512, False)])
+def test_pair_forward_model_matches_the_pallas_kernel(T, Hkv, D, causal):
+    """bfloat16 inputs, P rounded as the kernel rounds it, against the JAX
+    package's flash_attention through its Pallas kernel in interpret mode
+    (2e-2)."""
+    q, k, v, _ = (x.bfloat16() for x in _qkv(1, T, 2, Hkv, D, seed=27))
+    want = jax_flash(*(jnp.asarray(x.float().numpy(), jnp.bfloat16)
+                       for x in (q, k, v)), causal=causal, interpret=True)
+    got, _ = emulate_pair_forward(q.float(), k.float(), v.float(), causal,
+                                  torch.bfloat16)
+    np.testing.assert_allclose(got.bfloat16().float().numpy(),
+                               np.asarray(want, np.float32), **PALLAS_FWD_TOL)
