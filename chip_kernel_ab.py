@@ -8,7 +8,8 @@ prefill, "table"; the Llama-3-1B training step's attention, "train"),
 its head_dim-256 row ("d256", Gemma-2B's 8/1 heads at a 2k prefill), its
 "d512 train" row (the wide-head 1B's training step, B 4 x 2048, 4/1
 heads of head_dim 512: the slab kernels), all bf16, and its "train f32"
-row ("train" in float32; dQ with the split pass), all causal,
+row ("train" in float32: the forward, dQ and dK/dV each with its split
+pass, the whole backward with one for both), all causal,
 each kernel (forward, dQ, dK/dV) and the whole backward
 (dQ with delta, then dK/dV: ``flash_attention_backward``) is timed with
 CUDA events in turns with SDPA on the same inputs (kernel, SDPA, SDPA,

@@ -1,17 +1,20 @@
 #!/usr/bin/env python3
 """Device time of the attention kernels of one tree of the port, by
 kernel, on one card: ``python3 chip_kernel_probe.py <root> [--sweep]
-[--trace] [--sass-against <other root>]``, where ``<root>`` holds a
-``ray_tpu_torch`` package (``.`` for this checkout).
+[--trace] [--sass-against <other root>] [--bits-save <file> |
+--bits-against <file>]``, where ``<root>`` holds a ``ray_tpu_torch``
+package (``.`` for this checkout).
 
 ``chip_kernel_ab.py`` times whole wrapper calls back to back with CUDA
 events, which at 0.05–0.15 ms kernels also reads the host's launch path
 (ctypes, TMA maps). This script reads what the card spent in each kernel
 instead: ``torch.profiler``'s device time of each kernel over 60 calls
 of each wrapper (forward, dQ, dK/dV) at ``chip_kernel_ab.py``'s shapes
-(the head_dim-512 slab kernels at "d512 train", float32 with dQ's split
-pass at "train f32"), causal, beside the host's time to enqueue a call (with the card
-kept busy, so the enqueue is not waited on). With ``--sweep`` (a tree
+(the head_dim-512 slab kernels at "d512 train", float32 at "train f32",
+each wrapper with its split pass: the forward's flash_fwd_split_kernel,
+dQ's and dK/dV's flash_bwd_split_kernel), causal, beside the host's
+time to enqueue a call (with the card kept busy, so the enqueue is not
+waited on). With ``--sweep`` (a tree
 with ``ops/flash_schedule.py``), it forces the head_dim-256 split counts
 at the "d256" row instead, five rounds in turns, and reads each count's
 device time (kernel and second pass): the forward's split q tiles and
@@ -22,7 +25,11 @@ cycles a step of each consumer spends in each phase (thread 0 of each
 consumer warpgroup, summed over blocks and steps, over the steps).
 With ``--sass-against``, it compares the SASS of every
 kernel instantiation the two trees' libraries share (``cuobjdump``,
-register numbers aside). Prints one JSON line. Exits 2 without a card.
+register numbers aside). With ``--bits-save``, it writes the tree's
+float32 o, lse, dq, delta, dk and dv at BITS_SHAPES (seed 0) to a file;
+with ``--bits-against``, it compares its own with that file's bitwise
+(each tree in its own process, so each imports its own package). Prints
+one JSON line. Exits 2 without a card.
 """
 
 from __future__ import annotations
@@ -44,6 +51,11 @@ SHAPES = (("table", (1, 2048, 32, 8, 128), "bfloat16"),
           ("train f32", (4, 2048, 32, 8, 64), "float32"))
 SHAPE = {label: shape for label, shape, _ in SHAPES}
 CALLS = 60
+# float32 shapes whose outputs two trees compare bitwise: "train f32",
+# head_dim 128 at a ragged T, 256 (the columns-split dK/dV), 3 (parts)
+BITS_SHAPES = (("train f32", (4, 2048, 32, 8, 64)),
+               ("d128", (1, 257, 8, 2, 128)), ("d256", (1, 300, 8, 1, 256)),
+               ("d3", (2, 65, 4, 2, 3)))
 FWD_SPLITS = (0, 2, 3, 4, 5, 6, 8, 10, 14)
 DKV_CHUNKS = (1, 4, 6, 7, 8, 9, 12, 16)
 ROUNDS = 5
@@ -166,6 +178,34 @@ def trace(torch, fa, gen) -> dict:
                 for c in (0, 1)}}
 
 
+def fp32_outputs(torch, fa) -> dict:
+    """The float32 forward, dQ and dK/dV wrappers' outputs at BITS_SHAPES,
+    causal, on the CPU."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = {}
+    for label, (B, T, Hq, Hkv, D) in BITS_SHAPES:
+        q, k, v, do = (torch.randn(B, T, h, D, device="cuda", generator=gen)
+                       for h in (Hq, Hkv, Hkv, Hq))
+        o, lse = fa.flash_attention_forward(q, k, v, True)
+        dq, delta = fa.flash_attention_bwd_dq(q, k, v, o, do, lse, True)
+        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, True)
+        out[label] = {name: t.cpu() for name, t in zip(
+            ("o", "lse", "dq", "delta", "dk", "dv"),
+            (o, lse, dq, delta, dk, dv))}
+    return out
+
+
+def bits_against(torch, mine: dict, theirs: dict) -> dict:
+    """Per shape and output, whether the two trees' bits are equal, and
+    the largest |difference| of each shape."""
+    return {label: {**{name: torch.equal(t, theirs[label][name])
+                       for name, t in outs.items()},
+                    "max_abs_diff": max((t - theirs[label][name]).abs()
+                                        .max().item()
+                                        for name, t in outs.items())}
+            for label, outs in mine.items()}
+
+
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
@@ -247,6 +287,13 @@ def main(argv) -> int:
                           for name, fn in inputs(torch, fa, gen, *shape,
                                                  dtype).items()}
             torch.cuda.empty_cache()
+    if "--bits-save" in argv:
+        torch.save(fp32_outputs(torch, fa),
+                   argv[argv.index("--bits-save") + 1])
+    elif "--bits-against" in argv:
+        out["fp32_bits_against"] = bits_against(
+            torch, fp32_outputs(torch, fa),
+            torch.load(argv[argv.index("--bits-against") + 1]))
     if "--sass-against" in argv:
         out["sass_against"] = sass_against(
             root, os.path.abspath(argv[argv.index("--sass-against") + 1]))

@@ -46,6 +46,12 @@ readings of the same variants:
 - ``split_delta_rounded_do``: the fp32 split pass takes delta from dO
   rounded to bf16 (the dQ kernel's tile) instead of dO as it lies in
   device memory, read at ``float32:64``;
+- ``fwd_split_k_from_q``: the fp32 forward's split pass writes k's copy
+  from q's rows (of the same batch, time and head index), so the forward
+  kernel reads a wrong K by TMA, read at ``float32:64``;
+- ``dkv_dp_drops_do_rest``: the fp32 dK/dV kernel, on its TMA tiles,
+  leaves the product of dO's rest (V_hi dO_lo^T) out of dP^T (dV = P^T
+  dO reads dO's rounded tile only), read at ``float32:64``;
 
 and three in the slab kernels that take head_dim past 256:
 
@@ -118,10 +124,22 @@ VARIANT_FAULTS = {
          "        // fp32: dP += dO_lo V_hi^T + dO_hi V_lo^T (the tiles' "
          "rests)\n",
          "      if constexpr (false) {\n",
-         "          if constexpr (!kTma) {\n"
+         "          if constexpr (kLo) {\n"
          "            // fp32: dP^T += V_hi dO_lo^T + V_lo dO_hi^T (the "
          "tiles' rests)\n",
          "          if constexpr (false) {\n"),
+        ("float32", 64)),
+    "fwd_split_k_from_q": (
+        "flash_attention_fwd.cu",
+        ("    const float *k_row = at(k, 1), *v_row = at(v, 2);\n",
+         "    const float *k_row = at(q, 0), *v_row = at(v, 2);\n"),
+        ("float32", 64)),
+    "dkv_dp_drops_do_rest": (
+        "flash_attention_bwd.cu",
+        ("            sm90::wgmma_ss<64, Op>(\n"
+         "                dpt, desc_sw128(v_addr + a_off, 16, 1024),\n"
+         "                desc_sw128(do_addr + kTileBytes + b_off, 16, 1024), "
+         "1);\n", ""),
         ("float32", 64)),
     "d256_second_half": (
         "flash_attention_sm90.cuh",

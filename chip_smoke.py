@@ -43,9 +43,11 @@ non-zero and never prints the final ``ok`` line.
    three GQA groups;
    the JAX suite's float32 cases; a float32 step and a head_dim-256
    (8/1 heads) bf16 step, each at Llama-3-1B widths and 2 layers against
-   plain attention with exact launches, their step ms and peak memory;
-   the "train f32", "d256" and "d512 train" shapes timed beside SDPA
-   (its backend named: flash takes head_dim up to 256 only);
+   plain attention with exact launches (the float32 step's split passes
+   too: one a forward, one a backward call), their step ms and peak
+   memory; the "train f32", "d256" and "d512 train" shapes timed beside
+   SDPA (its backend named: flash takes head_dim up to 256 only), and at
+   "train f32" both split passes against their plain versions, bitwise;
 7. full-depth Llama-3-8B serving: a DecodeScheduler over the paged-KV
    engine answers six requests (one a prefix-cache hit), with the forward
    kernel's launch count read from this run; then ``serve_plane``: the
@@ -415,7 +417,7 @@ def ptxas_report(log: str):
                 r"(flash_(?:fwd|bwd_dq|bwd_dkv)_wide_kernel|"
                 r"flash_bwd_dkv_cluster_kernel|flash_fwd_pair_kernel|"
                 r"flash_fwd_merge_kernel|flash_bwd_dkv_reduce_kernel|"
-                r"flash_bwd_split_kernel)[IE]",
+                r"flash_bwd_split_kernel|flash_fwd_split_kernel)[IE]",
                 m.group(1))
             cur = {"kernel": f"{name.group(1)}<{name.group(2)}>" if name
                    else other.group(1) if other else m.group(1)}
@@ -1135,6 +1137,7 @@ def reduced_depth_step(torch, seed, cfg, label: str) -> dict:
             return loss, gnorm, leaves, None
         launches = read_launches(fa)
         launches["split"] = fa.flash_attention_bwd_split.launches
+        launches["fwd_split"] = fa.flash_attention_fwd_split.launches
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -1170,15 +1173,18 @@ def reduced_depth_step(torch, seed, cfg, label: str) -> dict:
         "attn_leaf_rtol": ATTN_GRAD_RTOL, "launches": counts,
         "plain_delta_calls": len(delta_calls), **timed}
 
-    # float32 up to head_dim 256: one split pass a dQ launch
-    split_want = counts["dq"] if cfg.dtype == torch.float32 \
-        and cfg.head_dim <= 256 else 0
+    # float32 up to head_dim 256: one split pass a backward call (dQ and
+    # dK/dV share it) and one a forward launch
+    copies = cfg.dtype == torch.float32 and cfg.head_dim <= 256
+    split_want = {"split": counts["dq"] if copies else 0,
+                  "fwd_split": counts["fwd"] if copies else 0}
 
     def gates():
-        check({k: n for k, n in counts.items() if k != "split"}
-              == expected_launches(cfg, 1) and counts["split"] == split_want,
+        check({k: n for k, n in counts.items() if k not in split_want}
+              == expected_launches(cfg, 1)
+              and all(counts[k] == n for k, n in split_want.items()),
               f"{label} launched {counts}, want {expected_launches(cfg, 1)} "
-              f"and {split_want} split passes")
+              f"and split passes {split_want}")
         check(not delta_calls, f"the kernel step ({label}) took the plain "
                                f"delta {len(delta_calls)} times")
         check(math.isfinite(loss) and math.isfinite(gnorm),
@@ -1468,6 +1474,44 @@ def split_timing(torch, q, k, v, o, do, peaks) -> dict:
     return timing
 
 
+def fwd_split_timing(torch, q, k, v, peaks) -> dict:
+    """The float32 forward split pass (``flash_attention_fwd_split``) on
+    these inputs against its plain version: the bf16 copies bitwise, the
+    largest |error|; the pass timed twice and its plain version once,
+    beside the bound of its bytes (q, k, v read once in float32, their
+    copies written once). No single PyTorch call computes it: its
+    yardstick is three, q, k and v each cast ``.to(torch.bfloat16)``,
+    their times summed (the casts write no zero padding)."""
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    got = fa.flash_attention_fwd_split(q, k, v)
+    want = fa.flash_attention_fwd_split_reference(q, k, v)
+    B, T, Hq, D = q.shape
+    Hkv = k.shape[2]
+    w8 = -(-D // 8) * 8
+    nbytes = (4 * B * T * D + 2 * B * T * w8) * (Hq + 2 * Hkv)
+    ms_each = [cuda_ms(lambda: fa.flash_attention_fwd_split(q, k, v))
+               for _ in range(2)]
+    casts = [cuda_ms(lambda x=x: x.to(torch.bfloat16)) for x in (q, k, v)]
+    timing = {
+        "shape": {"B": B, "T": T, "Hq": Hq, "Hkv": Hkv, "D": D,
+                  "dtype": dtype_name(q.dtype)},
+        "ms": sum(ms_each) / 2, "ms_each": ms_each,
+        "plain_ms": cuda_ms(
+            lambda: fa.flash_attention_fwd_split_reference(q, k, v),
+            iters=5, warmup=1),
+        "library": "three calls: q, k, v .to(torch.bfloat16), summed",
+        "library_ms": sum(casts), "library_ms_each": casts,
+        "copies_bitwise_equal_plain": all(
+            torch.equal(a, b) for a, b in zip(got, want)),
+        "max_abs_err": max((a.float() - b.float()).abs().max().item()
+                           for a, b in zip(got, want)),
+        **bound(0, nbytes, peaks)}
+    timing["share_of_bound"] = timing["bound_ms"] / timing["ms"]
+    timing["achieved_gb_per_s"] = nbytes / (timing["ms"] * 1e-3) / 1e9
+    return timing
+
+
 def phase_kernel_dtypes(torch, np, gen, seed, peaks, smi) -> dict:
     """The kernels on every element type and head_dim beyond bf16 at 64
     and 128: each variant against its plain version (DTYPE_VARIANTS), the
@@ -1531,13 +1575,16 @@ def phase_kernel_dtypes(torch, np, gen, seed, peaks, smi) -> dict:
         if q.dtype == torch.float32 and D <= fs.WIDE_SLAB:
             timings[label]["split"] = split_timing(torch, q, k, v, o, do,
                                                    peaks)
-            emit({"phase": "kernel_timing", "kernel": "split", "at": label,
-                  "card": smi, **timings[label]["split"]})
+            timings[label]["fwd_split"] = fwd_split_timing(torch, q, k, v,
+                                                           peaks)
+            for kern in ("split", "fwd_split"):
+                emit({"phase": "kernel_timing", "kernel": kern, "at": label,
+                      "card": smi, **timings[label][kern]})
         emit({"phase": "kernel_timing", "kernel": "fwd", "at": label,
               "card": smi, **fwd})
         emit({"phase": "kernel_timing_backward", "at": label, "card": smi,
               **backward_line({k: x for k, x in timings[label].items()
-                               if k != "fwd"})})
+                               if k not in ("fwd", "fwd_split")})})
         del q, k, v, do, o, lse
         torch.cuda.empty_cache()
 
@@ -1571,7 +1618,7 @@ def phase_kernel_dtypes(torch, np, gen, seed, peaks, smi) -> dict:
         torch.cuda.empty_cache()
     gates = {label: r.pop("gates") for label, r in steps.items()}
     launches = {k: sum(r["launches"][k] for r in steps.values())
-                for k in ("fwd", "dq", "dkv", "split")}
+                for k in ("fwd", "dq", "dkv", "split", "fwd_split")}
     emit({"phase": "kernel_dtypes_train", "card": smi, "steps": steps,
           "launches": launches, "phase_s": time.perf_counter() - t0})
     for gate in gates.values():
@@ -1590,6 +1637,10 @@ def phase_kernel_dtypes(torch, np, gen, seed, peaks, smi) -> dict:
           f"the float32 split pass disagrees with its plain version: max "
           f"|err| {split['max_abs_err']}, delta err over bound "
           f"{split['delta_err_over_bound']}")
+    fwd_split = timings["train f32"]["fwd_split"]
+    check(fwd_split["copies_bitwise_equal_plain"],
+          f"the float32 forward split pass disagrees with its plain "
+          f"version: max |err| {fwd_split['max_abs_err']}")
     return {"variants": variants, "reference_suite": reference,
             "timings": timings, "launches": launches}
 
@@ -1829,7 +1880,8 @@ def counting_plain_delta(fa):
 
 def reset_launches(fa) -> None:
     for fn in (fa.flash_attention_forward, fa.flash_attention_bwd_dq,
-               fa.flash_attention_bwd_dkv, fa.flash_attention_bwd_split):
+               fa.flash_attention_bwd_dkv, fa.flash_attention_bwd_split,
+               fa.flash_attention_fwd_split):
         fn.launches = 0
 
 
@@ -5728,9 +5780,12 @@ def main(argv=None) -> int:
     shapes = {label: fwd_timing[label]["shape"] for label in fwd_timing}
     src = "ray_tpu_torch/ops/csrc/"
     types_note = ("a library per dtype: bf16 and fp16 operands as they are, "
-                  "fp32 rounded to bf16 (dQ's by the split pass, "
-                  "flash_bwd_split_kernel, once a call; the others' by the "
-                  "producer threads); any head_dim >= 1, past 256 on the "
+                  "fp32 rounded to bf16: up to head_dim 256 every tile by "
+                  "TMA from a split pass's bf16 copies, written once a "
+                  "call (the forward's flash_fwd_split_kernel; the "
+                  "backward's flash_bwd_split_kernel, one for dQ and "
+                  "dK/dV together), past 256 by the slab kernels' "
+                  "producer threads; any head_dim >= 1, past 256 on the "
                   "slab kernels, a consumer warpgroup a slab of 256 output "
                   "columns: the forward up to 512 a block of 64 q rows and "
                   "both slabs, each consumer's partial S over its slab's "
@@ -5817,7 +5872,9 @@ def main(argv=None) -> int:
         "design": "flash_bwd_split_kernel: float32 q, k, v, o, dO read "
                   "once; bf16 copies (hi = RN(x); of v and dO also lo = "
                   "RN(x - hi)) and delta = rowsum(o * dO) written once, "
-                  "which the dQ kernel loads by TMA; bound by bytes",
+                  "which the dQ and dK/dV kernels load by TMA (a "
+                  "standalone dK/dV call: the copies alone); bound by "
+                  "bytes",
         "launches": sum(n.get("split", 0) for n in by_path.values()),
         "launches_by_path": {p: n.get("split", 0)
                              for p, n in by_path.items()},
@@ -5829,6 +5886,27 @@ def main(argv=None) -> int:
         **{k: split[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                  "library_ms", "share_of_bound")},
         "shape": split["shape"]})
+    fwd_split = dtypes["timings"]["train f32"]["fwd_split"]
+    kernels.append({
+        "name": "flash_attention_fwd_split", "route": "cuda",
+        "source": src + "flash_attention_fwd.cu",
+        # part of the forward kernel's port for float32 inputs
+        "replaces": "ray_tpu/ops/flash_attention.py:62",
+        "design": "flash_fwd_split_kernel: float32 q, k, v read once; bf16 "
+                  "copies (hi = RN(x), zero-padded to 8 columns) written "
+                  "once, which the forward kernel loads by TMA; bound by "
+                  "bytes",
+        "launches": sum(n.get("fwd_split", 0) for n in by_path.values()),
+        "launches_by_path": {p: n.get("fwd_split", 0)
+                             for p, n in by_path.items()},
+        "max_abs_err": fwd_split["max_abs_err"],
+        "copies_bitwise_equal_plain":
+            fwd_split["copies_bitwise_equal_plain"],
+        "ok": fwd_split["copies_bitwise_equal_plain"],
+        **{k: fwd_split[k] for k in ("ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library", "library_ms",
+                                     "share_of_bound")},
+        "shape": fwd_split["shape"]})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -95,10 +95,11 @@
 // Types (flash_attention_sm90.cuh, `Elem`): bf16 and fp16 run wgmma in
 // their own type (P and dS are rounded to it as A operands); fp32 inputs
 // run the bf16 products on tiles rounded to bf16: an fp32 call computes
-// its products with bf16 operands and fp32 sums. dK/dV's fp32 tiles are
-// loaded by all four producer warps (which keep 40 registers) and rounded
-// into the same swizzled tiles; dQ's arrive by TMA from the bf16 copies
-// that the split pass (flash_bwd_split_kernel, below) writes once a call.
+// its products with bf16 operands and fp32 sums. Both kernels load fp32
+// tiles by TMA from the bf16 copies that the split pass
+// (flash_bwd_split_kernel, below) writes once a call (a whole backward
+// call's dQ and dK/dV share one pass), through the one-thread producer
+// of bf16 (24 registers).
 // delta is taken from O and dO in fp32 as they lie in device memory, so
 // dP = dO V^T, which dS sets against it, takes dO and V each as two bf16
 // tiles (the rounded value and what the rounding left) in three products,
@@ -154,47 +155,18 @@ constexpr unsigned kFull = 0xffffffffu;
 // chunks tg, tg + 4, ... in order, each element by element, then sums
 // the four partials by butterfly). The dQ kernel then loads every tile by
 // TMA, the rests included, so each product sees the operands it saw when
-// its producer converted them. A thread an 8-column chunk: 64 rows a
-// block of 256 threads, four threads a row; q-sized rows (q, o, dO) in
-// the first blocks, kv-sized rows (k, v) after them.
+// its producer converted them; the dK/dV kernel loads the same copies
+// (q, k, v and its rest, dO and its rest), so a whole backward call
+// rounds once. A thread an 8-column chunk: 64 rows a block of 256
+// threads, four threads a row; q-sized rows (q, o, dO) in the first
+// blocks, kv-sized rows (k, v) after them. Without o (a dK/dV call given
+// delta) the pass writes the copies alone.
 constexpr int kSplitRows = 64;  // rows a block
 
 // strides (batch, time, head) of q, k, v, o and dO, in elements
 struct SplitStrides {
   long long s[5][3];
 };
-
-// eight floats of a row from column `col` on, zeros past d_true
-__device__ __forceinline__ void load8(const float* row, int col, int d_true,
-                                     float (&x)[8]) {
-  if (col + 8 <= d_true) {
-    const float4 a = reinterpret_cast<const float4*>(row + col)[0];
-    const float4 b = reinterpret_cast<const float4*>(row + col)[1];
-    x[0] = a.x, x[1] = a.y, x[2] = a.z, x[3] = a.w;
-    x[4] = b.x, x[5] = b.y, x[6] = b.z, x[7] = b.w;
-  } else {
-#pragma unroll
-    for (int e = 0; e < 8; ++e) x[e] = col + e < d_true ? row[col + e] : 0.f;
-  }
-}
-
-// x rounded to bf16 into hi (and, given lo, what the rounding left, rounded
-// in turn into lo): convert_rows's arithmetic
-__device__ __forceinline__ void split8(const float (&x)[8], uint4* hi,
-                                       uint4* lo) {
-  uint32_t v[4];
-#pragma unroll
-  for (int e = 0; e < 4; ++e) v[e] = pack2<__nv_bfloat16>(x[2 * e], x[2 * e + 1]);
-  *hi = make_uint4(v[0], v[1], v[2], v[3]);
-  if (lo != nullptr) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float2 h = unpack2<__nv_bfloat16>(v[e]);
-      v[e] = pack2<__nv_bfloat16>(x[2 * e] - h.x, x[2 * e + 1] - h.y);
-    }
-    *lo = make_uint4(v[0], v[1], v[2], v[3]);
-  }
-}
 
 __global__ void __launch_bounds__(4 * kSplitRows)
     flash_bwd_split_kernel(const float* __restrict__ q,
@@ -226,15 +198,16 @@ __global__ void __launch_bounds__(4 * kSplitRows)
   if (q_sized) {
     float sum = 0.f;
     if (live) {
-      const float *q_row = at(q, 0), *o_row = at(o, 3), *do_row = at(dout, 4);
+      const float *q_row = at(q, 0), *do_row = at(dout, 4);
       for (int ch = tg; ch < n_ch; ch += 4) {
         const int64_t out = row * n_ch + ch;
         load8(q_row, 8 * ch, d_true, x);
         split8(x, q_hi + out, nullptr);
         load8(do_row, 8 * ch, d_true, x);
         split8(x, do_hi + out, do_lo + out);
+        if (o == nullptr) continue;  // the copies alone
         float y[8];
-        load8(o_row, 8 * ch, d_true, y);
+        load8(at(o, 3), 8 * ch, d_true, y);
 #pragma unroll
         for (int e = 0; e < 8; ++e) {
           if (8 * ch + e < d_true) sum += y[e] * x[e];
@@ -243,7 +216,9 @@ __global__ void __launch_bounds__(4 * kSplitRows)
     }
     sum += __shfl_xor_sync(0xffffffffu, sum, 1);
     sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-    if (tg == 0 && live) delta[((int64_t)b * Hq + h) * T + t] = sum;
+    if (tg == 0 && live && o != nullptr) {
+      delta[((int64_t)b * Hq + h) * T + t] = sum;
+    }
   } else if (live) {
     const float *k_row = at(k, 1), *v_row = at(v, 2);
     for (int ch = tg; ch < n_ch; ch += 4) {
@@ -631,7 +606,9 @@ constexpr int kConsumerWarps = 8;
 constexpr int kThreads = Split<2>::kThreads;  // producer + 2 consumers
 constexpr int kLaunchRegs = Split<2>::kLaunchRegs;
 
-// the register split: a producer that converts fp32 tiles keeps 40
+// the slab kernels' register split: a producer that converts fp32 tiles
+// keeps 40 (flash_bwd_dkv_kernel's producer is one TMA thread and the
+// first warp's lanes for every type, Split<2>)
 template <typename In>
 using DkvSplit = Split<2, Elem<In>::kTma ? 24 : 40>;
 
@@ -654,20 +631,25 @@ struct Shape {
 
 }  // namespace dkv
 
+// fp32: every tile arrives by TMA from the split pass's bf16 copies
+// (flash_bwd_split_kernel), V's and dO's rests in tiles of their own
+// (tm_v_lo, tm_do_lo); bf16 and fp16 tiles as they are
 template <int D, int kStages, typename In, int kParts = 1>
 __global__ void __launch_bounds__(dkv::kThreads, 1)
     flash_bwd_dkv_kernel(__grid_constant__ const CUtensorMap tm_q,
                          __grid_constant__ const CUtensorMap tm_k,
                          __grid_constant__ const CUtensorMap tm_v,
                          __grid_constant__ const CUtensorMap tm_do,
-                         const Src src, const float* __restrict__ lse,
+                         const float* __restrict__ lse,
                          const float* __restrict__ delta,
                          In* __restrict__ dk, In* __restrict__ dv,
                          float* __restrict__ part, int n_split, int T,
                          int Hq, int Hkv, int B, int rep, int d_true,
                          int64_t dk_sb, int64_t dk_st, int64_t dk_sh,
                          int64_t dv_sb, int64_t dv_st, int64_t dv_sh,
-                         float scale, int causal) {
+                         float scale, int causal,
+                         __grid_constant__ const CUtensorMap tm_v_lo,
+                         __grid_constant__ const CUtensorMap tm_do_lo) {
   using dkv::kConsumerWarps;
   using dkv::kKvRows;
   using sm90::desc_sw128;
@@ -676,9 +658,10 @@ __global__ void __launch_bounds__(dkv::kThreads, 1)
   using sm90::mbar_wait;
   using sm90::smem_addr;
   using sm90::tma_load_4d;
-  using S = dkv::DkvSplit<In>;
+  using S = Split<2>;
   using Op = typename Elem<In>::Op;
-  constexpr bool kTma = Elem<In>::kTma;
+  // fp32: the rests of V and dO, a tile each beside V and dO
+  constexpr bool kLo = !Elem<In>::kTma;
   using Sh = dkv::Shape<D, In>;
   constexpr bool kSplitCols = Sh::kSplitCols;
   constexpr int kQRows = Sh::kQRows;
@@ -694,7 +677,7 @@ __global__ void __launch_bounds__(dkv::kThreads, 1)
   uint8_t* k_s = sm90::align_1024(smem_raw);
   uint8_t* v_s = k_s + kKvBytes;
   // fp32: what rounding V to bf16 left, after V
-  uint8_t* ring = v_s + (kTma ? 1 : 2) * kKvBytes;
+  uint8_t* ring = v_s + (kLo ? 2 : 1) * kKvBytes;
 
   // causal: kv tile 0 sees every q row, so low tiles are the longest;
   // heads inner, so the longest tiles of every head are scheduled first;
@@ -717,11 +700,11 @@ __global__ void __launch_bounds__(dkv::kThreads, 1)
       kSplitCols ? rep * n_qs * (chunk + 1) / n_split - it0 : rep * n_qs;
 
   if (threadIdx.x == 0) {
-    // TMA: one expect_tx arrival plus the 32 lanes that write lse, delta;
-    // fp32: every producer thread (each converts and writes its share)
-    sm90::mbar_init(&kv_full, kTma ? 1 : 128);
+    // one expect_tx arrival (the TMA tiles' bytes) plus the 32 lanes that
+    // write lse, delta
+    sm90::mbar_init(&kv_full, 1);
     for (int s = 0; s < kStages; ++s) {
-      sm90::mbar_init(&full[s], kTma ? 1 + 32 : 128);
+      sm90::mbar_init(&full[s], 1 + 32);
       sm90::mbar_init(&empty[s], kConsumerWarps);
     }
     sm90::mbar_fence_init();
@@ -732,27 +715,23 @@ __global__ void __launch_bounds__(dkv::kThreads, 1)
   if (wg == 0) {
     // ---------------------------------------------------------- producer
     sm90::setmaxnreg_dec<S::kProducerRegs>();
-    // the threads that fill the ring: warp 0 (TMA), or all four (fp32)
-    constexpr int kFillThreads = kTma ? 32 : 128;
+    // the threads that fill the ring: warp 0 (lane 0 the TMA)
+    constexpr int kFillThreads = 32;
     if (threadIdx.x < kFillThreads) {
       const int lane = threadIdx.x;
-      if constexpr (!kTma) {
-        sm90::convert_rows<kKvRows, D>(
-            k_s, sm90::head_rows(src.ptr[1], src.stride[1], b, hk),
-            src.stride[1][1], k0, T, d_true, lane);
-        sm90::convert_rows<kKvRows, D>(
-            v_s, sm90::head_rows(src.ptr[2], src.stride[2], b, hk),
-            src.stride[2][1], k0, T, d_true, lane, v_s + kKvBytes);
-        sm90::fence_proxy_async();
-        mbar_arrive(&kv_full);
-      } else if (lane == 0) {
-        mbar_arrive_expect_tx(&kv_full, 2 * kKvBytes);
+      if (lane == 0) {
+        // K and V (fp32: and V's rest)
+        mbar_arrive_expect_tx(&kv_full, (kLo ? 3 : 2) * kKvBytes);
 #pragma unroll
         for (int cb = 0; cb < kColBlocks; ++cb) {
           tma_load_4d(k_s + cb * kKvRows * 128, &tm_k, &kv_full, cb * 64, hk,
                       k0, b);
           tma_load_4d(v_s + cb * kKvRows * 128, &tm_v, &kv_full, cb * 64, hk,
                       k0, b);
+          if constexpr (kLo) {
+            tma_load_4d(v_s + kKvBytes + cb * kKvRows * 128, &tm_v_lo,
+                        &kv_full, cb * 64, hk, k0, b);
+          }
         }
       }
       for (int i = 0; i < n_iter; ++i) {
@@ -762,24 +741,19 @@ __global__ void __launch_bounds__(dkv::kThreads, 1)
         const int s = i % kStages;
         mbar_wait(&empty[s], ((i / kStages) & 1) ^ 1);
         uint8_t* stage = ring + s * kStageBytes;
-        if constexpr (!kTma) {
-          sm90::convert_rows<kQRows, D>(
-              stage, sm90::head_rows(src.ptr[0], src.stride[0], b, h),
-              src.stride[0][1], qs0, T, d_true, lane);
-          sm90::convert_rows<kQRows, D>(
-              stage + kTileBytes,
-              sm90::head_rows(src.ptr[3], src.stride[3], b, h),
-              src.stride[3][1], qs0, T, d_true, lane,
-              stage + 2 * kTileBytes);
-          sm90::fence_proxy_async();
-        } else if (lane == 0) {
-          mbar_arrive_expect_tx(&full[s], 2 * kTileBytes);
+        if (lane == 0) {
+          // Q and dO (fp32: and dO's rest)
+          mbar_arrive_expect_tx(&full[s], Sh::kTiles * kTileBytes);
 #pragma unroll
           for (int cb = 0; cb < kColBlocks; ++cb) {
             tma_load_4d(stage + cb * kQRows * 128, &tm_q, &full[s], cb * 64,
                         h, qs0, b);
             tma_load_4d(stage + kTileBytes + cb * kQRows * 128, &tm_do,
                         &full[s], cb * 64, h, qs0, b);
+            if constexpr (kLo) {
+              tma_load_4d(stage + 2 * kTileBytes + cb * kQRows * 128,
+                          &tm_do_lo, &full[s], cb * 64, h, qs0, b);
+            }
           }
         }
         float* lse_s = reinterpret_cast<float*>(stage + kRowsAt);
@@ -837,7 +811,7 @@ __global__ void __launch_bounds__(dkv::kThreads, 1)
           sm90::wgmma_ss<64, Op>(dpt, desc_sw128(v_addr + a_off, 16, 1024),
                                  desc_sw128(do_addr + b_off, 16, 1024),
                                  ks > 0);
-          if constexpr (!kTma) {
+          if constexpr (kLo) {
             // fp32: dP^T += V_hi dO_lo^T + V_lo dO_hi^T (the tiles' rests)
             sm90::wgmma_ss<64, Op>(
                 dpt, desc_sw128(v_addr + a_off, 16, 1024),
@@ -1092,9 +1066,8 @@ int launch_dq_split(const void* const* hi_lo, const void* lse,
   int err = 0;
   for (int i = 0; i < 6 && !err; ++i) {
     const bool q_sized = i == 0 || i >= 4;
-    const int H = q_sized ? Hq : Hkv;
-    err = encode_rows(&maps[i], hi_lo[i], B, T, H, w8, (long long)T * H * w8,
-                      (long long)H * w8, w8, q_sized ? kBlockM : kBlockN);
+    err = encode_copy(&maps[i], hi_lo[i], B, T, q_sized ? Hq : Hkv, w8,
+                      q_sized ? kBlockM : kBlockN);
   }
   constexpr int kSmem = dq_smem_bytes<D, float>();
   auto kernel = flash_bwd_dq_kernel<D, float, kParts>;
@@ -1132,24 +1105,34 @@ int dkv_config(int* out) {
   return 0;
 }
 
+// in: q, k, v, dO at their element strides s[0 .. 11] (bf16, fp16), or,
+// given w8 > 0, the split pass's bf16 copies q_hi, k_hi, v_hi, v_lo,
+// do_hi, do_lo [B, T, H, w8] (fp32); dk and dv at their strides s[12 ..
+// 17]
 template <int D, int kStages, typename In, int kParts = 1>
-int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
-               const void* lse, const void* delta, void* dk, void* dv,
-               void* part, int n_split, int B, int T, int Hq, int Hkv,
-               int d_true, const long long* s, float scale, int causal,
+int launch_dkv(const void* const* in, int w8, const void* lse,
+               const void* delta, void* dk, void* dv, void* part,
+               int n_split, int B, int T, int Hq, int Hkv, int d_true,
+               const long long* s, float scale, int causal,
                cudaStream_t stream) {
   using dkv::kKvRows;
   constexpr int kQRows = dkv::Shape<D, In>::kQRows;
-  CUtensorMap tm_q, tm_k, tm_v, tm_do;
-  Src src = {};
-  int err = prepare_input<In>(&tm_q, &src, 0, q, B, T, Hq, d_true, s,
-                              kQRows);
-  if (!err) err = prepare_input<In>(&tm_k, &src, 1, k, B, T, Hkv, d_true,
-                                    s + 3, kKvRows);
-  if (!err) err = prepare_input<In>(&tm_v, &src, 2, v, B, T, Hkv, d_true,
-                                    s + 6, kKvRows);
-  if (!err) err = prepare_input<In>(&tm_do, &src, 3, dout, B, T, Hq, d_true,
-                                    s + 9, kQRows);
+  if (Elem<In>::kTma == (w8 > 0)) {  // fp32 runs on copies, only fp32
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  CUtensorMap tm[6] = {};  // q, k, v, dO (fp32: then V's and dO's rests)
+  // where each map's copy is in `in` (q, k, v, v_lo, dO, dO_lo)
+  constexpr int kCopyAt[6] = {0, 1, 2, 4, 3, 5};
+  int err = 0;
+  for (int i = 0; i < (w8 > 0 ? 6 : 4) && !err; ++i) {
+    const int at = w8 > 0 ? kCopyAt[i] : i;
+    const bool q_sized = i == 0 || i == 3 || i == 5;
+    const int H = q_sized ? Hq : Hkv, rows = q_sized ? kQRows : kKvRows;
+    err = w8 > 0 ? encode_copy(&tm[i], in[at], B, T, H, w8, rows)
+                 : encode_rows(&tm[i], in[i], B, T, H, d_true, s[3 * i],
+                               s[3 * i + 1], s[3 * i + 2], rows,
+                               Elem<In>::kMapType);
+  }
   constexpr int kSmem = dkv_smem_bytes<D, kStages, In>();
   auto kernel = flash_bwd_dkv_kernel<D, kStages, In, kParts>;
   if (!err) err = sm90::prepare_launch(kernel, kSmem, dkv::kLaunchRegs);
@@ -1157,11 +1140,11 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   // split: n_split blocks a (kv tile, kv head, batch)
   const int grid = cdiv(T, kKvRows) * Hkv * B * n_split;
   kernel<<<grid, dkv::kThreads, kSmem, stream>>>(
-      tm_q, tm_k, tm_v, tm_do, src, static_cast<const float*>(lse),
+      tm[0], tm[1], tm[2], tm[3], static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<In*>(dk),
       static_cast<In*>(dv), static_cast<float*>(part), n_split, T, Hq, Hkv,
       B, Hq / Hkv, d_true, s[12], s[13], s[14], s[15], s[16], s[17], scale,
-      causal);
+      causal, tm[4], tm[5]);
   err = static_cast<int>(cudaGetLastError());
   if (err || n_split == 1) return err;
   const int64_t rows = 2 * (int64_t)B * T * Hkv;
@@ -2527,38 +2510,43 @@ int launch_dq_for(const void* q, const void* k, const void* v, const void* o,
   }
 }
 
+// in: q, k, v, dO (w8 0), or up to 256 columns the split pass's six
+// copies (w8 > 0), as launch_dkv takes them
 template <typename In>
-int launch_dkv_for(const void* q, const void* k, const void* v,
-                   const void* dout, const void* lse, const void* delta,
-                   void* dk, void* dv, void* part, int n_split, int B, int T,
-                   int Hq, int Hkv, int D, const long long* s, float scale,
-                   int causal, cudaStream_t st) {
+int launch_dkv_for(const void* const* in, int w8, const void* lse,
+                   const void* delta, void* dk, void* dv, void* part,
+                   int n_split, int B, int T, int Hq, int Hkv, int D,
+                   const long long* s, float scale, int causal,
+                   cudaStream_t st) {
+  if (D > wide::kSlab && w8 > 0) {
+    return static_cast<int>(cudaErrorInvalidValue);  // copies up to 256
+  }
   if (D > wide::dkc_max_slabs<In>() * wide::kSlab) {
-    return launch_dkv_wide<In>(q, k, v, dout, lse, delta, dk, dv, B, T, Hq,
-                               Hkv, D, s, scale, causal, st);
+    return launch_dkv_wide<In>(in[0], in[1], in[2], in[3], lse, delta, dk,
+                               dv, B, T, Hq, Hkv, D, s, scale, causal, st);
   }
   if (D > wide::kSlab) {
-    return launch_dkv_cluster<In>(q, k, v, dout, lse, delta, dk, dv, B, T,
-                                  Hq, Hkv, D, s, scale, causal, st);
+    return launch_dkv_cluster<In>(in[0], in[1], in[2], in[3], lse, delta, dk,
+                                  dv, B, T, Hq, Hkv, D, s, scale, causal, st);
   }
   if (D <= kNarrowWidth) {  // P^T, dS^T as two parts (sm90.cuh)
     return launch_dkv<64, dkv_stages<In>(64), In, 2>(
-        q, k, v, dout, lse, delta, dk, dv, nullptr, 1, B, T, Hq, Hkv, D, s,
-        scale, causal, st);
+        in, w8, lse, delta, dk, dv, nullptr, 1, B, T, Hq, Hkv, D, s, scale,
+        causal, st);
   }
   if (D <= 64) {
     return launch_dkv<64, dkv_stages<In>(64), In>(
-        q, k, v, dout, lse, delta, dk, dv, nullptr, 1, B, T, Hq, Hkv, D, s,
-        scale, causal, st);
+        in, w8, lse, delta, dk, dv, nullptr, 1, B, T, Hq, Hkv, D, s, scale,
+        causal, st);
   }
   if (D <= 128) {
     return launch_dkv<128, dkv_stages<In>(128), In>(
-        q, k, v, dout, lse, delta, dk, dv, nullptr, 1, B, T, Hq, Hkv, D, s,
-        scale, causal, st);
+        in, w8, lse, delta, dk, dv, nullptr, 1, B, T, Hq, Hkv, D, s, scale,
+        causal, st);
   }
   return launch_dkv<256, dkv_stages<In>(256), In>(
-      q, k, v, dout, lse, delta, dk, dv, part, n_split, B, T, Hq, Hkv, D, s,
-      scale, causal, st);
+      in, w8, lse, delta, dk, dv, part, n_split, B, T, Hq, Hkv, D, s, scale,
+      causal, st);
 }
 
 template <typename In>
@@ -2582,6 +2570,14 @@ int dkv_config_for(int D, int* out) {
 
 bool bad_shape(int B, int T, int Hq, int Hkv) {
   return B < 1 || T < 1 || Hkv < 1 || Hq % Hkv != 0;
+}
+
+// A dK/dV call's arguments, checked as the entry points take them
+bool bad_dkv(int B, int T, int Hq, int Hkv, int D, int d_head, int n_split,
+             int dtype, const void* part) {
+  return bad_shape(B, T, Hq, Hkv) || dtype != FLASH_DTYPE ||
+         bad_head_dim(D, d_head, dtype) || n_split < 1 || n_split > 64 ||
+         (n_split > 1 && (D <= 128 || D > wide::kSlab || part == nullptr));
 }
 
 }  // namespace
@@ -2623,8 +2619,9 @@ int flash_attention_bwd_dq(const void* q, const void* k, const void* v,
 // time, head) of q, k, v, o and dout. Writes q_hi, do_hi, do_lo [B, T,
 // Hq, w8] and k_hi, v_hi, v_lo [B, T, Hkv, w8] bf16 contiguous, w8 = D
 // rounded up to 8 (the columns past D zeros), and delta = rowsum(o *
-// dout) [B, Hq, T] fp32. `causal` is not read. Launches on `stream`;
-// returns 0 on success, else a cudaError_t.
+// dout) [B, Hq, T] fp32; o and delta null: the copies alone (a dK/dV
+// call given delta; o's strides are not read). `causal` is not read.
+// Launches on `stream`; returns 0 on success, else a cudaError_t.
 int flash_attention_bwd_split(const void* q, const void* k, const void* v,
                               const void* o, const void* dout, void* q_hi,
                               void* k_hi, void* v_hi, void* v_lo,
@@ -2637,7 +2634,7 @@ int flash_attention_bwd_split(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaErrorInvalidValue);  // the fp32 library's
 #else
   if (bad_shape(B, T, Hq, Hkv) || dtype != FLASH_DTYPE ||
-      bad_head_dim(D, D, dtype)) {
+      bad_head_dim(D, D, dtype) || (o == nullptr) != (delta == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   SplitStrides st;
@@ -2718,9 +2715,10 @@ int flash_attention_bwd_dq_config(int D, int dtype, int* out) {
 // head, q stage) pairs are cut into, 1 or, at 128 < D <= 256 only, up to
 // 64 (ray_tpu_torch/ops/flash_schedule.py chooses it); part [2, n_split,
 // B, T, Hkv, 256] fp32 holds the chunks' partial dK and dV (null when
-// n_split is 1). Launches on `stream` (the kernel and, split, the
-// reduction); returns 0 on success, else a cudaError_t or one of the
-// codes that flash_attention_error_string names.
+// n_split is 1). fp32 up to D 256 runs on the split pass's copies only
+// (flash_attention_bwd_dkv_split). Launches on `stream` (the kernel and,
+// split, the reduction); returns 0 on success, else a cudaError_t or one
+// of the codes that flash_attention_error_string names.
 int flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
                             const void* dout, const void* lse,
                             const void* delta, void* dk, void* dv,
@@ -2728,16 +2726,49 @@ int flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
                             int d_head, int n_split, int dtype,
                             const long long* strides, int causal,
                             void* stream) {
-  if (bad_shape(B, T, Hq, Hkv) || dtype != FLASH_DTYPE ||
-      bad_head_dim(D, d_head, dtype) || n_split < 1 || n_split > 64 ||
-      (n_split > 1 && (D <= 128 || D > wide::kSlab || part == nullptr))) {
+  if (bad_dkv(B, T, Hq, Hkv, D, d_head, n_split, dtype, part)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const float scale = 1.f / sqrtf(static_cast<float>(d_head));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return launch_dkv_for<Built>(q, k, v, dout, lse, delta, dk, dv, part,
-                               n_split, B, T, Hq, Hkv, D, strides, scale,
-                               causal, st);
+  const void* in[4] = {q, k, v, dout};
+  return launch_dkv_for<Built>(in, 0, lse, delta, dk, dv, part, n_split, B,
+                               T, Hq, Hkv, D, strides, scale, causal, st);
+}
+
+// fp32 dK/dV at head_dim D <= 256 from the split pass's copies (q_hi,
+// k_hi, v_hi, v_lo, do_hi, do_lo: bf16, as flash_attention_bwd_split
+// writes them, with or without delta, for inputs of width D): dk and dv
+// [B, T, Hkv, D] fp32 at the 6 element strides (batch, time, head) of dk
+// and dv in `strides`; lse, delta, part, n_split and the rest as for
+// flash_attention_bwd_dkv. Launches on `stream` (the kernel and, split,
+// the reduction); returns 0 on success, else a cudaError_t or one of the
+// codes that flash_attention_error_string names.
+int flash_attention_bwd_dkv_split(const void* q_hi, const void* k_hi,
+                                  const void* v_hi, const void* v_lo,
+                                  const void* do_hi, const void* do_lo,
+                                  const void* lse, const void* delta,
+                                  void* dk, void* dv, void* part, int B,
+                                  int T, int Hq, int Hkv, int D, int d_head,
+                                  int n_split, int dtype,
+                                  const long long* strides, int causal,
+                                  void* stream) {
+#if FLASH_DTYPE != 2
+  return static_cast<int>(cudaErrorInvalidValue);  // the fp32 library's
+#else
+  if (bad_dkv(B, T, Hq, Hkv, D, d_head, n_split, dtype, part) ||
+      D > wide::kSlab) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const float scale = 1.f / sqrtf(static_cast<float>(d_head));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const void* in[6] = {q_hi, k_hi, v_hi, v_lo, do_hi, do_lo};
+  long long s[18] = {};
+  for (int i = 0; i < 6; ++i) s[12 + i] = strides[i];  // dk's, dv's
+  return launch_dkv_for<Built>(in, cdiv(D, 8) * 8, lse, delta, dk, dv, part,
+                               n_split, B, T, Hq, Hkv, D, s, scale, causal,
+                               st);
+#endif
 }
 
 // The launch shape of the dK/dV kernel that head_dim D of type `dtype`

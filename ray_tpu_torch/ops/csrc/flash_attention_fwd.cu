@@ -44,11 +44,13 @@
 //   once from the two consumers' halves (flash_fwd_pair_kernel below),
 //   past 512 a block a slab (flash_fwd_wide_kernel), any width;
 // - types (flash_attention_sm90.cuh, `Elem`): bf16 and fp16 run wgmma in
-//   their own type; fp32 tiles are loaded by all four producer warps,
-//   rounded to bf16 into the same swizzled tiles, and run the bf16
+//   their own type; fp32 q, k and v are rounded to bf16 once a call by
+//   the split pass (flash_fwd_split_kernel, below) and the kernel loads
+//   those copies by TMA, as it loads a bf16 input, and runs the bf16
 //   products (P is rounded to the operand type in every case), so an fp32
-//   call computes with bf16 operands and fp32 sums; that producer keeps
-//   40 registers (Split); O is written in the input type;
+//   call computes with bf16 operands and fp32 sums; O is written in the
+//   input type (past 256 the slab kernels' producer warpgroups still
+//   round fp32 tiles themselves, keeping 40 registers: FwdSplit);
 // - up to kNarrowWidth columns (flash_attention_sm90.cuh) the <64>
 //   instantiation takes P in two parts, the rounded value and what the
 //   rounding left, two products where one was (kParts = 2);
@@ -94,9 +96,75 @@ constexpr unsigned kFull = 0xffffffffu;
 // key rows per K/V stage
 __host__ __device__ constexpr int block_n(int D) { return D > 128 ? 64 : 128; }
 
-// the register split: a producer that converts fp32 tiles keeps 40
+// the slab kernels' register split: a producer that converts fp32 tiles
+// keeps 40 (flash_fwd_kernel's producer is one TMA thread for every type,
+// Split<kConsumers>)
 template <int kConsumers, typename In>
 using FwdSplit = Split<kConsumers, Elem<In>::kTma ? 24 : 40>;
+
+// ------------------------------------------------- fp32: the split pass
+//
+// fp32 inputs reach the products as bf16 tiles (Elem<float>). Before this
+// pass flash_fwd_kernel's producer warpgroup converted every tile itself
+// (convert_rows, no TMA, 40 registers): each block re-read and re-rounded
+// in fp32 the K and V rows that every other q tile of its head also read,
+// and "train f32" took about four times the bf16 forward's time. The
+// split pass rounds q, k and v once a call instead, bound by bytes: it
+// reads each fp32 row
+// once through its strides and writes a bf16 copy [B, T, H, w8] (hi =
+// RN(x); w8 the width rounded up to 8 columns, 16-byte rows, the rest
+// zeros), convert_rows's rounding (split8, shared with the backward's
+// flash_bwd_split_kernel). flash_fwd_kernel then loads every tile of the
+// copies by TMA, so each product sees the operands its producer's
+// conversion gave it, and o and lse keep their bits. A thread an
+// 8-column chunk: 64 rows a block of 256 threads, four threads a row; q
+// rows in the first blocks, k and v rows (both copies) after them.
+constexpr int kCopyRows = 64;  // rows a block
+
+// strides (batch, time, head) of q, k and v, in elements
+struct CopyStrides {
+  long long s[3][3];
+};
+
+__global__ void __launch_bounds__(4 * kCopyRows)
+    flash_fwd_split_kernel(const float* __restrict__ q,
+                           const float* __restrict__ k,
+                           const float* __restrict__ v,
+                           uint4* __restrict__ q_hi, uint4* __restrict__ k_hi,
+                           uint4* __restrict__ v_hi, int B, int T, int Hq,
+                           int Hkv, int d_true, int w8,
+                           const CopyStrides st) {
+  const int tg = threadIdx.x % 4;
+  const int q_blocks = cdiv(B * T * Hq, kCopyRows);
+  const bool q_sized = blockIdx.x < q_blocks;
+  const int H = q_sized ? Hq : Hkv;
+  // row (b, t, h), h fastest, of the copies [B, T, H, w8]
+  const int64_t row = (int64_t)(q_sized ? blockIdx.x : blockIdx.x - q_blocks) *
+                          kCopyRows + threadIdx.x / 4;
+  if (row >= (int64_t)B * T * H) return;
+  const int h = row % H, t = (row / H) % T, b = row / ((int64_t)H * T);
+  const int n_ch = w8 / 8;  // 16-byte chunks of a copy's row
+  auto at = [&](const float* base, int i) {
+    return base + b * st.s[i][0] + t * st.s[i][1] + h * st.s[i][2];
+  };
+  float x[8];
+  if (q_sized) {
+    const float* q_row = at(q, 0);
+    for (int ch = tg; ch < n_ch; ch += 4) {
+      load8(q_row, 8 * ch, d_true, x);
+      split8(x, q_hi + row * n_ch + ch, nullptr);
+    }
+  } else {
+    const float *k_row = at(k, 1), *v_row = at(v, 2);
+    for (int ch = tg; ch < n_ch; ch += 4) {
+      const int64_t out = row * n_ch + ch;
+      load8(k_row, 8 * ch, d_true, x);
+      split8(x, k_hi + out, nullptr);
+      load8(v_row, 8 * ch, d_true, x);
+      split8(x, v_hi + out, nullptr);
+    }
+  }
+}
 
 // The split (head_dim 256): the key stages a causal q tile walks, and the
 // unit of the grid a block takes. Units run longest first: the halves of
@@ -137,20 +205,21 @@ __device__ inline void fwd_unit(int rank, int n_qtiles, int n_split, int T,
   }
 }
 
+// q, k and v arrive by TMA: bf16 and fp16 as they are, fp32 as the split
+// pass's bf16 copies (tm_q, tm_k and tm_v are then the copies' maps)
 template <int D, int kStages, int kConsumers, typename In, int kParts = 1>
-__global__ void __launch_bounds__(FwdSplit<kConsumers, In>::kThreads,
-                                  FwdSplit<kConsumers, In>::kBlocksPerSm)
+__global__ void __launch_bounds__(Split<kConsumers>::kThreads,
+                                  Split<kConsumers>::kBlocksPerSm)
     flash_fwd_kernel(__grid_constant__ const CUtensorMap tm_q,
                      __grid_constant__ const CUtensorMap tm_k,
                      __grid_constant__ const CUtensorMap tm_v,
-                     const Src src, In* __restrict__ o,
+                     In* __restrict__ o,
                      float* __restrict__ lse, float* __restrict__ halves,
                      int n_split, int T, int Hq, int B, int rep, int d_true,
                      int64_t o_sb, int64_t o_st, int64_t o_sh,
                      float scale_log2, int causal) {
-  using S = FwdSplit<kConsumers, In>;
+  using S = Split<kConsumers>;
   using Op = typename Elem<In>::Op;
-  constexpr bool kTma = Elem<In>::kTma;
   constexpr int kBlockN = block_n(D);
   constexpr int kBlockM = 64 * kConsumers;    // q rows of the block
   constexpr int kColBlocks = D / 64;          // 64-column TMA boxes per row
@@ -182,13 +251,11 @@ __global__ void __launch_bounds__(FwdSplit<kConsumers, In>::kThreads,
   const int j1 = part == 0 ? n_tiles / 2 : n_tiles;
 
   if (threadIdx.x == 0) {
-    // a TMA tile completes on one arrival (and its bytes), a converted one
-    // on each producer thread's
-    constexpr int kFillers = kTma ? 1 : 128;
-    mbar_init(&q_full, kFillers);
+    // a TMA tile completes on one arrival (and its bytes)
+    mbar_init(&q_full, 1);
     for (int s = 0; s < kStages; ++s) {
-      mbar_init(&k_full[s], kFillers);
-      mbar_init(&v_full[s], kFillers);
+      mbar_init(&k_full[s], 1);
+      mbar_init(&v_full[s], 1);
       mbar_init(&k_empty[s], 4 * kConsumers);
       mbar_init(&v_empty[s], 4 * kConsumers);
     }
@@ -200,31 +267,7 @@ __global__ void __launch_bounds__(FwdSplit<kConsumers, In>::kThreads,
   if (wg == 0) {
     // ---------------------------------------------------------- producer
     setmaxnreg_dec<S::kProducerRegs>();
-    if constexpr (!kTma) {
-      // fp32: the whole warpgroup converts each tile into its place
-      const int tid = threadIdx.x, hk = h / rep;
-      const float* k_rows = head_rows(src.ptr[1], src.stride[1], b, hk);
-      const float* v_rows = head_rows(src.ptr[2], src.stride[2], b, hk);
-      auto load = [&](int j, int which, uint64_t* full, uint64_t* empty) {
-        const int s = (j - j0) % kStages;
-        mbar_wait(&empty[s], (((j - j0) / kStages) & 1) ^ 1);
-        convert_rows<kBlockN, D>(kv_s + (2 * s + which) * kKVBytes,
-                                 which ? v_rows : k_rows,
-                                 src.stride[which + 1][1], j * kBlockN, T,
-                                 d_true, tid);
-        fence_proxy_async();
-        mbar_arrive(&full[s]);
-      };
-      convert_rows<kBlockM, D>(q_s, head_rows(src.ptr[0], src.stride[0], b, h),
-                               src.stride[0][1], q0, T, d_true, tid);
-      fence_proxy_async();
-      mbar_arrive(&q_full);
-      load(j0, 0, k_full, k_empty);
-      for (int j = j0; j < j1; ++j) {
-        if (j + 1 < j1) load(j + 1, 0, k_full, k_empty);
-        load(j, 1, v_full, v_empty);
-      }
-    } else if (threadIdx.x == 0) {
+    if (threadIdx.x == 0) {
       const int hk = h / rep;
       // tile j's K or V into its stage, once the consumers have freed it
       auto load = [&](int j, int which, uint64_t* full, uint64_t* empty) {
@@ -477,9 +520,9 @@ constexpr int smem_bytes() {  // + 1024: the tiles' 1024-byte alignment
   return 64 * kConsumers * D * 2 + kStages * 2 * block_n(D) * D * 2 + 1024;
 }
 
-template <int D, int kStages, int kConsumers, typename In>
-int config(int* out) {  // every kParts alike
-  using S = FwdSplit<kConsumers, In>;
+template <int D, int kStages, int kConsumers>
+int config(int* out) {  // every type and kParts alike
+  using S = Split<kConsumers>;
   static_assert(smem_bytes<D, kStages, kConsumers>() <= 232448,
                 "a block may use 227 KB of shared memory");
   out[0] = smem_bytes<D, kStages, kConsumers>();
@@ -489,22 +532,29 @@ int config(int* out) {  // every kParts alike
   return 0;
 }
 
+// q, k and v (qkv) are the inputs at their element strides s[0 .. 8]
+// (bf16, fp16), or, given w8 > 0, the split pass's bf16 copies [B, T, H,
+// w8] (fp32); o at its strides s[9 .. 11]
 template <int D, int kStages, int kConsumers, typename In, int kParts = 1>
-int launch(const void* q, const void* k, const void* v, void* o, void* lse,
-           void* part, int n_split, int B, int T, int Hq,
-           int Hkv, int d_true, const long long* s, float scale_log2,
-           int causal, cudaStream_t stream) {
-  using S = FwdSplit<kConsumers, In>;
+int launch(const void* const* qkv, int w8, void* o, void* lse, void* part,
+           int n_split, int B, int T, int Hq, int Hkv, int d_true,
+           const long long* s, float scale_log2, int causal,
+           cudaStream_t stream) {
+  using S = Split<kConsumers>;
   constexpr int kBlockM = 64 * kConsumers;
   constexpr int kBlockN = block_n(D);
-  CUtensorMap tm_q, tm_k, tm_v;
-  Src src = {};
-  int err = prepare_input<In>(&tm_q, &src, 0, q, B, T, Hq, d_true, s,
-                              kBlockM);
-  if (!err) err = prepare_input<In>(&tm_k, &src, 1, k, B, T, Hkv, d_true,
-                                    s + 3, kBlockN);
-  if (!err) err = prepare_input<In>(&tm_v, &src, 2, v, B, T, Hkv, d_true,
-                                    s + 6, kBlockN);
+  if (Elem<In>::kTma == (w8 > 0)) {  // fp32 runs on copies, only fp32
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  CUtensorMap tm[3];  // q, k, v
+  int err = 0;
+  for (int i = 0; i < 3 && !err; ++i) {
+    const int H = i == 0 ? Hq : Hkv, rows = i == 0 ? kBlockM : kBlockN;
+    err = w8 > 0 ? encode_copy(&tm[i], qkv[i], B, T, H, w8, rows)
+                 : encode_rows(&tm[i], qkv[i], B, T, H, d_true, s[3 * i],
+                               s[3 * i + 1], s[3 * i + 2], rows,
+                               Elem<In>::kMapType);
+  }
   constexpr int kSmem = smem_bytes<D, kStages, kConsumers>();
   auto kernel = flash_fwd_kernel<D, kStages, kConsumers, In, kParts>;
   if (!err) err = prepare_launch(kernel, kSmem, S::kLaunchRegs);
@@ -512,7 +562,7 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
   // split: a block per half of each of the last n_split q tiles
   const int grid = (cdiv(T, kBlockM) + n_split) * Hq * B;
   kernel<<<grid, S::kThreads, kSmem, stream>>>(
-      tm_q, tm_k, tm_v, src, static_cast<In*>(o), static_cast<float*>(lse),
+      tm[0], tm[1], tm[2], static_cast<In*>(o), static_cast<float*>(lse),
       static_cast<float*>(part), n_split, T, Hq, B, Hq / Hkv, d_true, s[9],
       s[10], s[11], scale_log2, causal);
   err = static_cast<int>(cudaGetLastError());
@@ -1165,34 +1215,38 @@ int launch_wide(const void* q, const void* k, const void* v, void* o,
 
 // The instantiation head_dim D runs on, <built D, stages, consumer
 // warpgroups>: 64 (one consumer, two blocks a SM; up to kNarrowWidth with
-// P in two parts), 128 and 256 (two); 257 to 512 the pair kernel, past
-// 512 the slab kernel above.
+// P in two parts), 128 and 256 (two), on q, k and v (qkv) as launch
+// takes them; 257 to 512 the pair kernel, past 512 the slab kernel above,
+// on the inputs.
 template <typename In>
-int launch_for(const void* q, const void* k, const void* v, void* o,
-               void* lse, void* part, int n_split, int B, int T, int Hq,
-               int Hkv, int D, const long long* s,
-               float scale_log2, int causal, cudaStream_t stream) {
+int launch_for(const void* const* qkv, int w8, void* o, void* lse,
+               void* part, int n_split, int B, int T, int Hq, int Hkv, int D,
+               const long long* s, float scale_log2, int causal,
+               cudaStream_t stream) {
+  if (D > wide::kSlab && w8 > 0) {
+    return static_cast<int>(cudaErrorInvalidValue);  // copies up to 256
+  }
   if (D > wide::kSlab && D <= pair::kMaxWidth) {
-    return launch_pair<In>(q, k, v, o, lse, B, T, Hq, Hkv, D, s, scale_log2,
-                           causal, stream);
+    return launch_pair<In>(qkv[0], qkv[1], qkv[2], o, lse, B, T, Hq, Hkv, D,
+                           s, scale_log2, causal, stream);
   }
   if (D > wide::kSlab) {
-    return launch_wide<In>(q, k, v, o, lse, B, T, Hq, Hkv, D, s, scale_log2,
-                           causal, stream);
+    return launch_wide<In>(qkv[0], qkv[1], qkv[2], o, lse, B, T, Hq, Hkv, D,
+                           s, scale_log2, causal, stream);
   }
   if (D <= kNarrowWidth) {  // P as two parts (flash_attention_sm90.cuh)
-    return launch<64, 2, 1, In, 2>(q, k, v, o, lse, nullptr, 0, B, T, Hq,
+    return launch<64, 2, 1, In, 2>(qkv, w8, o, lse, nullptr, 0, B, T, Hq,
                                    Hkv, D, s, scale_log2, causal, stream);
   }
   if (D <= 64) {
-    return launch<64, 2, 1, In>(q, k, v, o, lse, nullptr, 0, B, T, Hq, Hkv,
+    return launch<64, 2, 1, In>(qkv, w8, o, lse, nullptr, 0, B, T, Hq, Hkv,
                                 D, s, scale_log2, causal, stream);
   }
   if (D <= 128) {
-    return launch<128, 2, 2, In>(q, k, v, o, lse, nullptr, 0, B, T, Hq, Hkv,
+    return launch<128, 2, 2, In>(qkv, w8, o, lse, nullptr, 0, B, T, Hq, Hkv,
                                  D, s, scale_log2, causal, stream);
   }
-  return launch<256, 2, 2, In>(q, k, v, o, lse, part, n_split, B, T, Hq, Hkv,
+  return launch<256, 2, 2, In>(qkv, w8, o, lse, part, n_split, B, T, Hq, Hkv,
                                D, s, scale_log2, causal, stream);
 }
 
@@ -1200,9 +1254,19 @@ template <typename In>
 int config_for(int D, int* out) {
   if (D > wide::kSlab && D <= pair::kMaxWidth) return config_pair<In>(out);
   if (D > wide::kSlab) return config_wide<In>(out);
-  return D <= 64    ? config<64, 2, 1, In>(out)
-         : D <= 128 ? config<128, 2, 2, In>(out)
-                    : config<256, 2, 2, In>(out);
+  return D <= 64    ? config<64, 2, 1>(out)
+         : D <= 128 ? config<128, 2, 2>(out)
+                    : config<256, 2, 2>(out);
+}
+
+// A forward call's arguments, checked as the entry points take them
+bool bad_forward(int B, int T, int Hq, int Hkv, int D, int d_head,
+                 int n_split, int dtype, int causal, const void* part) {
+  return B < 1 || T < 1 || Hkv < 1 || Hq % Hkv != 0 ||
+         dtype != FLASH_DTYPE || bad_head_dim(D, d_head, dtype) ||
+         n_split < 0 || n_split > cdiv(T, kSplitRows) ||
+         (n_split > 0 &&
+          (!causal || D <= 128 || D > wide::kSlab || part == nullptr));
 }
 
 }  // namespace
@@ -1221,25 +1285,89 @@ extern "C" {
 // their keys, 0 or, causal at 128 < D <= 256 only, up to cdiv(T, 128)
 // (ray_tpu_torch/ops/flash_schedule.py chooses it); part, fp32, holds the
 // halves' o [2, B, Hq, n_split, 128, 256] and then their lse [2, B, Hq,
-// n_split, 128], null when n_split is 0. Launches on `stream` (the kernel
-// and, split, the merge); returns 0 on success, else a cudaError_t or one
-// of the codes that flash_attention_error_string names.
+// n_split, 128], null when n_split is 0. fp32 up to D 256 runs on the
+// split pass's copies only (flash_attention_fwd_from_split). Launches on
+// `stream` (the kernel and, split, the merge); returns 0 on success, else
+// a cudaError_t or one of the codes that flash_attention_error_string
+// names.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         void* lse, void* part, int B, int T, int Hq, int Hkv,
                         int D, int d_head, int n_split, int dtype,
                         const long long* strides, int causal, void* stream) {
-  if (B < 1 || T < 1 || Hkv < 1 || Hq % Hkv != 0 || dtype != FLASH_DTYPE ||
-      bad_head_dim(D, d_head, dtype) || n_split < 0 ||
-      n_split > cdiv(T, kSplitRows) ||
-      (n_split > 0 &&
-       (!causal || D <= 128 || D > wide::kSlab || part == nullptr))) {
+  if (bad_forward(B, T, Hq, Hkv, D, d_head, n_split, dtype, causal, part)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const float scale_log2 =
       1.4426950408889634f / sqrtf(static_cast<float>(d_head));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return launch_for<Built>(q, k, v, o, lse, part, n_split, B, T, Hq, Hkv, D,
+  const void* qkv[3] = {q, k, v};
+  return launch_for<Built>(qkv, 0, o, lse, part, n_split, B, T, Hq, Hkv, D,
                            strides, scale_log2, causal, st);
+}
+
+// The split pass of fp32 inputs (flash_fwd_split_kernel): q [B, T, Hq, D]
+// and k, v [B, T, Hkv, D] fp32 (dtype 2; this library built for it), D
+// any width with 16-byte rows; strides: 9 element strides (batch, time,
+// head) of q, k and v. Writes q_hi [B, T, Hq, w8] and k_hi, v_hi [B, T,
+// Hkv, w8] bf16 contiguous, w8 = D rounded up to 8 (the columns past D
+// zeros). `causal` is not read. Launches on `stream`; returns 0 on
+// success, else a cudaError_t.
+int flash_attention_fwd_split(const void* q, const void* k, const void* v,
+                              void* q_hi, void* k_hi, void* v_hi, int B,
+                              int T, int Hq, int Hkv, int D, int dtype,
+                              const long long* strides, int causal,
+                              void* stream) {
+  (void)causal;
+#if FLASH_DTYPE != 2
+  return static_cast<int>(cudaErrorInvalidValue);  // the fp32 library's
+#else
+  if (B < 1 || T < 1 || Hkv < 1 || Hq % Hkv != 0 || dtype != FLASH_DTYPE ||
+      bad_head_dim(D, D, dtype)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  CopyStrides st;
+  for (int i = 0; i < 9; ++i) st.s[i / 3][i % 3] = strides[i];
+  const int blocks = cdiv(B * T * Hq, kCopyRows) + cdiv(B * T * Hkv,
+                                                        kCopyRows);
+  flash_fwd_split_kernel<<<blocks, 4 * kCopyRows, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<uint4*>(q_hi),
+      static_cast<uint4*>(k_hi), static_cast<uint4*>(v_hi), B, T, Hq, Hkv,
+      D, cdiv(D, 8) * 8, st);
+  return static_cast<int>(cudaGetLastError());
+#endif
+}
+
+// The fp32 forward at head_dim D <= 256 from the split pass's copies
+// (q_hi, k_hi, v_hi: bf16, as flash_attention_fwd_split writes them for
+// inputs of width D): o [B, T, Hq, D] fp32 at the 3 element strides
+// (batch, time, head) in `strides`; lse, part, n_split and the rest as
+// for flash_attention_fwd. Launches on `stream`; returns 0 on success,
+// else a cudaError_t or one of the codes that
+// flash_attention_error_string names.
+int flash_attention_fwd_from_split(const void* q_hi, const void* k_hi,
+                                   const void* v_hi, void* o, void* lse,
+                                   void* part, int B, int T, int Hq, int Hkv,
+                                   int D, int d_head, int n_split, int dtype,
+                                   const long long* strides, int causal,
+                                   void* stream) {
+#if FLASH_DTYPE != 2
+  return static_cast<int>(cudaErrorInvalidValue);  // the fp32 library's
+#else
+  if (bad_forward(B, T, Hq, Hkv, D, d_head, n_split, dtype, causal, part) ||
+      D > wide::kSlab) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const float scale_log2 =
+      1.4426950408889634f / sqrtf(static_cast<float>(d_head));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const void* qkv[3] = {q_hi, k_hi, v_hi};
+  long long s[12] = {};
+  for (int i = 0; i < 3; ++i) s[9 + i] = strides[i];  // o's
+  return launch_for<Built>(qkv, cdiv(D, 8) * 8, o, lse, part, n_split, B, T,
+                           Hq, Hkv, D, s, scale_log2, causal, st);
+#endif
 }
 
 // The launch shape of the kernel that head_dim D of type `dtype` runs on:

@@ -6,10 +6,12 @@
 //
 // Element types (`Elem`). The kernels take bf16, fp16 and fp32 inputs.
 // bf16 and fp16 tiles reach shared memory by TMA as they are, and the
-// products are wgmma in that type (`.bf16` or `.f16`). fp32 tiles are
-// loaded by the producer warpgroup's threads and rounded to bf16 on their
-// way into shared memory (`convert_rows`), in the same swizzled layout,
-// so an fp32 input runs the bf16 products: TF32 wgmma would take both
+// products are wgmma in that type (`.bf16` or `.f16`). fp32 inputs run
+// the bf16 products: up to head_dim 256 a split pass rounds them once a
+// call into bf16 copies (`split8`), which the kernels load by TMA like
+// any bf16 tile; past 256 the slab kernels' producer threads round each
+// tile on its way into shared memory (`convert_rows`), in the same
+// swizzled layout. Not TF32: TF32 wgmma would take both
 // operands K-major only, while P V, dS K, dS^T Q and P^T dO contract
 // along the sequence, over which V, K, Q and dO are MN-major. Every
 // product accumulates in fp32, and outputs are written in the input type.
@@ -180,8 +182,9 @@ __device__ __forceinline__ void setmaxnreg_inc() {
 // prepare_launch):
 // - 2 consumers, 1 block a SM: 384 x 168 = 128 x 24 + 256 x 240;
 // - 1 consumer, 2 blocks a SM: 256 x 128 = 128 x 24 + 128 x 232.
-// A producer that converts fp32 tiles itself keeps kProducerRegs = 40, and
-// the consumers get what is left: 232 (2 consumers) or 216 (1).
+// A producer that converts fp32 tiles itself (the slab kernels past head_dim
+// 256) keeps kProducerRegs = 40, and the consumers get what is left: 232
+// (2 consumers) or 216 (1).
 template <int kConsumers, int kProducerRegs_ = 24>
 struct Split {
   static constexpr int kThreads = 128 * (1 + kConsumers);
@@ -294,8 +297,10 @@ __device__ __forceinline__ void st_async_f4(uint32_t addr, float a, float b,
 
 // What the kernels do with each input type: `Op` is the type of the
 // tensor-core operands in shared memory and in the A registers; `kTma`
-// whether the tiles arrive by TMA as they are (else the producer's
-// threads convert them, see convert_rows); `kMapType` the TMA map's type.
+// whether the tiles arrive by TMA as they are (fp32: up to head_dim 256
+// from the split passes' bf16 copies, past it converted by the slab
+// kernels' producer threads, see convert_rows); `kMapType` the TMA map's
+// type.
 template <typename T>
 struct Elem;
 template <>
@@ -314,10 +319,10 @@ struct Elem<__half> {
 };
 template <>
 struct Elem<float> {
-  using Op = __nv_bfloat16;  // rounded to bf16 in shared memory
+  using Op = __nv_bfloat16;  // rounded to bf16
   static constexpr bool kTma = false;
   static constexpr CUtensorMapDataType kMapType =
-      CU_TENSOR_MAP_DATA_TYPE_FLOAT32;  // never encoded
+      CU_TENSOR_MAP_DATA_TYPE_FLOAT32;  // never encoded (copies are bf16)
 };
 
 // The element types' codes (the wrapper's KERNEL_DTYPES). Each source is
@@ -408,6 +413,40 @@ __device__ __forceinline__ void pack_a_rest(uint32_t (&lo)[4],
   for (int r = 0; r < 4; ++r) {
     const float2 h = unpack2<Op>(hi[r]);
     lo[r] = pack2<Op>(c[8 * kk + 2 * r] - h.x, c[8 * kk + 2 * r + 1] - h.y);
+  }
+}
+
+// The split passes (flash_bwd_split_kernel, flash_fwd_split_kernel), which
+// round fp32 inputs to bf16 copies once a call for the kernels to load
+// by TMA: eight floats of a row from column `col` on, zeros past d_true
+__device__ __forceinline__ void load8(const float* row, int col, int d_true,
+                                     float (&x)[8]) {
+  if (col + 8 <= d_true) {
+    const float4 a = reinterpret_cast<const float4*>(row + col)[0];
+    const float4 b = reinterpret_cast<const float4*>(row + col)[1];
+    x[0] = a.x, x[1] = a.y, x[2] = a.z, x[3] = a.w;
+    x[4] = b.x, x[5] = b.y, x[6] = b.z, x[7] = b.w;
+  } else {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) x[e] = col + e < d_true ? row[col + e] : 0.f;
+  }
+}
+
+// x rounded to bf16 into hi (and, given lo, what the rounding left, rounded
+// in turn into lo): convert_rows's arithmetic
+__device__ __forceinline__ void split8(const float (&x)[8], uint4* hi,
+                                       uint4* lo) {
+  uint32_t v[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) v[e] = pack2<__nv_bfloat16>(x[2 * e], x[2 * e + 1]);
+  *hi = make_uint4(v[0], v[1], v[2], v[3]);
+  if (lo != nullptr) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 h = unpack2<__nv_bfloat16>(v[e]);
+      v[e] = pack2<__nv_bfloat16>(x[2 * e] - h.x, x[2 * e + 1] - h.y);
+    }
+    *lo = make_uint4(v[0], v[1], v[2], v[3]);
   }
 }
 
@@ -685,6 +724,16 @@ inline int encode_rows(CUtensorMap* map, const void* base, int B, int T,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kErrEncodeBase + static_cast<int>(r);
+}
+
+// The TMA map of a split pass's bf16 copy [B, T, H, w8], contiguous (w8:
+// the input's width rounded up to 8 columns, the rest zeros), for boxes of
+// `rows` rows: the kernels read it as they read a bf16 input. Returns 0 or
+// an error code.
+inline int encode_copy(CUtensorMap* map, const void* base, int B, int T,
+                       int H, int w8, int rows) {
+  return encode_rows(map, base, B, T, H, w8, (long long)T * H * w8,
+                     (long long)H * w8, w8, rows);
 }
 
 // Whether the entry points take head_dim D (the tensors' width, any D >=

@@ -28,9 +28,13 @@ take what the Pallas kernels take:
 
 - bfloat16, float16 and float32 q/k/v (one dtype throughout); o and the
   grads come back in that dtype, lse and delta in float32. bf16 and fp16
-  run the tensor cores in their own type; float32 tiles are rounded to
-  bf16 in shared memory and run the bf16 products, summed in float32
-  (``csrc/flash_attention_sm90.cuh`` says why not TF32);
+  run the tensor cores in their own type; float32 inputs are rounded to
+  bf16 and run the bf16 products, summed in float32
+  (``csrc/flash_attention_sm90.cuh`` says why not TF32): up to head_dim
+  256 a split pass writes bf16 copies once a call
+  (:func:`flash_attention_fwd_split`, :func:`flash_attention_bwd_split`,
+  one a forward and one a backward call, shared by dQ and dK/dV), which
+  the kernels load by TMA; past 256 the slab kernels round each tile;
 - any head_dim >= 1, as the JAX package's wrapper takes any. The kernels
   are built for 64, 128 and 256; a narrower head_dim is read through TMA
   maps of its true width, whose missing columns arrive as zeros: the
@@ -176,7 +180,8 @@ class SplitOperands(NamedTuple):
     rest zeros) of q, k, v and do rounded to nearest (``q``, ``k``,
     ``v``, ``do``), what that rounding left of v and do rounded in turn
     (``v_lo``, ``do_lo``), and ``delta = rowsum(o * do)`` [B, Hq, T]
-    float32."""
+    float32 (None where the pass was given no o: a dK/dV call, which is
+    given delta)."""
     q: torch.Tensor
     k: torch.Tensor
     v: torch.Tensor
@@ -190,21 +195,40 @@ def _split_width(D: int) -> int:
     return -(-D // 8) * 8
 
 
+def _hi_lo(x: torch.Tensor):
+    """float32 ``x`` rounded to bfloat16 (hi) and what that left, x - hi,
+    rounded to bfloat16 in turn (lo), each padded with zero columns to a
+    whole number of 16-byte rows: the split passes' copies."""
+    W8 = _split_width(x.shape[3])
+    hi = x.to(torch.bfloat16)
+    lo = (x - hi.float()).to(torch.bfloat16)
+    return pad_head_dim(hi, W8), pad_head_dim(lo, W8)
+
+
 def flash_attention_bwd_split_reference(q, k, v, o, do) -> SplitOperands:
-    """The split pass's plain version: hi = x rounded to bfloat16, lo =
-    (x - hi) rounded to bfloat16, each padded with zero columns to a whole
-    number of 16-byte rows, and delta in float32. Inputs float32."""
-    W8 = _split_width(q.shape[3])
+    """The backward split pass's plain version: the hi copies of q and k,
+    hi and lo of v and do (:func:`_hi_lo`), and delta in float32 (None
+    without o). Inputs float32."""
+    v_hi, v_lo = _hi_lo(v)
+    do_hi, do_lo = _hi_lo(do)
+    return SplitOperands(_hi_lo(q)[0], _hi_lo(k)[0], v_hi, v_lo, do_hi,
+                         do_lo, None if o is None else attention_delta(o, do))
 
-    def hi_lo(x):
-        hi = x.to(torch.bfloat16)
-        lo = (x - hi.float()).to(torch.bfloat16)
-        return tuple(pad_head_dim(t, W8) for t in (hi, lo))
 
-    v_hi, v_lo = hi_lo(v)
-    do_hi, do_lo = hi_lo(do)
-    return SplitOperands(hi_lo(q)[0], hi_lo(k)[0], v_hi, v_lo, do_hi, do_lo,
-                         attention_delta(o, do))
+class ForwardCopies(NamedTuple):
+    """What the forward's split pass makes of float32 inputs: bfloat16
+    copies [B, T, H, W8] of q, k and v rounded to nearest, padded with
+    zero columns as :class:`SplitOperands`' are."""
+    q: torch.Tensor
+    k: torch.Tensor
+    v: torch.Tensor
+
+
+def flash_attention_fwd_split_reference(q, k, v) -> ForwardCopies:
+    """The forward split pass's plain version: hi = x rounded to
+    bfloat16, padded with zero columns to a whole number of 16-byte rows
+    (:func:`_hi_lo`'s hi). Inputs float32."""
+    return ForwardCopies(*(_hi_lo(x)[0] for x in (q, k, v)))
 
 
 def flash_attention_backward_reference(q, k, v, o, lse, do,
@@ -293,6 +317,54 @@ def _join(y: torch.Tensor, width: int, lo_at: int) -> torch.Tensor:
     :func:`_parts` blocks: block 0 plus block ``lo_at`` (the hi and the lo
     part of the operand that was split into them)."""
     return y[..., :width] + y[..., lo_at * width:(lo_at + 1) * width]
+
+
+def _widths(D: int, dtype: torch.dtype):
+    """``(W, Wk, parts)`` for a true head_dim ``D``: the padded width
+    :func:`kernel_width`, the width the kernels read (four blocks of W
+    where a narrow float32 call passes :func:`_parts`) and whether it
+    does."""
+    W = kernel_width(D, dtype)
+    parts = _takes_parts(dtype, W)
+    return W, 4 * W if parts else W, parts
+
+
+def _reads_copies(dtype: torch.dtype, width: int) -> bool:
+    """Whether the kernels read a call's inputs, of kernel width
+    ``width``, as a split pass's bf16 copies: float32 up to head_dim 256
+    (past it the slab kernels round their own tiles)."""
+    return dtype == torch.float32 and width <= flash_schedule.WIDE_SLAB
+
+
+def _backward_operands(q, k, v, o, do):
+    """``(q, k, v, o, do)`` as the backward kernels read them: head_dim
+    zero-padded to :func:`kernel_width` and, for a narrow float32 call,
+    as :func:`_parts` (q and do hi | lo | hi | lo, k and v hi | hi | lo
+    | lo; o, if given, beside do's first hi and lo blocks, so that delta
+    = rowsum(o (do_hi + do_lo)))."""
+    W, _, parts = _widths(q.shape[3], q.dtype)
+    q, k, v, do = (pad_head_dim(t, W) for t in (q, k, v, do))
+    if o is not None:
+        o = pad_head_dim(o, W)
+    if parts:
+        q, k, v, do = _parts(q, 1), _parts(k, 2), _parts(v, 2), _parts(do, 1)
+        if o is not None:
+            zero = torch.zeros_like(o)
+            o = torch.cat((o, o, zero, zero), -1)
+    return q, k, v, o, do
+
+
+def _check_split(split: SplitOperands, B: int, T: int, Hq: int, Hkv: int,
+                 width: int) -> None:
+    """Raise unless ``split`` holds the copies a split pass writes for
+    inputs [B, T, Hq | Hkv, width]."""
+    W8 = _split_width(width)
+    want = ((B, T, Hq, W8), (B, T, Hkv, W8), (B, T, Hkv, W8),
+            (B, T, Hkv, W8), (B, T, Hq, W8), (B, T, Hq, W8))
+    got = tuple(tuple(t.shape) for t in split[:6])
+    if got != want or any(t.dtype != torch.bfloat16 for t in split[:6]):
+        raise ValueError(f"split operands of shapes {got} (want {want}, "
+                         f"bfloat16) do not belong to this call")
 
 
 def check_kernel_inputs(q: torch.Tensor, k: torch.Tensor,
@@ -493,11 +565,13 @@ def _sm_count(index: int) -> int:
 def flash_attention_forward(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, causal: bool = True):
     """``(o, lse)`` of flash attention; see :func:`flash_attention_reference`
-    for shapes. CUDA tensors go through the kernel, CPU tensors through
-    the plain version. At head_dim 129–256 a causal launch that leaves the
-    card under-filled splits its longest q tiles in two over their keys
-    (:func:`flash_schedule.forward_split_tiles`): the halves' float32 o
-    and lse go to a workspace that the kernel's second pass merges."""
+    for shapes. CUDA tensors go through the kernel (float32 up to head_dim
+    256 on the bf16 copies of :func:`flash_attention_fwd_split`), CPU
+    tensors through the plain version. At head_dim 129–256 a causal
+    launch that leaves the card under-filled splits its longest q tiles in
+    two over their keys (:func:`flash_schedule.forward_split_tiles`): the
+    halves' float32 o and lse go to a workspace that the kernel's second
+    pass merges."""
     if _same_device(q, k, v).type == "cpu":
         return flash_attention_reference(q, k, v, causal)
     check_kernel_inputs(q, k, v)
@@ -518,10 +592,16 @@ def flash_attention_forward(q: torch.Tensor, k: torch.Tensor,
         rows = 2 * B * Hq * n_split * flash_schedule.FWD_Q_ROWS
         part = torch.empty(rows * (flash_schedule.PARTIAL_WIDTH + 1),
                            dtype=torch.float32, device=q.device)
-    _launch("flash_attention_fwd", "flash_attention_fwd", q.device,
-            (q, k, v, o, lse, part),
-            (B, T, Hq, k.shape[2], Wk, D, n_split, KERNEL_DTYPES[q.dtype]),
-            (q, k, v, o), causal)
+    ints = (B, T, Hq, k.shape[2], Wk, D, n_split, KERNEL_DTYPES[q.dtype])
+    if _reads_copies(q.dtype, Wk):
+        # the split pass's bf16 copies, then the kernel on them by TMA
+        copies = flash_attention_fwd_split(q, k, v)
+        _launch("flash_attention_fwd", "flash_attention_fwd_from_split",
+                q.device, (*copies, o, lse, part), ints, (o,), causal,
+                code=KERNEL_DTYPES[q.dtype])
+    else:
+        _launch("flash_attention_fwd", "flash_attention_fwd", q.device,
+                (q, k, v, o, lse, part), ints, (q, k, v, o), causal)
     flash_attention_forward.launches += 1
     flash_attention_forward.split_launches += bool(n_split)
     report_kernel_work("fwd", B, T, Hq, k.shape[2], D, causal,
@@ -535,48 +615,80 @@ flash_attention_forward.launches = 0  # kernel launches, for run reports
 flash_attention_forward.split_launches = 0  # of them split over keys
 
 
-def flash_attention_bwd_dq(q, k, v, o, do, lse, causal: bool = True):
+def flash_attention_fwd_split(q, k, v) -> ForwardCopies:
+    """The forward split pass of float32 inputs (:class:`ForwardCopies`;
+    plain version :func:`flash_attention_fwd_split_reference`): on CUDA
+    tensors one kernel reads q, k and v once and writes their bfloat16
+    copies, which the forward kernel then loads by TMA (the rounding its
+    producer threads did once a tile, done once a call); CPU tensors go
+    through the plain version. q [B, T, Hq, D], k and v [B, T, Hkv, D],
+    all float32."""
+    if _same_device(q, k, v).type == "cpu":
+        return flash_attention_fwd_split_reference(q, k, v)
+    check_kernel_inputs(q, k, v)
+    if q.dtype != torch.float32:
+        raise TypeError(f"the split pass takes float32 inputs; got {q.dtype}")
+    B, T, Hq, D = q.shape
+    Hkv = k.shape[2]
+    W = kernel_width(D, q.dtype)
+    q, k, v = (pad_head_dim(t, W) for t in (q, k, v))
+    W8 = _split_width(W)
+    out = ForwardCopies(*(torch.empty((B, T, H, W8), dtype=torch.bfloat16,
+                                      device=q.device)
+                          for H in (Hq, Hkv, Hkv)))
+    _launch("flash_attention_fwd", "flash_attention_fwd_split", q.device,
+            (q, k, v, *out), (B, T, Hq, Hkv, W, KERNEL_DTYPES[q.dtype]),
+            (q, k, v), False)
+    flash_attention_fwd_split.launches += 1
+    return out
+
+
+flash_attention_fwd_split.launches = 0
+
+
+def flash_attention_bwd_dq(q, k, v, o, do, lse, causal: bool = True,
+                           split: SplitOperands = None):
     """``(dq, delta)`` of flash attention (see
     :func:`flash_attention_bwd_dq_reference`). CUDA tensors go through the
     dQ kernel, which computes delta too (float32 up to head_dim 256: the
     split pass, :func:`flash_attention_bwd_split`, computes delta and the
-    bf16 copies the dQ kernel reads), CPU tensors through the plain
+    bf16 copies the dQ kernel reads; ``split``, that pass's output for
+    these inputs, saves running it again), CPU tensors through the plain
     version."""
     if _same_device(q, k, v, o, do, lse).type == "cpu":
         return flash_attention_bwd_dq_reference(q, k, v, o, do, lse, causal)
     check_backward_inputs(q, k, v, do, lse, o=o)
     B, T, Hq, D = q.shape
-    W = kernel_width(D, q.dtype)
-    q, k, v, o, do = (pad_head_dim(t, W) for t in (q, k, v, o, do))
-    parts = _takes_parts(q.dtype, W)
-    if parts:  # dQ = dS K runs over k's parts; delta = rowsum(o (do_hi
-        # + do_lo)), o beside do's first hi and lo blocks
-        q, k, v, do = _parts(q, 1), _parts(k, 2), _parts(v, 2), _parts(do, 1)
-        zero = torch.zeros_like(o)
-        o = torch.cat((o, o, zero, zero), -1)
-    Wk = q.shape[3]  # the width the kernels read
+    Hkv = k.shape[2]
+    W, Wk, parts = _widths(D, q.dtype)  # Wk: the width the kernels read
     dq = torch.empty((B, T, Hq, Wk), dtype=q.dtype, device=q.device)
-    if q.dtype == torch.float32 and Wk <= flash_schedule.WIDE_SLAB:
+    if _reads_copies(q.dtype, Wk):
         # the split pass's bf16 copies and delta, then dQ on them by TMA
-        split = flash_attention_bwd_split(q, k, v, o, do)
+        if split is None:
+            split = flash_attention_bwd_split(
+                *_backward_operands(q, k, v, o, do))
+        _check_split(split, B, T, Hq, Hkv, Wk)
+        if split.delta is None:
+            raise ValueError("dQ reads delta from its split pass: this "
+                             "split was made without o")
         delta = split.delta
         _launch("flash_attention_bwd", "flash_attention_bwd_dq_split",
                 q.device, (split.q, split.k, split.v, split.v_lo, split.do,
                            split.do_lo, lse, delta, dq),
-                (B, T, Hq, k.shape[2], Wk, D, KERNEL_DTYPES[q.dtype]),
+                (B, T, Hq, Hkv, Wk, D, KERNEL_DTYPES[q.dtype]),
                 (dq,), causal, code=KERNEL_DTYPES[q.dtype])
     else:
+        q, k, v, o, do = _backward_operands(q, k, v, o, do)
         delta = torch.empty((B, Hq, T), dtype=torch.float32,
                             device=q.device)
         _launch("flash_attention_bwd", "flash_attention_bwd_dq", q.device,
                 (q, k, v, o, do, lse, delta, dq),
-                (B, T, Hq, k.shape[2], Wk, D, KERNEL_DTYPES[q.dtype]),
+                (B, T, Hq, Hkv, Wk, D, KERNEL_DTYPES[q.dtype]),
                 (q, k, v, o, do, dq), causal)
-    if parts:
+    if parts:  # dQ = dS K ran over k's parts
         dq = _join(dq, W, 2)
     flash_attention_bwd_dq.launches += 1
-    report_kernel_work("dq", B, T, Hq, k.shape[2], D, causal,
-                       q.element_size())
+    report_kernel_work("dq", B, T, Hq, Hkv, D, causal, q.element_size())
     return (dq if W == D else dq[..., :D]), delta
 
 
@@ -588,11 +700,13 @@ def flash_attention_bwd_split(q, k, v, o, do) -> SplitOperands:
     (:class:`SplitOperands`; plain version
     :func:`flash_attention_bwd_split_reference`): on CUDA tensors one
     kernel reads q, k, v, o and do once and writes the bfloat16 copies
-    and delta, which the dQ kernel then loads by TMA (the rounding the
-    producer threads did once a tile, done once a call); CPU tensors go
-    through the plain version. q and o [B, T, Hq, D], k and v [B, T, Hkv,
-    D], all float32."""
-    if _same_device(q, k, v, o, do).type == "cpu":
+    and delta, which the dQ and dK/dV kernels then load by TMA (the
+    rounding the producer threads did once a tile, done once a call);
+    given no o (None), the copies alone, for a dK/dV call, which is given
+    delta. CPU tensors go through the plain version. q and o [B, T, Hq,
+    D], k and v [B, T, Hkv, D], all float32."""
+    if _same_device(*(t for t in (q, k, v, o, do)
+                      if t is not None)).type == "cpu":
         return flash_attention_bwd_split_reference(q, k, v, o, do)
     check_backward_inputs(q, k, v, do, None, o=o)
     if q.dtype != torch.float32:
@@ -600,7 +714,9 @@ def flash_attention_bwd_split(q, k, v, o, do) -> SplitOperands:
     B, T, Hq, D = q.shape
     Hkv = k.shape[2]
     W = kernel_width(D, q.dtype)
-    q, k, v, o, do = (pad_head_dim(t, W) for t in (q, k, v, o, do))
+    q, k, v, do = (pad_head_dim(t, W) for t in (q, k, v, do))
+    if o is not None:
+        o = pad_head_dim(o, W)
     W8 = _split_width(W)
 
     def copy(H):
@@ -608,13 +724,13 @@ def flash_attention_bwd_split(q, k, v, o, do) -> SplitOperands:
                            device=q.device)
 
     out = SplitOperands(copy(Hq), copy(Hkv), copy(Hkv), copy(Hkv), copy(Hq),
-                        copy(Hq), torch.empty((B, Hq, T), dtype=torch.float32,
-                                              device=q.device))
+                        copy(Hq), None if o is None else torch.empty(
+                            (B, Hq, T), dtype=torch.float32,
+                            device=q.device))
+    # without o its strides are not read: q's stand in
     _launch("flash_attention_bwd", "flash_attention_bwd_split", q.device,
-            (q, k, v, o, do, out.q, out.k, out.v, out.v_lo, out.do,
-             out.do_lo, out.delta),
-            (B, T, Hq, Hkv, W, KERNEL_DTYPES[q.dtype]), (q, k, v, o, do),
-            False)
+            (q, k, v, o, do, *out), (B, T, Hq, Hkv, W, KERNEL_DTYPES[q.dtype]),
+            (q, k, v, q if o is None else o, do), False)
     flash_attention_bwd_split.launches += 1
     return out
 
@@ -622,28 +738,26 @@ def flash_attention_bwd_split(q, k, v, o, do) -> SplitOperands:
 flash_attention_bwd_split.launches = 0
 
 
-def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal: bool = True):
+def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal: bool = True,
+                            split: SplitOperands = None):
     """``(dk, dv)`` of flash attention (see
     :func:`flash_attention_bwd_dkv_reference`). CUDA tensors go through
-    the dK/dV kernel, CPU tensors through the plain version. At head_dim
-    129–256 a launch that leaves the card under-filled cuts each kv
-    tile's (q head, q stage) pairs into chunks
-    (:func:`flash_schedule.dkv_split`), whose float32 partial sums the
-    kernel's second pass adds in chunk order."""
+    the dK/dV kernel (float32 up to head_dim 256 on the bf16 copies of the
+    split pass, :func:`flash_attention_bwd_split`, run here without delta
+    unless ``split`` gives that pass's output for these inputs), CPU
+    tensors through the plain version. At head_dim 129–256 a launch that
+    leaves the card under-filled cuts each kv tile's (q head, q stage)
+    pairs into chunks (:func:`flash_schedule.dkv_split`), whose float32
+    partial sums the kernel's second pass adds in chunk order."""
     if _same_device(q, k, v, do, lse, delta).type == "cpu":
         return flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta,
                                                  causal)
     check_backward_inputs(q, k, v, do, lse, delta)
     B, T, Hq, D = q.shape
     Hkv = k.shape[2]
-    W = kernel_width(D, q.dtype)
-    q, k, v, do = (pad_head_dim(t, W) for t in (q, k, v, do))
-    parts = _takes_parts(q.dtype, W)
-    if parts:  # dK = dS^T Q, dV = P^T dO run over q's and do's parts
-        q, k, v, do = _parts(q, 1), _parts(k, 2), _parts(v, 2), _parts(do, 1)
-    Wk = q.shape[3]  # the width the kernel reads
-    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
-    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    W, Wk, parts = _widths(D, q.dtype)  # Wk: the width the kernel reads
+    dk = torch.empty((B, T, Hkv, Wk), dtype=k.dtype, device=k.device)
+    dv = torch.empty((B, T, Hkv, Wk), dtype=v.dtype, device=v.device)
     n_split = flash_schedule.dkv_split(B, T, Hq, Hkv, Wk, causal,
                                        sm_count(q.device))
     part = None
@@ -651,15 +765,25 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal: bool = True):
         part = torch.empty((2 * n_split * B * T * Hkv,
                             flash_schedule.PARTIAL_WIDTH),
                            dtype=torch.float32, device=q.device)
-    _launch("flash_attention_bwd", "flash_attention_bwd_dkv", q.device,
-            (q, k, v, do, lse, delta, dk, dv, part),
-            (B, T, Hq, Hkv, Wk, D, n_split, KERNEL_DTYPES[q.dtype]),
-            (q, k, v, do, dk, dv), causal)
+    ints = (B, T, Hq, Hkv, Wk, D, n_split, KERNEL_DTYPES[q.dtype])
+    if _reads_copies(q.dtype, Wk):
+        # the split pass's bf16 copies, then dK/dV on them by TMA
+        if split is None:
+            split = flash_attention_bwd_split(
+                *_backward_operands(q, k, v, None, do))
+        _check_split(split, B, T, Hq, Hkv, Wk)
+        _launch("flash_attention_bwd", "flash_attention_bwd_dkv_split",
+                q.device, (*split[:6], lse, delta, dk, dv, part), ints,
+                (dk, dv), causal, code=KERNEL_DTYPES[q.dtype])
+    else:
+        q, k, v, _, do = _backward_operands(q, k, v, None, do)
+        _launch("flash_attention_bwd", "flash_attention_bwd_dkv", q.device,
+                (q, k, v, do, lse, delta, dk, dv, part), ints,
+                (q, k, v, do, dk, dv), causal)
     flash_attention_bwd_dkv.launches += 1
     flash_attention_bwd_dkv.split_launches += n_split > 1
-    report_kernel_work("dkv", B, T, Hq, k.shape[2], D, causal,
-                       q.element_size())
-    if parts:
+    report_kernel_work("dkv", B, T, Hq, Hkv, D, causal, q.element_size())
+    if parts:  # dK = dS^T Q, dV = P^T dO ran over q's and do's parts
         dk, dv = _join(dk, W, 1), _join(dv, W, 1)
     if W != D:
         dk, dv = dk[..., :D], dv[..., :D]
@@ -684,12 +808,17 @@ def flash_attention_backward(q, k, v, o, lse, do, causal: bool = True):
     """``(dq, dk, dv)`` from the forward's ``o`` and ``lse`` and the
     output gradient ``do``; see :func:`flash_attention_backward_reference`.
     CUDA tensors go through the dQ kernel (which also computes
-    ``delta``) and then the dK/dV kernel, CPU tensors through their plain
+    ``delta``) and then the dK/dV kernel, float32 up to head_dim 256 both
+    on one split pass's copies and delta, CPU tensors through their plain
     versions."""
-    _same_device(q, k, v, o, lse, do)
+    device = _same_device(q, k, v, o, lse, do)
     do = kernel_readable(do)
-    dq, delta = flash_attention_bwd_dq(q, k, v, o, do, lse, causal)
-    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal)
+    split = None
+    if device.type == "cuda" and _reads_copies(
+            q.dtype, _widths(q.shape[3], q.dtype)[1]):
+        split = flash_attention_bwd_split(*_backward_operands(q, k, v, o, do))
+    dq, delta = flash_attention_bwd_dq(q, k, v, o, do, lse, causal, split)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal, split)
     return dq, dk, dv
 
 

@@ -192,6 +192,62 @@ def test_float32_dq_runs_on_the_split_pass(cuda, D):
     assert bool(((delta - want_delta).abs() <= bound).all())
 
 
+@pytest.mark.parametrize("D", [3, 64, 128, 256])
+def test_float32_forward_runs_on_its_split_pass(cuda, D):
+    """float32 forward up to head_dim 256: one split pass a call
+    (``flash_attention_fwd_split``), whose bf16 copies equal the plain
+    version's bitwise; o and lse within the bounds above (lse at the
+    float32 variants' 2e-2), bitwise repeatable."""
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device=cuda).manual_seed(D + 1)
+    q, k, v = (torch.randn(2, 257, h, D, device=cuda, generator=g)
+               for h in (8, 2, 2))
+    before = fa.flash_attention_fwd_split.launches
+    o, lse = fa.flash_attention_forward(q, k, v, True)
+    again = fa.flash_attention_forward(q, k, v, True)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_fwd_split.launches == before + 2
+    assert torch.equal(o, again[0]) and torch.equal(lse, again[1])
+    copies = fa.flash_attention_fwd_split(q, k, v)
+    want = fa.flash_attention_fwd_split_reference(q, k, v)
+    for name, a, b in zip(want._fields, copies, want):
+        assert torch.equal(a, b), name
+    ro, rlse = fa.flash_attention_reference(q, k, v, True)
+    torch.testing.assert_close(o, ro, atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(lse, rlse, atol=2e-2, rtol=0)
+
+
+@pytest.mark.parametrize("D", [3, 64, 128, 256])
+def test_float32_backward_runs_one_split_pass(cuda, D):
+    """float32 backward up to head_dim 256: ``flash_attention_backward``
+    runs one split pass for dQ and dK/dV together, a standalone dK/dV call
+    one of its own (without delta), and both give the same dk and dv
+    bitwise (the same copies, the same delta), as standalone dQ gives the
+    same dq; dq, dk, dv within the bounds above, bitwise repeatable."""
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device=cuda).manual_seed(D + 2)
+    q, k, v, do = (torch.randn(2, 257, h, D, device=cuda, generator=g)
+                   for h in (8, 2, 2, 8))
+    o, lse = fa.flash_attention_forward(q, k, v, True)
+    before = fa.flash_attention_bwd_split.launches
+    got = fa.flash_attention_backward(q, k, v, o, lse, do, True)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_bwd_split.launches == before + 1
+    dq, delta = fa.flash_attention_bwd_dq(q, k, v, o, do, lse, True)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, True)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_bwd_split.launches == before + 3
+    assert all(torch.equal(a, b) for a, b in zip(got, (dq, dk, dv)))
+    want = fa.flash_attention_backward_reference(q, k, v, o, lse, do, True)
+    for a, b, name in zip(got, want, ("dq", "dk", "dv")):
+        torch.testing.assert_close(a, b, atol=5e-2, rtol=5e-2, msg=name)
+        assert _block_rel_err(a, b) <= GRAD_BLOCK_RTOL, name
+    again = fa.flash_attention_backward(q, k, v, o, lse, do, True)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
 def test_engine_serves_on_the_card_through_the_kernel(cuda):
     import json
 
