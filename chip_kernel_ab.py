@@ -7,9 +7,10 @@ At ``chip_smoke.py``'s two timed shapes (the Llama-3-8B heads at a 2k
 prefill, "table"; the Llama-3-1B training step's attention, "train"),
 its head_dim-256 row ("d256", Gemma-2B's 8/1 heads at a 2k prefill), its
 "d512 train" row (the wide-head 1B's training step, B 4 x 2048, 4/1
-heads of head_dim 512: the slab kernels), all bf16, and its "train f32"
+heads of head_dim 512: the slab kernels), all bf16, its "train f32"
 row ("train" in float32: the forward, dQ and dK/dV each with its split
-pass, the whole backward with one for both), all causal,
+pass, the whole backward with one for both) and "d512 f32" ("d512
+train" in float32: the slab kernels' float32 instantiations), all causal,
 each kernel (forward, dQ, dK/dV) and the whole backward
 (dQ with delta, then dK/dV: ``flash_attention_backward``) is timed with
 CUDA events in turns with SDPA on the same inputs (kernel, SDPA, SDPA,
@@ -24,10 +25,11 @@ up, once the shape's kernels and SDPA have run untimed for SETTLE_S (the
 first readings of a fresh process came out up to 45 % slow without
 it). Prints one JSON line: the tree, its build seconds, and per shape
 and kernel the mean of its two readings, both readings and SDPA's mean,
-the memory-efficient backend's forward and backward, and the split the
-tree's
-head_dim-256 kernels take there (null for a tree from before the
-split).
+the memory-efficient backend's forward and backward, each kernel's bound
+(``chip_smoke.bound`` of ``attention_work``: the least time the card
+could take for its FLOPs or bytes), the plain versions' times at the
+rows of PLAIN_TIMED, and the split the tree's head_dim-256 kernels take
+there (null for a tree from before the split).
 
 To compare two commits on one card, unpack the other commit's package
 under a directory that ``.gitignore`` lists (``git archive <commit>
@@ -49,7 +51,11 @@ SHAPES = (("table", (1, 2048, 32, 8, 128), "bfloat16"),
           ("train", (4, 2048, 32, 8, 64), "bfloat16"),
           ("d256", (1, 2048, 8, 1, 256), "bfloat16"),
           ("d512 train", (4, 2048, 4, 1, 512), "bfloat16"),
-          ("train f32", (4, 2048, 32, 8, 64), "float32"))
+          ("train f32", (4, 2048, 32, 8, 64), "float32"),
+          ("d512 f32", (4, 2048, 4, 1, 512), "float32"))
+# rows whose plain versions (forward, dQ, dK/dV, whole backward) are timed
+# too, once each: rows no chip_smoke phase times
+PLAIN_TIMED = ("d512 f32",)
 ITERS, WARMUP = 50, 5
 SETTLE_S = 2.0
 
@@ -105,6 +111,7 @@ def main(argv) -> int:
     # a tree from before the per-dtype libraries names its sources only
     _build.build(list(getattr(_build, "LIBRARIES", _build.SOURCES)))
     out = {"tree": argv[0], "build_s": time.perf_counter() - t0}
+    peaks = chip_smoke.peaks_for(torch.cuda.get_device_name(0))
     gen = torch.Generator(device="cuda").manual_seed(0)
     for label, (B, T, Hq, Hkv, D), dtype in SHAPES:
         q, k, v, do = (torch.randn(B, T, h, D, device="cuda", generator=gen)
@@ -127,6 +134,14 @@ def main(argv) -> int:
             return torch.autograd.grad(sdpa_out, (qt, kt, vt), dot,
                                        retain_graph=True)
 
+        plain = {
+            "fwd": lambda: fa.flash_attention_reference(q, k, v, True),
+            "dq": lambda: fa.flash_attention_bwd_dq_reference(
+                q, k, v, o, do, lse, True),
+            "dkv": lambda: fa.flash_attention_bwd_dkv_reference(
+                q, k, v, do, lse, delta, True),
+            "bwd": lambda: fa.flash_attention_backward_reference(
+                q, k, v, o, lse, do, True)}
         kernels = {
             "fwd": lambda: fa.flash_attention_forward(q, k, v, True),
             "dq": lambda: fa.flash_attention_bwd_dq(q, k, v, o, do, lse,
@@ -154,7 +169,13 @@ def main(argv) -> int:
             out[label][name] = {
                 "ms": (first + second) / 2, "ms_each": [first, second],
                 ("sdpa_backward_ms" if name == "bwd" else "sdpa_forward_ms"):
-                    (s1 + s2) / 2}
+                    (s1 + s2) / 2,
+                "bound_ms": chip_smoke.bound(*fa.attention_work(
+                    B, T, Hq, Hkv, D, True, kernel=name,
+                    elem_bytes=q.element_size()), peaks)["bound_ms"]}
+            if label in PLAIN_TIMED:
+                out[label][name]["plain_ms"] = chip_smoke.cuda_ms(
+                    plain[name], iters=3, warmup=1)
     print(json.dumps(out), flush=True)
     return 0
 

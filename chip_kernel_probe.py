@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Device time of the attention kernels of one tree of the port, by
 kernel, on one card: ``python3 chip_kernel_probe.py <root> [--sweep]
-[--trace] [--sass-against <other root>] [--bits-save <file> |
+[--trace] [--ptxas] [--sass-against <other root>] [--bits-save <file> |
 --bits-against <file>]``, where ``<root>`` holds a ``ray_tpu_torch``
 package (``.`` for this checkout).
 
@@ -10,26 +10,32 @@ events, which at 0.05–0.15 ms kernels also reads the host's launch path
 (ctypes, TMA maps). This script reads what the card spent in each kernel
 instead: ``torch.profiler``'s device time of each kernel over 60 calls
 of each wrapper (forward, dQ, dK/dV) at ``chip_kernel_ab.py``'s shapes
-(the head_dim-512 slab kernels at "d512 train", float32 at "train f32",
-each wrapper with its split pass: the forward's flash_fwd_split_kernel,
-dQ's and dK/dV's flash_bwd_split_kernel), causal, beside the host's
+(the head_dim-512 slab kernels at "d512 train" and, float32, "d512
+f32"; float32 at "train f32", each wrapper with its split pass: the
+forward's flash_fwd_split_kernel, dQ's and dK/dV's
+flash_bwd_split_kernel), causal, beside the host's
 time to enqueue a call (with the card kept busy, so the enqueue is not
 waited on). With ``--sweep`` (a tree
 with ``ops/flash_schedule.py``), it forces the head_dim-256 split counts
 at the "d256" row instead, five rounds in turns, and reads each count's
 device time (kernel and second pass): the forward's split q tiles and
 the dK/dV chunks. With ``--trace`` (a tree whose backward source takes
-``-DWIDE_TRACE=1``), it also builds the bf16 backward with the cluster
-dK/dV kernel's phase counters and reads, at "d512 train", the clock64
-cycles a step of each consumer spends in each phase (thread 0 of each
-consumer warpgroup, summed over blocks and steps, over the steps).
-With ``--sass-against``, it compares the SASS of every
+``-DWIDE_TRACE=1``), it also builds the bf16 backward with the phase
+counters of the cluster dK/dV kernel and the head_dim-256 dQ kernel and
+reads, at "d512 train" and "d256", the clock64 cycles a step of each
+consumer spends in each phase (thread 0 of each consumer warpgroup,
+summed over blocks and steps, over the steps).
+With ``--ptxas``, it reads each kernel's registers, spills and ptxas's
+notes on its wgmma (C75xx) from the build logs
+(``chip_smoke.ptxas_report``). With ``--sass-against``, it compares the
+SASS of every
 kernel instantiation the two trees' libraries share (``cuobjdump``,
 register numbers aside). With ``--bits-save``, it writes the tree's
-float32 o, lse, dq, delta, dk and dv at BITS_SHAPES (seed 0) to a file;
-with ``--bits-against``, it compares its own with that file's bitwise
-(each tree in its own process, so each imports its own package). Prints
-one JSON line. Exits 2 without a card.
+float32 o, lse, dq, delta, dk and dv at BITS_SHAPES and its bf16 and
+fp16 dq and delta at BITS16_SHAPES (seed 0) to a file; with
+``--bits-against``, it compares its own with that file's bitwise (each
+tree in its own process, so each imports its own package). Prints one
+JSON line. Exits 2 without a card.
 """
 
 from __future__ import annotations
@@ -48,7 +54,8 @@ SHAPES = (("table", (1, 2048, 32, 8, 128), "bfloat16"),
           ("train", (4, 2048, 32, 8, 64), "bfloat16"),
           ("d256", (1, 2048, 8, 1, 256), "bfloat16"),
           ("d512 train", (4, 2048, 4, 1, 512), "bfloat16"),
-          ("train f32", (4, 2048, 32, 8, 64), "float32"))
+          ("train f32", (4, 2048, 32, 8, 64), "float32"),
+          ("d512 f32", (4, 2048, 4, 1, 512), "float32"))
 SHAPE = {label: shape for label, shape, _ in SHAPES}
 CALLS = 60
 # float32 shapes whose outputs two trees compare bitwise: "train f32",
@@ -56,6 +63,11 @@ CALLS = 60
 BITS_SHAPES = (("train f32", (4, 2048, 32, 8, 64)),
                ("d128", (1, 257, 8, 2, 128)), ("d256", (1, 300, 8, 1, 256)),
                ("d3", (2, 65, 4, 2, 3)))
+# 16-bit shapes whose dq and delta two trees compare bitwise: "d256" in
+# bf16 and fp16, and head_dim 200 (read at 256) at a ragged T
+BITS16_SHAPES = (("d256 bf16", (1, 2048, 8, 1, 256), "bfloat16"),
+                 ("d256 f16", (1, 2048, 8, 1, 256), "float16"),
+                 ("d200 bf16", (1, 300, 8, 2, 200), "bfloat16"))
 FWD_SPLITS = (0, 2, 3, 4, 5, 6, 8, 10, 14)
 DKV_CHUNKS = (1, 4, 6, 7, 8, 9, 12, 16)
 ROUNDS = 5
@@ -130,23 +142,42 @@ def sweep(torch, fa, gen) -> dict:
                    for n, r in by.items()} for kind, by in runs.items()}
 
 
-# the cluster dK/dV kernel's phases, by their index in its TRACE points
-TRACE_PHASES = ("stage wait", "partial", "sent slot free", "send",
-                "receive wait", "sum", "P/dS and hand-off", "slab product")
+# the traced kernels' phases, by their index in their TRACE points: the
+# cluster dK/dV kernel's at "d512 train", the head_dim-256 dQ kernel's at
+# "d256" (each consumer: its product's wait, its elementwise step, P or
+# dS, the wait for the other's hand-off, issuing dS K, the wait for the
+# next tile's K or V before its product, the wait for dS K)
+TRACE_PHASES = {
+    "dkv": ("d512 train", ("stage wait", "partial", "sent slot free", "send",
+                           "receive wait", "sum", "P/dS and hand-off",
+                           "slab product")),
+    "dq": ("d256", ("product wait", "P or dS", "hand-off wait",
+                    "dS K issue", "stage wait", "dS K wait"))}
+
+
+def trace_steps(kernel: str, B, T, Hq, Hkv, D) -> int:
+    """A call's (block, step) pairs of a traced kernel, causal."""
+    from ray_tpu_torch.ops import flash_schedule as fs
+
+    if kernel == "dq":
+        return sum(blk[3] for blk in fs.dq256_blocks(B, T, Hq, True))
+    rep = Hq // Hkv
+    return B * Hkv * _cdiv(D, fs.WIDE_SLAB) * sum(
+        rep * _cdiv(T - 64 * t, 64) for t in range(_cdiv(T, 64)))
 
 
 def trace(torch, fa, gen) -> dict:
-    """Cycles a step of each consumer of the cluster dK/dV kernel spends
-    in each phase at "d512 train" (bf16, causal), from a build with
-    -DWIDE_TRACE=1, over 5 calls; beside both builds' device ms."""
+    """Cycles a step of each consumer of each traced kernel spends in each
+    phase (bf16, causal), from a build with -DWIDE_TRACE=1, over 5 calls;
+    beside both builds' device ms."""
     import ctypes
 
     from ray_tpu_torch.ops import _build
-    from ray_tpu_torch.ops import flash_schedule as fs
 
-    B, T, Hq, Hkv, D = SHAPE["d512 train"]
-    calls = inputs(torch, fa, gen, B, T, Hq, Hkv, D)["dkv"]
-    sound_ms = sum(device_ms(torch, calls).values())
+    calls = {kernel: inputs(torch, fa, gen, *SHAPE[row])[kernel]
+             for kernel, (row, _) in TRACE_PHASES.items()}
+    sound_ms = {kernel: sum(device_ms(torch, fn).values())
+                for kernel, fn in calls.items()}
     out = _build.BUILD_DIR / "trace" / "libflash_attention_bwd_bf16.so"
     out.parent.mkdir(parents=True, exist_ok=True)
     subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-DWIDE_TRACE=1",
@@ -155,32 +186,35 @@ def trace(torch, fa, gen) -> dict:
                    check=True, capture_output=True)
     sound = _build._loaded.get("flash_attention_bwd_bf16")
     lib = _build._loaded["flash_attention_bwd_bf16"] = ctypes.CDLL(str(out))
+    result = {}
     try:
         counts = (ctypes.c_ulonglong * 32)()
-        calls()
-        torch.cuda.synchronize()
-        lib.flash_wide_trace(counts)  # read and zeroed
-        n_calls = 5
-        for _ in range(n_calls):
-            calls()
-        torch.cuda.synchronize()
-        lib.flash_wide_trace(counts)
-        traced_ms = sum(device_ms(torch, calls).values())
+        for kernel, (row, phases) in TRACE_PHASES.items():
+            calls[kernel]()
+            torch.cuda.synchronize()
+            lib.flash_wide_trace(counts)  # read and zeroed
+            n_calls = 5
+            for _ in range(n_calls):
+                calls[kernel]()
+            torch.cuda.synchronize()
+            lib.flash_wide_trace(counts)
+            steps = n_calls * trace_steps(kernel, *SHAPE[row])
+            result[kernel] = {
+                "at": row, "device_ms": sound_ms[kernel],
+                "traced_device_ms": sum(device_ms(torch,
+                                                  calls[kernel]).values()),
+                "steps": steps, "cycles_a_step": {
+                    f"consumer {c}": {name: counts[16 * c + i] / steps
+                                      for i, name in enumerate(phases)}
+                    for c in (0, 1)}}
     finally:
         _build._loaded["flash_attention_bwd_bf16"] = sound
-    rep = Hq // Hkv
-    steps = n_calls * B * Hkv * _cdiv(D, fs.WIDE_SLAB) * sum(
-        rep * _cdiv(T - 64 * t, 64) for t in range(_cdiv(T, 64)))
-    return {"device_ms": sound_ms, "traced_device_ms": traced_ms,
-            "steps": steps, "cycles_a_step": {
-                f"consumer {c}": {name: counts[16 * c + i] / steps
-                                  for i, name in enumerate(TRACE_PHASES)}
-                for c in (0, 1)}}
+    return result
 
 
-def fp32_outputs(torch, fa) -> dict:
-    """The float32 forward, dQ and dK/dV wrappers' outputs at BITS_SHAPES,
-    causal, on the CPU."""
+def bits_outputs(torch, fa) -> dict:
+    """The float32 forward, dQ and dK/dV wrappers' outputs at BITS_SHAPES
+    and the 16-bit dQ wrapper's at BITS16_SHAPES, causal, on the CPU."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     out = {}
     for label, (B, T, Hq, Hkv, D) in BITS_SHAPES:
@@ -192,6 +226,12 @@ def fp32_outputs(torch, fa) -> dict:
         out[label] = {name: t.cpu() for name, t in zip(
             ("o", "lse", "dq", "delta", "dk", "dv"),
             (o, lse, dq, delta, dk, dv))}
+    for label, (B, T, Hq, Hkv, D), dtype in BITS16_SHAPES:
+        q, k, v, do = (torch.randn(B, T, h, D, device="cuda", generator=gen)
+                       .to(getattr(torch, dtype)) for h in (Hq, Hkv, Hkv, Hq))
+        o, lse = fa.flash_attention_forward(q, k, v, True)
+        dq, delta = fa.flash_attention_bwd_dq(q, k, v, o, do, lse, True)
+        out[label] = {"dq": dq.cpu(), "delta": delta.cpu()}
     return out
 
 
@@ -279,7 +319,7 @@ def main(argv) -> int:
     if "--sweep" in argv:
         out["sweep_d256"] = sweep(torch, fa, gen)
     elif "--trace" in argv:
-        out["trace_d512_dkv"] = trace(torch, fa, gen)
+        out["trace"] = trace(torch, fa, gen)
     else:
         for label, shape, dtype in SHAPES:
             out[label] = {name: {"device_ms": device_ms(torch, fn),
@@ -287,12 +327,19 @@ def main(argv) -> int:
                           for name, fn in inputs(torch, fa, gen, *shape,
                                                  dtype).items()}
             torch.cuda.empty_cache()
+    if "--ptxas" in argv:
+        import chip_smoke
+
+        out["ptxas"] = {
+            name: chip_smoke.ptxas_report(
+                _build.library_path(name).with_suffix(".log").read_text())
+            for name in _build.LIBRARIES}
     if "--bits-save" in argv:
-        torch.save(fp32_outputs(torch, fa),
+        torch.save(bits_outputs(torch, fa),
                    argv[argv.index("--bits-save") + 1])
     elif "--bits-against" in argv:
-        out["fp32_bits_against"] = bits_against(
-            torch, fp32_outputs(torch, fa),
+        out["bits_against"] = bits_against(
+            torch, bits_outputs(torch, fa),
             torch.load(argv[argv.index("--bits-against") + 1]))
     if "--sass-against" in argv:
         out["sass_against"] = sass_against(

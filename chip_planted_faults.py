@@ -40,9 +40,10 @@ readings of the same variants:
 - ``f32_dp_rounded_once``: the fp32 backward kernels form dP from dO and
   V rounded to bf16 once (without the products of what the rounding
   left), read at ``float32:64``;
-- ``d256_second_half``: the 256-column RS product (O += P V, dQ += dS K)
-  reads its second 128 columns from the tile's second column block, not
-  its third, read at ``bfloat16:256``;
+- ``d256_second_half``: the 256-column RS product (O += P V; dQ's dS K
+  at 256 is two 128-column products, one a consumer) reads its second 128
+  columns from the tile's second column block, not its third, read at
+  ``bfloat16:256``;
 - ``split_delta_rounded_do``: the fp32 split pass takes delta from dO
   rounded to bf16 (the dQ kernel's tile) instead of dO as it lies in
   device memory, read at ``float32:64``;
@@ -64,6 +65,16 @@ and three in the slab kernels that take head_dim past 256:
 - ``wide_dq_k_first_slab``: the dQ kernel's dQ += dS K reads the first
   slab's columns of K whatever slab the consumer owns, so every slab
   past the first gets the first slab's dQ, read at ``bfloat16:512``;
+
+two in the head_dim-256 dQ kernel (``flash_bwd_dq256_kernel``), read at
+``bfloat16:256``:
+
+- ``dq256_k_other_half``: consumer 1's dQ += dS K reads consumer 0's half
+  of K (its columns 0-127) for its own columns 128-255;
+- ``dq256_ds_before_p``: consumer 1 forms dS from the exchange buffer
+  before its named barrier on consumer 0's P (it meets the barrier
+  after), so it reads the last key step's P, or, racing, part of this
+  step's;
 
 two in the slab backward kernels' exchanges, read at ``bfloat16:512``:
 
@@ -184,6 +195,23 @@ VARIANT_FAULTS = {
          "        }\n"
          "        named_barrier(kBarP, 256);\n"),
         ("bfloat16", 512)),
+    "dq256_k_other_half": (
+        "flash_attention_bwd.cu",
+        ("            acc, dsa[kk], k_addr + 2 * c * kColBytes + kk * 16 * 128,\n",
+         "            acc, dsa[kk], k_addr + kk * 16 * 128,\n"),
+        ("bfloat16", 256)),
+    "dq256_ds_before_p": (
+        "flash_attention_bwd.cu",
+        ("        named_barrier(kBarP, 256);  // consumer 0's P of this tile\n",
+         "",
+         "        named_barrier_arrive(kBarDs, 256);\n"
+         "      }\n"
+         "      TRACE(1)\n",
+         "        named_barrier(kBarP, 256);\n"
+         "        named_barrier_arrive(kBarDs, 256);\n"
+         "      }\n"
+         "      TRACE(1)\n"),
+        ("bfloat16", 256)),
     "cluster_own_partial": (
         "flash_attention_bwd.cu",
         ("          if (r != slab) v = from[q * 128];\n", ""),

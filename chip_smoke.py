@@ -405,22 +405,34 @@ SMEM_PER_BLOCK = 232448
 
 def ptxas_report(log: str):
     """Registers, static shared memory and spills per kernel
-    instantiation from ``nvcc -Xptxas -v`` output."""
-    out, cur = [], None
+    instantiation from ``nvcc -Xptxas -v`` output, and the codes of
+    ptxas's notes that name it (``notes``: C75xx, wgmma serialised or
+    waited for)."""
+    out, cur, by_name, notes = [], None, {}, {}
     for line in log.splitlines():
+        # a note may come before or after its kernel's report
+        m = re.search(r"\((C75\d\d)\).*'(_Z\w+)'", line)
+        if m:
+            codes = notes.setdefault(m.group(2), [])
+            if m.group(1) not in codes:
+                codes.append(m.group(1))
+            continue
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             name = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_kernel)ILi(\d+)E",
                              m.group(1))
-            # the slab kernels and the head_dim-256 split's second passes
+            # the head_dim-256 dQ, the slab kernels and the head_dim-256
+            # split's second passes
             other = re.search(
                 r"(flash_(?:fwd|bwd_dq|bwd_dkv)_wide_kernel|"
+                r"flash_bwd_dq256_kernel|"
                 r"flash_bwd_dkv_cluster_kernel|flash_fwd_pair_kernel|"
                 r"flash_fwd_merge_kernel|flash_bwd_dkv_reduce_kernel|"
                 r"flash_bwd_split_kernel|flash_fwd_split_kernel)[IE]",
                 m.group(1))
             cur = {"kernel": f"{name.group(1)}<{name.group(2)}>" if name
                    else other.group(1) if other else m.group(1)}
+            by_name[m.group(1)] = cur
             out.append(cur)
             continue
         if cur is None:
@@ -434,6 +446,9 @@ def ptxas_report(log: str):
             cur["registers"] = int(m.group(1))
             smem = re.search(r"(\d+) bytes smem", line)
             cur["smem_bytes"] = int(smem.group(1)) if smem else 0
+    for name, codes in notes.items():
+        if name in by_name:
+            by_name[name]["notes"] = codes
     return out
 
 
@@ -1118,6 +1133,7 @@ def reduced_depth_step(torch, seed, cfg, label: str) -> dict:
 
     from ray_tpu_torch.models import llama
     from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.ops import flash_schedule as fs
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     tokens = torch.randint(0, cfg.vocab_size, (1, 2049), device="cuda",
@@ -1138,6 +1154,8 @@ def reduced_depth_step(torch, seed, cfg, label: str) -> dict:
         launches = read_launches(fa)
         launches["split"] = fa.flash_attention_bwd_split.launches
         launches["fwd_split"] = fa.flash_attention_fwd_split.launches
+        # of the dQ launches, those on the head_dim-256 kernel
+        launches["dq256"] = fa.flash_attention_bwd_dq.d256_launches
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -1176,15 +1194,19 @@ def reduced_depth_step(torch, seed, cfg, label: str) -> dict:
     # float32 up to head_dim 256: one split pass a backward call (dQ and
     # dK/dV share it) and one a forward launch
     copies = cfg.dtype == torch.float32 and cfg.head_dim <= 256
+    # and at head_dim 129-256 every dQ launch on flash_bwd_dq256_kernel
+    d256 = fs.dq_kernel(fa.kernel_width(
+        cfg.head_dim, cfg.dtype)) == "flash_bwd_dq256_kernel"
     split_want = {"split": counts["dq"] if copies else 0,
-                  "fwd_split": counts["fwd"] if copies else 0}
+                  "fwd_split": counts["fwd"] if copies else 0,
+                  "dq256": counts["dq"] if d256 else 0}
 
     def gates():
         check({k: n for k, n in counts.items() if k not in split_want}
               == expected_launches(cfg, 1)
               and all(counts[k] == n for k, n in split_want.items()),
               f"{label} launched {counts}, want {expected_launches(cfg, 1)} "
-              f"and split passes {split_want}")
+              f"and split passes, head_dim-256 dQ {split_want}")
         check(not delta_calls, f"the kernel step ({label}) took the plain "
                                f"delta {len(delta_calls)} times")
         check(math.isfinite(loss) and math.isfinite(gnorm),
@@ -1268,6 +1290,9 @@ def variant_readings(torch, gen, dtype, D) -> dict:
     split_runs = [fa.flash_attention_forward.split_launches,
                   fa.flash_attention_bwd_dkv.split_launches]
     want_split_runs = [0, 0]
+    kernels = (fa.flash_attention_forward, fa.flash_attention_bwd_dq,
+               fa.flash_attention_bwd_dkv)
+    launched = [fn.launches for fn in kernels]
     for T in DTYPE_LENGTHS:
         for causal in (True, False):
             for group in DTYPE_GROUPS:
@@ -1337,6 +1362,9 @@ def variant_readings(torch, gen, dtype, D) -> dict:
     return {"worst_err_over_tolerance": worst,
             "cases": len(DTYPE_LENGTHS) * 2 * len(DTYPE_GROUPS),
             "splits": splits, "split_launches": split_runs,
+            # each kernel's launches over the variant's cases
+            "launches": dict(zip(("fwd", "dq", "dkv"), (
+                fn.launches - n for fn, n in zip(kernels, launched)))),
             "failed": failed}
 
 
@@ -1618,7 +1646,8 @@ def phase_kernel_dtypes(torch, np, gen, seed, peaks, smi) -> dict:
         torch.cuda.empty_cache()
     gates = {label: r.pop("gates") for label, r in steps.items()}
     launches = {k: sum(r["launches"][k] for r in steps.values())
-                for k in ("fwd", "dq", "dkv", "split", "fwd_split")}
+                for k in ("fwd", "dq", "dkv", "split", "fwd_split",
+                          "dq256")}
     emit({"phase": "kernel_dtypes_train", "card": smi, "steps": steps,
           "launches": launches, "phase_s": time.perf_counter() - t0})
     for gate in gates.values():
@@ -1883,6 +1912,7 @@ def reset_launches(fa) -> None:
                fa.flash_attention_bwd_dkv, fa.flash_attention_bwd_split,
                fa.flash_attention_fwd_split):
         fn.launches = 0
+    fa.flash_attention_bwd_dq.d256_launches = 0
 
 
 def read_launches(fa) -> dict:
@@ -5831,6 +5861,9 @@ def main(argv=None) -> int:
     for kern, replaces, errs, design in (
             ("dq", ":135", ("dq",),
              "wgmma fed by TMA (flash_attention_sm90.cuh), delta fused; "
+             "at head_dim 129-256 flash_bwd_dq256_kernel, a block of 64 q "
+             "rows whose two consumers split S (and P) and dP (delta, dS) "
+             "and each add dS K into their own 128 columns of dQ; "
              + types_note),
             ("dkv", ":169", ("dk", "dv"),
              "wgmma fed by TMA (flash_attention_sm90.cuh); " + types_note
@@ -5845,6 +5878,10 @@ def main(argv=None) -> int:
             "design": design,
             **({"split_launches": fa.flash_attention_bwd_dkv.split_launches}
                if kern == "dkv" else {}),
+            # of the path's dQ launches, those on flash_bwd_dq256_kernel
+            **({"d256_launches": sum(n.get("dq256", 0)
+                                     for n in by_path.values())}
+               if kern == "dq" else {}),
             "launches": sum(n[kern] for n in by_path.values()),
             "launches_by_path": {p: n[kern] for p, n in by_path.items()},
             "max_abs_err": max(bwd_err[e] for e in errs),

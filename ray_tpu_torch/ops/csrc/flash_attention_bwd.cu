@@ -44,9 +44,9 @@
 //   precede a tile's keys (the diagonal's last tile of the first
 //   consumer) waits for it and frees it without computing.
 //
-// dQ at head_dim 256: one consumer on 64-key stages, two of them (Q and
-// dO of 64 rows and two stages of K and V fill 193 KB of the 227 KB a
-// block may use); dQ += dS K is two products of 128 columns.
+// dQ at head_dim 256 (flash_bwd_dq256_kernel, below): a block of 64 q
+// rows and two consumers, one computing S and P, the other delta, dP and
+// dS, each adding dS K into its own 128 columns of dQ.
 //
 // dK/dV:
 // - one block per (64-row kv tile, kv head, batch), 384 threads: a
@@ -106,9 +106,8 @@
 // hi hi + lo hi + hi lo: with one rounded product, dP - delta, which is 0
 // where a row has one key, came out at the operands' rounding (2^-9 of
 // |dO| |V|) and failed the block gate at T = 1. The extra tiles cost the
-// rings stages: dQ keeps one at head_dim 256 (its producer then loads K
-// and V of a tile in turn), dK/dV one at 128 and 256. Outputs are written
-// in the input type.
+// rings stages: dQ keeps one at head_dim 256, dK/dV one at 128 and 256.
+// Outputs are written in the input type.
 //
 // Up to kNarrowWidth columns (flash_attention_sm90.cuh) both take their A
 // operands (dS; P^T and dS^T) in two parts, the rounded value and what
@@ -239,7 +238,8 @@ namespace dqk {
 // warpgroups a block. At 128 two consumers (128 q rows, one block a SM)
 // on 64-key stages (128-key S and dP would not fit the registers); at 64
 // one consumer (64 q rows, two blocks a SM) on 128-key stages: on an
-// H100 two consumers were no faster, and 64-key stages slower.
+// H100 two consumers were no faster, and 64-key stages slower. Head_dim
+// 256 runs on flash_bwd_dq256_kernel.
 template <int D>
 struct Shape;
 template <>
@@ -250,10 +250,6 @@ template <>
 struct Shape<128> {
   static constexpr int kBlockN = 64, kStages = 3, kConsumers = 2;
 };
-template <>
-struct Shape<256> {
-  static constexpr int kBlockN = 64, kStages = 2, kConsumers = 1;
-};
 
 // the register split: the producer is one TMA thread for every type
 // (fp32 inputs arrive as the split pass's bf16 copies)
@@ -261,10 +257,10 @@ template <int D, typename In>
 using DqSplit = Split<Shape<D>::kConsumers>;
 
 // stages of the K/V ring: fp32 stages hold V twice (rounded, and what the
-// rounding left), so two up to head_dim 128 and one at 256
+// rounding left), so two
 template <int D, typename In>
 __host__ __device__ constexpr int stages() {
-  return Elem<In>::kTma ? Shape<D>::kStages : D > 128 ? 1 : 2;
+  return Elem<In>::kTma ? Shape<D>::kStages : 2;
 }
 
 }  // namespace dqk
@@ -370,19 +366,11 @@ __global__ void __launch_bounds__(dqk::DqSplit<D, In>::kThreads,
                       cb * 64, h, q0, b);
         }
       }
-      if constexpr (kStages == 1) {
-        // one stage: K of the next tile can only follow this tile's V
-        for (int j = 0; j < n_tiles; ++j) {
-          load(j, 0, k_full, k_empty);
-          load(j, 1, v_full, v_empty);
-        }
-      } else {
-        // K runs one tile ahead of V, as the consumers use them
-        load(0, 0, k_full, k_empty);
-        for (int j = 0; j < n_tiles; ++j) {
-          if (j + 1 < n_tiles) load(j + 1, 0, k_full, k_empty);
-          load(j, 1, v_full, v_empty);
-        }
+      // K runs one tile ahead of V, as the consumers use them
+      load(0, 0, k_full, k_empty);
+      for (int j = 0; j < n_tiles; ++j) {
+        if (j + 1 < n_tiles) load(j + 1, 0, k_full, k_empty);
+        load(j, 1, v_full, v_empty);
       }
     }
   } else {
@@ -589,6 +577,456 @@ __global__ void __launch_bounds__(dqk::DqSplit<D, In>::kThreads,
 #pragma unroll
       for (int jn = 0; jn < D / 8; ++jn) {
         const int col = 8 * jn + 2 * tg;
+        if (col < d_true) {
+          store2(out + col, acc[4 * jn + 2 * r], acc[4 * jn + 2 * r + 1]);
+        }
+      }
+    }
+  }
+}
+
+// -DWIDE_TRACE=1 (chip_kernel_probe.py --trace) counts clock64 cycles by
+// phase of the steps of the head_dim-256 dQ kernel and of the cluster
+// dK/dV kernel (below) in wide_trace, per consumer, summed over its blocks
+// (thread 0 of each consumer); off, it is nothing
+#ifndef WIDE_TRACE
+#define WIDE_TRACE 0
+#endif
+#if WIDE_TRACE
+__device__ unsigned long long wide_trace[2][16];
+#define TRACE_START long long tr_last = clock64();
+#define TRACE(i)                                                 \
+  if (t == 0) {                                                  \
+    const long long now = clock64();                             \
+    atomicAdd(&wide_trace[c][i], (unsigned long long)(now - tr_last)); \
+    tr_last = now;                                               \
+  }
+#else
+#define TRACE_START
+#define TRACE(i)
+#endif
+
+// ------------------------------------------------------ dQ at head_dim 256
+//
+// flash_bwd_dq256_kernel replaces flash_bwd_dq_kernel at head_dim 256 (any
+// head_dim 129-256 is read at 256) for bf16, fp16 and fp32; same function,
+// same bits. With one consumer warpgroup a block (Q and dO of 64 rows and
+// two stages of 64-key K and V filled 193 KB, one block an SM) that one
+// warpgroup issued S, dP and dQ += dS K in turn and did every elementwise
+// step between them, its 64 x 256 fp32 accumulator (128 registers a
+// thread) leaving no room to keep one product in flight behind another: a
+// step of three 64 x 64 x 256 products took about 3.3x their time on an
+// H100 (PERF.md). Here a block of 64 q rows has two consumer warpgroups
+// (and the one-thread producer, 240 registers a consumer), dividing the
+// work as the slab dQ kernel does (flash_bwd_dq_wide_kernel, below):
+// - consumer 0 computes S = Q K^T over all 256 columns, masks it, forms P
+//   with the lse and hands P to consumer 1 in fp32 through shared memory,
+//   in the accumulator's fragment order (thread t's element e at float
+//   e * 128 + t), behind named barrier kBarP;
+// - consumer 1 takes delta (16-bit inputs: rowsum(O o dO) as
+//   flash_bwd_dq_kernel takes it; fp32: the split pass's), computes dP =
+//   dO V^T (fp32: with the products of the rests), reads P, forms dS = P
+//   (dP - delta) scale and hands dS, rounded to the operand type, to
+//   consumer 0 behind kBarDs;
+// - each adds dQ[:, 128c : 128c + 128] += dS K[:, 128c : 128c + 128] over
+//   its own half of the columns (a 64-register accumulator);
+// - each holds the A operand of its product, Q or dO of the block's rows,
+//   in registers (64 a thread) and runs S and dP in the RS form: the
+//   products read only K or V from shared memory, and with bf16 and fp16
+//   inputs the rows of Q and dO take a third K/V stage once both
+//   consumers hold them. With three stages each consumer issues the next
+//   tile's S or dP as soon as this tile's is consumed (consumer 0: P
+//   written; consumer 1: dS written), so it runs under the rest of the
+//   hand-off and under dS K; fp32 (whose stages hold V's rest, and whose
+//   dO rest stays in shared memory for dP) keeps one stage and issues the
+//   next product after dS K. V's stage is freed once dP has completed,
+//   K's once both halves of dS K have.
+// Every product has the operands, roundings and k-order of
+// flash_bwd_dq_kernel's (its dS K was two 128-column products of the same
+// descriptors, one a half; its S and dP read Q and dO from shared memory,
+// the same bf16 values), P and dS are formed from the same fp32 values in
+// the same expressions, and each dQ column sums the same keys in the same
+// order: dq and delta are bitwise flash_bwd_dq_kernel's.
+namespace dq256 {
+
+constexpr int kD = 256;
+constexpr int kRows = 64;                // q rows of a block
+constexpr int kKeys = 64;                // keys of a K/V stage
+constexpr int kHalf = kD / 2;            // dQ columns a consumer owns
+constexpr int kColBytes = 64 * 128;      // 64 rows of 64 16-bit columns
+constexpr int kTileBytes = 4 * kColBytes;  // 64 rows of 256 columns
+// P of a tile, 64 x 64 fp32, and dS, 64 x 64 in the operand type, both in
+// the accumulator's fragment order
+constexpr int kPBytes = 4 * 32 * 128;
+constexpr int kDsBytes = 4 * 16 * 128;
+// named barriers of the hand-offs (0 is __syncthreads): P written, dS
+// written
+constexpr int kBarP = 1, kBarDs = 2;
+using DqSplit = Split<2>;
+
+// The tiles of a K/V stage (K, V; fp32: V's rest), and of the resident
+// rows (Q, dO; fp32: dO's rest). K/V stages: 16-bit three, two of their
+// own and the third over the rows of Q and dO, free once the consumers
+// hold Q and dO in registers; fp32 one (its stages hold V's rest, and dO's
+// rest stays in shared memory for dP).
+template <typename In>
+__host__ __device__ constexpr int tiles() {
+  return Elem<In>::kTma ? 2 : 3;
+}
+template <typename In>
+__host__ __device__ constexpr int stages() {
+  return Elem<In>::kTma ? 3 : 1;
+}
+template <typename In>
+__host__ __device__ constexpr int own_stages() {
+  return Elem<In>::kTma ? 2 : 1;
+}
+template <typename In>
+__host__ __device__ constexpr int smem() {  // + 1024: tile alignment
+  return tiles<In>() * kTileBytes * (1 + own_stages<In>()) + kPBytes +
+         kDsBytes + 1024;
+}
+
+}  // namespace dq256
+
+template <typename In>
+__global__ void __launch_bounds__(dq256::DqSplit::kThreads, 1)
+    flash_bwd_dq256_kernel(__grid_constant__ const CUtensorMap tm_q,
+                           __grid_constant__ const CUtensorMap tm_k,
+                           __grid_constant__ const CUtensorMap tm_v,
+                           __grid_constant__ const CUtensorMap tm_do,
+                           const In* __restrict__ o,
+                           const float* __restrict__ lse,
+                           float* __restrict__ delta, In* __restrict__ dq,
+                           int T, int Hq, int B, int rep, int d_true,
+                           int64_t o_sb, int64_t o_st, int64_t o_sh,
+                           int64_t dq_sb, int64_t dq_st, int64_t dq_sh,
+                           float scale, int causal,
+                           __grid_constant__ const CUtensorMap tm_v_lo,
+                           __grid_constant__ const CUtensorMap tm_do_lo) {
+  using namespace dq256;
+  using S = DqSplit;
+  using Op = typename Elem<In>::Op;
+  constexpr bool kLo = !Elem<In>::kTma;  // fp32: the rests of dO and V
+  constexpr int kStages = stages<In>();
+  constexpr int kOwn = own_stages<In>();
+  constexpr int kStageTiles = tiles<In>();
+  // 16-bit: the next tile's S or dP is issued as soon as this tile's
+  // is consumed (consumer 0: P written; consumer 1: dS written), and runs
+  // under the rest of the hand-off and dS K; fp32 (one stage): after this
+  // tile's dS K
+  constexpr bool kAhead = kStages > 1;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t q_full, qdo_free;
+  __shared__ __align__(8) uint64_t k_full[kStages], v_full[kStages],
+      k_empty[kStages], v_empty[kStages];
+  uint8_t* q_s = align_1024(smem_raw);
+  uint8_t* do_s = q_s + kTileBytes;
+  uint8_t* do_lo_s = do_s + kTileBytes;  // fp32 only
+  uint8_t* kv_s = do_s + (kLo ? 2 : 1) * kTileBytes;
+  float* ex_p =
+      reinterpret_cast<float*>(kv_s + kOwn * kStageTiles * kTileBytes);
+  uint32_t* ex_ds = reinterpret_cast<uint32_t*>(ex_p + kPBytes / 4);
+  // K (which 0) or V (1) of stage s; a stage past the block's own lies
+  // over Q and dO
+  auto stage_tile = [&](int s, int which) -> uint8_t* {
+    return s < kOwn ? kv_s + (kStageTiles * s + which) * kTileBytes
+                    : which ? do_s : q_s;
+  };
+
+  const int heads = Hq * B;
+  const int n_qtiles = cdiv(T, kRows);
+  const int rank = blockIdx.x / heads;  // heads inner: longest tiles first
+  const int qtile = causal ? n_qtiles - 1 - rank : rank;
+  const int h = (blockIdx.x % heads) % Hq, b = (blockIdx.x % heads) / Hq;
+  const int q0 = qtile * kRows;
+  const int n_tiles = cdiv(causal ? min(q0 + kRows, T) : T, kKeys);
+
+  if (threadIdx.x == 0) {
+    mbar_init(&q_full, 1);
+    mbar_init(&qdo_free, 8);  // both consumers' warps
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&k_empty[s], 8);  // both consumers' warps (dS K)
+      mbar_init(&v_empty[s], 4);  // consumer 1's (dP)
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ---------------------------------------------------------- producer
+    setmaxnreg_dec<S::kProducerRegs>();
+    if (threadIdx.x == 0) {
+      const int hk = h / rep;
+      // tile j's K or V (fp32: V with its rest) into its stage, once the
+      // consumers have freed it
+      auto load = [&](int j, int which, uint64_t* full, uint64_t* empty) {
+        const int s = j % kStages;
+        const bool lo = kLo && which;
+        mbar_wait(&empty[s], ((j / kStages) & 1) ^ 1);
+        mbar_arrive_expect_tx(&full[s], (lo ? 2 : 1) * kTileBytes);
+        uint8_t* dst = stage_tile(s, which);
+#pragma unroll
+        for (int cb = 0; cb < 4; ++cb) {
+          tma_load_4d(dst + cb * kColBytes, which ? &tm_v : &tm_k, &full[s],
+                      cb * 64, hk, j * kKeys, b);
+        }
+        if (lo) {
+#pragma unroll
+          for (int cb = 0; cb < 4; ++cb) {
+            tma_load_4d(dst + kTileBytes + cb * kColBytes, &tm_v_lo,
+                        &full[s], cb * 64, hk, j * kKeys, b);
+          }
+        }
+      };
+      mbar_arrive_expect_tx(&q_full, (kLo ? 3 : 2) * kTileBytes);
+#pragma unroll
+      for (int cb = 0; cb < 4; ++cb) {
+        tma_load_4d(q_s + cb * kColBytes, &tm_q, &q_full, cb * 64, h, q0, b);
+        tma_load_4d(do_s + cb * kColBytes, &tm_do, &q_full, cb * 64, h, q0,
+                    b);
+        if constexpr (kLo) {
+          tma_load_4d(do_lo_s + cb * kColBytes, &tm_do_lo, &q_full, cb * 64,
+                      h, q0, b);
+        }
+      }
+      // V before K: V's stage is freed a step before K's (dP completes
+      // before dS K)
+      for (int j = 0; j < n_tiles; ++j) {
+        // the stage over Q and dO, once the consumers hold them
+        if (kStages > kOwn && j == kOwn) mbar_wait(&qdo_free, 0);
+        load(j, 1, v_full, v_empty);
+        load(j, 0, k_full, k_empty);
+      }
+    }
+  } else {
+    // --------------------------------------------------------- consumers
+    setmaxnreg_inc<S::kConsumerRegs>();
+    // 0: S and P; 1: delta, dP and dS; consumer c adds dS K into dQ's
+    // columns 128c .. 128c + 127
+    const int c = wg - 1;
+    const int t = threadIdx.x % 128, w = t / 32, lane = t % 32;
+    const int g = lane >> 2, tg = lane & 3;
+    const int r0 = 16 * w + g;  // this thread's tile rows: r0, r0 + 8
+    const int row0 = q0 + r0;
+    const float scale_log2 = scale * kLog2e;
+    const uint32_t do_lo_addr = smem_addr(do_lo_s);
+
+    // consumer 0: lse in the log2 domain; consumer 1: delta
+    float rowv[2];
+    if (c == 0) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = row0 + 8 * r;
+        rowv[r] = row < T ? lse[((int64_t)b * Hq + h) * T + row] * kLog2e
+                          : 0.f;
+      }
+    }
+    mbar_wait(&q_full, 0);
+    if (c == 1) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int tr = r0 + 8 * r, row = q0 + tr;
+        const int64_t at = ((int64_t)b * Hq + h) * T + row;
+        if constexpr (kLo) {
+          // the split pass's, from O and dO as they lie in device memory
+          rowv[r] = row < T ? delta[at] : 0.f;
+          continue;
+        }
+        // rowsum(O o dO): the quad of a row takes its 8-column chunks tg,
+        // tg + 4, ... in order, then sums the four partials (butterfly),
+        // as flash_bwd_dq_kernel does
+        float sum = 0.f;
+        if (row < T) {
+          const In* o_row = o + b * o_sb + h * o_sh + row * o_st;
+#pragma unroll
+          for (int i = 0; i < kD / 32; ++i) {
+            const int ch = tg + 4 * i;  // 8 columns at 8 * ch
+            if (8 * ch >= d_true) continue;
+            const uint4 ov = *reinterpret_cast<const uint4*>(o_row + 8 * ch);
+            // dO's chunk in the 128-byte-swizzled tile
+            const uint4 dv = *reinterpret_cast<const uint4*>(
+                do_s + (ch / 8) * kColBytes + tr * 128 +
+                (((ch % 8) ^ (tr & 7)) << 4));
+            const uint32_t* o2 = reinterpret_cast<const uint32_t*>(&ov);
+            const uint32_t* do2 = reinterpret_cast<const uint32_t*>(&dv);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float2 x = unpack2<In>(o2[e]);
+              const float2 y = unpack2<In>(do2[e]);
+              sum += x.x * y.x;  // exact in fp32
+              sum += x.y * y.y;
+            }
+          }
+        }
+        sum += __shfl_xor_sync(kFull, sum, 1);
+        sum += __shfl_xor_sync(kFull, sum, 2);
+        rowv[r] = sum;
+        if (tg == 0 && row < T) delta[at] = sum;
+      }
+    }
+
+    // the A operand of this consumer's product, Q (S) or dO (dP), held in
+    // registers for the block: slice ks (columns 16 ks .. 16 ks + 15) as
+    // pack_a lays it out, read from the 128-byte-swizzled tile
+    uint32_t af[kD / 16][4];
+    {
+      const uint8_t* tile = c ? do_s : q_s;
+#pragma unroll
+      for (int ks = 0; ks < kD / 16; ++ks) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int row = r0 + 8 * (r & 1);
+          const int col = 16 * ks + 8 * (r >> 1) + 2 * tg;
+          af[ks][r] = *reinterpret_cast<const uint32_t*>(
+              tile + (col / 64) * kColBytes + row * 128 +
+              ((((col % 64) / 8) ^ (row & 7)) << 4) + (col % 8) * 2);
+        }
+      }
+    }
+    if constexpr (kStages > kOwn) {
+      // Q and dO are read: their rows may take a K/V stage (a TMA write)
+      fence_proxy_async();
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&qdo_free);
+    }
+
+    float acc[kHalf / 2];  // dQ of this consumer's half
+#pragma unroll
+    for (int i = 0; i < kHalf / 2; ++i) acc[i] = 0.f;
+    float x[kKeys / 2];  // S (consumer 0) or dP (consumer 1) of a tile
+    uint32_t dsa[kKeys / 16][4];  // dS, the A registers of dS K
+    TRACE_START
+
+    // tile j's S = Q K^T (consumer 0) or dP = dO V^T (consumer 1), 64 rows
+    // x 64 keys over 256 columns, once its stage has arrived. Both
+    // consumers issue the same products on their own operands.
+    auto issue = [&](int j) {
+      const int s = j % kStages;
+      const uint32_t b_addr = smem_addr(stage_tile(s, c));
+      mbar_wait(c ? &v_full[s] : &k_full[s], (j / kStages) & 1);
+      TRACE(4)
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < kD / 16; ++ks) {
+        const uint32_t at = (ks / 4) * kColBytes + (ks % 4) * 32;
+        wgmma_rs_k64<Op>(x, af[ks], desc_sw128(b_addr + at, 16, 1024),
+                         ks > 0);
+      }
+      if constexpr (kLo) {
+        if (c == 1) {
+          // fp32: dP also takes dO_lo V_hi^T + dO_hi V_lo^T
+#pragma unroll
+          for (int ks = 0; ks < kD / 16; ++ks) {
+            const uint32_t at = (ks / 4) * kColBytes + (ks % 4) * 32;
+            wgmma_ss<kKeys, Op>(x, desc_sw128(do_lo_addr + at, 16, 1024),
+                                desc_sw128(b_addr + at, 16, 1024), 1);
+            wgmma_rs_k64<Op>(x, af[ks],
+                             desc_sw128(b_addr + kTileBytes + at, 16, 1024),
+                             1);
+          }
+        }
+      }
+      wgmma_commit();
+    };
+
+    issue(0);
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % kStages;
+      const bool more = j + 1 < n_tiles;
+      wgmma_wait<0>();  // this tile's S or dP
+      fence_regs(x);
+      if (c == 1 && lane == 0) mbar_arrive(&v_empty[s]);  // dP read V
+      TRACE(0)
+
+      // the hand-offs: P from consumer 0, dS from consumer 1
+      if (c == 0) {
+        // P; mask the ragged tail and the diagonal
+        const int k0 = j * kKeys;
+        const bool need_mask =
+            k0 + kKeys > T || (causal && k0 + kKeys - 1 > q0);
+#pragma unroll
+        for (int e = 0; e < kKeys / 2; ++e) {
+          float p = exp2f(x[e] * scale_log2 - rowv[(e >> 1) & 1]);
+          if (need_mask) {
+            const int col = k0 + 8 * (e / 4) + 2 * tg + (e & 1);
+            const int row = row0 + ((e >> 1) & 1) * 8;
+            if (col >= T || (causal && col > row)) p = 0.f;
+          }
+          ex_p[e * 128 + t] = p;
+        }
+        named_barrier_arrive(kBarP, 256);
+      } else {
+        named_barrier(kBarP, 256);  // consumer 0's P of this tile
+        TRACE(2)
+        // dS = P (dP - delta) scale, as A registers of the operand type
+        // (not written over dP, the accumulator of the next tile's
+        // product: writing it between a product's issue and its wait
+        // makes ptxas serialise every wgmma, C7515)
+#pragma unroll
+        for (int kk = 0; kk < kKeys / 16; ++kk) {
+          float ds[8];
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const int e = 8 * kk + i;
+            ds[i] = ex_p[e * 128 + t] * (x[e] - rowv[(e >> 1) & 1]) * scale;
+          }
+          pack_a<Op>(dsa[kk], ds, 0);
+#pragma unroll
+          for (int r = 0; r < 4; ++r) ex_ds[(4 * kk + r) * 128 + t] = dsa[kk][r];
+        }
+        named_barrier_arrive(kBarDs, 256);
+      }
+      TRACE(1)
+      // 16-bit: the next tile's S or dP, its stage two tiles ahead, runs
+      // under the rest of the hand-off and this tile's dS K
+      if (kAhead && more) issue(j + 1);
+      if (c == 0) {
+        named_barrier(kBarDs, 256);  // consumer 1's dS of this tile
+#pragma unroll
+        for (int kk = 0; kk < kKeys / 16; ++kk) {
+#pragma unroll
+          for (int r = 0; r < 4; ++r) dsa[kk][r] = ex_ds[(4 * kk + r) * 128 + t];
+        }
+        TRACE(2)
+      }
+
+      // dQ[:, 128c ..] += dS K[:, 128c ..]: the stage's keys are the
+      // contraction, K's column blocks 2c and 2c + 1 (consumer 1 meets K's
+      // barrier here; consumer 0 passed it for S)
+      const uint32_t k_addr = smem_addr(stage_tile(s, 0));
+      mbar_wait(&k_full[s], (j / kStages) & 1);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kKeys / 16; ++kk) {
+        wgmma_rs_cols<kHalf, Op>(
+            acc, dsa[kk], k_addr + 2 * c * kColBytes + kk * 16 * 128,
+            kColBytes);
+      }
+      wgmma_commit();
+      TRACE(3)
+      wgmma_wait<0>();  // dS K (16-bit: and the next tile's product)
+      fence_regs(acc);
+      fence_regs(dsa);
+      if (lane == 0) mbar_arrive(&k_empty[s]);  // this warp is done with K
+      // one stage: the next tile's K and V follow this tile's dS K
+      if (!kAhead && more) issue(j + 1);
+      TRACE(5)
+    }
+
+    // epilogue: this consumer's half of dQ in q's dtype, the true columns
+    // of the real rows
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + r * 8;
+      if (row >= T) continue;
+      In* out = dq + b * dq_sb + h * dq_sh + (int64_t)row * dq_st;
+#pragma unroll
+      for (int jn = 0; jn < kHalf / 8; ++jn) {
+        const int col = kHalf * c + 8 * jn + 2 * tg;
         if (col < d_true) {
           store2(out + col, acc[4 * jn + 2 * r], acc[4 * jn + 2 * r + 1]);
         }
@@ -993,24 +1431,39 @@ __global__ void __launch_bounds__(32 * kReduceRows)
   }
 }
 
-template <int D, typename In>
-constexpr int dq_smem_bytes() {  // + 1024: the tiles' 1024-byte alignment
-  using Sh = dqk::Shape<D>;
-  // Q and dO, and a stage's K and V; fp32 has dO's and V's rests too
-  constexpr int kTiles = Elem<In>::kTma ? 2 : 3;
-  return kTiles * 64 * Sh::kConsumers * D * 2 +
-         dqk::stages<D, In>() * kTiles * Sh::kBlockN * D * 2 + 1024;
-}
+// The dQ kernel head_dim D runs on, with its launch shape: its register
+// split, q rows a block, keys a K/V stage and shared memory
+template <int D, typename In, int kParts>
+struct DqKernel {
+  using S = dqk::DqSplit<D, In>;
+  static constexpr int kRows = 64 * dqk::Shape<D>::kConsumers;
+  static constexpr int kKeys = dqk::Shape<D>::kBlockN;
+  // Q and dO, and a stage's K and V; fp32 has dO's and V's rests too;
+  // + 1024: the tiles' 1024-byte alignment
+  static constexpr int kTiles = Elem<In>::kTma ? 2 : 3;
+  static constexpr int kSmem = kTiles * kRows * D * 2 +
+                               dqk::stages<D, In>() * kTiles * kKeys * D * 2 +
+                               1024;
+  static constexpr auto kernel = flash_bwd_dq_kernel<D, In, kParts>;
+};
+template <typename In, int kParts>
+struct DqKernel<256, In, kParts> {
+  static_assert(kParts == 1, "the narrow head_dims run at 64");
+  using S = dq256::DqSplit;
+  static constexpr int kRows = dq256::kRows;
+  static constexpr int kKeys = dq256::kKeys;
+  static constexpr int kSmem = dq256::smem<In>();
+  static constexpr auto kernel = flash_bwd_dq256_kernel<In>;
+};
 
 template <int D, typename In>
 int dq_config(int* out) {
-  using S = dqk::DqSplit<D, In>;
-  static_assert(dq_smem_bytes<D, In>() <= 232448,
-                "a block may use 227 KB of shared memory");
-  out[0] = dq_smem_bytes<D, In>();
-  out[1] = S::kThreads;
-  out[2] = S::kLaunchRegs;
-  out[3] = 64 * dqk::Shape<D>::kConsumers;
+  using K = DqKernel<D, In, 1>;
+  static_assert(K::kSmem <= 232448, "a block may use 227 KB of shared memory");
+  out[0] = K::kSmem;
+  out[1] = K::S::kThreads;
+  out[2] = K::S::kLaunchRegs;
+  out[3] = K::kRows;
   return 0;
 }
 
@@ -1022,9 +1475,10 @@ int launch_dq(const void* q, const void* k, const void* v, const void* o,
               int T, int Hq, int Hkv, int d_true, const long long* s,
               float scale, int causal, cudaStream_t stream) {
   static_assert(Elem<In>::kTma, "fp32 dQ runs on the split pass's copies");
-  using S = dqk::DqSplit<D, In>;
-  constexpr int kBlockM = 64 * dqk::Shape<D>::kConsumers;
-  constexpr int kBlockN = dqk::Shape<D>::kBlockN;
+  using K = DqKernel<D, In, kParts>;
+  using S = typename K::S;
+  constexpr int kBlockM = K::kRows;
+  constexpr int kBlockN = K::kKeys;
   CUtensorMap tm_q, tm_k, tm_v, tm_do;
   const CUtensorMap none = {};  // the rests' maps: fp32 only
   constexpr CUtensorMapDataType kType = Elem<In>::kMapType;
@@ -1036,8 +1490,8 @@ int launch_dq(const void* q, const void* k, const void* v, const void* o,
                               kBlockN, kType);
   if (!err) err = encode_rows(&tm_do, dout, B, T, Hq, d_true, s[12], s[13],
                               s[14], kBlockM, kType);
-  constexpr int kSmem = dq_smem_bytes<D, In>();
-  auto kernel = flash_bwd_dq_kernel<D, In, kParts>;
+  constexpr int kSmem = K::kSmem;
+  auto kernel = K::kernel;
   if (!err) err = prepare_launch(kernel, kSmem, S::kLaunchRegs);
   if (err) return err;
   const int grid = cdiv(T, kBlockM) * Hq * B;
@@ -1058,9 +1512,10 @@ int launch_dq_split(const void* const* hi_lo, const void* lse,
                     const void* delta, void* dq, int B, int T, int Hq,
                     int Hkv, int d_true, int w8, const long long* s,
                     float scale, int causal, cudaStream_t stream) {
-  using S = dqk::DqSplit<D, float>;
-  constexpr int kBlockM = 64 * dqk::Shape<D>::kConsumers;
-  constexpr int kBlockN = dqk::Shape<D>::kBlockN;
+  using K = DqKernel<D, float, kParts>;
+  using S = typename K::S;
+  constexpr int kBlockM = K::kRows;
+  constexpr int kBlockN = K::kKeys;
   // q_hi, k_hi, v_hi, v_lo, do_hi, do_lo
   CUtensorMap maps[6];
   int err = 0;
@@ -1069,8 +1524,8 @@ int launch_dq_split(const void* const* hi_lo, const void* lse,
     err = encode_copy(&maps[i], hi_lo[i], B, T, q_sized ? Hq : Hkv, w8,
                       q_sized ? kBlockM : kBlockN);
   }
-  constexpr int kSmem = dq_smem_bytes<D, float>();
-  auto kernel = flash_bwd_dq_kernel<D, float, kParts>;
+  constexpr int kSmem = K::kSmem;
+  auto kernel = K::kernel;
   if (!err) err = prepare_launch(kernel, kSmem, S::kLaunchRegs);
   if (err) return err;
   const int grid = cdiv(T, kBlockM) * Hq * B;
@@ -1228,25 +1683,6 @@ int launch_dkv(const void* const* in, int w8, const void* lse,
 //   a box outside the tensor with zeros; fp32 converts zeros) or keep what
 //   shared memory held, which reaches only output columns past the
 //   tensor's, never stored.
-// -DWIDE_TRACE=1 (chip_kernel_probe.py --trace) counts clock64 cycles by
-// phase of the cluster dK/dV kernel's steps in wide_trace, per consumer,
-// summed over its blocks (thread 0 of each consumer); off, it is nothing
-#ifndef WIDE_TRACE
-#define WIDE_TRACE 0
-#endif
-#if WIDE_TRACE
-__device__ unsigned long long wide_trace[2][16];
-#define TRACE_START long long tr_last = clock64();
-#define TRACE(i)                                                 \
-  if (t == 0) {                                                  \
-    const long long now = clock64();                             \
-    atomicAdd(&wide_trace[c][i], (unsigned long long)(now - tr_last)); \
-    tr_last = now;                                               \
-  }
-#else
-#define TRACE_START
-#define TRACE(i)
-#endif
 namespace wide {
 
 constexpr int kSlab = 256;                 // output columns a consumer owns

@@ -619,6 +619,28 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
   }
 }
 
+// RS with B K-major: C[64 x N] += A B^T, A in registers (a k16 slice of
+// rows held as pack_a packs them), B a row tile in shared memory as the SS
+// form reads it; scale_d = 0 overwrites C instead of adding to it.
+#define SM90_WGMMA_RSK64(TY)                                                \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                 \
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "  \
+               SM90_REGS32 ", {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"  \
+               : SM90_ACC32(d)                                             \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),  \
+                 "r"(scale_d))
+template <typename Op = __nv_bfloat16>
+__device__ __forceinline__ void wgmma_rs_k64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc_b, int scale_d) {
+  if constexpr (std::is_same<Op, __half>::value) {
+    SM90_WGMMA_RSK64("f16");
+  } else {
+    SM90_WGMMA_RSK64("bf16");
+  }
+}
+#undef SM90_WGMMA_RSK64
+
 // C[64 x N] += A X over N columns of X, a row tile of N / 64 column blocks
 // `lbo` bytes apart starting at shared address `addr`: one RS product for
 // N up to 128, two of 128 columns side by side for N = 256 (the

@@ -67,7 +67,11 @@ dK/dV kernel cuts each kv tile's (q head, q stage) pairs into chunks
 summed by a second pass in chunk order, the causal forward its longest q
 tiles into two halves of their keys merged by lse in a second pass. The
 partials are float32 in a workspace the wrapper allocates; the order of
-each sum is fixed, so results stay bitwise repeatable.
+each sum is fixed, so results stay bitwise repeatable. dQ at head_dim
+129–256 runs on a kernel of its own (``flash_bwd_dq256_kernel``): a block
+of 64 q rows whose two consumer warpgroups split S and dP between them
+and each add dS K into their own 128 columns of dQ
+(``flash_attention_bwd_dq.d256_launches`` counts its launches).
 
 The kernels launch through ``ctypes``, where no dispatch mode sees them.
 So each launch reports its exact work (:func:`attention_work`) to every
@@ -688,11 +692,15 @@ def flash_attention_bwd_dq(q, k, v, o, do, lse, causal: bool = True,
     if parts:  # dQ = dS K ran over k's parts
         dq = _join(dq, W, 2)
     flash_attention_bwd_dq.launches += 1
+    flash_attention_bwd_dq.d256_launches += (
+        flash_schedule.dq_kernel(Wk) == "flash_bwd_dq256_kernel")
     report_kernel_work("dq", B, T, Hq, Hkv, D, causal, q.element_size())
     return (dq if W == D else dq[..., :D]), delta
 
 
 flash_attention_bwd_dq.launches = 0
+# of them on the head_dim-256 kernel (head_dim 129-256)
+flash_attention_bwd_dq.d256_launches = 0
 
 
 def flash_attention_bwd_split(q, k, v, o, do) -> SplitOperands:

@@ -30,6 +30,11 @@ on average, and the forward splits the tiles whose walk is above three
 quarters of the longest. A launch that already fills the card (a block
 an SM or more) is not split.
 
+At head_dim 129–256 dQ runs on a kernel of its own
+(``flash_bwd_dq256_kernel``): a block of 64 q rows whose two consumer
+warpgroups split S and dP by product, as the slab dQ kernel's do, and
+each add dS K into their own 128 columns of dQ (:func:`dq256_columns`).
+
 Past head_dim 256 (the slab kernels) a block's two consumer warpgroups
 each own a 256-column slab of the output. The forward up to two slabs
 (head_dim 512) is a block per (64-row q tile, q head, batch), causal q
@@ -196,6 +201,69 @@ def forward_split_tiles(B: int, T: int, Hq: int, width: int, causal: bool,
     split = sum(w > FWD_SPLIT_SHARE * walks[-1] for w in walks)
     longest = max(walks[-1] - walks[-1] // 2, *walks[:n_qtiles - split], 0)
     return split if walks[-1] - longest >= FWD_MIN_GAIN else 0
+
+
+# ------------------------------------------------------ dQ at head_dim 256
+
+# flash_bwd_dq256_kernel (head_dim 129-256, read at 256): a block of 64 q
+# rows of one (q head, batch), causal q tiles longest first, heads inner;
+# 64-key K/V stages. Consumer 0 computes S and P, consumer 1 delta, dP and
+# dS; each adds dS K into its own 128 columns of dQ. V's stage is freed by
+# dP (consumer 1), K's by both consumers' dS K. 16-bit inputs keep three
+# stages, two of their own and the third over the rows of Q and dO, which
+# the consumers hold in registers (the A operands of S and dP) before the
+# first K/V tile lands there; each consumer issues the next tile's S or dP
+# as soon as this tile's is consumed (consumer 0: P written; consumer 1:
+# dS written). float32 (whose stages hold V's rest, and whose dO rest
+# stays in shared memory) keeps one stage and issues the next product
+# after dS K.
+DQ256_ROWS = DQ256_KEYS = 64
+DQ256_WIDTH = 256
+DQ256_HALF = DQ256_WIDTH // 2
+DQ256_PRODUCTS = ("S", "dP")  # consumer c's own product before dS K
+DQ256_FREES = {"v": (1,), "k": (0, 1)}  # the consumers that free a stage
+
+
+def dq_kernel(width: int) -> str:
+    """The dQ kernel that head_dim ``width`` (the kernels' width) runs
+    on."""
+    if width > WIDE_SLAB:
+        return "flash_bwd_dq_wide_kernel"
+    if width > 128:
+        return "flash_bwd_dq256_kernel"
+    return "flash_bwd_dq_kernel"
+
+
+def dq256_blocks(B: int, T: int, Hq: int, causal: bool
+                 ) -> List[Tuple[int, int, int, int]]:
+    """The head_dim-256 dQ grid in order: ``(q tile, q head, batch, key
+    tiles)`` a block, causal q tiles longest first, then heads (q head
+    inner to batch); a block walks key tiles 0 .. ``key tiles`` - 1 (up to
+    its diagonal when causal)."""
+    n_qtiles = _cdiv(T, DQ256_ROWS)
+    out = []
+    for rank in range(n_qtiles):
+        qtile = n_qtiles - 1 - rank if causal else rank
+        end = min((qtile + 1) * DQ256_ROWS, T) if causal else T
+        for hb in range(Hq * B):
+            out.append((qtile, hb % Hq, hb // Hq, _cdiv(end, DQ256_KEYS)))
+    return out
+
+
+def dq256_columns(width: int, consumer: int) -> Tuple[int, int]:
+    """The columns ``[lo, hi)`` of dQ that consumer ``consumer`` adds dS K
+    into and writes (empty past the tensor's columns: the consumer still
+    computes its S or dP for the block)."""
+    lo = consumer * DQ256_HALF
+    return min(lo, width), min(lo + DQ256_HALF, width)
+
+
+def dq256_stages(elem_bytes: int) -> Tuple[int, int]:
+    """``(stages, own)``: the K/V stages of the head_dim-256 dQ kernel for
+    inputs of ``elem_bytes`` bytes, and how many of them have shared
+    memory of their own (the rest lie over Q and dO); the next tile's S or
+    dP is issued ahead of dS K where there is more than one."""
+    return (3, 2) if elem_bytes == 2 else (1, 1)
 
 
 # ------------------------------------------------- the slab kernels (D > 256)

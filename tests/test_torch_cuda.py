@@ -382,6 +382,41 @@ def test_kernels_take_every_dtype_and_head_dim(cuda, dtype, D, T, Hq, Hkv,
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
+@pytest.mark.parametrize("dtype,D", [
+    (torch.bfloat16, 256), (torch.float16, 256), (torch.float32, 256),
+    (torch.bfloat16, 200)])
+@pytest.mark.parametrize("T", [1, 65, 129, 257, 2048])
+@pytest.mark.parametrize("causal", [True, False])
+def test_dq_at_head_dim_256_runs_its_own_kernel(cuda, dtype, D, T, causal):
+    """dQ at head_dim 129-256 on flash_bwd_dq256_kernel (its launches
+    counted): dq within the element and 64-row block bounds of the plain
+    version, delta within 1e-5 of rowsum(|o * do|), both bitwise
+    repeatable, at GQA 4 (8 q heads over 2)."""
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device=cuda).manual_seed(D + T)
+    q, k, v, do = (torch.randn(1, T, h, D, device=cuda, generator=g)
+                   .to(dtype) for h in (8, 2, 2, 8))
+    o, lse = fa.flash_attention_forward(q, k, v, causal)
+    before = (fa.flash_attention_bwd_dq.launches,
+              fa.flash_attention_bwd_dq.d256_launches)
+    dq, delta = fa.flash_attention_bwd_dq(q, k, v, o, do, lse, causal)
+    again = fa.flash_attention_bwd_dq(q, k, v, o, do, lse, causal)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention_bwd_dq.launches,
+            fa.flash_attention_bwd_dq.d256_launches) == (before[0] + 2,
+                                                         before[1] + 2)
+    assert torch.equal(dq, again[0]) and torch.equal(delta, again[1])
+    want, want_delta = fa.flash_attention_bwd_dq_reference(
+        q, k, v, o, do, lse, causal)
+    assert dq.dtype == dtype and dq.shape == q.shape
+    torch.testing.assert_close(dq.float(), want.float(), atol=5e-2,
+                               rtol=5e-2)
+    assert _block_rel_err(dq, want) <= GRAD_BLOCK_RTOL
+    bound = 1e-5 * (o.float() * do.float()).abs().sum(-1).transpose(1, 2)
+    assert bool(((delta - want_delta).abs() <= bound).all())
+
+
 def _check_dkv(q, k, v, do, causal):
     """dK/dV kernel against its plain version: allclose, the block gate
     and bitwise repeatability."""
